@@ -1,0 +1,69 @@
+"""Model configuration dataclass (own copy of ``repro.configs.base``).
+
+Kept field for field with the JAX package's ``ModelConfig`` so a config
+crosses between the two packages as ``ModelConfig(**asdict(cfg))``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                 # dense | moe | hybrid | ssm | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int                # 0 => attention-free
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0           # 0 => d_model // n_heads
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    first_k_dense: int = 0      # leading dense layers in MoE stacks
+    # local/global attention pattern (gemma3): ratio L local : 1 global
+    local_window: int = 0
+    local_global_ratio: int = 0
+    # hybrid (zamba2): shared attention block every k SSM layers
+    shared_attn_every: int = 0
+    # SSM
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 256
+    # RWKV
+    rwkv_head_dim: int = 64
+    # misc
+    rope_theta: float = 1e4
+    mrope: bool = False         # qwen2-vl M-RoPE (3D sections)
+    mrope_sections: tuple = (16, 24, 24)   # t/h/w halves of head_dim
+    tie_embeddings: bool = True
+    modality: str = "text"      # text | vision | audio
+    attn_logit_softcap: float = 0.0
+    norm_eps: float = 1e-6
+    act: str = "silu"
+    # serving-model parameters (L2 gateway service-time model)
+    ms_per_token_decode: float = 8.0
+    ms_per_ktoken_prefill: float = 30.0
+
+    @property
+    def hd(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // max(self.n_heads, 1)
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for long_500k decode (sliding-window / SSM / hybrid)."""
+        return (self.family in ("ssm", "hybrid")
+                or self.local_global_ratio > 0)
+
+    def with_(self, **kw) -> "ModelConfig":
+        return replace(self, **kw)

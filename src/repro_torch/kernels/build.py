@@ -1,0 +1,115 @@
+"""Builds the port's CUDA kernels into one shared library at first use.
+
+Each ``csrc/*.cu`` source is compiled by its own ``nvcc`` process, all
+started together, for ``sm_90a``; the objects are linked into one
+library with a plain C interface, loaded with :mod:`ctypes`. The library
+is named by a hash of the sources and flags, so an edited source is
+rebuilt and an unchanged one is reused. It goes to ``build/repro_torch/``
+at the root of the checkout (git-ignored). ``nvcc`` is taken from
+``PATH``, else from ``$CUDA_HOME/bin``, else from ``/usr/local/cuda/bin``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("fused_rmsnorm.cu", "flash_attention.cu", "decode_attention.cu")
+HEADERS = ("common.cuh",)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                              "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# name -> argument types; every function returns a cudaError_t as int
+SIGNATURES = {
+    # x, w, out, n, d, eps, dtype, stream
+    "repro_fused_rmsnorm": (_P, _P, _P, _I, _I, ctypes.c_float, _I, _P),
+    # q, k, v, out, bh, bh_kv, sq, sk, hd, causal, window, dtype, stream
+    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _P),
+    # q, k, v, lengths, out, bh, bh_kv, S, hd, window, dtype, stream
+    "repro_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _P),
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def nvcc() -> str:
+    candidates = [shutil.which("nvcc"),
+                  os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                  "/usr/local/cuda/bin/nvcc"]
+    for c in candidates:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                       "at first use and need the CUDA toolkit")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile and link the library unless it already exists; returns its
+    path. The compiler's output (``-Xptxas -v``: registers, shared
+    memory, spills per kernel) is kept beside it as ``<name>.log``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cc = nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (Path(s).stem + ".o") for s in SOURCES]
+        procs = [subprocess.Popen(
+            [cc, *COMPILE_FLAGS, "-c", str(CSRC / s), "-o", str(o)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        link = subprocess.run(
+            [cc, *ARCH_FLAGS, "-shared", "-o", str(Path(tmp) / out.name),
+             *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        out.with_suffix(".log").write_text("\n".join(logs) + link.stdout)
+        os.replace(Path(tmp) / out.name, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise on a launch the runtime refused (the C side returns
+    ``cudaGetLastError()`` right after the launch)."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")

@@ -1,0 +1,23 @@
+"""Checks shared by the kernel wrappers before a pointer reaches CUDA."""
+from __future__ import annotations
+
+import torch
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+def require(cond: bool, name: str, what: str) -> None:
+    if not cond:
+        raise ValueError(f"{name}: {what}")
+
+
+def check_cuda_tensor(t: torch.Tensor, name: str, arg: str) -> None:
+    require(t.is_cuda, name, f"{arg} must be a CUDA tensor, got {t.device}")
+    require(t.is_contiguous(), name, f"{arg} must be contiguous")
+    require(t.device.index == torch.cuda.current_device(), name,
+            f"{arg} is on {t.device}, not the current device")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream

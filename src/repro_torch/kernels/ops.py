@@ -1,0 +1,60 @@
+"""Public kernel entry points of the port: dispatch by device.
+
+Counterpart of ``repro.kernels.ops``, whose ``_auto_interpret`` picked
+Pallas interpret mode off the TPU. Here a CPU tensor goes to the plain
+PyTorch version and a CUDA tensor to the hand-written kernel; a CUDA
+call that the kernel cannot take raises, and nothing falls back. Each
+kernel module counts its own launches (``launch_counts``).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import decode_attention as _decode
+from . import flash_attention as _flash
+from . import fused_rmsnorm as _rmsnorm
+
+_MODULES = (_rmsnorm, _flash, _decode)
+
+
+def _on_card(t: torch.Tensor, name: str) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no kernel for device {t.device}")
+
+
+def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
+                  eps: float = 1e-6) -> torch.Tensor:
+    if _on_card(x, _rmsnorm.NAME):
+        return _rmsnorm.fused_rmsnorm_cuda(x, w, eps=eps)
+    return _rmsnorm.fused_rmsnorm_plain(x, w, eps=eps)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    if _on_card(q, _flash.NAME):
+        return _flash.flash_attention_cuda(q, k, v, causal=causal,
+                                           window=window)
+    return _flash.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor, *, window: int = 0
+                     ) -> torch.Tensor:
+    if _on_card(q, _decode.NAME):
+        return _decode.decode_attention_cuda(q, k, v, lengths,
+                                             window=window)
+    return _decode.decode_attention_plain(q, k, v, lengths, window=window)
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches since the last reset, by kernel name."""
+    return {m.NAME: m.launches for m in _MODULES}
+
+
+def reset_launch_counts() -> None:
+    for m in _MODULES:
+        m.launches = 0
