@@ -5,7 +5,7 @@ import importlib
 
 from .base import ModelConfig
 
-ARCHS = ("deepseek-7b",)
+ARCHS = ("deepseek-7b", "zamba2-1.2b", "rwkv6-1.6b")
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 

@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("fused_rmsnorm.cu", "flash_attention.cu", "decode_attention.cu")
+SOURCES = ("fused_rmsnorm.cu", "flash_attention.cu", "decode_attention.cu",
+           "ssm_scan.cu", "rwkv6_scan.cu")
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -39,6 +40,11 @@ SIGNATURES = {
     # q, k, v, lengths, out, bh, bh_kv, S, hd, window, dtype, stream
     "repro_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _P),
+    # xbar, B, C, cumlog, y, h, bh, bh_bc, S, hd, ds, chunk, dtype, stream
+    "repro_ssm_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _P),
+    # r, k, v, w, u, o, state, bh, n_u, S, hd, dtype, stream
+    "repro_rwkv6_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

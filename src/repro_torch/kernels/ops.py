@@ -13,8 +13,10 @@ import torch
 from . import decode_attention as _decode
 from . import flash_attention as _flash
 from . import fused_rmsnorm as _rmsnorm
+from . import rwkv6_scan as _rwkv
+from . import ssm_scan as _ssm
 
-_MODULES = (_rmsnorm, _flash, _decode)
+_MODULES = (_rmsnorm, _flash, _decode, _ssm, _rwkv)
 
 
 def _on_card(t: torch.Tensor, name: str) -> bool:
@@ -48,6 +50,22 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _decode.decode_attention_cuda(q, k, v, lengths,
                                              window=window)
     return _decode.decode_attention_plain(q, k, v, lengths, window=window)
+
+
+def ssm_scan(xbar: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+             cumlog: torch.Tensor, *, chunk: int
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    if _on_card(xbar, _ssm.NAME):
+        return _ssm.ssm_scan_cuda(xbar, B, C, cumlog, chunk=chunk)
+    return _ssm.ssm_scan_plain(xbar, B, C, cumlog, chunk=chunk)
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    if _on_card(r, _rwkv.NAME):
+        return _rwkv.rwkv6_scan_cuda(r, k, v, w, u)
+    return _rwkv.rwkv6_scan_plain(r, k, v, w, u)
 
 
 def launch_counts() -> dict[str, int]:

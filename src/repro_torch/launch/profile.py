@@ -1,15 +1,17 @@
 """Where the time of the serving path goes, on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.profile
+  PYTHONPATH=src python -m repro_torch.launch.profile --arch zamba2-1.2b
   PYTHONPATH=src python -m repro_torch.launch.profile --trace out.json
 
-Builds full-width deepseek-7b with random bf16 weights (seed 0), then
-traces one prefill of a 513-token prompt and 4 decode steps over a
-1024-slot cache with ``torch.profiler``. For each phase it prints the host-clock
-time (ending in a device synchronise), the device's busy time (the sum
-of the kernels' device times; one stream, so they do not overlap), the
-idle share ``1 - busy / wall``, and the device time by operation:
-the port's three kernels, matrix products, and everything else.
+Builds ``--arch`` (default deepseek-7b) at full width with random bf16
+weights (seed 0), then traces one prefill of a 513-token prompt and 4
+decode steps over a 1024-slot cache with ``torch.profiler``. For each
+phase it prints the host-clock time (ending in a device synchronise),
+the device's busy time (the sum of the kernels' device times; one
+stream, so they do not overlap), the idle share ``1 - busy / wall``, and
+the device time by operation: the port's five kernels, matrix products,
+and everything else.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from collections import defaultdict
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from ..configs import get_config
+from ..configs import ARCHS, get_config
 from ..models import LM
 from ..params import init_params
 
@@ -28,6 +30,8 @@ PROMPT, STEPS, MAX_LEN, SEED, TOP = 513, 4, 1024, 0, 8
 GROUPS = (("fused_rmsnorm", ("rmsnorm_kernel",)),
           ("flash_attention", ("flash_kernel",)),
           ("decode_attention", ("decode_kernel",)),
+          ("ssm_scan", ("ssm_scan_kernel",)),
+          ("rwkv6_scan", ("rwkv6_scan_kernel",)),
           ("matmul", ("nvjet", "gemm", "gemv", "cutlass", "xmma", "splitK")))
 
 
@@ -85,13 +89,14 @@ def report(name: str, wall_ms: float, by_group: dict, kernels: list
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="deepseek-7b", choices=ARCHS)
     ap.add_argument("--trace", default=None,
                     help="write the decode steps' chrome trace here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config("deepseek-7b")
+    cfg = get_config(args.arch)
     lm = LM.from_params(cfg, init_params(cfg, seed=SEED, device="cuda"))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     toks = torch.randint(0, cfg.vocab, (1, PROMPT), generator=gen,
@@ -111,9 +116,9 @@ def main(argv=None) -> None:
     with torch.inference_mode():
         prefill()                                   # warm-up
         decode()
-        report(f"prefill {PROMPT} tokens", *traced(prefill))
+        report(f"{cfg.name} prefill {PROMPT} tokens", *traced(prefill))
         wall, groups, kernels = traced(decode, args.trace)
-        report(f"decode {STEPS} steps", wall, groups, kernels)
+        report(f"{cfg.name} decode {STEPS} steps", wall, groups, kernels)
         print(f"decode per step: wall {wall / STEPS:.3f} ms, device "
               f"busy {sum(groups.values()) / STEPS:.3f} ms")
 

@@ -1,4 +1,5 @@
-"""repro_torch.models — the port's model code (dense uniform stacks)."""
+"""repro_torch.models — the port's model code (dense uniform stacks, the
+zamba hybrid and rwkv)."""
 from .layers import MLP, Attention, apply_rope, attention, mlp, rmsnorm
 from .transformer import LM, family_kind
 

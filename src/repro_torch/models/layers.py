@@ -27,6 +27,13 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..kernels import ops
 
+#: Leaf names of the matmul weights of every family: stored in the compute
+#: dtype (JAX casts them on use), every other leaf stays f32.
+MATMUL = frozenset((
+    "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",            # attn, mlp
+    "w_xz", "w_B", "w_C", "w_dt", "w_out",                         # ssm
+    "w_r", "w_k", "w_v", "w_g", "w_o", "wd_a", "wd_b", "w_ck", "w_cv"))  # rwkv
+
 
 def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),

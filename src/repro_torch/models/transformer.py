@@ -1,11 +1,24 @@
-"""Decoder-only LM of the port: the ``uniform`` family without MoE.
+"""Decoder-only LM of the port: the ``uniform`` (without MoE), ``zamba``
+and ``rwkv`` families.
 
-Counterpart of ``repro.models.transformer.LM`` for dense stacks of
-identical layers (deepseek-7b). The layers are an ``nn.ModuleList``
-walked by a Python loop where JAX scans a stacked parameter tree. The
-KV cache is preallocated at ``(L, B, KV, max_len, hd)`` by ``prefill``
-(replacing ``_pad_cache``) and written in place by ``decode_step``.
-Other families raise ``NotImplementedError`` until their slice lands.
+Counterpart of ``repro.models.transformer.LM``. The layers are an
+``nn.ModuleList`` walked by a Python loop where JAX scans a stacked
+parameter tree:
+
+* uniform: ``layers.<i>.attn.*`` / ``layers.<i>.mlp.*`` (deepseek-7b);
+* zamba: ``layers.<i>.*`` Mamba2 layers, the JAX ``blocks`` (G, every)
+  stack then the ``tail``, and one weight-shared ``shared_attn`` /
+  ``shared_mlp`` block applied after each group of ``every`` layers
+  (zamba2-1.2b);
+* rwkv: ``layers.<i>.*`` RWKV6 layers (rwkv6-1.6b).
+
+``prefill`` returns the port's own cache, preallocated and written in
+place by ``decode_step`` (replacing ``_pad_cache``): uniform
+``{"k", "v"}`` of (L, B, KV, max_len, hd); zamba ``{"ssm_h"}`` of
+(L, B, nh, hd, ds) f32 beside ``{"k", "v"}`` of (G, B, KV, max_len, hd)
+for the shared block's G applications; rwkv ``{"S", "x_tm", "x_cm"}`` as
+JAX's (L, B, ...) f32. Other families raise ``NotImplementedError`` until
+their slice lands.
 """
 from __future__ import annotations
 
@@ -18,7 +31,9 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..kernels import ops
-from .layers import MLP, Attention, _param, attention, mlp, rmsnorm
+from .layers import MATMUL, MLP, Attention, _param, attention, mlp, rmsnorm
+from .rwkv import RWKV, rwkv_block, rwkv_dims
+from .ssm import SSM, ssm_block, ssm_decode, ssm_dims
 
 
 def family_kind(cfg: ModelConfig) -> str:
@@ -31,14 +46,17 @@ def family_kind(cfg: ModelConfig) -> str:
     return "uniform"
 
 
+def zamba_groups(cfg: ModelConfig) -> tuple[int, int]:
+    """(#groups of ``shared_attn_every`` SSM layers, #tail SSM layers)."""
+    every = cfg.shared_attn_every or cfg.n_layers + 1
+    return divmod(cfg.n_layers, every)
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    kind = family_kind(cfg)
-    later = {"local_global": "local_global (gemma3)", "zamba": "zamba",
-             "rwkv": "rwkv"}
-    if kind in later:
+    if family_kind(cfg) == "local_global":
         raise NotImplementedError(
-            f"{cfg.name}: family {later[kind]} is not ported yet; it is a "
-            "later slice of the port (ROADMAP.md, modules to port)")
+            f"{cfg.name}: family local_global (gemma3) is not ported yet; it "
+            "is a later slice of the port (ROADMAP.md, modules to port)")
     if cfg.n_experts or cfg.first_k_dense or cfg.mrope:
         raise NotImplementedError(
             f"{cfg.name}: MoE, first_k_dense layers and M-RoPE belong to "
@@ -56,11 +74,12 @@ class Block(nn.Module):
 
 class LM(nn.Module):
     """Parameters: ``embed`` (V, d), ``final_norm`` (d,) and ``lm_head``
-    (d, V) in f32, as JAX reads them; per layer ``layers.<i>.attn.*`` and
-    ``layers.<i>.mlp.*`` with matmul weights in the compute ``dtype``.
+    (d, V) in f32, as JAX reads them; the family's layers (module
+    docstring) with matmul weights in the compute ``dtype`` and every
+    other leaf in f32.
 
     ``device=None`` means the card (and raises without one). ``kernels``
-    is the namespace of the three hot operations: :mod:`..kernels.ops`
+    is the namespace of the hot operations: :mod:`..kernels.ops`
     (default) or :mod:`..kernels.plain`.
     """
 
@@ -71,6 +90,7 @@ class LM(nn.Module):
         check_supported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
+        self.kind = family_kind(cfg)
         self.dtype = dtype
         self.kernels = kernels
         self.embed = _param((cfg.vocab, cfg.d_model), torch.float32, dev)
@@ -78,15 +98,21 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = _param((cfg.d_model, cfg.vocab), torch.float32,
                                   dev)
+        layer = {"uniform": Block, "zamba": SSM, "rwkv": RWKV}[self.kind]
         self.layers = nn.ModuleList(
-            Block(cfg, device=dev, dtype=dtype) for _ in range(cfg.n_layers))
+            layer(cfg, device=dev, dtype=dtype) for _ in range(cfg.n_layers))
+        if self.kind == "zamba":
+            self.shared_attn = Attention(cfg, device=dev, dtype=dtype)
+            self.shared_mlp = MLP(cfg, device=dev, dtype=dtype)
 
     @classmethod
     def from_params(cls, cfg: ModelConfig, params: dict, *,
                     kernels=ops) -> "LM":
         """Wrap a parameter dict (``repro_torch.params``) without copying
-        it; device and compute dtype are the parameters' own."""
-        dtype = params["layers.0.attn.wq"].dtype
+        it; device and compute dtype are the parameters' own (the dtype
+        of the matmul weights)."""
+        dtype = next(t.dtype for n, t in params.items()
+                     if n.rsplit(".", 1)[-1] in MATMUL)
         device = params["embed"].device
         lm = cls(cfg, device="meta", dtype=dtype, kernels=kernels)
         expected = {n: (p.shape, p.dtype) for n, p in lm.named_parameters()}
@@ -120,19 +146,28 @@ class LM(nn.Module):
         return h.to(torch.float32) @ head.to(torch.float32)
 
     # -- one attention + mlp layer ---------------------------------------
-    def _layer(self, block: Block, x, positions, *, cache=None,
-               cache_pos=None, update_cache=False):
-        a, new_kv = attention(block.attn, x, self.cfg, positions=positions,
+    def _layer(self, attn: Attention, mlp_p: MLP, x, positions, *,
+               cache=None, cache_pos=None, update_cache=False):
+        a, new_kv = attention(attn, x, self.cfg, positions=positions,
                               cache=cache, cache_pos=cache_pos,
                               update_cache=update_cache,
                               kernels=self.kernels)
         x = x + a
-        x = x + mlp(block.mlp, x, self.cfg, kernels=self.kernels)
+        x = x + mlp(mlp_p, x, self.cfg, kernels=self.kernels)
         return x, new_kv
 
     def _final_norm(self, x):
         return rmsnorm(x, self.final_norm, self.cfg.norm_eps,
                        kernels=self.kernels)
+
+    def _shared_after(self, i: int) -> Optional[int]:
+        """zamba: the shared block's application index after SSM layer
+        ``i``, or None."""
+        G, _ = zamba_groups(self.cfg)
+        every = self.cfg.shared_attn_every
+        if self.kind == "zamba" and i < G * every and (i + 1) % every == 0:
+            return i // every
+        return None
 
     # ======================== TRAIN =====================================
     def logits_train(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -140,40 +175,100 @@ class LM(nn.Module):
         B, S = tokens.shape
         x = self.embed_tokens(tokens)
         positions = torch.arange(S, device=tokens.device).expand(B, S)
-        for block in self.layers:
-            x, _ = self._layer(block, x, positions)
+        for i, layer in enumerate(self.layers):
+            if self.kind == "uniform":
+                x, _ = self._layer(layer.attn, layer.mlp, x, positions)
+            elif self.kind == "zamba":
+                x = x + ssm_block(layer, x, self.cfg,
+                                  kernels=self.kernels)[0]
+                if self._shared_after(i) is not None:
+                    x, _ = self._layer(self.shared_attn, self.shared_mlp, x,
+                                       positions)
+            else:
+                x, _ = rwkv_block(layer, x, self.cfg, kernels=self.kernels)
         return self.unembed(self._final_norm(x))
 
     # ======================== PREFILL ===================================
+    def _kv_cache(self, n: int, B: int, max_len: int, device) -> dict:
+        shape = (n, B, self.cfg.n_kv_heads, max_len, self.cfg.hd)
+        return {"k": torch.zeros(shape, dtype=self.dtype, device=device),
+                "v": torch.zeros(shape, dtype=self.dtype, device=device)}
+
     def prefill(self, tokens: torch.Tensor, max_len: int):
-        """tokens (B, S). Returns (last-token logits (B, 1, V), cache) with
-        ``cache = {"k", "v"}`` of (L, B, KV, max_len, hd), zero past S."""
+        """tokens (B, S). Returns (last-token logits (B, 1, V), cache); the
+        cache's layout is the family's (module docstring), KV caches zero
+        past S."""
         cfg = self.cfg
         B, S = tokens.shape
-        if S > max_len:
+        if S > max_len and self.kind != "rwkv":
             raise ValueError(f"prompt of {S} tokens exceeds max_len {max_len}")
         x = self.embed_tokens(tokens)
         positions = torch.arange(S, device=tokens.device).expand(B, S)
-        shape = (cfg.n_layers, B, cfg.n_kv_heads, max_len, cfg.hd)
-        cache = {"k": torch.zeros(shape, dtype=self.dtype, device=x.device),
-                 "v": torch.zeros(shape, dtype=self.dtype, device=x.device)}
-        for i, block in enumerate(self.layers):
-            x, kv = self._layer(block, x, positions, update_cache=True)
-            cache["k"][i, :, :, :S] = kv["k"]
-            cache["v"][i, :, :, :S] = kv["v"]
+        dev = x.device
+        if self.kind == "uniform":
+            cache = self._kv_cache(cfg.n_layers, B, max_len, dev)
+            for i, block in enumerate(self.layers):
+                x, kv = self._layer(block.attn, block.mlp, x, positions,
+                                    update_cache=True)
+                cache["k"][i, :, :, :S] = kv["k"]
+                cache["v"][i, :, :, :S] = kv["v"]
+        elif self.kind == "zamba":
+            _, nh, hd, ds = ssm_dims(cfg)
+            cache = self._kv_cache(zamba_groups(cfg)[0], B, max_len, dev)
+            cache["ssm_h"] = torch.empty(cfg.n_layers, B, nh, hd, ds,
+                                         dtype=torch.float32, device=dev)
+            for i, layer in enumerate(self.layers):
+                out, cache["ssm_h"][i] = ssm_block(layer, x, cfg,
+                                                   kernels=self.kernels)
+                x = x + out
+                g = self._shared_after(i)
+                if g is not None:
+                    x, kv = self._layer(self.shared_attn, self.shared_mlp, x,
+                                        positions, update_cache=True)
+                    cache["k"][g, :, :, :S] = kv["k"]
+                    cache["v"][g, :, :, :S] = kv["v"]
+        else:
+            nh, hd = rwkv_dims(cfg)
+            f32 = dict(dtype=torch.float32, device=dev)
+            cache = {"S": torch.empty(cfg.n_layers, B, nh, hd, hd, **f32),
+                     "x_tm": torch.empty(cfg.n_layers, B, cfg.d_model, **f32),
+                     "x_cm": torch.empty(cfg.n_layers, B, cfg.d_model, **f32)}
+            for i, layer in enumerate(self.layers):
+                x, st = rwkv_block(layer, x, cfg, kernels=self.kernels)
+                for name, t in st.items():
+                    cache[name][i] = t
         logits = self.unembed(self._final_norm(x[:, -1:]))
         return logits, cache
 
     # ======================== DECODE ====================================
     def decode_step(self, token: torch.Tensor, cache: dict,
                     pos: torch.Tensor):
-        """token (B,) int; pos (B,) absolute positions. Writes the new
-        k/v into ``cache`` in place; returns (logits (B, 1, V), cache)."""
+        """token (B,) int; pos (B,) absolute positions. Updates ``cache``
+        in place; returns (logits (B, 1, V), cache)."""
+        cfg = self.cfg
         x = self.embed_tokens(token[:, None])
         positions = pos[:, None]
-        for i, block in enumerate(self.layers):
-            x, _ = self._layer(block, x, positions,
-                               cache={"k": cache["k"][i],
-                                      "v": cache["v"][i]},
-                               cache_pos=pos)
+        for i, layer in enumerate(self.layers):
+            if self.kind == "uniform":
+                x, _ = self._layer(layer.attn, layer.mlp, x, positions,
+                                   cache={"k": cache["k"][i],
+                                          "v": cache["v"][i]},
+                                   cache_pos=pos)
+            elif self.kind == "zamba":
+                out, cache["ssm_h"][i] = ssm_decode(
+                    layer, x, cfg, cache["ssm_h"][i], kernels=self.kernels)
+                x = x + out
+                g = self._shared_after(i)
+                if g is not None:
+                    x, _ = self._layer(self.shared_attn, self.shared_mlp, x,
+                                       positions,
+                                       cache={"k": cache["k"][g],
+                                              "v": cache["v"][g]},
+                                       cache_pos=pos)
+            else:
+                x, st = rwkv_block(layer, x, cfg,
+                                   {n: t[i] for n, t in cache.items()},
+                                   kernels=self.kernels)
+                for name, t in st.items():
+                    cache[name][i] = t
         return self.unembed(self._final_norm(x)), cache

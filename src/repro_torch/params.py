@@ -18,60 +18,136 @@ import torch
 
 from .configs.base import ModelConfig
 from .device import resolve_device
-from .models.transformer import check_supported
-
-MATMUL = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+from .models.layers import MATMUL
+from .models.rwkv import LORA, rwkv_dims
+from .models.ssm import ssm_dims
+from .models.transformer import check_supported, family_kind, zamba_groups
 
 
 @dataclass(frozen=True)
 class Leaf:
-    """One leaf of the JAX parameter tree: its shape (per-layer leaves
-    carry the stacked layer axis first), init and scale."""
+    """One leaf of the JAX parameter tree: its shape (stacked leaves carry
+    their layer axes first), init and scale, and the port's parameter
+    names, one per slice of the ``stacked`` leading axes."""
     shape: tuple
-    init: str = "normal"        # normal | zeros
+    init: str = "normal"        # normal | zeros | ones
     scale: float = 1.0
+    names: tuple = ()
+    stacked: int = 0
 
     @property
     def std(self) -> float:
         """``materialize``'s rule (``distributed/params.py:69``): fan_in is
-        the leading axis of a >= 2-D leaf. For a stacked per-layer leaf
-        that is the LAYER COUNT, not d_model; kept as the reference has
-        it so the two packages draw from the same distributions."""
+        the leading axis of a >= 2-D leaf. For a stacked leaf that is the
+        first LAYER axis (the layer count; for zamba's ``blocks`` the group
+        count), not d_model; kept as the reference has it so the two
+        packages draw from the same distributions."""
         shape = self.shape
         fan_in = shape[0] if len(shape) >= 2 else max(shape[-1], 1)
         return self.scale / math.sqrt(fan_in)
 
 
+def _attn(cfg: ModelConfig) -> dict:
+    """leaf -> (shape, init, scale) of ``attn_specs``."""
+    d, hd, H, KV = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    out = 1.0 / math.sqrt(2 * cfg.n_layers)
+    return {"wq": ((d, H * hd), "normal", 1.0),
+            "wk": ((d, KV * hd), "normal", 1.0),
+            "wv": ((d, KV * hd), "normal", 1.0),
+            "wo": ((H * hd, d), "normal", out),
+            "norm": ((d,), "zeros", 1.0)}
+
+
+def _mlp(cfg: ModelConfig) -> dict:
+    """leaf -> (shape, init, scale) of ``mlp_specs``."""
+    d, f = cfg.d_model, cfg.d_ff
+    return {"w_gate": ((d, f), "normal", 1.0),
+            "w_up": ((d, f), "normal", 1.0),
+            "w_down": ((f, d), "normal", 1.0 / math.sqrt(2 * cfg.n_layers)),
+            "norm": ((d,), "zeros", 1.0)}
+
+
+def _ssm(cfg: ModelConfig) -> dict:
+    """leaf -> (shape, init, scale) of ``ssm_specs``."""
+    d = cfg.d_model
+    d_in, nh, _, ds = ssm_dims(cfg)
+    return {"w_xz": ((d, 2 * d_in), "normal", 1.0),
+            "w_B": ((d, ds), "normal", 1.0),
+            "w_C": ((d, ds), "normal", 1.0),
+            "w_dt": ((d, nh), "normal", 1.0),
+            "dt_bias": ((nh,), "zeros", 1.0),
+            "A_log": ((nh,), "zeros", 1.0),
+            "D": ((nh,), "ones", 1.0),
+            "w_out": ((d_in, d), "normal",
+                      1.0 / math.sqrt(2 * max(cfg.n_layers, 1))),
+            "norm": ((d,), "zeros", 1.0),
+            "out_norm": ((d_in,), "zeros", 1.0)}
+
+
+def _rwkv(cfg: ModelConfig) -> dict:
+    """leaf -> (shape, init, scale) of ``rwkv_specs``."""
+    d, f = cfg.d_model, cfg.d_ff
+    nh, hd = rwkv_dims(cfg)
+    out = 1.0 / math.sqrt(2 * cfg.n_layers)
+    leaves = {n: ((d,), "zeros", 1.0) for n in (
+        "tm_norm", "mu_r", "mu_k", "mu_v", "mu_g", "mu_w", "w_bias",
+        "o_norm", "cm_norm", "mu_ck")}
+    leaves.update({n: ((d, d), "normal", 1.0)
+                   for n in ("w_r", "w_k", "w_v", "w_g")})
+    leaves.update({"w_o": ((d, d), "normal", out),
+                   "wd_a": ((d, LORA), "normal", 1.0),
+                   "wd_b": ((LORA, d), "normal", 1.0),
+                   "u": ((nh, hd), "zeros", 1.0),
+                   "w_ck": ((d, f), "normal", 1.0),
+                   "w_cv": ((f, d), "normal", out)})
+    return leaves
+
+
+def _stacked(table: dict, path: tuple, lead: tuple, names) -> dict:
+    """Leaves of ``table`` under ``path`` with the stacked axes ``lead``;
+    ``names(leaf)`` gives the port names of the slices, in order."""
+    return {path + (leaf,): Leaf(lead + shape, init, scale,
+                                 tuple(names(leaf)), len(lead))
+            for leaf, (shape, init, scale) in table.items()}
+
+
 def jax_leaves(cfg: ModelConfig) -> dict[tuple, Leaf]:
-    """The JAX tree ``model_specs(cfg)`` of a dense uniform stack, by path,
-    in the order ``materialize`` flattens it (sorted keys)."""
+    """The JAX tree ``model_specs(cfg)`` by path, in the order
+    ``materialize`` flattens it (sorted keys), for the families the port
+    runs: uniform (dense), zamba and rwkv."""
     check_supported(cfg)
-    L, d, f, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    out_scale = 1.0 / math.sqrt(2 * L)
-    leaves = {
-        ("blocks", "attn", "norm"): Leaf((L, d), "zeros"),
-        ("blocks", "attn", "wk"): Leaf((L, d, KV * hd)),
-        ("blocks", "attn", "wo"): Leaf((L, H * hd, d), scale=out_scale),
-        ("blocks", "attn", "wq"): Leaf((L, d, H * hd)),
-        ("blocks", "attn", "wv"): Leaf((L, d, KV * hd)),
-        ("blocks", "mlp", "norm"): Leaf((L, d), "zeros"),
-        ("blocks", "mlp", "w_down"): Leaf((L, f, d), scale=out_scale),
-        ("blocks", "mlp", "w_gate"): Leaf((L, d, f)),
-        ("blocks", "mlp", "w_up"): Leaf((L, d, f)),
-        ("embed",): Leaf((V, d)),
-        ("final_norm",): Leaf((d,), "zeros"),
-    }
+    kind = family_kind(cfg)
+    L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab
+    leaves = {("embed",): Leaf((V, d), names=("embed",)),
+              ("final_norm",): Leaf((d,), "zeros", names=("final_norm",))}
     if not cfg.tie_embeddings:
-        leaves[("lm_head",)] = Leaf((d, V))
+        leaves[("lm_head",)] = Leaf((d, V), names=("lm_head",))
+    if kind == "uniform":
+        for sub, table in (("attn", _attn(cfg)), ("mlp", _mlp(cfg))):
+            leaves.update(_stacked(
+                table, ("blocks", sub), (L,),
+                lambda leaf, sub=sub: (f"layers.{i}.{sub}.{leaf}"
+                                       for i in range(L))))
+    elif kind == "zamba":
+        G, tail = zamba_groups(cfg)
+        every = cfg.shared_attn_every
+        leaves.update(_stacked(_ssm(cfg), ("blocks",), (G, every),
+                               lambda leaf: (f"layers.{i}.{leaf}"
+                                             for i in range(G * every))))
+        if tail:
+            leaves.update(_stacked(
+                _ssm(cfg), ("tail",), (tail,),
+                lambda leaf: (f"layers.{G * every + i}.{leaf}"
+                              for i in range(tail))))
+        for sub, table in (("shared_attn", _attn(cfg)),
+                           ("shared_mlp", _mlp(cfg))):
+            leaves.update(_stacked(table, (sub,), (),
+                                   lambda leaf, sub=sub: (f"{sub}.{leaf}",)))
+    else:
+        leaves.update(_stacked(_rwkv(cfg), ("blocks",), (L,),
+                               lambda leaf: (f"layers.{i}.{leaf}"
+                                             for i in range(L))))
     return dict(sorted(leaves.items()))
-
-
-def _names(path: tuple, n_layers: int) -> list[str]:
-    """Port parameter names of a JAX leaf: one per layer for ``blocks``."""
-    if path[0] == "blocks":
-        return [f"layers.{i}.{path[1]}.{path[2]}" for i in range(n_layers)]
-    return [path[0]]
 
 
 def _dtype_of(name: str, dtype: torch.dtype) -> torch.dtype:
@@ -82,8 +158,8 @@ def from_jax_numpy(tree: dict, cfg: ModelConfig,
                    device: Optional[Union[str, torch.device]] = None,
                    dtype: torch.dtype = torch.bfloat16) -> dict:
     """The nested dict ``materialize(model_specs(cfg), key)`` returns,
-    with numpy leaves, as the port's parameters: the layer axis of the
-    ``blocks`` leaves is unstacked into per-layer tensors."""
+    with numpy leaves, as the port's parameters: the layer axes of the
+    stacked leaves are unstacked into per-layer tensors."""
     dev = resolve_device(device)
     out = {}
     for path, leaf in jax_leaves(cfg).items():
@@ -94,9 +170,8 @@ def from_jax_numpy(tree: dict, cfg: ModelConfig,
         if arr.shape != leaf.shape:
             raise ValueError(f"{'/'.join(path)}: shape {arr.shape}, "
                              f"expected {leaf.shape}")
-        names = _names(path, cfg.n_layers)
-        parts = list(arr) if path[0] == "blocks" else [arr]
-        for name, part in zip(names, parts):
+        parts = arr.reshape((-1,) + leaf.shape[leaf.stacked:])
+        for name, part in zip(leaf.names, parts, strict=True):
             t = torch.from_numpy(np.array(part, dtype=np.float32))
             out[name] = t.to(device=dev, dtype=_dtype_of(name, dtype))
     return out
@@ -106,7 +181,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                 device: Optional[Union[str, torch.device]] = None,
                 dtype: torch.dtype = torch.bfloat16) -> dict:
     """Random parameters drawn on ``device`` from the same distributions
-    as ``materialize`` (normal with :attr:`Leaf.std`, zeros for norms),
+    as ``materialize`` (normal with :attr:`Leaf.std`, zeros or ones),
     from an explicit generator seeded with ``seed``. Drawn leaf by leaf
     and layer by layer, so the host never holds the model and the card
     holds at most one f32 layer matrix beyond the result."""
@@ -115,12 +190,12 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     gen.manual_seed(seed)
     out = {}
     for path, leaf in jax_leaves(cfg).items():
-        names = _names(path, cfg.n_layers)
-        shape = leaf.shape[1:] if path[0] == "blocks" else leaf.shape
-        for name in names:
+        shape = leaf.shape[leaf.stacked:]
+        for name in leaf.names:
             dt = _dtype_of(name, dtype)
-            if leaf.init == "zeros":
-                out[name] = torch.zeros(shape, dtype=dt, device=dev)
+            if leaf.init in ("zeros", "ones"):
+                fill = torch.zeros if leaf.init == "zeros" else torch.ones
+                out[name] = fill(shape, dtype=dt, device=dev)
             else:
                 t = torch.randn(shape, generator=gen, dtype=torch.float32,
                                 device=dev)

@@ -15,6 +15,10 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda, flash_attention_plain)
 from repro_torch.kernels.fused_rmsnorm import (  # noqa: E402
     fused_rmsnorm_cuda, fused_rmsnorm_plain)
+from repro_torch.kernels.rwkv6_scan import (  # noqa: E402
+    rwkv6_scan_cuda, rwkv6_scan_plain)
+from repro_torch.kernels.ssm_scan import (  # noqa: E402
+    chunk_cumsum, ssm_scan_cuda, ssm_scan_plain)
 
 # test_kernels.py:23
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
@@ -64,4 +68,48 @@ def test_cuda_kernels_match_plain(card, dtype):
             decode_attention_cuda(q, k, v, lengths, window=window),
             decode_attention_plain(q, k, v, lengths, window=window),
             **TOL[dtype])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_scans_match_plain(card, dtype):
+    """ssm_scan and rwkv6_scan against their plain versions on the card,
+    output and final state, over ragged S, S at a chunk boundary, shared
+    B/C groups and shared u rows, up to the serving path's full widths
+    (zamba2: BH 64, hd 64, ds 64, chunk 256; rwkv6: BH 32, hd 64). The
+    low-precision dtype is that of B/C (ssm) or of r/k/v/w (rwkv); both
+    compute in f32, so "bfloat16" bounds only the rounding of the output.
+    ssm_scan's plain version is the chunked SSD form and its kernel the
+    recurrence: that pair is held at 2e-4, as test_kernels.py:87 holds
+    the Pallas chunked form against the sequential oracle."""
+    g = torch.Generator(device=card).manual_seed(1)
+    dt = TDT[dtype]
+
+    def r(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=card) * scale
+
+    for bh, bh_bc, s, hd, ds, chunk in (
+            (4, 4, 96, 64, 16, 32), (4, 1, 100, 64, 64, 32),
+            (64, 1, 768, 64, 64, 256), (64, 1, 600, 64, 64, 256),
+            (2, 2, 1, 64, 32, 256), (3, 3, 33, 128, 128, 16),
+            (2, 1, 256, 32, 64, 256)):
+        xbar = r(bh, s, hd, scale=0.5)
+        B, C = r(bh_bc, s, ds, scale=0.5).to(dt), r(bh_bc, s, ds,
+                                                    scale=0.5).to(dt)
+        cum = chunk_cumsum(-r(bh, s, scale=0.2).abs(), chunk)
+        y, h = ssm_scan_cuda(xbar, B, C, cum, chunk=chunk)
+        y_ref, h_ref = ssm_scan_plain(xbar, B, C, cum, chunk=chunk)
+        torch.testing.assert_close(y, y_ref, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(h, h_ref, rtol=2e-4, atol=2e-4)
+    for bh, n_u, s, hd in ((4, 4, 96, 64), (4, 2, 100, 64),
+                           (32, 32, 600, 64), (2, 2, 1, 64),
+                           (3, 3, 33, 128), (2, 1, 40, 16), (2, 2, 32, 32)):
+        rr, kk, vv = (r(bh, s, hd, scale=0.3).to(dt) for _ in range(3))
+        ww = torch.sigmoid(r(bh, s, hd)).to(dt)
+        u = r(n_u, hd, scale=0.1)
+        o, st = rwkv6_scan_cuda(rr, kk, vv, ww, u)
+        o_ref, st_ref = rwkv6_scan_plain(rr, kk, vv, ww, u)
+        torch.testing.assert_close(o, o_ref, **TOL[dtype])
+        torch.testing.assert_close(st, st_ref, **TOL["float32"])
     torch.cuda.synchronize()

@@ -299,7 +299,6 @@ def test_init_params_seeded():
 
 
 @pytest.mark.parametrize("arch_kw", [
-    dict(family="ssm"), dict(family="hybrid"),
     dict(local_global_ratio=5, local_window=16),
     dict(family="moe", n_experts=4, top_k=2), dict(mrope=True)])
 def test_other_families_raise_not_implemented(arch_kw):
