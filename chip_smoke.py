@@ -10,19 +10,25 @@ package. In order it:
 1. prints the card (nvidia-smi name and power limit) and the versions;
 2. builds the port's five CUDA kernels from src/repro_torch/csrc into
    build/repro_torch/ (timed as set-up);
-3. holds each kernel against its plain PyTorch version at the shapes the
-   three serving paths give it (the scans and the hd 64 attention of
-   zamba2 in bf16 and f32), and times kernel, plain version, one PyTorch
+3. counts the tensor-core instructions (HMMA) of each attention kernel
+   in the built library's SASS (cuobjdump), and fails if the bf16
+   flash_attention kernel has none;
+4. holds each kernel against its plain PyTorch version at the shapes the
+   three serving paths give it (bf16 attention at hd 128 and 64; the
+   scans in bf16 and f32), and times kernel, plain version, one PyTorch
    library call computing the same function where there is one, and the
    bound (the larger of bytes / 3.35 TB/s and flops / the peak of their
-   type: 989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32);
-4. for each of deepseek-7b, zamba2-1.2b and rwkv6-1.6b at full width
+   type: 989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32); then, untimed,
+   the attention kernels' edge cases (Sq != Sk, GQA, windows across tile
+   and split edges, ragged S, hd 16 and 32, lengths on split edges, a
+   cache of several chunks a split) in bf16 and in f32 at 2e-5;
+5. for each of deepseek-7b, zamba2-1.2b and rwkv6-1.6b at full width
    (random weights from a seed), one model on the card at a time: serves
    8 ragged requests through ServingEngine with the launch counts set to
    0 just before and read just after, times one prefill and one decode
    step, and holds the kernel path against the plain path on the card
    (prefill plus 4 teacher-forced decode steps), in f32 and in bf16;
-5. prints a JSON line of the kernels, then the result line.
+6. prints a JSON line of the kernels, then the result line.
 
 Any failed check exits non-zero. Without a CUDA device it exits non-zero
 and prints no result.
@@ -30,6 +36,9 @@ and prints no result.
 from __future__ import annotations
 
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -123,7 +132,7 @@ def max_err(out, ref, tol: float = TOL) -> tuple[float, bool]:
     return err, ok
 
 
-# -- phase 3: kernels against their plain versions ---------------------------
+# -- phase 4: kernels against their plain versions ---------------------------
 
 class Case(NamedTuple):
     name: str            # kernel
@@ -135,6 +144,7 @@ class Case(NamedTuple):
     flops: float
     flops_per_s: float   # the card's peak for the operations' type
     tol: float
+    timed: bool = True   # False: an edge case, checked but not timed
 
 
 def kernel_cases(kp):
@@ -226,6 +236,53 @@ def kernel_cases(kp):
                 None,
                 5 * bh * s * hd * esize + 4 * bh * hd + 4 * bh * hd * hd,
                 7 * bh * s * hd * hd, F32_FLOPS_PER_S, tol)
+    yield from attention_edge_cases(kp, randn)
+
+
+def attention_edge_cases(kp, randn):
+    """Untimed checks of the attention kernels' tilings: bf16 at 2e-2 and
+    f32 at 2e-5. flash: Sq != Sk, GQA, a window across tile edges, ragged
+    S at hd 16. decode: lengths 1 and on / beside the split edges (span 64
+    at cache 1024), a window across split edges, GQA, and a cache of 5000
+    slots (span 128: two chunks a split)."""
+    flash = (("Sq 64, Sk 192, non-causal", 4, 4, 64, 192, 64, False, 0),
+             ("GQA BH 6 over 2, S 77", 6, 2, 77, 77, 128, True, 0),
+             ("S 200, window 64", 4, 4, 200, 200, 32, True, 64),
+             ("S 65, ragged", 4, 4, 65, 65, 16, True, 0))
+    edges = [1, 63, 64, 65, 127, 128, 129, 1024]
+    decode = (("lengths 1..129 on split edges", 8, 8, 1024, 128, 0, edges),
+              ("window 100 across split edges", 8, 8, 1024, 64, 100,
+               [150, 1024, 64, 65, 300, 1, 200, 129]),
+              ("GQA BH 8 over 2", 8, 2, 1024, 128, 0,
+               [1024, 65, 64, 1, 700, 129, 2, 513]),
+              ("hd 32, window 64", 4, 4, 1024, 32, 64, [1, 64, 65, 1000]),
+              ("hd 16, GQA BH 4 over 1", 4, 1, 1024, 16, 0, [1, 64, 65, 999]),
+              ("cache 5000, span 128", 4, 4, 5000, 64, 0,
+               [5000, 129, 4097, 1]))
+    for dt, tol in ((torch.bfloat16, TOL), (torch.float32, F32_TOL)):
+        tag = str(dt)[6:]
+        fk, fp = kp["flash_attention"][:2]
+        for label, bh, bh_kv, sq, sk, hd, causal, window in flash:
+            q = randn(bh, sq, hd, dtype=dt)
+            k, v = randn(bh_kv, sk, hd, dtype=dt), randn(bh_kv, sk, hd,
+                                                         dtype=dt)
+            kw = dict(causal=causal, window=window)
+            yield Case("flash_attention", f"{label}, hd {hd}, {tag}",
+                       lambda a=(q, k, v), kw=kw: fk(*a, **kw),
+                       lambda a=(q, k, v), kw=kw: fp(*a, **kw),
+                       None, 0, 0, BF16_FLOPS_PER_S, tol, timed=False)
+        dk, dp = kp["decode_attention"][:2]
+        for label, bh, bh_kv, S, hd, window, lens in decode:
+            q = randn(bh, 1, hd, dtype=dt)
+            k, v = randn(bh_kv, S, hd, dtype=dt), randn(bh_kv, S, hd,
+                                                        dtype=dt)
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            yield Case("decode_attention", f"{label}, hd {hd}, {tag}",
+                       lambda a=(q, k, v, lengths), w=window: dk(*a,
+                                                                 window=w),
+                       lambda a=(q, k, v, lengths), w=window: dp(*a,
+                                                                 window=w),
+                       None, 0, 0, BF16_FLOPS_PER_S, tol, timed=False)
 
 
 def kernel_phase(kp, timer) -> dict:
@@ -238,6 +295,10 @@ def kernel_phase(kp, timer) -> dict:
             fail(f"{c.name} [{c.label}]: kernel disagrees with its plain "
                  f"version, max |diff| {err:.3e} (tolerance {c.tol} * (1 + "
                  f"|plain|))")
+        if not c.timed:
+            print(f"kernel {c.name} [{c.label}]: max_abs_err {err:.3e} "
+                  f"(tolerance {c.tol})", flush=True)
+            continue
         ms, plain_ms = timer(c.kern), timer(c.plain)
         lib_ms = lib_err = None
         if c.lib is not None:
@@ -259,7 +320,43 @@ def kernel_phase(kp, timer) -> dict:
     return rows
 
 
-# -- phase 4: the serving paths ----------------------------------------------
+# -- phase 3: tensor-core instructions in the build ----------------------------
+
+ATTENTION_KERNELS = ("flash_tc_kernel", "flash_f32_kernel",
+                     "decode_split_kernel", "decode_combine_kernel")
+
+
+def sass_check(lib_path: Path) -> None:
+    """Count HMMA (mma.sync) and HGMMA (wgmma) instructions in the SASS of
+    each attention kernel; the bf16 flash kernel must have some."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.isfile(tool):
+        fail("cuobjdump not found: cannot show the tensor-core path")
+    res = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                         text=True, timeout=300)
+    if res.returncode != 0:
+        fail(f"cuobjdump -sass failed: {res.stderr.strip()[:500]}")
+    counts, fn = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            m = re.search("|".join(ATTENTION_KERNELS), fn)
+            hd = re.search(r"Li(\d+)E", fn)
+            fn = (f"{m.group(0)}<{hd.group(1) if hd else ''}> "
+                  f"{'bf16' if 'bfloat16' in fn else 'f32'}") if m else None
+            if fn:
+                counts[fn] = 0
+        elif fn and re.search(r"\bH(G)?MMA\b", line):
+            counts[fn] += 1
+    for name, n in sorted(counts.items()):
+        print(f"sass: {name}: {n} HMMA/HGMMA", flush=True)
+    tc = [n for name, n in counts.items() if name.startswith("flash_tc")]
+    if not tc or min(tc) == 0:
+        fail("the bf16 flash_attention kernel has no tensor-core "
+             "instruction in its SASS")
+
+
+# -- phase 5: the serving paths ----------------------------------------------
 
 MODELS = ("deepseek-7b", "zamba2-1.2b", "rwkv6-1.6b")
 PROMPT_LENS = (32, 600, 77, 513, 200, 45, 333, 128)
@@ -524,6 +621,7 @@ def main() -> None:
                 "spill" in line:
             print(f"ptxas: {line.strip()}", flush=True)
 
+    sass_check(lib_path)
     rows = kernel_phase(rt.kernels, Timer())
 
     by_model = {arch: model_phase(rt, arch) for arch in MODELS}

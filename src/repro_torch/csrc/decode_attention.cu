@@ -8,7 +8,7 @@
 // (src/repro/kernels/decode_attention.py:57, body :22): q pre-scaled by
 // 1/sqrt(hd) in f32, f32 partial softmax state, output divided by
 // max(l, 1e-30). The Pallas kernel walks every cache block and masks;
-// this one walks only the live prefix. Lengths must be >= 1 (the serving
+// this one reads only the live keys. Lengths must be >= 1 (the serving
 // path always has one): at 0 this kernel writes zeros where the Pallas
 // kernel averages V over the padded cache.
 //
@@ -16,138 +16,288 @@
 // flops per K row and per V row, about 1 flop per byte in bf16, so the
 // least time is 2 * sum(lengths) * hd * sizeof(T) / 3.35 TB/s.
 //
-// Design: one block of 8 warps per bh. Warp w takes 4 consecutive keys
-// at a time, strided by 32 keys across the warps, so each warp keeps 4
-// rows of loads in flight; lanes split hd (lane, lane + 32, ...), so a K
-// or V row is one coalesced read. Each warp keeps its own m, l and
-// accumulator; the 8 partial states are merged in shared memory at the
-// end. With BH = 32 blocks on 132 SMs the card is under-filled at batch 1;
-// a split-K pass over the cache is the later fix.
+// Design: split-K over the cache, two launches from one entry.
+// Pass 1 (decode_split_kernel), grid (splits, BH_kv), 4 warps: block
+//   (split, kvh) takes keys [split * span, (split + 1) * span) of cache
+//   row kvh for each of the G = BH / BH_kv queries that share it, in
+//   chunks of 64 keys (16 a warp). Lanes load 16 bytes (8 bf16 / 4 f32 of
+//   hd), so hd / 8 lanes cover a bf16 key and a warp covers 32 / (hd / 8)
+//   keys a load; all of a warp's K and V loads of a chunk are issued
+//   before the first is used. Dot products are reduced within each lane
+//   group with shuffles; each group keeps its own (m, l, acc), merged
+//   across the warp with shuffles and across the 4 warps in shared memory.
+//   Dead keys (past the length or left of the window) are never read. The
+//   block writes its partial (acc[hd], m, l) in f32 to the scratch tensor
+//   (BH, splits, hd + 2); a split with no live key for a query writes
+//   m = -1e30, l = 0. With G > 1 the queries take the block's keys in
+//   turn: the first reads them from device memory, the others from L1.
+// Pass 2 (decode_combine_kernel), grid BH: reads only the live splits,
+//   computed from lengths on the device, and merges them by the rule the
+//   warps use: M = max m_i, L = sum l_i e^(m_i - M), A = sum acc_i
+//   e^(m_i - M), out = A / max(L, 1e-30). One warp reads every split's
+//   (m, l) at once and leaves the weights in shared memory; each thread
+//   then sums its dim over the splits with independent loads. It is a
+//   programmatic dependent launch: scheduled while pass 1 runs, it waits
+//   in griddepcontrol.wait, so its launch latency hides behind pass 1.
+// span and splits come from the cache capacity S alone
+// (kernels/decode_attention.py plan_splits), so the host never reads
+// lengths. At batch 1 (BH 32, S 1024) pass 1 has 16 x 32 = 512 blocks.
 #include "common.cuh"
 
 namespace repro {
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kKPW = 4;  // keys per warp step
+constexpr int kChunk = 64;                 // keys a block takes per step
+constexpr int kKeysPerWarp = kChunk / kWarps;
+constexpr int kMaxSplits = 64;             // decode_attention.py MAX_SPLITS
+
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(h[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const int* __restrict__ lengths,
-              T* __restrict__ o, int group, int S, int window, float scale) {
-  constexpr int kDPL = (HD + 31) / 32;  // head dims per lane
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ lengths,
+                    float* __restrict__ part, int group, int S, int span,
+                    int splits, int window, float scale) {
+  constexpr int kVec = 16 / sizeof(T);     // elements a lane loads
+  constexpr int kLPK = HD / kVec;          // lanes per key
+  constexpr int kKPL = 32 / kLPK;          // keys per warp load
+  constexpr int kSteps = kKeysPerWarp / kKPL;
+  static_assert(kLPK <= 32 && kKPL <= kKeysPerWarp, "unsupported hd");
   __shared__ float sm_m[kWarps];
   __shared__ float sm_l[kWarps];
   __shared__ float sm_acc[kWarps][HD];
 
-  const int bh = blockIdx.x;
-  const int kvh = bh / group;
+  // the combine may be scheduled now; it waits for this grid's results
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int split = blockIdx.x;
+  const int kvh = blockIdx.y;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int len = min(lengths[bh], S);
-  const int begin = window > 0 ? max(0, len - window) : 0;
-  const T* kb = k + static_cast<size_t>(kvh) * S * HD;
-  const T* vb = v + static_cast<size_t>(kvh) * S * HD;
+  const int grp = lane / kLPK;             // key of the warp load
+  const int sub = lane % kLPK;             // dims sub * kVec .. + kVec
+  const int s0 = split * span;
+  const int s1 = min(s0 + span, S);
+  const uint4* kb = reinterpret_cast<const uint4*>(k + static_cast<size_t>(kvh) * S * HD);
+  const uint4* vb = reinterpret_cast<const uint4*>(v + static_cast<size_t>(kvh) * S * HD);
 
-  float qf[kDPL];
-  float acc[kDPL];
-#pragma unroll
-  for (int i = 0; i < kDPL; ++i) {
-    const int dim = lane + 32 * i;
-    qf[i] = dim < HD ? to_f32(q[static_cast<size_t>(bh) * HD + dim]) * scale : 0.f;
-    acc[i] = 0.f;
-  }
-  float m = kNegInf;
-  float l = 0.f;
-
-  for (int j0 = begin + warp * kKPW; j0 < len; j0 += kWarps * kKPW) {
-    float s[kKPW];
-    float m_new = m;
-#pragma unroll
-    for (int u = 0; u < kKPW; ++u) {
-      const int j = j0 + u;
-      float part = 0.f;
-      if (j < len) {
-#pragma unroll
-        for (int i = 0; i < kDPL; ++i) {
-          const int dim = lane + 32 * i;
-          if (dim < HD) part += qf[i] * to_f32(kb[static_cast<size_t>(j) * HD + dim]);
-        }
+  for (int gi = 0; gi < group; ++gi) {
+    const int bh = kvh * group + gi;
+    const int len = min(lengths[bh], S);
+    const int begin = window > 0 ? max(0, len - window) : 0;
+    const int lo = max(s0, begin), hi = min(s1, len);  // live keys
+    float* out = part + (static_cast<size_t>(bh) * splits + split) * (HD + 2);
+    if (lo >= hi) {                                     // no live key here
+      if (threadIdx.x == 0) {
+        out[HD] = kNegInf;
+        out[HD + 1] = 0.f;
       }
-      part = warp_sum(part);
-      s[u] = j < len ? part : kNegInf;
-      m_new = fmaxf(m_new, s[u]);
+      continue;
     }
-    const float alpha = expf(m - m_new);
-    l *= alpha;
+    float qf[kVec];
+    unpack(reinterpret_cast<const uint4*>(q + static_cast<size_t>(bh) * HD)[sub], qf);
 #pragma unroll
-    for (int i = 0; i < kDPL; ++i) acc[i] *= alpha;
+    for (int e = 0; e < kVec; ++e) qf[e] *= scale;
+
+    float m = kNegInf, l = 0.f, acc[kVec];
 #pragma unroll
-    for (int u = 0; u < kKPW; ++u) {
-      const int j = j0 + u;
-      if (j < len) {
-        const float p = expf(s[u] - m_new);
+    for (int e = 0; e < kVec; ++e) acc[e] = 0.f;
+    for (int c0 = lo - (lo - s0) % kChunk; c0 < hi; c0 += kChunk) {
+      uint4 kr[kSteps], vr[kSteps];
+      bool live[kSteps];
+#pragma unroll
+      for (int st = 0; st < kSteps; ++st) {
+        const int key = c0 + warp * kKeysPerWarp + st * kKPL + grp;
+        live[st] = key >= lo && key < hi;
+        const size_t off = static_cast<size_t>(key) * kLPK + sub;
+        kr[st] = live[st] ? kb[off] : make_uint4(0, 0, 0, 0);
+        vr[st] = live[st] ? vb[off] : make_uint4(0, 0, 0, 0);
+      }
+      float s[kSteps];
+      float m_new = m;
+#pragma unroll
+      for (int st = 0; st < kSteps; ++st) {
+        float kf[kVec];
+        unpack(kr[st], kf);
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) dot += qf[e] * kf[e];
+#pragma unroll
+        for (int off = kLPK / 2; off > 0; off >>= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        s[st] = live[st] ? dot : kNegInf;
+        m_new = fmaxf(m_new, s[st]);
+      }
+      const float alpha = expf(m - m_new);
+      l *= alpha;
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) acc[e] *= alpha;
+#pragma unroll
+      for (int st = 0; st < kSteps; ++st) {
+        const float p = live[st] ? expf(s[st] - m_new) : 0.f;
+        float vf[kVec];
+        unpack(vr[st], vf);
         l += p;
 #pragma unroll
-        for (int i = 0; i < kDPL; ++i) {
-          const int dim = lane + 32 * i;
-          if (dim < HD) acc[i] += p * to_f32(vb[static_cast<size_t>(j) * HD + dim]);
-        }
+        for (int e = 0; e < kVec; ++e) acc[e] += p * vf[e];
+      }
+      m = m_new;
+    }
+
+    // merge the lane groups of the warp (a group that saw no live key has
+    // m = -1e30, l = 0, acc = 0 and weighs nothing)
+    float mw = m;
+#pragma unroll
+    for (int off = kLPK; off < 32; off <<= 1)
+      mw = fmaxf(mw, __shfl_xor_sync(0xffffffffu, mw, off));
+    const float f = expf(m - mw);
+    l *= f;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[e] *= f;
+#pragma unroll
+    for (int off = kLPK; off < 32; off <<= 1) {
+      l += __shfl_xor_sync(0xffffffffu, l, off);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e)
+        acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
+    }
+    if (grp == 0) {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) sm_acc[warp][sub * kVec + e] = acc[e];
+      if (sub == 0) {
+        sm_m[warp] = mw;
+        sm_l[warp] = l;
       }
     }
-    m = m_new;
-  }
-
-#pragma unroll
-  for (int i = 0; i < kDPL; ++i) {
-    const int dim = lane + 32 * i;
-    if (dim < HD) sm_acc[warp][dim] = acc[i];
-  }
-  if (lane == 0) {
-    sm_m[warp] = m;
-    sm_l[warp] = l;
-  }
-  __syncthreads();
-  for (int dim = threadIdx.x; dim < HD; dim += kThreads) {
+    __syncthreads();
     float mt = kNegInf;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mt = fmaxf(mt, sm_m[w]);
-    float lt = 0.f, at = 0.f;
+    for (int d = threadIdx.x; d < HD; d += kThreads) {
+      float at = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(sm_m[w] - mt);
-      lt += sm_l[w] * f;
-      at += sm_acc[w][dim] * f;
+      for (int w = 0; w < kWarps; ++w) at += sm_acc[w][d] * expf(sm_m[w] - mt);
+      out[d] = at;
     }
-    o[static_cast<size_t>(bh) * HD + dim] = from_f32<T>(at / fmaxf(lt, 1e-30f));
+    if (threadIdx.x == 0) {
+      float lt = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) lt += sm_l[w] * expf(sm_m[w] - mt);
+      out[HD] = mt;
+      out[HD + 1] = lt;
+    }
+    __syncthreads();                    // shared memory is reused by gi + 1
   }
 }
 
 template <typename T, int HD>
-void launch_hd(const void* q, const void* k, const void* v,
-               const int* lengths, void* o, int bh, int group, int S,
-               int window, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads)
+decode_combine_kernel(const float* __restrict__ part,
+                      const int* __restrict__ lengths, T* __restrict__ o,
+                      int S, int span, int splits, int window) {
+  __shared__ float sm_w[kMaxSplits];
+  __shared__ float sm_l;
+  const int bh = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int len = min(lengths[bh], S);
+  T* orow = o + static_cast<size_t>(bh) * HD;
+  if (len <= 0) {                       // no key: zeros (see the note)
+    for (int d = tid; d < HD; d += kThreads) orow[d] = from_f32<T>(0.f);
+    return;
+  }
+  const int begin = window > 0 ? max(0, len - window) : 0;
+  const int first = begin / span;
+  const int n = (len - 1) / span - first + 1;  // live splits, <= kMaxSplits
+  const float* pb = part + (static_cast<size_t>(bh) * splits + first) * (HD + 2);
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // pass 1 is done
+  if (tid < 32) {                       // one warp weighs the splits
+    float mi[2], li[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = tid + 32 * h;
+      mi[h] = i < n ? pb[i * (HD + 2) + HD] : kNegInf;
+      li[h] = i < n ? pb[i * (HD + 2) + HD + 1] : 0.f;
+    }
+    float mt = fmaxf(mi[0], mi[1]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+    float lt = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = tid + 32 * h;
+      const float w = expf(mi[h] - mt);
+      if (i < n) sm_w[i] = w;
+      lt += li[h] * w;
+    }
+    lt = warp_sum(lt);
+    if (tid == 0) sm_l = lt;
+  }
+  __syncthreads();
+  const float denom = fmaxf(sm_l, 1e-30f);
+  for (int d = tid; d < HD; d += kThreads) {
+    float at = 0.f;
+#pragma unroll 8
+    for (int i = 0; i < n; ++i) at += pb[i * (HD + 2) + d] * sm_w[i];
+    orow[d] = from_f32<T>(at / denom);
+  }
+}
+
+template <typename T, int HD>
+int launch_hd(const void* q, const void* k, const void* v,
+              const int* lengths, float* part, void* o, int bh, int bh_kv,
+              int S, int span, int splits, int window, cudaStream_t stream) {
   const float scale = 1.f / sqrtf(static_cast<float>(HD));
-  decode_kernel<T, HD><<<bh, kThreads, 0, stream>>>(
+  decode_split_kernel<T, HD><<<dim3(splits, bh_kv), kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(o), group, S,
+      static_cast<const T*>(v), lengths, part, bh / bh_kv, S, span, splits,
       window, scale);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // programmatic dependent launch: the combine's blocks are scheduled
+  // while pass 1 runs and wait in griddepcontrol.wait for its results
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(bh);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, decode_combine_kernel<T, HD>, static_cast<const float*>(part),
+      lengths, static_cast<T*>(o), S, span, splits, window));
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const int* lengths,
-           void* o, int bh, int group, int S, int hd, int window,
-           cudaStream_t stream) {
+           float* part, void* o, int bh, int bh_kv, int S, int hd, int span,
+           int splits, int window, cudaStream_t stream) {
   switch (hd) {
-    case 16: launch_hd<T, 16>(q, k, v, lengths, o, bh, group, S, window, stream); break;
-    case 32: launch_hd<T, 32>(q, k, v, lengths, o, bh, group, S, window, stream); break;
-    case 64: launch_hd<T, 64>(q, k, v, lengths, o, bh, group, S, window, stream); break;
-    case 128: launch_hd<T, 128>(q, k, v, lengths, o, bh, group, S, window, stream); break;
+    case 16: return launch_hd<T, 16>(q, k, v, lengths, part, o, bh, bh_kv, S, span, splits, window, stream);
+    case 32: return launch_hd<T, 32>(q, k, v, lengths, part, o, bh, bh_kv, S, span, splits, window, stream);
+    case 64: return launch_hd<T, 64>(q, k, v, lengths, part, o, bh, bh_kv, S, span, splits, window, stream);
+    case 128: return launch_hd<T, 128>(q, k, v, lengths, part, o, bh, bh_kv, S, span, splits, window, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return 0;
 }
 
 }  // namespace
@@ -155,18 +305,22 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
 
 extern "C" int repro_decode_attention(const void* q, const void* k,
                                       const void* v, const void* lengths,
-                                      void* o, int bh, int bh_kv, int S,
-                                      int hd, int window, int dtype,
-                                      void* stream) {
-  if (bh_kv <= 0 || bh % bh_kv != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int group = bh / bh_kv;
+                                      void* part, void* o, int bh, int bh_kv,
+                                      int S, int hd, int span, int window,
+                                      int dtype, void* stream) {
+  if (bh_kv <= 0 || bh % bh_kv != 0 || S <= 0 || span <= 0 ||
+      span % repro::kChunk != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int splits = (S + span - 1) / span;
+  if (splits > repro::kMaxSplits) return static_cast<int>(cudaErrorInvalidValue);
   const int* lens = static_cast<const int*>(lengths);
+  float* p = static_cast<float*>(part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   if (dtype == repro::kBF16) {
-    rc = repro::launch<__nv_bfloat16>(q, k, v, lens, o, bh, group, S, hd, window, s);
+    rc = repro::launch<__nv_bfloat16>(q, k, v, lens, p, o, bh, bh_kv, S, hd, span, splits, window, s);
   } else if (dtype == repro::kF32) {
-    rc = repro::launch<float>(q, k, v, lens, o, bh, group, S, hd, window, s);
+    rc = repro::launch<float>(q, k, v, lens, p, o, bh, bh_kv, S, hd, span, splits, window, s);
   } else {
     rc = static_cast<int>(cudaErrorInvalidValue);
   }

@@ -4,47 +4,342 @@
 // BH == BH_kv for multi-head attention).
 //
 // Replaces the Pallas TPU kernel flash_attention / _flash_kernel
-// (src/repro/kernels/flash_attention.py:77, body :26). Same arithmetic:
-// q pre-scaled by 1/sqrt(hd) in f32, f32 running max m, sum l and
+// (src/repro/kernels/flash_attention.py:77, body :26). Same function:
+// scores scaled by 1/sqrt(hd) in f32, f32 running max m, sum l and
 // accumulator, masked scores set to -1e30, l clamped at 1e-30, causal
-// mask on absolute indices from 0 (k <= q), optional window (k > q - W),
-// keys past Sk masked. On the TPU the k-block axis is a sequential grid
-// axis carrying m/l/acc in VMEM scratch; here the k loop runs inside the
-// block and m/l/acc live in registers.
+// mask on absolute indices from 0 (k <= q, also when Sq != Sk), optional
+// window (k > q - W), keys past Sk masked. On the TPU the k-block axis is
+// a sequential grid axis carrying m/l/acc in VMEM scratch; here the k
+// loop runs inside the block and m/l/acc live in registers.
 //
 // Bound on an H100: bytes at the serving path's shapes. Per (bh, q, k)
-// pair that survives the causal mask it does 4 * hd flops (Q K^T and P V),
+// pair that survives the causal mask it does 4 * hd flops (Q K^T and P V)
 // against 4 * BH * S * hd * sizeof(T) bytes for q, k, v and out: at
 // S = 513, hd = 128 that is ~130 flops/byte, below the card's ~295
-// flops/byte bf16 balance. This first kernel does not reach either bound:
-// it runs both products on the f32 FMA units (no tensor cores) and at
-// hd = 128 needs ~170 registers a thread, so one 256-thread block fits on
-// an SM. mma/wgmma on bf16 tiles is the later step.
+// flops/byte bf16 balance. Reaching it takes the tensor cores.
 //
-// Design: one block per (64-row q tile, bh); 4 threads per q row, each
-// owning hd/4 of the head dims as float4 chunks interleaved so that the 4
-// threads of a row read 64 contiguous bytes of shared memory while the 8
-// rows of a warp read the same addresses (broadcast, conflict-free).
-// K and V tiles of 32 keys are staged in shared memory as f32 (32 KB at
-// hd = 128). Scores of a tile are reduced across the 4 threads with two
-// shuffles and kept in registers, so the online-softmax rescale happens
-// once per tile. Key tiles wholly in the future (causal) or wholly left of
-// the window are never loaded. Ragged Sq and Sk are masked in the kernel.
+// Two kernels, chosen by dtype in repro_flash_attention (not a fallback:
+// each dtype has exactly one kernel, and a call neither takes is refused):
+//
+// flash_tc_kernel (bf16): FA2 on the tensor cores. Grid (BH, q tiles of
+//   64); blocks are dispatched x first, and y counts q tiles from the last
+//   (the heaviest under the causal mask), so every head's heaviest tile
+//   goes out before any lighter one and the tail of the grid is light
+//   work that fills the 132 SMs; 4 warps, each owning 16 q rows. The
+//   Q tile is copied once into shared memory and held as mma A-fragments
+//   in registers (ldmatrix). K and V stream in tiles of 64 keys through a
+//   two-stage ring in shared memory with 16-byte cp.async (zero-fill past
+//   Sk), the next tile in flight while the current one is computed; they
+//   stay bf16, rows padded by 16 bytes so every ldmatrix is free of bank
+//   conflicts (87 KB of dynamic shared memory at hd 128). S = Q K^T and
+//   O += P V are mma.sync m16n8k16 bf16 -> f32; the online softmax runs on
+//   the accumulator fragments (row max and sum across the 4 threads of a
+//   quad). P is rounded to bf16 for P V -- the one arithmetic difference
+//   from the Pallas kernel, which keeps P in f32 (PERF.md: within the
+//   kernel tolerance and the path check's noise floor). Scores are taken
+//   to the exp2 domain by scale * log2(e) in f32. Tiles wholly in the
+//   causal future or wholly left of the window are never loaded; only
+//   tiles on the diagonal, the window edge or past Sk apply the mask.
+//
+// flash_f32_kernel (f32): the checking path (the f32 path check at 1e-3,
+//   the f32 kernel tests at 2e-5), which neither bf16 nor TF32 tensor
+//   cores can meet. Scalar f32 FMAs: one block per (64-row q tile, bh), 4
+//   threads per q row owning float4 slices of hd, K/V tiles of 32 keys in
+//   shared memory, q pre-scaled by 1/sqrt(hd) as the Pallas kernel does.
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace repro {
 namespace {
+
+// -- bf16 tensor-core kernel --------------------------------------------------
+
+constexpr int kTcBQ = 64;              // q rows per block (16 per warp)
+constexpr int kTcBK = 64;              // keys per shared-memory tile
+constexpr int kTcThreads = 128;        // 4 warps
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; zero-fills the destination when !pred
+// (the source is then not read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool pred) {
+  const int n = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr,
+                                              uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+template <int HD>
+struct TcLayout {
+  static constexpr int kStride = HD + 8;            // bf16 per smem row
+  static constexpr int kTile = kTcBQ * kStride;     // bf16 per 64-row tile
+  static constexpr int kBytes = 5 * kTile * 2;      // Q + 2 x (K + V)
+  static_assert(kTcBQ == kTcBK, "Q and K/V tiles share a layout");
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads)
+flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v,
+                __nv_bfloat16* __restrict__ o, int group, int sq, int sk,
+                int causal, int window, float scale_log2) {
+  constexpr int kS = TcLayout<HD>::kStride;
+  constexpr int kTile = TcLayout<HD>::kTile;
+  constexpr int kCPR = HD / 8;         // 16-byte chunks per row
+  constexpr int kKS = HD / 16;         // k-steps of Q K^T
+  constexpr int kNT = HD / 8;          // n-tiles of O
+  constexpr int kST = kTcBK / 8;       // n-tiles of S
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + kTile;      // stage s at ks + s * kTile
+  __nv_bfloat16* vs = ks + 2 * kTile;
+
+  const int bh = blockIdx.x;
+  const int kvh = bh / group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcBQ;  // heaviest first
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;             // row within the fragment
+  const int t = lane & 3;              // thread within the quad
+  const int row0 = q0 + warp * 16 + g; // this thread's rows: row0, row0 + 8
+
+  const int q_last = min(q0 + kTcBQ, sq) - 1;
+  const int k_end = causal ? min(sk, q_last + 1) : sk;
+  const int k_begin = (window > 0 ? max(0, q0 - window + 1) : 0) / kTcBK * kTcBK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kTcBK - 1) / kTcBK : 0;
+
+  const __nv_bfloat16* qb = q + static_cast<size_t>(bh) * sq * HD;
+  const __nv_bfloat16* kb = k + static_cast<size_t>(kvh) * sk * HD;
+  const __nv_bfloat16* vb = v + static_cast<size_t>(kvh) * sk * HD;
+
+#pragma unroll
+  for (int i = 0; i < kTcBQ * kCPR / kTcThreads; ++i) {
+    const int c = tid + i * kTcThreads;
+    const int r = c / kCPR, cc = c % kCPR;
+    const bool ok = q0 + r < sq;
+    cp_async16(smem_addr(qs + r * kS + cc * 8),
+               qb + static_cast<size_t>(ok ? q0 + r : 0) * HD + cc * 8, ok);
+  }
+  auto load_kv = [&](int kt, int stage) {
+    __nv_bfloat16* kd = ks + stage * kTile;
+    __nv_bfloat16* vd = vs + stage * kTile;
+#pragma unroll
+    for (int i = 0; i < kTcBK * kCPR / kTcThreads; ++i) {
+      const int c = tid + i * kTcThreads;
+      const int r = c / kCPR, cc = c % kCPR;
+      const bool ok = kt + r < sk;
+      const size_t off = static_cast<size_t>(ok ? kt + r : 0) * HD + cc * 8;
+      cp_async16(smem_addr(kd + r * kS + cc * 8), kb + off, ok);
+      cp_async16(smem_addr(vd + r * kS + cc * 8), vb + off, ok);
+    }
+  };
+  if (n_tiles > 0) load_kv(k_begin, 0);
+  cp_async_commit();                   // group 0: Q and the first K/V tile
+
+  uint32_t qf[kKS][4];
+  float oacc[kNT][4];
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) oacc[j][0] = oacc[j][1] = oacc[j][2] = oacc[j][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};             // this thread's partial row sums
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int kt = k_begin + it * kTcBK;
+    if (it + 1 < n_tiles) load_kv(kt + kTcBK, (it + 1) & 1);
+    cp_async_commit();                 // (empty on the last tile)
+    cp_async_wait<1>();                // this tile (and Q) has landed
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < kKS; ++kk) {
+        const int r = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        ldsm_x4(smem_addr(qs + r * kS + kk * 16 + (lane >> 4) * 8), qf[kk]);
+      }
+    }
+    const __nv_bfloat16* kt_s = ks + (it & 1) * kTile;
+    const __nv_bfloat16* vt_s = vs + (it & 1) * kTile;
+
+    // S = Q K^T (16 rows x 64 keys per warp)
+    float s[kST][4];
+#pragma unroll
+    for (int j = 0; j < kST; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKS; ++kk) {
+#pragma unroll
+      for (int nj = 0; nj < kST / 2; ++nj) {
+        uint32_t b[4];
+        const int r = nj * 16 + (lane & 7) + (lane >> 4) * 8;
+        ldsm_x4(smem_addr(kt_s + r * kS + kk * 16 + ((lane >> 3) & 1) * 8), b);
+        mma_bf16(s[2 * nj], qf[kk], b[0], b[1]);
+        mma_bf16(s[2 * nj + 1], qf[kk], b[2], b[3]);
+      }
+    }
+
+    // scale, mask, online softmax on the fragments
+    const bool need_mask = kt + kTcBK > sk ||
+                           (causal && kt + kTcBK - 1 > q0) ||
+                           (window > 0 && kt <= q0 + kTcBQ - 1 - window);
+#pragma unroll
+    for (int j = 0; j < kST; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (need_mask) {
+          const int key = kt + 8 * j + 2 * t + (e & 1);
+          const int qi = row0 + 8 * (e >> 1);
+          bool ok = key < sk;
+          if (causal) ok = ok && key <= qi;
+          if (window > 0) ok = ok && key > qi - window;
+          x = ok ? x : kNegInf;
+        }
+        s[j][e] = x;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = m[h];
+#pragma unroll
+      for (int j = 0; j < kST; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float alpha = exp2f(m[h] - mx);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < kST; ++j) {
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          const float p = exp2f(s[j][e] - mx);
+          s[j][e] = p;
+          rs += p;
+        }
+      }
+      l[h] = l[h] * alpha + rs;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        oacc[j][2 * h] *= alpha;
+        oacc[j][2 * h + 1] *= alpha;
+      }
+      m[h] = mx;
+    }
+
+    // O += P V, P as bf16 A-fragments (the C layout of S is the A layout)
+#pragma unroll
+    for (int kk = 0; kk < kTcBK / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int nd = 0; nd < HD / 16; ++nd) {
+        uint32_t b[4];
+        const int r = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        ldsm_x4_trans(smem_addr(vt_s + r * kS + nd * 16 + (lane >> 4) * 8), b);
+        mma_bf16(oacc[2 * nd], a, b[0], b[1]);
+        mma_bf16(oacc[2 * nd + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();                   // this stage is free for tile it + 2
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float lt = l[h];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const float denom = fmaxf(lt, 1e-30f);
+    const int qi = row0 + 8 * h;
+    if (qi < sq) {
+      __nv_bfloat16* orow = o + (static_cast<size_t>(bh) * sq + qi) * HD;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
+            __floats2bfloat162_rn(oacc[j][2 * h] / denom,
+                                  oacc[j][2 * h + 1] / denom);
+      }
+    }
+  }
+}
+
+template <int HD>
+int launch_tc(const void* q, const void* k, const void* v, void* o, int bh,
+              int group, int sq, int sk, int causal, int window,
+              cudaStream_t stream) {
+  constexpr int kBytes = TcLayout<HD>::kBytes;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(bh, (sq + kTcBQ - 1) / kTcBQ);
+  const float scale_log2 = kLog2e / sqrtf(static_cast<float>(HD));
+  flash_tc_kernel<HD><<<grid, kTcThreads, kBytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      group, sq, sk, causal, window, scale_log2);
+  return 0;
+}
+
+// -- f32 CUDA-core kernel ------------------------------------------------------
 
 constexpr int kBQ = 64;                 // q rows per block
 constexpr int kBK = 32;                 // keys per shared-memory tile
 constexpr int kTPR = 4;                 // threads per q row
 constexpr int kThreads = kBQ * kTPR;    // 256
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int group, int sq,
-             int sk, int causal, int window, float scale) {
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 int group, int sq, int sk, int causal, int window,
+                 float scale) {
   constexpr int kDPT = HD / kTPR;       // head dims per thread
   constexpr int kNV4 = kDPT / 4;        // float4 chunks per thread
   static_assert(kDPT % 4 == 0, "hd must be a multiple of 16");
@@ -63,13 +358,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // chunk c of this thread covers dims 4 * (sub + kTPR * c) .. + 3
   float qf[kDPT];
   float acc[kDPT];
-  const T* qrow = q + (static_cast<size_t>(bh) * sq + (q_valid ? qi : 0)) * HD;
+  const float* qrow = q + (static_cast<size_t>(bh) * sq + (q_valid ? qi : 0)) * HD;
 #pragma unroll
   for (int c = 0; c < kNV4; ++c) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int dim = 4 * (sub + kTPR * c) + e;
-      qf[4 * c + e] = q_valid ? to_f32(qrow[dim]) * scale : 0.f;
+      qf[4 * c + e] = q_valid ? qrow[dim] * scale : 0.f;
       acc[4 * c + e] = 0.f;
     }
   }
@@ -80,8 +375,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k_end = causal ? min(sk, q_last + 1) : sk;
   int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
   k_begin = (k_begin / kBK) * kBK;
-  const T* kbase = k + static_cast<size_t>(kvh) * sk * HD;
-  const T* vbase = v + static_cast<size_t>(kvh) * sk * HD;
+  const float* kbase = k + static_cast<size_t>(kvh) * sk * HD;
+  const float* vbase = v + static_cast<size_t>(kvh) * sk * HD;
   float* ksf = reinterpret_cast<float*>(ks);
   float* vsf = reinterpret_cast<float*>(vs);
 
@@ -93,8 +388,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float kv = 0.f, vv = 0.f;
       if (kk < sk) {
         const size_t off = static_cast<size_t>(kk) * HD + (e % HD);
-        kv = to_f32(kbase[off]);
-        vv = to_f32(vbase[off]);
+        kv = kbase[off];
+        vv = vbase[off];
       }
       ksf[e] = kv;
       vsf[e] = vv;
@@ -144,41 +439,38 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (q_valid) {
     const float denom = fmaxf(l, 1e-30f);
-    T* orow = o + (static_cast<size_t>(bh) * sq + qi) * HD;
+    float* orow = o + (static_cast<size_t>(bh) * sq + qi) * HD;
 #pragma unroll
     for (int c = 0; c < kNV4; ++c) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        orow[4 * (sub + kTPR * c) + e] = from_f32<T>(acc[4 * c + e] / denom);
+        orow[4 * (sub + kTPR * c) + e] = acc[4 * c + e] / denom;
       }
     }
   }
 }
 
-template <typename T, int HD>
-void launch_hd(const void* q, const void* k, const void* v, void* o, int bh,
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
                int group, int sq, int sk, int causal, int window,
                cudaStream_t stream) {
   const dim3 grid((sq + kBQ - 1) / kBQ, bh);
   const float scale = 1.f / sqrtf(static_cast<float>(HD));
-  flash_kernel<T, HD><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), group, sq, sk, causal,
-      window, scale);
+  flash_f32_kernel<HD><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), group, sq, sk,
+      causal, window, scale);
+  return 0;
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int group, int sq, int sk, int hd, int causal, int window,
-           cudaStream_t stream) {
-  switch (hd) {
-    case 16: launch_hd<T, 16>(q, k, v, o, bh, group, sq, sk, causal, window, stream); break;
-    case 32: launch_hd<T, 32>(q, k, v, o, bh, group, sq, sk, causal, window, stream); break;
-    case 64: launch_hd<T, 64>(q, k, v, o, bh, group, sq, sk, causal, window, stream); break;
-    case 128: launch_hd<T, 128>(q, k, v, o, bh, group, sq, sk, causal, window, stream); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return 0;
+// dtype picks the kernel: bf16 -> tensor cores, f32 -> CUDA cores
+template <int HD>
+int launch_hd(int dtype, const void* q, const void* k, const void* v,
+              void* o, int bh, int group, int sq, int sk, int causal,
+              int window, cudaStream_t stream) {
+  if (dtype == kBF16) return launch_tc<HD>(q, k, v, o, bh, group, sq, sk, causal, window, stream);
+  if (dtype == kF32) return launch_f32<HD>(q, k, v, o, bh, group, sq, sk, causal, window, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -193,12 +485,12 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   const int group = bh / bh_kv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
-  if (dtype == repro::kBF16) {
-    rc = repro::launch<__nv_bfloat16>(q, k, v, o, bh, group, sq, sk, hd, causal, window, s);
-  } else if (dtype == repro::kF32) {
-    rc = repro::launch<float>(q, k, v, o, bh, group, sq, sk, hd, causal, window, s);
-  } else {
-    rc = static_cast<int>(cudaErrorInvalidValue);
+  switch (hd) {
+    case 16: rc = repro::launch_hd<16>(dtype, q, k, v, o, bh, group, sq, sk, causal, window, s); break;
+    case 32: rc = repro::launch_hd<32>(dtype, q, k, v, o, bh, group, sq, sk, causal, window, s); break;
+    case 64: rc = repro::launch_hd<64>(dtype, q, k, v, o, bh, group, sq, sk, causal, window, s); break;
+    case 128: rc = repro::launch_hd<128>(dtype, q, k, v, o, bh, group, sq, sk, causal, window, s); break;
+    default: rc = static_cast<int>(cudaErrorInvalidValue);
   }
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());

@@ -37,9 +37,10 @@ SIGNATURES = {
     # q, k, v, out, bh, bh_kv, sq, sk, hd, causal, window, dtype, stream
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, _P),
-    # q, k, v, lengths, out, bh, bh_kv, S, hd, window, dtype, stream
-    "repro_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _P),
+    # q, k, v, lengths, partials, out, bh, bh_kv, S, hd, span, window,
+    # dtype, stream
+    "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _P),
     # xbar, B, C, cumlog, y, h, bh, bh_bc, S, hd, ds, chunk, dtype, stream
     "repro_ssm_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _P),

@@ -3,12 +3,15 @@
 Port of the Pallas TPU kernel ``src/repro/kernels/decode_attention.py:57``.
 :func:`decode_attention_plain` is the plain PyTorch version (the
 semantics of ``repro.kernels.ref.decode_attention_ref``);
-:func:`decode_attention_cuda` launches ``csrc/decode_attention.cu``.
+:func:`decode_attention_cuda` launches ``csrc/decode_attention.cu``: a
+split-K pass over the cache that writes partial softmax states, then a
+combine pass. :func:`plan_splits` cuts the cache into the splits.
 
 Layout: q (BH, 1, hd), k/v (BH_kv, S, hd) caches, lengths (BH,) int32,
 the count of valid cache entries of each row: row ``bh`` attends to keys
 ``0 .. lengths[bh] - 1`` of cache row ``bh // (BH // BH_kv)`` (and, with a
-window W, only to keys ``> lengths[bh] - 1 - W``). Lengths must be >= 1.
+window W, only to keys ``> lengths[bh] - 1 - W``). Lengths must be >= 1;
+at 0 the kernel writes zeros.
 """
 from __future__ import annotations
 
@@ -22,7 +25,20 @@ from .common import (DTYPE_CODES, HEAD_DIMS, check_cuda_tensor, require,
 
 NAME = "decode_attention"
 NEG_INF = -1e30
+SPLIT_CHUNK = 64     # keys a block of the split pass takes per step
+MAX_SPLITS = 64      # the combine pass weighs at most this many splits
 launches = 0
+
+
+def plan_splits(S: int) -> tuple[int, int]:
+    """(span, splits) of the split pass over a cache of ``S`` slots: each
+    block takes ``span`` keys (a multiple of ``SPLIT_CHUNK``), and
+    ``splits * span >= S``. It depends on S alone, so the host never
+    reads ``lengths``: up to ``SPLIT_CHUNK * MAX_SPLITS`` slots a block
+    takes one chunk, beyond that the span grows so that the splits stay
+    at most ``MAX_SPLITS``."""
+    span = SPLIT_CHUNK * max(1, -(-S // (SPLIT_CHUNK * MAX_SPLITS)))
+    return span, -(-S // span)
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -50,6 +66,8 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     global launches
     for arg, t in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):
         check_cuda_tensor(t, NAME, arg)
+    for arg, t in (("q", q), ("k", k), ("v", v)):   # 16-byte vector loads
+        require(t.data_ptr() % 16 == 0, NAME, f"{arg} must be 16-byte aligned")
     require(q.dtype in DTYPE_CODES, NAME, f"dtype {q.dtype} not supported")
     require(k.dtype == q.dtype and v.dtype == q.dtype, NAME,
             "q, k and v must share a dtype")
@@ -67,11 +85,15 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     require(lengths.dtype == torch.int32 and lengths.shape == (BH,), NAME,
             f"lengths must be int32 ({BH},)")
     require(window >= 0, NAME, "window must be >= 0")
+    require(BHkv <= 65535, NAME, f"BH_kv={BHkv} exceeds the grid")
+    span, splits = plan_splits(S)
     out = torch.empty_like(q)
+    partials = torch.empty((BH, splits, hd + 2), dtype=torch.float32,
+                           device=q.device)
     rc = build.library().repro_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), BH, BHkv, S, hd, window, DTYPE_CODES[q.dtype],
-        stream_of(q))
+        partials.data_ptr(), out.data_ptr(), BH, BHkv, S, hd, span, window,
+        DTYPE_CODES[q.dtype], stream_of(q))
     build.check(rc, NAME)
     launches += 1
     return out

@@ -3,7 +3,9 @@
 Port of the Pallas TPU kernel ``src/repro/kernels/flash_attention.py:77``.
 :func:`flash_attention_plain` is the plain PyTorch version (the semantics
 of ``repro.kernels.ref.flash_attention_ref``: one dense softmax);
-:func:`flash_attention_cuda` launches ``csrc/flash_attention.cu``.
+:func:`flash_attention_cuda` launches ``csrc/flash_attention.cu``, whose
+entry picks its kernel by dtype: bf16 runs on the tensor cores (P rounded
+to bf16 for P V), f32 on the CUDA cores (the f32 checking path).
 
 Layout: q (BH, Sq, hd), k/v (BH_kv, Sk, hd) with BH a multiple of BH_kv;
 q row ``bh`` attends to k/v row ``bh // (BH // BH_kv)``. The causal mask
@@ -53,6 +55,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for arg, t in (("q", q), ("k", k), ("v", v)):
         check_cuda_tensor(t, NAME, arg)
         require(t.dim() == 3, NAME, f"{arg} must be 3-D, got {tuple(t.shape)}")
+        require(t.data_ptr() % 16 == 0, NAME,      # 16-byte async copies
+                f"{arg} must be 16-byte aligned")
     require(q.dtype in DTYPE_CODES, NAME, f"dtype {q.dtype} not supported")
     require(k.dtype == q.dtype and v.dtype == q.dtype, NAME,
             "q, k and v must share a dtype")
@@ -63,7 +67,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"head dim must match and be one of {HEAD_DIMS}")
     require(BHkv >= 1 and BH % BHkv == 0, NAME,
             f"BH={BH} must be a multiple of BH_kv={BHkv}")
-    require(Sq >= 1 and Sk >= 1 and BH <= 65535, NAME,
+    require(Sq >= 1 and Sk >= 1 and BH <= 65535 and Sq <= 65535 * 64, NAME,
             f"unsupported sizes BH={BH} Sq={Sq} Sk={Sk}")
     require(window >= 0, NAME, "window must be >= 0")
     out = torch.empty_like(q)

@@ -113,3 +113,46 @@ def test_cuda_scans_match_plain(card, dtype):
         torch.testing.assert_close(o, o_ref, **TOL[dtype])
         torch.testing.assert_close(st, st_ref, **TOL["float32"])
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_attention_tilings_match_plain(card, dtype):
+    """The attention kernels' tile and split edges against the plain
+    versions (the edge cases chip_smoke.py checks). flash (bf16 on the
+    tensor cores, f32 on the CUDA cores): Sq != Sk, GQA, a window across
+    64-key tiles, ragged S at hd 16, q rows past a 64-row tile. decode
+    (split-K, span 64 at cache 1024): lengths 1 and on / beside split
+    edges, a window across split edges, GQA, and a 5000-slot cache whose
+    splits take two chunks each."""
+    g = torch.Generator(device=card).manual_seed(2)
+    dt = TDT[dtype]
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=card).to(dt)
+
+    for bh, bh_kv, sq, sk, hd, causal, window in (
+            (4, 4, 64, 192, 64, False, 0), (6, 2, 77, 77, 128, True, 0),
+            (4, 4, 200, 200, 32, True, 64), (4, 4, 65, 65, 16, True, 0),
+            (2, 2, 130, 70, 128, True, 0), (2, 1, 129, 129, 64, False, 40)):
+        q, k, v = r(bh, sq, hd), r(bh_kv, sk, hd), r(bh_kv, sk, hd)
+        torch.testing.assert_close(
+            flash_attention_cuda(q, k, v, causal=causal, window=window),
+            flash_attention_plain(q, k, v, causal=causal, window=window),
+            **TOL[dtype])
+    edges = [1, 63, 64, 65, 127, 128, 129, 1024]
+    for bh, bh_kv, s, hd, window, lens in (
+            (8, 8, 1024, 128, 0, edges),
+            (8, 8, 1024, 64, 100, [150, 1024, 64, 65, 300, 1, 200, 129]),
+            (8, 2, 1024, 128, 0, [1024, 65, 64, 1, 700, 129, 2, 513]),
+            (4, 4, 1024, 32, 64, [1, 64, 65, 1000]),
+            (4, 1, 1024, 16, 0, [1, 64, 65, 999]),
+            (4, 4, 5000, 64, 0, [5000, 129, 4097, 1]),
+            (3, 3, 77, 128, 0, [77, 64, 65])):
+        q, k, v = r(bh, 1, hd), r(bh_kv, s, hd), r(bh_kv, s, hd)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=card)
+        torch.testing.assert_close(
+            decode_attention_cuda(q, k, v, lengths, window=window),
+            decode_attention_plain(q, k, v, lengths, window=window),
+            **TOL[dtype])
+    torch.cuda.synchronize()
