@@ -10,18 +10,23 @@ package. In order it:
 1. prints the card (nvidia-smi name and power limit) and the versions;
 2. builds the port's five CUDA kernels from src/repro_torch/csrc into
    build/repro_torch/ (timed as set-up);
-3. counts the tensor-core instructions (HMMA) of each attention kernel
-   in the built library's SASS (cuobjdump), and fails if the bf16
-   flash_attention kernel has none;
+3. counts the tensor-core instructions (HMMA) of the attention and
+   ssm_scan kernels in the built library's SASS (cuobjdump), and fails
+   if the bf16 flash_attention or bf16 ssm_scan kernel has none;
 4. holds each kernel against its plain PyTorch version at the shapes the
-   three serving paths give it (bf16 attention at hd 128 and 64; the
-   scans in bf16 and f32), and times kernel, plain version, one PyTorch
-   library call computing the same function where there is one, and the
-   bound (the larger of bytes / 3.35 TB/s and flops / the peak of their
-   type: 989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32); then, untimed,
-   the attention kernels' edge cases (Sq != Sk, GQA, windows across tile
-   and split edges, ragged S, hd 16 and 32, lengths on split edges, a
-   cache of several chunks a split) in bf16 and in f32 at 2e-5;
+   three serving paths give it (fused_rmsnorm at d 4096 and 2048; bf16
+   attention at hd 128 and 64; the scans in bf16 and f32), and times
+   kernel, plain version, one PyTorch library call computing the same
+   function where there is one, and the bound (the larger of bytes /
+   3.35 TB/s and flops / the peak of their type: 989 TFLOP/s bf16 and
+   495 TFLOP/s TF32 tensor cores, 67 TFLOP/s f32); then, untimed, the
+   edge cases: the attention kernels' (Sq != Sk, GQA, windows across
+   tile and split edges, ragged S, hd 16 and 32, lengths on split edges,
+   a cache of several chunks a split) and fused_rmsnorm's (the looping
+   path at d 100 and 12288, d 8, d 8192, N 4096, a misaligned row) in
+   bf16 and in f32 at 2e-5, and the bf16 ssm_scan tiles' (chunk 16,
+   chunk = S = 77, S 1, chunk 1, B/C groups, ds 16 / 32 / 128, hd 32 /
+   128);
 5. for each of deepseek-7b, zamba2-1.2b and rwkv6-1.6b at full width
    (random weights from a seed), one model on the card at a time: serves
    8 ragged requests through ServingEngine with the launch counts set to
@@ -54,6 +59,7 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
+TF32_FLOPS_PER_S = 495e12      # H100 SXM dense TF32 tensor-core peak
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 peak outside the tensor cores
 TOL = 2e-2                     # bf16 kernel vs plain: |a - b| <= TOL * (1 + |b|)
 F32_TOL = 2e-5                 # f32 kernel vs plain (test_kernels.py:23)
@@ -145,6 +151,7 @@ class Case(NamedTuple):
     flops_per_s: float   # the card's peak for the operations' type
     tol: float
     timed: bool = True   # False: an edge case, checked but not timed
+    serving: bool = True  # in the serving path's dtype (the JSON line's)
 
 
 def kernel_cases(kp):
@@ -159,15 +166,18 @@ def kernel_cases(kp):
         return (torch.randn(shape, generator=gen, device="cuda") * scale) \
             .to(dtype)
 
-    d, BH, S = 4096, 32, 1024
-    for n in (1, 32, 77, 200, 513, 600):
-        x, w = randn(n, d), randn(d, dtype=torch.float32, scale=0.1)
-        w1 = (1.0 + w).to(bf)
-        yield Case("fused_rmsnorm", f"x ({n}, {d})",
-                   lambda x=x, w=w: kp["fused_rmsnorm"][0](x, w),
-                   lambda x=x, w=w: kp["fused_rmsnorm"][1](x, w),
-                   lambda x=x, w1=w1: F.rms_norm(x, (d,), w1, eps=1e-6),
-                   2 * n * d * 2 + d * 4, 4 * n * d, BF16_FLOPS_PER_S, TOL)
+    BH, S = 32, 1024
+    for d, rows in ((4096, (1, 32, 77, 200, 513, 600)), (2048, (1, 600))):
+        for n in rows:
+            w = randn(d, dtype=torch.float32, scale=0.1)
+            x, w1 = randn(n, d), (1.0 + w).to(bf)
+            yield Case("fused_rmsnorm", f"x ({n}, {d})",
+                       lambda x=x, w=w: kp["fused_rmsnorm"][0](x, w),
+                       lambda x=x, w=w: kp["fused_rmsnorm"][1](x, w),
+                       lambda x=x, w1=w1, d=d: F.rms_norm(x, (d,), w1,
+                                                          eps=1e-6),
+                       2 * n * d * 2 + d * 4, 4 * n * d, BF16_FLOPS_PER_S,
+                       TOL)
     for hd, lens in ((128, (1, 77, 200, 513, 600)), (64, (77, 200, 513, 600))):
         for s in lens:
             q, k, v = randn(BH, s, hd), randn(BH, s, hd), randn(BH, s, hd)
@@ -209,7 +219,11 @@ def kernel_cases(kp):
             chunk = min(256, s)
             cum = chunk_cumsum(-randn(bh, s, dtype=torch.float32,
                                       scale=0.2).abs(), chunk)
-            esize = B.element_size()
+            # bf16 B/C: the chunked form in TF32 on the tensor cores; f32:
+            # the recurrence's 4 BH S hd ds flops on CUDA cores
+            flops, peak = ((ssm_tc_flops(bh, 1, s, hd, ds, chunk),
+                            TF32_FLOPS_PER_S) if dt == bf else
+                           (4 * bh * s * hd * ds, F32_FLOPS_PER_S))
             yield Case(
                 "ssm_scan", f"BH {bh}, S {s}, hd {hd}, ds {ds}, chunk {chunk}, "
                 f"B/C {str(dt)[6:]}",
@@ -218,9 +232,9 @@ def kernel_cases(kp):
                 lambda a=(xbar, B, C, cum), c=chunk: kp["ssm_scan"][1](
                     *a, chunk=c),
                 None,
-                4 * bh * s * hd * 2 + 2 * s * ds * esize + 4 * bh * s
-                + 4 * bh * hd * ds,
-                4 * bh * s * hd * ds, F32_FLOPS_PER_S, tol)
+                4 * bh * s * hd * 2 + 2 * s * ds * B.element_size()
+                + 4 * bh * s + 4 * bh * hd * ds,
+                flops, peak, tol, serving=dt == bf)
     bh, hd = 32, 64                              # rwkv6: 32 heads of 64
     for s in (32, 200, 513, 600):
         for dt, tol in ((bf, TOL), (torch.float32, F32_TOL)):
@@ -235,8 +249,73 @@ def kernel_cases(kp):
                 lambda a=(r, k, v, w, u): kp["rwkv6_scan"][1](*a),
                 None,
                 5 * bh * s * hd * esize + 4 * bh * hd + 4 * bh * hd * hd,
-                7 * bh * s * hd * hd, F32_FLOPS_PER_S, tol)
+                7 * bh * s * hd * hd, F32_FLOPS_PER_S, tol,
+                serving=dt == bf)
     yield from attention_edge_cases(kp, randn)
+    yield from rmsnorm_edge_cases(kp, randn)
+    yield from ssm_edge_cases(kp, randn)
+
+
+def ssm_tc_flops(bh: int, bh_bc: int, s: int, hd: int, ds: int,
+                 chunk: int) -> int:
+    """The flops of the chunked SSD form as the bf16 ssm_scan kernel
+    tiles it (tiles of at most 64 steps that restart at chunk starts):
+    per tile of n steps, G = C B^T on and below the diagonal once per B/C
+    group, and per head P X on and below it, C H^T and the state
+    update."""
+    total, t0 = 0, 0
+    while t0 < s:
+        n = min(t0 + 64, (t0 // chunk + 1) * chunk, s) - t0
+        tri = n * (n + 1)               # 2 * the pairs j <= i
+        total += bh_bc * tri * ds + bh * (tri * hd + 4 * n * hd * ds)
+        t0 += n
+    return total
+
+
+def rmsnorm_edge_cases(kp, randn):
+    """Untimed checks of fused_rmsnorm's paths in bf16 (2e-2) and f32
+    (2e-5): the looping path (d not a multiple of the 16-byte vector,
+    d 12288 past the register slice, a row off 16-byte alignment) and the
+    register path at d 8 (a warp a row, 8 rows a block), d 8192 (a block
+    a row) and N 4096."""
+    rk, rp = kp["fused_rmsnorm"][:2]
+    for dt, tol in ((torch.bfloat16, TOL), (torch.float32, F32_TOL)):
+        tag = str(dt)[6:]
+        for n, d in ((3, 100), (5, 8), (7, 8192), (2, 12288), (4096, 4096)):
+            w = randn(d, dtype=torch.float32, scale=0.1)
+            x = randn(n, d, dtype=dt)
+            yield Case("fused_rmsnorm", f"x ({n}, {d}), {tag}",
+                       lambda x=x, w=w: rk(x, w), lambda x=x, w=w: rp(x, w),
+                       None, 0, 0, BF16_FLOPS_PER_S, tol, timed=False)
+        w = randn(4096, dtype=torch.float32, scale=0.1)
+        x = randn(9 * 4096 + 1, dtype=dt)[1:].view(9, 4096)
+        yield Case("fused_rmsnorm", f"x (9, 4096) off 16-byte alignment, "
+                   f"{tag}", lambda x=x, w=w: rk(x, w),
+                   lambda x=x, w=w: rp(x, w), None, 0, 0, BF16_FLOPS_PER_S,
+                   tol, timed=False)
+
+
+def ssm_edge_cases(kp, randn):
+    """Untimed checks of the bf16 ssm_scan kernel's tiles (64 steps that
+    restart at every chunk start) at 2e-2: chunk 16, chunk = S = 77 (not
+    a multiple of 64), S 1, chunk 1, BH 4 over 2 B/C groups, ds 16 / 32 /
+    128, hd 32 / 128."""
+    sk, sp, chunk_cumsum = kp["ssm_scan"]
+    for bh, bh_bc, s, hd, ds, chunk in (
+            (4, 4, 64, 64, 64, 16), (4, 1, 77, 64, 64, 77),
+            (2, 2, 1, 64, 64, 1), (2, 2, 40, 64, 32, 1),
+            (4, 2, 130, 64, 64, 256), (2, 1, 100, 64, 16, 256),
+            (2, 1, 200, 64, 128, 128), (2, 2, 70, 32, 64, 256),
+            (2, 1, 70, 128, 64, 64)):
+        xbar = randn(bh, s, hd, dtype=torch.float32, scale=0.5)
+        B, C = randn(bh_bc, s, ds), randn(bh_bc, s, ds)
+        cum = chunk_cumsum(-randn(bh, s, dtype=torch.float32,
+                                  scale=0.2).abs(), chunk)
+        yield Case("ssm_scan", f"BH {bh} over {bh_bc}, S {s}, hd {hd}, ds "
+                   f"{ds}, chunk {chunk}, B/C bfloat16",
+                   lambda a=(xbar, B, C, cum), c=chunk: sk(*a, chunk=c),
+                   lambda a=(xbar, B, C, cum), c=chunk: sp(*a, chunk=c),
+                   None, 0, 0, TF32_FLOPS_PER_S, TOL, timed=False)
 
 
 def attention_edge_cases(kp, randn):
@@ -286,6 +365,9 @@ def attention_edge_cases(kp, randn):
 
 
 def kernel_phase(kp, timer) -> dict:
+    tiny = torch.zeros(1, device="cuda")
+    print(f"timer floor: a 1-element add_ takes {timer(lambda: tiny.add_(1.0)):.4f}"
+          " ms in this timer (launch and L2 refill included)", flush=True)
     rows = {}
     for c in kernel_cases(kp):
         out = c.kern()
@@ -311,9 +393,9 @@ def kernel_phase(kp, timer) -> dict:
               f"(tolerance {c.tol}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
               f"{lib} bound_ms {b_ms:.5f} ({b_by}) bound/ms "
               f"{b_ms / ms:.3f}", flush=True)
-        # the JSON line reports the case with the most work
+        # the JSON line reports the serving dtype's case with the most work
         row = rows.setdefault(c.name, {})
-        if b_ms >= row.get("bound_ms", -1.0):
+        if c.serving and b_ms >= row.get("bound_ms", -1.0):
             row.update(case=c.label, max_abs_err=err, tolerance=c.tol,
                        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=b_ms, bound_by=b_by)
@@ -322,13 +404,15 @@ def kernel_phase(kp, timer) -> dict:
 
 # -- phase 3: tensor-core instructions in the build ----------------------------
 
-ATTENTION_KERNELS = ("flash_tc_kernel", "flash_f32_kernel",
-                     "decode_split_kernel", "decode_combine_kernel")
+SASS_KERNELS = ("flash_tc_kernel", "flash_f32_kernel", "decode_split_kernel",
+                "decode_combine_kernel", "ssm_tc_kernel", "ssm_scan_kernel")
+TENSOR_CORE_KERNELS = ("flash_tc", "ssm_tc")   # must show HMMA/HGMMA
 
 
 def sass_check(lib_path: Path) -> None:
     """Count HMMA (mma.sync) and HGMMA (wgmma) instructions in the SASS of
-    each attention kernel; the bf16 flash kernel must have some."""
+    each attention and ssm_scan kernel (<n> is the template's head or
+    state dim); the bf16 flash and ssm kernels must have some."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.isfile(tool):
         fail("cuobjdump not found: cannot show the tensor-core path")
@@ -340,7 +424,7 @@ def sass_check(lib_path: Path) -> None:
     for line in res.stdout.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            m = re.search("|".join(ATTENTION_KERNELS), fn)
+            m = re.search("|".join(SASS_KERNELS), fn)
             hd = re.search(r"Li(\d+)E", fn)
             fn = (f"{m.group(0)}<{hd.group(1) if hd else ''}> "
                   f"{'bf16' if 'bfloat16' in fn else 'f32'}") if m else None
@@ -350,10 +434,11 @@ def sass_check(lib_path: Path) -> None:
             counts[fn] += 1
     for name, n in sorted(counts.items()):
         print(f"sass: {name}: {n} HMMA/HGMMA", flush=True)
-    tc = [n for name, n in counts.items() if name.startswith("flash_tc")]
-    if not tc or min(tc) == 0:
-        fail("the bf16 flash_attention kernel has no tensor-core "
-             "instruction in its SASS")
+    for kernel in TENSOR_CORE_KERNELS:
+        tc = [n for name, n in counts.items() if name.startswith(kernel)]
+        if not tc or min(tc) == 0:
+            fail(f"the bf16 {kernel}_kernel has no tensor-core instruction "
+                 "in its SASS")
 
 
 # -- phase 5: the serving paths ----------------------------------------------

@@ -34,4 +34,31 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Waits until the grids launched before this one on the stream have
+// finished and their writes are visible (a no-op without a programmatic
+// dependent launch). Everything before it overlaps the previous kernel.
+__device__ __forceinline__ void wait_previous_grid() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Launches `kernel` as a programmatic dependent launch: its blocks may be
+// scheduled while the previous kernel on the stream still runs, and must
+// call wait_previous_grid() before reading anything that kernel writes.
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid,
+                             dim3 block, size_t smem, cudaStream_t stream,
+                             Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+}
+
 }  // namespace repro

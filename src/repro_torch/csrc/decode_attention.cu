@@ -225,7 +225,7 @@ decode_combine_kernel(const float* __restrict__ part,
   const int first = begin / span;
   const int n = (len - 1) / span - first + 1;  // live splits, <= kMaxSplits
   const float* pb = part + (static_cast<size_t>(bh) * splits + first) * (HD + 2);
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // pass 1 is done
+  wait_previous_grid();                 // pass 1 is done
   if (tid < 32) {                       // one warp weighs the splits
     float mi[2], li[2];
 #pragma unroll
@@ -272,19 +272,10 @@ int launch_hd(const void* q, const void* k, const void* v,
   if (e != cudaSuccess) return static_cast<int>(e);
   // programmatic dependent launch: the combine's blocks are scheduled
   // while pass 1 runs and wait in griddepcontrol.wait for its results
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(bh);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(
-      &cfg, decode_combine_kernel<T, HD>, static_cast<const float*>(part),
-      lengths, static_cast<T*>(o), S, span, splits, window));
+  return static_cast<int>(launch_dependent(
+      decode_combine_kernel<T, HD>, dim3(bh), dim3(kThreads), 0, stream,
+      static_cast<const float*>(part), lengths, static_cast<T*>(o), S, span,
+      splits, window));
 }
 
 template <typename T>

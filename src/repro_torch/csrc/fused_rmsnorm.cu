@@ -1,5 +1,5 @@
 // fused_rmsnorm: y = x * rsqrt(mean(x^2) + eps) * (1 + w), in f32, cast to
-// x's dtype. x (N, d) bf16 or f32 row-major, w (d,) f32.
+// x's dtype. x (N, d) bf16 or f32 row-major, w (d,) f32; any N >= 1, d >= 1.
 //
 // Replaces the Pallas TPU kernel fused_rmsnorm / _rmsnorm_kernel
 // (src/repro/kernels/fused_rmsnorm.py:19, body :11), which pads N to a
@@ -7,31 +7,140 @@
 //
 // Bound on an H100: bytes. Each element is read once and written once
 // with ~4 flops, far below the card's ~295 flops/byte balance, so the
-// least time is (2 * N * d * sizeof(T) + 4 * d) / 3.35 TB/s.
+// least time is (2 * N * d * sizeof(T) + 4 * d) / 3.35 TB/s. At decode
+// (N = 1) the kernel is launch-latency bound: two dependent trips to
+// memory and the launch are all there is.
 //
-// Design: one block of 256 threads per row, so no padding and any N.
-// The row is read with 16-byte vector loads where d allows (8 bf16 or 4
-// f32 per load), squared and summed in f32 per thread, reduced by warp
-// shuffles and a fixed-order pass over the 8 warp partials (deterministic),
-// then read again (from L1/L2, the row is at most a few KB) to scale and
-// store. At decode (N = 1) the kernel is launch-latency bound.
+// Design (rmsnorm_kernel, the serving path's d of 2048 and 4096):
+// - One read of x. A row goes to a group of TPR threads (the least of 32,
+//   64, 128, 256 with TPR * 32 >= d: 64 at d 2048, 128 at d 4096); each
+//   thread loads its slice of the row (at most 32 elements) as 16-byte
+//   vectors into registers, sums the squares in f32, and scales the same
+//   registers. Blocks of 256 threads hold 256 / TPR rows (4 at d 2048, 2
+//   at d 4096), so the card sees fewer, fuller blocks.
+// - The reduction is a warp shuffle and, for a row of several warps, one
+//   shared-memory exchange summed in a fixed order (deterministic).
+// - A programmatic dependent launch: the block starts while the kernel
+//   before it (the product that writes x) finishes, loads its slice of w
+//   as float4 before wait_previous_grid(), and reads x only after it. So
+//   w must not be written by the kernel launched just before this one (a
+//   weight is not); x may be.
+// rmsnorm_loop_kernel takes every other row (d not a multiple of the
+// vector, a pointer not 16-byte aligned, or d > 256 * 32): a block of 256
+// threads a row, x read twice (the second time from L1/L2).
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace repro {
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kBlock = 256;      // threads a block
+constexpr int kMaxElems = 32;    // x elements a thread keeps in registers
+
+// the f32 values of a 16-byte vector of 4 f32 or 8 bf16
+__device__ __forceinline__ void unpack16(const uint4& u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack16(const uint4& u, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(h[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+
+template <typename T, int TPR>
+__global__ void __launch_bounds__(kBlock)
+rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ w,
+               T* __restrict__ out, int n, int d, float eps) {
+  constexpr int kVec = 16 / sizeof(T);       // elements a 16-byte vector
+  constexpr int kNV = kMaxElems / kVec;      // vectors a thread
+  constexpr int kWPR = TPR / 32;             // warps a row
+  constexpr int kRows = kBlock / TPR;        // rows a block
+  const int rib = threadIdx.x / TPR;         // row in the block
+  const int t = threadIdx.x % TPR;
+  const size_t row = static_cast<size_t>(blockIdx.x) * kRows + rib;
+  const bool live = row < static_cast<size_t>(n);
+  const int nvec = d / kVec;
+
+  // the weights first: the kernel before this one does not write them
+  float4 wv[kNV][kVec / 4];
+#pragma unroll
+  for (int i = 0; i < kNV; ++i) {
+    const int v = t + i * TPR;
+#pragma unroll
+    for (int j = 0; j < kVec / 4; ++j)
+      wv[i][j] = v < nvec
+          ? reinterpret_cast<const float4*>(w)[v * (kVec / 4) + j]
+          : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  wait_previous_grid();                      // x is written by that kernel
+
+  const uint4* xr = reinterpret_cast<const uint4*>(x + row * d);
+  uint4 xv[kNV];
+#pragma unroll
+  for (int i = 0; i < kNV; ++i) {
+    const int v = t + i * TPR;
+    xv[i] = (live && v < nvec) ? xr[v] : make_uint4(0u, 0u, 0u, 0u);
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < kNV; ++i) {
+    float f[kVec];
+    unpack16(xv[i], f);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) ss += f[e] * f[e];
+  }
+  ss = warp_sum(ss);
+  if constexpr (kWPR > 1) {
+    __shared__ float partial[kRows][kWPR];
+    if ((t & 31) == 0) partial[rib][t >> 5] = ss;
+    __syncthreads();
+    ss = 0.f;
+#pragma unroll
+    for (int k = 0; k < kWPR; ++k) ss += partial[rib][k];
+  }
+  const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+
+  uint4* orow = reinterpret_cast<uint4*>(out + row * d);
+#pragma unroll
+  for (int i = 0; i < kNV; ++i) {
+    const int v = t + i * TPR;
+    if (!live || v >= nvec) continue;
+    float f[kVec];
+    unpack16(xv[i], f);
+    float wf[kVec];
+#pragma unroll
+    for (int j = 0; j < kVec / 4; ++j) {
+      wf[4 * j] = wv[i][j].x;
+      wf[4 * j + 1] = wv[i][j].y;
+      wf[4 * j + 2] = wv[i][j].z;
+      wf[4 * j + 3] = wv[i][j].w;
+    }
+    alignas(16) T e[kVec];
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) e[k] = from_f32<T>(f[k] * r * (1.f + wf[k]));
+    orow[v] = *reinterpret_cast<const uint4*>(e);
+  }
+}
 
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ w,
-               T* __restrict__ out, int d, float eps) {
+__global__ void __launch_bounds__(kBlock)
+rmsnorm_loop_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                    T* __restrict__ out, int d, float eps) {
   const size_t row = blockIdx.x;
   const T* xr = x + row * d;
   T* orow = out + row * d;
+  wait_previous_grid();
 
   float ss = 0.f;
-  for (int base = threadIdx.x * VEC; base < d; base += kThreads * VEC) {
+  for (int base = threadIdx.x * VEC; base < d; base += kBlock * VEC) {
     alignas(16) T e[VEC];
     if constexpr (VEC * sizeof(T) == 16) {
       *reinterpret_cast<uint4*>(e) = *reinterpret_cast<const uint4*>(xr + base);
@@ -45,16 +154,16 @@ rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ w,
       ss += v * v;
     }
   }
-  __shared__ float partial[kThreads / 32];
+  __shared__ float partial[kBlock / 32];
   ss = warp_sum(ss);
   if ((threadIdx.x & 31) == 0) partial[threadIdx.x >> 5] = ss;
   __syncthreads();
   float total = 0.f;
 #pragma unroll
-  for (int i = 0; i < kThreads / 32; ++i) total += partial[i];
+  for (int i = 0; i < kBlock / 32; ++i) total += partial[i];
   const float r = rsqrtf(total / static_cast<float>(d) + eps);
 
-  for (int base = threadIdx.x * VEC; base < d; base += kThreads * VEC) {
+  for (int base = threadIdx.x * VEC; base < d; base += kBlock * VEC) {
     alignas(16) T e[VEC];
     if constexpr (VEC * sizeof(T) == 16) {
       *reinterpret_cast<uint4*>(e) = *reinterpret_cast<const uint4*>(xr + base);
@@ -76,18 +185,40 @@ rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+template <typename T, int TPR>
+cudaError_t launch_rows(const T* x, const float* w, T* out, int n, int d,
+                        float eps, cudaStream_t stream) {
+  constexpr int kRows = kBlock / TPR;
+  return launch_dependent(rmsnorm_kernel<T, TPR>, dim3((n + kRows - 1) / kRows),
+                          dim3(kBlock), 0, stream, x, w, out, n, d, eps);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 template <typename T>
-void launch(const void* x, const void* w, void* out, int n, int d, float eps,
-            cudaStream_t stream) {
+cudaError_t launch(const void* x, const void* w, void* out, int n, int d,
+                   float eps, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   const T* xp = static_cast<const T*>(x);
   const float* wp = static_cast<const float*>(w);
   T* op = static_cast<T*>(out);
-  if (d % kVec == 0) {
-    rmsnorm_kernel<T, kVec><<<n, kThreads, 0, stream>>>(xp, wp, op, d, eps);
-  } else {
-    rmsnorm_kernel<T, 1><<<n, kThreads, 0, stream>>>(xp, wp, op, d, eps);
-  }
+  const bool vec = d % kVec == 0 && aligned16(x) && aligned16(w) &&
+                   aligned16(out);
+  if (vec && d <= 32 * kMaxElems)
+    return launch_rows<T, 32>(xp, wp, op, n, d, eps, stream);
+  if (vec && d <= 64 * kMaxElems)
+    return launch_rows<T, 64>(xp, wp, op, n, d, eps, stream);
+  if (vec && d <= 128 * kMaxElems)
+    return launch_rows<T, 128>(xp, wp, op, n, d, eps, stream);
+  if (vec && d <= 256 * kMaxElems)
+    return launch_rows<T, 256>(xp, wp, op, n, d, eps, stream);
+  if (vec)
+    return launch_dependent(rmsnorm_loop_kernel<T, kVec>, dim3(n),
+                            dim3(kBlock), 0, stream, xp, wp, op, d, eps);
+  return launch_dependent(rmsnorm_loop_kernel<T, 1>, dim3(n), dim3(kBlock),
+                          0, stream, xp, wp, op, d, eps);
 }
 
 }  // namespace
@@ -97,12 +228,14 @@ extern "C" int repro_fused_rmsnorm(const void* x, const void* w, void* out,
                                    int n, int d, float eps, int dtype,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
   if (dtype == repro::kBF16) {
-    repro::launch<__nv_bfloat16>(x, w, out, n, d, eps, s);
+    e = repro::launch<__nv_bfloat16>(x, w, out, n, d, eps, s);
   } else if (dtype == repro::kF32) {
-    repro::launch<float>(x, w, out, n, d, eps, s);
+    e = repro::launch<float>(x, w, out, n, d, eps, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

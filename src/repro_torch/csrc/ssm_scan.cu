@@ -9,42 +9,479 @@
 //
 // Replaces the Pallas TPU kernel ssm_scan / _ssm_kernel
 // (src/repro/kernels/ssm_scan.py:49, body :18), which computes each chunk
-// in the quadratic SSD form, (C B^T o L) xbar with L = exp(cum_i - cum_j),
-// on the MXU, and drops the final state. Here the same function is
-// computed as its recurrence (the semantics of ssm_scan_ref):
-//   h_t = a_t h_{t-1} + xbar_t^T B_t,   y_t = h_t C_t,
-//   a_t = exp(cum_t - cum_{t-1})  (cum_{t-1} = 0 at a chunk start).
-// On CUDA cores the quadratic form at the serving chunk of 256 costs
-// Q (hd + ds) / (hd ds) ~ 8x the multiply-adds of the recurrence, and its
-// f32 (Q, Q) decay matrix alone (256 KB) exceeds a block's shared memory.
+// in the quadratic SSD form on the MXU and drops the final state:
+//   Y = (C B^T o L) X + diag(exp(cum)) C H^T,  L[i, j] = exp(cum_i - cum_j)
+//   for j <= i, and H <- H exp(cum_last) + (X o exp(cum_last - cum))^T B.
 //
-// Bound on an H100: operations. Two multiply-adds per state element per
-// step (4 BH S hd ds flops, f32 on CUDA cores at 67 TFLOP/s) against
-// ~8 BH S hd bytes of xbar and y: ds / 2 = 32 flops a byte at ds = 64,
-// above the f32 ridge of 67 / 3.35 = 20.
+// Two kernels, chosen by the dtype of B/C in repro_ssm_scan (not a
+// fallback: each dtype has exactly one kernel, and any other is refused):
 //
-// Design: the rows p of h are independent chains (row p sees only
-// xbar[p]), so a block takes kRows = 16 rows of one head: grid
-// (BH, hd / 16), 256 threads, 16 threads a row. Thread q of a row keeps
-// the states s = q, q + 16, ... in registers for the whole sequence. The
-// inputs of kT = 32 steps are staged in shared memory (B/C converted to
-// f32 once, the step decay a_t computed once per step); y_t[p] is summed
-// across the 16 threads of the row with shuffles and staged, so each
-// tile's y leaves as one coalesced write.
+// ssm_tc_kernel (bf16 B/C, what the bf16 serving path passes): the chunked
+//   form on the tensor cores. Bound on an H100: bytes. At zamba2-1.2b's
+//   shape (BH 64, S 600, hd = ds = 64) it moves ~21.0 MB (xbar and y
+//   19.7 MB, h 1.05 MB, B/C and cumlog 0.3 MB): 0.0063 ms, against ~0.8
+//   GFLOP of products in 64-step tiles, 0.0016 ms at the 495 TFLOP/s TF32
+//   peak.
+//   - Grid (BH, hd / 32): a block owns 32 rows of the state, the rows of h
+//     being independent (128 blocks at zamba2's shape, one wave on 132
+//     SMs), with 12 warps: 8 for Y, 4 for the state. The state H (32 x
+//     ds) f32 lives in the 4 state warps' mma accumulator fragments for
+//     the whole sequence; a TF32 copy in shared memory feeds the next
+//     tile's C H^T. The state warps update H while the Y warps compute Y
+//     from the copy, so a tile takes the longer of the two, not the sum.
+//   - Tiles of T = 64 steps that start again at every chunk start, so a
+//     tile never spans a reset of cumlog and exp(cum_i - cum_j) is exactly
+//     the reference's. With c0 = cum at the step before the tile (0 at a
+//     chunk start), a tile computes G = C B^T, P = G o L masked (j <= i)
+//     before the exponent (exp above the diagonal can overflow, and
+//     inf * 0 is NaN), Y = P X + diag(exp(cum - c0)) C H^T, and H <- H
+//     exp(cum_last - c0) + (X o exp(cum_last - cum))^T B.
+//   - Two warps take each 16-row tile of Y: the causal triangle gives row
+//     tile r 2r + 2 strips of 8 columns, and the first warp takes C H^T
+//     and the first strips, the second the rest, so the busiest warp does
+//     about half of what one warp a row tile would; the second hands its
+//     partial Y over in shared memory. A warp computes G for all its
+//     strips at once (independent accumulators); each G fragment becomes P
+//     and goes straight into P X as an A fragment (the accumulator's
+//     columns 2q, 2q+1 are taken as k slots q, q+4, and X is read in the
+//     same order), so P never leaves registers. The state update reads X^T
+//     and B in that permuted k order too, which keeps the shared-memory
+//     reads free of bank conflicts.
+//   - G = C B^T is mma.sync m16n8k16 on bf16 B and C as they are (exact
+//     products, f32 sums). The other three products are m16n8k8 TF32 with
+//     f32 accumulators: xbar, P, H and X o decay are rounded to TF32
+//     (2^-11) where they enter a product, and H itself stays f32.
+//   - The tiles' xbar (T x 32 f32), B, C (T x ds bf16) and cumlog stream
+//     through a ring of 3 shared-memory stages with cp.async, two tiles
+//     ahead of the one computed; steps past S are zero-filled (NaN in
+//     unwritten shared memory times 0 would be NaN).
+//
+// ssm_scan_kernel (f32 B/C): the checking path (the f32 kernel tests at
+//   2e-4 and the f32 path check), computed as its recurrence (the
+//   semantics of ssm_scan_ref), h_t = a_t h_{t-1} + xbar_t^T B_t,
+//   y_t = h_t C_t, a_t = exp(cum_t - cum_{t-1}) (cum_{t-1} = 0 at a chunk
+//   start). Bound: operations, 4 BH S hd ds f32 flops on CUDA cores
+//   (67 TFLOP/s). Grid (BH, hd / 16), 256 threads, 16 threads a row of h;
+//   thread q of a row keeps the states s = q, q + 16, ... in registers;
+//   the inputs of 32 steps are staged in shared memory, y_t[p] is summed
+//   across the 16 threads of the row with shuffles and leaves as one
+//   coalesced write a tile.
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace repro {
 namespace {
+
+// -- bf16 B/C: the chunked form on the tensor cores -----------------------------
+
+constexpr int kTcT = 64;           // steps a tile
+constexpr int kTcP = 32;           // rows of the state a block
+constexpr int kTcYWarps = 8;       // Y: 2 a row tile of 16 steps
+constexpr int kTcHWarps = 4;       // the state update
+constexpr int kTcWarps = kTcYWarps + kTcHWarps;
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kTcStages = 3;       // tiles in the shared-memory ring
+constexpr int kXS = kTcP + 4;      // f32 a staged xbar row (bank spread)
+constexpr int kCumN = kTcT + 4;    // staged cumlog: c0, then T steps
+
+template <int DS>
+struct SsmTcLayout {
+  static constexpr int kBS = DS + 8;                 // bf16 a staged B/C row
+  static constexpr int kHS = DS + 8;                 // TF32 a staged H row
+  static constexpr int kXBytes = kTcT * kXS * 4;
+  static constexpr int kBCBytes = kTcT * kBS * 2;
+  static constexpr int kStage = kXBytes + 2 * kBCBytes + kCumN * 4;
+  // the second warps' partial Y: 16 rows x kTcP f32 a row tile
+  static constexpr int kYBytes = (kTcYWarps / 2) * 16 * kTcP * 4;
+  static constexpr int kHOff = kTcStages * kStage;   // sH, then sY
+  static constexpr int kBytes = kHOff + kTcP * kHS * 4 + kYBytes;
+  // the state's 16 x 8 mma tiles, split evenly over the state warps
+  static constexpr int kHTiles = (kTcP / 16) * (DS / 8);
+  static constexpr int kHN = (kHTiles + kTcHWarps - 1) / kTcHWarps;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// global -> shared copies; zero-fill the destination when !pred (the
+// source is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// f32 -> TF32, rounded to nearest (ties away from zero)
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+// a bf16 as the f32 (and TF32) bits of the same value: exact
+__device__ __forceinline__ uint32_t bf16_bits(const uint16_t* p) {
+  return static_cast<uint32_t>(*p) << 16;
+}
+// d += a (16x8 TF32, row) * b (8x8 TF32, col), f32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the end of the tile starting at t0: 64 steps, the chunk's end or S
+__device__ __forceinline__ int tile_end(int t0, int S, int chunk) {
+  return min(min(t0 + kTcT, (t0 / chunk + 1) * chunk), S);
+}
+
+template <int DS>
+struct Stage {
+  float* x;          // [kTcT][kXS]
+  uint16_t* b;       // [kTcT][kBS] bf16 bits
+  uint16_t* c;
+  float* cum;        // [kCumN]: c0, then cum of the tile's steps
+
+  __device__ Stage(unsigned char* base) {
+    using L = SsmTcLayout<DS>;
+    x = reinterpret_cast<float*>(base);
+    b = reinterpret_cast<uint16_t*>(base + L::kXBytes);
+    c = reinterpret_cast<uint16_t*>(base + L::kXBytes + L::kBCBytes);
+    cum = reinterpret_cast<float*>(base + L::kXBytes + 2 * L::kBCBytes);
+  }
+};
+
+// Start the copies of the tile [t0, t1) into st (steps past t1 zero).
+template <int DS>
+__device__ __forceinline__ void load_tile(const Stage<DS>& st,
+                                          const float* xb,
+                                          const __nv_bfloat16* Bb,
+                                          const __nv_bfloat16* Cb,
+                                          const float* cb, int t0, int t1,
+                                          int chunk, int hd, int p0) {
+  constexpr int kBS = SsmTcLayout<DS>::kBS;
+  constexpr int kXC = kTcP / 4;                   // 16-byte chunks an x row
+  constexpr int kCC = DS / 8;                     // 16-byte chunks a B/C row
+  const int n = t1 - t0;
+  for (int i = threadIdx.x; i < kTcT * kXC; i += kTcThreads) {
+    const int r = i / kXC, p = p0 + 4 * (i % kXC);
+    const bool ok = r < n && p < hd;
+    cp_async16(st.x + r * kXS + 4 * (i % kXC),
+               ok ? xb + static_cast<size_t>(t0 + r) * hd + p : xb, ok);
+  }
+  for (int i = threadIdx.x; i < kTcT * kCC; i += kTcThreads) {
+    const int r = i / kCC, cc = i % kCC;
+    const bool ok = r < n;
+    const size_t off = ok ? static_cast<size_t>(t0 + r) * DS + 8 * cc : 0;
+    cp_async16(st.b + r * kBS + 8 * cc, Bb + off, ok);
+    cp_async16(st.c + r * kBS + 8 * cc, Cb + off, ok);
+  }
+  // cum[0] = cumlog at t0 - 1 inside a chunk, 0 at a chunk start
+  for (int i = threadIdx.x; i < kTcT + 1; i += kTcThreads) {
+    const bool ok = i == 0 ? t0 % chunk != 0 : i - 1 < n;
+    cp_async4(st.cum + i, ok ? cb + t0 + i - 1 : cb, ok);
+  }
+}
+
+template <int DS>
+__global__ void __launch_bounds__(kTcThreads, 1)
+ssm_tc_kernel(const float* __restrict__ xbar,
+              const __nv_bfloat16* __restrict__ Bm,
+              const __nv_bfloat16* __restrict__ Cm,
+              const float* __restrict__ cum, float* __restrict__ y,
+              float* __restrict__ h_out, int S, int hd, int group,
+              int chunk) {
+  using L = SsmTcLayout<DS>;
+  constexpr int kBS = L::kBS, kHS = L::kHS, kHN = L::kHN;
+  constexpr int kKS = DS / 8;        // k-steps over the state
+  constexpr int kKT = kTcT / 8;      // 8-step column strips of a tile
+  constexpr int kPN = kTcP / 8;      // n-tiles of y's state rows
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* sH = reinterpret_cast<uint32_t*>(smem + L::kHOff);  // TF32
+  float* sY = reinterpret_cast<float*>(smem + L::kHOff + kTcP * kHS * 4);
+
+  const int bh = blockIdx.x;
+  const int p0 = blockIdx.y * kTcP;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int bc = bh / group;
+  const float* xb = xbar + static_cast<size_t>(bh) * S * hd;
+  const __nv_bfloat16* Bb = Bm + static_cast<size_t>(bc) * S * DS;
+  const __nv_bfloat16* Cb = Cm + static_cast<size_t>(bc) * S * DS;
+  const float* cb = cum + static_cast<size_t>(bh) * S;
+  float* yb = y + static_cast<size_t>(bh) * S * hd;
+
+  // a state warp's tiles of H: kHN neighbouring n-tiles of one m-tile
+  // (none for a warp past the last tile)
+  const int ht0 = (warp - kTcYWarps) * kHN;
+  const bool hown = warp >= kTcYWarps && ht0 < L::kHTiles;
+  const int pr = 16 * (ht0 / (DS / 8)) + g;     // state rows pr, pr + 8
+  const int hs0 = 8 * (ht0 % (DS / 8));         // first state column
+  float hacc[kHN][4];
+#pragma unroll
+  for (int j = 0; j < kHN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) hacc[j][e] = 0.f;
+  for (int i = threadIdx.x; i < kTcP * kHS; i += kTcThreads) sH[i] = 0u;
+
+  // the ring: tiles 0 and 1 now, each later tile two tiles ahead
+  int tl = 0;                          // the next tile to load
+  for (int k = 0; k < kTcStages - 1; ++k) {
+    if (tl < S) {
+      load_tile(Stage<DS>(smem + k * L::kStage), xb, Bb, Cb, cb, tl,
+                tile_end(tl, S, chunk), chunk, hd, p0);
+      tl = tile_end(tl, S, chunk);
+    }
+    cp_async_commit();
+  }
+  int buf = 0;
+  for (int t0 = 0; t0 < S; buf = buf == kTcStages - 1 ? 0 : buf + 1) {
+    const int t1 = tile_end(t0, S, chunk);
+    if (tl < S) {
+      const int ld = buf == 0 ? kTcStages - 1 : buf - 1;  // the last tile's
+      load_tile(Stage<DS>(smem + ld * L::kStage), xb, Bb, Cb, cb, tl,
+                tile_end(tl, S, chunk), chunk, hd, p0);
+      tl = tile_end(tl, S, chunk);
+    }
+    cp_async_commit();                 // (empty near the end)
+    cp_async_wait<kTcStages - 1>();    // this tile has landed
+    __syncthreads();                   // ... for every thread; sH too
+    const Stage<DS> st(smem + buf * L::kStage);
+    const int n = t1 - t0;
+    const float c0 = st.cum[0], clast = st.cum[n];
+
+    // -- Y for tile rows ia = i0 + g and ib = ia + 8 of row tile rt, by
+    // two warps: the first takes C H^T and the first `split` 8-column
+    // strips of P X, the second the other strips (the causal triangle
+    // gives row tile rt 2 rt + 2 strips), so the work is near even. The
+    // state dim s is the k of C H^T and C B^T; k slots q and q + 4 take
+    // s = 2q and 2q + 1, so each pair of operands is one 32-bit load.
+    const bool ywarp = warp < kTcYWarps;
+    const int rt = warp & 3, second = (warp >> 2) & 1;
+    const int i0 = 16 * rt;
+    const int ia = i0 + g, ib = ia + 8;
+    float yacc[kPN][4];
+#pragma unroll
+    for (int pn = 0; pn < kPN; ++pn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) yacc[pn][e] = 0.f;
+    if (ywarp && i0 < n) {
+      // C rows ia, ib: the bf16 pairs (s = 8 ks + 2q, + 1) are the A
+      // fragments of the bf16 product (k 16) as they are, and give the
+      // TF32 ones of C H^T (k 8) as their two halves
+      uint32_t cw[kKS][2];
+#pragma unroll
+      for (int ks = 0; ks < kKS; ++ks) {
+        cw[ks][0] = *reinterpret_cast<const uint32_t*>(
+            st.c + ia * kBS + 8 * ks + 2 * q);
+        cw[ks][1] = *reinterpret_cast<const uint32_t*>(
+            st.c + ib * kBS + 8 * ks + 2 * q);
+      }
+      const int nkt = min(2 * rt + 2, (n + 7) / 8);
+      // 32 products of C H^T weigh as much as 2.7 strips (12 products)
+      const int split = max(0, (3 * nkt - 5) / 6);
+      const int kt0 = second ? split : 0, kt1 = second ? nkt : split;
+      // G = C B^T for the warp's strips, on bf16 B and C as they are (the
+      // products are exact and summed in f32, as in TF32): independent
+      // accumulators, so the strips' products overlap
+      float gacc[kKT][4];
+#pragma unroll
+      for (int kt = 0; kt < kKT; ++kt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) gacc[kt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKS / 2; ++kk) {
+        const uint32_t a[4] = {cw[2 * kk][0], cw[2 * kk][1],
+                               cw[2 * kk + 1][0], cw[2 * kk + 1][1]};
+#pragma unroll
+        for (int kt = 0; kt < kKT; ++kt) {
+          if (kt < kt0 || kt >= kt1) continue;
+          const uint16_t* br = st.b + (8 * kt + g) * kBS + 16 * kk + 2 * q;
+          mma_bf16(gacc[kt], a, *reinterpret_cast<const uint32_t*>(br),
+                   *reinterpret_cast<const uint32_t*>(br + 8));
+        }
+      }
+      const float cia = st.cum[1 + ia], cib = st.cum[1 + ib];
+      if (!second) {
+        // inter-tile: C H^T, each row decayed by exp(cum_i - c0)
+#pragma unroll
+        for (int ks = 0; ks < kKS; ++ks) {
+          const uint32_t a[4] = {cw[ks][0] << 16, cw[ks][1] << 16,
+                                 cw[ks][0] & 0xffff0000u,
+                                 cw[ks][1] & 0xffff0000u};
+#pragma unroll
+          for (int pn = 0; pn < kPN; ++pn) {
+            const uint2 hb = *reinterpret_cast<const uint2*>(
+                sH + (8 * pn + g) * kHS + 8 * ks + 2 * q);
+            mma_tf32(yacc[pn], a, hb.x, hb.y);
+          }
+        }
+        const float ea = ia < n ? expf(cia - c0) : 0.f;
+        const float eb = ib < n ? expf(cib - c0) : 0.f;
+#pragma unroll
+        for (int pn = 0; pn < kPN; ++pn) {
+          yacc[pn][0] *= ea;
+          yacc[pn][1] *= ea;
+          yacc[pn][2] *= eb;
+          yacc[pn][3] *= eb;
+        }
+      }
+      // intra-tile: P = G o L masked before the exponent (P is rounded to
+      // TF32 right after, so the fast exp is exact enough), Y += P X
+#pragma unroll
+      for (int kt = 0; kt < kKT; ++kt) {
+        if (kt < kt0 || kt >= kt1) continue;
+        const int ja = 8 * kt + 2 * q, jb = ja + 1;
+        const float cja = st.cum[1 + ja], cjb = st.cum[1 + jb];
+        // accumulator (row, col) -> A fragment (row, k slot): col 2q is
+        // slot q, col 2q + 1 slot q + 4
+        const uint32_t a[4] = {
+            tf32(ja <= ia && ia < n ? gacc[kt][0] * __expf(cia - cja) : 0.f),
+            tf32(ja <= ib && ib < n ? gacc[kt][2] * __expf(cib - cja) : 0.f),
+            tf32(jb <= ia && ia < n ? gacc[kt][1] * __expf(cia - cjb) : 0.f),
+            tf32(jb <= ib && ib < n ? gacc[kt][3] * __expf(cib - cjb) : 0.f)};
+#pragma unroll
+        for (int pn = 0; pn < kPN; ++pn)
+          mma_tf32(yacc[pn], a, tf32(st.x[ja * kXS + 8 * pn + g]),
+                   tf32(st.x[jb * kXS + 8 * pn + g]));
+      }
+    }
+    if (ywarp && second) {             // hand the partial Y over
+#pragma unroll
+      for (int pn = 0; pn < kPN; ++pn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sY[((rt * kPN + pn) * 4 + e) * 32 + lane] = yacc[pn][e];
+    }
+
+    // -- state: H <- H exp(clast - c0) + (X o exp(clast - cum))^T B, with
+    // the k steps (tile rows) in the order 2q, 2q + 1
+    if (hown) {
+      const float eh = expf(clast - c0);
+#pragma unroll
+      for (int j = 0; j < kHN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) hacc[j][e] *= eh;
+      const int nks = (n + 7) / 8;
+#pragma unroll
+      for (int ks = 0; ks < kKT; ++ks) {
+        if (ks >= nks) break;
+        const int ia = 8 * ks + 2 * q, ib = ia + 1;
+        const float da = ia < n ? __expf(clast - st.cum[1 + ia]) : 0.f;
+        const float db = ib < n ? __expf(clast - st.cum[1 + ib]) : 0.f;
+        const uint32_t a[4] = {tf32(st.x[ia * kXS + pr] * da),
+                               tf32(st.x[ia * kXS + pr + 8] * da),
+                               tf32(st.x[ib * kXS + pr] * db),
+                               tf32(st.x[ib * kXS + pr + 8] * db)};
+#pragma unroll
+        for (int j = 0; j < kHN; ++j) {
+          const int s = hs0 + 8 * j + g;
+          mma_tf32(hacc[j], a, bf16_bits(st.b + ia * kBS + s),
+                   bf16_bits(st.b + ib * kBS + s));
+        }
+      }
+    }
+    __syncthreads();                   // every warp is done with sH and st
+    if (ywarp && !second && i0 < n) {
+#pragma unroll
+      for (int pn = 0; pn < kPN; ++pn) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          yacc[pn][e] += sY[((rt * kPN + pn) * 4 + e) * 32 + lane];
+        const int p = p0 + 8 * pn + 2 * q;
+        if (p >= hd) continue;
+        if (ia < n)
+          *reinterpret_cast<float2*>(yb + static_cast<size_t>(t0 + ia) * hd + p) =
+              make_float2(yacc[pn][0], yacc[pn][1]);
+        if (ib < n)
+          *reinterpret_cast<float2*>(yb + static_cast<size_t>(t0 + ib) * hd + p) =
+              make_float2(yacc[pn][2], yacc[pn][3]);
+      }
+    }
+    if (hown) {
+#pragma unroll
+      for (int j = 0; j < kHN; ++j) {
+        const int s = hs0 + 8 * j + 2 * q;
+        *reinterpret_cast<uint2*>(sH + pr * kHS + s) =
+            make_uint2(tf32(hacc[j][0]), tf32(hacc[j][1]));
+        *reinterpret_cast<uint2*>(sH + (pr + 8) * kHS + s) =
+            make_uint2(tf32(hacc[j][2]), tf32(hacc[j][3]));
+      }
+    }
+    t0 = t1;
+  }
+  cp_async_wait<0>();
+
+  if (hown) {
+#pragma unroll
+    for (int j = 0; j < kHN; ++j) {
+      const int s = hs0 + 8 * j + 2 * q;
+      const int p = p0 + pr;
+      if (p < hd)
+        *reinterpret_cast<float2*>(h_out + (static_cast<size_t>(bh) * hd + p) * DS + s) =
+            make_float2(hacc[j][0], hacc[j][1]);
+      if (p + 8 < hd)
+        *reinterpret_cast<float2*>(h_out + (static_cast<size_t>(bh) * hd + p + 8) * DS + s) =
+            make_float2(hacc[j][2], hacc[j][3]);
+    }
+  }
+}
+
+template <int DS>
+int launch_tc(const float* xbar, const void* B, const void* C,
+              const float* cum, float* y, float* h, int bh, int S, int hd,
+              int group, int chunk, cudaStream_t stream) {
+  constexpr int kBytes = SsmTcLayout<DS>::kBytes;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      ssm_tc_kernel<DS>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(bh, (hd + kTcP - 1) / kTcP);
+  ssm_tc_kernel<DS><<<grid, kTcThreads, kBytes, stream>>>(
+      xbar, static_cast<const __nv_bfloat16*>(B),
+      static_cast<const __nv_bfloat16*>(C), cum, y, h, S, hd, group, chunk);
+  return 0;
+}
+
+// -- f32 B/C: the recurrence on CUDA cores ---------------------------------------
 
 constexpr int kRows = 16;          // rows of hd per block
 constexpr int kTPR = 16;           // threads per row
 constexpr int kThreads = kRows * kTPR;
 constexpr int kT = 32;             // steps per staged tile
 
-template <typename TB, int DS>
+template <int DS>
 __global__ void __launch_bounds__(kThreads)
-ssm_scan_kernel(const float* __restrict__ xbar, const TB* __restrict__ Bm,
-                const TB* __restrict__ Cm, const float* __restrict__ cum,
+ssm_scan_kernel(const float* __restrict__ xbar, const float* __restrict__ Bm,
+                const float* __restrict__ Cm, const float* __restrict__ cum,
                 float* __restrict__ y, float* __restrict__ h_out, int S,
                 int hd, int group, int chunk) {
   constexpr int kNS = DS / kTPR;   // states per thread
@@ -60,8 +497,8 @@ ssm_scan_kernel(const float* __restrict__ xbar, const TB* __restrict__ Bm,
   const int q = threadIdx.x % kTPR;   // state slice within the row
   const int bc = bh / group;
   const float* xb = xbar + static_cast<size_t>(bh) * S * hd;
-  const TB* Bb = Bm + static_cast<size_t>(bc) * S * DS;
-  const TB* Cb = Cm + static_cast<size_t>(bc) * S * DS;
+  const float* Bb = Bm + static_cast<size_t>(bc) * S * DS;
+  const float* Cb = Cm + static_cast<size_t>(bc) * S * DS;
   const float* cb = cum + static_cast<size_t>(bh) * S;
 
   float h[kNS];
@@ -74,8 +511,8 @@ ssm_scan_kernel(const float* __restrict__ xbar, const TB* __restrict__ Bm,
       const int t = i / DS, s = i % DS;
       const bool in = t < n;
       const size_t off = static_cast<size_t>(t0 + t) * DS + s;
-      sB[t][s] = in ? to_f32(Bb[off]) : 0.f;
-      sC[t][s] = in ? to_f32(Cb[off]) : 0.f;
+      sB[t][s] = in ? Bb[off] : 0.f;
+      sC[t][s] = in ? Cb[off] : 0.f;
     }
     for (int i = threadIdx.x; i < kT * kRows; i += kThreads) {
       const int t = i / kRows, c = i % kRows;
@@ -127,28 +564,34 @@ ssm_scan_kernel(const float* __restrict__ xbar, const TB* __restrict__ Bm,
   }
 }
 
-template <typename TB, int DS>
-void launch_ds(const float* xbar, const void* B, const void* C,
+template <int DS>
+int launch_f32(const float* xbar, const void* B, const void* C,
                const float* cum, float* y, float* h, int bh, int S, int hd,
                int group, int chunk, cudaStream_t stream) {
   const dim3 grid(bh, (hd + kRows - 1) / kRows);
-  ssm_scan_kernel<TB, DS><<<grid, kThreads, 0, stream>>>(
-      xbar, static_cast<const TB*>(B), static_cast<const TB*>(C), cum, y, h,
-      S, hd, group, chunk);
+  ssm_scan_kernel<DS><<<grid, kThreads, 0, stream>>>(
+      xbar, static_cast<const float*>(B), static_cast<const float*>(C), cum,
+      y, h, S, hd, group, chunk);
+  return 0;
 }
 
-template <typename TB>
-int launch(const float* xbar, const void* B, const void* C, const float* cum,
+int launch(bool tc, const float* xbar, const void* B, const void* C, const float* cum,
            float* y, float* h, int bh, int S, int hd, int ds, int group,
            int chunk, cudaStream_t stream) {
+#define REPRO_SSM_DS(DS)                                                     \
+  case DS:                                                                   \
+    return tc ? launch_tc<DS>(xbar, B, C, cum, y, h, bh, S, hd, group,      \
+                               chunk, stream)                                \
+               : launch_f32<DS>(xbar, B, C, cum, y, h, bh, S, hd, group,     \
+                                chunk, stream);
   switch (ds) {
-    case 16: launch_ds<TB, 16>(xbar, B, C, cum, y, h, bh, S, hd, group, chunk, stream); break;
-    case 32: launch_ds<TB, 32>(xbar, B, C, cum, y, h, bh, S, hd, group, chunk, stream); break;
-    case 64: launch_ds<TB, 64>(xbar, B, C, cum, y, h, bh, S, hd, group, chunk, stream); break;
-    case 128: launch_ds<TB, 128>(xbar, B, C, cum, y, h, bh, S, hd, group, chunk, stream); break;
+    REPRO_SSM_DS(16)
+    REPRO_SSM_DS(32)
+    REPRO_SSM_DS(64)
+    REPRO_SSM_DS(128)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return 0;
+#undef REPRO_SSM_DS
 }
 
 }  // namespace
@@ -167,10 +610,10 @@ extern "C" int repro_ssm_scan(const void* xbar, const void* B, const void* C,
   float* ho = static_cast<float*>(h);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
-  if (dtype == repro::kBF16) {
-    rc = repro::launch<__nv_bfloat16>(xb, B, C, cl, yo, ho, bh, S, hd, ds, group, chunk, s);
+  if (dtype == repro::kBF16 && hd % 4 == 0) {
+    rc = repro::launch(true, xb, B, C, cl, yo, ho, bh, S, hd, ds, group, chunk, s);
   } else if (dtype == repro::kF32) {
-    rc = repro::launch<float>(xb, B, C, cl, yo, ho, bh, S, hd, ds, group, chunk, s);
+    rc = repro::launch(false, xb, B, C, cl, yo, ho, bh, S, hd, ds, group, chunk, s);
   } else {
     rc = static_cast<int>(cudaErrorInvalidValue);
   }

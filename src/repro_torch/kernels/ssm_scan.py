@@ -4,8 +4,11 @@ Port of the Pallas TPU kernel ``src/repro/kernels/ssm_scan.py:49``.
 :func:`ssm_scan_plain` is the plain PyTorch version (the semantics of
 ``repro.kernels.ref.ssm_scan_ref``, computed in the chunked SSD form of
 ``repro.models.ssm.ssm_block``); :func:`ssm_scan_cuda` launches
-``csrc/ssm_scan.cu``. Both also return the final state ``h``, which the
-Pallas kernel drops and prefill needs for the decode cache.
+``csrc/ssm_scan.cu``, whose C entry picks the kernel by the dtype of B/C:
+bf16 (the serving path's) runs the chunked form on the tensor cores in
+TF32 (hd a multiple of 4, 16-byte aligned inputs), f32 the recurrence on
+CUDA cores (the checking path). Both also return the final state ``h``,
+which the Pallas kernel drops and prefill needs for the decode cache.
 
 Layout: xbar (BH, S, hd) f32 dt-weighted inputs; B, C (BH_bc, S, ds) with
 BH a multiple of BH_bc, row ``bh`` reading B/C row ``bh // (BH // BH_bc)``
@@ -98,6 +101,10 @@ def ssm_scan_cuda(xbar: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
             f"BH={BH} must be a multiple of BH_bc={BHbc}")
     require(S >= 1 and hd >= 1 and chunk >= 1 and BH <= 2 ** 31 - 1, NAME,
             f"unsupported sizes BH={BH} S={S} hd={hd} chunk={chunk}")
+    if B.dtype == torch.bfloat16:      # the tensor-core kernel's 16-byte copies
+        require(hd % 4 == 0, NAME, f"bf16 B/C need hd % 4 == 0, got {hd}")
+        require(all(t.data_ptr() % 16 == 0 for t in (xbar, B, C)), NAME,
+                "xbar, B and C must be 16-byte aligned")
     y = torch.empty_like(xbar)
     h = torch.empty((BH, hd, ds), dtype=torch.float32, device=xbar.device)
     rc = build.library().repro_ssm_scan(

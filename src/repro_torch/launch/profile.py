@@ -27,11 +27,11 @@ from ..models import LM
 from ..params import init_params
 
 PROMPT, STEPS, MAX_LEN, SEED, TOP = 513, 4, 1024, 0, 8
-GROUPS = (("fused_rmsnorm", ("rmsnorm_kernel",)),
+GROUPS = (("fused_rmsnorm", ("rmsnorm_kernel", "rmsnorm_loop_kernel")),
           ("flash_attention", ("flash_tc_kernel", "flash_f32_kernel")),
           ("decode_attention", ("decode_split_kernel",
                                 "decode_combine_kernel")),
-          ("ssm_scan", ("ssm_scan_kernel",)),
+          ("ssm_scan", ("ssm_tc_kernel", "ssm_scan_kernel")),
           ("rwkv6_scan", ("rwkv6_scan_kernel",)),
           ("matmul", ("nvjet", "gemm", "gemv", "cutlass", "xmma", "splitK")))
 

@@ -24,6 +24,9 @@ from repro_torch.kernels.ssm_scan import (  # noqa: E402
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# ssm_scan by the dtype of B/C: the f32 recurrence against the chunked
+# plain form as test_kernels.py:87; bf16 the TF32 tensor-core kernel
+SSM_TOL = {"float32": dict(rtol=2e-4, atol=2e-4), "bfloat16": TOL["bfloat16"]}
 
 
 @pytest.fixture
@@ -46,8 +49,17 @@ def test_cuda_kernels_match_plain(card, dtype):
     def r(*shape):
         return torch.randn(shape, generator=g, device=card).to(dt)
 
-    for n, d in ((1, 4096), (77, 4096), (100, 128), (3, 72)):
-        x, w = r(n, d), torch.randn(d, generator=g, device=card) * 0.1
+    # fused_rmsnorm's register path (a row in 32..256 threads, several rows
+    # a block) and its looping path (d not a multiple of the 16-byte
+    # vector, d past the register slice, a row off 16-byte alignment)
+    for n, d in ((1, 4096), (77, 4096), (100, 128), (3, 72), (5, 8),
+                 (600, 2048), (600, 4096), (4096, 4096), (7, 8192),
+                 (33, 1000), (2, 12288), (9, 0)):
+        # w before x: the norm reads w ahead of the kernel launched just
+        # before it (a programmatic dependent launch), which must not write w
+        w = torch.randn(d or 4096, generator=g, device=card) * 0.1
+        # d 0: rows of 4096 one element off 16-byte alignment
+        x = r(n, d) if d else r(n * 4096 + 1)[1:].view(n, 4096)
         torch.testing.assert_close(fused_rmsnorm_cuda(x, w),
                                    fused_rmsnorm_plain(x, w), **TOL[dtype])
     for bh, bh_kv, sq, sk, hd, causal, window in (
@@ -76,13 +88,16 @@ def test_cuda_kernels_match_plain(card, dtype):
 def test_cuda_scans_match_plain(card, dtype):
     """ssm_scan and rwkv6_scan against their plain versions on the card,
     output and final state, over ragged S, S at a chunk boundary, shared
-    B/C groups and shared u rows, up to the serving path's full widths
+    B/C groups and shared u rows, ssm chunks of 1 to 256 steps and ds 16 to
+    128, up to the serving path's full widths
     (zamba2: BH 64, hd 64, ds 64, chunk 256; rwkv6: BH 32, hd 64). The
-    low-precision dtype is that of B/C (ssm) or of r/k/v/w (rwkv); both
-    compute in f32, so "bfloat16" bounds only the rounding of the output.
-    ssm_scan's plain version is the chunked SSD form and its kernel the
-    recurrence: that pair is held at 2e-4, as test_kernels.py:87 holds
-    the Pallas chunked form against the sequential oracle."""
+    low-precision dtype is that of B/C (ssm) or of r/k/v/w (rwkv); rwkv
+    computes in f32, so "bfloat16" bounds only the rounding of its output.
+    ssm_scan's f32 kernel is the recurrence and its plain version the
+    chunked SSD form: that pair is held at 2e-4, as test_kernels.py:87
+    holds the Pallas chunked form against the sequential oracle. bf16 B/C
+    run the chunked form on the tensor cores in TF32 (operands rounded to
+    2^-11), held at the bf16 kernel tolerance of test_kernels.py:23."""
     g = torch.Generator(device=card).manual_seed(1)
     dt = TDT[dtype]
 
@@ -93,15 +108,21 @@ def test_cuda_scans_match_plain(card, dtype):
             (4, 4, 96, 64, 16, 32), (4, 1, 100, 64, 64, 32),
             (64, 1, 768, 64, 64, 256), (64, 1, 600, 64, 64, 256),
             (2, 2, 1, 64, 32, 256), (3, 3, 33, 128, 128, 16),
-            (2, 1, 256, 32, 64, 256)):
+            (2, 1, 256, 32, 64, 256),
+            # the bf16 kernel's 64-step tiles, which restart at chunk starts
+            (4, 4, 64, 64, 64, 16), (4, 1, 77, 64, 64, 77),
+            (2, 2, 1, 64, 64, 1), (2, 2, 40, 64, 32, 1),
+            (4, 2, 130, 64, 64, 256), (2, 1, 100, 64, 16, 256),
+            (2, 1, 200, 64, 128, 128), (2, 1, 70, 128, 64, 64),
+            (2, 1, 65, 96, 64, 256)):
         xbar = r(bh, s, hd, scale=0.5)
         B, C = r(bh_bc, s, ds, scale=0.5).to(dt), r(bh_bc, s, ds,
                                                     scale=0.5).to(dt)
         cum = chunk_cumsum(-r(bh, s, scale=0.2).abs(), chunk)
         y, h = ssm_scan_cuda(xbar, B, C, cum, chunk=chunk)
         y_ref, h_ref = ssm_scan_plain(xbar, B, C, cum, chunk=chunk)
-        torch.testing.assert_close(y, y_ref, rtol=2e-4, atol=2e-4)
-        torch.testing.assert_close(h, h_ref, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(y, y_ref, **SSM_TOL[dtype])
+        torch.testing.assert_close(h, h_ref, **SSM_TOL[dtype])
     for bh, n_u, s, hd in ((4, 4, 96, 64), (4, 2, 100, 64),
                            (32, 32, 600, 64), (2, 2, 1, 64),
                            (3, 3, 33, 128), (2, 1, 40, 16), (2, 2, 32, 32)):
@@ -156,3 +177,4 @@ def test_cuda_attention_tilings_match_plain(card, dtype):
             decode_attention_plain(q, k, v, lengths, window=window),
             **TOL[dtype])
     torch.cuda.synchronize()
+
