@@ -23,10 +23,10 @@ package. In order it:
    edge cases: the attention kernels' (Sq != Sk, GQA, windows across
    tile and split edges, ragged S, hd 16 and 32, lengths on split edges,
    a cache of several chunks a split) and fused_rmsnorm's (the looping
-   path at d 100 and 12288, d 8, d 8192, N 4096, a misaligned row) in
-   bf16 and in f32 at 2e-5, and the bf16 ssm_scan tiles' (chunk 16,
-   chunk = S = 77, S 1, chunk 1, B/C groups, ds 16 / 32 / 128, hd 32 /
-   128);
+   path at d 8, 100, 8192 and 12288 and on a misaligned row, N 4096,
+   x and w written by the kernel launched just before) in bf16 and in
+   f32 at 2e-5, and the bf16 ssm_scan tiles' at 2e-4 (chunk 16, chunk =
+   S = 77, S 1, chunk 1, B/C groups, ds 16 / 32 / 128, hd 32 / 128);
 5. for each of deepseek-7b, zamba2-1.2b and rwkv6-1.6b at full width
    (random weights from a seed), one model on the card at a time: serves
    8 ragged requests through ServingEngine with the launch counts set to
@@ -63,9 +63,10 @@ TF32_FLOPS_PER_S = 495e12      # H100 SXM dense TF32 tensor-core peak
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 peak outside the tensor cores
 TOL = 2e-2                     # bf16 kernel vs plain: |a - b| <= TOL * (1 + |b|)
 F32_TOL = 2e-5                 # f32 kernel vs plain (test_kernels.py:23)
-# f32 ssm_scan: the plain version is the chunked SSD form, the kernel the
-# recurrence; test_kernels.py:87 holds that pair (Pallas vs ref) at 2e-4
-SSM_F32_TOL = 2e-4
+# ssm_scan: the plain version is the chunked SSD form, the f32 kernel the
+# recurrence, the bf16 one the chunked form in 3xTF32; test_kernels.py:87
+# holds such a pair (Pallas vs ref) at 2e-4
+SSM_TOL = 2e-4
 F32_PATH_TOL = 1e-3            # f32 logits: max |kernel - plain| / max |plain|
 PATH_TOL = 2e-2                # least bf16 path tolerance (see path_check)
 SEED = 0
@@ -213,14 +214,14 @@ def kernel_cases(kp):
     chunk_cumsum = kp["ssm_scan"][2]
     bh, hd, ds = 64, 64, 64                      # zamba2: 64 heads, 1 group
     for s in (32, 200, 513, 600):
-        for dt, tol in ((bf, TOL), (torch.float32, SSM_F32_TOL)):
+        for dt in (bf, torch.float32):
             xbar = randn(bh, s, hd, dtype=torch.float32, scale=0.5)
             B, C = randn(1, s, ds, dtype=dt), randn(1, s, ds, dtype=dt)
             chunk = min(256, s)
             cum = chunk_cumsum(-randn(bh, s, dtype=torch.float32,
                                       scale=0.2).abs(), chunk)
-            # bf16 B/C: the chunked form in TF32 on the tensor cores; f32:
-            # the recurrence's 4 BH S hd ds flops on CUDA cores
+            # bf16 B/C: the chunked form in 3xTF32 on the tensor cores;
+            # f32: the recurrence's 4 BH S hd ds flops on CUDA cores
             flops, peak = ((ssm_tc_flops(bh, 1, s, hd, ds, chunk),
                             TF32_FLOPS_PER_S) if dt == bf else
                            (4 * bh * s * hd * ds, F32_FLOPS_PER_S))
@@ -234,7 +235,7 @@ def kernel_cases(kp):
                 None,
                 4 * bh * s * hd * 2 + 2 * s * ds * B.element_size()
                 + 4 * bh * s + 4 * bh * hd * ds,
-                flops, peak, tol, serving=dt == bf)
+                flops, peak, SSM_TOL, serving=dt == bf)
     bh, hd = 32, 64                              # rwkv6: 32 heads of 64
     for s in (32, 200, 513, 600):
         for dt, tol in ((bf, TOL), (torch.float32, F32_TOL)):
@@ -258,16 +259,18 @@ def kernel_cases(kp):
 
 def ssm_tc_flops(bh: int, bh_bc: int, s: int, hd: int, ds: int,
                  chunk: int) -> int:
-    """The flops of the chunked SSD form as the bf16 ssm_scan kernel
+    """The TF32 flops of the chunked SSD form as the bf16 ssm_scan kernel
     tiles it (tiles of at most 64 steps that restart at chunk starts):
     per tile of n steps, G = C B^T on and below the diagonal once per B/C
-    group, and per head P X on and below it, C H^T and the state
-    update."""
+    group (bf16, at twice the TF32 rate: counted half), and per head P X
+    on and below it (3xTF32: 3 products), C H^T and the state update (2
+    each, B and C being exact in TF32)."""
     total, t0 = 0, 0
     while t0 < s:
         n = min(t0 + 64, (t0 // chunk + 1) * chunk, s) - t0
         tri = n * (n + 1)               # 2 * the pairs j <= i
-        total += bh_bc * tri * ds + bh * (tri * hd + 4 * n * hd * ds)
+        total += bh_bc * tri * ds // 2 + bh * (3 * tri * hd
+                                               + 8 * n * hd * ds)
         t0 += n
     return total
 
@@ -275,9 +278,10 @@ def ssm_tc_flops(bh: int, bh_bc: int, s: int, hd: int, ds: int,
 def rmsnorm_edge_cases(kp, randn):
     """Untimed checks of fused_rmsnorm's paths in bf16 (2e-2) and f32
     (2e-5): the looping path (d not a multiple of the 16-byte vector,
-    d 12288 past the register slice, a row off 16-byte alignment) and the
-    register path at d 8 (a warp a row, 8 rows a block), d 8192 (a block
-    a row) and N 4096."""
+    d 8 and 8192 outside the register path's (1024, 4096], d 12288, a row
+    off 16-byte alignment), the register path at N 4096, and x and w
+    written by the kernel launched just before the norm (a programmatic
+    dependent launch, which reads both only after its wait)."""
     rk, rp = kp["fused_rmsnorm"][:2]
     for dt, tol in ((torch.bfloat16, TOL), (torch.float32, F32_TOL)):
         tag = str(dt)[6:]
@@ -293,11 +297,19 @@ def rmsnorm_edge_cases(kp, randn):
                    f"{tag}", lambda x=x, w=w: rk(x, w),
                    lambda x=x, w=w: rp(x, w), None, 0, 0, BF16_FLOPS_PER_S,
                    tol, timed=False)
+        for n, d in ((1, 4096), (600, 2048)):
+            w = randn(d, dtype=torch.float32, scale=0.1)
+            x = randn(n, d, dtype=dt)
+            yield Case("fused_rmsnorm", f"x ({n}, {d}) and w written just "
+                       f"before, {tag}",
+                       lambda x=x, w=w: rk(x + 0.0, w * 1.0),
+                       lambda x=x, w=w: rp(x, w), None, 0, 0,
+                       BF16_FLOPS_PER_S, tol, timed=False)
 
 
 def ssm_edge_cases(kp, randn):
     """Untimed checks of the bf16 ssm_scan kernel's tiles (64 steps that
-    restart at every chunk start) at 2e-2: chunk 16, chunk = S = 77 (not
+    restart at every chunk start) at 2e-4: chunk 16, chunk = S = 77 (not
     a multiple of 64), S 1, chunk 1, BH 4 over 2 B/C groups, ds 16 / 32 /
     128, hd 32 / 128."""
     sk, sp, chunk_cumsum = kp["ssm_scan"]
@@ -315,7 +327,7 @@ def ssm_edge_cases(kp, randn):
                    f"{ds}, chunk {chunk}, B/C bfloat16",
                    lambda a=(xbar, B, C, cum), c=chunk: sk(*a, chunk=c),
                    lambda a=(xbar, B, C, cum), c=chunk: sp(*a, chunk=c),
-                   None, 0, 0, TF32_FLOPS_PER_S, TOL, timed=False)
+                   None, 0, 0, TF32_FLOPS_PER_S, SSM_TOL, timed=False)
 
 
 def attention_edge_cases(kp, randn):

@@ -12,22 +12,21 @@
 // memory and the launch are all there is.
 //
 // Design (rmsnorm_kernel, the serving path's d of 2048 and 4096):
-// - One read of x. A row goes to a group of TPR threads (the least of 32,
-//   64, 128, 256 with TPR * 32 >= d: 64 at d 2048, 128 at d 4096); each
-//   thread loads its slice of the row (at most 32 elements) as 16-byte
-//   vectors into registers, sums the squares in f32, and scales the same
-//   registers. Blocks of 256 threads hold 256 / TPR rows (4 at d 2048, 2
-//   at d 4096), so the card sees fewer, fuller blocks.
-// - The reduction is a warp shuffle and, for a row of several warps, one
-//   shared-memory exchange summed in a fixed order (deterministic).
-// - A programmatic dependent launch: the block starts while the kernel
-//   before it (the product that writes x) finishes, loads its slice of w
-//   as float4 before wait_previous_grid(), and reads x only after it. So
-//   w must not be written by the kernel launched just before this one (a
-//   weight is not); x may be.
+// - One read of x. A row goes to a group of TPR threads (64 for d in
+//   (1024, 2048], 128 for d in (2048, 4096]); each thread loads its slice
+//   of the row (at most 32 elements) as 16-byte vectors into registers,
+//   with its slice of w as float4 in the same pass, sums the squares in
+//   f32, and scales the same registers. Blocks of 256 threads hold
+//   256 / TPR rows (4 at d 2048, 2 at d 4096), so the card sees fewer,
+//   fuller blocks.
+// - The reduction is a warp shuffle and one shared-memory exchange across
+//   the row's warps, summed in a fixed order (deterministic).
+// - A programmatic dependent launch: the block is scheduled while the
+//   kernel before it finishes, and reads x and w only after
+//   wait_previous_grid(), so either may be written by that kernel.
 // rmsnorm_loop_kernel takes every other row (d not a multiple of the
-// vector, a pointer not 16-byte aligned, or d > 256 * 32): a block of 256
-// threads a row, x read twice (the second time from L1/L2).
+// vector, a pointer not 16-byte aligned, d <= 1024 or d > 4096): a block
+// of 256 threads a row, x read twice (the second time from L1/L2).
 #include <cstdint>
 
 #include "common.cuh"
@@ -62,6 +61,7 @@ rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ w,
   constexpr int kVec = 16 / sizeof(T);       // elements a 16-byte vector
   constexpr int kNV = kMaxElems / kVec;      // vectors a thread
   constexpr int kWPR = TPR / 32;             // warps a row
+  static_assert(kWPR > 1, "a row of several warps");
   constexpr int kRows = kBlock / TPR;        // rows a block
   const int rib = threadIdx.x / TPR;         // row in the block
   const int t = threadIdx.x % TPR;
@@ -69,25 +69,20 @@ rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ w,
   const bool live = row < static_cast<size_t>(n);
   const int nvec = d / kVec;
 
-  // the weights first: the kernel before this one does not write them
+  // the kernel before this one may write x or w; both are read after it
+  wait_previous_grid();
+  const uint4* xr = reinterpret_cast<const uint4*>(x + row * d);
+  uint4 xv[kNV];
   float4 wv[kNV][kVec / 4];
 #pragma unroll
   for (int i = 0; i < kNV; ++i) {
     const int v = t + i * TPR;
+    xv[i] = (live && v < nvec) ? xr[v] : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
     for (int j = 0; j < kVec / 4; ++j)
       wv[i][j] = v < nvec
           ? reinterpret_cast<const float4*>(w)[v * (kVec / 4) + j]
           : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  wait_previous_grid();                      // x is written by that kernel
-
-  const uint4* xr = reinterpret_cast<const uint4*>(x + row * d);
-  uint4 xv[kNV];
-#pragma unroll
-  for (int i = 0; i < kNV; ++i) {
-    const int v = t + i * TPR;
-    xv[i] = (live && v < nvec) ? xr[v] : make_uint4(0u, 0u, 0u, 0u);
   }
   float ss = 0.f;
 #pragma unroll
@@ -98,14 +93,12 @@ rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ w,
     for (int e = 0; e < kVec; ++e) ss += f[e] * f[e];
   }
   ss = warp_sum(ss);
-  if constexpr (kWPR > 1) {
-    __shared__ float partial[kRows][kWPR];
-    if ((t & 31) == 0) partial[rib][t >> 5] = ss;
-    __syncthreads();
-    ss = 0.f;
+  __shared__ float partial[kRows][kWPR];
+  if ((t & 31) == 0) partial[rib][t >> 5] = ss;
+  __syncthreads();
+  ss = 0.f;
 #pragma unroll
-    for (int k = 0; k < kWPR; ++k) ss += partial[rib][k];
-  }
+  for (int k = 0; k < kWPR; ++k) ss += partial[rib][k];
   const float r = rsqrtf(ss / static_cast<float>(d) + eps);
 
   uint4* orow = reinterpret_cast<uint4*>(out + row * d);
@@ -206,14 +199,10 @@ cudaError_t launch(const void* x, const void* w, void* out, int n, int d,
   T* op = static_cast<T*>(out);
   const bool vec = d % kVec == 0 && aligned16(x) && aligned16(w) &&
                    aligned16(out);
-  if (vec && d <= 32 * kMaxElems)
-    return launch_rows<T, 32>(xp, wp, op, n, d, eps, stream);
-  if (vec && d <= 64 * kMaxElems)
+  if (vec && d > 32 * kMaxElems && d <= 64 * kMaxElems)
     return launch_rows<T, 64>(xp, wp, op, n, d, eps, stream);
-  if (vec && d <= 128 * kMaxElems)
+  if (vec && d > 64 * kMaxElems && d <= 128 * kMaxElems)
     return launch_rows<T, 128>(xp, wp, op, n, d, eps, stream);
-  if (vec && d <= 256 * kMaxElems)
-    return launch_rows<T, 256>(xp, wp, op, n, d, eps, stream);
   if (vec)
     return launch_dependent(rmsnorm_loop_kernel<T, kVec>, dim3(n),
                             dim3(kBlock), 0, stream, xp, wp, op, d, eps);

@@ -19,16 +19,17 @@
 // ssm_tc_kernel (bf16 B/C, what the bf16 serving path passes): the chunked
 //   form on the tensor cores. Bound on an H100: bytes. At zamba2-1.2b's
 //   shape (BH 64, S 600, hd = ds = 64) it moves ~21.0 MB (xbar and y
-//   19.7 MB, h 1.05 MB, B/C and cumlog 0.3 MB): 0.0063 ms, against ~0.8
-//   GFLOP of products in 64-step tiles, 0.0016 ms at the 495 TFLOP/s TF32
-//   peak.
+//   19.7 MB, h 1.05 MB, B/C and cumlog 0.3 MB): 0.0063 ms, against ~1.7
+//   GFLOP of TF32 products in 64-step tiles as run (3xTF32, below),
+//   0.0035 ms at the 495 TFLOP/s TF32 peak.
 //   - Grid (BH, hd / 32): a block owns 32 rows of the state, the rows of h
 //     being independent (128 blocks at zamba2's shape, one wave on 132
 //     SMs), with 12 warps: 8 for Y, 4 for the state. The state H (32 x
 //     ds) f32 lives in the 4 state warps' mma accumulator fragments for
-//     the whole sequence; a TF32 copy in shared memory feeds the next
-//     tile's C H^T. The state warps update H while the Y warps compute Y
-//     from the copy, so a tile takes the longer of the two, not the sum.
+//     the whole sequence; a copy in shared memory, split into two TF32
+//     terms, feeds the next tile's C H^T. The state warps update H while
+//     the Y warps compute Y from the copy, so a tile takes the longer of
+//     the two, not the sum.
 //   - Tiles of T = 64 steps that start again at every chunk start, so a
 //     tile never spans a reset of cumlog and exp(cum_i - cum_j) is exactly
 //     the reference's. With c0 = cum at the step before the tile (0 at a
@@ -49,8 +50,14 @@
 //     reads free of bank conflicts.
 //   - G = C B^T is mma.sync m16n8k16 on bf16 B and C as they are (exact
 //     products, f32 sums). The other three products are m16n8k8 TF32 with
-//     f32 accumulators: xbar, P, H and X o decay are rounded to TF32
-//     (2^-11) where they enter a product, and H itself stays f32.
+//     f32 accumulators, each f32 operand split into TF32 hi + lo terms
+//     (3xTF32: hi*hi + hi*lo + lo*hi, about 2^-21 of each product): P X
+//     takes 3 products a tile, C H^T and the state update 2 each (bf16 B
+//     and C are exact in TF32). One TF32 rounding (2^-11) of xbar, P and H
+//     puts y some 3e-3 of its size from f32 at zamba2's shape (the sums
+//     cancel: their terms are much larger than y), past the 2e-4 the
+//     kernel is held to; tests/test_torch_ssm_design.py emulates both.
+//     H itself stays f32.
 //   - The tiles' xbar (T x 32 f32), B, C (T x ds bf16) and cumlog stream
 //     through a ring of 3 shared-memory stages with cp.async, two tiles
 //     ahead of the one computed; steps past S are zero-filled (NaN in
@@ -94,8 +101,9 @@ struct SsmTcLayout {
   static constexpr int kStage = kXBytes + 2 * kBCBytes + kCumN * 4;
   // the second warps' partial Y: 16 rows x kTcP f32 a row tile
   static constexpr int kYBytes = (kTcYWarps / 2) * 16 * kTcP * 4;
-  static constexpr int kHOff = kTcStages * kStage;   // sH, then sY
-  static constexpr int kBytes = kHOff + kTcP * kHS * 4 + kYBytes;
+  static constexpr int kHOff = kTcStages * kStage;   // sH (hi, lo), sY
+  static constexpr int kHN2 = kTcP * kHS;            // words a term of sH
+  static constexpr int kBytes = kHOff + 2 * kHN2 * 4 + kYBytes;
   // the state's 16 x 8 mma tiles, split evenly over the state warps
   static constexpr int kHTiles = (kTcP / 16) * (DS / 8);
   static constexpr int kHN = (kHTiles + kTcHWarps - 1) / kTcHWarps;
@@ -134,6 +142,12 @@ __device__ __forceinline__ uint32_t tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return r;
+}
+// f32 -> TF32 hi + lo with x = hi + lo to about 2^-22 of x (3xTF32)
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
 }
 // a bf16 as the f32 (and TF32) bits of the same value: exact
 __device__ __forceinline__ uint32_t bf16_bits(const uint16_t* p) {
@@ -226,8 +240,9 @@ ssm_tc_kernel(const float* __restrict__ xbar,
   constexpr int kKT = kTcT / 8;      // 8-step column strips of a tile
   constexpr int kPN = kTcP / 8;      // n-tiles of y's state rows
   extern __shared__ __align__(16) unsigned char smem[];
-  uint32_t* sH = reinterpret_cast<uint32_t*>(smem + L::kHOff);  // TF32
-  float* sY = reinterpret_cast<float*>(smem + L::kHOff + kTcP * kHS * 4);
+  // H as TF32 hi terms, then the lo terms kHN2 words on
+  uint32_t* sH = reinterpret_cast<uint32_t*>(smem + L::kHOff);
+  float* sY = reinterpret_cast<float*>(smem + L::kHOff + 2 * L::kHN2 * 4);
 
   const int bh = blockIdx.x;
   const int p0 = blockIdx.y * kTcP;
@@ -251,7 +266,7 @@ ssm_tc_kernel(const float* __restrict__ xbar,
   for (int j = 0; j < kHN; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) hacc[j][e] = 0.f;
-  for (int i = threadIdx.x; i < kTcP * kHS; i += kTcThreads) sH[i] = 0u;
+  for (int i = threadIdx.x; i < 2 * L::kHN2; i += kTcThreads) sH[i] = 0u;
 
   // the ring: tiles 0 and 1 now, each later tile two tiles ahead
   int tl = 0;                          // the next tile to load
@@ -307,8 +322,8 @@ ssm_tc_kernel(const float* __restrict__ xbar,
             st.c + ib * kBS + 8 * ks + 2 * q);
       }
       const int nkt = min(2 * rt + 2, (n + 7) / 8);
-      // 32 products of C H^T weigh as much as 2.7 strips (12 products)
-      const int split = max(0, (3 * nkt - 5) / 6);
+      // the 64 products of C H^T weigh about 4 strips (16 products each)
+      const int split = max(0, (nkt - 4) / 2);
       const int kt0 = second ? split : 0, kt1 = second ? nkt : split;
       // G = C B^T for the warp's strips, on bf16 B and C as they are (the
       // products are exact and summed in f32, as in TF32): independent
@@ -340,9 +355,11 @@ ssm_tc_kernel(const float* __restrict__ xbar,
                                  cw[ks][1] & 0xffff0000u};
 #pragma unroll
           for (int pn = 0; pn < kPN; ++pn) {
-            const uint2 hb = *reinterpret_cast<const uint2*>(
-                sH + (8 * pn + g) * kHS + 8 * ks + 2 * q);
-            mma_tf32(yacc[pn], a, hb.x, hb.y);
+            const uint32_t* hr = sH + (8 * pn + g) * kHS + 8 * ks + 2 * q;
+            const uint2 hl = *reinterpret_cast<const uint2*>(hr + L::kHN2);
+            const uint2 hh = *reinterpret_cast<const uint2*>(hr);
+            mma_tf32(yacc[pn], a, hl.x, hl.y);
+            mma_tf32(yacc[pn], a, hh.x, hh.y);
           }
         }
         const float ea = ia < n ? expf(cia - c0) : 0.f;
@@ -355,8 +372,9 @@ ssm_tc_kernel(const float* __restrict__ xbar,
           yacc[pn][3] *= eb;
         }
       }
-      // intra-tile: P = G o L masked before the exponent (P is rounded to
-      // TF32 right after, so the fast exp is exact enough), Y += P X
+      // intra-tile: P = G o L masked before the exponent (the fast exp's
+      // error, a few f32 ulps at these arguments, is far inside the
+      // tolerance), Y += P X in 3xTF32
 #pragma unroll
       for (int kt = 0; kt < kKT; ++kt) {
         if (kt < kt0 || kt >= kt1) continue;
@@ -364,15 +382,23 @@ ssm_tc_kernel(const float* __restrict__ xbar,
         const float cja = st.cum[1 + ja], cjb = st.cum[1 + jb];
         // accumulator (row, col) -> A fragment (row, k slot): col 2q is
         // slot q, col 2q + 1 slot q + 4
-        const uint32_t a[4] = {
-            tf32(ja <= ia && ia < n ? gacc[kt][0] * __expf(cia - cja) : 0.f),
-            tf32(ja <= ib && ib < n ? gacc[kt][2] * __expf(cib - cja) : 0.f),
-            tf32(jb <= ia && ia < n ? gacc[kt][1] * __expf(cia - cjb) : 0.f),
-            tf32(jb <= ib && ib < n ? gacc[kt][3] * __expf(cib - cjb) : 0.f)};
+        const float pv[4] = {
+            ja <= ia && ia < n ? gacc[kt][0] * __expf(cia - cja) : 0.f,
+            ja <= ib && ib < n ? gacc[kt][2] * __expf(cib - cja) : 0.f,
+            jb <= ia && ia < n ? gacc[kt][1] * __expf(cia - cjb) : 0.f,
+            jb <= ib && ib < n ? gacc[kt][3] * __expf(cib - cjb) : 0.f};
+        uint32_t ah[4], al[4];
 #pragma unroll
-        for (int pn = 0; pn < kPN; ++pn)
-          mma_tf32(yacc[pn], a, tf32(st.x[ja * kXS + 8 * pn + g]),
-                   tf32(st.x[jb * kXS + 8 * pn + g]));
+        for (int e = 0; e < 4; ++e) tf32_split(pv[e], ah[e], al[e]);
+#pragma unroll
+        for (int pn = 0; pn < kPN; ++pn) {
+          uint32_t xh0, xl0, xh1, xl1;
+          tf32_split(st.x[ja * kXS + 8 * pn + g], xh0, xl0);
+          tf32_split(st.x[jb * kXS + 8 * pn + g], xh1, xl1);
+          mma_tf32(yacc[pn], al, xh0, xh1);
+          mma_tf32(yacc[pn], ah, xl0, xl1);
+          mma_tf32(yacc[pn], ah, xh0, xh1);
+        }
       }
     }
     if (ywarp && second) {             // hand the partial Y over
@@ -398,15 +424,20 @@ ssm_tc_kernel(const float* __restrict__ xbar,
         const int ia = 8 * ks + 2 * q, ib = ia + 1;
         const float da = ia < n ? __expf(clast - st.cum[1 + ia]) : 0.f;
         const float db = ib < n ? __expf(clast - st.cum[1 + ib]) : 0.f;
-        const uint32_t a[4] = {tf32(st.x[ia * kXS + pr] * da),
-                               tf32(st.x[ia * kXS + pr + 8] * da),
-                               tf32(st.x[ib * kXS + pr] * db),
-                               tf32(st.x[ib * kXS + pr + 8] * db)};
+        const float xd[4] = {st.x[ia * kXS + pr] * da,
+                             st.x[ia * kXS + pr + 8] * da,
+                             st.x[ib * kXS + pr] * db,
+                             st.x[ib * kXS + pr + 8] * db};
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tf32_split(xd[e], ah[e], al[e]);
 #pragma unroll
         for (int j = 0; j < kHN; ++j) {
           const int s = hs0 + 8 * j + g;
-          mma_tf32(hacc[j], a, bf16_bits(st.b + ia * kBS + s),
-                   bf16_bits(st.b + ib * kBS + s));
+          const uint32_t b0 = bf16_bits(st.b + ia * kBS + s);
+          const uint32_t b1 = bf16_bits(st.b + ib * kBS + s);
+          mma_tf32(hacc[j], al, b0, b1);
+          mma_tf32(hacc[j], ah, b0, b1);
         }
       }
     }
@@ -431,10 +462,16 @@ ssm_tc_kernel(const float* __restrict__ xbar,
 #pragma unroll
       for (int j = 0; j < kHN; ++j) {
         const int s = hs0 + 8 * j + 2 * q;
-        *reinterpret_cast<uint2*>(sH + pr * kHS + s) =
-            make_uint2(tf32(hacc[j][0]), tf32(hacc[j][1]));
+        uint32_t hh[4], hl[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tf32_split(hacc[j][e], hh[e], hl[e]);
+        *reinterpret_cast<uint2*>(sH + pr * kHS + s) = make_uint2(hh[0], hh[1]);
         *reinterpret_cast<uint2*>(sH + (pr + 8) * kHS + s) =
-            make_uint2(tf32(hacc[j][2]), tf32(hacc[j][3]));
+            make_uint2(hh[2], hh[3]);
+        *reinterpret_cast<uint2*>(sH + L::kHN2 + pr * kHS + s) =
+            make_uint2(hl[0], hl[1]);
+        *reinterpret_cast<uint2*>(sH + L::kHN2 + (pr + 8) * kHS + s) =
+            make_uint2(hl[2], hl[3]);
       }
     }
     t0 = t1;

@@ -6,8 +6,9 @@ Port of the Pallas TPU kernel ``src/repro/kernels/ssm_scan.py:49``.
 ``repro.models.ssm.ssm_block``); :func:`ssm_scan_cuda` launches
 ``csrc/ssm_scan.cu``, whose C entry picks the kernel by the dtype of B/C:
 bf16 (the serving path's) runs the chunked form on the tensor cores in
-TF32 (hd a multiple of 4, 16-byte aligned inputs), f32 the recurrence on
-CUDA cores (the checking path). Both also return the final state ``h``,
+3xTF32, each f32 operand split into two TF32 terms (hd a multiple of 4,
+16-byte aligned inputs), f32 the recurrence on CUDA cores (the checking
+path). Both also return the final state ``h``,
 which the Pallas kernel drops and prefill needs for the decode cache.
 
 Layout: xbar (BH, S, hd) f32 dt-weighted inputs; B, C (BH_bc, S, ds) with
