@@ -11,11 +11,12 @@ package. In order it:
 2. builds the port's five CUDA kernels from src/repro_torch/csrc into
    build/repro_torch/ (timed as set-up);
 3. counts the tensor-core instructions (HMMA) of the attention and
-   ssm_scan kernels in the built library's SASS (cuobjdump), and fails
-   if the bf16 flash_attention or bf16 ssm_scan kernel has none;
+   scan kernels in the built library's SASS (cuobjdump), and fails if
+   the bf16 flash_attention or bf16 ssm_scan kernel has none;
 4. holds each kernel against its plain PyTorch version at the shapes the
    three serving paths give it (fused_rmsnorm at d 4096 and 2048; bf16
-   attention at hd 128 and 64; the scans in bf16 and f32), and times
+   attention at hd 128 and 64; the scans in bf16 and f32, rwkv6_scan's
+   f32 being its serving dtype), and times
    kernel, plain version, one PyTorch library call computing the same
    function where there is one, and the bound (the larger of bytes /
    3.35 TB/s and flops / the peak of their type: 989 TFLOP/s bf16 and
@@ -25,8 +26,11 @@ package. In order it:
    a cache of several chunks a split) and fused_rmsnorm's (the looping
    path at d 8, 100, 8192 and 12288 and on a misaligned row, N 4096,
    x and w written by the kernel launched just before) in bf16 and in
-   f32 at 2e-5, and the bf16 ssm_scan tiles' at 2e-4 (chunk 16, chunk =
-   S = 77, S 1, chunk 1, B/C groups, ds 16 / 32 / 128, hd 32 / 128);
+   f32 at 2e-5, the bf16 ssm_scan tiles' at 2e-4 (chunk 16, chunk =
+   S = 77, S 1, chunk 1, B/C groups, ds 16 / 32 / 128, hd 32 / 128), and
+   the rwkv6_scan chunks' in bf16 and f32, the state at 2e-5 (S 1, 15,
+   16, 17, 513, hd 16 / 32 / 128, one u row, w at 0, 1, 1e-30 and
+   1 - 2^-24);
 5. for each of deepseek-7b, zamba2-1.2b and rwkv6-1.6b at full width
    (random weights from a seed), one model on the card at a time: serves
    8 ragged requests through ServingEngine with the launch counts set to
@@ -237,6 +241,7 @@ def kernel_cases(kp):
                 + 4 * bh * s + 4 * bh * hd * ds,
                 flops, peak, SSM_TOL, serving=dt == bf)
     bh, hd = 32, 64                              # rwkv6: 32 heads of 64
+    chunk = kp["rwkv6_scan"][2]
     for s in (32, 200, 513, 600):
         for dt, tol in ((bf, TOL), (torch.float32, F32_TOL)):
             r, k, v = (randn(bh, s, hd, dtype=dt, scale=0.3)
@@ -244,17 +249,20 @@ def kernel_cases(kp):
             w = torch.sigmoid(randn(bh, s, hd, dtype=torch.float32)).to(dt)
             u = randn(bh, hd, dtype=torch.float32, scale=0.1)
             esize = r.element_size()
+            # the serving path passes f32 (models/rwkv.py casts r, k, v
+            # and the decay): that case is the JSON line's
             yield Case(
                 "rwkv6_scan", f"BH {bh}, S {s}, hd {hd}, {str(dt)[6:]}",
                 lambda a=(r, k, v, w, u): kp["rwkv6_scan"][0](*a),
                 lambda a=(r, k, v, w, u): kp["rwkv6_scan"][1](*a),
                 None,
                 5 * bh * s * hd * esize + 4 * bh * hd + 4 * bh * hd * hd,
-                7 * bh * s * hd * hd, F32_FLOPS_PER_S, tol,
-                serving=dt == bf)
+                rwkv_chunk_flops(bh, s, hd, chunk), F32_FLOPS_PER_S, tol,
+                serving=dt == torch.float32)
     yield from attention_edge_cases(kp, randn)
     yield from rmsnorm_edge_cases(kp, randn)
     yield from ssm_edge_cases(kp, randn)
+    yield from rwkv_edge_cases(kp, randn)
 
 
 def ssm_tc_flops(bh: int, bh_bc: int, s: int, hd: int, ds: int,
@@ -273,6 +281,64 @@ def ssm_tc_flops(bh: int, bh_bc: int, s: int, hd: int, ds: int,
                                                + 8 * n * hd * ds)
         t0 += n
     return total
+
+
+def rwkv_chunk_flops(bh: int, s: int, hd: int, chunk: int) -> int:
+    """The f32 flops of the chunked form the rwkv6_scan kernel computes
+    (an FMA is 2), per head and chunk of n steps, counting A once a head
+    (the kernel forms it again in each block of value columns): o from
+    the state, 2 n hd^2; the state update, 2 n hd^2 + hd^2 (g times S);
+    A v on and below the diagonal, 2 hd n(n+1)/2; A below it, 4 hd
+    n(n-1)/2 (k D, the FMA and the running product D w); A's diagonal
+    r . (u k), 3 n hd; the prefix and suffix products and r a, k b,
+    4 n hd."""
+    total = 0
+    for t0 in range(0, s, chunk):
+        n = min(chunk, s - t0)
+        total += (4 * n + 1) * hd * hd + hd * n * (n + 1) \
+            + 2 * hd * n * (n - 1) + 7 * n * hd
+    return bh * total
+
+
+def rwkv_edge_cases(kp, randn):
+    """Untimed checks of the chunked rwkv6_scan kernel (chunks of 16
+    steps) in bf16 (o at 2e-2) and f32 (2e-5), the final state at 2e-5
+    in both: S 1, 15, 16, 17 and 513 (a last chunk of one step), hd 16,
+    32 and 128 (hd 128 at S 600 in dynamic shared memory), one u row for
+    every head, and w holding exact 0s and 1s, 1e-30, 1 - 2^-24 and
+    1e-3."""
+    rk, rp = kp["rwkv6_scan"][:2]
+    picks = torch.tensor([0.0, 1.0, 1e-30, 1.0 - 2.0 ** -24, 1e-3],
+                         device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    for dt, tol in ((torch.bfloat16, TOL), (torch.float32, F32_TOL)):
+        tag = str(dt)[6:]
+        for bh, n_u, s, hd, extreme in (
+                (4, 4, 1, 64, False), (4, 4, 15, 64, False),
+                (4, 4, 16, 64, False), (4, 4, 17, 64, False),
+                (8, 4, 513, 64, False), (4, 4, 77, 16, False),
+                (4, 2, 130, 32, False), (32, 32, 600, 128, False),
+                (8, 1, 200, 64, False), (4, 2, 70, 64, True),
+                (4, 4, 513, 128, True)):
+            r, k, v = (randn(bh, s, hd, dtype=dt, scale=0.3)
+                       for _ in range(3))
+            if extreme:
+                w = picks[torch.randint(0, len(picks), (bh, s, hd),
+                                        generator=gen, device="cuda")]
+            else:
+                w = torch.sigmoid(randn(bh, s, hd, dtype=torch.float32))
+            a = (r, k, v, w.to(dt), randn(n_u, hd, dtype=torch.float32,
+                                          scale=0.1))
+            label = (f"BH {bh}, NU {n_u}, S {s}, hd {hd}"
+                     f"{', w at 0, 1, 1e-30, 1 - 2^-24' if extreme else ''}"
+                     f", {tag}")
+            yield Case("rwkv6_scan", label, lambda a=a: rk(*a),
+                       lambda a=a: rp(*a), None, 0, 0, F32_FLOPS_PER_S, tol,
+                       timed=False)
+            if dt == torch.bfloat16:
+                yield Case("rwkv6_scan", f"{label}, final state",
+                           lambda a=a: rk(*a)[1], lambda a=a: rp(*a)[1],
+                           None, 0, 0, F32_FLOPS_PER_S, F32_TOL, timed=False)
 
 
 def rmsnorm_edge_cases(kp, randn):
@@ -417,14 +483,16 @@ def kernel_phase(kp, timer) -> dict:
 # -- phase 3: tensor-core instructions in the build ----------------------------
 
 SASS_KERNELS = ("flash_tc_kernel", "flash_f32_kernel", "decode_split_kernel",
-                "decode_combine_kernel", "ssm_tc_kernel", "ssm_scan_kernel")
+                "decode_combine_kernel", "ssm_tc_kernel", "ssm_scan_kernel",
+                "rwkv6_chunk_kernel")
 TENSOR_CORE_KERNELS = ("flash_tc", "ssm_tc")   # must show HMMA/HGMMA
 
 
 def sass_check(lib_path: Path) -> None:
     """Count HMMA (mma.sync) and HGMMA (wgmma) instructions in the SASS of
-    each attention and ssm_scan kernel (<n> is the template's head or
-    state dim); the bf16 flash and ssm kernels must have some."""
+    each attention and scan kernel (<n> is the template's head or state
+    dim); the bf16 flash and ssm kernels must have some (the rwkv6 kernel
+    runs on the CUDA cores and is listed for its count)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.isfile(tool):
         fail("cuobjdump not found: cannot show the tensor-core path")
@@ -691,7 +759,8 @@ def load_port() -> SimpleNamespace:
                                       da.decode_attention_plain),
                  "ssm_scan": (ss.ssm_scan_cuda, ss.ssm_scan_plain,
                               ss.chunk_cumsum),
-                 "rwkv6_scan": (rs.rwkv6_scan_cuda, rs.rwkv6_scan_plain)})
+                 "rwkv6_scan": (rs.rwkv6_scan_cuda, rs.rwkv6_scan_plain,
+                                rs.CHUNK)})
 
 
 def main() -> None:

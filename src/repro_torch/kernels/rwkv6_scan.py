@@ -12,7 +12,10 @@ Layout: r, k, v, w (BH, S, hd) of one dtype, w the per-channel decay in
 Returns o (BH, S, hd) in r's dtype and S (BH, hd, hd) f32, indexed
 [key][value], from a zero initial state:
 ``o_t = r_t (S + diag(u) k_t^T v_t)``, then ``S <- diag(w_t) S + k_t^T v_t``.
-Any S is taken: the Pallas chunk was only the TPU's tile.
+Any S is taken: the Pallas chunk was only the TPU's tile. The kernel
+computes the recurrence regrouped into chunks of :data:`CHUNK` steps,
+every decay a product of w's (its source note; the arithmetic is
+emulated in ``tests/test_torch_rwkv_design.py``).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from .common import (DTYPE_CODES, HEAD_DIMS, check_cuda_tensor, require,
                      stream_of)
 
 NAME = "rwkv6_scan"
+CHUNK = 16          # steps a chunk in csrc/rwkv6_scan.cu (kT)
 launches = 0
 
 
@@ -60,6 +64,8 @@ def rwkv6_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"u must be (NU, {hd}) with BH={BH} a multiple of NU")
     require(S >= 1 and BH <= 2 ** 31 - 1, NAME,
             f"unsupported sizes BH={BH} S={S}")
+    require(all(t.data_ptr() % 16 == 0 for t in (r, k, v, w, u)), NAME,
+            "r, k, v, w and u must be 16-byte aligned")   # 16-byte copies
     o = torch.empty_like(r)
     state = torch.empty((BH, hd, hd), dtype=torch.float32, device=r.device)
     rc = build.library().repro_rwkv6_scan(

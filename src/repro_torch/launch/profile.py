@@ -32,7 +32,7 @@ GROUPS = (("fused_rmsnorm", ("rmsnorm_kernel", "rmsnorm_loop_kernel")),
           ("decode_attention", ("decode_split_kernel",
                                 "decode_combine_kernel")),
           ("ssm_scan", ("ssm_tc_kernel", "ssm_scan_kernel")),
-          ("rwkv6_scan", ("rwkv6_scan_kernel",)),
+          ("rwkv6_scan", ("rwkv6_chunk_kernel",)),
           ("matmul", ("nvjet", "gemm", "gemv", "cutlass", "xmma", "splitK")))
 
 

@@ -96,6 +96,10 @@ def test_cuda_scans_match_plain(card, dtype):
     (zamba2: BH 64, hd 64, ds 64, chunk 256; rwkv6: BH 32, hd 64). The
     low-precision dtype is that of B/C (ssm) or of r/k/v/w (rwkv); rwkv
     computes in f32, so "bfloat16" bounds only the rounding of its output.
+    rwkv6_scan's kernel is the recurrence regrouped into chunks of 16
+    steps (every decay a product of w's); its cases cover the chunk
+    edges, hd 128 at S 600, one shared u row and w at 0, 1, 1e-30 and
+    1 - 2^-24.
     ssm_scan's plain version is the chunked SSD form, its f32 kernel the
     recurrence and its bf16 kernel the chunked form on the tensor cores
     with every f32 operand split into two TF32 terms (3xTF32): each pair
@@ -126,11 +130,26 @@ def test_cuda_scans_match_plain(card, dtype):
         y_ref, h_ref = ssm_scan_plain(xbar, B, C, cum, chunk=chunk)
         torch.testing.assert_close(y, y_ref, rtol=2e-4, atol=2e-4)
         torch.testing.assert_close(h, h_ref, rtol=2e-4, atol=2e-4)
-    for bh, n_u, s, hd in ((4, 4, 96, 64), (4, 2, 100, 64),
-                           (32, 32, 600, 64), (2, 2, 1, 64),
-                           (3, 3, 33, 128), (2, 1, 40, 16), (2, 2, 32, 32)):
+    # rwkv6: the chunked kernel's edges (chunks of 16 steps: S 15, 16, 17,
+    # a last chunk of one step at S 513), hd 128 at S 600, one u row, and
+    # w at the ends of its range (exact 0s and 1s, 1e-30, 1 - 2^-24)
+    picks = torch.tensor([0.0, 1.0, 1e-30, 1.0 - 2.0 ** -24, 1e-3],
+                         device=card)
+    for bh, n_u, s, hd, extreme in (
+            (4, 4, 96, 64, False), (4, 2, 100, 64, False),
+            (32, 32, 600, 64, False), (2, 2, 1, 64, False),
+            (3, 3, 33, 128, False), (2, 1, 40, 16, False),
+            (2, 2, 32, 32, False), (2, 2, 15, 64, False),
+            (2, 2, 16, 64, False), (2, 2, 17, 64, False),
+            (4, 2, 513, 64, False), (8, 8, 600, 128, False),
+            (4, 1, 77, 64, False), (4, 2, 70, 64, True),
+            (2, 1, 513, 128, True)):
         rr, kk, vv = (r(bh, s, hd, scale=0.3).to(dt) for _ in range(3))
-        ww = torch.sigmoid(r(bh, s, hd)).to(dt)
+        if extreme:
+            ww = picks[torch.randint(0, len(picks), (bh, s, hd),
+                                     generator=g, device=card)].to(dt)
+        else:
+            ww = torch.sigmoid(r(bh, s, hd)).to(dt)
         u = r(n_u, hd, scale=0.1)
         o, st = rwkv6_scan_cuda(rr, kk, vv, ww, u)
         o_ref, st_ref = rwkv6_scan_plain(rr, kk, vv, ww, u)
