@@ -32,11 +32,19 @@ package. In order it:
    16, 17, 513, hd 16 / 32 / 128, one u row, w at 0, 1, 1e-30 and
    1 - 2^-24);
 5. for each of deepseek-7b, zamba2-1.2b and rwkv6-1.6b at full width
-   (random weights from a seed), one model on the card at a time: serves
-   8 ragged requests through ServingEngine with the launch counts set to
-   0 just before and read just after, times one prefill and one decode
-   step, and holds the kernel path against the plain path on the card
-   (prefill plus 4 teacher-forced decode steps), in f32 and in bf16;
+   (random weights from a seed), one model on the card at a time:
+   a. serves 8 ragged requests through ServingEngine, whose decode steps
+      are replays of one CUDA graph of LM.decode_step a slot, with the
+      launch counts set to 0 just before and read just after (a replay
+      adds the launches of its graph's capture), and holds the bf16
+      engine's tokens against an eager greedy re-decode of every request;
+   b. times one prefill and one decode step, eager and graph replay, in
+      turns in one run;
+   c. holds the graph replay against the eager LM.decode_step in f32 on
+      twin caches (bitwise, or within 1e-6 of the logits' scale), for
+      steps in one slot and right after a swap into another slot;
+   d. holds the kernel path against the plain path on the card (prefill
+      plus 4 teacher-forced decode steps), in f32 and in bf16;
 6. prints a JSON line of the kernels, then the result line.
 
 Any failed check exits non-zero. Without a CUDA device it exits non-zero
@@ -72,6 +80,7 @@ F32_TOL = 2e-5                 # f32 kernel vs plain (test_kernels.py:23)
 # holds such a pair (Pallas vs ref) at 2e-4
 SSM_TOL = 2e-4
 F32_PATH_TOL = 1e-3            # f32 logits: max |kernel - plain| / max |plain|
+GRAPH_TOL = 1e-6               # f32 logits: max |replay - eager| / max |eager|
 PATH_TOL = 2e-2                # least bf16 path tolerance (see path_check)
 SEED = 0
 REPS, WARMUP = 15, 3           # timed calls (median) after warm-up calls
@@ -546,9 +555,18 @@ def expected_launches(rt, cfg, n_prefill: int, n_decode: int) -> dict:
             "decode_attention": L * n_decode}
 
 
-def serving_phase(rt, cfg, params) -> dict:
+def serving_phase(rt, cfg, params):
+    """Serves the 8 requests; returns (launch counts, completed requests,
+    the engine's LM)."""
+    t0 = time.perf_counter()
     eng = rt.ServingEngine(cfg, params, n_slots=4, n_fifo=2, max_len=1024,
                            initial_limit_ms=40.0, device="cuda")
+    torch.cuda.synchronize()
+    if any(g is None for g in eng.decoder.graphs):
+        fail(f"{cfg.name}: a slot of the engine has no captured decode step")
+    print(f"engine {cfg.name}: {eng.n_slots} decode graphs captured in "
+          f"{time.perf_counter() - t0:.2f} s; launches a replay "
+          f"{eng.decoder.graphs[0].launches}", flush=True)
     rng = np.random.default_rng(SEED + 1)
     for rid, n in enumerate(PROMPT_LENS):
         toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, n)))
@@ -569,7 +587,8 @@ def serving_phase(rt, cfg, params) -> dict:
               f"preempt={r.preemptions} cost=${r.cost_usd():.3e}",
               flush=True)
     print(f"serving {cfg.name}: {n_prefill} prefills, {n_decode} decode "
-          f"steps in {wall:.3f} s wall; launches {counts}", flush=True)
+          f"steps (graph replays) in {wall:.3f} s wall; launches {counts}",
+          flush=True)
     if len(done) != n_prefill:
         fail(f"{cfg.name}: {len(done)} of {n_prefill} requests completed")
     for r in done:
@@ -588,16 +607,41 @@ def serving_phase(rt, cfg, params) -> dict:
         if n != expect.get(name, 0):
             fail(f"{cfg.name}: kernel {name}: {n} launches, the path makes "
                  f"{expect.get(name, 0)}")
-    return counts
+    return counts, done, eng.lm
 
 
-def step_times(lm, cfg) -> None:
-    """Host-clock time of one prefill and of one decode step, each ending
-    in a device synchronise. The device's busy and idle share within them
-    is read by ``python -m repro_torch.launch.profile --arch``."""
+def redecode_check(lm, cfg, done) -> None:
+    """The engine's tokens (graph replays, slots swapped on preemption)
+    against an eager greedy decode of each request on its own cache."""
+    with torch.inference_mode():
+        for r in done:
+            logits, cache = lm.prefill(r.tokens, 1024)
+            toks = [int(torch.argmax(logits[0, -1]))]
+            S = r.tokens.shape[1]
+            for j in range(len(r.generated) - 1):
+                logits, cache = lm.decode_step(
+                    torch.tensor([toks[-1]], device="cuda"), cache,
+                    torch.tensor([S + j], device="cuda"))
+                toks.append(int(torch.argmax(logits[0, -1])))
+            if toks != r.generated:
+                fail(f"{cfg.name} request {r.rid} ({r.preemptions} "
+                     f"preemptions): engine tokens {r.generated}, eager "
+                     f"re-decode {toks}")
+    print(f"redecode {cfg.name}: the engine's tokens equal an eager greedy "
+          f"decode for all {len(done)} requests "
+          f"({sum(r.preemptions for r in done)} preemptions)", flush=True)
+
+
+def step_times(rt, lm, cfg) -> None:
+    """Host-clock time of one prefill and of one decode step, eager and as
+    a graph replay, taken in turns; a step is the engine's work for one
+    token (the step, then the greedy token read on the host, which
+    synchronises). The device's busy and idle share within them is read by
+    ``python -m repro_torch.launch.profile --arch``."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     toks = torch.randint(0, cfg.vocab, (1, 513), generator=gen,
                          device="cuda")
+    dec = rt.SlotDecoder(lm, 1, 1024)
     with torch.inference_mode():
         for _ in range(2):
             torch.cuda.synchronize()
@@ -605,23 +649,77 @@ def step_times(lm, cfg) -> None:
             _, cache = lm.prefill(toks, 1024)
             torch.cuda.synchronize()
             prefill_s = time.perf_counter() - t0
-        tok = toks[:, -1]
-        pos = torch.tensor([513], device="cuda")
-        walls = []
+        dec.prefill(0, toks)
+        tok = int(toks[0, -1])
+        tok_t = toks[:, -1]
+        pos_t = torch.tensor([513], device="cuda")
+        walls = {"eager": [], "graph": []}
         for _ in range(10):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            lm.decode_step(tok, cache, pos)
+            int(torch.argmax(lm.decode_step(tok_t, cache, pos_t)[0][0, -1]))
+            walls["eager"].append(time.perf_counter() - t0)
             torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-    wall_ms = statistics.median(walls) * 1e3
+            t0 = time.perf_counter()
+            int(torch.argmax(dec.step(0, tok, 513)[0, -1]))
+            walls["graph"].append(time.perf_counter() - t0)
+    eager_ms, graph_ms = (statistics.median(walls[k]) * 1e3
+                          for k in ("eager", "graph"))
     weight_bytes = sum(p.numel() * p.element_size() for n, p in
                        lm.named_parameters()
                        if n != "embed" or cfg.tie_embeddings)
     print(f"step {cfg.name}: prefill 513 tokens {prefill_s * 1e3:.2f} ms "
-          f"wall; decode step (cache 514) {wall_ms:.3f} ms wall (median of "
-          f"10); weight-read bound of a decode step "
+          f"wall; decode step (cache 514) eager {eager_ms:.3f} ms, graph "
+          f"replay {graph_ms:.3f} ms wall (medians of 10, in turns); "
+          f"weight-read bound of a decode step "
           f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms", flush=True)
+
+
+def graph_check(rt, cfg, params32) -> None:
+    """The captured decode step against the eager LM.decode_step in f32 at
+    full width: a 200-token prompt prefilled into slot 0 and into a twin
+    cache, then 4 greedy steps; before the third the request is saved out
+    of slot 0, slot 0 is filled with NaN, and the state is loaded into
+    slot 1. Each replay must equal the eager step bitwise, or lie within
+    GRAPH_TOL of the logits' scale."""
+    lm = rt.LM.from_params(cfg, params32)
+    dec = rt.SlotDecoder(lm, 2, 1024)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    prompt = torch.randint(0, cfg.vocab, (1, 200), generator=gen,
+                           device="cuda")
+    with torch.inference_mode():
+        logits, twin = lm.prefill(prompt, 1024)
+        dec.prefill(0, prompt)
+        tok, slot = int(torch.argmax(logits[0, -1])), 0
+        for i in range(4):
+            if i == 2:
+                saved = dec.save(0)
+                for t in dec.caches[0].values():
+                    t.fill_(float("nan"))
+                dec.load(1, saved)
+                del saved
+                slot = 1
+            got = dec.step(slot, tok, 200 + i).clone()
+            want, twin = lm.decode_step(
+                torch.tensor([tok], device="cuda"), twin,
+                torch.tensor([200 + i], device="cuda"))
+            if tuple(got.shape) != (1, 1, cfg.vocab) or \
+                    not bool(got.isfinite().all()):
+                fail(f"graph check {cfg.name} step {i}: replayed logits "
+                     f"{tuple(got.shape)} not finite or misshaped")
+            scale = float(want.abs().max())
+            rel = float((got - want).abs().max()) / scale
+            same = bool(torch.equal(got, want))
+            print(f"graph check {cfg.name} step {i} (slot {slot}"
+                  f"{', right after the swap in' if i == 2 else ''}): f32 "
+                  f"replay {'bitwise equal to' if same else 'differs from'} "
+                  f"the eager step, max |replay - eager| {rel:.3e} of the "
+                  f"logits' scale {scale:.3f} (tolerance {GRAPH_TOL})",
+                  flush=True)
+            if rel > GRAPH_TOL:
+                fail(f"graph check {cfg.name} step {i}: replay differs from "
+                     f"the eager step by {rel:.3e} of the logits' scale")
+            tok = int(torch.argmax(want[0, -1]))
 
 
 # Depth of the path check where the full stack amplifies f32 rounding past
@@ -635,7 +733,7 @@ def step_times(lm, cfg) -> None:
 PATH_LAYERS = {"zamba2-1.2b": 6}
 
 
-def path_check(rt, cfg, params16) -> None:
+def path_check(rt, cfg, params16, params32) -> None:
     """The serving path through the kernels against the same path through
     the plain versions, on the card, on the same weights.
 
@@ -651,8 +749,7 @@ def path_check(rt, cfg, params16) -> None:
     n_layers = PATH_LAYERS.get(cfg.name, cfg.n_layers)
     print(f"path check {cfg.name}: {n_layers} of {cfg.n_layers} layers at "
           "full width", flush=True)
-    _, params32 = pc.depth_cut(cfg, rt.init_params(
-        cfg, seed=SEED, device="cuda", dtype=torch.float32), n_layers)
+    _, params32 = pc.depth_cut(cfg, params32, n_layers)
     cfg, params16 = pc.depth_cut(cfg, params16, n_layers)
     probe = next(n for n in params16 if n.rsplit(".", 1)[-1] in rt.MATMUL)
     w16, w32 = params16[probe], params32[probe]
@@ -664,7 +761,6 @@ def path_check(rt, cfg, params16) -> None:
     p16 = pc.path_logits(cfg, params16, rt.plain, toks)
     k32 = pc.path_logits(cfg, params32, rt.ops, toks)
     p32 = pc.path_logits(cfg, params32, rt.plain, toks)
-    del params32
     for i in range(len(p32)):
         for name, t in (("k16", k16[i]), ("p16", p16[i]), ("k32", k32[i])):
             if tuple(t.shape) != (1, 1, cfg.vocab) or \
@@ -694,8 +790,8 @@ def path_check(rt, cfg, params16) -> None:
 
 
 def model_phase(rt, arch: str) -> dict:
-    """Serve, time and path-check one full-width model; its weights are
-    freed before the next model's."""
+    """Serve, time, graph-check and path-check one full-width model; its
+    weights are freed before the next model's."""
     cfg = rt.configs.get_config(arch)
     t0 = time.perf_counter()
     params = rt.init_params(cfg, seed=SEED, device="cuda",
@@ -706,10 +802,14 @@ def model_phase(rt, arch: str) -> dict:
     print(f"model: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
           f"{n_params / 1e9:.3f} B parameters, {gb:.2f} GB on the card, "
           f"initialised in {time.perf_counter() - t0:.1f} s", flush=True)
-    counts = serving_phase(rt, cfg, params)
-    step_times(rt.LM.from_params(cfg, params), cfg)
-    path_check(rt, cfg, params)
-    del params
+    counts, done, lm = serving_phase(rt, cfg, params)
+    redecode_check(lm, cfg, done)
+    step_times(rt, lm, cfg)
+    params32 = rt.init_params(cfg, seed=SEED, device="cuda",
+                              dtype=torch.float32)
+    graph_check(rt, cfg, params32)
+    path_check(rt, cfg, params, params32)
+    del params, params32, lm, done
     torch.cuda.empty_cache()
     return counts
 
@@ -745,12 +845,13 @@ def load_port() -> SimpleNamespace:
     from repro_torch.models.layers import MATMUL
     from repro_torch.models.transformer import family_kind, zamba_groups
     from repro_torch.serving import LiveRequest, ServingEngine
+    from repro_torch.serving.graphs import SlotDecoder
     return SimpleNamespace(
         configs=configs, init_params=params.init_params, build=build,
         ops=ops, plain=plain, LM=LM, MATMUL=MATMUL, family_kind=family_kind,
         path_check=path_check,
         zamba_groups=zamba_groups, LiveRequest=LiveRequest,
-        ServingEngine=ServingEngine,
+        ServingEngine=ServingEngine, SlotDecoder=SlotDecoder,
         kernels={"fused_rmsnorm": (rn.fused_rmsnorm_cuda,
                                    rn.fused_rmsnorm_plain),
                  "flash_attention": (fa.flash_attention_cuda,

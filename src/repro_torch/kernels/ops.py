@@ -4,9 +4,14 @@ Counterpart of ``repro.kernels.ops``, whose ``_auto_interpret`` picked
 Pallas interpret mode off the TPU. Here a CPU tensor goes to the plain
 PyTorch version and a CUDA tensor to the hand-written kernel; a CUDA
 call that the kernel cannot take raises, and nothing falls back. Each
-kernel module counts its own launches (``launch_counts``).
+kernel module counts its own launches (``launch_counts``); a replay of a
+captured CUDA graph runs no wrapper, so it adds the launches counted at
+its capture (``uncounted``, ``add_launches``).
 """
 from __future__ import annotations
+
+from contextlib import contextmanager
+from typing import Iterator
 
 import torch
 
@@ -76,3 +81,25 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for m in _MODULES:
         m.launches = 0
+
+
+@contextmanager
+def uncounted() -> Iterator[dict[str, int]]:
+    """Takes the launches made inside the block out of the totals. Yields
+    a dict that holds them, by kernel name, once the block has ended: the
+    launches of one call of a graph being captured."""
+    before = launch_counts()
+    inside: dict[str, int] = {}
+    try:
+        yield inside
+    finally:
+        for m in _MODULES:
+            inside[m.NAME] = m.launches - before[m.NAME]
+            m.launches = before[m.NAME]
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Counts the launches of one replay of a captured graph (``counts``
+    from :func:`uncounted` at its capture)."""
+    for m in _MODULES:
+        m.launches += counts.get(m.NAME, 0)

@@ -120,8 +120,11 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
         k_cache[rows, :, cache_pos] = k[:, :, 0].to(k_cache.dtype)
         v_cache[rows, :, cache_pos] = v[:, :, 0].to(v_cache.dtype)
         # keys 0..pos are valid: the mask `key_positions <= pos` of
-        # attend_cache, as a per-row length pos + 1
-        lengths = (cache_pos + 1).to(torch.int32).repeat_interleave(H)
+        # attend_cache, as a per-row length pos + 1 (a repeat, not
+        # repeat_interleave, whose output size may be read on the host:
+        # the step is captured in a CUDA graph)
+        lengths = (cache_pos + 1).to(torch.int32)[:, None] \
+            .repeat(1, H).view(B * H)
         out = kernels.decode_attention(
             q.reshape(B * H, 1, hd), k_cache.view(B * KV, -1, hd),
             v_cache.view(B * KV, -1, hd), lengths)

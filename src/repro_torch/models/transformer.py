@@ -12,7 +12,8 @@ parameter tree:
   (zamba2-1.2b);
 * rwkv: ``layers.<i>.*`` RWKV6 layers (rwkv6-1.6b).
 
-``prefill`` returns the port's own cache, preallocated and written in
+``prefill`` returns the port's own cache, preallocated (``new_cache``, or
+the caller's, as the serving engine's slots pass theirs) and written in
 place by ``decode_step`` (replacing ``_pad_cache``): uniform
 ``{"k", "v"}`` of (L, B, KV, max_len, hd); zamba ``{"ssm_h"}`` of
 (L, B, nh, hd, ds) f32 beside ``{"k", "v"}`` of (G, B, KV, max_len, hd)
@@ -189,34 +190,55 @@ class LM(nn.Module):
         return self.unembed(self._final_norm(x))
 
     # ======================== PREFILL ===================================
-    def _kv_cache(self, n: int, B: int, max_len: int, device) -> dict:
-        shape = (n, B, self.cfg.n_kv_heads, max_len, self.cfg.hd)
-        return {"k": torch.zeros(shape, dtype=self.dtype, device=device),
-                "v": torch.zeros(shape, dtype=self.dtype, device=device)}
+    def new_cache(self, batch: int, max_len: int, device=None) -> dict:
+        """A zeroed cache in the family's layout (module docstring), on
+        ``device`` (default: the parameters')."""
+        cfg, dev = self.cfg, device or self.device
+        f32 = dict(dtype=torch.float32, device=dev)
+        if self.kind == "rwkv":
+            nh, hd = rwkv_dims(cfg)
+            return {"S": torch.zeros(cfg.n_layers, batch, nh, hd, hd, **f32),
+                    "x_tm": torch.zeros(cfg.n_layers, batch, cfg.d_model,
+                                        **f32),
+                    "x_cm": torch.zeros(cfg.n_layers, batch, cfg.d_model,
+                                        **f32)}
+        n = cfg.n_layers if self.kind == "uniform" else zamba_groups(cfg)[0]
+        shape = (n, batch, cfg.n_kv_heads, max_len, cfg.hd)
+        cache = {"k": torch.zeros(shape, dtype=self.dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=self.dtype, device=dev)}
+        if self.kind == "zamba":
+            _, nh, hd, ds = ssm_dims(cfg)
+            cache["ssm_h"] = torch.zeros(cfg.n_layers, batch, nh, hd, ds,
+                                         **f32)
+        return cache
 
-    def prefill(self, tokens: torch.Tensor, max_len: int):
+    def prefill(self, tokens: torch.Tensor, max_len: int,
+                cache: Optional[dict] = None):
         """tokens (B, S). Returns (last-token logits (B, 1, V), cache); the
         cache's layout is the family's (module docstring), KV caches zero
-        past S."""
+        past S. ``cache``, one of :meth:`new_cache`'s of this batch and
+        ``max_len``, is overwritten in place and returned; by default a
+        new one is made."""
         cfg = self.cfg
         B, S = tokens.shape
         if S > max_len and self.kind != "rwkv":
             raise ValueError(f"prompt of {S} tokens exceeds max_len {max_len}")
+        if cache is None:
+            cache = self.new_cache(B, max_len)
+        else:
+            self._check_cache(cache, B, max_len)
+            for name in ("k", "v"):
+                if name in cache:
+                    cache[name][:, :, :, S:].zero_()
         x = self.embed_tokens(tokens)
         positions = torch.arange(S, device=tokens.device).expand(B, S)
-        dev = x.device
         if self.kind == "uniform":
-            cache = self._kv_cache(cfg.n_layers, B, max_len, dev)
             for i, block in enumerate(self.layers):
                 x, kv = self._layer(block.attn, block.mlp, x, positions,
                                     update_cache=True)
                 cache["k"][i, :, :, :S] = kv["k"]
                 cache["v"][i, :, :, :S] = kv["v"]
         elif self.kind == "zamba":
-            _, nh, hd, ds = ssm_dims(cfg)
-            cache = self._kv_cache(zamba_groups(cfg)[0], B, max_len, dev)
-            cache["ssm_h"] = torch.empty(cfg.n_layers, B, nh, hd, ds,
-                                         dtype=torch.float32, device=dev)
             for i, layer in enumerate(self.layers):
                 out, cache["ssm_h"][i] = ssm_block(layer, x, cfg,
                                                    kernels=self.kernels)
@@ -228,17 +250,21 @@ class LM(nn.Module):
                     cache["k"][g, :, :, :S] = kv["k"]
                     cache["v"][g, :, :, :S] = kv["v"]
         else:
-            nh, hd = rwkv_dims(cfg)
-            f32 = dict(dtype=torch.float32, device=dev)
-            cache = {"S": torch.empty(cfg.n_layers, B, nh, hd, hd, **f32),
-                     "x_tm": torch.empty(cfg.n_layers, B, cfg.d_model, **f32),
-                     "x_cm": torch.empty(cfg.n_layers, B, cfg.d_model, **f32)}
             for i, layer in enumerate(self.layers):
                 x, st = rwkv_block(layer, x, cfg, kernels=self.kernels)
                 for name, t in st.items():
                     cache[name][i] = t
         logits = self.unembed(self._final_norm(x[:, -1:]))
         return logits, cache
+
+    def _check_cache(self, cache: dict, batch: int, max_len: int) -> None:
+        want = {n: (t.shape, t.dtype) for n, t in
+                self.new_cache(batch, max_len, device="meta").items()}
+        got = {n: (t.shape, t.dtype) for n, t in cache.items()}
+        if got != want:
+            raise ValueError(f"cache {got} is not the layout {want}")
+        if any(t.device != self.device for t in cache.values()):
+            raise ValueError(f"cache is not on {self.device}")
 
     # ======================== DECODE ====================================
     def decode_step(self, token: torch.Tensor, cache: dict,

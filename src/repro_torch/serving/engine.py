@@ -8,9 +8,16 @@ they move to the fair-share group and pay the modelled KV swap penalty
 in simulated wall-clock. Scheduling depends only on token counts, so on
 the same model and prompts both engines make the same decisions.
 
-Decode runs eagerly (the JAX engine jits it). Greedy decoding takes the
-first maximum, as ``jnp.argmax`` does. Prompts are int64 tensors on the
-engine's device.
+Where the JAX engine jits its decode step, this one replays it
+(:mod:`.graphs`): each slot owns a preallocated cache and static token
+and position buffers, and on the card one CUDA graph of
+``LM.decode_step`` on them, captured when the engine is built. A request
+is prefilled into the cache of the slot that admits it. Preemption copies
+the slot's state out into ``req.cache``, and a restore copies it into
+the cache of the slot that takes the request back, which may be another
+one. On the CPU the same slots run ``LM.decode_step`` eagerly. Greedy
+decoding takes the first maximum, as ``jnp.argmax`` does. Prompts are
+int64 tensors on the engine's device.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from ..core.hybrid import TimeLimitAdapter
 from ..costmodel.pricing import DEFAULT_PRICING
 from ..device import resolve_device
 from ..models import LM
+from .graphs import SlotDecoder
 from .request import preemption_penalty_ms
 
 
@@ -37,7 +45,7 @@ class LiveRequest:
     mem_gb: float = 0.5
     # runtime
     generated: list = field(default_factory=list)
-    cache: Any = None
+    cache: Any = None                 # its state while swapped out
     pos: int = 0
     cpu_ms: float = 0.0               # accumulated slot time
     vruntime: float = 0.0
@@ -87,25 +95,25 @@ class ServingEngine:
         self.slot_ready_ms = [0.0] * n_slots      # swap-penalty stalls
         self.completed: list[LiveRequest] = []
         self.now_ms = 0.0
+        self.decoder = SlotDecoder(self.lm, n_slots, max_len)
 
     # -- model ops ------------------------------------------------------
-    @torch.inference_mode()
-    def _prefill(self, req: LiveRequest):
-        logits, cache = self.lm.prefill(req.tokens, self.max_len)
-        req.cache = cache
+    def _prefill(self, i: int, req: LiveRequest):
+        logits = self.decoder.prefill(i, req.tokens)
         req.pos = req.tokens.shape[1]
         req.generated.append(int(torch.argmax(logits[0, -1])))
 
-    @torch.inference_mode()
-    def _decode_one(self, req: LiveRequest):
-        tok = torch.tensor([req.generated[-1]], dtype=torch.int64,
-                           device=self.lm.device)
-        pos = torch.tensor([req.pos], dtype=torch.int64,
-                           device=self.lm.device)
-        logits, cache = self.lm.decode_step(tok, req.cache, pos)
-        req.cache = cache
+    def _decode_one(self, i: int, req: LiveRequest):
+        logits = self.decoder.step(i, req.generated[-1], req.pos)
         req.pos += 1
         req.generated.append(int(torch.argmax(logits[0, -1])))
+
+    def _swap_out(self, i: int, req: LiveRequest):
+        req.cache = self.decoder.save(i)
+
+    def _swap_in(self, i: int, req: LiveRequest):
+        self.decoder.load(i, req.cache)
+        req.cache = None
 
     # -- scheduler ------------------------------------------------------
     def submit(self, req: LiveRequest):
@@ -133,7 +141,7 @@ class ServingEngine:
                     break
                 req.first_run_ms = (self.now_ms if req.first_run_ms is None
                                     else req.first_run_ms)
-                self._prefill(req)
+                self._prefill(i, req)
                 self.slots[i] = req
         # fair slots pick min-vruntime from the fair queue
         for i in range(self.n_fifo, self.n_slots):
@@ -143,12 +151,12 @@ class ServingEngine:
                 req = self.fair_queue.pop(0)
                 # restore costs the swap penalty (stall the slot)
                 self.slot_ready_ms[i] = self.now_ms + self.penalty_ms
+                self._swap_in(i, req)
                 self.slots[i] = req
 
     def _complete(self, i: int):
         req = self.slots[i]
         req.completion_ms = self.now_ms
-        req.cache = None                      # free KV
         self.adapter.record(req.execution_ms(), self.now_ms)
         self.completed.append(req)
         self.slots[i] = None
@@ -162,7 +170,7 @@ class ServingEngine:
             req = self.slots[i]
             if req is None or self.now_ms < self.slot_ready_ms[i]:
                 continue
-            self._decode_one(req)
+            self._decode_one(i, req)
             req.cpu_ms += self.step_ms
             req.vruntime += self.step_ms
             if req.done:
@@ -172,6 +180,7 @@ class ServingEngine:
                 # paper's core move: over-limit requests leave the
                 # run-to-completion group; eviction = KV swap penalty
                 req.preemptions += 1
+                self._swap_out(i, req)
                 self.fair_queue.append(req)
                 self.slots[i] = None
                 self.slot_ready_ms[i] = self.now_ms + self.penalty_ms
@@ -180,6 +189,7 @@ class ServingEngine:
                     < self.step_ms and (self.fair_queue):
                 # fair-share slice expiry: rotate if someone is waiting
                 req.preemptions += 1
+                self._swap_out(i, req)
                 self.fair_queue.append(req)
                 self.slots[i] = None
                 self.slot_ready_ms[i] = self.now_ms + self.penalty_ms

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card (marked ``cuda``; skipped where there is none). Needs no JAX:
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+captured decode step against the eager one, on the card (marked
+``cuda``; skipped where there is none). Needs no JAX:
 
     pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -9,6 +10,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_smoke  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_cuda, decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -19,6 +22,9 @@ from repro_torch.kernels.rwkv6_scan import (  # noqa: E402
     rwkv6_scan_cuda, rwkv6_scan_plain)
 from repro_torch.kernels.ssm_scan import (  # noqa: E402
     chunk_cumsum, ssm_scan_cuda, ssm_scan_plain)
+from repro_torch.models import LM  # noqa: E402
+from repro_torch.params import init_params  # noqa: E402
+from repro_torch.serving.graphs import SlotDecoder  # noqa: E402
 
 # test_kernels.py:23
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
@@ -200,3 +206,49 @@ def test_cuda_attention_tilings_match_plain(card, dtype):
             **TOL[dtype])
     torch.cuda.synchronize()
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-7b", "zamba2-1.2b", "rwkv6-1.6b"])
+def test_cuda_graph_replay_matches_eager_decode(card, arch):
+    """Each slot's captured decode step against ``LM.decode_step`` on a
+    twin cache, in f32 at smoke size, before and right after the request
+    is swapped from slot 0 into slot 1 (slot 0 then holds NaN): within
+    1e-6 of the logits' scale (bitwise where the graph replays the eager
+    kernels as they are). The launch counts grow by the launches of one
+    capture a replay; warm-up, capture and the eager twin count nothing."""
+    cfg = get_smoke(arch)
+    lm = LM.from_params(cfg, init_params(cfg, seed=0, device=card,
+                                         dtype=torch.float32))
+    g = torch.Generator(device=card).manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab, (1, 21), generator=g, device=card)
+    ops.reset_launch_counts()
+    dec = SlotDecoder(lm, n_slots=2, max_len=64)
+    assert set(ops.launch_counts().values()) == {0}
+    per_step = dec.graphs[0].launches
+    assert per_step == dec.graphs[1].launches
+    assert per_step["fused_rmsnorm"] > 0
+    with torch.inference_mode():
+        with ops.uncounted():
+            logits, twin = lm.prefill(prompt, 64)
+        dec.prefill(0, prompt)
+        before = ops.launch_counts()
+        tok, slot = int(logits[0, -1].argmax()), 0
+        for pos in range(21, 27):
+            if pos == 24:
+                saved = dec.save(0)
+                for t in dec.caches[0].values():
+                    t.fill_(float("nan"))
+                dec.load(1, saved)
+                slot = 1
+            got = dec.step(slot, tok, pos).clone()
+            with ops.uncounted():
+                want, twin = lm.decode_step(
+                    torch.tensor([tok], device=card), twin,
+                    torch.tensor([pos], device=card))
+            scale = float(want.abs().max())
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * scale)
+            tok = int(want[0, -1].argmax())
+    after = ops.launch_counts()
+    assert after == {n: before[n] + 6 * per_step[n] for n in after}
+    torch.cuda.synchronize()
