@@ -8,7 +8,7 @@ and the CUDA toolkit (nvcc). It imports nothing of JAX or of the JAX
 package. In order it:
 
 1. prints the card (nvidia-smi name and power limit) and the versions;
-2. builds the port's five CUDA kernels from src/repro_torch/csrc into
+2. builds the port's six CUDA kernels from src/repro_torch/csrc into
    build/repro_torch/ (timed as set-up);
 3. counts the tensor-core instructions (HMMA) of the attention and
    scan kernels in the built library's SASS (cuobjdump), and fails if
@@ -45,13 +45,35 @@ package. In order it:
       steps in one slot and right after a swap into another slot;
    d. holds the kernel path against the plain path on the card (prefill
       plus 4 teacher-forced decode steps), in f32 and in bf16;
-6. prints a JSON line of the kernels, then the result line.
+6. runs the port's second path, the batched Monte-Carlo engine, whose
+   kernel mc_cell (f64, built with -fmad=false; step 3 fails if its SASS
+   holds a DFMA) runs a grid of the paper's single-node scheduler cells:
+   a. holds the kernel bitwise against its plain version run on the
+      host's CPU (every float, every count, n_events) on small grids: the
+      MC bench's (1 minute at 60 invocations a minute, 10 functions, 4
+      cores, seeds 0-1, loads 0.5 and 1.5, fifo / cfs / hybrid), a 16-core
+      cell at 600 a minute for each policy, and hybrid cells with n_fifo
+      1 and C - 1 and a limit below the shortest service, and the bench
+      trace's arrivals in bursts on 2 cores; then at the paper grid's own
+      shapes (50 cores, 16,384 task slots): the bench trace under fifo /
+      cfs / hybrid (25 FIFO cores, 1633 ms) and the paper's FIFO seed-0
+      cell (12,643 tasks);
+   b. runs the paper's grid through run_cells on the card, with the
+      launch counts set to 0 just before and read just after: 50 cores,
+      the default trace (12,643 tasks at seed 0) at seeds 0-3, fifo / cfs /
+      hybrid (25 FIFO cores, 1633 ms); every cell's digest must equal the
+      scalar engine's (repro_torch/mc/paper_digests.py), and the hybrid
+      must bill less than CFS at every seed; prints each cell's summary;
+   c. times the grid's launch and its slowest cell alone (cells/s, ns an
+      event);
+7. prints a JSON line of the kernels, then the result line.
 
 Any failed check exits non-zero. Without a CUDA device it exits non-zero
 and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -528,6 +550,29 @@ def sass_check(lib_path: Path) -> None:
         if not tc or min(tc) == 0:
             fail(f"the bf16 {kernel}_kernel has no tensor-core instruction "
                  "in its SASS")
+    mc_sass_check(res.stdout)
+
+
+def mc_sass_check(sass: str) -> None:
+    """The f64 instructions of mc_cell_kernel: it must hold no DFMA (a
+    contracted product-and-add would change the last bit; -fmad=false
+    forbids them, and the kernel divides nothing)."""
+    ops, fn = None, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = "mc_cell_kernel" in line
+            if fn:
+                ops = {}
+        elif fn:
+            m = re.search(r"\b(D(?:ADD|MUL|FMA|SETP|MNMX))\b", line)
+            if m:
+                ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    if ops is None:
+        fail("mc_cell_kernel not found in the library's SASS")
+    print(f"sass: mc_cell_kernel f64: {dict(sorted(ops.items()))}",
+          flush=True)
+    if ops.get("DFMA", 0):
+        fail(f"mc_cell_kernel holds {ops['DFMA']} DFMA in its SASS")
 
 
 # -- phase 5: the serving paths ----------------------------------------------
@@ -814,6 +859,183 @@ def model_phase(rt, arch: str) -> dict:
     return counts
 
 
+# -- phase 6: the batched Monte-Carlo engine ----------------------------------
+
+MC_SMALL = dict(minutes=1, invocations_per_min=60.0, n_functions=10)
+MC_16 = dict(minutes=1, invocations_per_min=600.0, n_functions=40, seed=0)
+MC_POLICIES = ("fifo", "cfs", "hybrid")
+MC_FLOATS = ("completion", "first_run", "cpu_time")
+MC_INTS = ("preemptions", "ctx_switches", "migrations", "ok", "n_events")
+
+
+def mc_arrays(rt, cells, n_slots=None):
+    """run_cells' padded arrays of one (cores, slots) bucket, on the CPU;
+    n_slots defaults to the bucket of the longest cell."""
+    n_slots = n_slots or max(rt.mc_bucket(len(c.tasks)) for c in cells)
+    return ([torch.from_numpy(a) for a in rt.mc_pack(cells, n_slots)],
+            cells[0].n_cores)
+
+
+def mc_events_timed(fn) -> tuple[dict, float]:
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def mc_compare(rt, cells, label, n_slots=None) -> tuple[float, float, float]:
+    """The kernel against the plain version (on the host's CPU) on one
+    grid, bitwise; returns (max |diff| of the floats, plain ms, kernel
+    ms: the second of two launches)."""
+    args, C = mc_arrays(rt, cells, n_slots)
+    t0 = time.perf_counter()
+    plain = rt.run_grid_plain(*args, n_cores=C)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    dev = [a.cuda() for a in args]
+    rt.mc_cell_cuda(*dev, n_cores=C)
+    out, ms = mc_events_timed(lambda: rt.mc_cell_cuda(*dev, n_cores=C))
+    err = 0.0
+    for k in MC_FLOATS:
+        got, want = out[k].cpu(), plain[k]
+        if not torch.equal(got.view(torch.int64), want.view(torch.int64)):
+            fail(f"mc_cell [{label}]: {k} differs from the plain version")
+        live = ~torch.isnan(want)
+        err = max(err, float((got[live] - want[live]).abs().max()))
+    for k in MC_INTS:
+        if not torch.equal(out[k].cpu(), plain[k].to(out[k].dtype)):
+            fail(f"mc_cell [{label}]: {k} differs from the plain version")
+    if not bool(out["ok"].all()):
+        fail(f"mc_cell [{label}]: a cell did not drain")
+    print(f"kernel mc_cell [{label}]: {len(cells)} cells at {C} cores, "
+          f"bitwise equal to the plain version (max_abs_err {err:.1e}), "
+          f"n_events {out['n_events'].tolist()}; kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.1f} ms on the host's CPU", flush=True)
+    return err, plain_ms, ms
+
+
+def mc_small_grids(rt) -> tuple[float, float, float]:
+    """The small grids; returns (max error, the bench grid's plain ms and
+    kernel ms)."""
+    traces = [rt.generate_workload(rt.TraceSpec(**MC_SMALL, seed=s)).tasks
+              for s in (0, 1)]
+    bench = [rt.Cell(p, 4, rt.scale_load(t, load)) for t in traces
+             for load in (0.5, 1.5) for p in MC_POLICIES]
+    err, plain_ms, ms = mc_compare(rt, bench, "bench grid: seeds 0-1, loads "
+                                   "0.5 / 1.5, fifo / cfs / hybrid")
+    big = rt.generate_workload(rt.TraceSpec(**MC_16)).tasks
+    err = max(err, mc_compare(rt, [rt.Cell(p, 16, big) for p in MC_POLICIES],
+                              "16 cores, 600 a minute")[0])
+    t = traces[0]
+    knobs = [{"n_fifo": 1}, {"n_fifo": 3},
+             {"time_limit_ms": 0.5 * min(x.service for x in t)}]
+    err = max(err, mc_compare(rt, [rt.Cell("hybrid", 4, t, kw)
+                                   for kw in knobs],
+                              "hybrid n_fifo 1, n_fifo 3, limit below the "
+                              "shortest service")[0])
+    # arrivals in bursts on the 500 ms grid: same-instant events, and
+    # runqueues through every slice length
+    burst = [dataclasses.replace(x, arrival=500.0 * (x.arrival // 500.0))
+             for x in t]
+    err = max(err, mc_compare(rt, [rt.Cell(p, 2, burst) for p in MC_POLICIES],
+                              "bursts on the 500 ms grid, 2 cores")[0])
+    # the paper grid's shapes: its cores (the kernel's per-core layout)
+    # and its slots (the runqueue heaps' offsets)
+    pd = rt.paper_digests
+    fifo0 = pd.paper_cells(seeds=(0,))[0]
+    n_slots = rt.mc_bucket(len(fifo0.tasks))
+    wide = [rt.Cell(p, fifo0.n_cores, t, pd.paper_kw(p))
+            for p in MC_POLICIES] + [fifo0]
+    err = max(err, mc_compare(rt, wide, "the paper grid's shapes: bench "
+                              "trace fifo / cfs / hybrid and the paper's "
+                              "fifo seed-0 cell", n_slots)[0])
+    return err, plain_ms, ms
+
+
+def mc_phase(rt, smi: str) -> dict:
+    """Phase 6; returns the mc_cell row of the JSON line."""
+    err, plain_ms, small_ms = mc_small_grids(rt)
+    pd = rt.paper_digests
+    t0 = time.perf_counter()
+    cells = pd.paper_cells()
+    keys = [(p, s) for s in pd.SEEDS for p in pd.POLICIES]
+    n_tasks = [len(c.tasks) for c in cells]
+    print(f"mc paper grid: {len(cells)} cells at {cells[0].n_cores} cores, "
+          f"{min(n_tasks)}-{max(n_tasks)} tasks, traces built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    rt.ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = rt.run_cells(cells)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = rt.ops.launch_counts()
+    print(f"mc paper grid through run_cells: {wall:.3f} s wall (host work "
+          f"included); launches {counts}", flush=True)
+    buckets = {(c.n_cores, rt.mc_bucket(len(c.tasks))) for c in cells}
+    if counts["mc_cell"] != len(buckets):
+        fail(f"the paper grid launched mc_cell {counts['mc_cell']} times, "
+             f"not once for each of its {len(buckets)} buckets")
+    if any(n for name, n in counts.items() if name != "mc_cell"):
+        fail(f"the paper grid launched other kernels: {counts}")
+    cost = {}
+    for (policy, seed), res in zip(keys, results):
+        s = res.summary()
+        cost[policy, seed] = s["cost_usd"]
+        same = pd.cell_digest(res.tasks) == pd.DIGESTS[policy, seed]
+        print(f"mc {policy:6s} seed {seed}: n {s['n']} cost_usd "
+              f"{s['cost_usd']:.6f} p99_execution_s {s['p99_execution_s']:.3f}"
+              f" p99_response_s {s['p99_response_s']:.3f} makespan_s "
+              f"{s['makespan_s']:.3f} preemptions {s['preemptions']} "
+              f"ctx_switches {s['ctx_switches']} events "
+              f"{res.mc_stats['events']}; digest "
+              f"{'equal to' if same else 'DIFFERS from'} the scalar "
+              "engine's", flush=True)
+        if not same:
+            fail(f"mc {policy} seed {seed}: the digest differs from the "
+                 "scalar engine's")
+    for seed in pd.SEEDS:
+        if not cost["hybrid", seed] < cost["cfs", seed]:
+            fail(f"mc seed {seed}: hybrid bills {cost['hybrid', seed]} and "
+                 f"cfs {cost['cfs', seed]}")
+
+    # the launch alone, then each policy's seed-0 cell and the slowest
+    # cell alone
+    args, C = mc_arrays(rt, cells)
+    dev = [a.cuda() for a in args]
+    out, ms = mc_events_timed(lambda: rt.mc_cell_cuda(*dev, n_cores=C))
+    events = out["n_events"].tolist()
+    slow = max(range(len(cells)), key=lambda b: events[b])
+    for b in sorted(set(range(len(pd.POLICIES))) | {slow}):
+        one = [a[b:b + 1] for a in dev]
+        _, one_ms = mc_events_timed(lambda: rt.mc_cell_cuda(*one,
+                                                             n_cores=C))
+        print(f"mc timing: {keys[b][0]} seed {keys[b][1]} alone "
+              f"{one_ms:.2f} ms, {events[b]} events, "
+              f"{one_ms * 1e6 / events[b]:.1f} ns an event", flush=True)
+        if b == slow:
+            slow_ms = one_ms
+    B, N = args[0].shape
+    nbytes = B * N * (2 * 8 + 3 * 8 + 3 * 4) + B * (4 + 4 + 8 + 1 + 8 + 8)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"mc timing ({smi}): grid launch {ms:.1f} ms for {B} cells, "
+          f"{sum(events)} events ({B / ms * 1e3:.2f} cells/s); slowest cell "
+          f"({keys[slow][0]}, seed {keys[slow][1]}, {events[slow]} events) "
+          f"alone {slow_ms:.1f} ms, {slow_ms * 1e6 / events[slow]:.1f} ns an "
+          f"event; bound {b_ms:.5f} ms (bytes: {nbytes} in and out once; "
+          "each cell's events are a dependent chain, so the bound is far "
+          "below anything reachable)", flush=True)
+    return {"case": f"paper grid: {B} cells, {C} cores, N {N}",
+            "plain_case": "bench grid: 12 cells, 4 cores (plain on the "
+            "host's CPU)", "launches": counts["mc_cell"],
+            "max_abs_err": err, "tolerance": 0.0, "ms": ms,
+            "small_ms": small_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": "bytes", "library_ms": None}
+
+
 # -----------------------------------------------------------------------------
 
 SOURCES = {"fused_rmsnorm": ("src/repro_torch/csrc/fused_rmsnorm.cu",
@@ -825,7 +1047,9 @@ SOURCES = {"fused_rmsnorm": ("src/repro_torch/csrc/fused_rmsnorm.cu",
            "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
                         "src/repro/kernels/ssm_scan.py:49"),
            "rwkv6_scan": ("src/repro_torch/csrc/rwkv6_scan.cu",
-                          "src/repro/kernels/rwkv6_scan.py:46")}
+                          "src/repro/kernels/rwkv6_scan.py:46"),
+           "mc_cell": ("src/repro_torch/csrc/mc_cell.cu",
+                       "src/repro/mc/kernels.py:112")}
 
 
 def load_port() -> SimpleNamespace:
@@ -840,7 +1064,11 @@ def load_port() -> SimpleNamespace:
     from repro_torch.kernels import fused_rmsnorm as rn
     from repro_torch.kernels import rwkv6_scan as rs
     from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.kernels.mc_cell import mc_cell_cuda, run_grid_plain
     from repro_torch.launch import path_check
+    from repro_torch.mc import Cell, paper_digests, run_cells
+    from repro_torch.mc.engine import _bucket, pack
+    from repro_torch.traces import TraceSpec, generate_workload, scale_load
     from repro_torch.models import LM
     from repro_torch.models.layers import MATMUL
     from repro_torch.models.transformer import family_kind, zamba_groups
@@ -852,6 +1080,11 @@ def load_port() -> SimpleNamespace:
         path_check=path_check,
         zamba_groups=zamba_groups, LiveRequest=LiveRequest,
         ServingEngine=ServingEngine, SlotDecoder=SlotDecoder,
+        Cell=Cell, run_cells=run_cells, paper_digests=paper_digests,
+        mc_bucket=_bucket, mc_pack=pack,
+        mc_cell_cuda=mc_cell_cuda, run_grid_plain=run_grid_plain,
+        TraceSpec=TraceSpec, generate_workload=generate_workload,
+        scale_load=scale_load,
         kernels={"fused_rmsnorm": (rn.fused_rmsnorm_cuda,
                                    rn.fused_rmsnorm_plain),
                  "flash_attention": (fa.flash_attention_cuda,
@@ -892,13 +1125,18 @@ def main() -> None:
     rows = kernel_phase(rt.kernels, Timer())
 
     by_model = {arch: model_phase(rt, arch) for arch in MODELS}
+    t0 = time.perf_counter()
+    rows["mc_cell"] = mc_phase(rt, smi)
+    print(f"mc phase {time.perf_counter() - t0:.1f} s", flush=True)
+    by_model["paper grid"] = {"mc_cell": rows["mc_cell"]["launches"]}
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
           f" GB; total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         r = rows[name]
-        launches = {arch: c[name] for arch, c in by_model.items() if c[name]}
+        launches = {arch: c[name] for arch, c in by_model.items()
+                    if c.get(name)}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(launches.values()),
@@ -906,7 +1144,8 @@ def main() -> None:
             "max_abs_err": r["max_abs_err"], "tolerance": r["tolerance"],
             "case": r["case"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("plain_case", "small_ms") if k in r}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,3 @@
-"""repro_torch.core — own copy of the hybrid time-limit adapter."""
+"""repro_torch.core — own copies of the simulator pieces the port runs:
+the hybrid time-limit adapter, the regime arithmetic and ``Task``, the
+cost roll-ups and ``SimResult``."""

@@ -1,7 +1,8 @@
 """Builds the port's CUDA kernels into one shared library at first use.
 
 Each ``csrc/*.cu`` source is compiled by its own ``nvcc`` process, all
-started together, for ``sm_90a``; the objects are linked into one
+started together, for ``sm_90a`` (with ``SOURCE_FLAGS`` added for the
+sources that name them); the objects are linked into one
 library with a plain C interface, loaded with :mod:`ctypes`. The library
 is named by a hash of the sources and flags, so an edited source is
 rebuilt and an unchanged one is reused. It goes to ``build/repro_torch/``
@@ -22,11 +23,17 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("fused_rmsnorm.cu", "flash_attention.cu", "decode_attention.cu",
-           "ssm_scan.cu", "rwkv6_scan.cu")
+           "ssm_scan.cu", "rwkv6_scan.cu", "mc_cell.cu")
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                               "-Xptxas", "-v")
+# Flags of one source only: the Monte-Carlo cell is held bit for bit to
+# the scalar engine, so no product and add may be contracted into an FMA.
+# Its f64 code now holds no multiply, so what keeps a DFMA out is
+# chip_smoke.py's SASS check; should this source need more flags of its
+# own, put the rounding in the source (__dadd_rn) instead.
+SOURCE_FLAGS = {"mc_cell.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,6 +53,11 @@ SIGNATURES = {
                        _P),
     # r, k, v, w, u, o, state, bh, n_u, S, hd, dtype, stream
     "repro_rwkv6_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # arrival, n_tasks, n_fifo, limit, max_events, rem, vr, heap_v,
+    # heap_seq, heap_tid, completion, first_run, cpu_time, preemptions,
+    # ctx_switches, migrations, ok, n_events, slices, K, B, C, N, ctx,
+    # stream
+    "repro_mc_cell": (_P,) * 19 + (_I,) * 4 + (ctypes.c_double, _P),
 }
 
 _lock = threading.Lock()
@@ -65,6 +77,7 @@ def nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -83,7 +96,8 @@ def build() -> Path:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / (Path(s).stem + ".o") for s in SOURCES]
         procs = [subprocess.Popen(
-            [cc, *COMPILE_FLAGS, "-c", str(CSRC / s), "-o", str(o)],
+            [cc, *COMPILE_FLAGS, *SOURCE_FLAGS.get(s, ()), "-c", str(CSRC / s),
+             "-o", str(o)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for s, o in zip(SOURCES, objs)]
         logs = [p.communicate()[0] for p in procs]

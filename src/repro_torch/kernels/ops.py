@@ -18,10 +18,12 @@ import torch
 from . import decode_attention as _decode
 from . import flash_attention as _flash
 from . import fused_rmsnorm as _rmsnorm
+from . import mc_cell as _mc
 from . import rwkv6_scan as _rwkv
 from . import ssm_scan as _ssm
 
-_MODULES = (_rmsnorm, _flash, _decode, _ssm, _rwkv)
+# every kernel's launch counter (mc_cell's entry point is mc.run_grid)
+_MODULES = (_rmsnorm, _flash, _decode, _ssm, _rwkv, _mc)
 
 
 def _on_card(t: torch.Tensor, name: str) -> bool:

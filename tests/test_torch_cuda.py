@@ -252,3 +252,45 @@ def test_cuda_graph_replay_matches_eager_decode(card, arch):
     after = ops.launch_counts()
     assert after == {n: before[n] + 6 * per_step[n] for n in after}
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_mc_cell_matches_plain_bitwise(card, monkeypatch):
+    """mc_cell against run_grid_plain (on the CPU) on fifo / cfs / hybrid
+    cells of the smoke trace at 4 cores: every float bit for bit, every
+    count and n_events exactly; run_grid on the card gives the same; a
+    cell cut by its event cap comes back with ok False."""
+    from repro_torch.kernels import mc_cell
+    from repro_torch.mc import Cell, run_grid
+    from repro_torch.mc.engine import _bucket, pack
+    from repro_torch.traces import TraceSpec, generate_workload
+    tasks = generate_workload(TraceSpec(minutes=1, invocations_per_min=60.0,
+                                        n_functions=10, seed=0)).tasks
+    cells = [Cell("fifo", 4, tasks), Cell("cfs", 4, tasks),
+             Cell("hybrid", 4, tasks),
+             Cell("hybrid", 4, tasks, {"n_fifo": 1, "time_limit_ms": 40.0}),
+             Cell("hybrid", 4, tasks, {"n_fifo": 3, "time_limit_ms": 1e-3})]
+    B = len(cells)
+    args = tuple(map(torch.from_numpy, pack(cells, _bucket(len(tasks)))))
+    plain = mc_cell.run_grid_plain(*args, n_cores=4)
+    launches = mc_cell.launches
+    got = mc_cell.mc_cell_cuda(*(a.to(card) for a in args), n_cores=4)
+    torch.cuda.synchronize()
+    assert mc_cell.launches == launches + 1
+    for k, want in plain.items():
+        g = got[k].cpu()
+        if k == "n_iters":
+            assert torch.equal(g, got["n_events"].cpu())
+        elif want.dtype == torch.float64:
+            assert torch.equal(g.view(torch.int64), want.view(torch.int64)), k
+        else:
+            assert torch.equal(g, want.to(g.dtype)), k
+    out = run_grid(*(a.numpy() for a in args), n_cores=4)
+    assert (out["completion"].view("int64")
+            == plain["completion"].numpy().view("int64")).all()
+    monkeypatch.setattr(mc_cell, "event_caps",
+                        lambda service, n_tasks: torch.full_like(
+                            n_tasks, 100, dtype=torch.int64))
+    cut = mc_cell.mc_cell_cuda(*(a.to(card) for a in args), n_cores=4)
+    assert cut["ok"].tolist() == [False] * B
+    assert cut["n_events"].tolist() == [100] * B

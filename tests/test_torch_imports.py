@@ -63,19 +63,28 @@ def _no_card():
         pytest.skip("a CUDA device is present")
 
 
-@pytest.mark.parametrize("entry", ["ServingEngine", "LM", "init_params"])
+@pytest.mark.parametrize("entry", ["ServingEngine", "LM", "init_params",
+                                   "run_grid", "run_cells"])
 def test_default_device_raises_without_cuda(entry):
     _no_card()
+    import numpy as np
     from repro_torch.configs import get_smoke
+    from repro_torch.core.events import Task
+    from repro_torch.mc import Cell, run_cells, run_grid
     from repro_torch.models import LM
     from repro_torch.params import init_params
     from repro_torch.serving import ServingEngine
     cfg = get_smoke("deepseek-7b")
+    tasks = [Task(tid=i, arrival=float(i), service=5.0) for i in range(3)]
     calls = {
         "ServingEngine": lambda: ServingEngine(
             cfg, init_params(cfg, device="cpu")),
         "LM": lambda: LM(cfg),
         "init_params": lambda: init_params(cfg),
+        "run_grid": lambda: run_grid(
+            np.zeros((1, 4)), np.ones((1, 4)), np.array([4], np.int32),
+            np.array([0], np.int32), np.array([np.inf]), n_cores=2),
+        "run_cells": lambda: run_cells([Cell("cfs", 2, tasks)]),
     }
     with pytest.raises(RuntimeError, match="pass device='cpu'"):
         calls[entry]()
