@@ -14,9 +14,11 @@ package. In order it:
    scan kernels in the built library's SASS (cuobjdump), and fails if
    the bf16 flash_attention or bf16 ssm_scan kernel has none;
 4. holds each kernel against its plain PyTorch version at the shapes the
-   three serving paths give it (fused_rmsnorm at d 4096 and 2048; bf16
-   attention at hd 128 and 64; the scans in bf16 and f32, rwkv6_scan's
-   f32 being its serving dtype), and times
+   four serving paths give it (fused_rmsnorm at d 4096, 2048 and 1536;
+   bf16 attention at hd 128 and 64, and granite-moe-3b-a800m's GQA: flash
+   at BH 24 over 8 KV heads, S 513 and 600, decode at BH 24 over 8, cache
+   1024, hd 64; the scans in bf16 and f32, rwkv6_scan's f32 being its
+   serving dtype), and times
    kernel, plain version, one PyTorch library call computing the same
    function where there is one, and the bound (the larger of bytes /
    3.35 TB/s and flops / the peak of their type: 989 TFLOP/s bf16 and
@@ -31,20 +33,28 @@ package. In order it:
    the rwkv6_scan chunks' in bf16 and f32, the state at 2e-5 (S 1, 15,
    16, 17, 513, hd 16 / 32 / 128, one u row, w at 0, 1, 1e-30 and
    1 - 2^-24);
-5. for each of deepseek-7b, zamba2-1.2b and rwkv6-1.6b at full width
-   (random weights from a seed), one model on the card at a time:
+5. for each of deepseek-7b, zamba2-1.2b, rwkv6-1.6b and
+   granite-moe-3b-a800m (32 layers of GQA attention and 40 experts, top
+   8) at full width and depth (random weights from a seed), one model on
+   the card at a time:
    a. serves 8 ragged requests through ServingEngine, whose decode steps
       are replays of one CUDA graph of LM.decode_step a slot, with the
       launch counts set to 0 just before and read just after (a replay
       adds the launches of its graph's capture), and holds the bf16
       engine's tokens against an eager greedy re-decode of every request;
    b. times one prefill and one decode step, eager and graph replay, in
-      turns in one run;
+      turns in one run, beside the step's weight-read floor (for
+      granite, of all 40 experts, which the dispatch runs, and of the 8
+      active ones);
    c. holds the graph replay against the eager LM.decode_step in f32 on
       twin caches (bitwise, or within 1e-6 of the logits' scale), for
       steps in one slot and right after a swap into another slot;
    d. holds the kernel path against the plain path on the card (prefill
-      plus 4 teacher-forced decode steps), in f32 and in bf16;
+      plus 4 teacher-forced decode steps), in f32 and in bf16; for
+      granite it also prints the route agreement of the two paths (token
+      choices moved, assignments dropped on one path only, the smallest
+      margin between the K-th and (K+1)-th router probability), since a
+      moved choice moves the logits by a gate, not by rounding;
 6. runs the port's second path, the batched Monte-Carlo engine, whose
    kernel mc_cell (f64, built with -fmad=false; step 3 fails if its SASS
    holds a DFMA) runs a grid of the paper's single-node scheduler cells:
@@ -105,6 +115,7 @@ F32_PATH_TOL = 1e-3            # f32 logits: max |kernel - plain| / max |plain|
 GRAPH_TOL = 1e-6               # f32 logits: max |replay - eager| / max |eager|
 PATH_TOL = 2e-2                # least bf16 path tolerance (see path_check)
 SEED = 0
+GRANITE = "granite-moe-3b-a800m"
 REPS, WARMUP = 15, 3           # timed calls (median) after warm-up calls
 
 
@@ -188,13 +199,15 @@ class Case(NamedTuple):
     tol: float
     timed: bool = True   # False: an edge case, checked but not timed
     serving: bool = True  # in the serving path's dtype (the JSON line's)
+    model: Optional[str] = None  # a model's own shape, listed apart
 
 
 def kernel_cases(kp):
     """The kernels' cases at the serving paths' shapes: deepseek-7b (hd
     128), zamba2-1.2b (attention hd 64, BH 32; ssm_scan BH 64 over one
-    B/C group, hd 64, ds 64, chunk min(256, S)) and rwkv6-1.6b
-    (rwkv6_scan BH 32, hd 64), prompts up to 600 tokens."""
+    B/C group, hd 64, ds 64, chunk min(256, S)), rwkv6-1.6b (rwkv6_scan
+    BH 32, hd 64) and granite-moe-3b-a800m (d 1536; attention hd 64, 24
+    query heads over 8 KV heads), prompts up to 600 tokens."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     bf = torch.bfloat16
 
@@ -203,7 +216,8 @@ def kernel_cases(kp):
             .to(dtype)
 
     BH, S = 32, 1024
-    for d, rows in ((4096, (1, 32, 77, 200, 513, 600)), (2048, (1, 600))):
+    for d, rows in ((4096, (1, 32, 77, 200, 513, 600)), (2048, (1, 600)),
+                    (1536, (1, 600))):
         for n in rows:
             w = randn(d, dtype=torch.float32, scale=0.1)
             x, w1 = randn(n, d), (1.0 + w).to(bf)
@@ -213,7 +227,7 @@ def kernel_cases(kp):
                        lambda x=x, w1=w1, d=d: F.rms_norm(x, (d,), w1,
                                                           eps=1e-6),
                        2 * n * d * 2 + d * 4, 4 * n * d, BF16_FLOPS_PER_S,
-                       TOL)
+                       TOL, model=GRANITE if d == 1536 else None)
     for hd, lens in ((128, (1, 77, 200, 513, 600)), (64, (77, 200, 513, 600))):
         for s in lens:
             q, k, v = randn(BH, s, hd), randn(BH, s, hd), randn(BH, s, hd)
@@ -226,6 +240,20 @@ def kernel_cases(kp):
                     q[None], k[None], v[None], is_causal=True)[0],
                 4 * BH * s * hd * 2, 4 * hd * pairs * BH, BF16_FLOPS_PER_S,
                 TOL)
+    bh, bh_kv, hd = 24, 8, 64                    # granite: GQA, G = 3
+    for s in (513, 600):
+        q, k, v = randn(bh, s, hd), randn(bh_kv, s, hd), randn(bh_kv, s, hd)
+        pairs = s * (s + 1) // 2
+        yield Case(
+            "flash_attention",
+            f"BH {bh} over {bh_kv}, Sq = Sk = {s}, hd {hd}, causal",
+            lambda q=q, k=k, v=v: kp["flash_attention"][0](q, k, v),
+            lambda q=q, k=k, v=v: kp["flash_attention"][1](q, k, v),
+            lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], is_causal=True,
+                enable_gqa=True)[0],
+            2 * (bh + bh_kv) * s * hd * 2, 4 * hd * pairs * bh,
+            BF16_FLOPS_PER_S, TOL, model=GRANITE)
     for hd, labels in ((128, ("1", "77", "600", "1024", "mixed 1..1024")),
                        (64, ("77", "600", "1024"))):
         for label in labels:
@@ -246,6 +274,24 @@ def kernel_cases(kp):
                     q[None], k[None], v[None], attn_mask=m)[0],
                 2 * sum(lens) * hd * 2 + 2 * BH * hd * 2 + 4 * BH,
                 4 * hd * sum(lens), BF16_FLOPS_PER_S, TOL)
+    bh, bh_kv, hd = 24, 8, 64                    # granite: GQA, G = 3
+    for n in (600, 1024):
+        q, k, v = randn(bh, 1, hd), randn(bh_kv, S, hd), randn(bh_kv, S, hd)
+        lengths = torch.full((bh,), n, dtype=torch.int32, device="cuda")
+        mask = (torch.arange(S, device="cuda") < n)[None, None, None, :]
+        # K and V are read once a KV head, whichever of its G query
+        # heads reads them
+        yield Case(
+            "decode_attention", f"BH {bh} over {bh_kv}, cache {S}, hd {hd}, "
+            f"lengths {n}",
+            lambda q=q, k=k, v=v, l=lengths: kp["decode_attention"][0](
+                q, k, v, l),
+            lambda q=q, k=k, v=v, l=lengths: kp["decode_attention"][1](
+                q, k, v, l),
+            lambda q=q, k=k, v=v, m=mask: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], attn_mask=m, enable_gqa=True)[0],
+            2 * bh_kv * n * hd * 2 + 2 * bh * hd * 2 + 4 * bh,
+            4 * hd * n * bh, BF16_FLOPS_PER_S, TOL, model=GRANITE)
     chunk_cumsum = kp["ssm_scan"][2]
     bh, hd, ds = 64, 64, 64                      # zamba2: 64 heads, 1 group
     for s in (32, 200, 513, 600):
@@ -502,12 +548,17 @@ def kernel_phase(kp, timer) -> dict:
               f"(tolerance {c.tol}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
               f"{lib} bound_ms {b_ms:.5f} ({b_by}) bound/ms "
               f"{b_ms / ms:.3f}", flush=True)
-        # the JSON line reports the serving dtype's case with the most work
+        # the JSON line reports the serving dtype's case with the most work,
+        # and a model's own shapes apart
         row = rows.setdefault(c.name, {})
-        if c.serving and b_ms >= row.get("bound_ms", -1.0):
-            row.update(case=c.label, max_abs_err=err, tolerance=c.tol,
-                       ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=b_ms, bound_by=b_by)
+        measured = dict(case=c.label, max_abs_err=err, tolerance=c.tol,
+                        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        bound_ms=b_ms, bound_by=b_by)
+        if c.model:
+            row.setdefault("model_cases", {}).setdefault(
+                c.model, []).append(measured)
+        elif c.serving and b_ms >= row.get("bound_ms", -1.0):
+            row.update(measured)
     return rows
 
 
@@ -577,7 +628,7 @@ def mc_sass_check(sass: str) -> None:
 
 # -- phase 5: the serving paths ----------------------------------------------
 
-MODELS = ("deepseek-7b", "zamba2-1.2b", "rwkv6-1.6b")
+MODELS = ("deepseek-7b", "zamba2-1.2b", "rwkv6-1.6b", GRANITE)
 PROMPT_LENS = (32, 600, 77, 513, 200, 45, 333, 128)
 
 
@@ -713,11 +764,22 @@ def step_times(rt, lm, cfg) -> None:
     weight_bytes = sum(p.numel() * p.element_size() for n, p in
                        lm.named_parameters()
                        if n != "embed" or cfg.tie_embeddings)
+    floor = f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms"
+    if cfg.n_experts:
+        # the dispatch runs every expert (C = 1 slot each at S = 1), so a
+        # step reads all E experts' weights; K of them do the work
+        expert_bytes = sum(p.numel() * p.element_size() for n, p in
+                           lm.named_parameters()
+                           if ".moe.w_" in n)
+        active = weight_bytes - expert_bytes * (1 - cfg.top_k / cfg.n_experts)
+        floor = (f"{floor} ({weight_bytes / 1e9:.3f} GB: all "
+                 f"{cfg.n_experts} experts), "
+                 f"{active / HBM_BYTES_PER_S * 1e3:.3f} ms ({active / 1e9:.3f}"
+                 f" GB: the {cfg.top_k} active experts)")
     print(f"step {cfg.name}: prefill 513 tokens {prefill_s * 1e3:.2f} ms "
           f"wall; decode step (cache 514) eager {eager_ms:.3f} ms, graph "
           f"replay {graph_ms:.3f} ms wall (medians of 10, in turns); "
-          f"weight-read bound of a decode step "
-          f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms", flush=True)
+          f"weight-read bound of a decode step {floor}", flush=True)
 
 
 def graph_check(rt, cfg, params32) -> None:
@@ -775,7 +837,17 @@ def graph_check(rt, cfg, params32) -> None:
 # The check holds the first group (6 SSM layers and the shared block) at
 # full width, where a kernel fault still shows; the serving run above
 # covers all 38 layers.
-PATH_LAYERS = {"zamba2-1.2b": 6}
+# granite-moe-3b-a800m: the model rounds the expert activations to bf16
+# in every compute dtype (JAX layers.py:399-401), so the paths' last-bit
+# differences flip some of those roundings (2^-9), which the random
+# weights then amplify: f32 |kernel - plain| is 2.8e-4 of the logits'
+# scale at 1 layer, 1.1e-3 at 2, 1.8e-2 at 4, 0.22 at 8 (path_check;
+# with the activations left in f32, 9.0e-6, 6.9e-5, 4.1e-4, 4.3e-2). Not
+# route flips: no choice moves in layer 0, the first moves in layer 1 at
+# a margin of 5.8e-8, and the kernel path on the plain path's routes
+# keeps the same distances. The check holds layer 0 (GQA attention and
+# the MoE) at full width; serving covers all 32 layers.
+PATH_LAYERS = {"zamba2-1.2b": 6, GRANITE: 1}
 
 
 def path_check(rt, cfg, params16, params32) -> None:
@@ -802,10 +874,18 @@ def path_check(rt, cfg, params16, params32) -> None:
         fail(f"path check {cfg.name}: f32 and bf16 parameters are not the "
              "same draw")
     toks = pc.prompt(cfg, "cuda")
-    k16 = pc.path_logits(cfg, params16, rt.ops, toks)
-    p16 = pc.path_logits(cfg, params16, rt.plain, toks)
-    k32 = pc.path_logits(cfg, params32, rt.ops, toks)
-    p32 = pc.path_logits(cfg, params32, rt.plain, toks)
+    routes = {name: [] for name in ("k16", "p16", "k32", "p32")}
+    k16 = pc.path_logits(cfg, params16, rt.ops, toks, routes["k16"])
+    p16 = pc.path_logits(cfg, params16, rt.plain, toks, routes["p16"])
+    k32 = pc.path_logits(cfg, params32, rt.ops, toks, routes["k32"])
+    p32 = pc.path_logits(cfg, params32, rt.plain, toks, routes["p32"])
+    if cfg.n_experts:
+        for a, b, label in (("k32", "p32", "f32 kernel against plain"),
+                            ("k16", "p16", "bf16 kernel against plain"),
+                            ("p16", "p32", "bf16 plain against f32 plain")):
+            agree = pc.route_agreement(routes[a], routes[b], cfg.n_experts)
+            print(f"path check {cfg.name} routes, {label}: "
+                  f"{pc.route_line(agree)}", flush=True)
     for i in range(len(p32)):
         for name, t in (("k16", k16[i]), ("p16", p16[i]), ("k32", k32[i])):
             if tuple(t.shape) != (1, 1, cfg.vocab) or \
@@ -1145,7 +1225,8 @@ def main() -> None:
             "case": r["case"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("plain_case", "small_ms") if k in r}})
+            **{k: r[k] for k in ("plain_case", "small_ms", "model_cases")
+               if k in r}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

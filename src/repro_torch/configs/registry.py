@@ -5,7 +5,8 @@ import importlib
 
 from .base import ModelConfig
 
-ARCHS = ("deepseek-7b", "zamba2-1.2b", "rwkv6-1.6b")
+ARCHS = ("deepseek-7b", "zamba2-1.2b", "rwkv6-1.6b", "granite-moe-3b-a800m",
+         "moonshot-v1-16b-a3b", "deepseek-67b")
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 

@@ -13,10 +13,23 @@ of the logits over max |plain|. Both paths round at 2^-24; the distance
 is how far the network amplifies that rounding over N layers, which
 sets the depth at which a logits tolerance can still tell a kernel
 fault (``chip_smoke.py`` uses it for its path check).
+
+For a model with experts it also prints the route agreement of the two
+paths: over every MoE layer, token and call, how many tokens chose
+another set of experts, how many assignments were dropped on one path
+only, the smallest margin between a token's K-th and (K+1)-th router
+probability, and where a choice first moved. A moved choice moves the
+logits by a gate-sized amount, not by rounding; where one first moves,
+only rounding separates the paths, so its margin must be of the order
+of the rounding. Two measurements that depart from the model tell route
+flips and rounding apart: the kernel path forced onto the plain path's
+routes, and both paths with the expert activations left unrounded.
 """
 from __future__ import annotations
 
 import argparse
+from contextlib import contextmanager, nullcontext
+from typing import Optional
 
 import numpy as np
 import torch
@@ -24,7 +37,7 @@ import torch
 from ..configs import ARCHS, get_config
 from ..configs.base import ModelConfig
 from ..kernels import ops, plain
-from ..models import LM
+from ..models import LM, layers
 from ..params import init_params
 
 PROMPT, STEPS, SEED = 200, 4, 0
@@ -42,12 +55,24 @@ def depth_cut(cfg: ModelConfig, params: dict, n_layers: int
 
 
 def path_logits(cfg: ModelConfig, params: dict, kernels,
-                toks: torch.Tensor) -> list:
+                toks: torch.Tensor, routes: Optional[list] = None,
+                forced: Optional[list] = None) -> list:
     """f32 logits of a prefill of ``PROMPT`` tokens and ``STEPS``
-    teacher-forced decode steps; ``toks`` is (1, PROMPT + STEPS)."""
+    teacher-forced decode steps; ``toks`` is (1, PROMPT + STEPS). With
+    ``routes`` a list, appends each MoE layer's routing records to it
+    (one list a layer, one record a call: ``layers.moe``). ``forced``,
+    the ``routes`` of another run, is a measurement, not the model:
+    every call of every MoE layer takes that run's experts (its gates
+    are this run's probabilities of them)."""
     lm = LM.from_params(cfg, params, kernels=kernels)
+    moes = [layer.moe for layer in lm.layers if hasattr(layer, "moe")]
+    if routes is not None:
+        for p in moes:
+            p.routes = []
+            routes.append(p.routes)
     dev = toks.device
-    with torch.inference_mode():
+    with torch.inference_mode(), (
+            routed_to(moes, forced) if forced else nullcontext()):
         logits, cache = lm.prefill(toks[:, :PROMPT], PROMPT + STEPS)
         out = [logits.float()]
         for i in range(STEPS):
@@ -55,6 +80,87 @@ def path_logits(cfg: ModelConfig, params: dict, kernels,
             logits, cache = lm.decode_step(toks[:, PROMPT + i], cache, pos)
             out.append(logits.float())
     return out
+
+
+@contextmanager
+def patched(name: str, fn):
+    """``layers.<name>`` replaced by ``fn`` inside the block (``moe`` looks
+    its pieces up on the module at every call)."""
+    kept = getattr(layers, name)
+    setattr(layers, name, fn)
+    try:
+        yield kept
+    finally:
+        setattr(layers, name, kept)
+
+
+def routed_to(moes: list, routes: list):
+    """Inside the block, call c of ``moes[i]`` takes the experts of
+    ``routes[i][c]`` in place of its own top K."""
+    queues = {id(p): [r["eids"] for r in rs] for p, rs in zip(moes, routes,
+                                                               strict=True)}
+    route = layers.route
+
+    def forced(p, h, cfg):
+        probs, _, _ = route(p, h, cfg)
+        eids = queues[id(p)].pop(0)
+        return probs, eids, layers.renormalise(probs.gather(-1, eids))
+
+    return patched("route", forced)
+
+
+def by_step(a: list, b: list) -> str:
+    return " ".join(f"{rel_dist(x, y):.3e}" for x, y in zip(a, b))
+
+
+def route_agreement(a: list, b: list, n_experts: int) -> dict:
+    """Routes of two runs of one model (``path_logits``' ``routes``):
+    ``tokens`` token choices compared (layers x calls x tokens),
+    ``moved`` tokens whose set of experts differs, ``dropped`` (token,
+    expert) assignments dropped on one path only, ``margin`` the
+    smallest K-th minus (K+1)-th probability on path ``b``. ``first``:
+    where a choice first moved in the order the runs compute (call, then
+    layer), as (call, layer, tokens moved there, their largest margin on
+    b and that margin over the K-th probability), or None. Choices moved
+    there can only come from rounding; later ones may follow from
+    them."""
+    out = dict(tokens=0, moved=0, dropped=0, margin=float("inf"),
+               first=None)
+    for call in range(len(b[0]) if b else 0):
+        for layer, (la, lb) in enumerate(zip(a, b, strict=True)):
+            ra, rb = la[call], lb[call]
+            chosen, dropped = [], []
+            for r in (ra, rb):
+                eids, slots = r["eids"], r["slots"].view(r["eids"].shape)
+                onehot = torch.zeros(*eids.shape[:-1], n_experts,
+                                     dtype=torch.bool, device=eids.device)
+                chosen.append(onehot.scatter(-1, eids, True))
+                drop = slots == n_experts * r["capacity"]
+                dropped.append(onehot.scatter(-1, eids, drop))
+            moved = (chosen[0] != chosen[1]).any(-1)
+            n = int(moved.sum())
+            out["tokens"] += moved.numel()
+            out["moved"] += n
+            out["dropped"] += int((dropped[0] != dropped[1]).sum())
+            out["margin"] = min(out["margin"], float(rb["margin"].min()))
+            if n and out["first"] is None:
+                rel = rb["margin"][moved] / rb["kth"][moved]
+                out["first"] = (call, layer, n,
+                                float(rb["margin"][moved].max()),
+                                float(rel.max()))
+    return out
+
+
+def route_line(agree: dict) -> str:
+    first = agree["first"]
+    where = ("none moved" if first is None else
+             f"first moved in call {first[0]} (0: the prefill), layer "
+             f"{first[1]}: {first[2]} token(s) at margins up to "
+             f"{first[3]:.3e}, {first[4]:.3e} of the K-th probability")
+    return (f"{agree['moved']} of {agree['tokens']} token choices moved "
+            f"({where}), {agree['dropped']} assignments dropped on one "
+            f"path only; smallest K-th - (K+1)-th probability margin "
+            f"{agree['margin']:.3e}")
 
 
 def prompt(cfg: ModelConfig, device) -> torch.Tensor:
@@ -66,6 +172,20 @@ def prompt(cfg: ModelConfig, device) -> torch.Tensor:
 def rel_dist(a: torch.Tensor, b: torch.Tensor) -> float:
     """max |a - b| / max |b|."""
     return float((a - b).abs().max()) / float(b.abs().max())
+
+
+def unrounded_activations():
+    """A measurement, not the model: inside the block the expert
+    activations stay in the compute dtype, where the model (as JAX,
+    ``layers.py:399-401``) rounds them to bf16 in every compute dtype.
+    It tells how much of the f32 path distance that rounding makes."""
+    def experts(p, buf, cfg):
+        act = layers._act(cfg)
+        hexp = act(torch.einsum("becd,edf->becf", buf, p.w_gate)) \
+            * torch.einsum("becd,edf->becf", buf, p.w_up)
+        return torch.einsum("becf,efd->becd", hexp, p.w_down)
+
+    return patched("experts", experts)
 
 
 def main(argv=None) -> None:
@@ -82,11 +202,28 @@ def main(argv=None) -> None:
     toks = prompt(cfg, "cuda")
     for n in args.layers:
         cut, sub = depth_cut(cfg, params, n)
-        k32 = path_logits(cut, sub, ops, toks)
-        p32 = path_logits(cut, sub, plain, toks)
-        dists = " ".join(f"{rel_dist(k, p):.3e}" for k, p in zip(k32, p32))
+        rk, rp = [], []
+        k32 = path_logits(cut, sub, ops, toks, rk)
+        p32 = path_logits(cut, sub, plain, toks, rp)
         print(f"{cfg.name} {cut.n_layers} of {cfg.n_layers} layers, f32 "
-              f"|kernel - plain| / max |plain| by step: {dists}", flush=True)
+              f"|kernel - plain| / max |plain| by step: {by_step(k32, p32)}",
+              flush=True)
+        if not rp:
+            continue
+        print(f"  routes, kernel against plain: "
+              f"{route_line(route_agreement(rk, rp, cfg.n_experts))}",
+              flush=True)
+        forced = path_logits(cut, sub, ops, toks, forced=rp)
+        print(f"  kernel path on the plain path's routes: "
+              f"{by_step(forced, p32)}", flush=True)
+        with unrounded_activations():
+            rk, rp = [], []
+            k32 = path_logits(cut, sub, ops, toks, rk)
+            p32 = path_logits(cut, sub, plain, toks, rp)
+        print(f"  expert activations left in f32 (not the model): "
+              f"{by_step(k32, p32)}; routes: "
+              f"{route_line(route_agreement(rk, rp, cfg.n_experts))}",
+              flush=True)
 
 
 if __name__ == "__main__":

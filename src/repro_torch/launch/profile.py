@@ -21,6 +21,12 @@ timed between CUDA events. Last it counts the nodes and dependency edges
 of a captured decode step by type (libcuda's graph API): whether the
 programmatic dependent launches of the norm and the decode combine kept
 programmatic edges in the graph.
+
+For a model with experts it also traces the MoE layers piece by piece,
+at the prefill's and at a decode step's shape, over every MoE layer on
+the hidden states of a random prompt: the norm, the router (product,
+softmax, top K), the dispatch (sort by expert, slots, buffer), the
+expert products and the combine, each its device time and launches.
 """
 from __future__ import annotations
 
@@ -34,7 +40,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ..configs import ARCHS, get_config
-from ..models import LM
+from ..models import LM, layers
 from ..params import init_params
 from ..serving.graphs import SlotDecoder, capture
 
@@ -160,6 +166,58 @@ def graph_edges(fn) -> str:
             f"programmatic)")
 
 
+def moe_pieces(lm: LM, S: int) -> None:
+    """Device time of each piece of the MoE layers on (1, S) tokens:
+    every piece runs over all MoE layers in its own trace, on inputs the
+    pieces before it computed."""
+    cfg = lm.cfg
+    mods = [layer.moe for layer in lm.layers if hasattr(layer, "moe")]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    x = torch.randn(1, S, cfg.d_model, generator=gen, device="cuda") \
+        .to(lm.dtype)
+    C = layers.capacity(cfg, S)
+    st = [{} for _ in mods]
+
+    def norm():
+        for p, s in zip(mods, st):
+            s["h"] = layers.rmsnorm(x, p.norm, cfg.norm_eps,
+                                    kernels=lm.kernels)
+
+    def route():
+        for p, s in zip(mods, st):
+            _, s["eids"], s["gates"] = layers.route(p, s["h"], cfg)
+
+    def dispatch():
+        for s in st:
+            s["buf"], order, flat_idx = layers.dispatch(
+                s["h"], s["eids"], cfg.n_experts, C)
+            s["slots"] = layers.slots_of(order, flat_idx)
+
+    def experts():
+        for p, s in zip(mods, st):
+            s["yexp"] = layers.experts(p, s["buf"], cfg)
+
+    def combine():
+        for s in st:
+            layers.combine(s["yexp"], s["slots"], s["gates"])
+
+    pieces = (("norm", norm), ("router", route), ("dispatch", dispatch),
+              ("expert products", experts), ("combine", combine))
+    for _, fn in pieces:                         # warm-up, and the inputs
+        fn()
+    rows = [(name, *traced(fn)) for name, fn in pieces]
+    total = sum(busy_ms(groups) for _, _, groups, _ in rows)
+    print(f"{cfg.name} MoE layers by piece, S {S} (capacity {C} an "
+          f"expert), {len(mods)} layers: device busy {total:.3f} ms")
+    for name, _, groups, _ in rows:
+        ms = busy_ms(groups)
+        n = sum(k for _, k in groups.values())
+        kinds = ", ".join(f"{g} {g_ms:.3f}" for g, (g_ms, _) in
+                          sorted(groups.items(), key=lambda g: -g[1][0]))
+        print(f"  {name:15s} {ms:9.3f} ms {ms / total:6.1%}, {n:5d} "
+              f"launches ({kinds})")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="deepseek-7b", choices=ARCHS)
@@ -221,6 +279,9 @@ def main(argv=None) -> None:
               f"{a.elapsed_time(b) / STEPS:.3f} ms a step between CUDA "
               "events")
         print(f"decode graph: {graph_edges(lambda: dec.eager_step(0))}")
+        if cfg.n_experts:
+            for S in (PROMPT, 1):
+                moe_pieces(lm, S)
 
 
 if __name__ == "__main__":

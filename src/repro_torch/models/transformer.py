@@ -1,11 +1,16 @@
-"""Decoder-only LM of the port: the ``uniform`` (without MoE), ``zamba``
-and ``rwkv`` families.
+"""Decoder-only LM of the port: the ``uniform``, ``zamba`` and ``rwkv``
+families.
 
 Counterpart of ``repro.models.transformer.LM``. The layers are an
 ``nn.ModuleList`` walked by a Python loop where JAX scans a stacked
 parameter tree:
 
-* uniform: ``layers.<i>.attn.*`` / ``layers.<i>.mlp.*`` (deepseek-7b);
+* uniform: ``layers.<i>.attn.*`` and ``layers.<i>.mlp.*``, or
+  ``layers.<i>.moe.*`` when the config has experts; the first
+  ``first_k_dense`` layers are JAX's ``head_layers`` (a dense MLP of
+  ``top_k * d_ff`` in an MoE stack), the rest its ``blocks``
+  (deepseek-7b, deepseek-67b, granite-moe-3b-a800m,
+  moonshot-v1-16b-a3b);
 * zamba: ``layers.<i>.*`` Mamba2 layers, the JAX ``blocks`` (G, every)
   stack then the ``tail``, and one weight-shared ``shared_attn`` /
   ``shared_mlp`` block applied after each group of ``every`` layers
@@ -15,11 +20,13 @@ parameter tree:
 ``prefill`` returns the port's own cache, preallocated (``new_cache``, or
 the caller's, as the serving engine's slots pass theirs) and written in
 place by ``decode_step`` (replacing ``_pad_cache``): uniform
-``{"k", "v"}`` of (L, B, KV, max_len, hd); zamba ``{"ssm_h"}`` of
-(L, B, nh, hd, ds) f32 beside ``{"k", "v"}`` of (G, B, KV, max_len, hd)
-for the shared block's G applications; rwkv ``{"S", "x_tm", "x_cm"}`` as
-JAX's (L, B, ...) f32. Other families raise ``NotImplementedError`` until
-their slice lands.
+``{"k", "v"}`` of (L, B, KV, max_len, hd) over head and body layers
+together (JAX keeps ``cache["head"]`` and ``cache["body"]``); zamba
+``{"ssm_h"}`` of (L, B, nh, hd, ds) f32 beside ``{"k", "v"}`` of (G, B,
+KV, max_len, hd) for the shared block's G applications; rwkv ``{"S",
+"x_tm", "x_cm"}`` as JAX's (L, B, ...) f32. ``local_global`` (gemma3),
+M-RoPE and the logit softcap raise ``NotImplementedError`` until their
+slice lands.
 """
 from __future__ import annotations
 
@@ -32,7 +39,8 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..kernels import ops
-from .layers import MATMUL, MLP, Attention, _param, attention, mlp, rmsnorm
+from .layers import (MATMUL, MLP, Attention, MoE, _param, attention, mlp,
+                     moe, rmsnorm)
 from .rwkv import RWKV, rwkv_block, rwkv_dims
 from .ssm import SSM, ssm_block, ssm_decode, ssm_dims
 
@@ -58,19 +66,35 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: family local_global (gemma3) is not ported yet; it "
             "is a later slice of the port (ROADMAP.md, modules to port)")
-    if cfg.n_experts or cfg.first_k_dense or cfg.mrope:
+    if cfg.mrope:
         raise NotImplementedError(
-            f"{cfg.name}: MoE, first_k_dense layers and M-RoPE belong to "
-            "the 'rest of uniform' slice of the port (ROADMAP.md)")
+            f"{cfg.name}: M-RoPE belongs to a later slice of the port "
+            "(ROADMAP.md)")
     if cfg.attn_logit_softcap:
         raise NotImplementedError(f"{cfg.name}: logit softcap not ported")
 
 
+def d_ff_head(cfg: ModelConfig) -> int:
+    """Width of the dense MLP of the ``first_k_dense`` head layers."""
+    return cfg.top_k * cfg.d_ff if cfg.n_experts else cfg.d_ff
+
+
 class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, device, dtype):
+    """One uniform layer: attention, then a dense MLP (``head``: one of
+    the ``first_k_dense`` layers, or a config without experts) or MoE."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype, head: bool):
         super().__init__()
         self.attn = Attention(cfg, device=device, dtype=dtype)
-        self.mlp = MLP(cfg, device=device, dtype=dtype)
+        if head or not cfg.n_experts:
+            self.mlp = MLP(cfg, device=device, dtype=dtype,
+                           d_ff=d_ff_head(cfg) if head else None)
+        else:
+            self.moe = MoE(cfg, device=device, dtype=dtype)
+
+    @property
+    def ffn(self):
+        return self.moe if hasattr(self, "moe") else self.mlp
 
 
 class LM(nn.Module):
@@ -99,9 +123,14 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = _param((cfg.d_model, cfg.vocab), torch.float32,
                                   dev)
-        layer = {"uniform": Block, "zamba": SSM, "rwkv": RWKV}[self.kind]
-        self.layers = nn.ModuleList(
-            layer(cfg, device=dev, dtype=dtype) for _ in range(cfg.n_layers))
+        if self.kind == "uniform":
+            self.layers = nn.ModuleList(
+                Block(cfg, device=dev, dtype=dtype, head=i < cfg.first_k_dense)
+                for i in range(cfg.n_layers))
+        else:
+            layer = {"zamba": SSM, "rwkv": RWKV}[self.kind]
+            self.layers = nn.ModuleList(layer(cfg, device=dev, dtype=dtype)
+                                        for _ in range(cfg.n_layers))
         if self.kind == "zamba":
             self.shared_attn = Attention(cfg, device=dev, dtype=dtype)
             self.shared_mlp = MLP(cfg, device=dev, dtype=dtype)
@@ -146,15 +175,18 @@ class LM(nn.Module):
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         return h.to(torch.float32) @ head.to(torch.float32)
 
-    # -- one attention + mlp layer ---------------------------------------
-    def _layer(self, attn: Attention, mlp_p: MLP, x, positions, *,
+    # -- one attention + mlp / moe layer ----------------------------------
+    def _layer(self, attn: Attention, ffn: Union[MLP, MoE], x, positions, *,
                cache=None, cache_pos=None, update_cache=False):
         a, new_kv = attention(attn, x, self.cfg, positions=positions,
                               cache=cache, cache_pos=cache_pos,
                               update_cache=update_cache,
                               kernels=self.kernels)
         x = x + a
-        x = x + mlp(mlp_p, x, self.cfg, kernels=self.kernels)
+        if isinstance(ffn, MoE):
+            x = x + moe(ffn, x, self.cfg, kernels=self.kernels, aux=False)[0]
+        else:
+            x = x + mlp(ffn, x, self.cfg, kernels=self.kernels)
         return x, new_kv
 
     def _final_norm(self, x):
@@ -178,7 +210,7 @@ class LM(nn.Module):
         positions = torch.arange(S, device=tokens.device).expand(B, S)
         for i, layer in enumerate(self.layers):
             if self.kind == "uniform":
-                x, _ = self._layer(layer.attn, layer.mlp, x, positions)
+                x, _ = self._layer(layer.attn, layer.ffn, x, positions)
             elif self.kind == "zamba":
                 x = x + ssm_block(layer, x, self.cfg,
                                   kernels=self.kernels)[0]
@@ -234,7 +266,7 @@ class LM(nn.Module):
         positions = torch.arange(S, device=tokens.device).expand(B, S)
         if self.kind == "uniform":
             for i, block in enumerate(self.layers):
-                x, kv = self._layer(block.attn, block.mlp, x, positions,
+                x, kv = self._layer(block.attn, block.ffn, x, positions,
                                     update_cache=True)
                 cache["k"][i, :, :, :S] = kv["k"]
                 cache["v"][i, :, :, :S] = kv["v"]
@@ -276,7 +308,7 @@ class LM(nn.Module):
         positions = pos[:, None]
         for i, layer in enumerate(self.layers):
             if self.kind == "uniform":
-                x, _ = self._layer(layer.attn, layer.mlp, x, positions,
+                x, _ = self._layer(layer.attn, layer.ffn, x, positions,
                                    cache={"k": cache["k"][i],
                                           "v": cache["v"][i]},
                                    cache_pos=pos)

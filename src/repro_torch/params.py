@@ -21,7 +21,8 @@ from .device import resolve_device
 from .models.layers import MATMUL
 from .models.rwkv import LORA, rwkv_dims
 from .models.ssm import ssm_dims
-from .models.transformer import check_supported, family_kind, zamba_groups
+from .models.transformer import (check_supported, d_ff_head, family_kind,
+                                 zamba_groups)
 
 
 @dataclass(frozen=True)
@@ -58,12 +59,22 @@ def _attn(cfg: ModelConfig) -> dict:
             "norm": ((d,), "zeros", 1.0)}
 
 
-def _mlp(cfg: ModelConfig) -> dict:
+def _mlp(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:
     """leaf -> (shape, init, scale) of ``mlp_specs``."""
-    d, f = cfg.d_model, cfg.d_ff
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     return {"w_gate": ((d, f), "normal", 1.0),
             "w_up": ((d, f), "normal", 1.0),
             "w_down": ((f, d), "normal", 1.0 / math.sqrt(2 * cfg.n_layers)),
+            "norm": ((d,), "zeros", 1.0)}
+
+
+def _moe(cfg: ModelConfig) -> dict:
+    """leaf -> (shape, init, scale) of ``moe_specs``."""
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {"router": ((d, E), "normal", 1.0),
+            "w_gate": ((E, d, f), "normal", 1.0),
+            "w_up": ((E, d, f), "normal", 1.0),
+            "w_down": ((E, f, d), "normal", 1.0 / math.sqrt(2 * cfg.n_layers)),
             "norm": ((d,), "zeros", 1.0)}
 
 
@@ -114,7 +125,8 @@ def _stacked(table: dict, path: tuple, lead: tuple, names) -> dict:
 def jax_leaves(cfg: ModelConfig) -> dict[tuple, Leaf]:
     """The JAX tree ``model_specs(cfg)`` by path, in the order
     ``materialize`` flattens it (sorted keys), for the families the port
-    runs: uniform (dense), zamba and rwkv."""
+    runs: uniform (dense or MoE ``blocks`` after the ``first_k_dense``
+    ``head_layers``), zamba and rwkv."""
     check_supported(cfg)
     kind = family_kind(cfg)
     L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab
@@ -123,11 +135,20 @@ def jax_leaves(cfg: ModelConfig) -> dict[tuple, Leaf]:
     if not cfg.tie_embeddings:
         leaves[("lm_head",)] = Leaf((d, V), names=("lm_head",))
     if kind == "uniform":
-        for sub, table in (("attn", _attn(cfg)), ("mlp", _mlp(cfg))):
+        k = cfg.first_k_dense
+        ffn = ("moe", _moe(cfg)) if cfg.n_experts else ("mlp", _mlp(cfg))
+        for sub, table in (("attn", _attn(cfg)), ffn):
             leaves.update(_stacked(
-                table, ("blocks", sub), (L,),
+                table, ("blocks", sub), (L - k,),
                 lambda leaf, sub=sub: (f"layers.{i}.{sub}.{leaf}"
-                                       for i in range(L))))
+                                       for i in range(k, L))))
+        if k:
+            for sub, table in (("attn", _attn(cfg)),
+                               ("mlp", _mlp(cfg, d_ff_head(cfg)))):
+                leaves.update(_stacked(
+                    table, ("head_layers", sub), (k,),
+                    lambda leaf, sub=sub: (f"layers.{i}.{sub}.{leaf}"
+                                           for i in range(k))))
     elif kind == "zamba":
         G, tail = zamba_groups(cfg)
         every = cfg.shared_attn_every

@@ -209,7 +209,9 @@ def test_cuda_attention_tilings_match_plain(card, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["deepseek-7b", "zamba2-1.2b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["deepseek-7b", "zamba2-1.2b", "rwkv6-1.6b",
+                                  "granite-moe-3b-a800m",
+                                  "moonshot-v1-16b-a3b"])
 def test_cuda_graph_replay_matches_eager_decode(card, arch):
     """Each slot's captured decode step against ``LM.decode_step`` on a
     twin cache, in f32 at smoke size, before and right after the request

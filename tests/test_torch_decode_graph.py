@@ -6,10 +6,10 @@ restores it. On the card each slot's decode step is a CUDA graph; on
 the CPU the same slot code runs ``LM.decode_step`` eagerly, so these
 tests hold the swaps and the scheduling:
 
-* the engine against the JAX engine on the deepseek-7b, zamba2-1.2b and
-  rwkv6-1.6b smoke configs in f32: tokens, preemptions, completion
-  times, bills and the adapter window identical, with requests restored
-  into another slot than the one they left;
+* the engine against the JAX engine on the deepseek-7b, zamba2-1.2b,
+  rwkv6-1.6b and granite-moe-3b-a800m smoke configs in f32: tokens,
+  preemptions, completion times, bills and the adapter window identical,
+  with requests restored into another slot than the one they left;
 * logits after a swap out and in bitwise equal to a request that kept
   its own cache, and a prefill into a used slot equal to a fresh one;
 * the launch bookkeeping of a captured step (replays times the launches
@@ -40,7 +40,7 @@ from repro_torch.params import from_jax_numpy, init_params  # noqa: E402
 from repro_torch.serving import LiveRequest, ServingEngine  # noqa: E402
 from repro_torch.serving import graphs  # noqa: E402
 
-ARCHS = ("deepseek-7b", "zamba2-1.2b", "rwkv6-1.6b")
+ARCHS = ("deepseek-7b", "zamba2-1.2b", "rwkv6-1.6b", "granite-moe-3b-a800m")
 # two fair slots (2, 3): a request preempted from a FIFO slot comes back
 # in another slot, and fair slices rotate requests between the two
 ENGINE_KW = dict(n_slots=4, n_fifo=2, max_len=48, initial_limit_ms=12.0)

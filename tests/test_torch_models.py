@@ -299,10 +299,65 @@ def test_init_params_seeded():
 
 
 @pytest.mark.parametrize("arch_kw", [
-    dict(local_global_ratio=5, local_window=16),
-    dict(family="moe", n_experts=4, top_k=2), dict(mrope=True)])
+    dict(local_global_ratio=5, local_window=16), dict(mrope=True)])
 def test_other_families_raise_not_implemented(arch_kw):
     cfg = get_smoke(ARCH).with_(**arch_kw)
     assert JaxModelConfig(**asdict(cfg))          # a real config
     with pytest.raises(NotImplementedError, match="later slice|slice of"):
         LM(cfg, device="cpu")
+
+
+# -- first_k_dense without experts: JAX's head_layers before its blocks ------
+
+
+@pytest.fixture(scope="module")
+def head_setup():
+    """deepseek-7b's smoke with its first layer as a dense head layer
+    (d_ff_head = d_ff: no experts): the JAX tree has ``head_layers``
+    (fan_in 1) and a 1-layer ``blocks`` stack, the port one list."""
+    jcfg = jax_get_smoke(ARCH).with_(first_k_dense=1)
+    cfg = get_smoke(ARCH).with_(first_k_dense=1)
+    jparams = materialize(model_specs(jcfg), jax.random.PRNGKey(1))
+    tree = jax.tree.map(np.asarray, jparams)
+    assert set(tree) >= {"head_layers", "blocks"}
+    p32 = from_jax_numpy(tree, cfg, "cpu", torch.float32)
+    np.testing.assert_array_equal(p32["layers.0.mlp.w_up"].numpy(),
+                                  tree["head_layers"]["mlp"]["w_up"][0])
+    np.testing.assert_array_equal(p32["layers.1.attn.wq"].numpy(),
+                                  tree["blocks"]["attn"]["wq"][0])
+    return jcfg, jparams, LM.from_params(cfg, p32)
+
+
+def test_first_k_dense_logits_train_matches_jax(head_setup):
+    jcfg, jparams, lm = head_setup
+    toks = tokens((2, 24), seed=14)
+    with f32_compute():
+        exp = JaxLM(jcfg).logits_train(jparams, jnp.asarray(toks))
+    out = lm.logits_train(torch.from_numpy(toks))
+    np.testing.assert_allclose(out.numpy(), np.asarray(exp), **TOL)
+
+
+def test_first_k_dense_prefill_and_decode_match_jax(head_setup):
+    jcfg, jparams, lm = head_setup
+    B, S, extra = 2, 20, 4
+    toks = tokens((B, S + extra), seed=15)
+    jlm = JaxLM(jcfg)
+    with f32_compute():
+        jlogits, jcache = jlm.prefill(jparams, jnp.asarray(toks[:, :S]),
+                                      max_len=S + extra)
+        jsteps = []
+        for i in range(extra):
+            jd, jcache = jlm.decode_step(
+                jparams, jnp.asarray(toks[:, S + i]), jcache,
+                jnp.full((B,), S + i, jnp.int32))
+            jsteps.append(np.asarray(jd))
+    logits, cache = lm.prefill(torch.from_numpy(toks[:, :S]), S + extra)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+    for i in range(extra):
+        d, cache = lm.decode_step(torch.from_numpy(toks[:, S + i]), cache,
+                                  torch.full((B,), S + i))
+        np.testing.assert_allclose(d.numpy(), jsteps[i], **TOL)
+    np.testing.assert_allclose(cache["k"][0].numpy(),
+                               np.asarray(jcache["head"]["k"][0]), **TOL)
+    np.testing.assert_allclose(cache["k"][1].numpy(),
+                               np.asarray(jcache["body"]["k"][0]), **TOL)
