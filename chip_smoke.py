@@ -56,8 +56,9 @@ package. In order it:
       margin between the K-th and (K+1)-th router probability), since a
       moved choice moves the logits by a gate, not by rounding;
 6. runs the port's second path, the batched Monte-Carlo engine, whose
-   kernel mc_cell (f64, built with -fmad=false; step 3 fails if its SASS
-   holds a DFMA) runs a grid of the paper's single-node scheduler cells:
+   kernel mc_cell (f64, one warp a cell, built with -fmad=false; step 3
+   fails if its SASS holds a DFMA, or no SHFL or VOTE, the warp scans'
+   instructions) runs a grid of the paper's single-node scheduler cells:
    a. holds the kernel bitwise against its plain version run on the
       host's CPU (every float, every count, n_events) on small grids: the
       MC bench's (1 minute at 60 invocations a minute, 10 functions, 4
@@ -67,15 +68,20 @@ package. In order it:
       trace's arrivals in bursts on 2 cores; then at the paper grid's own
       shapes (50 cores, 16,384 task slots): the bench trace under fifo /
       cfs / hybrid (25 FIFO cores, 1633 ms) and the paper's FIFO seed-0
-      cell (12,643 tasks);
+      cell (12,643 tasks); then at the warp's lane boundaries (31, 33 and
+      65 cores, the 600-a-minute trace in 5 s bursts) and on 1057 rows of
+      a cfs and a hybrid cell of 2000 tasks at once on 50 cores (8 cells
+      a block, a last block of one; runqueues 40-80 long);
    b. runs the paper's grid through run_cells on the card, with the
       launch counts set to 0 just before and read just after: 50 cores,
       the default trace (12,643 tasks at seed 0) at seeds 0-3, fifo / cfs /
       hybrid (25 FIFO cores, 1633 ms); every cell's digest must equal the
       scalar engine's (repro_torch/mc/paper_digests.py), and the hybrid
       must bill less than CFS at every seed; prints each cell's summary;
-   c. times the grid's launch and its slowest cell alone (cells/s, ns an
-      event);
+   c. times the grid's launch and each policy's seed-0 cell and the
+      slowest cell alone (cells/s, ns and cycles an event at the card's
+      top SM clock), then a sweep: the grid 11 times over in one launch
+      (132 cells), every copy's digest equal to its cell's (cells/s);
 7. prints a JSON line of the kernels, then the result line.
 
 Any failed check exits non-zero. Without a CUDA device it exits non-zero
@@ -605,9 +611,11 @@ def sass_check(lib_path: Path) -> None:
 
 
 def mc_sass_check(sass: str) -> None:
-    """The f64 instructions of mc_cell_kernel: it must hold no DFMA (a
-    contracted product-and-add would change the last bit; -fmad=false
-    forbids them, and the kernel divides nothing)."""
+    """The f64 and warp instructions of mc_cell_kernel: it must hold no
+    DFMA (a contracted product-and-add would change the last bit;
+    -fmad=false forbids them, and the kernel divides nothing), and it
+    must hold SHFL and VOTE, the warp design's scans (the shuffle tree of
+    the next expiry, the ballot of the first idle FIFO core)."""
     ops, fn = None, False
     for line in sass.splitlines():
         if "Function :" in line:
@@ -615,15 +623,19 @@ def mc_sass_check(sass: str) -> None:
             if fn:
                 ops = {}
         elif fn:
-            m = re.search(r"\b(D(?:ADD|MUL|FMA|SETP|MNMX))\b", line)
+            m = re.search(r"\b(D(?:ADD|MUL|FMA|SETP|MNMX)|SHFL|VOTE|REDUX)\b",
+                          line)
             if m:
                 ops[m.group(1)] = ops.get(m.group(1), 0) + 1
     if ops is None:
         fail("mc_cell_kernel not found in the library's SASS")
-    print(f"sass: mc_cell_kernel f64: {dict(sorted(ops.items()))}",
+    print(f"sass: mc_cell_kernel f64 and warp: {dict(sorted(ops.items()))}",
           flush=True)
     if ops.get("DFMA", 0):
         fail(f"mc_cell_kernel holds {ops['DFMA']} DFMA in its SASS")
+    for op in ("SHFL", "VOTE"):
+        if not ops.get(op, 0):
+            fail(f"mc_cell_kernel holds no {op}: not the warp design")
 
 
 # -- phase 5: the serving paths ----------------------------------------------
@@ -956,42 +968,36 @@ def mc_arrays(rt, cells, n_slots=None):
             cells[0].n_cores)
 
 
-def mc_events_timed(fn) -> tuple[dict, float]:
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    out = fn()
-    b.record()
-    b.synchronize()
-    return out, a.elapsed_time(b)
-
-
-def mc_compare(rt, cells, label, n_slots=None) -> tuple[float, float, float]:
+def mc_compare(rt, cells, label, n_slots=None,
+               n_rows=None) -> tuple[float, float, float]:
     """The kernel against the plain version (on the host's CPU) on one
-    grid, bitwise; returns (max |diff| of the floats, plain ms, kernel
-    ms: the second of two launches)."""
+    grid, bitwise, on n_rows rows that cycle through the cells (one a
+    cell by default); returns (max |diff| of the floats, plain ms,
+    kernel ms: the second of two launches)."""
     args, C = mc_arrays(rt, cells, n_slots)
     t0 = time.perf_counter()
     plain = rt.run_grid_plain(*args, n_cores=C)
     plain_ms = (time.perf_counter() - t0) * 1e3
-    dev = [a.cuda() for a in args]
+    rows = torch.arange(n_rows or len(cells)) % len(cells)
+    dev = [a[rows].contiguous().cuda() for a in args]
     rt.mc_cell_cuda(*dev, n_cores=C)
-    out, ms = mc_events_timed(lambda: rt.mc_cell_cuda(*dev, n_cores=C))
+    out, ms = rt.mc_time.timed(lambda: rt.mc_cell_cuda(*dev, n_cores=C))
     err = 0.0
     for k in MC_FLOATS:
-        got, want = out[k].cpu(), plain[k]
+        got, want = out[k].cpu(), plain[k][rows]
         if not torch.equal(got.view(torch.int64), want.view(torch.int64)):
             fail(f"mc_cell [{label}]: {k} differs from the plain version")
         live = ~torch.isnan(want)
         err = max(err, float((got[live] - want[live]).abs().max()))
     for k in MC_INTS:
-        if not torch.equal(out[k].cpu(), plain[k].to(out[k].dtype)):
+        if not torch.equal(out[k].cpu(), plain[k][rows].to(out[k].dtype)):
             fail(f"mc_cell [{label}]: {k} differs from the plain version")
     if not bool(out["ok"].all()):
         fail(f"mc_cell [{label}]: a cell did not drain")
-    print(f"kernel mc_cell [{label}]: {len(cells)} cells at {C} cores, "
-          f"bitwise equal to the plain version (max_abs_err {err:.1e}), "
-          f"n_events {out['n_events'].tolist()}; kernel {ms:.3f} ms, plain "
+    print(f"kernel mc_cell [{label}]: {len(rows)} rows of {len(cells)} "
+          f"cells at {C} cores, bitwise equal to the plain version "
+          f"(max_abs_err {err:.1e}), n_events "
+          f"{plain['n_events'].tolist()}; kernel {ms:.3f} ms, plain "
           f"{plain_ms:.1f} ms on the host's CPU", flush=True)
     return err, plain_ms, ms
 
@@ -1031,6 +1037,28 @@ def mc_small_grids(rt) -> tuple[float, float, float]:
     err = max(err, mc_compare(rt, wide, "the paper grid's shapes: bench "
                               "trace fifo / cfs / hybrid and the paper's "
                               "fifo seed-0 cell", n_slots)[0])
+    # the warp's lane boundaries: 31 cores (one lane idle), 33 (a second
+    # round of one core), 65 (lane 0 owns three); the 600-a-minute trace
+    # in bursts on a 5 s grid, so that dozens of tasks arrive at once,
+    # expire together and queue
+    burst16 = [dataclasses.replace(x, arrival=5000.0 * (x.arrival // 5000.0))
+               for x in big]
+    for C in (31, 33, 65):
+        err = max(err, mc_compare(rt, [rt.Cell(p, C, burst16)
+                                       for p in MC_POLICIES],
+                                  f"lane boundary: {C} cores, the 600-a-"
+                                  "minute trace in 5 s bursts")[0])
+    # several cells a block and long runqueues: 8 * 132 + 1 rows give 8
+    # cells a block (a last block of one); 2000 short tasks at once queue
+    # 40 a core under cfs, and the hybrid (1 ms limit) migrates them onto
+    # its CFS cores; every row must equal its cell's plain result
+    crowd = [rt.Task(tid=i, arrival=0.0, service=(3.0, 6.0, 9.5, 12.0)[i % 4])
+             for i in range(2000)]
+    err = max(err, mc_compare(rt, [rt.Cell("cfs", 50, crowd),
+                                   rt.Cell("hybrid", 50, crowd,
+                                           {"time_limit_ms": 1.0})],
+                              "2000 tasks at once, 8 cells a block",
+                              n_rows=8 * 132 + 1)[0])
     return err, plain_ms, ms
 
 
@@ -1083,37 +1111,52 @@ def mc_phase(rt, smi: str) -> dict:
                  f"cfs {cost['cfs', seed]}")
 
     # the launch alone, then each policy's seed-0 cell and the slowest
-    # cell alone
+    # cell alone; cycles at the card's top SM clock
+    mt = rt.mc_time
+    mhz = mt.sm_clock_mhz()
     args, C = mc_arrays(rt, cells)
     dev = [a.cuda() for a in args]
-    out, ms = mc_events_timed(lambda: rt.mc_cell_cuda(*dev, n_cores=C))
+    out, ms = mt.timed(lambda: rt.mc_cell_cuda(*dev, n_cores=C))
     events = out["n_events"].tolist()
-    slow = max(range(len(cells)), key=lambda b: events[b])
-    for b in sorted(set(range(len(pd.POLICIES))) | {slow}):
-        one = [a[b:b + 1] for a in dev]
-        _, one_ms = mc_events_timed(lambda: rt.mc_cell_cuda(*one,
-                                                             n_cores=C))
-        print(f"mc timing: {keys[b][0]} seed {keys[b][1]} alone "
-              f"{one_ms:.2f} ms, {events[b]} events, "
-              f"{one_ms * 1e6 / events[b]:.1f} ns an event", flush=True)
-        if b == slow:
-            slow_ms = one_ms
+    alone = {}
+    for b in mt.paper_rows(events):
+        alone[b] = mt.time_row(dev, C, b, events[b], mhz)
+        print(f"mc timing: {keys[b][0]} seed {keys[b][1]} "
+              f"{mt.describe(alone[b], mhz)}", flush=True)
+    slow = max(alone, key=lambda b: events[b])
+    slow_ms, slow_ns = alone[slow]["ms"], alone[slow]["ns"]
     B, N = args[0].shape
     nbytes = B * N * (2 * 8 + 3 * 8 + 3 * 4) + B * (4 + 4 + 8 + 1 + 8 + 8)
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
     print(f"mc timing ({smi}): grid launch {ms:.1f} ms for {B} cells, "
           f"{sum(events)} events ({B / ms * 1e3:.2f} cells/s); slowest cell "
           f"({keys[slow][0]}, seed {keys[slow][1]}, {events[slow]} events) "
-          f"alone {slow_ms:.1f} ms, {slow_ms * 1e6 / events[slow]:.1f} ns an "
-          f"event; bound {b_ms:.5f} ms (bytes: {nbytes} in and out once; "
-          "each cell's events are a dependent chain, so the bound is far "
-          "below anything reachable)", flush=True)
+          f"alone {slow_ms:.1f} ms, {slow_ns:.1f} ns and "
+          f"{slow_ns * mhz / 1e3:.0f} cycles an event; bound {b_ms:.5f} ms "
+          f"(bytes: {nbytes} in and out once; each cell's events are a "
+          "dependent chain, so the bound is far below anything reachable)",
+          flush=True)
+    # the sweep: the grid mc_time.SWEEP_REPS (11) times over in one
+    # launch (132 cells, one a warp); every copy must give its cell's
+    # digest, so no cell depends on its neighbours
+    out, sweep_ms = mt.sweep(dev, C)
+    n_sweep = out["ok"].shape[0]
+    bad = mt.mismatches(out, keys, n_tasks)
+    print(f"mc sweep ({smi}): {n_sweep} cells in one launch, {sweep_ms:.1f} "
+          f"ms, {n_sweep / sweep_ms * 1e3:.2f} cells/s; "
+          f"{n_sweep - len(bad)} of {n_sweep} digests equal to the scalar "
+          "engine's", flush=True)
+    if bad:
+        fail(f"mc sweep: rows {bad[:8]} differ from the scalar engine")
+    del out
+    torch.cuda.empty_cache()
     return {"case": f"paper grid: {B} cells, {C} cores, N {N}",
             "plain_case": "bench grid: 12 cells, 4 cores (plain on the "
             "host's CPU)", "launches": counts["mc_cell"],
             "max_abs_err": err, "tolerance": 0.0, "ms": ms,
             "small_ms": small_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": "bytes", "library_ms": None}
+            "bound_by": "bytes", "library_ms": None,
+            "sweep_cells": n_sweep, "sweep_ms": sweep_ms}
 
 
 # -----------------------------------------------------------------------------
@@ -1145,7 +1188,8 @@ def load_port() -> SimpleNamespace:
     from repro_torch.kernels import rwkv6_scan as rs
     from repro_torch.kernels import ssm_scan as ss
     from repro_torch.kernels.mc_cell import mc_cell_cuda, run_grid_plain
-    from repro_torch.launch import path_check
+    from repro_torch.core.events import Task
+    from repro_torch.launch import mc_time, path_check
     from repro_torch.mc import Cell, paper_digests, run_cells
     from repro_torch.mc.engine import _bucket, pack
     from repro_torch.traces import TraceSpec, generate_workload, scale_load
@@ -1157,10 +1201,11 @@ def load_port() -> SimpleNamespace:
     return SimpleNamespace(
         configs=configs, init_params=params.init_params, build=build,
         ops=ops, plain=plain, LM=LM, MATMUL=MATMUL, family_kind=family_kind,
-        path_check=path_check,
+        path_check=path_check, mc_time=mc_time,
         zamba_groups=zamba_groups, LiveRequest=LiveRequest,
         ServingEngine=ServingEngine, SlotDecoder=SlotDecoder,
-        Cell=Cell, run_cells=run_cells, paper_digests=paper_digests,
+        Cell=Cell, Task=Task, run_cells=run_cells,
+        paper_digests=paper_digests,
         mc_bucket=_bucket, mc_pack=pack,
         mc_cell_cuda=mc_cell_cuda, run_grid_plain=run_grid_plain,
         TraceSpec=TraceSpec, generate_workload=generate_workload,
@@ -1226,7 +1271,8 @@ def main() -> None:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             **{k: r[k] for k in ("plain_case", "small_ms", "model_cases")
-               if k in r}})
+               if k in r},
+            **{k: r[k] for k in ("sweep_cells", "sweep_ms") if k in r}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

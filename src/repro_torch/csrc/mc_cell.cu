@@ -1,4 +1,4 @@
-// mc_cell: one cell of the batched Monte-Carlo engine a block. A cell is
+// mc_cell: one cell of the batched Monte-Carlo engine a warp. A cell is
 // one (policy, trace) trajectory of the single-node scheduler in the
 // supported regime: fifo, cfs or hybrid with a static time limit, the
 // default Linux knobs, no container pool. Every cell runs its event loop
@@ -19,21 +19,41 @@
 //
 // Bound on an H100: a dependent chain. Each event reads the state the
 // previous one wrote (the core to expire next, the task it ran, the
-// runqueue it pushes to), so a cell is one thread walking ~3 M events (a
-// CFS cell of the paper's trace) at memory latency; the bytes of the
-// inputs and outputs (the reported bound) take microseconds.
+// runqueue it pushes to), so a cell walks its ~3 M events (a CFS cell of
+// the paper's trace) one after the other at instruction and memory
+// latency, one warp alone on its SM; the bytes of the inputs and outputs
+// (the reported bound) take microseconds. A CFS event is the scan for the
+// next expiry, the expiring task's fields and the ends of its core's
+// runqueue (one trip to L2), an insert at an end of the queue and the
+// picked task's fields (another trip).
 //
 // Design:
-// - One thread a block, one block a cell. Per-core state (in-flight task,
-//   expiry, chunk length, last task, min_vruntime, push counter, queue
-//   length) lives in dynamic shared memory, 40 bytes a core, beside the
-//   slice table.
+// - One warp a cell, several cells a block (one warp each, so that a
+//   sweep of hundreds of cells fills the card's SMs; see the launch).
+//   Lane l owns cores l, l + 32, ...: the scans over the cores are warp
+//   reductions, one shared-memory load a core a lane and five shuffle
+//   rounds, in place of C dependent compares on one thread.
+// - Per-core state (in-flight task, expiry, chunk length, last task,
+//   min_vruntime, push counter, queue head and length) lives in the
+//   warp's slice of dynamic shared memory, 44 bytes a core, beside its
+//   copy of the slice table. Lane 0 runs the serial rest and writes it;
+//   every lane reloads its own cores at the next scan (one shared load,
+//   where registers would need each write broadcast to the core's owner).
 // - Events in the scalar heap's order (time, class, tie): the next core
 //   expiry is the (end, cid) minimum over the cores, and a pending arrival
-//   at or before it comes first (arrivals are class 0).
-// - Each core's CFS runqueue is a binary min-heap keyed (vruntime, seq) in
-//   global memory (capacity N), the scalar Core.rq_push / rq_pop: a pick is
-//   O(log queue), not a scan of the N task slots as in the JAX kernel.
+//   at or before it comes first (arrivals are class 0). The reductions
+//   only compare, so they are exact in any order: min, first-set and
+//   lexicographic minima give the scalar scans' answers, ties included.
+// - Each core's CFS runqueue is a run of slots sorted by (vruntime, seq)
+//   in a ring of capacity N in global memory, the scalar Core.rq_push's
+//   insort and rq_pop's pop(0): the front is the pick. A task back from
+//   its slice has the largest vruntime and joins at the back; a task at
+//   the queue's min_vruntime (an arrival, a migration) joins at the
+//   front; nearly every push of the paper's CFS cell is at an end, the
+//   rest walk in from the back. A push that the core's pick follows at once
+//   (a slice expiry, a migration or an arrival onto an idle core) picks
+//   the lesser of the front and the pushed task (keys are unique: seq
+//   counts pushes), and the pushed task joins only if the front was less.
 // - The hybrid / FIFO global queue holds only fresh tasks, in arrival
 //   order, so it is the tid range [qh, ptr) of two counters.
 // - A cap on events (the wrapper's event_caps) ends a cell that would run
@@ -48,6 +68,8 @@ namespace repro {
 namespace {
 
 constexpr double kEps = 1e-9;  // repro/core/events.py _EPS
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxWarps = 8;   // cells a block at most
 
 // Python's min(a, b) and max(a, b): a unless b is strictly smaller
 // (larger) -- the operand order the scalar engine's helpers use.
@@ -66,6 +88,13 @@ __device__ __forceinline__ double chunk_end(double t, double ctx, double run) {
   return (t + ctx) + run;
 }
 
+// A runqueue slot: the key (vruntime, push counter) and the task, 16
+// bytes.
+struct __align__(16) Slot {
+  double v;
+  int s, k;
+};
+
 struct Params {
   const double* arrival;     // (B, N)
   const int* n_tasks;        // (B,)
@@ -74,9 +103,7 @@ struct Params {
   const int64_t* max_events; // (B,)
   double* rem;               // (B, N) in: service
   double* vr;                // (B, N) in: 0
-  double* heap_v;            // (B, C, N) runqueue keys: vruntime
-  int* heap_seq;             // (B, C, N) runqueue keys: push counter
-  int* heap_tid;             // (B, C, N) runqueue entries
+  Slot* rq;                  // (B, C, N) runqueue slots, a ring a core
   double* completion;        // (B, N) in: NaN
   double* first_run;         // (B, N) in: NaN
   double* cpu_time;          // (B, N) in: 0
@@ -86,110 +113,266 @@ struct Params {
   uint8_t* ok;               // (B,)
   int64_t* n_events;         // (B,)
   const double* slices;      // (K + 1,) cfs_slice_ms(nr) for nr = 0..K
-  int K, C, N;
+  int K, B, C, N;
   double ctx;
 };
 
-// One cell's state: per-task arrays in global memory, per-core in shared.
+// One cell's state: per-task arrays in global memory, per-core in the
+// warp's slice of shared memory.
 struct Cell {
   double *rem, *vr, *cpu, *fr, *comp;
   int *npre, *nctx, *nmig;
-  double* hv;
-  int *hs, *ht;
+  Slot* rq;  // core c's runqueue: rq[c * N + (rqh[c] + j) mod N], j < rqn[c]
   double *end, *clen, *minvr, *slices;
-  int *cur, *last, *seqc, *rqn;
+  int *cur, *last, *seqc, *rqn, *rqh;
   int K, N;
   double ctx;
 };
 
 __device__ __forceinline__ bool key_less(double v, int s, double pv, int ps) {
-  return v < pv || (v == pv && s < ps);
+  // vruntimes are >= +0, whose bit patterns order as their values
+  const long long a = __double_as_longlong(v), b = __double_as_longlong(pv);
+  const bool lt = a < b, eq = a == b, sl = s < ps;
+  return lt | (eq & sl);
 }
 
-// Core.rq_push: insert (v, s) -> k into core c's heap.
-__device__ void rq_push(Cell& st, int c, double v, int s, int k) {
-  double* hv = st.hv + static_cast<size_t>(c) * st.N;
-  int* hs = st.hs + static_cast<size_t>(c) * st.N;
-  int* ht = st.ht + static_cast<size_t>(c) * st.N;
-  int i = st.rqn[c]++;
-  while (i > 0) {
-    const int p = (i - 1) >> 1;
-    const double pv = hv[p];
-    const int ps = hs[p];
-    if (!key_less(v, s, pv, ps)) break;
-    hv[i] = pv;
-    hs[i] = ps;
-    ht[i] = ht[p];
-    i = p;
+// Position j of a ring of N slots whose front is at h.
+__device__ __forceinline__ int ring_at(int h, int j, int N) {
+  const int i = h + j;
+  return i < N ? i : i - N;
+}
+
+// Core.rq_push's insort: x joins the sorted run of n slots at h of ring q
+// (the least key in front), appended past the back (a task back from its
+// slice, nearly every push), prepended before the front (a task at the
+// queue's min_vruntime: an arrival, a migration), else walked in from the
+// back. front and back are the run's ends (n > 0). Returns the new head.
+__device__ __forceinline__ int rq_insert(Slot* q, int N, int h, int n,
+                                         const Slot& x, const Slot& front,
+                                         const Slot& back) {
+  if (n == 0 || !key_less(x.v, x.s, back.v, back.s)) {
+    q[ring_at(h, n, N)] = x;
+    return h;
   }
-  hv[i] = v;
-  hs[i] = s;
-  ht[i] = k;
-}
-
-// Core.rq_pop without the min_vruntime ratchet: the least (vruntime, seq).
-__device__ void rq_pop(Cell& st, int c, double& v, int& k) {
-  double* hv = st.hv + static_cast<size_t>(c) * st.N;
-  int* hs = st.hs + static_cast<size_t>(c) * st.N;
-  int* ht = st.ht + static_cast<size_t>(c) * st.N;
-  v = hv[0];
-  k = ht[0];
-  const int n = --st.rqn[c];
-  if (n == 0) return;
-  const double lv = hv[n];
-  const int ls = hs[n], lt = ht[n];
-  int i = 0;
-  for (;;) {
-    const int l = 2 * i + 1;
-    if (l >= n) break;
-    int m = l;
-    double mv = hv[l];
-    int ms = hs[l];
-    if (l + 1 < n && key_less(hv[l + 1], hs[l + 1], mv, ms)) {
-      m = l + 1;
-      mv = hv[m];
-      ms = hs[m];
-    }
-    if (!key_less(mv, ms, lv, ls)) break;
-    hv[i] = mv;
-    hs[i] = ms;
-    ht[i] = ht[m];
-    i = m;
+  if (key_less(x.v, x.s, front.v, front.s)) {
+    h = h == 0 ? N - 1 : h - 1;
+    q[h] = x;
+    return h;
   }
-  hv[i] = lv;
-  hs[i] = ls;
-  ht[i] = lt;
+  int j = n - 1;
+  Slot y = back;
+  do {
+    q[ring_at(h, j + 1, N)] = y;
+    --j;
+    y = q[ring_at(h, j, N)];
+  } while (key_less(x.v, x.s, y.v, y.s));
+  q[ring_at(h, j + 1, N)] = x;
+  return h;
 }
 
-// Scheduler._start_chunk: install task k on core c at t under `lim`.
-__device__ void start_chunk(Cell& st, int c, int k, double t, double lim) {
+// The ends of core c's runqueue, loaded together: its front, the slot
+// behind it and its back (those that exist).
+struct Ends {
+  int h, n;
+  Slot front, second, back;
+};
+
+__device__ __forceinline__ Ends ends(const Cell& st, int c) {
+  Ends e;
+  e.h = st.rqh[c];
+  e.n = st.rqn[c];
+  const Slot* q = st.rq + static_cast<size_t>(c) * st.N;
+  if (e.n > 0) {
+    e.front = q[e.h];
+    e.back = q[ring_at(e.h, e.n - 1, st.N)];
+  }
+  if (e.n > 1) e.second = q[ring_at(e.h, 1, st.N)];
+  return e;
+}
+
+// Scheduler._start_chunk: install task k on core c at t under `lim`. The
+// task's fields are read together, before any write, so that their loads
+// share one trip to memory.
+__device__ __forceinline__ void start_chunk(Cell& st, int c, int k, double t,
+                                            double lim) {
+  const double fr = st.fr[k], rem = st.rem[k];
+  const int nctx = st.nctx[k];
   const double cx = st.last[c] == k ? 0.0 : st.ctx;
-  if (isnan(st.fr[k])) st.fr[k] = t;
-  const double run = chunk_run(st.rem[k], lim);
+  if (isnan(fr)) st.fr[k] = t;
+  const double run = chunk_run(rem, lim);
   st.cur[c] = k;
   st.clen[c] = run;
   st.end[c] = chunk_end(t, cx, run);
-  if (cx > 0.0) st.nctx[k] += 1;
+  if (cx > 0.0) st.nctx[k] = nctx + 1;
 }
 
-// CFS pick_next + _start_chunk on an idle core: the slice reads the queue
-// length after the pop (the core holds no task yet).
-__device__ void cfs_pick(Cell& st, int c, double t) {
-  if (st.rqn[c] == 0) return;
-  double v;
-  int k;
-  rq_pop(st, c, v, k);
-  st.minvr[c] = py_max(st.minvr[c], v);
-  const int nr = st.rqn[c];
-  start_chunk(st, c, k, t, st.slices[nr < st.K ? nr : st.K]);
+// CFS pick_next + _start_chunk on an idle core: pop the least (vruntime,
+// seq), the queue's front (Core.rq_pop, whose min_vruntime ratchet
+// follows); the slice reads the queue length after the pop (the core
+// holds no task yet).
+__device__ __forceinline__ void cfs_pick(Cell& st, int c, double t) {
+  const int n = st.rqn[c] - 1;
+  if (n < 0) return;
+  const int h = st.rqh[c];
+  const Slot head = st.rq[static_cast<size_t>(c) * st.N + h];
+  st.rqh[c] = ring_at(h, 1, st.N);
+  st.rqn[c] = n;
+  st.minvr[c] = py_max(st.minvr[c], head.v);
+  start_chunk(st, c, head.k, t, st.slices[n < st.K ? n : st.K]);
 }
 
-__global__ void __launch_bounds__(1) mc_cell_kernel(Params p) {
-  extern __shared__ double smem[];
-  const int b = blockIdx.x;
+// Core.rq_push of task k at vruntime v onto core c, whose runqueue's ends
+// are e, then, if c is idle, its pick_next. Push and pop fuse: the least
+// of the front and (v, seq) is picked (keys are unique: seq counts
+// pushes), and (v, seq) joins the queue only if the front was less.
+__device__ __forceinline__ void enqueue(Cell& st, int c, double v, int k,
+                                        double t, const Ends& e) {
+  const Slot x{v, st.seqc[c]++, k};
+  Slot* q = st.rq + static_cast<size_t>(c) * st.N;
+  if (st.cur[c] >= 0) {
+    st.rqh[c] = rq_insert(q, st.N, e.h, e.n, x, e.front, e.back);
+    st.rqn[c] = e.n + 1;
+    return;
+  }
+  Slot pick = x;
+  if (e.n > 0 && key_less(e.front.v, e.front.s, v, x.s)) {
+    pick = e.front;
+    st.rqh[c] = rq_insert(q, st.N, ring_at(e.h, 1, st.N), e.n - 1, x,
+                          e.second, e.back);
+  }
+  st.minvr[c] = py_max(st.minvr[c], pick.v);
+  start_chunk(st, c, pick.k, t, st.slices[e.n < st.K ? e.n : st.K]);
+}
+
+// Bytes of shared memory a cell takes: end, clen, minvr (C doubles
+// each), the slice table (K + 1 doubles), cur, last, seqc, rqn, rqh (C
+// ints each); a multiple of 16.
+__host__ __device__ __forceinline__ size_t cell_bytes(int C, int K) {
+  const size_t b = 8 * (3 * static_cast<size_t>(C) + K + 1) +
+                   4 * 5 * static_cast<size_t>(C);
+  return (b + 15) / 16 * 16;
+}
+
+// The next core expiry, the scalar scan's least end under a strict `<`
+// (lowest cid on a tie): each lane takes the least (end, cid) of its own
+// cores, then a shuffle-xor tree leaves the least over all lanes in every
+// lane. Compares only. cc = -1 when every core holds +inf (idle).
+__device__ __forceinline__ void next_expiry(const double* end, int C,
+                                            int lane, double& tc, int& cc) {
+  double e = CUDART_INF;
+  int i = C;
+  for (int c = lane; c < C; c += 32) {
+    const double x = end[c];
+    if (x < e) {
+      e = x;
+      i = c;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const double oe = __shfl_xor_sync(kFull, e, o);
+    const int oi = __shfl_xor_sync(kFull, i, o);
+    const bool lt = oe < e, eq = oe == e, il = oi < i;
+    if (lt | (eq & il)) {
+      e = oe;
+      i = oi;
+    }
+  }
+  tc = e;
+  cc = e < CUDART_INF ? i : -1;
+}
+
+// The first idle FIFO core in cid order (-1 if none): a ballot a round of
+// 32 cores, the lowest set bit of the first round that has one.
+__device__ __forceinline__ int first_idle(const int* cur, int nf, int lane) {
+  for (int base = 0; base < nf; base += 32) {
+    const int c = base + lane;
+    const unsigned m = __ballot_sync(kFull, c < nf && cur[c] < 0);
+    if (m) return base + __ffs(m) - 1;
+  }
+  return -1;
+}
+
+// CFS._least_loaded from the rotating start s0: the scalar scan takes the
+// first idle core in rotated order, else the first with the fewest
+// runnable. An idle core is one with nr = 0, the least nr, so both are the
+// least (nr, r) with r = (c - s0) mod C: a lane's own least, then two
+// integer minima over the warp (nr, then r among the lanes holding it).
+__device__ __forceinline__ int least_loaded(const int* cur, const int* rqn,
+                                            int C, int s0, int lane) {
+  unsigned bn = 0xffffffffu, br = 0xffffffffu;
+  for (int c = lane; c < C; c += 32) {
+    const unsigned nr = rqn[c] + (cur[c] >= 0 ? 1 : 0);
+    const unsigned r = c >= s0 ? c - s0 : c - s0 + C;
+    if (nr < bn || (nr == bn && r < br)) {
+      bn = nr;
+      br = r;
+    }
+  }
+  const unsigned mn = __reduce_min_sync(kFull, bn);
+  const unsigned mr = __reduce_min_sync(kFull, bn == mn ? br : 0xffffffffu);
+  const int best = s0 + static_cast<int>(mr);
+  return best < C ? best : best - C;
+}
+
+// Scheduler._run_core: expire core c's chunk at t. `refill` is the global
+// queue's head for a FIFO core to take next, or -1. Task k's fields are
+// read together, before any write.
+__device__ __forceinline__ void run_core(Cell& st, int c, double t, int nf,
+                                         int ncfs, int refill, double budget,
+                                         int& rrc, int& done) {
+  const int k = st.cur[c];
+  const double L = st.clen[c];
+  // a CFS core's runqueue ends load beside the task's fields
+  const Ends e = c < nf ? Ends{} : ends(st, c);
+  const double rem = st.rem[k], cpu = st.cpu[k], vr = st.vr[k];
+  const int npre = st.npre[k], nmig = c < nf ? st.nmig[k] : 0;
+  const double r2 = rem - L;
+  const bool fin = r2 <= kEps;  // events.py chunk_completes
+  st.cpu[k] = cpu + L;
+  st.last[c] = k;
+  st.cur[c] = -1;
+  st.end[c] = CUDART_INF;
+  if (fin) {
+    st.rem[k] = 0.0;
+    st.comp[k] = t;
+    ++done;
+  } else {
+    st.rem[k] = r2;
+    st.npre[k] = npre + 1;
+  }
+  if (c < nf) {
+    if (!fin) {
+      // hybrid time limit: preempt, migrate round robin onto CFS
+      st.nmig[k] = nmig + 1;
+      const int tgt = nf + rrc % (ncfs > 0 ? ncfs : 1);
+      ++rrc;
+      const double v = py_max(vr, st.minvr[tgt]);
+      st.vr[k] = v;
+      enqueue(st, tgt, v, k, t, ends(st, tgt));
+    }
+    if (refill >= 0) start_chunk(st, c, refill, t, budget);
+  } else if (!fin) {
+    // CFS slice expiry: charge vruntime, back onto this core's queue,
+    // and the core picks
+    const double v = vr + L;
+    st.vr[k] = v;
+    enqueue(st, c, v, k, t, e);
+  } else {
+    cfs_pick(st, c, t);
+  }
+}
+
+__global__ void __launch_bounds__(kMaxWarps * 32) mc_cell_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + wid;
+  if (b >= p.B) return;  // the whole warp: no block barrier follows
   const int C = p.C, N = p.N;
   const size_t off = static_cast<size_t>(b) * N;
-  const size_t hoff = static_cast<size_t>(b) * C * N;
+  const size_t qoff = static_cast<size_t>(b) * C * N;
+  double* ws = reinterpret_cast<double*>(smem + wid * cell_bytes(C, p.K));
   Cell st;
   st.rem = p.rem + off;
   st.vr = p.vr + off;
@@ -199,23 +382,22 @@ __global__ void __launch_bounds__(1) mc_cell_kernel(Params p) {
   st.npre = p.preemptions + off;
   st.nctx = p.ctx_switches + off;
   st.nmig = p.migrations + off;
-  st.hv = p.heap_v + hoff;
-  st.hs = p.heap_seq + hoff;
-  st.ht = p.heap_tid + hoff;
-  st.end = smem;
-  st.clen = smem + C;
-  st.minvr = smem + 2 * C;
-  st.slices = smem + 3 * C;
-  int* ints = reinterpret_cast<int*>(smem + 3 * C + p.K + 1);
+  st.rq = p.rq + qoff;
+  st.end = ws;
+  st.clen = ws + C;
+  st.minvr = ws + 2 * C;
+  st.slices = ws + 3 * C;
+  int* ints = reinterpret_cast<int*>(ws + 3 * C + p.K + 1);
   st.cur = ints;
   st.last = ints + C;
   st.seqc = ints + 2 * C;
   st.rqn = ints + 3 * C;
+  st.rqh = ints + 4 * C;
   st.K = p.K;
   st.N = N;
   st.ctx = p.ctx;
-  for (int i = 0; i <= p.K; ++i) st.slices[i] = p.slices[i];
-  for (int c = 0; c < C; ++c) {
+  for (int i = lane; i <= p.K; i += 32) st.slices[i] = p.slices[i];
+  for (int c = lane; c < C; c += 32) {
     st.end[c] = CUDART_INF;
     st.clen[c] = 0.0;
     st.minvr[c] = 0.0;
@@ -223,6 +405,7 @@ __global__ void __launch_bounds__(1) mc_cell_kernel(Params p) {
     st.last[c] = -1;
     st.seqc[c] = 0;
     st.rqn[c] = 0;
+    st.rqh[c] = 0;
   }
 
   const double* arr = p.arrival + off;
@@ -232,22 +415,20 @@ __global__ void __launch_bounds__(1) mc_cell_kernel(Params p) {
   // fifo_budget_ms(limit, cpu_time): the global queue holds fresh tasks
   const double budget = py_max(p.limit[b] - 0.0, 0.01);
   const int64_t cap = p.max_events[b];
+  // every lane keeps the counters that steer the loop, so that each
+  // branch is taken by the whole warp; lane 0 alone the rest
   int64_t ev = 0;
-  int ptr = 0, qh = 0, rr = 0, rrc = 0, done = 0;
+  int ptr = 0, qh = 0, rr = 0;
+  int rrc = 0, done = 0;
   bool capped = false;
 
   for (;;) {
-    // the next core expiry: least (end, cid); idle cores hold +inf
-    int cc = -1;
-    double tc = CUDART_INF;
-    for (int c = 0; c < C; ++c) {
-      const double e = st.end[c];
-      if (e < tc) {
-        tc = e;
-        cc = c;
-      }
-    }
-    const bool arrive = ptr < n && (cc < 0 || arr[ptr] <= tc);
+    __syncwarp();  // lane 0's writes of the last event are visible
+    const double ta = ptr < n ? arr[ptr] : CUDART_INF;
+    double tc;
+    int cc;
+    next_expiry(st.end, C, lane, tc, cc);
+    const bool arrive = ptr < n && (cc < 0 || ta <= tc);
     if (!arrive && cc < 0) break;
     if (ev >= cap) {
       capped = true;
@@ -257,85 +438,37 @@ __global__ void __launch_bounds__(1) mc_cell_kernel(Params p) {
 
     if (arrive) {
       const int k = ptr++;
-      const double t = arr[k];
+      const double t = ta;
       if (nf > 0) {
         // hybrid / FIFO: k joins the global queue; the first idle FIFO
         // core (cid order) takes the queue's head
-        for (int c = 0; c < nf; ++c) {
-          if (st.cur[c] < 0) {
-            start_chunk(st, c, qh++, t, budget);
-            break;
-          }
+        const int f = first_idle(st.cur, nf, lane);
+        if (f >= 0) {
+          if (lane == 0) start_chunk(st, f, qh, t, budget);
+          ++qh;
         }
       } else {
-        // CFS._least_loaded: scan from the rotating start, first idle
-        // core wins, else the first with the fewest runnable
         const int s0 = rr;
         rr = (rr + 1) % C;
-        int best = -1, best_nr = 0;
-        for (int i = 0; i < C; ++i) {
-          int c = s0 + i;
-          if (c >= C) c -= C;
-          const int nr = st.rqn[c] + (st.cur[c] >= 0 ? 1 : 0);
-          if (nr == 0) {
-            best = c;
-            break;
-          }
-          if (best < 0 || nr < best_nr) {
-            best = c;
-            best_nr = nr;
-          }
+        const int best = least_loaded(st.cur, st.rqn, C, s0, lane);
+        if (lane == 0) {
+          const double v = py_max(st.vr[k], st.minvr[best]);
+          st.vr[k] = v;
+          enqueue(st, best, v, k, t, ends(st, best));
         }
-        const double v = py_max(st.vr[k], st.minvr[best]);
-        st.vr[k] = v;
-        rq_push(st, best, v, st.seqc[best]++, k);
-        if (st.cur[best] < 0) cfs_pick(st, best, t);
       }
       continue;
     }
 
-    // Scheduler._run_core: expire core cc's chunk at tc
-    const int c = cc;
-    const double t = tc;
-    const int k = st.cur[c];
-    const double L = st.clen[c];
-    const double r2 = st.rem[k] - L;
-    st.cpu[k] = st.cpu[k] + L;
-    st.last[c] = k;
-    st.cur[c] = -1;
-    st.end[c] = CUDART_INF;
-    if (r2 <= kEps) {  // events.py chunk_completes
-      st.rem[k] = 0.0;
-      st.comp[k] = t;
-      ++done;
-    } else {
-      st.rem[k] = r2;
-      if (c < nf) {
-        // hybrid time limit: preempt, migrate round robin onto CFS
-        st.npre[k] += 1;
-        st.nmig[k] += 1;
-        const int tgt = nf + rrc % (ncfs > 0 ? ncfs : 1);
-        ++rrc;
-        const double v = py_max(st.vr[k], st.minvr[tgt]);
-        st.vr[k] = v;
-        rq_push(st, tgt, v, st.seqc[tgt]++, k);
-        if (st.cur[tgt] < 0) cfs_pick(st, tgt, t);
-      } else {
-        // CFS slice expiry: charge vruntime, back onto this core's queue
-        const double v = st.vr[k] + L;
-        st.vr[k] = v;
-        st.npre[k] += 1;
-        rq_push(st, c, v, st.seqc[c]++, k);
-      }
-    }
-    if (c < nf) {
-      if (qh < ptr) start_chunk(st, c, qh++, t, budget);
-    } else {
-      cfs_pick(st, c, t);
-    }
+    const bool refill = cc < nf && qh < ptr;
+    if (lane == 0)
+      run_core(st, cc, tc, nf, ncfs, refill ? qh : -1, budget, rrc, done);
+    if (refill) ++qh;
   }
-  p.ok[b] = (!capped && done == n) ? 1 : 0;
-  p.n_events[b] = ev;
+  if (lane == 0) {
+    p.ok[b] = (!capped && done == n) ? 1 : 0;
+    p.n_events[b] = ev;
+  }
 }
 
 }  // namespace
@@ -346,7 +479,7 @@ __global__ void __launch_bounds__(1) mc_cell_kernel(Params p) {
 extern "C" int repro_mc_cell(
     const void* arrival, const void* n_tasks, const void* n_fifo,
     const void* limit, const void* max_events, void* rem, void* vr,
-    void* heap_v, void* heap_seq, void* heap_tid, void* completion,
+    void* rq, void* completion,
     void* first_run, void* cpu_time, void* preemptions, void* ctx_switches,
     void* migrations, void* ok, void* n_events, const void* slices, int K,
     int B, int C, int N, double ctx, void* stream) {
@@ -360,9 +493,7 @@ extern "C" int repro_mc_cell(
   p.max_events = static_cast<const int64_t*>(max_events);
   p.rem = static_cast<double*>(rem);
   p.vr = static_cast<double*>(vr);
-  p.heap_v = static_cast<double*>(heap_v);
-  p.heap_seq = static_cast<int*>(heap_seq);
-  p.heap_tid = static_cast<int*>(heap_tid);
+  p.rq = static_cast<repro::Slot*>(rq);
   p.completion = static_cast<double*>(completion);
   p.first_run = static_cast<double*>(first_run);
   p.cpu_time = static_cast<double*>(cpu_time);
@@ -373,17 +504,37 @@ extern "C" int repro_mc_cell(
   p.n_events = static_cast<int64_t*>(n_events);
   p.slices = static_cast<const double*>(slices);
   p.K = K;
+  p.B = B;
   p.C = C;
   p.N = N;
   p.ctx = ctx;
-  const size_t smem = (3 * static_cast<size_t>(C) + K + 1) * sizeof(double) +
-                      4 * static_cast<size_t>(C) * sizeof(int);
+  // Cells a block: as many as it takes for the grid to cover every SM
+  // once (one cell a block up to 132 cells on an H100), at most
+  // kMaxWarps, and as many as fit the block's shared memory.
+  int dev = 0, sms = 0, smem_max = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(
+        &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const size_t cell = repro::cell_bytes(C, K);
+  if (cell > static_cast<size_t>(smem_max))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int w = (B + sms - 1) / sms;
+  if (w > repro::kMaxWarps) w = repro::kMaxWarps;
+  if (w > static_cast<int>(smem_max / cell))
+    w = static_cast<int>(smem_max / cell);
+  if (w < 1) w = 1;
+  const size_t smem = w * cell;
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        repro::mc_cell_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    e = cudaFuncSetAttribute(repro::mc_cell_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  repro::mc_cell_kernel<<<B, 1, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  repro::mc_cell_kernel<<<(B + w - 1) / w, 32 * w, smem,
+                          static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

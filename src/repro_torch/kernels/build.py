@@ -53,11 +53,10 @@ SIGNATURES = {
                        _P),
     # r, k, v, w, u, o, state, bh, n_u, S, hd, dtype, stream
     "repro_rwkv6_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # arrival, n_tasks, n_fifo, limit, max_events, rem, vr, heap_v,
-    # heap_seq, heap_tid, completion, first_run, cpu_time, preemptions,
-    # ctx_switches, migrations, ok, n_events, slices, K, B, C, N, ctx,
-    # stream
-    "repro_mc_cell": (_P,) * 19 + (_I,) * 4 + (ctypes.c_double, _P),
+    # arrival, n_tasks, n_fifo, limit, max_events, rem, vr, rq,
+    # completion, first_run, cpu_time, preemptions, ctx_switches,
+    # migrations, ok, n_events, slices, K, B, C, N, ctx, stream
+    "repro_mc_cell": (_P,) * 17 + (_I,) * 4 + (ctypes.c_double, _P),
 }
 
 _lock = threading.Lock()

@@ -6,7 +6,8 @@ Counterpart of the jitted ``vmap(while_loop)`` program of the JAX
 package, ``make_cell_kernel`` (``src/repro/mc/kernels.py:112``).
 :func:`run_grid_plain` is the plain PyTorch version, vectorised over the
 cell axis as the JAX program is; :func:`mc_cell_cuda` launches the
-hand-written kernel ``csrc/mc_cell.cu``, one event loop a cell. Both
+hand-written kernel ``csrc/mc_cell.cu``, one event loop a cell, walked by
+one warp whose lanes share the scans over the cores. Both
 reproduce the scalar engine's per-task observables bit for bit, and each
 other's, ``n_events`` included.
 
@@ -35,7 +36,7 @@ launches = 0
 SCHED_LATENCY_MS = 24.0
 MIN_GRANULARITY_MS = 3.0
 CTX_SWITCH_MS = 0.06
-MAX_CORES = 4096    # 40 bytes of shared memory a core in the kernel
+MAX_CORES = 4096    # 44 bytes of shared memory a core in the kernel
 
 _F64, _I32, _I64 = torch.float64, torch.int32, torch.int64
 _INF = float("inf")
@@ -314,11 +315,11 @@ def run_grid_plain(arrival: torch.Tensor, service: torch.Tensor,
 def mc_cell_cuda(arrival: torch.Tensor, service: torch.Tensor,
                  n_tasks: torch.Tensor, n_fifo: torch.Tensor,
                  limit: torch.Tensor, *, n_cores: int) -> dict:
-    """The kernel: one block and one thread a cell. ``arrival``/``service``
-    f64 (B, N), ``n_tasks``/``n_fifo`` int32 (B,), ``limit`` f64 (B,), all
-    contiguous on the card. Needs B * n_cores * N * 16 bytes of runqueue
-    space. ``n_iters`` is ``n_events``: the kernel retires one event a
-    trip."""
+    """The kernel: one warp a cell, up to 8 cells a block.
+    ``arrival``/``service`` f64 (B, N), ``n_tasks``/``n_fifo`` int32 (B,),
+    ``limit`` f64 (B,), all contiguous on the card. Needs B * n_cores *
+    N * 16 bytes of runqueue space. ``n_iters`` is ``n_events``: the
+    kernel retires one event a trip."""
     global launches
     for arg, t, dt in (("arrival", arrival, _F64), ("service", service, _F64),
                        ("n_tasks", n_tasks, _I32), ("n_fifo", n_fifo, _I32),
@@ -339,9 +340,8 @@ def mc_cell_cuda(arrival: torch.Tensor, service: torch.Tensor,
     first_run = torch.full_like(arrival, float("nan"))
     cpu_time = torch.zeros_like(arrival)
     counts = [torch.zeros((B, N), dtype=_I32, device=dev) for _ in range(3)]
-    heap_v = torch.empty((B, n_cores, N), dtype=_F64, device=dev)
-    heap_seq = torch.empty((B, n_cores, N), dtype=_I32, device=dev)
-    heap_tid = torch.empty((B, n_cores, N), dtype=_I32, device=dev)
+    # runqueue slots of 16 bytes (vruntime, push counter, task), N a core
+    rq = torch.empty((B, n_cores, N, 2), dtype=_F64, device=dev)
     ok = torch.empty(B, dtype=torch.bool, device=dev)
     n_events = torch.empty(B, dtype=_I64, device=dev)
     caps = event_caps(service, n_tasks)
@@ -349,11 +349,10 @@ def mc_cell_cuda(arrival: torch.Tensor, service: torch.Tensor,
     rc = build.library().repro_mc_cell(
         arrival.data_ptr(), n_tasks.data_ptr(), n_fifo.data_ptr(),
         limit.data_ptr(), caps.data_ptr(), rem.data_ptr(), vr.data_ptr(),
-        heap_v.data_ptr(), heap_seq.data_ptr(), heap_tid.data_ptr(),
-        completion.data_ptr(), first_run.data_ptr(), cpu_time.data_ptr(),
-        counts[0].data_ptr(), counts[1].data_ptr(), counts[2].data_ptr(),
-        ok.data_ptr(), n_events.data_ptr(), slices.data_ptr(),
-        len(slices) - 1, B, n_cores, N, CTX_SWITCH_MS, stream_of(arrival))
+        rq.data_ptr(), completion.data_ptr(), first_run.data_ptr(),
+        cpu_time.data_ptr(), counts[0].data_ptr(), counts[1].data_ptr(),
+        counts[2].data_ptr(), ok.data_ptr(), n_events.data_ptr(),
+        slices.data_ptr(), len(slices) - 1, B, n_cores, N, CTX_SWITCH_MS, stream_of(arrival))
     build.check(rc, NAME)
     launches += 1
     return {"completion": completion, "first_run": first_run,

@@ -6,6 +6,8 @@ captured decode step against the eager one, on the card (marked
 
 The first test builds the kernels with nvcc into build/repro_torch/.
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -256,30 +258,26 @@ def test_cuda_graph_replay_matches_eager_decode(card, arch):
     torch.cuda.synchronize()
 
 
-@pytest.mark.cuda
-def test_cuda_mc_cell_matches_plain_bitwise(card, monkeypatch):
-    """mc_cell against run_grid_plain (on the CPU) on fifo / cfs / hybrid
-    cells of the smoke trace at 4 cores: every float bit for bit, every
-    count and n_events exactly; run_grid on the card gives the same; a
-    cell cut by its event cap comes back with ok False."""
-    from repro_torch.kernels import mc_cell
-    from repro_torch.mc import Cell, run_grid
-    from repro_torch.mc.engine import _bucket, pack
+def mc_tasks(n_cores):
+    """The smoke trace at 4 cores; past the warp's first lanes the
+    600-a-minute trace's first 20 s in 5 s bursts, so that the cores
+    queue, and whole bursts arrive and expire at one instant."""
     from repro_torch.traces import TraceSpec, generate_workload
-    tasks = generate_workload(TraceSpec(minutes=1, invocations_per_min=60.0,
-                                        n_functions=10, seed=0)).tasks
-    cells = [Cell("fifo", 4, tasks), Cell("cfs", 4, tasks),
-             Cell("hybrid", 4, tasks),
-             Cell("hybrid", 4, tasks, {"n_fifo": 1, "time_limit_ms": 40.0}),
-             Cell("hybrid", 4, tasks, {"n_fifo": 3, "time_limit_ms": 1e-3})]
-    B = len(cells)
-    args = tuple(map(torch.from_numpy, pack(cells, _bucket(len(tasks)))))
-    plain = mc_cell.run_grid_plain(*args, n_cores=4)
-    launches = mc_cell.launches
-    got = mc_cell.mc_cell_cuda(*(a.to(card) for a in args), n_cores=4)
-    torch.cuda.synchronize()
-    assert mc_cell.launches == launches + 1
+    if n_cores == 4:
+        return generate_workload(TraceSpec(
+            minutes=1, invocations_per_min=60.0, n_functions=10,
+            seed=0)).tasks
+    big = generate_workload(TraceSpec(minutes=1, invocations_per_min=600.0,
+                                      n_functions=40, seed=0)).tasks
+    return [dataclasses.replace(t, arrival=5000.0 * (t.arrival // 5000.0))
+            for t in big if t.arrival < 20000.0]
+
+
+def assert_rows_bitwise(got, plain, rows):
+    """Every output of the kernel equal to row rows[b] of the plain
+    version's, floats bit for bit."""
     for k, want in plain.items():
+        want = want[rows]
         g = got[k].cpu()
         if k == "n_iters":
             assert torch.equal(g, got["n_events"].cpu())
@@ -287,12 +285,44 @@ def test_cuda_mc_cell_matches_plain_bitwise(card, monkeypatch):
             assert torch.equal(g.view(torch.int64), want.view(torch.int64)), k
         else:
             assert torch.equal(g, want.to(g.dtype)), k
-    out = run_grid(*(a.numpy() for a in args), n_cores=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cores", [4, 31, 32, 33, 64, 65])
+def test_cuda_mc_cell_matches_plain_bitwise(card, monkeypatch, n_cores):
+    """mc_cell against run_grid_plain (on the CPU) on fifo / cfs / hybrid
+    cells at 4 cores and on the warp's lane boundaries: every float bit
+    for bit, every count and n_events exactly; run_grid on the card gives
+    the same; 265 copies of the grid (3 cells a block, a last block of
+    one) give each copy's plain row; a cell cut by its event cap comes
+    back with ok False."""
+    from repro_torch.kernels import mc_cell
+    from repro_torch.mc import Cell, run_grid
+    from repro_torch.mc.engine import _bucket, pack
+    tasks = mc_tasks(n_cores)
+    C = n_cores
+    cells = [Cell("fifo", C, tasks), Cell("cfs", C, tasks),
+             Cell("hybrid", C, tasks),
+             Cell("hybrid", C, tasks, {"n_fifo": 1, "time_limit_ms": 40.0}),
+             Cell("hybrid", C, tasks, {"n_fifo": 3, "time_limit_ms": 1e-3})]
+    B = len(cells)
+    args = tuple(map(torch.from_numpy, pack(cells, _bucket(len(tasks)))))
+    plain = mc_cell.run_grid_plain(*args, n_cores=C)
+    launches = mc_cell.launches
+    got = mc_cell.mc_cell_cuda(*(a.to(card) for a in args), n_cores=C)
+    torch.cuda.synchronize()
+    assert mc_cell.launches == launches + 1
+    assert_rows_bitwise(got, plain, torch.arange(B))
+    out = run_grid(*(a.numpy() for a in args), n_cores=C)
     assert (out["completion"].view("int64")
             == plain["completion"].numpy().view("int64")).all()
+    rows = torch.arange(2 * 132 + 1) % B
+    many = mc_cell.mc_cell_cuda(*(a[rows].contiguous().to(card)
+                                  for a in args), n_cores=C)
+    assert_rows_bitwise(many, plain, rows)
     monkeypatch.setattr(mc_cell, "event_caps",
                         lambda service, n_tasks: torch.full_like(
                             n_tasks, 100, dtype=torch.int64))
-    cut = mc_cell.mc_cell_cuda(*(a.to(card) for a in args), n_cores=4)
+    cut = mc_cell.mc_cell_cuda(*(a.to(card) for a in args), n_cores=C)
     assert cut["ok"].tolist() == [False] * B
     assert cut["n_events"].tolist() == [100] * B
