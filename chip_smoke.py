@@ -14,10 +14,12 @@ package. In order it:
    scan kernels in the built library's SASS (cuobjdump), and fails if
    the bf16 flash_attention or bf16 ssm_scan kernel has none;
 4. holds each kernel against its plain PyTorch version at the shapes the
-   four serving paths give it (fused_rmsnorm at d 4096, 2048 and 1536;
+   serving paths give it (fused_rmsnorm at d 4096, 2048 and 1536;
    bf16 attention at hd 128 and 64, and granite-moe-3b-a800m's GQA: flash
    at BH 24 over 8 KV heads, S 513 and 600, decode at BH 24 over 8, cache
-   1024, hd 64; the scans in bf16 and f32, rwkv6_scan's f32 being its
+   1024, hd 64; qwen2-vl-2b's GQA, G = 6: flash at BH 12 over 2, S 600,
+   hd 128 in bf16 and f32, decode at BH 12 over 2, cache 1024, lengths
+   1024 and 600; the scans in bf16 and f32, rwkv6_scan's f32 being its
    serving dtype), and times
    kernel, plain version, one PyTorch library call computing the same
    function where there is one, and the bound (the larger of bytes /
@@ -33,10 +35,14 @@ package. In order it:
    the rwkv6_scan chunks' in bf16 and f32, the state at 2e-5 (S 1, 15,
    16, 17, 513, hd 16 / 32 / 128, one u row, w at 0, 1, 1e-30 and
    1 - 2^-24);
-5. for each of deepseek-7b, zamba2-1.2b, rwkv6-1.6b and
+5. for each of deepseek-7b, zamba2-1.2b, rwkv6-1.6b,
    granite-moe-3b-a800m (32 layers of GQA attention and 40 experts, top
-   8) at full width and depth (random weights from a seed), one model on
-   the card at a time:
+   8), qwen2-vl-2b (28 layers, M-RoPE, 12 query heads over 2 KV heads,
+   tied head), musicgen-large (48 layers, MHA, vocab 2048) and
+   moonshot-v1-16b-a3b (48 layers, a dense head layer and 47 of 64
+   experts, top 6; 27.56 B parameters, the largest model one card holds)
+   at full width and depth (random weights from a seed), one model on
+   the card at a time, its peak device memory printed:
    a. serves 8 ragged requests through ServingEngine, whose decode steps
       are replays of one CUDA graph of LM.decode_step a slot, with the
       launch counts set to 0 just before and read just after (a replay
@@ -48,13 +54,21 @@ package. In order it:
       active ones);
    c. holds the graph replay against the eager LM.decode_step in f32 on
       twin caches (bitwise, or within 1e-6 of the logits' scale), for
-      steps in one slot and right after a swap into another slot;
+      steps in one slot and right after a swap into another slot; the
+      f32 weights are the bf16 ones cast (exact), for moonshot cut to its
+      path-check depth (its f32 twin at full depth, ~110 GB, does not
+      fit), after the serving model's graphs and caches are freed;
    d. holds the kernel path against the plain path on the card (prefill
       plus 4 teacher-forced decode steps), in f32 and in bf16; for
-      granite it also prints the route agreement of the two paths (token
-      choices moved, assignments dropped on one path only, the smallest
-      margin between the K-th and (K+1)-th router probability), since a
-      moved choice moves the logits by a gate, not by rounding;
+      the MoE models it also prints the route agreement of the two paths
+      (token choices moved, assignments dropped on one path only, the
+      smallest margin between the K-th and (K+1)-th router probability),
+      since a moved choice moves the logits by a gate, not by rounding;
+   e. for qwen2-vl-2b (vision) and musicgen-large (audio), the frontend
+      phase: the modality frontend's embeddings of a 600-token prompt
+      (input_embeds_for on the card), LM.prefill(embeds=) and 4 decode
+      steps through the kernels and through the plain versions in f32,
+      at the path check's depth, held within 1e-3 of the logits' scale;
 6. runs the port's second path, the batched Monte-Carlo engine, whose
    kernel mc_cell (f64, one warp a cell, built with -fmad=false; step 3
    fails if its SASS holds a DFMA, or no SHFL or VOTE, the warp scans'
@@ -90,6 +104,7 @@ and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -122,6 +137,8 @@ GRAPH_TOL = 1e-6               # f32 logits: max |replay - eager| / max |eager|
 PATH_TOL = 2e-2                # least bf16 path tolerance (see path_check)
 SEED = 0
 GRANITE = "granite-moe-3b-a800m"
+MOONSHOT, QWEN, MUSICGEN = ("moonshot-v1-16b-a3b", "qwen2-vl-2b",
+                            "musicgen-large")
 REPS, WARMUP = 15, 3           # timed calls (median) after warm-up calls
 
 
@@ -212,8 +229,10 @@ def kernel_cases(kp):
     """The kernels' cases at the serving paths' shapes: deepseek-7b (hd
     128), zamba2-1.2b (attention hd 64, BH 32; ssm_scan BH 64 over one
     B/C group, hd 64, ds 64, chunk min(256, S)), rwkv6-1.6b (rwkv6_scan
-    BH 32, hd 64) and granite-moe-3b-a800m (d 1536; attention hd 64, 24
-    query heads over 8 KV heads), prompts up to 600 tokens."""
+    BH 32, hd 64), granite-moe-3b-a800m (d 1536; attention hd 64, 24
+    query heads over 8 KV heads) and qwen2-vl-2b (attention hd 128, 12
+    query heads over 2 KV heads: ``qwen_cases``), prompts up to 600
+    tokens."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     bf = torch.bfloat16
 
@@ -280,24 +299,7 @@ def kernel_cases(kp):
                     q[None], k[None], v[None], attn_mask=m)[0],
                 2 * sum(lens) * hd * 2 + 2 * BH * hd * 2 + 4 * BH,
                 4 * hd * sum(lens), BF16_FLOPS_PER_S, TOL)
-    bh, bh_kv, hd = 24, 8, 64                    # granite: GQA, G = 3
-    for n in (600, 1024):
-        q, k, v = randn(bh, 1, hd), randn(bh_kv, S, hd), randn(bh_kv, S, hd)
-        lengths = torch.full((bh,), n, dtype=torch.int32, device="cuda")
-        mask = (torch.arange(S, device="cuda") < n)[None, None, None, :]
-        # K and V are read once a KV head, whichever of its G query
-        # heads reads them
-        yield Case(
-            "decode_attention", f"BH {bh} over {bh_kv}, cache {S}, hd {hd}, "
-            f"lengths {n}",
-            lambda q=q, k=k, v=v, l=lengths: kp["decode_attention"][0](
-                q, k, v, l),
-            lambda q=q, k=k, v=v, l=lengths: kp["decode_attention"][1](
-                q, k, v, l),
-            lambda q=q, k=k, v=v, m=mask: F.scaled_dot_product_attention(
-                q[None], k[None], v[None], attn_mask=m, enable_gqa=True)[0],
-            2 * bh_kv * n * hd * 2 + 2 * bh * hd * 2 + 4 * bh,
-            4 * hd * n * bh, BF16_FLOPS_PER_S, TOL, model=GRANITE)
+    yield from gqa_decode_cases(kp, randn, 24, 8, 64, GRANITE)   # G = 3
     chunk_cumsum = kp["ssm_scan"][2]
     bh, hd, ds = 64, 64, 64                      # zamba2: 64 heads, 1 group
     for s in (32, 200, 513, 600):
@@ -342,10 +344,59 @@ def kernel_cases(kp):
                 5 * bh * s * hd * esize + 4 * bh * hd + 4 * bh * hd * hd,
                 rwkv_chunk_flops(bh, s, hd, chunk), F32_FLOPS_PER_S, tol,
                 serving=dt == torch.float32)
+    yield from qwen_cases(kp, randn)
     yield from attention_edge_cases(kp, randn)
     yield from rmsnorm_edge_cases(kp, randn)
     yield from ssm_edge_cases(kp, randn)
     yield from rwkv_edge_cases(kp, randn)
+
+
+def gqa_decode_cases(kp, randn, bh, bh_kv, hd, model):
+    """decode_attention at a model's GQA shape: BH query heads over BH_kv
+    cache rows, cache 1024, every row at length 600 and at 1024."""
+    S = 1024
+    for n in (600, 1024):
+        q, k, v = randn(bh, 1, hd), randn(bh_kv, S, hd), randn(bh_kv, S, hd)
+        lengths = torch.full((bh,), n, dtype=torch.int32, device="cuda")
+        mask = (torch.arange(S, device="cuda") < n)[None, None, None, :]
+        # K and V are read once a KV head, whichever of its G query
+        # heads reads them
+        yield Case(
+            "decode_attention", f"BH {bh} over {bh_kv}, cache {S}, hd {hd}, "
+            f"lengths {n}",
+            lambda q=q, k=k, v=v, l=lengths: kp["decode_attention"][0](
+                q, k, v, l),
+            lambda q=q, k=k, v=v, l=lengths: kp["decode_attention"][1](
+                q, k, v, l),
+            lambda q=q, k=k, v=v, m=mask: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], attn_mask=m, enable_gqa=True)[0],
+            2 * bh_kv * n * hd * 2 + 2 * bh * hd * 2 + 4 * bh,
+            4 * hd * n * bh, BF16_FLOPS_PER_S, TOL, model=model)
+
+
+def qwen_cases(kp, randn):
+    """qwen2-vl-2b's GQA, G = 6, new to both attention kernels: flash at
+    BH 12 over 2, S 600, hd 128, causal, in bf16 and f32 (the f32 checking
+    path's kernel), and decode at BH 12 over 2, cache 1024."""
+    bh, bh_kv, hd, s = 12, 2, 128, 600
+    bf = torch.bfloat16
+    pairs = s * (s + 1) // 2
+    for dt, tol, peak in ((bf, TOL, BF16_FLOPS_PER_S),
+                          (torch.float32, F32_TOL, F32_FLOPS_PER_S)):
+        q = randn(bh, s, hd, dtype=dt)
+        k, v = randn(bh_kv, s, hd, dtype=dt), randn(bh_kv, s, hd, dtype=dt)
+        yield Case(
+            "flash_attention",
+            f"BH {bh} over {bh_kv}, Sq = Sk = {s}, hd {hd}, causal, "
+            f"{str(dt)[6:]}",
+            lambda q=q, k=k, v=v: kp["flash_attention"][0](q, k, v),
+            lambda q=q, k=k, v=v: kp["flash_attention"][1](q, k, v),
+            lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], is_causal=True,
+                enable_gqa=True)[0],
+            2 * (bh + bh_kv) * s * hd * q.element_size(),
+            4 * hd * pairs * bh, peak, tol, model=QWEN)
+    yield from gqa_decode_cases(kp, randn, bh, bh_kv, hd, QWEN)
 
 
 def ssm_tc_flops(bh: int, bh_bc: int, s: int, hd: int, ds: int,
@@ -640,7 +691,8 @@ def mc_sass_check(sass: str) -> None:
 
 # -- phase 5: the serving paths ----------------------------------------------
 
-MODELS = ("deepseek-7b", "zamba2-1.2b", "rwkv6-1.6b", GRANITE)
+MODELS = ("deepseek-7b", "zamba2-1.2b", "rwkv6-1.6b", GRANITE, QWEN, MUSICGEN,
+          MOONSHOT)
 PROMPT_LENS = (32, 600, 77, 513, 200, 45, 333, 128)
 
 
@@ -796,7 +848,8 @@ def step_times(rt, lm, cfg) -> None:
 
 def graph_check(rt, cfg, params32) -> None:
     """The captured decode step against the eager LM.decode_step in f32 at
-    full width: a 200-token prompt prefilled into slot 0 and into a twin
+    full width (``cfg`` may be cut in depth): a 200-token prompt
+    prefilled into slot 0 and into a twin
     cache, then 4 greedy steps; before the third the request is saved out
     of slot 0, slot 0 is filled with NaN, and the state is loaded into
     slot 1. Each replay must equal the eager step bitwise, or lie within
@@ -852,14 +905,24 @@ def graph_check(rt, cfg, params32) -> None:
 # granite-moe-3b-a800m: the model rounds the expert activations to bf16
 # in every compute dtype (JAX layers.py:399-401), so the paths' last-bit
 # differences flip some of those roundings (2^-9), which the random
-# weights then amplify: f32 |kernel - plain| is 2.8e-4 of the logits'
-# scale at 1 layer, 1.1e-3 at 2, 1.8e-2 at 4, 0.22 at 8 (path_check;
-# with the activations left in f32, 9.0e-6, 6.9e-5, 4.1e-4, 4.3e-2). Not
-# route flips: no choice moves in layer 0, the first moves in layer 1 at
-# a margin of 5.8e-8, and the kernel path on the plain path's routes
-# keeps the same distances. The check holds layer 0 (GQA attention and
-# the MoE) at full width; serving covers all 32 layers.
-PATH_LAYERS = {"zamba2-1.2b": 6, GRANITE: 1}
+# weights then amplify: f32 |kernel - plain| is 2.3e-5 of the logits'
+# scale at 1 layer, 1.4e-3 at 2 (path_check, on the bf16 draw cast to
+# f32; with the activations left in f32, 4.2e-6 and 4.3e-5). At 2 layers
+# one token choice moves (layer 1, a margin of 1.1e-11), but the kernel
+# path on the plain path's routes keeps the same distance: rounding, not
+# the route. The check holds layer 0 (GQA attention and the MoE) at full
+# width; serving covers all 32 layers.
+# moonshot-v1-16b-a3b: its f32 twin at full depth (~110 GB) does not fit
+# beside the bf16 model (56.5 GB), so the graph and path checks take the
+# dense head layer and the first 3 MoE layers (the twin ~7 GB). There the
+# distance stays at 7.0e-5 from 1 to 4 layers, no choice moving
+# (path_check); serving covers all 48 layers. qwen2-vl-2b (3.9e-5 at 28
+# layers, 6.1e-5 with the vision frontend) and musicgen-large (6.9e-5 at
+# 48, 1.0e-4 with the audio frontend) are held at full depth.
+PATH_LAYERS = {"zamba2-1.2b": 6, GRANITE: 1, MOONSHOT: 4}
+# models whose f32 twin is cut to the path check's depth for the graph
+# check too; every other twin is the full model
+TWIN_CUT = (MOONSHOT,)
 
 
 def path_check(rt, cfg, params16, params32) -> None:
@@ -926,11 +989,52 @@ def path_check(rt, cfg, params16, params32) -> None:
                  f"{k16_rel:.3e} from f32, beyond {bf16_tol:.3e}")
 
 
+def frontend_check(rt, cfg, params32) -> None:
+    """The modality frontend on the card: the embeddings of a 600-token
+    prompt (``input_embeds_for``: vision, 150 patch embeddings drawn from
+    a seeded generator and the rest the text embeddings rounded to bf16;
+    audio, four delayed codebooks summed in f32), then LM.prefill(embeds=)
+    and 4 teacher-forced decode steps through the kernels and through the
+    plain versions in f32, at the path check's depth; each step within
+    F32_PATH_TOL of the logits' scale."""
+    pc = rt.path_check
+    n_layers = PATH_LAYERS.get(cfg.name, cfg.n_layers)
+    cut, params32 = pc.depth_cut(cfg, params32, n_layers)
+    toks = pc.prompt(cut, "cuda", pc.FRONTEND_PROMPT)
+    S = pc.FRONTEND_PROMPT
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    with torch.inference_mode():
+        embeds = rt.input_embeds_for(cut, params32, toks[:, :S], gen)
+    if tuple(embeds.shape) != (1, S, cfg.d_model) or \
+            not bool(embeds.isfinite().all()):
+        fail(f"frontend {cfg.name}: embeddings {tuple(embeds.shape)} not "
+             "finite or misshaped")
+    print(f"frontend {cfg.name} ({cfg.modality}): embeddings "
+          f"{tuple(embeds.shape)} {str(embeds.dtype)[6:]} of a {S}-token "
+          f"prompt; {n_layers} of {cfg.n_layers} layers in f32", flush=True)
+    k32 = pc.path_logits(cut, params32, rt.ops, toks, frontend=True)
+    p32 = pc.path_logits(cut, params32, rt.plain, toks, frontend=True)
+    for i, (k, p) in enumerate(zip(k32, p32, strict=True)):
+        if tuple(k.shape) != (1, 1, cfg.vocab) or not bool(k.isfinite().all()):
+            fail(f"frontend {cfg.name} step {i}: logits {tuple(k.shape)} not "
+                 "finite or misshaped")
+        scale = float(p.abs().max())
+        rel = float((k - p).abs().max()) / scale
+        print(f"frontend {cfg.name} {'prefill' if i == 0 else f'decode {i}'}:"
+              f" f32 |kernel - plain| {rel:.3e} of the logits' scale "
+              f"{scale:.3f} (tolerance {F32_PATH_TOL}); argmax kernel/plain "
+              f"{int(k.argmax())}/{int(p.argmax())}", flush=True)
+        if rel > F32_PATH_TOL:
+            fail(f"frontend {cfg.name} step {i}: f32 kernel path differs "
+                 f"from the plain path by {rel:.3e} of the logits' scale")
+
+
 def model_phase(rt, arch: str) -> dict:
     """Serve, time, graph-check and path-check one full-width model; its
     weights are freed before the next model's."""
     cfg = rt.configs.get_config(arch)
-    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    t_model = t0 = time.perf_counter()
     params = rt.init_params(cfg, seed=SEED, device="cuda",
                             dtype=torch.bfloat16)
     torch.cuda.synchronize()
@@ -942,12 +1046,24 @@ def model_phase(rt, arch: str) -> dict:
     counts, done, lm = serving_phase(rt, cfg, params)
     redecode_check(lm, cfg, done)
     step_times(rt, lm, cfg)
-    params32 = rt.init_params(cfg, seed=SEED, device="cuda",
-                              dtype=torch.float32)
-    graph_check(rt, cfg, params32)
-    path_check(rt, cfg, params, params32)
-    del params, params32, lm, done
+    serving_peak = torch.cuda.max_memory_allocated()
+    del lm, done
+    gc.collect()                  # the engine's graphs, pool and caches
     torch.cuda.empty_cache()
+    # the f32 twin: the bf16 draw cast (exact), so no second draw
+    cfg32, params32 = rt.path_check.f32_twin(
+        cfg, params, PATH_LAYERS[arch] if arch in TWIN_CUT else cfg.n_layers)
+    graph_check(rt, cfg32, params32)
+    path_check(rt, cfg, params, params32)
+    if cfg.modality != "text":
+        frontend_check(rt, cfg, params32)
+    del params, params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"model {cfg.name}: peak device memory serving "
+          f"{serving_peak / 1e9:.2f} GB, over the whole phase (the f32 "
+          f"checks included) {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+          f" GB; phase {time.perf_counter() - t_model:.1f} s", flush=True)
     return counts
 
 
@@ -1194,6 +1310,7 @@ def load_port() -> SimpleNamespace:
     from repro_torch.mc.engine import _bucket, pack
     from repro_torch.traces import TraceSpec, generate_workload, scale_load
     from repro_torch.models import LM
+    from repro_torch.models.frontends import input_embeds_for
     from repro_torch.models.layers import MATMUL
     from repro_torch.models.transformer import family_kind, zamba_groups
     from repro_torch.serving import LiveRequest, ServingEngine
@@ -1201,6 +1318,7 @@ def load_port() -> SimpleNamespace:
     return SimpleNamespace(
         configs=configs, init_params=params.init_params, build=build,
         ops=ops, plain=plain, LM=LM, MATMUL=MATMUL, family_kind=family_kind,
+        input_embeds_for=input_embeds_for,
         path_check=path_check, mc_time=mc_time,
         zamba_groups=zamba_groups, LiveRequest=LiveRequest,
         ServingEngine=ServingEngine, SlotDecoder=SlotDecoder,

@@ -4,15 +4,19 @@ through their plain versions, by depth, on the card.
   PYTHONPATH=src python -m repro_torch.launch.path_check --arch zamba2-1.2b \\
       --layers 6 12 24 38
 
-Builds ``--arch`` at full width with f32 random weights (seed 0) and, for
+Builds ``--arch`` at full width with bf16 random weights (seed 0) and, for
 each depth N of ``--layers``, runs the model's first N layers (and its
-shared block; the same weights) twice: through :mod:`..kernels.ops` and
-through :mod:`..kernels.plain`, a prefill of 200 tokens and 4
-teacher-forced decode steps. It prints, per step, max |kernel - plain|
-of the logits over max |plain|. Both paths round at 2^-24; the distance
-is how far the network amplifies that rounding over N layers, which
-sets the depth at which a logits tolerance can still tell a kernel
-fault (``chip_smoke.py`` uses it for its path check).
+shared block; the same weights), cast to f32 (:func:`f32_twin`, the
+weights of ``chip_smoke.py``'s f32 checks), twice: through
+:mod:`..kernels.ops` and through :mod:`..kernels.plain`, a prefill of
+200 tokens and 4 teacher-forced decode steps. It prints, per step, max
+|kernel - plain| of the logits over max |plain|. Both paths round at
+2^-24; the distance is how far the network amplifies that rounding over
+N layers, which sets the depth at which a logits tolerance can still
+tell a kernel fault (``chip_smoke.py`` uses it for its path check). For
+a vision or audio arch it also prints the same distance for a prefill
+of the modality frontend's embeddings of a 600-token prompt
+(``chip_smoke.py``'s frontend phase).
 
 For a model with experts it also prints the route agreement of the two
 paths: over every MoE layer, token and call, how many tokens chose
@@ -38,9 +42,10 @@ from ..configs import ARCHS, get_config
 from ..configs.base import ModelConfig
 from ..kernels import ops, plain
 from ..models import LM, layers
+from ..models.frontends import input_embeds_for
 from ..params import init_params
 
-PROMPT, STEPS, SEED = 200, 4, 0
+PROMPT, FRONTEND_PROMPT, STEPS, SEED = 200, 600, 4, 0
 
 
 def depth_cut(cfg: ModelConfig, params: dict, n_layers: int
@@ -54,11 +59,26 @@ def depth_cut(cfg: ModelConfig, params: dict, n_layers: int
     return cut, {n: t for n, t in params.items() if n in names}
 
 
+def f32_twin(cfg: ModelConfig, params: dict, n_layers: int
+             ) -> tuple[ModelConfig, dict]:
+    """The first ``n_layers`` layers of a parameter set (:func:`depth_cut`)
+    cast to f32. The cast of bf16 is exact, so the twin holds the same
+    weights as the set it came from, and no second draw of the model is
+    needed (one that would not fit beside the first: moonshot-v1-16b-a3b
+    takes ~110 GB in f32). f32 leaves are shared, not copied."""
+    cut, sub = depth_cut(cfg, params, n_layers)
+    return cut, {n: t.float() for n, t in sub.items()}
+
+
 def path_logits(cfg: ModelConfig, params: dict, kernels,
                 toks: torch.Tensor, routes: Optional[list] = None,
-                forced: Optional[list] = None) -> list:
-    """f32 logits of a prefill of ``PROMPT`` tokens and ``STEPS``
-    teacher-forced decode steps; ``toks`` is (1, PROMPT + STEPS). With
+                forced: Optional[list] = None,
+                frontend: bool = False) -> list:
+    """f32 logits of a prefill of S tokens and ``STEPS`` teacher-forced
+    decode steps; ``toks`` is (1, S + STEPS). With ``frontend``, the
+    prefill takes the modality frontend's embeddings of the prompt
+    (``input_embeds_for``; the vision stub draws its patches from a
+    generator seeded with SEED + 5, the same in every run). With
     ``routes`` a list, appends each MoE layer's routing records to it
     (one list a layer, one record a call: ``layers.moe``). ``forced``,
     the ``routes`` of another run, is a measurement, not the model:
@@ -70,14 +90,18 @@ def path_logits(cfg: ModelConfig, params: dict, kernels,
         for p in moes:
             p.routes = []
             routes.append(p.routes)
-    dev = toks.device
+    dev, S = toks.device, toks.shape[1] - STEPS
     with torch.inference_mode(), (
             routed_to(moes, forced) if forced else nullcontext()):
-        logits, cache = lm.prefill(toks[:, :PROMPT], PROMPT + STEPS)
+        embeds = None
+        if frontend:
+            gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+            embeds = input_embeds_for(cfg, params, toks[:, :S], gen)
+        logits, cache = lm.prefill(toks[:, :S], S + STEPS, embeds=embeds)
         out = [logits.float()]
         for i in range(STEPS):
-            pos = torch.tensor([PROMPT + i], device=dev)
-            logits, cache = lm.decode_step(toks[:, PROMPT + i], cache, pos)
+            pos = torch.tensor([S + i], device=dev)
+            logits, cache = lm.decode_step(toks[:, S + i], cache, pos)
             out.append(logits.float())
     return out
 
@@ -163,10 +187,12 @@ def route_line(agree: dict) -> str:
             f"{agree['margin']:.3e}")
 
 
-def prompt(cfg: ModelConfig, device) -> torch.Tensor:
+def prompt(cfg: ModelConfig, device, n: int = PROMPT) -> torch.Tensor:
+    """(1, n + STEPS) tokens below the vocab: a prompt of n and the
+    teacher-forced decode tokens."""
     rng = np.random.default_rng(SEED + 3)
     return torch.from_numpy(
-        rng.integers(0, cfg.vocab, (1, PROMPT + STEPS))).to(device)
+        rng.integers(0, cfg.vocab, (1, n + STEPS))).to(device)
 
 
 def rel_dist(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -198,16 +224,22 @@ def main(argv=None) -> None:
                          "paths are the plain versions)")
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(args.arch)
-    params = init_params(cfg, seed=SEED, device="cuda", dtype=torch.float32)
+    params = init_params(cfg, seed=SEED, device="cuda", dtype=torch.bfloat16)
     toks = prompt(cfg, "cuda")
     for n in args.layers:
-        cut, sub = depth_cut(cfg, params, n)
+        cut, sub = f32_twin(cfg, params, n)
         rk, rp = [], []
         k32 = path_logits(cut, sub, ops, toks, rk)
         p32 = path_logits(cut, sub, plain, toks, rp)
         print(f"{cfg.name} {cut.n_layers} of {cfg.n_layers} layers, f32 "
               f"|kernel - plain| / max |plain| by step: {by_step(k32, p32)}",
               flush=True)
+        if cfg.modality != "text":
+            front = prompt(cfg, "cuda", FRONTEND_PROMPT)
+            k32, p32 = (path_logits(cut, sub, kn, front, frontend=True)
+                        for kn in (ops, plain))
+            print(f"  {cfg.modality} frontend, {FRONTEND_PROMPT}-token "
+                  f"prompt: {by_step(k32, p32)}", flush=True)
         if not rp:
             continue
         print(f"  routes, kernel against plain: "

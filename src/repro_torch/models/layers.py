@@ -1,8 +1,9 @@
 """Transformer building blocks of the port.
 
 Counterparts of ``repro.models.layers``: ``rmsnorm`` (:42), ``apply_rope``
-(:55), ``_qkv`` (:99), ``attention`` (:236), ``mlp`` (:295) and ``moe``
-(:366, with ``_dispatch_row`` :322 and ``_combine_row`` :351). Weights are
+(:55), ``apply_mrope`` (:66), ``_qkv`` (:99), ``attention`` (:236),
+``mlp`` (:295) and ``moe`` (:366, with ``_dispatch_row`` :322 and
+``_combine_row`` :351). Weights are
 kept in JAX's ``(in, out)`` orientation and applied as ``x @ w``. Matmul
 weights are stored in the compute dtype (JAX casts its f32 weights on
 every use, which gives the same values); norm weights stay f32.
@@ -18,7 +19,7 @@ in f32 for P V).
 """
 from __future__ import annotations
 
-from functools import partial
+from functools import lru_cache, partial
 from typing import Optional
 
 import torch
@@ -55,18 +56,53 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
 
 # -- rotary ------------------------------------------------------------------
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 1e4) -> torch.Tensor:
-    """x: (..., S, hd); positions broadcastable to (..., S). Rotates the
-    two halves of hd (not interleaved pairs), with f32 angles."""
-    hd = x.shape[-1]
-    freqs = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
-                                          device=x.device) / hd))
-    angles = positions[..., None].to(torch.float32) * freqs
+def _rope_freqs(hd: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Rotates the two halves of hd (not interleaved pairs) by f32
+    ``angles`` (..., S, hd/2)."""
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 1e4) -> torch.Tensor:
+    """x: (..., S, hd); positions broadcastable to (..., S). Rotates the
+    two halves of hd (not interleaved pairs), with f32 angles."""
+    freqs = _rope_freqs(x.shape[-1], theta, x.device)
+    return _rotate(x, positions[..., None].to(torch.float32) * freqs)
+
+
+@lru_cache(maxsize=None)
+def mrope_streams(sections: tuple, device: torch.device) -> torch.Tensor:
+    """The position stream (0: t, 1: h, 2: w) of each of the hd/2
+    frequency slots, ``sections[i]`` slots of stream i in order. Built
+    once for each (sections, device): the decode step that reads it is
+    captured in a CUDA graph, where a host-to-device copy may not run."""
+    sec = torch.repeat_interleave(torch.arange(len(sections)),
+                                  torch.tensor(sections))
+    return sec.to(device)
+
+
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor,
+                sections: tuple, theta: float = 1e4) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: x (..., S, hd); positions_3d (3, ..., S), one
+    stream each of t, h and w. Frequency slot j of hd/2 turns by the
+    position of its section's stream; the rotation is :func:`apply_rope`'s.
+    """
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to hd/2 = "
+                         f"{hd // 2}")
+    freqs = _rope_freqs(hd, theta, x.device)
+    pos = positions_3d.index_select(0, mrope_streams(tuple(sections),
+                                                     x.device))
+    return _rotate(x, pos.movedim(0, -1).to(torch.float32) * freqs)
 
 
 # -- attention ----------------------------------------------------------------
@@ -86,14 +122,22 @@ class Attention(nn.Module):
 
 def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
          positions: torch.Tensor):
-    """Project + rope. Returns q: (B, KV, G, S, hd), k/v: (B, KV, S, hd)."""
+    """Project + rope. positions: (B, S), or (3, B, S) M-RoPE streams
+    (a (B, S) one is broadcast to the three). Returns q: (B, KV, G, S,
+    hd), k/v: (B, KV, S, hd)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = (x @ p.wq).view(B, S, H, hd).transpose(1, 2)
     k = (x @ p.wk).view(B, S, KV, hd).transpose(1, 2)
     v = (x @ p.wv).view(B, S, KV, hd).transpose(1, 2).contiguous()
-    q = apply_rope(q, positions[:, None], cfg.rope_theta)
-    k = apply_rope(k, positions[:, None], cfg.rope_theta)
+    if cfg.mrope:
+        pos3 = (positions if positions.dim() == 3 else
+                positions[None].expand(3, *positions.shape))[:, :, None]
+        q = apply_mrope(q, pos3, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, pos3, cfg.mrope_sections, cfg.rope_theta)
+    else:
+        q = apply_rope(q, positions[:, None], cfg.rope_theta)
+        k = apply_rope(k, positions[:, None], cfg.rope_theta)
     return q.view(B, KV, H // KV, S, hd), k, v
 
 

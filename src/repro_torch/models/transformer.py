@@ -10,7 +10,8 @@ parameter tree:
   ``first_k_dense`` layers are JAX's ``head_layers`` (a dense MLP of
   ``top_k * d_ff`` in an MoE stack), the rest its ``blocks``
   (deepseek-7b, deepseek-67b, granite-moe-3b-a800m,
-  moonshot-v1-16b-a3b);
+  moonshot-v1-16b-a3b, and qwen2-vl-2b with M-RoPE and musicgen-large,
+  whose modality frontends are ``models.frontends``);
 * zamba: ``layers.<i>.*`` Mamba2 layers, the JAX ``blocks`` (G, every)
   stack then the ``tail``, and one weight-shared ``shared_attn`` /
   ``shared_mlp`` block applied after each group of ``every`` layers
@@ -24,9 +25,8 @@ place by ``decode_step`` (replacing ``_pad_cache``): uniform
 together (JAX keeps ``cache["head"]`` and ``cache["body"]``); zamba
 ``{"ssm_h"}`` of (L, B, nh, hd, ds) f32 beside ``{"k", "v"}`` of (G, B,
 KV, max_len, hd) for the shared block's G applications; rwkv ``{"S",
-"x_tm", "x_cm"}`` as JAX's (L, B, ...) f32. ``local_global`` (gemma3),
-M-RoPE and the logit softcap raise ``NotImplementedError`` until their
-slice lands.
+"x_tm", "x_cm"}`` as JAX's (L, B, ...) f32. ``local_global`` (gemma3) and the
+logit softcap raise ``NotImplementedError`` until their slice lands.
 """
 from __future__ import annotations
 
@@ -66,10 +66,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: family local_global (gemma3) is not ported yet; it "
             "is a later slice of the port (ROADMAP.md, modules to port)")
-    if cfg.mrope:
-        raise NotImplementedError(
-            f"{cfg.name}: M-RoPE belongs to a later slice of the port "
-            "(ROADMAP.md)")
     if cfg.attn_logit_softcap:
         raise NotImplementedError(f"{cfg.name}: logit softcap not ported")
 
@@ -171,6 +167,11 @@ class LM(nn.Module):
         x = self.embed[tokens] * math.sqrt(self.cfg.d_model)
         return x.to(self.dtype)
 
+    def embed_vectors(self, embeds: torch.Tensor) -> torch.Tensor:
+        """``LM.embed_vectors``: a modality frontend's embeddings (B, S,
+        d) cast to the compute dtype, unscaled."""
+        return embeds.to(self.dtype)
+
     def unembed(self, h: torch.Tensor) -> torch.Tensor:
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         return h.to(torch.float32) @ head.to(torch.float32)
@@ -245,12 +246,15 @@ class LM(nn.Module):
         return cache
 
     def prefill(self, tokens: torch.Tensor, max_len: int,
-                cache: Optional[dict] = None):
+                cache: Optional[dict] = None,
+                embeds: Optional[torch.Tensor] = None):
         """tokens (B, S). Returns (last-token logits (B, 1, V), cache); the
         cache's layout is the family's (module docstring), KV caches zero
         past S. ``cache``, one of :meth:`new_cache`'s of this batch and
         ``max_len``, is overwritten in place and returned; by default a
-        new one is made."""
+        new one is made. ``embeds`` (B, S, d), a frontend's
+        (``models.frontends.input_embeds_for``), replaces the token
+        embeddings; positions stay ``arange(S)``, as in JAX."""
         cfg = self.cfg
         B, S = tokens.shape
         if S > max_len and self.kind != "rwkv":
@@ -262,7 +266,8 @@ class LM(nn.Module):
             for name in ("k", "v"):
                 if name in cache:
                     cache[name][:, :, :, S:].zero_()
-        x = self.embed_tokens(tokens)
+        x = (self.embed_tokens(tokens) if embeds is None
+             else self.embed_vectors(embeds))
         positions = torch.arange(S, device=tokens.device).expand(B, S)
         if self.kind == "uniform":
             for i, block in enumerate(self.layers):

@@ -7,7 +7,9 @@ the CPU the same slot code runs ``LM.decode_step`` eagerly, so these
 tests hold the swaps and the scheduling:
 
 * the engine against the JAX engine on the deepseek-7b, zamba2-1.2b,
-  rwkv6-1.6b and granite-moe-3b-a800m smoke configs in f32: tokens,
+  rwkv6-1.6b, granite-moe-3b-a800m, qwen2-vl-2b (M-RoPE, GQA, tied head)
+  and musicgen-large smoke configs in f32 (as ``tests/test_serving.py:66``
+  serves qwen2-vl): tokens,
   preemptions, completion times, bills and the adapter window identical,
   with requests restored into another slot than the one they left;
 * logits after a swap out and in bitwise equal to a request that kept
@@ -40,7 +42,8 @@ from repro_torch.params import from_jax_numpy, init_params  # noqa: E402
 from repro_torch.serving import LiveRequest, ServingEngine  # noqa: E402
 from repro_torch.serving import graphs  # noqa: E402
 
-ARCHS = ("deepseek-7b", "zamba2-1.2b", "rwkv6-1.6b", "granite-moe-3b-a800m")
+ARCHS = ("deepseek-7b", "zamba2-1.2b", "rwkv6-1.6b", "granite-moe-3b-a800m",
+         "qwen2-vl-2b", "musicgen-large")
 # two fair slots (2, 3): a request preempted from a FIFO slot comes back
 # in another slot, and fair slices rotate requests between the two
 ENGINE_KW = dict(n_slots=4, n_fifo=2, max_len=48, initial_limit_ms=12.0)

@@ -1,5 +1,6 @@
 """The port's model (repro_torch.models, repro_torch.params) against the
-JAX model on the deepseek-7b smoke config.
+JAX model on the deepseek-7b smoke config, and on the qwen2-vl-2b (M-RoPE,
+GQA, tied head) and musicgen-large (MHA, untied head) smokes.
 
 Parity tests run both in f32 compute with the same weights (the bridge)
 and the same inputs, at the model tolerance of test_models.py (2e-3).
@@ -299,7 +300,7 @@ def test_init_params_seeded():
 
 
 @pytest.mark.parametrize("arch_kw", [
-    dict(local_global_ratio=5, local_window=16), dict(mrope=True)])
+    dict(local_global_ratio=5, local_window=16)])
 def test_other_families_raise_not_implemented(arch_kw):
     cfg = get_smoke(ARCH).with_(**arch_kw)
     assert JaxModelConfig(**asdict(cfg))          # a real config
@@ -361,3 +362,96 @@ def test_first_k_dense_prefill_and_decode_match_jax(head_setup):
                                np.asarray(jcache["head"]["k"][0]), **TOL)
     np.testing.assert_allclose(cache["k"][1].numpy(),
                                np.asarray(jcache["body"]["k"][0]), **TOL)
+
+
+# -- qwen2-vl-2b and musicgen-large -------------------------------------------
+
+MODAL = ("qwen2-vl-2b", "musicgen-large")
+_MODAL = {}
+
+
+def modal_setup(arch):
+    """(JAX config, JAX params, numpy tree, port f32 LM) of the smoke."""
+    if arch not in _MODAL:
+        jcfg = jax_get_smoke(arch)
+        jparams = materialize(model_specs(jcfg), jax.random.PRNGKey(0))
+        tree = jax.tree.map(np.asarray, jparams)
+        cfg = get_smoke(arch)
+        _MODAL[arch] = jcfg, jparams, tree, LM.from_params(
+            cfg, from_jax_numpy(tree, cfg, "cpu", torch.float32))
+    return _MODAL[arch]
+
+
+@pytest.mark.parametrize("arch", MODAL)
+def test_modal_config_copy_matches_jax(arch):
+    assert asdict(get_config(arch)) == asdict(jax_get_config(arch))
+    assert asdict(get_smoke(arch)) == asdict(jax_get_smoke(arch))
+    LM(get_config(arch), device="meta")          # builds at full size
+
+
+@pytest.mark.parametrize("arch", MODAL)
+def test_modal_leaves_cover_the_jax_tree(arch):
+    """``jax_leaves`` at full width has the JAX specs' paths and shapes
+    (qwen2-vl's tied head: no ``lm_head``), and the bridge and the
+    initialiser give exactly the LM's parameters."""
+    cfg = get_config(arch)
+    specs = model_specs(jax_get_config(arch))
+    leaves = jax_leaves(cfg)
+    flat = {}
+
+    def walk(node, path):
+        if is_spec(node):
+            flat[path] = node.shape
+        else:
+            for k, v in node.items():
+                walk(v, path + (k,))
+
+    walk(specs, ())
+    assert {p: leaf.shape for p, leaf in leaves.items()} == flat
+    assert (("lm_head",) in leaves) == (not cfg.tie_embeddings)
+    _, _, tree, lm = modal_setup(arch)
+    smoke = get_smoke(arch)
+    names = {n: (tuple(p.shape), p.dtype) for n, p in lm.named_parameters()}
+    p16 = from_jax_numpy(tree, smoke, "cpu", torch.bfloat16)
+    init = init_params(smoke, seed=0, device="cpu")
+    for params in (p16, init):
+        assert {n: (tuple(t.shape), t.dtype if t.dtype == torch.float32
+                    else torch.float32) for n, t in params.items()} == names
+    assert p16["layers.0.attn.wq"].dtype == torch.bfloat16
+    assert init["layers.1.mlp.w_down"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("arch", MODAL)
+def test_modal_logits_train_matches_jax(arch):
+    jcfg, jparams, _, lm = modal_setup(arch)
+    toks = np.random.default_rng(16).integers(0, jcfg.vocab, (2, 24))
+    with f32_compute():
+        exp = JaxLM(jcfg).logits_train(jparams, jnp.asarray(toks))
+    out = lm.logits_train(torch.from_numpy(toks))
+    assert tuple(out.shape) == exp.shape
+    np.testing.assert_allclose(out.numpy(), np.asarray(exp), **TOL)
+
+
+@pytest.mark.parametrize("arch", MODAL)
+def test_modal_prefill_and_decode_steps_match_jax(arch):
+    jcfg, jparams, _, lm = modal_setup(arch)
+    B, S, extra = 2, 20, 4
+    toks = np.random.default_rng(17).integers(0, jcfg.vocab, (B, S + extra))
+    jlm = JaxLM(jcfg)
+    with f32_compute():
+        jlogits, jcache = jlm.prefill(jparams, jnp.asarray(toks[:, :S]),
+                                      max_len=S + extra)
+        jsteps = []
+        for i in range(extra):
+            jd, jcache = jlm.decode_step(
+                jparams, jnp.asarray(toks[:, S + i]), jcache,
+                jnp.full((B,), S + i, jnp.int32))
+            jsteps.append(np.asarray(jd))
+    logits, cache = lm.prefill(torch.from_numpy(toks[:, :S]), S + extra)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+    for i in range(extra):
+        d, cache = lm.decode_step(torch.from_numpy(toks[:, S + i]), cache,
+                                  torch.full((B,), S + i))
+        np.testing.assert_allclose(d.numpy(), jsteps[i], **TOL)
+    np.testing.assert_allclose(cache["k"].numpy(),
+                               np.asarray(jcache["body"]["k"]), **TOL)

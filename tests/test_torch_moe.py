@@ -421,3 +421,32 @@ def test_init_std_rule_at_full_width(arch):
     if arch == GRANITE:
         assert leaves[("blocks", "moe", "w_down")].std == pytest.approx(
             1 / np.sqrt(64) / np.sqrt(32))
+
+
+def test_path_check_depth_cut_keeps_the_dense_head_layer():
+    """``path_check.depth_cut`` of moonshot's smoke to 2 layers keeps the
+    ``first_k_dense`` head layer (a dense MLP of top_k * d_ff) and one MoE
+    layer, on the same tensors; ``f32_twin`` casts that cut exactly, and
+    its logits equal those of the bf16 weights' f32 cast."""
+    from repro_torch.kernels import plain
+    from repro_torch.launch import path_check as pc
+    cfg = get_smoke(MOONSHOT)
+    params = init_params(cfg, seed=0, device="cpu", dtype=torch.bfloat16)
+    cut, sub = pc.depth_cut(cfg, params, 2)
+    assert (cut.n_layers, cut.first_k_dense) == (2, 1)
+    assert tuple(sub["layers.0.mlp.w_up"].shape) == (
+        cfg.d_model, cfg.top_k * cfg.d_ff)
+    assert "layers.1.moe.router" in sub and not any(
+        n.startswith("layers.2.") for n in sub)
+    assert all(sub[n] is params[n] for n in sub)
+    cut32, twin = pc.f32_twin(cfg, params, 2)
+    assert cut32 == cut and set(twin) == set(sub)
+    for n, t in twin.items():
+        assert t.dtype == torch.float32
+        assert torch.equal(t.to(sub[n].dtype), sub[n])
+    assert twin["embed"] is params["embed"]          # f32 leaves shared
+    toks = pc.prompt(cut, "cpu")
+    ref = {n: t.float().clone() for n, t in sub.items()}
+    for a, b in zip(pc.path_logits(cut, twin, plain, toks),
+                    pc.path_logits(cut, ref, plain, toks)):
+        assert torch.equal(a, b)
