@@ -19,15 +19,21 @@ package. In order it:
    at BH 24 over 8 KV heads, S 513 and 600, decode at BH 24 over 8, cache
    1024, hd 64; qwen2-vl-2b's GQA, G = 6: flash at BH 12 over 2, S 600,
    hd 128 in bf16 and f32, decode at BH 12 over 2, cache 1024, lengths
-   1024 and 600; the scans in bf16 and f32, rwkv6_scan's f32 being its
-   serving dtype), and times
+   1024 and 600; gemma3-12b's (d 3840; hd 240, 16 query heads over 8 KV
+   heads: flash at S 600 causal in bf16 and f32, at S 1500 with the
+   window of 1024 binding, decode at cache 1024, lengths 1024 (a full
+   ring of the local layers) and 600, and at cache 2048, lengths 1904, a
+   global layer's; both kernels again with a logit softcap that bends the
+   scores, max |s| / cap printed); the scans in bf16 and f32, rwkv6_scan's
+   f32 being its serving dtype), and times
    kernel, plain version, one PyTorch library call computing the same
    function where there is one, and the bound (the larger of bytes /
    3.35 TB/s and flops / the peak of their type: 989 TFLOP/s bf16 and
    495 TFLOP/s TF32 tensor cores, 67 TFLOP/s f32); then, untimed, the
    edge cases: the attention kernels' (Sq != Sk, GQA, windows across
-   tile and split edges, ragged S, hd 16 and 32, lengths on split edges,
-   a cache of several chunks a split) and fused_rmsnorm's (the looping
+   tile and split edges, ragged S, hd 16, 32 and 240, lengths on split
+   edges, a cache of several chunks a split, softcaps at hd 64 and 128)
+   and fused_rmsnorm's (the looping
    path at d 8, 100, 8192 and 12288 and on a misaligned row, N 4096,
    x and w written by the kernel launched just before) in bf16 and in
    f32 at 2e-5, the bf16 ssm_scan tiles' at 2e-4 (chunk 16, chunk =
@@ -41,8 +47,13 @@ package. In order it:
    tied head), musicgen-large (48 layers, MHA, vocab 2048) and
    moonshot-v1-16b-a3b (48 layers, a dense head layer and 47 of 64
    experts, top 6; 27.56 B parameters, the largest model one card holds)
-   at full width and depth (random weights from a seed), one model on
-   the card at a time, its peak device memory printed:
+   and gemma3-12b (48 layers, 8 groups of 5 local layers with a window
+   of 1024 and 1 global layer; hd 240, 16 query heads over 8 KV heads, a
+   tied head of 262,144 rows; served at max_len 2048 on prompts of up to
+   1900 tokens, so that the window binds and the local layers' ring
+   caches wrap in prefill and in decode) at full width and depth (random
+   weights from a seed), one model on the card at a time, its peak
+   device memory printed:
    a. serves 8 ragged requests through ServingEngine, whose decode steps
       are replays of one CUDA graph of LM.decode_step a slot, with the
       launch counts set to 0 just before and read just after (a replay
@@ -51,13 +62,16 @@ package. In order it:
    b. times one prefill and one decode step, eager and graph replay, in
       turns in one run, beside the step's weight-read floor (for
       granite, of all 40 experts, which the dispatch runs, and of the 8
-      active ones);
+      active ones; for gemma3-12b prefills of 513 and 1500 tokens and
+      the decode step after the longer one);
    c. holds the graph replay against the eager LM.decode_step in f32 on
       twin caches (bitwise, or within 1e-6 of the logits' scale), for
       steps in one slot and right after a swap into another slot; the
       f32 weights are the bf16 ones cast (exact), for moonshot cut to its
       path-check depth (its f32 twin at full depth, ~110 GB, does not
-      fit), after the serving model's graphs and caches are freed;
+      fit), gemma3-12b to its first group and a tail layer with a prompt
+      of 1100 tokens (> the window), after the serving model's graphs
+      and caches are freed;
    d. holds the kernel path against the plain path on the card (prefill
       plus 4 teacher-forced decode steps), in f32 and in bf16; for
       the MoE models it also prints the route agreement of the two paths
@@ -69,6 +83,12 @@ package. In order it:
       (input_embeds_for on the card), LM.prefill(embeds=) and 4 decode
       steps through the kernels and through the plain versions in f32,
       at the path check's depth, held within 1e-3 of the logits' scale;
+   f. for gemma3-12b, the ring layout: after a 1500-token prefill and 4
+      decode steps (the wrap point moves) each local layer's ring holds
+      position p at slot p % 1024 for the last 1024 positions, and each
+      global layer's cache every position, against the keys and values
+      of the whole 1504-token sequence recomputed by one prefill, in f32
+      on the path check's twin;
 6. runs the port's second path, the batched Monte-Carlo engine, whose
    kernel mc_cell (f64, one warp a cell, built with -fmad=false; step 3
    fails if its SASS holds a DFMA, or no SHFL or VOTE, the warp scans'
@@ -139,6 +159,7 @@ SEED = 0
 GRANITE = "granite-moe-3b-a800m"
 MOONSHOT, QWEN, MUSICGEN = ("moonshot-v1-16b-a3b", "qwen2-vl-2b",
                             "musicgen-large")
+GEMMA = "gemma3-12b"
 REPS, WARMUP = 15, 3           # timed calls (median) after warm-up calls
 
 
@@ -349,6 +370,9 @@ def kernel_cases(kp):
     yield from rmsnorm_edge_cases(kp, randn)
     yield from ssm_edge_cases(kp, randn)
     yield from rwkv_edge_cases(kp, randn)
+    # last, from a generator of their own: the cases above draw the same
+    # inputs as before gemma3-12b's were added
+    yield from gemma_cases(kp)
 
 
 def gqa_decode_cases(kp, randn, bh, bh_kv, hd, model):
@@ -397,6 +421,155 @@ def qwen_cases(kp, randn):
             2 * (bh + bh_kv) * s * hd * q.element_size(),
             4 * hd * pairs * bh, peak, tol, model=QWEN)
     yield from gqa_decode_cases(kp, randn, bh, bh_kv, hd, QWEN)
+
+
+def max_score(q, k) -> float:
+    """max |q k^T| / sqrt(hd) over every (query, key) pair, GQA rows read
+    as the kernels read them: the scale a softcap bends."""
+    g = q.shape[0] // k.shape[0]
+    s = torch.matmul(q.float(), k.float().repeat_interleave(g, 0)
+                     .transpose(1, 2))
+    return float(s.abs().max()) / q.shape[-1] ** 0.5
+
+
+def gemma_cases(kp):
+    """gemma3-12b's shapes, new to the kernels, on inputs of a generator of
+    their own. fused_rmsnorm at d 3840. Attention at hd 240 (15 k-steps
+    of 16; a key row of 30 bf16 / 60 f32 16-byte vectors), 16 query heads
+    over 8 KV heads: flash at S 600 causal in bf16 and f32, and at S 1500
+    with the local layers' window of 1024, where it binds (SDPA then takes
+    the mask); decode at cache 1024, lengths 1024 (a local layer's full
+    ring) and 600, and a global layer's cache of 2048 at 1904; both
+    kernels with a softcap that bends the scores (max |s| / cap in the
+    label; no single PyTorch call computes the same). Then, untimed, in
+    bf16 and f32: hd 240 with GQA, Sq != Sk, a window, S 1 and lengths on
+    split edges, and softcaps at hd 64, 128 and 240 on scores drawn at
+    twice the scale."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape, dtype=bf, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale) \
+            .to(dtype)
+
+    norm = kp["fused_rmsnorm"]
+    d = 3840
+    for n in (1, 600, 1500):
+        w = randn(d, dtype=f32, scale=0.1)
+        x, w1 = randn(n, d), (1.0 + w).to(bf)
+        yield Case("fused_rmsnorm", f"x ({n}, {d})",
+                   lambda x=x, w=w: norm[0](x, w),
+                   lambda x=x, w=w: norm[1](x, w),
+                   lambda x=x, w1=w1: F.rms_norm(x, (d,), w1, eps=1e-6),
+                   2 * n * d * 2 + d * 4, 4 * n * d, BF16_FLOPS_PER_S, TOL,
+                   model=GEMMA)
+    bh, bh_kv, hd = 16, 8, 240
+    flash, decode = kp["flash_attention"], kp["decode_attention"]
+    for s, window, dt in ((600, 0, bf), (600, 0, f32), (1500, 1024, bf)):
+        q = randn(bh, s, hd, dtype=dt)
+        k, v = randn(bh_kv, s, hd, dtype=dt), randn(bh_kv, s, hd, dtype=dt)
+        i = torch.arange(s, device="cuda")
+        keep = i[None, :] <= i[:, None]
+        if window:
+            keep &= i[None, :] > i[:, None] - window
+        sdpa = (dict(is_causal=True) if not window else
+                dict(attn_mask=keep[None, None]))
+        yield Case(
+            "flash_attention",
+            f"BH {bh} over {bh_kv}, Sq = Sk = {s}, hd {hd}, causal"
+            f"{f', window {window}' if window else ''}, {str(dt)[6:]}",
+            lambda a=(q, k, v), w=window: flash[0](*a, window=w),
+            lambda a=(q, k, v), w=window: flash[1](*a, window=w),
+            lambda a=(q, k, v), kw=sdpa: F.scaled_dot_product_attention(
+                *(t[None] for t in a), enable_gqa=True, **kw)[0],
+            2 * (bh + bh_kv) * s * hd * q.element_size(),
+            4 * hd * int(keep.sum()) * bh,
+            BF16_FLOPS_PER_S if dt == bf else F32_FLOPS_PER_S,
+            TOL if dt == bf else F32_TOL, model=GEMMA)
+    yield from gqa_decode_cases(kp, randn, bh, bh_kv, hd, GEMMA)
+    S, n = 2048, 1904
+    q, k, v = randn(bh, 1, hd), randn(bh_kv, S, hd), randn(bh_kv, S, hd)
+    lengths = torch.full((bh,), n, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(S, device="cuda") < n)[None, None, None, :]
+    yield Case(
+        "decode_attention", f"BH {bh} over {bh_kv}, cache {S}, hd {hd}, "
+        f"lengths {n}",
+        lambda a=(q, k, v, lengths): decode[0](*a),
+        lambda a=(q, k, v, lengths): decode[1](*a),
+        lambda q=q, k=k, v=v, m=mask: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], attn_mask=m, enable_gqa=True)[0],
+        2 * bh_kv * n * hd * 2 + 2 * bh * hd * 2 + 4 * bh,
+        4 * hd * n * bh, BF16_FLOPS_PER_S, TOL, model=GEMMA)
+    cap, s, S = 2.0, 600, 1024
+    q, k, v = randn(bh, s, hd), randn(bh_kv, s, hd), randn(bh_kv, s, hd)
+    yield Case(
+        "flash_attention",
+        f"BH {bh} over {bh_kv}, Sq = Sk = {s}, hd {hd}, causal, softcap "
+        f"{cap} (max |s| / cap {max_score(q, k) / cap:.2f}), bfloat16",
+        lambda a=(q, k, v): flash[0](*a, softcap=cap),
+        lambda a=(q, k, v): flash[1](*a, softcap=cap), None,
+        2 * (bh + bh_kv) * s * hd * 2, 4 * hd * s * (s + 1) // 2 * bh,
+        BF16_FLOPS_PER_S, TOL, model=GEMMA)
+    q, k, v = randn(bh, 1, hd), randn(bh_kv, S, hd), randn(bh_kv, S, hd)
+    lengths = torch.full((bh,), S, dtype=torch.int32, device="cuda")
+    yield Case(
+        "decode_attention", f"BH {bh} over {bh_kv}, cache {S}, hd {hd}, "
+        f"lengths {S}, softcap {cap} (max |s| / cap "
+        f"{max_score(q, k) / cap:.2f})",
+        lambda a=(q, k, v, lengths): decode[0](*a, softcap=cap),
+        lambda a=(q, k, v, lengths): decode[1](*a, softcap=cap), None,
+        2 * bh_kv * S * hd * 2 + 2 * bh * hd * 2 + 4 * bh,
+        4 * hd * S * bh, BF16_FLOPS_PER_S, TOL, model=GEMMA)
+    # (label, BH, BH_kv, Sq, Sk, hd, causal, window, cap, input scale)
+    flash_edges = (
+        ("GQA BH 4 over 2, S 130", 4, 2, 130, 130, 240, True, 0, 0.0, 1.0),
+        ("Sq 64, Sk 150, non-causal", 2, 2, 64, 150, 240, False, 0, 0.0,
+         1.0),
+        ("S 200, window 64", 2, 1, 200, 200, 240, True, 64, 0.0, 1.0),
+        ("S 1", 2, 2, 1, 1, 240, True, 0, 0.0, 1.0),
+        ("softcap 1.0, S 96", 4, 4, 96, 96, 64, True, 0, 1.0, 2.0),
+        ("softcap 3.0, GQA BH 6 over 2, S 77, window 16", 6, 2, 77, 77, 128,
+         True, 16, 3.0, 2.0),
+        ("softcap 2.0, GQA BH 4 over 2, S 130, window 48", 4, 2, 130, 130,
+         240, True, 48, 2.0, 2.0))
+    # (label, BH, BH_kv, cache, hd, window, cap, lengths, input scale)
+    edges = [1, 63, 64, 65, 127, 128, 129, 1024]
+    decode_edges = (
+        ("GQA BH 8 over 4, lengths on split edges", 8, 4, 1024, 240, 0, 0.0,
+         edges, 1.0),
+        ("window 100 across split edges", 4, 4, 1024, 240, 100, 0.0,
+         [150, 1024, 64, 1], 1.0),
+        ("softcap 1.0", 4, 4, 512, 64, 0, 1.0, [512, 100, 7, 1], 2.0),
+        ("softcap 1.5, GQA BH 8 over 4", 8, 4, 1024, 240, 0, 1.5,
+         [1024, 1024, 700, 3, 1, 64, 65, 1000], 2.0))
+    for dt, tol in ((bf, TOL), (f32, F32_TOL)):
+        tag = str(dt)[6:]
+        for label, bh, bh_kv, sq, sk, hd, causal, window, cap, sc in \
+                flash_edges:
+            q = randn(bh, sq, hd, dtype=dt, scale=sc)
+            k, v = randn(bh_kv, sk, hd, dtype=dt, scale=sc), randn(
+                bh_kv, sk, hd, dtype=dt)
+            kw = dict(causal=causal, window=window, softcap=cap)
+            bend = (f" (max |s| / cap {max_score(q, k) / cap:.2f})" if cap
+                    else "")
+            yield Case("flash_attention", f"{label}, hd {hd}{bend}, {tag}",
+                       lambda a=(q, k, v), kw=kw: flash[0](*a, **kw),
+                       lambda a=(q, k, v), kw=kw: flash[1](*a, **kw),
+                       None, 0, 0, BF16_FLOPS_PER_S, tol, timed=False)
+        for label, bh, bh_kv, S, hd, window, cap, lens, sc in decode_edges:
+            q = randn(bh, 1, hd, dtype=dt, scale=sc)
+            k, v = randn(bh_kv, S, hd, dtype=dt, scale=sc), randn(
+                bh_kv, S, hd, dtype=dt)
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            kw = dict(window=window, softcap=cap)
+            bend = (f" (max |s| / cap {max_score(q, k) / cap:.2f})" if cap
+                    else "")
+            yield Case("decode_attention", f"{label}, hd {hd}{bend}, {tag}",
+                       lambda a=(q, k, v, lengths), kw=kw: decode[0](*a,
+                                                                     **kw),
+                       lambda a=(q, k, v, lengths), kw=kw: decode[1](*a,
+                                                                     **kw),
+                       None, 0, 0, BF16_FLOPS_PER_S, tol, timed=False)
 
 
 def ssm_tc_flops(bh: int, bh_bc: int, s: int, hd: int, ds: int,
@@ -646,7 +819,8 @@ def sass_check(lib_path: Path) -> None:
             m = re.search("|".join(SASS_KERNELS), fn)
             hd = re.search(r"Li(\d+)E", fn)
             fn = (f"{m.group(0)}<{hd.group(1) if hd else ''}> "
-                  f"{'bf16' if 'bfloat16' in fn else 'f32'}") if m else None
+                  f"{'bf16' if 'bfloat16' in fn else 'f32'}"
+                  f"{', softcap' if 'Lb1E' in fn else ''}") if m else None
             if fn:
                 counts[fn] = 0
         elif fn and re.search(r"\bH(G)?MMA\b", line):
@@ -692,8 +866,21 @@ def mc_sass_check(sass: str) -> None:
 # -- phase 5: the serving paths ----------------------------------------------
 
 MODELS = ("deepseek-7b", "zamba2-1.2b", "rwkv6-1.6b", GRANITE, QWEN, MUSICGEN,
-          MOONSHOT)
+          MOONSHOT, GEMMA)
 PROMPT_LENS = (32, 600, 77, 513, 200, 45, 333, 128)
+MAX_LEN = 1024
+# gemma3-12b: its local layers keep a window of 1024 keys in ring caches,
+# so its prompts cross the window: 1020 (decode wraps the ring), 1024 (=
+# W), 1500 and 1900 (> W, not a multiple: prefill wraps it), at max_len
+# 2048; some below 600
+MODEL_PROMPTS = {GEMMA: (32, 1020, 1500, 1024, 200, 1900, 77, 513)}
+MODEL_MAX_LEN = {GEMMA: 2048}
+# prefill lengths timed (the decode step is timed after the longest)
+STEP_PROMPTS = {GEMMA: (513, 1500)}
+# prompt of the f32 graph check (gemma3-12b: past the window) and of the
+# path check (gemma3-12b: the window binds in prefill, decode past it)
+GRAPH_PROMPT = {GEMMA: 1100}
+PATH_PROMPT = {GEMMA: 1500}
 
 
 def expected_launches(rt, cfg, n_prefill: int, n_decode: int) -> dict:
@@ -710,6 +897,9 @@ def expected_launches(rt, cfg, n_prefill: int, n_decode: int) -> dict:
     if kind == "rwkv":            # tm_norm, o_norm, cm_norm per layer
         return {"fused_rmsnorm": (3 * L + 1) * steps,
                 "rwkv6_scan": L * n_prefill}
+    # uniform, and local_global: local and global layers alike make one
+    # flash (windowed or not) a prefill and one decode (ring or linear
+    # cache) a step
     return {"fused_rmsnorm": (2 * L + 1) * steps,
             "flash_attention": L * n_prefill,
             "decode_attention": L * n_decode}
@@ -719,7 +909,9 @@ def serving_phase(rt, cfg, params):
     """Serves the 8 requests; returns (launch counts, completed requests,
     the engine's LM)."""
     t0 = time.perf_counter()
-    eng = rt.ServingEngine(cfg, params, n_slots=4, n_fifo=2, max_len=1024,
+    prompts = MODEL_PROMPTS.get(cfg.name, PROMPT_LENS)
+    eng = rt.ServingEngine(cfg, params, n_slots=4, n_fifo=2,
+                           max_len=MODEL_MAX_LEN.get(cfg.name, MAX_LEN),
                            initial_limit_ms=40.0, device="cuda")
     torch.cuda.synchronize()
     if any(g is None for g in eng.decoder.graphs):
@@ -728,7 +920,7 @@ def serving_phase(rt, cfg, params):
           f"{time.perf_counter() - t0:.2f} s; launches a replay "
           f"{eng.decoder.graphs[0].launches}", flush=True)
     rng = np.random.default_rng(SEED + 1)
-    for rid, n in enumerate(PROMPT_LENS):
+    for rid, n in enumerate(prompts):
         toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, n)))
         eng.submit(rt.LiveRequest(rid=rid, arrival_ms=0.0, tokens=toks,
                                   max_new=4 + 2 * rid))
@@ -739,10 +931,10 @@ def serving_phase(rt, cfg, params):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = rt.ops.launch_counts()
-    n_prefill = len(PROMPT_LENS)
+    n_prefill = len(prompts)
     n_decode = sum(len(r.generated) - 1 for r in done)
     for r in sorted(done, key=lambda r: r.rid):
-        print(f"req {r.rid}: prompt={PROMPT_LENS[r.rid]} "
+        print(f"req {r.rid}: prompt={prompts[r.rid]} "
               f"tokens={len(r.generated)} exec={r.execution_ms():.1f}ms "
               f"preempt={r.preemptions} cost=${r.cost_usd():.3e}",
               flush=True)
@@ -775,7 +967,8 @@ def redecode_check(lm, cfg, done) -> None:
     against an eager greedy decode of each request on its own cache."""
     with torch.inference_mode():
         for r in done:
-            logits, cache = lm.prefill(r.tokens, 1024)
+            logits, cache = lm.prefill(r.tokens,
+                                       MODEL_MAX_LEN.get(cfg.name, MAX_LEN))
             toks = [int(torch.argmax(logits[0, -1]))]
             S = r.tokens.shape[1]
             for j in range(len(r.generated) - 1):
@@ -793,26 +986,30 @@ def redecode_check(lm, cfg, done) -> None:
 
 
 def step_times(rt, lm, cfg) -> None:
-    """Host-clock time of one prefill and of one decode step, eager and as
-    a graph replay, taken in turns; a step is the engine's work for one
+    """Host-clock time of one prefill (of 513 tokens, for gemma3-12b also
+    of 1500) and of one decode step after the longest, eager and as a
+    graph replay, taken in turns; a step is the engine's work for one
     token (the step, then the greedy token read on the host, which
     synchronises). The device's busy and idle share within them is read by
     ``python -m repro_torch.launch.profile --arch``."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    toks = torch.randint(0, cfg.vocab, (1, 513), generator=gen,
-                         device="cuda")
-    dec = rt.SlotDecoder(lm, 1, 1024)
+    max_len = MODEL_MAX_LEN.get(cfg.name, MAX_LEN)
+    dec = rt.SlotDecoder(lm, 1, max_len)
+    prefill_ms = {}
     with torch.inference_mode():
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, cache = lm.prefill(toks, 1024)
-            torch.cuda.synchronize()
-            prefill_s = time.perf_counter() - t0
+        for n in STEP_PROMPTS.get(cfg.name, (513,)):
+            toks = torch.randint(0, cfg.vocab, (1, n), generator=gen,
+                                 device="cuda")
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, cache = lm.prefill(toks, max_len)
+                torch.cuda.synchronize()
+                prefill_ms[n] = (time.perf_counter() - t0) * 1e3
         dec.prefill(0, toks)
         tok = int(toks[0, -1])
         tok_t = toks[:, -1]
-        pos_t = torch.tensor([513], device="cuda")
+        pos_t = torch.tensor([n], device="cuda")
         walls = {"eager": [], "graph": []}
         for _ in range(10):
             torch.cuda.synchronize()
@@ -821,7 +1018,7 @@ def step_times(rt, lm, cfg) -> None:
             walls["eager"].append(time.perf_counter() - t0)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            int(torch.argmax(dec.step(0, tok, 513)[0, -1]))
+            int(torch.argmax(dec.step(0, tok, n)[0, -1]))
             walls["graph"].append(time.perf_counter() - t0)
     eager_ms, graph_ms = (statistics.median(walls[k]) * 1e3
                           for k in ("eager", "graph"))
@@ -840,27 +1037,31 @@ def step_times(rt, lm, cfg) -> None:
                  f"{cfg.n_experts} experts), "
                  f"{active / HBM_BYTES_PER_S * 1e3:.3f} ms ({active / 1e9:.3f}"
                  f" GB: the {cfg.top_k} active experts)")
-    print(f"step {cfg.name}: prefill 513 tokens {prefill_s * 1e3:.2f} ms "
-          f"wall; decode step (cache 514) eager {eager_ms:.3f} ms, graph "
-          f"replay {graph_ms:.3f} ms wall (medians of 10, in turns); "
-          f"weight-read bound of a decode step {floor}", flush=True)
+    prefills = ", ".join(f"prefill {k} tokens {ms:.2f} ms wall"
+                         for k, ms in prefill_ms.items())
+    print(f"step {cfg.name}: {prefills}; decode step (cache {n + 1}) eager "
+          f"{eager_ms:.3f} ms, graph replay {graph_ms:.3f} ms wall (medians "
+          f"of 10, in turns); weight-read bound of a decode step {floor}",
+          flush=True)
 
 
 def graph_check(rt, cfg, params32) -> None:
     """The captured decode step against the eager LM.decode_step in f32 at
     full width (``cfg`` may be cut in depth): a 200-token prompt
-    prefilled into slot 0 and into a twin
-    cache, then 4 greedy steps; before the third the request is saved out
-    of slot 0, slot 0 is filled with NaN, and the state is loaded into
-    slot 1. Each replay must equal the eager step bitwise, or lie within
-    GRAPH_TOL of the logits' scale."""
+    (gemma3-12b: 1100, past its window) prefilled into slot 0 and into a
+    twin cache, then 4 greedy steps; before the third the request is
+    saved out of slot 0, slot 0 is filled with NaN, and the state is
+    loaded into slot 1. Each replay must equal the eager step bitwise, or
+    lie within GRAPH_TOL of the logits' scale."""
     lm = rt.LM.from_params(cfg, params32)
-    dec = rt.SlotDecoder(lm, 2, 1024)
+    max_len = MODEL_MAX_LEN.get(cfg.name, MAX_LEN)
+    n = GRAPH_PROMPT.get(cfg.name, 200)
+    dec = rt.SlotDecoder(lm, 2, max_len)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    prompt = torch.randint(0, cfg.vocab, (1, 200), generator=gen,
+    prompt = torch.randint(0, cfg.vocab, (1, n), generator=gen,
                            device="cuda")
     with torch.inference_mode():
-        logits, twin = lm.prefill(prompt, 1024)
+        logits, twin = lm.prefill(prompt, max_len)
         dec.prefill(0, prompt)
         tok, slot = int(torch.argmax(logits[0, -1])), 0
         for i in range(4):
@@ -871,10 +1072,10 @@ def graph_check(rt, cfg, params32) -> None:
                 dec.load(1, saved)
                 del saved
                 slot = 1
-            got = dec.step(slot, tok, 200 + i).clone()
+            got = dec.step(slot, tok, n + i).clone()
             want, twin = lm.decode_step(
                 torch.tensor([tok], device="cuda"), twin,
-                torch.tensor([200 + i], device="cuda"))
+                torch.tensor([n + i], device="cuda"))
             if tuple(got.shape) != (1, 1, cfg.vocab) or \
                     not bool(got.isfinite().all()):
                 fail(f"graph check {cfg.name} step {i}: replayed logits "
@@ -919,10 +1120,14 @@ def graph_check(rt, cfg, params32) -> None:
 # (path_check); serving covers all 48 layers. qwen2-vl-2b (3.9e-5 at 28
 # layers, 6.1e-5 with the vision frontend) and musicgen-large (6.9e-5 at
 # 48, 1.0e-4 with the audio frontend) are held at full depth.
-PATH_LAYERS = {"zamba2-1.2b": 6, GRANITE: 1, MOONSHOT: 4}
+# gemma3-12b: its f32 twin at full depth (~46 GB) beside the bf16 model
+# (25.3 GB) would leave no room for the checks, so they take its first
+# group (5 local layers and the global one) and the next local layer,
+# where every kind of layer and both cache layouts run.
+PATH_LAYERS = {"zamba2-1.2b": 6, GRANITE: 1, MOONSHOT: 4, GEMMA: 7}
 # models whose f32 twin is cut to the path check's depth for the graph
 # check too; every other twin is the full model
-TWIN_CUT = (MOONSHOT,)
+TWIN_CUT = (MOONSHOT, GEMMA)
 
 
 def path_check(rt, cfg, params16, params32) -> None:
@@ -948,7 +1153,7 @@ def path_check(rt, cfg, params16, params32) -> None:
     if not torch.equal(w16, w32.to(w16.dtype)):
         fail(f"path check {cfg.name}: f32 and bf16 parameters are not the "
              "same draw")
-    toks = pc.prompt(cfg, "cuda")
+    toks = pc.prompt(cfg, "cuda", PATH_PROMPT.get(cfg.name, pc.PROMPT))
     routes = {name: [] for name in ("k16", "p16", "k32", "p32")}
     k16 = pc.path_logits(cfg, params16, rt.ops, toks, routes["k16"])
     p16 = pc.path_logits(cfg, params16, rt.plain, toks, routes["p16"])
@@ -1029,6 +1234,58 @@ def frontend_check(rt, cfg, params32) -> None:
                  f"from the plain path by {rel:.3e} of the logits' scale")
 
 
+def layout_check(rt, cfg, params32) -> None:
+    """The local_global caches on the card, in f32 (``cfg`` cut in depth):
+    a 1500-token prefill and 4 decode steps (positions 1500-1503 evict
+    476-479 from the rings: the wrap point moves), against the keys and
+    values of the whole 1504-token sequence recomputed by one prefill
+    (each layer's k/v as the attention returns them). Each local layer's
+    ring must hold position p at slot p % W for the last W positions, and
+    each global layer's cache every position, within F32_PATH_TOL of
+    their scale (a key in the wrong slot is off by the scale itself)."""
+    lm = rt.LM.from_params(cfg, params32)
+    S, steps = PATH_PROMPT[cfg.name], rt.path_check.STEPS
+    max_len = MODEL_MAX_LEN[cfg.name]
+    toks = rt.path_check.prompt(cfg, "cuda", S)
+    full, attention = [], rt.transformer.attention
+
+    def recorded(*args, **kw):
+        out, kv = attention(*args, **kw)
+        full.append(kv)
+        return out, kv
+
+    with torch.inference_mode():
+        _, cache = lm.prefill(toks[:, :S], max_len)
+        for i in range(steps):
+            lm.decode_step(toks[:, S + i], cache,
+                           torch.tensor([S + i], device="cuda"))
+        rt.transformer.attention = recorded
+        try:
+            lm.prefill(toks, max_len)
+        finally:
+            rt.transformer.attention = attention
+    n, W = S + steps, cache["k_win"].shape[3]
+    p = torch.arange(n - W, n, device="cuda")
+    worst = 0.0
+    for (glob, j), kv in zip(rt.lg_layers(cfg), full, strict=True):
+        for name in ("k", "v"):
+            if glob:
+                got, want = cache[name][j][:, :, :n], kv[name]
+            else:
+                got, want = cache[f"{name}_win"][j][:, :, p % W], \
+                    kv[name][:, :, p]
+            worst = max(worst, float((got - want).abs().max())
+                        / float(want.abs().max()))
+    print(f"layout {cfg.name}: after a {S}-token prefill and {steps} decode "
+          f"steps, {cfg.n_layers} layers' caches (rings of {W} slots: "
+          f"position p at slot p % {W}, positions {n - W}-{n - 1}) against "
+          f"the {n} positions recomputed in full: max |diff| {worst:.3e} of "
+          f"their scale (tolerance {F32_PATH_TOL})", flush=True)
+    if worst > F32_PATH_TOL:
+        fail(f"layout {cfg.name}: the caches differ from the recomputed keys "
+             f"by {worst:.3e} of their scale")
+
+
 def model_phase(rt, arch: str) -> dict:
     """Serve, time, graph-check and path-check one full-width model; its
     weights are freed before the next model's."""
@@ -1057,6 +1314,8 @@ def model_phase(rt, arch: str) -> dict:
     path_check(rt, cfg, params, params32)
     if cfg.modality != "text":
         frontend_check(rt, cfg, params32)
+    if rt.family_kind(cfg) == "local_global":
+        layout_check(rt, cfg32, params32)
     del params, params32
     gc.collect()
     torch.cuda.empty_cache()
@@ -1312,12 +1571,15 @@ def load_port() -> SimpleNamespace:
     from repro_torch.models import LM
     from repro_torch.models.frontends import input_embeds_for
     from repro_torch.models.layers import MATMUL
-    from repro_torch.models.transformer import family_kind, zamba_groups
+    from repro_torch.models import transformer
+    from repro_torch.models.transformer import (family_kind, lg_layers,
+                                                zamba_groups)
     from repro_torch.serving import LiveRequest, ServingEngine
     from repro_torch.serving.graphs import SlotDecoder
     return SimpleNamespace(
         configs=configs, init_params=params.init_params, build=build,
         ops=ops, plain=plain, LM=LM, MATMUL=MATMUL, family_kind=family_kind,
+        transformer=transformer, lg_layers=lg_layers,
         input_embeds_for=input_embeds_for,
         path_check=path_check, mc_time=mc_time,
         zamba_groups=zamba_groups, LiveRequest=LiveRequest,

@@ -7,7 +7,7 @@ from .base import ModelConfig
 
 ARCHS = ("deepseek-7b", "zamba2-1.2b", "rwkv6-1.6b", "granite-moe-3b-a800m",
          "moonshot-v1-16b-a3b", "deepseek-67b", "qwen2-vl-2b",
-         "musicgen-large")
+         "musicgen-large", "gemma3-12b", "gemma3-27b")
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 

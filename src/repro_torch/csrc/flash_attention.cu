@@ -1,7 +1,8 @@
 // flash_attention: blocked online-softmax attention for prefill.
 // q (BH, Sq, hd), k/v (BH_kv, Sk, hd), out (BH, Sq, hd); bf16 or f32.
 // Row bh of q attends to row bh / (BH / BH_kv) of k and v (GQA indexing;
-// BH == BH_kv for multi-head attention).
+// BH == BH_kv for multi-head attention). hd is one of 16, 32, 64, 128 and
+// 240 (gemma3-12b).
 //
 // Replaces the Pallas TPU kernel flash_attention / _flash_kernel
 // (src/repro/kernels/flash_attention.py:77, body :26). Same function:
@@ -11,6 +12,12 @@
 // window (k > q - W), keys past Sk masked. On the TPU the k-block axis is
 // a sequential grid axis carrying m/l/acc in VMEM scratch; here the k
 // loop runs inside the block and m/l/acc live in registers.
+//
+// The logit softcap of the JAX model (repro/models/layers.py _softcap,
+// applied in flash_attention_xla; the Pallas kernel has none): with a cap
+// c > 0 a score s = q.k / sqrt(hd) becomes c * tanh(s / c) before the
+// mask. It is a template flag (CAP), so a cap of 0 compiles to the
+// uncapped arithmetic unchanged.
 //
 // Bound on an H100: bytes at the serving path's shapes. Per (bh, q, k)
 // pair that survives the causal mask it does 4 * hd flops (Q K^T and P V)
@@ -40,12 +47,24 @@
 //   to the exp2 domain by scale * log2(e) in f32. Tiles wholly in the
 //   causal future or wholly left of the window are never loaded; only
 //   tiles on the diagonal, the window edge or past Sk apply the mask.
+//   With the cap, a score is capped in natural units, c * tanh(s * scale /
+//   c), and only then taken to exp2 units by log2(e).
+//   At hd 240 one warp's O would take 30 n-tiles (120 f32 a thread), so
+//   each 16-row slice has two warps (8 a block): both compute the same S
+//   and softmax (the same instructions on the same inputs, so the same
+//   values), and each accumulates P V for half of O's 15 16-column
+//   groups (8 and 7). Their 15 k-steps of Q fragments (60 registers) are
+//   not held either: each is read again from the Q tile in shared memory
+//   (ldmatrix) when it is used. The tile layout is the same (158,720
+//   bytes of dynamic shared memory at hd 240, one block an SM).
 //
 // flash_f32_kernel (f32): the checking path (the f32 path check at 1e-3,
 //   the f32 kernel tests at 2e-5), which neither bf16 nor TF32 tensor
 //   cores can meet. Scalar f32 FMAs: one block per (64-row q tile, bh), 4
 //   threads per q row owning float4 slices of hd, K/V tiles of 32 keys in
-//   shared memory, q pre-scaled by 1/sqrt(hd) as the Pallas kernel does.
+//   shared memory (16 at hd 240, which keeps them in the 48 KB of static
+//   shared memory), q pre-scaled by 1/sqrt(hd) as the Pallas kernel does;
+//   the cap acts on that pre-scaled dot, c * tanh(dot / c).
 #include <cstdint>
 
 #include "common.cuh"
@@ -119,22 +138,32 @@ struct TcLayout {
   static constexpr int kStride = HD + 8;            // bf16 per smem row
   static constexpr int kTile = kTcBQ * kStride;     // bf16 per 64-row tile
   static constexpr int kBytes = 5 * kTile * 2;      // Q + 2 x (K + V)
+  static constexpr int kSplit = HD > 128 ? 2 : 1;   // warps a 16-row slice
+  static constexpr int kThreads = kTcThreads * kSplit;
   static_assert(kTcBQ == kTcBK, "Q and K/V tiles share a layout");
 };
 
-template <int HD>
-__global__ void __launch_bounds__(kTcThreads)
+// cap: scale / c and c * log2(e) (unused without CAP)
+template <int HD, bool CAP>
+__global__ void __launch_bounds__(TcLayout<HD>::kThreads)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
                 __nv_bfloat16* __restrict__ o, int group, int sq, int sk,
-                int causal, int window, float scale_log2) {
+                int causal, int window, float scale_log2, float cap_in,
+                float cap_out) {
   constexpr int kS = TcLayout<HD>::kStride;
   constexpr int kTile = TcLayout<HD>::kTile;
   constexpr int kCPR = HD / 8;         // 16-byte chunks per row
   constexpr int kKS = HD / 16;         // k-steps of Q K^T
-  constexpr int kNT = HD / 8;          // n-tiles of O
   constexpr int kST = kTcBK / 8;       // n-tiles of S
+  constexpr int kSplit = TcLayout<HD>::kSplit;
+  constexpr int kThr = TcLayout<HD>::kThreads;
+  constexpr int kNG = HD / 16;         // 16-column groups of O
+  constexpr int kGW = (kNG + kSplit - 1) / kSplit;  // groups of this warp
+  constexpr int kNT = 2 * kGW;         // n-tiles of O in this warp
+  constexpr int kChunks = kTcBQ * kCPR;  // 16-byte chunks of a tile
+  constexpr bool kQRegs = HD <= 128;   // Q fragments held in registers
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* ks = qs + kTile;      // stage s at ks + s * kTile
@@ -144,7 +173,8 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int kvh = bh / group;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcBQ;  // heaviest first
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  const int warp = kSplit == 1 ? tid >> 5 : (tid >> 5) % 4;  // row slice
+  const int half = kSplit == 1 ? 0 : (tid >> 5) / 4;  // O column groups
   const int lane = tid & 31;
   const int g = lane >> 2;             // row within the fragment
   const int t = lane & 3;              // thread within the quad
@@ -160,8 +190,9 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vb = v + static_cast<size_t>(kvh) * sk * HD;
 
 #pragma unroll
-  for (int i = 0; i < kTcBQ * kCPR / kTcThreads; ++i) {
-    const int c = tid + i * kTcThreads;
+  for (int i = 0; i < (kChunks + kThr - 1) / kThr; ++i) {
+    const int c = tid + i * kThr;
+    if (kChunks % kThr != 0 && c >= kChunks) break;
     const int r = c / kCPR, cc = c % kCPR;
     const bool ok = q0 + r < sq;
     cp_async16(smem_addr(qs + r * kS + cc * 8),
@@ -171,8 +202,9 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
     __nv_bfloat16* kd = ks + stage * kTile;
     __nv_bfloat16* vd = vs + stage * kTile;
 #pragma unroll
-    for (int i = 0; i < kTcBK * kCPR / kTcThreads; ++i) {
-      const int c = tid + i * kTcThreads;
+    for (int i = 0; i < (kChunks + kThr - 1) / kThr; ++i) {
+      const int c = tid + i * kThr;
+      if (kChunks % kThr != 0 && c >= kChunks) break;
       const int r = c / kCPR, cc = c % kCPR;
       const bool ok = kt + r < sk;
       const size_t off = static_cast<size_t>(ok ? kt + r : 0) * HD + cc * 8;
@@ -183,7 +215,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
   if (n_tiles > 0) load_kv(k_begin, 0);
   cp_async_commit();                   // group 0: Q and the first K/V tile
 
-  uint32_t qf[kKS][4];
+  uint32_t qf[kQRegs ? kKS : 1][4];
   float oacc[kNT][4];
 #pragma unroll
   for (int j = 0; j < kNT; ++j) oacc[j][0] = oacc[j][1] = oacc[j][2] = oacc[j][3] = 0.f;
@@ -196,7 +228,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();                 // (empty on the last tile)
     cp_async_wait<1>();                // this tile (and Q) has landed
     __syncthreads();
-    if (it == 0) {
+    if (kQRegs && it == 0) {
 #pragma unroll
       for (int kk = 0; kk < kKS; ++kk) {
         const int r = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
@@ -212,13 +244,18 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
     for (int j = 0; j < kST; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < kKS; ++kk) {
+      if (!kQRegs) {                   // this k-step's Q fragment from smem
+        const int r = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        ldsm_x4(smem_addr(qs + r * kS + kk * 16 + (lane >> 4) * 8), qf[0]);
+      }
+      const uint32_t (&a)[4] = qf[kQRegs ? kk : 0];
 #pragma unroll
       for (int nj = 0; nj < kST / 2; ++nj) {
         uint32_t b[4];
         const int r = nj * 16 + (lane & 7) + (lane >> 4) * 8;
         ldsm_x4(smem_addr(kt_s + r * kS + kk * 16 + ((lane >> 3) & 1) * 8), b);
-        mma_bf16(s[2 * nj], qf[kk], b[0], b[1]);
-        mma_bf16(s[2 * nj + 1], qf[kk], b[2], b[3]);
+        mma_bf16(s[2 * nj], a, b[0], b[1]);
+        mma_bf16(s[2 * nj + 1], a, b[2], b[3]);
       }
     }
 
@@ -230,7 +267,8 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
     for (int j = 0; j < kST; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale_log2;
+        float x = CAP ? cap_out * tanhf(s[j][e] * cap_in)
+                      : s[j][e] * scale_log2;
         if (need_mask) {
           const int key = kt + 8 * j + 2 * t + (e & 1);
           const int qi = row0 + 8 * (e >> 1);
@@ -277,12 +315,14 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int nd = 0; nd < HD / 16; ++nd) {
+      for (int gi = 0; gi < kGW; ++gi) {
+        const int nd = half * kGW + gi;  // this warp's column group
+        if (kSplit != 1 && nd >= kNG) break;
         uint32_t b[4];
         const int r = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
         ldsm_x4_trans(smem_addr(vt_s + r * kS + nd * 16 + (lane >> 4) * 8), b);
-        mma_bf16(oacc[2 * nd], a, b[0], b[1]);
-        mma_bf16(oacc[2 * nd + 1], a, b[2], b[3]);
+        mma_bf16(oacc[2 * gi], a, b[0], b[1]);
+        mma_bf16(oacc[2 * gi + 1], a, b[2], b[3]);
       }
     }
     __syncthreads();                   // this stage is free for tile it + 2
@@ -297,9 +337,11 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const float denom = fmaxf(lt, 1e-30f);
     const int qi = row0 + 8 * h;
     if (qi < sq) {
-      __nv_bfloat16* orow = o + (static_cast<size_t>(bh) * sq + qi) * HD;
+      __nv_bfloat16* orow = o + (static_cast<size_t>(bh) * sq + qi) * HD +
+                            half * kGW * 16;
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
+        if (kSplit != 1 && half * kGW + j / 2 >= kNG) break;
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
             __floats2bfloat162_rn(oacc[j][2 * h] / denom,
                                   oacc[j][2 * h + 1] / denom);
@@ -308,38 +350,42 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int HD>
+template <int HD, bool CAP>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int bh,
-              int group, int sq, int sk, int causal, int window,
+              int group, int sq, int sk, int causal, int window, float cap,
               cudaStream_t stream) {
   constexpr int kBytes = TcLayout<HD>::kBytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_tc_kernel<HD, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(bh, (sq + kTcBQ - 1) / kTcBQ);
+  const float scale = 1.f / sqrtf(static_cast<float>(HD));
   const float scale_log2 = kLog2e / sqrtf(static_cast<float>(HD));
-  flash_tc_kernel<HD><<<grid, kTcThreads, kBytes, stream>>>(
+  flash_tc_kernel<HD, CAP><<<grid, TcLayout<HD>::kThreads, kBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      group, sq, sk, causal, window, scale_log2);
+      group, sq, sk, causal, window, scale_log2, CAP ? scale / cap : 0.f,
+      CAP ? cap * kLog2e : 0.f);
   return 0;
 }
 
 // -- f32 CUDA-core kernel ------------------------------------------------------
 
 constexpr int kBQ = 64;                 // q rows per block
-constexpr int kBK = 32;                 // keys per shared-memory tile
 constexpr int kTPR = 4;                 // threads per q row
 constexpr int kThreads = kBQ * kTPR;    // 256
 
-template <int HD>
+template <int HD, bool CAP>
 __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  int group, int sq, int sk, int causal, int window,
-                 float scale) {
+                 float scale, float cap, float inv_cap) {
+  // keys per shared-memory tile: K and V tiles stay within the 48 KB of
+  // static shared memory
+  constexpr int kBK = HD > 128 ? 16 : 32;
   constexpr int kDPT = HD / kTPR;       // head dims per thread
   constexpr int kNV4 = kDPT / 4;        // float4 chunks per thread
   static_assert(kDPT % 4 == 0, "hd must be a multiple of 16");
@@ -409,6 +455,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       part += __shfl_xor_sync(0xffffffffu, part, 1);
       part += __shfl_xor_sync(0xffffffffu, part, 2);
+      if (CAP) part = cap * tanhf(part * inv_cap);
       const int kk = kt + j;
       bool ok = kk < sk;
       if (causal) ok = ok && kk <= qi;
@@ -450,27 +497,36 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int HD>
+template <int HD, bool CAP>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
-               int group, int sq, int sk, int causal, int window,
+               int group, int sq, int sk, int causal, int window, float cap,
                cudaStream_t stream) {
   const dim3 grid((sq + kBQ - 1) / kBQ, bh);
   const float scale = 1.f / sqrtf(static_cast<float>(HD));
-  flash_f32_kernel<HD><<<grid, kThreads, 0, stream>>>(
+  flash_f32_kernel<HD, CAP><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), group, sq, sk,
-      causal, window, scale);
+      causal, window, scale, cap, CAP ? 1.f / cap : 0.f);
   return 0;
 }
 
-// dtype picks the kernel: bf16 -> tensor cores, f32 -> CUDA cores
+// dtype picks the kernel: bf16 -> tensor cores, f32 -> CUDA cores; a cap
+// > 0 the capped instance
+template <int HD, bool CAP>
+int launch_dt(int dtype, const void* q, const void* k, const void* v,
+              void* o, int bh, int group, int sq, int sk, int causal,
+              int window, float cap, cudaStream_t stream) {
+  if (dtype == kBF16) return launch_tc<HD, CAP>(q, k, v, o, bh, group, sq, sk, causal, window, cap, stream);
+  if (dtype == kF32) return launch_f32<HD, CAP>(q, k, v, o, bh, group, sq, sk, causal, window, cap, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <int HD>
 int launch_hd(int dtype, const void* q, const void* k, const void* v,
               void* o, int bh, int group, int sq, int sk, int causal,
-              int window, cudaStream_t stream) {
-  if (dtype == kBF16) return launch_tc<HD>(q, k, v, o, bh, group, sq, sk, causal, window, stream);
-  if (dtype == kF32) return launch_f32<HD>(q, k, v, o, bh, group, sq, sk, causal, window, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+              int window, float cap, cudaStream_t stream) {
+  if (cap > 0.f) return launch_dt<HD, true>(dtype, q, k, v, o, bh, group, sq, sk, causal, window, cap, stream);
+  return launch_dt<HD, false>(dtype, q, k, v, o, bh, group, sq, sk, causal, window, cap, stream);
 }
 
 }  // namespace
@@ -479,17 +535,19 @@ int launch_hd(int dtype, const void* q, const void* k, const void* v,
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int bh,
                                      int bh_kv, int sq, int sk, int hd,
-                                     int causal, int window, int dtype,
-                                     void* stream) {
-  if (bh_kv <= 0 || bh % bh_kv != 0) return static_cast<int>(cudaErrorInvalidValue);
+                                     int causal, int window, float softcap,
+                                     int dtype, void* stream) {
+  if (bh_kv <= 0 || bh % bh_kv != 0 || !(softcap >= 0.f))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int group = bh / bh_kv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   switch (hd) {
-    case 16: rc = repro::launch_hd<16>(dtype, q, k, v, o, bh, group, sq, sk, causal, window, s); break;
-    case 32: rc = repro::launch_hd<32>(dtype, q, k, v, o, bh, group, sq, sk, causal, window, s); break;
-    case 64: rc = repro::launch_hd<64>(dtype, q, k, v, o, bh, group, sq, sk, causal, window, s); break;
-    case 128: rc = repro::launch_hd<128>(dtype, q, k, v, o, bh, group, sq, sk, causal, window, s); break;
+    case 16: rc = repro::launch_hd<16>(dtype, q, k, v, o, bh, group, sq, sk, causal, window, softcap, s); break;
+    case 32: rc = repro::launch_hd<32>(dtype, q, k, v, o, bh, group, sq, sk, causal, window, softcap, s); break;
+    case 64: rc = repro::launch_hd<64>(dtype, q, k, v, o, bh, group, sq, sk, causal, window, softcap, s); break;
+    case 128: rc = repro::launch_hd<128>(dtype, q, k, v, o, bh, group, sq, sk, causal, window, softcap, s); break;
+    case 240: rc = repro::launch_hd<240>(dtype, q, k, v, o, bh, group, sq, sk, causal, window, softcap, s); break;
     default: rc = static_cast<int>(cudaErrorInvalidValue);
   }
   if (rc != 0) return rc;

@@ -41,13 +41,14 @@ _I = ctypes.c_int
 SIGNATURES = {
     # x, w, out, n, d, eps, dtype, stream
     "repro_fused_rmsnorm": (_P, _P, _P, _I, _I, ctypes.c_float, _I, _P),
-    # q, k, v, out, bh, bh_kv, sq, sk, hd, causal, window, dtype, stream
+    # q, k, v, out, bh, bh_kv, sq, sk, hd, causal, window, softcap, dtype,
+    # stream
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _P),
+                              ctypes.c_float, _I, _P),
     # q, k, v, lengths, partials, out, bh, bh_kv, S, hd, span, window,
-    # dtype, stream
+    # softcap, dtype, stream
     "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _P),
+                               _I, ctypes.c_float, _I, _P),
     # xbar, B, C, cumlog, y, h, bh, bh_bc, S, hd, ds, chunk, dtype, stream
     "repro_ssm_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _P),

@@ -4,7 +4,10 @@ from __future__ import annotations
 import torch
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+#: head dims of the two attention kernels (240: gemma3-12b)
+HEAD_DIMS = (16, 32, 64, 128, 240)
+#: head dims of the rwkv6_scan kernel
+SCAN_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def require(cond: bool, name: str, what: str) -> None:

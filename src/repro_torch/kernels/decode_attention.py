@@ -11,7 +11,9 @@ Layout: q (BH, 1, hd), k/v (BH_kv, S, hd) caches, lengths (BH,) int32,
 the count of valid cache entries of each row: row ``bh`` attends to keys
 ``0 .. lengths[bh] - 1`` of cache row ``bh // (BH // BH_kv)`` (and, with a
 window W, only to keys ``> lengths[bh] - 1 - W``). Lengths must be >= 1;
-at 0 the kernel writes zeros.
+at 0 the kernel writes zeros. A ring cache of W slots (a sliding-window
+layer's) is read with lengths ``min(pos + 1, W)`` and no window. A
+``softcap`` c > 0 caps each scaled score as ``flash_attention`` does.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 from . import build
 from .common import (DTYPE_CODES, HEAD_DIMS, check_cuda_tensor, require,
                      stream_of)
+from .flash_attention import softcap_scores
 
 NAME = "decode_attention"
 NEG_INF = -1e30
@@ -43,13 +46,15 @@ def plan_splits(S: int) -> tuple[int, int]:
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, lengths: torch.Tensor, *,
-                           window: int = 0) -> torch.Tensor:
+                           window: int = 0, softcap: float = 0.0
+                           ) -> torch.Tensor:
     BH, _, hd = q.shape
     S = k.shape[1]
     group = BH // k.shape[0]
     kf = k.float().repeat_interleave(group, dim=0)
     vf = v.float().repeat_interleave(group, dim=0)
-    s = torch.matmul(q.float(), kf.transpose(1, 2)) / math.sqrt(hd)
+    s = softcap_scores(torch.matmul(q.float(), kf.transpose(1, 2))
+                       / math.sqrt(hd), softcap)
     pos = lengths.to(q.device)[:, None] - 1
     k_idx = torch.arange(S, device=q.device)[None, :]
     mask = k_idx <= pos
@@ -62,7 +67,8 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, lengths: torch.Tensor, *,
-                          window: int = 0) -> torch.Tensor:
+                          window: int = 0, softcap: float = 0.0
+                          ) -> torch.Tensor:
     global launches
     for arg, t in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):
         check_cuda_tensor(t, NAME, arg)
@@ -85,6 +91,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     require(lengths.dtype == torch.int32 and lengths.shape == (BH,), NAME,
             f"lengths must be int32 ({BH},)")
     require(window >= 0, NAME, "window must be >= 0")
+    require(softcap >= 0, NAME, "softcap must be >= 0")
     require(BHkv <= 65535, NAME, f"BH_kv={BHkv} exceeds the grid")
     span, splits = plan_splits(S)
     out = torch.empty_like(q)
@@ -93,7 +100,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     rc = build.library().repro_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         partials.data_ptr(), out.data_ptr(), BH, BHkv, S, hd, span, window,
-        DTYPE_CODES[q.dtype], stream_of(q))
+        softcap, DTYPE_CODES[q.dtype], stream_of(q))
     build.check(rc, NAME)
     launches += 1
     return out

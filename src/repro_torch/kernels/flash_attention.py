@@ -10,7 +10,10 @@ to bf16 for P V), f32 on the CUDA cores (the f32 checking path).
 Layout: q (BH, Sq, hd), k/v (BH_kv, Sk, hd) with BH a multiple of BH_kv;
 q row ``bh`` attends to k/v row ``bh // (BH // BH_kv)``. The causal mask
 uses absolute indices from 0 (``k <= q``), as the Pallas kernel does; a
-window W keeps keys ``k > q - W``.
+window W keeps keys ``k > q - W``. A ``softcap`` c > 0 caps each scaled
+score s to ``c * tanh(s / c)`` before the mask, as the JAX model's
+attention does (``repro.models.layers._softcap``); the Pallas kernel has
+no cap.
 """
 from __future__ import annotations
 
@@ -27,15 +30,22 @@ NEG_INF = -1e30
 launches = 0
 
 
+def softcap_scores(s: torch.Tensor, softcap: float) -> torch.Tensor:
+    """``_softcap`` of the JAX model: ``c * tanh(s / c)`` for a cap c > 0,
+    s unchanged at 0."""
+    return torch.tanh(s / softcap) * softcap if softcap > 0 else s
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True, window: int = 0
-                          ) -> torch.Tensor:
+                          *, causal: bool = True, window: int = 0,
+                          softcap: float = 0.0) -> torch.Tensor:
     BH, Sq, hd = q.shape
     Sk = k.shape[1]
     group = BH // k.shape[0]
     kf = k.float().repeat_interleave(group, dim=0)
     vf = v.float().repeat_interleave(group, dim=0)
-    s = torch.matmul(q.float(), kf.transpose(1, 2)) / math.sqrt(hd)
+    s = softcap_scores(torch.matmul(q.float(), kf.transpose(1, 2))
+                       / math.sqrt(hd), softcap)
     q_idx = torch.arange(Sq, device=q.device)[:, None]
     k_idx = torch.arange(Sk, device=q.device)[None, :]
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
@@ -49,8 +59,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True, window: int = 0
-                         ) -> torch.Tensor:
+                         *, causal: bool = True, window: int = 0,
+                         softcap: float = 0.0) -> torch.Tensor:
     global launches
     for arg, t in (("q", q), ("k", k), ("v", v)):
         check_cuda_tensor(t, NAME, arg)
@@ -70,10 +80,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     require(Sq >= 1 and Sk >= 1 and BH <= 65535 and Sq <= 65535 * 64, NAME,
             f"unsupported sizes BH={BH} Sq={Sq} Sk={Sk}")
     require(window >= 0, NAME, "window must be >= 0")
+    require(softcap >= 0, NAME, "softcap must be >= 0")
     out = torch.empty_like(q)
     rc = build.library().repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, BHkv,
-        Sq, Sk, hd, int(causal), window, DTYPE_CODES[q.dtype], stream_of(q))
+        Sq, Sk, hd, int(causal), window, softcap, DTYPE_CODES[q.dtype],
+        stream_of(q))
     build.check(rc, NAME)
     launches += 1
     return out

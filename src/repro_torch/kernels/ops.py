@@ -42,21 +42,21 @@ def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
+    kw = dict(causal=causal, window=window, softcap=softcap)
     if _on_card(q, _flash.NAME):
-        return _flash.flash_attention_cuda(q, k, v, causal=causal,
-                                           window=window)
-    return _flash.flash_attention_plain(q, k, v, causal=causal,
-                                        window=window)
+        return _flash.flash_attention_cuda(q, k, v, **kw)
+    return _flash.flash_attention_plain(q, k, v, **kw)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor, *, window: int = 0
-                     ) -> torch.Tensor:
+                     lengths: torch.Tensor, *, window: int = 0,
+                     softcap: float = 0.0) -> torch.Tensor:
+    kw = dict(window=window, softcap=softcap)
     if _on_card(q, _decode.NAME):
-        return _decode.decode_attention_cuda(q, k, v, lengths,
-                                             window=window)
-    return _decode.decode_attention_plain(q, k, v, lengths, window=window)
+        return _decode.decode_attention_cuda(q, k, v, lengths, **kw)
+    return _decode.decode_attention_plain(q, k, v, lengths, **kw)
 
 
 def ssm_scan(xbar: torch.Tensor, B: torch.Tensor, C: torch.Tensor,

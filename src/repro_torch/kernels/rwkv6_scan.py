@@ -22,8 +22,8 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .common import (DTYPE_CODES, HEAD_DIMS, check_cuda_tensor, require,
-                     stream_of)
+from .common import (DTYPE_CODES, SCAN_HEAD_DIMS, check_cuda_tensor,
+                     require, stream_of)
 
 NAME = "rwkv6_scan"
 CHUNK = 16          # steps a chunk in csrc/rwkv6_scan.cu (kT)
@@ -58,7 +58,8 @@ def rwkv6_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     require(r.dim() == 3 and all(t.shape == r.shape for t in (k, v, w)),
             NAME, "r, k, v and w must be (BH, S, hd) of one shape")
     BH, S, hd = r.shape
-    require(hd in HEAD_DIMS, NAME, f"head dim must be one of {HEAD_DIMS}")
+    require(hd in SCAN_HEAD_DIMS, NAME,
+            f"head dim must be one of {SCAN_HEAD_DIMS}")
     require(u.dim() == 2 and u.shape[1] == hd and u.shape[0] >= 1
             and BH % u.shape[0] == 0, NAME,
             f"u must be (NU, {hd}) with BH={BH} a multiple of NU")

@@ -3,14 +3,17 @@ through their plain versions, by depth, on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.path_check --arch zamba2-1.2b \\
       --layers 6 12 24 38
+  PYTHONPATH=src python -m repro_torch.launch.path_check --arch gemma3-12b \\
+      --layers 6 7 12 --prompt 1500
 
 Builds ``--arch`` at full width with bf16 random weights (seed 0) and, for
 each depth N of ``--layers``, runs the model's first N layers (and its
 shared block; the same weights), cast to f32 (:func:`f32_twin`, the
 weights of ``chip_smoke.py``'s f32 checks), twice: through
 :mod:`..kernels.ops` and through :mod:`..kernels.plain`, a prefill of
-200 tokens and 4 teacher-forced decode steps. It prints, per step, max
-|kernel - plain| of the logits over max |plain|. Both paths round at
+``--prompt`` tokens (200; past the window of a local_global arch's
+local layers to bind it) and 4 teacher-forced decode steps. It prints,
+per step, max |kernel - plain| of the logits over max |plain|. Both paths round at
 2^-24; the distance is how far the network amplifies that rounding over
 N layers, which sets the depth at which a logits tolerance can still
 tell a kernel fault (``chip_smoke.py`` uses it for its path check). For
@@ -51,7 +54,9 @@ PROMPT, FRONTEND_PROMPT, STEPS, SEED = 200, 600, 4, 0
 def depth_cut(cfg: ModelConfig, params: dict, n_layers: int
               ) -> tuple[ModelConfig, dict]:
     """The model's first ``n_layers`` layers (and its shared block), on the
-    same weights: (config, parameter subset)."""
+    same weights: (config, parameter subset). A local_global cut keeps
+    each layer's kind: its whole groups stay groups and the local layers
+    after them become the cut's tail."""
     if n_layers >= cfg.n_layers:
         return cfg, params
     cut = cfg.with_(n_layers=n_layers)
@@ -218,6 +223,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="zamba2-1.2b", choices=ARCHS)
     ap.add_argument("--layers", type=int, nargs="+", required=True)
+    ap.add_argument("--prompt", type=int, default=PROMPT)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("path_check: needs a CUDA device (on the CPU both "
@@ -225,7 +231,7 @@ def main(argv=None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(args.arch)
     params = init_params(cfg, seed=SEED, device="cuda", dtype=torch.bfloat16)
-    toks = prompt(cfg, "cuda")
+    toks = prompt(cfg, "cuda", args.prompt)
     for n in args.layers:
         cut, sub = f32_twin(cfg, params, n)
         rk, rp = [], []

@@ -3,10 +3,13 @@
   PYTHONPATH=src python -m repro_torch.launch.profile
   PYTHONPATH=src python -m repro_torch.launch.profile --arch zamba2-1.2b
   PYTHONPATH=src python -m repro_torch.launch.profile --trace out.json
+  PYTHONPATH=src python -m repro_torch.launch.profile --arch gemma3-12b \\
+      --prompt 1500
 
 Builds ``--arch`` (default deepseek-7b) at full width with random bf16
-weights (seed 0), then traces one prefill of a 513-token prompt and 4
-decode steps over a 1024-slot cache with ``torch.profiler``: eager
+weights (seed 0), then traces one prefill of a ``--prompt``-token prompt
+(513) and 4 decode steps over a cache of 1024 slots (2048 past 1020
+tokens) with ``torch.profiler``: eager
 ``LM.decode_step`` calls, then the engine's graphed steps (a replay of
 the slot's CUDA graph and the greedy token read on the host, as
 ``ServingEngine`` decodes). For each phase it prints the host-clock time
@@ -44,7 +47,7 @@ from ..models import LM, layers
 from ..params import init_params
 from ..serving.graphs import SlotDecoder, capture
 
-PROMPT, STEPS, MAX_LEN, SEED, TOP = 513, 4, 1024, 0, 8
+PROMPT, STEPS, SEED, TOP = 513, 4, 0, 8
 GROUPS = (("fused_rmsnorm", ("rmsnorm_kernel", "rmsnorm_loop_kernel")),
           ("flash_attention", ("flash_tc_kernel", "flash_f32_kernel")),
           ("decode_attention", ("decode_split_kernel",
@@ -223,32 +226,35 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", default="deepseek-7b", choices=ARCHS)
     ap.add_argument("--trace", default=None,
                     help="write the decode steps' chrome trace here")
+    ap.add_argument("--prompt", type=int, default=PROMPT)
     args = ap.parse_args(argv)
+    S = args.prompt
+    max_len = 1024 * -(-(S + STEPS) // 1024)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(args.arch)
     lm = LM.from_params(cfg, init_params(cfg, seed=SEED, device="cuda"))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    toks = torch.randint(0, cfg.vocab, (1, PROMPT), generator=gen,
+    toks = torch.randint(0, cfg.vocab, (1, S), generator=gen,
                          device="cuda")
-    dec = SlotDecoder(lm, 1, MAX_LEN)
+    dec = SlotDecoder(lm, 1, max_len)
     state = {}
 
     def prefill():
-        state["logits"], state["cache"] = lm.prefill(toks, MAX_LEN)
+        state["logits"], state["cache"] = lm.prefill(toks, max_len)
 
     def decode():
         tok = state["logits"][:, -1].argmax(-1)
         for i in range(STEPS):
-            pos = torch.tensor([PROMPT + i], device="cuda")
+            pos = torch.tensor([S + i], device="cuda")
             logits, _ = lm.decode_step(tok, state["cache"], pos)
             tok = logits[:, -1].argmax(-1)
 
     def decode_graph():
         tok = state["graph_tok"]
         for i in range(STEPS):
-            tok = int(dec.step(0, tok, PROMPT + i)[0, -1].argmax())
+            tok = int(dec.step(0, tok, S + i)[0, -1].argmax())
 
     with torch.inference_mode():
         prefill()                                   # warm-up
@@ -256,7 +262,7 @@ def main(argv=None) -> None:
         dec.prefill(0, toks)
         state["graph_tok"] = int(state["logits"][0, -1].argmax())
         decode_graph()
-        report(f"{cfg.name} prefill {PROMPT} tokens", *traced(prefill))
+        report(f"{cfg.name} prefill {S} tokens", *traced(prefill))
         for name, fn, trace in (("decode", decode, args.trace),
                                 ("graph decode", decode_graph, None)):
             wall, groups, kernels = traced(fn, trace)
@@ -280,8 +286,8 @@ def main(argv=None) -> None:
               "events")
         print(f"decode graph: {graph_edges(lambda: dec.eager_step(0))}")
         if cfg.n_experts:
-            for S in (PROMPT, 1):
-                moe_pieces(lm, S)
+            for n in (S, 1):
+                moe_pieces(lm, n)
 
 
 if __name__ == "__main__":

@@ -142,43 +142,61 @@ def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
 
 
 def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
-              positions: torch.Tensor, cache: Optional[dict] = None,
+              positions: torch.Tensor, window: int = 0,
+              cache: Optional[dict] = None,
               cache_pos: Optional[torch.Tensor] = None,
               update_cache: bool = False, kernels=ops):
-    """Full attention sublayer (pre-norm, residual outside).
+    """Full attention sublayer (pre-norm, residual outside); scores capped
+    by ``cfg.attn_logit_softcap`` when it is > 0.
 
-    Prefill/train: ``cache=None``; ``update_cache=True`` also returns this
-    layer's k/v (B, KV, S, hd). Decode: x is (B, 1, d), ``cache`` holds
-    preallocated ``k``/``v`` of (B, KV, max_len, hd) and ``cache_pos``
-    (B,) the absolute position of the new token. Returns (out, kv or None).
+    Prefill/train: ``cache=None``; ``window`` > 0 keeps keys ``k > q -
+    window`` (a local layer); ``update_cache=True`` also returns this
+    layer's k/v (B, KV, S, hd). Decode: x is (B, 1, d), ``cache_pos``
+    (B,) the absolute position of the new token, and ``cache`` holds
+    preallocated ``k``/``v``: with ``window`` 0 of (B, KV, max_len, hd),
+    with ``window`` > 0 a ring of (B, KV, W, hd), W = min(window,
+    max_len), where position p sits at slot p % W. Returns (out, kv or
+    None).
     """
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    cap = cfg.attn_logit_softcap
     h = rmsnorm(x, p.norm, cfg.norm_eps, kernels=kernels)
     q, k, v = _qkv(p, h, cfg, positions)
     new_cache = None
     if cache is not None and S == 1:            # decode step
         k_cache, v_cache = cache["k"], cache["v"]
+        if window > 0:
+            # the new key goes to slot p % W; the ring then holds
+            # positions max(0, p - W + 1) .. p, the keys the mask
+            # `key_positions > pos - window` of attend_cache keeps (a ring
+            # of W = max_len < window never wraps: p < max_len), live in
+            # its first min(p + 1, W) slots, in an order softmax ignores
+            W = k_cache.shape[2]
+            slot, n_live = cache_pos % W, (cache_pos + 1).clamp(max=W)
+        else:
+            # keys 0..pos are valid: the mask `key_positions <= pos` of
+            # attend_cache, as a per-row length pos + 1
+            slot, n_live = cache_pos, cache_pos + 1
         # Written IN PLACE into the caller's preallocated cache, where the
         # JAX reference is functional (dynamic_update_slice returns a new
-        # cache array); slot `pos` of each row is overwritten.
+        # cache array); slot `slot` of each row is overwritten.
         rows = torch.arange(B, device=x.device)
-        k_cache[rows, :, cache_pos] = k[:, :, 0].to(k_cache.dtype)
-        v_cache[rows, :, cache_pos] = v[:, :, 0].to(v_cache.dtype)
-        # keys 0..pos are valid: the mask `key_positions <= pos` of
-        # attend_cache, as a per-row length pos + 1 (a repeat, not
-        # repeat_interleave, whose output size may be read on the host:
-        # the step is captured in a CUDA graph)
-        lengths = (cache_pos + 1).to(torch.int32)[:, None] \
-            .repeat(1, H).view(B * H)
+        k_cache[rows, :, slot] = k[:, :, 0].to(k_cache.dtype)
+        v_cache[rows, :, slot] = v[:, :, 0].to(v_cache.dtype)
+        # a length a query head (a repeat, not repeat_interleave, whose
+        # output size may be read on the host: the step is captured in a
+        # CUDA graph; `%` and `clamp` are device ops)
+        lengths = n_live.to(torch.int32)[:, None].repeat(1, H).view(B * H)
         out = kernels.decode_attention(
             q.reshape(B * H, 1, hd), k_cache.view(B * KV, -1, hd),
-            v_cache.view(B * KV, -1, hd), lengths)
+            v_cache.view(B * KV, -1, hd), lengths, softcap=cap)
         new_cache = cache
     else:                                        # train / prefill
         out = kernels.flash_attention(
             q.reshape(B * H, S, hd), k.reshape(B * KV, S, hd),
-            v.reshape(B * KV, S, hd), causal=True)
+            v.reshape(B * KV, S, hd), causal=True, window=window,
+            softcap=cap)
         if update_cache:
             new_cache = {"k": k, "v": v}
     out = out.view(B, H, S, hd).transpose(1, 2).reshape(B, S, H * hd)

@@ -1,5 +1,5 @@
-"""Decoder-only LM of the port: the ``uniform``, ``zamba`` and ``rwkv``
-families.
+"""Decoder-only LM of the port: the ``uniform``, ``local_global``,
+``zamba`` and ``rwkv`` families.
 
 Counterpart of ``repro.models.transformer.LM``. The layers are an
 ``nn.ModuleList`` walked by a Python loop where JAX scans a stacked
@@ -12,6 +12,11 @@ parameter tree:
   (deepseek-7b, deepseek-67b, granite-moe-3b-a800m,
   moonshot-v1-16b-a3b, and qwen2-vl-2b with M-RoPE and musicgen-large,
   whose modality frontends are ``models.frontends``);
+* local_global: ``layers.<i>.attn.*`` and ``layers.<i>.mlp.*`` in JAX's
+  order: groups of ``local_global_ratio`` = R local layers (a sliding
+  window of ``local_window``) then one global layer, layer ``g (R + 1) +
+  R`` the global one of group g, then ``tail`` local layers (gemma3-12b,
+  gemma3-27b);
 * zamba: ``layers.<i>.*`` Mamba2 layers, the JAX ``blocks`` (G, every)
   stack then the ``tail``, and one weight-shared ``shared_attn`` /
   ``shared_mlp`` block applied after each group of ``every`` layers
@@ -22,11 +27,21 @@ parameter tree:
 the caller's, as the serving engine's slots pass theirs) and written in
 place by ``decode_step`` (replacing ``_pad_cache``): uniform
 ``{"k", "v"}`` of (L, B, KV, max_len, hd) over head and body layers
-together (JAX keeps ``cache["head"]`` and ``cache["body"]``); zamba
-``{"ssm_h"}`` of (L, B, nh, hd, ds) f32 beside ``{"k", "v"}`` of (G, B,
-KV, max_len, hd) for the shared block's G applications; rwkv ``{"S",
-"x_tm", "x_cm"}`` as JAX's (L, B, ...) f32. ``local_global`` (gemma3) and the
-logit softcap raise ``NotImplementedError`` until their slice lands.
+together (JAX keeps ``cache["head"]`` and ``cache["body"]``);
+local_global ``{"k", "v"}`` of (G, B, KV, max_len, hd) for the G global
+layers beside rings ``{"k_win", "v_win"}`` of (L - G, B, KV, W, hd) for
+the local layers in order, W = min(local_window, max_len) as in JAX's
+``cache_specs``; zamba ``{"ssm_h"}`` of (L, B, nh, hd, ds) f32 beside
+``{"k", "v"}`` of (G, B, KV, max_len, hd) for the shared block's G
+applications; rwkv ``{"S", "x_tm", "x_cm"}`` as JAX's (L, B, ...) f32.
+
+A ring holds position p at slot p % W: ``prefill`` writes the last
+min(S, W) keys there and ``decode_step`` the new one. JAX's
+``clip_window`` stores the last W keys at slots 0..W-1 instead, which is
+the same layout only when S <= W or S % W == 0; after other prompts its
+decode overwrites a key still inside the window. The port follows the
+model's definition, JAX's ``logits_train`` (ROADMAP.md, the note on the
+reference).
 """
 from __future__ import annotations
 
@@ -61,13 +76,31 @@ def zamba_groups(cfg: ModelConfig) -> tuple[int, int]:
     return divmod(cfg.n_layers, every)
 
 
+def lg_groups(cfg: ModelConfig) -> tuple[int, int]:
+    """(#groups of R local + 1 global layers, #tail local layers)."""
+    return divmod(cfg.n_layers, cfg.local_global_ratio + 1)
+
+
+def lg_layers(cfg: ModelConfig) -> list[tuple[bool, int]]:
+    """local_global: (global?, its index among the global or among the
+    local layers) of each layer, in JAX's order."""
+    R = cfg.local_global_ratio
+    G, _ = lg_groups(cfg)
+    out, n = [], [0, 0]
+    for i in range(cfg.n_layers):
+        glob = i < G * (R + 1) and i % (R + 1) == R
+        out.append((glob, n[glob]))
+        n[glob] += 1
+    return out
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    if family_kind(cfg) == "local_global":
-        raise NotImplementedError(
-            f"{cfg.name}: family local_global (gemma3) is not ported yet; it "
-            "is a later slice of the port (ROADMAP.md, modules to port)")
-    if cfg.attn_logit_softcap:
-        raise NotImplementedError(f"{cfg.name}: logit softcap not ported")
+    """Refuses a config the model cannot run: a local_global stack
+    without a window, a negative logit cap."""
+    if family_kind(cfg) == "local_global" and cfg.local_window <= 0:
+        raise ValueError(f"{cfg.name}: local_global needs local_window > 0")
+    if cfg.attn_logit_softcap < 0:
+        raise ValueError(f"{cfg.name}: attn_logit_softcap must be >= 0")
 
 
 def d_ff_head(cfg: ModelConfig) -> int:
@@ -119,7 +152,7 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = _param((cfg.d_model, cfg.vocab), torch.float32,
                                   dev)
-        if self.kind == "uniform":
+        if self.kind in ("uniform", "local_global"):
             self.layers = nn.ModuleList(
                 Block(cfg, device=dev, dtype=dtype, head=i < cfg.first_k_dense)
                 for i in range(cfg.n_layers))
@@ -178,9 +211,10 @@ class LM(nn.Module):
 
     # -- one attention + mlp / moe layer ----------------------------------
     def _layer(self, attn: Attention, ffn: Union[MLP, MoE], x, positions, *,
-               cache=None, cache_pos=None, update_cache=False):
+               window=0, cache=None, cache_pos=None, update_cache=False):
         a, new_kv = attention(attn, x, self.cfg, positions=positions,
-                              cache=cache, cache_pos=cache_pos,
+                              window=window, cache=cache,
+                              cache_pos=cache_pos,
                               update_cache=update_cache,
                               kernels=self.kernels)
         x = x + a
@@ -193,6 +227,11 @@ class LM(nn.Module):
     def _final_norm(self, x):
         return rmsnorm(x, self.final_norm, self.cfg.norm_eps,
                        kernels=self.kernels)
+
+    def _lg(self):
+        """local_global: (global?, index, window) of each layer."""
+        return [(glob, j, 0 if glob else self.cfg.local_window)
+                for glob, j in lg_layers(self.cfg)]
 
     def _shared_after(self, i: int) -> Optional[int]:
         """zamba: the shared block's application index after SSM layer
@@ -209,9 +248,13 @@ class LM(nn.Module):
         B, S = tokens.shape
         x = self.embed_tokens(tokens)
         positions = torch.arange(S, device=tokens.device).expand(B, S)
+        lg = self._lg() if self.kind == "local_global" else None
         for i, layer in enumerate(self.layers):
             if self.kind == "uniform":
                 x, _ = self._layer(layer.attn, layer.ffn, x, positions)
+            elif self.kind == "local_global":
+                x, _ = self._layer(layer.attn, layer.ffn, x, positions,
+                                   window=lg[i][2])
             elif self.kind == "zamba":
                 x = x + ssm_block(layer, x, self.cfg,
                                   kernels=self.kernels)[0]
@@ -235,10 +278,16 @@ class LM(nn.Module):
                                         **f32),
                     "x_cm": torch.zeros(cfg.n_layers, batch, cfg.d_model,
                                         **f32)}
-        n = cfg.n_layers if self.kind == "uniform" else zamba_groups(cfg)[0]
+        n = {"uniform": cfg.n_layers, "local_global": lg_groups(cfg)[0],
+             "zamba": zamba_groups(cfg)[0]}[self.kind]
         shape = (n, batch, cfg.n_kv_heads, max_len, cfg.hd)
         cache = {"k": torch.zeros(shape, dtype=self.dtype, device=dev),
                  "v": torch.zeros(shape, dtype=self.dtype, device=dev)}
+        if self.kind == "local_global":
+            ring = (cfg.n_layers - n, batch, cfg.n_kv_heads,
+                    min(cfg.local_window, max_len), cfg.hd)
+            cache["k_win"] = torch.zeros(ring, dtype=self.dtype, device=dev)
+            cache["v_win"] = torch.zeros(ring, dtype=self.dtype, device=dev)
         if self.kind == "zamba":
             _, nh, hd, ds = ssm_dims(cfg)
             cache["ssm_h"] = torch.zeros(cfg.n_layers, batch, nh, hd, ds,
@@ -249,9 +298,10 @@ class LM(nn.Module):
                 cache: Optional[dict] = None,
                 embeds: Optional[torch.Tensor] = None):
         """tokens (B, S). Returns (last-token logits (B, 1, V), cache); the
-        cache's layout is the family's (module docstring), KV caches zero
-        past S. ``cache``, one of :meth:`new_cache`'s of this batch and
-        ``max_len``, is overwritten in place and returned; by default a
+        cache's layout is the family's (module docstring), KV caches
+        (and rings, when S < W) zero past S. ``cache``, one of
+        :meth:`new_cache`'s of this batch and ``max_len``, is
+        overwritten in place and returned; by default a
         new one is made. ``embeds`` (B, S, d), a frontend's
         (``models.frontends.input_embeds_for``), replaces the token
         embeddings; positions stay ``arange(S)``, as in JAX."""
@@ -263,7 +313,7 @@ class LM(nn.Module):
             cache = self.new_cache(B, max_len)
         else:
             self._check_cache(cache, B, max_len)
-            for name in ("k", "v"):
+            for name in ("k", "v", "k_win", "v_win"):
                 if name in cache:
                     cache[name][:, :, :, S:].zero_()
         x = (self.embed_tokens(tokens) if embeds is None
@@ -275,6 +325,18 @@ class LM(nn.Module):
                                     update_cache=True)
                 cache["k"][i, :, :, :S] = kv["k"]
                 cache["v"][i, :, :, :S] = kv["v"]
+        elif self.kind == "local_global":
+            for block, (glob, j, window) in zip(self.layers, self._lg()):
+                x, kv = self._layer(block.attn, block.ffn, x, positions,
+                                    window=window, update_cache=True)
+                if glob:
+                    cache["k"][j, :, :, :S] = kv["k"]
+                    cache["v"][j, :, :, :S] = kv["v"]
+                else:          # the last min(S, W) keys, p at slot p % W
+                    W = cache["k_win"].shape[3]
+                    p = torch.arange(max(0, S - W), S, device=x.device)
+                    cache["k_win"][j][:, :, p % W] = kv["k"][:, :, p]
+                    cache["v_win"][j][:, :, p % W] = kv["v"][:, :, p]
         elif self.kind == "zamba":
             for i, layer in enumerate(self.layers):
                 out, cache["ssm_h"][i] = ssm_block(layer, x, cfg,
@@ -311,11 +373,19 @@ class LM(nn.Module):
         cfg = self.cfg
         x = self.embed_tokens(token[:, None])
         positions = pos[:, None]
+        lg = self._lg() if self.kind == "local_global" else None
         for i, layer in enumerate(self.layers):
             if self.kind == "uniform":
                 x, _ = self._layer(layer.attn, layer.ffn, x, positions,
                                    cache={"k": cache["k"][i],
                                           "v": cache["v"][i]},
+                                   cache_pos=pos)
+            elif self.kind == "local_global":
+                glob, j, window = lg[i]
+                k, v = ("k", "v") if glob else ("k_win", "v_win")
+                x, _ = self._layer(layer.attn, layer.ffn, x, positions,
+                                   window=window,
+                                   cache={"k": cache[k][j], "v": cache[v][j]},
                                    cache_pos=pos)
             elif self.kind == "zamba":
                 out, cache["ssm_h"][i] = ssm_decode(

@@ -22,7 +22,7 @@ from .models.layers import MATMUL
 from .models.rwkv import LORA, rwkv_dims
 from .models.ssm import ssm_dims
 from .models.transformer import (check_supported, d_ff_head, family_kind,
-                                 zamba_groups)
+                                 lg_groups, zamba_groups)
 
 
 @dataclass(frozen=True)
@@ -126,7 +126,9 @@ def jax_leaves(cfg: ModelConfig) -> dict[tuple, Leaf]:
     """The JAX tree ``model_specs(cfg)`` by path, in the order
     ``materialize`` flattens it (sorted keys), for the families the port
     runs: uniform (dense or MoE ``blocks`` after the ``first_k_dense``
-    ``head_layers``), zamba and rwkv."""
+    ``head_layers``), local_global (``blocks.local`` / ``local_mlp``
+    stacked (G, R), ``blocks.global`` (G,), ``tail`` (tail,)), zamba and
+    rwkv."""
     check_supported(cfg)
     kind = family_kind(cfg)
     L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab
@@ -149,6 +151,25 @@ def jax_leaves(cfg: ModelConfig) -> dict[tuple, Leaf]:
                     table, ("head_layers", sub), (k,),
                     lambda leaf, sub=sub: (f"layers.{i}.{sub}.{leaf}"
                                            for i in range(k))))
+    elif kind == "local_global":
+        R = cfg.local_global_ratio
+        G, tail = lg_groups(cfg)
+        local = [g * (R + 1) + r for g in range(G) for r in range(R)]
+        glob = [g * (R + 1) + R for g in range(G)]
+        rest = [G * (R + 1) + t for t in range(tail)]
+        for path, lead, at, sub, table in (
+                (("blocks", "local"), (G, R), local, "attn", _attn(cfg)),
+                (("blocks", "local_mlp"), (G, R), local, "mlp", _mlp(cfg)),
+                (("blocks", "global", "attn"), (G,), glob, "attn",
+                 _attn(cfg)),
+                (("blocks", "global", "mlp"), (G,), glob, "mlp", _mlp(cfg)),
+                (("tail", "attn"), (tail,), rest, "attn", _attn(cfg)),
+                (("tail", "mlp"), (tail,), rest, "mlp", _mlp(cfg))):
+            if at:
+                leaves.update(_stacked(
+                    table, path, lead,
+                    lambda leaf, at=at, sub=sub: (f"layers.{i}.{sub}.{leaf}"
+                                                  for i in at)))
     elif kind == "zamba":
         G, tail = zamba_groups(cfg)
         every = cfg.shared_attn_every

@@ -6,8 +6,11 @@ cache, then a combine pass) run only on the card. Here each design is
 emulated in plain PyTorch -- the same tiles, skipped tiles, masks, exp2
 domain, bf16 rounding of P, split spans, empty splits and merge rule --
 and held against the plain versions of the port and against the JAX
-oracle (``repro.kernels.ref``) on inputs drawn with numpy from a seed.
-The split planner of ``kernels/decode_attention.py`` is tested too.
+oracle (``repro.kernels.ref``) on inputs drawn with numpy from a seed;
+with a logit softcap against the plain versions, whose cap is held
+against the JAX model in test_torch_softcap.py. Both emulations cover hd
+240 (a key a warp in decode). The split planner of
+``kernels/decode_attention.py`` is tested too.
 """
 import numpy as np
 import pytest
@@ -47,11 +50,13 @@ def within(out, plain, tol):
 
 # -- flash_attention, bf16 tensor-core design ----------------------------------
 
-def flash_tc_emulated(q, k, v, *, causal, window, bq=64, bk=64):
+def flash_tc_emulated(q, k, v, *, causal, window, softcap=0.0, bq=64,
+                      bk=64):
     """flash_tc_kernel's arithmetic: q tiles of ``bq`` rows, key tiles of
     ``bk`` from the first tile the window reaches to the last the causal
     mask allows; S = Q K^T of bf16 values in f32, taken to the exp2
-    domain by scale * log2(e); the mask applied only on tiles that need it
+    domain by scale * log2(e) (with a cap c: c log2(e) tanh(S scale / c));
+    the mask applied only on tiles that need it
     (diagonal, window edge, past Sk); online softmax with f32 m and l;
     P rounded to bf16 for P V; out = acc / max(l, 1e-30) in bf16."""
     BH, Sq, hd = q.shape
@@ -76,7 +81,13 @@ def flash_tc_emulated(q, k, v, *, causal, window, bq=64, bk=64):
             vv = torch.zeros(BH, bk, hd)
             n = min(bk, Sk - kt)
             kk[:, :n], vv[:, :n] = kf[:, kt:kt + n], vf[:, kt:kt + n]
-            s = torch.matmul(qt, kk.transpose(1, 2)) * scale_log2
+            s = torch.matmul(qt, kk.transpose(1, 2))
+            if softcap > 0:
+                s = float(np.float32(softcap) * LOG2E) * torch.tanh(
+                    s * float(np.float32(1 / np.sqrt(np.float32(hd)))
+                              / np.float32(softcap)))
+            else:
+                s = s * scale_log2
             need_mask = (kt + bk > Sk or (causal and kt + bk - 1 > q0)
                          or (window > 0 and kt <= q0 + bq - 1 - window))
             if need_mask:
@@ -105,6 +116,8 @@ def flash_tc_emulated(q, k, v, *, causal, window, bq=64, bk=64):
     (4, 4, 200, 200, 32, True, 64),     # window across tile edges
     (4, 4, 65, 65, 16, True, 0),        # ragged S, hd 16
     (2, 2, 130, 70, 128, True, 0),      # Sq > Sk, causal on absolute index
+    (4, 2, 130, 130, 240, True, 0),     # gemma3-12b's hd 240, GQA
+    (2, 2, 200, 200, 240, True, 64),    # hd 240, window
 ])
 def test_flash_tc_design_matches_plain_and_ref(bh, bh_kv, sq, sk, hd, causal,
                                                window):
@@ -120,6 +133,23 @@ def test_flash_tc_design_matches_plain_and_ref(bh, bh_kv, sq, sk, hd, causal,
                                      causal=causal, window=window)
     within(emu, plain, BF16_TOL)
     within(emu, torch.from_numpy(np.array(oracle, np.float32)), BF16_TOL)
+
+
+@pytest.mark.parametrize("hd,window,cap", [(64, 0, 1.0), (128, 48, 3.0),
+                                           (240, 0, 2.0)])
+def test_flash_tc_design_with_softcap_matches_plain(hd, window, cap):
+    """The cap in natural units before the exp2 domain, against the plain
+    version's c tanh(s / c); scores reach ~4 c, so the cap binds."""
+    rng = np.random.default_rng(hd + window)
+    tq, tk, tv = (draw(rng, (b, 150, hd), torch.bfloat16)[0]
+                  for b in (4, 2, 2))
+    tq, tk = tq * 2, tk * 2
+    emu = flash_tc_emulated(tq, tk, tv, causal=True, window=window,
+                            softcap=cap)
+    plain = flash_attention_plain(tq, tk, tv, window=window, softcap=cap)
+    within(emu, plain, BF16_TOL)
+    assert float((plain.float() - flash_attention_plain(
+        tq, tk, tv, window=window).float()).abs().max()) > 5e-2
 
 
 def test_flash_tc_tiles_skip_only_dead_keys():
@@ -141,11 +171,20 @@ def test_flash_tc_tiles_skip_only_dead_keys():
 
 # -- decode_attention, split-K design ------------------------------------------
 
-def decode_split_emulated(q, k, v, lengths, *, window):
+def keys_per_warp_load(hd, element_size):
+    """The split kernel's KeyLayout: a key's 16-byte vectors take hd / vec
+    lanes where that divides the warp, else the whole warp (hd 240)."""
+    row = hd // (16 // element_size)
+    return 32 // row if row <= 32 and 32 % row == 0 else 1
+
+
+def decode_split_emulated(q, k, v, lengths, *, window, softcap=0.0):
     """decode_split_kernel + decode_combine_kernel: per split of
     ``plan_splits(S)``, the live keys [max(s0, begin), min(s1, len)) in
     64-key chunks, each key owned by lane group (warp, group) as in the
-    kernel (16 keys a warp, 32 / (hd / vec) keys a warp load); each group
+    kernel (16 keys a warp, ``keys_per_warp_load`` keys a warp load; at
+    f32 hd 240 the warp's 16 keys in two batches of 8, each batch its own
+    online step); the cap on the reduced dot of the pre-scaled q; each group
     keeps an online (m, l, acc), merged across the groups of a warp and
     then across the 4 warps by max / rescale / sum. An empty split writes
     m = -1e30, l = 0 and leaves acc unwritten (NaN here, as torch.empty
@@ -153,8 +192,9 @@ def decode_split_emulated(q, k, v, lengths, *, window):
     BH, _, hd = q.shape
     S = k.shape[1]
     group = BH // k.shape[0]
-    vec = 16 // q.element_size()
-    kpl = 32 // (hd // vec)                     # keys per warp load
+    kpl = keys_per_warp_load(hd, q.element_size())
+    # keys a batch of one online step: 16 a warp, 8 at f32 hd 240
+    batch = 8 if (kpl == 1 and hd // (16 // q.element_size()) > 32) else 16
     span, splits = plan_splits(S)
     scale = float(1 / np.sqrt(np.float32(hd), dtype=np.float32))
     part = torch.full((BH, splits, hd + 2), float("nan"))
@@ -173,12 +213,18 @@ def decode_split_emulated(q, k, v, lengths, *, window):
             l = torch.zeros(4, kpl)
             acc = torch.zeros(4, kpl, hd)
             c0 = lo - (lo - s0) % SPLIT_CHUNK
-            for c in range(c0, hi, SPLIT_CHUNK):
-                o = torch.arange(SPLIT_CHUNK)
+            for c, b0 in ((c, b0) for c in range(c0, hi, SPLIT_CHUNK)
+                          for b0 in range(0, 16, batch)):
+                # the batch's keys: b0 .. b0 + batch - 1 of each warp
+                o = torch.tensor([w * 16 + b0 + i for w in range(4)
+                                  for i in range(batch)])
                 key = c + o
                 live = (key >= lo) & (key < hi)
                 kc = key.clamp(max=S - 1)
-                s = torch.where(live, k[kvh, kc].float() @ qf, NEG_INF)
+                dot = k[kvh, kc].float() @ qf
+                if softcap > 0:
+                    dot = softcap * torch.tanh(dot * (1 / softcap))
+                s = torch.where(live, dot, NEG_INF)
                 # key o of the chunk: warp o // 16, lane group (o % 16) % kpl
                 flat = (o // 16) * kpl + (o % 16) % kpl
                 mx = torch.full((4 * kpl,), NEG_INF).scatter_reduce(
@@ -224,6 +270,8 @@ def decode_split_emulated(q, k, v, lengths, *, window):
     (8, 2, 1024, 128, 0, [1024, 65, 64, 1, 700, 129, 2, 513]),     # GQA
     (4, 1, 300, 16, 70, [1, 64, 65, 299]),             # MQA, window, hd 16
     (4, 4, 5000, 32, 0, [5000, 129, 4097, 1]),         # span 128
+    (4, 2, 1024, 240, 0, [1024, 600, 1, 65]),          # hd 240, GQA
+    (4, 4, 300, 240, 100, [150, 300, 64, 1]),          # hd 240, window
 ])
 def test_decode_split_design_matches_plain_and_ref(dtype, bh, bh_kv, s, hd,
                                                    window, lens):
@@ -241,6 +289,28 @@ def test_decode_split_design_matches_plain_and_ref(dtype, bh, bh_kv, s, hd,
         jnp.asarray(lens, jnp.int32), window=window)
     within(emu, plain, tol)
     within(emu, torch.from_numpy(np.array(oracle, np.float32)), tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,cap", [(64, 1.0), (240, 2.0)])
+def test_decode_split_design_with_softcap_matches_plain(dtype, hd, cap):
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    rng = np.random.default_rng(hd)
+    tq, tk, tv = (draw(rng, (b, n, hd), dt)[0] for b, n in
+                  ((4, 1), (2, 300), (2, 300)))
+    tq, tk = tq * 2, tk * 2
+    lengths = torch.tensor([300, 129, 16, 1], dtype=torch.int32)
+    emu = decode_split_emulated(tq, tk, tv, lengths, window=0, softcap=cap)
+    plain = decode_attention_plain(tq, tk, tv, lengths, softcap=cap)
+    within(emu, plain, tol)
+
+
+@pytest.mark.parametrize("hd,size,kpl", [(128, 2, 2), (128, 4, 1),
+                                         (64, 2, 4), (16, 4, 8),
+                                         (240, 2, 1), (240, 4, 1)])
+def test_keys_per_warp_load(hd, size, kpl):
+    assert keys_per_warp_load(hd, size) == kpl
 
 
 @pytest.mark.parametrize("S", [1, 63, 64, 65, 600, 1024, 4096, 4097, 5000,

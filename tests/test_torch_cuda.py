@@ -209,15 +209,60 @@ def test_cuda_attention_tilings_match_plain(card, dtype):
     torch.cuda.synchronize()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_attention_hd240_and_softcap_match_plain(card, dtype):
+    """gemma3-12b's head dim 240 in both attention kernels (the bf16 flash
+    kernel streaming Q fragments from shared memory, the f32 one in
+    16-key tiles; decode with a key a warp, two vectors a lane in f32),
+    causal, windowed and GQA, decode over linear and ring lengths; and the
+    logit softcap (c tanh(s / c) before the mask) at hd 64, 128 and 240,
+    with caps that bind (the scores reach ~4 c)."""
+    g = torch.Generator(device=card).manual_seed(4)
+    dt = TDT[dtype]
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=card) * scale).to(dt)
+
+    for bh, bh_kv, sq, sk, hd, causal, window, cap in (
+            (4, 2, 130, 130, 240, True, 0, 0.0),
+            (2, 1, 200, 200, 240, True, 64, 0.0),
+            (2, 2, 64, 150, 240, False, 0, 0.0),
+            (2, 2, 1, 1, 240, True, 0, 0.0),
+            (4, 2, 130, 130, 240, True, 48, 2.0),
+            (4, 4, 96, 96, 64, True, 0, 1.0),
+            (6, 2, 77, 77, 128, True, 16, 3.0)):
+        q = r(bh, sq, hd, scale=2.0)
+        k, v = r(bh_kv, sk, hd, scale=2.0), r(bh_kv, sk, hd)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        torch.testing.assert_close(flash_attention_cuda(q, k, v, **kw),
+                                   flash_attention_plain(q, k, v, **kw),
+                                   **TOL[dtype])
+    for bh, bh_kv, s, hd, window, cap, lens in (
+            (4, 2, 1024, 240, 0, 0.0, [1024, 600, 1, 65]),
+            (4, 4, 1024, 240, 100, 0.0, [150, 1024, 64, 1]),
+            (8, 4, 1024, 240, 0, 1.5, [1024, 1024, 700, 3, 1, 64, 65, 1000]),
+            (4, 4, 512, 64, 0, 1.0, [512, 100, 7, 1]),
+            (6, 3, 96, 128, 30, 2.0, [96, 50, 31, 1, 30, 77])):
+        q = r(bh, 1, hd, scale=2.0)
+        k, v = r(bh_kv, s, hd, scale=2.0), r(bh_kv, s, hd)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=card)
+        kw = dict(window=window, softcap=cap)
+        torch.testing.assert_close(
+            decode_attention_cuda(q, k, v, lengths, **kw),
+            decode_attention_plain(q, k, v, lengths, **kw), **TOL[dtype])
+    torch.cuda.synchronize()
+
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["deepseek-7b", "zamba2-1.2b", "rwkv6-1.6b",
                                   "granite-moe-3b-a800m",
                                   "moonshot-v1-16b-a3b", "qwen2-vl-2b",
-                                  "musicgen-large"])
+                                  "musicgen-large", "gemma3-12b"])
 def test_cuda_graph_replay_matches_eager_decode(card, arch):
     """Each slot's captured decode step against ``LM.decode_step`` on a
-    twin cache, in f32 at smoke size, before and right after the request
+    twin cache (gemma3-12b: its rings of 16 slots wrap during the steps),
+    in f32 at smoke size, before and right after the request
     is swapped from slot 0 into slot 1 (slot 0 then holds NaN): within
     1e-6 of the logits' scale (bitwise where the graph replays the eager
     kernels as they are). The launch counts grow by the launches of one

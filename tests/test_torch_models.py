@@ -14,7 +14,6 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from repro.configs import ModelConfig as JaxModelConfig  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.configs import get_smoke as jax_get_smoke  # noqa: E402
 from repro.distributed import materialize  # noqa: E402
@@ -297,15 +296,6 @@ def test_init_params_seeded():
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["layers.0.attn.wq"], c["layers.0.attn.wq"])
     assert a["layers.0.attn.wq"].dtype == torch.bfloat16
-
-
-@pytest.mark.parametrize("arch_kw", [
-    dict(local_global_ratio=5, local_window=16)])
-def test_other_families_raise_not_implemented(arch_kw):
-    cfg = get_smoke(ARCH).with_(**arch_kw)
-    assert JaxModelConfig(**asdict(cfg))          # a real config
-    with pytest.raises(NotImplementedError, match="later slice|slice of"):
-        LM(cfg, device="cpu")
 
 
 # -- first_k_dense without experts: JAX's head_layers before its blocks ------
