@@ -12,7 +12,8 @@ package. In order it:
    build/repro_torch/ (timed as set-up);
 3. counts the tensor-core instructions (HMMA) of the attention and
    scan kernels in the built library's SASS (cuobjdump), and fails if
-   the bf16 flash_attention or bf16 ssm_scan kernel has none;
+   the bf16 flash_attention kernel of any head dim of HEAD_DIMS or the
+   bf16 ssm_scan kernel has none;
 4. holds each kernel against its plain PyTorch version at the shapes the
    serving paths give it (fused_rmsnorm at d 4096, 2048 and 1536;
    bf16 attention at hd 128 and 64, and granite-moe-3b-a800m's GQA: flash
@@ -24,15 +25,21 @@ package. In order it:
    window of 1024 binding, decode at cache 1024, lengths 1024 (a full
    ring of the local layers) and 600, and at cache 2048, lengths 1904, a
    global layer's; both kernels again with a logit softcap that bends the
-   scores, max |s| / cap printed); the scans in bf16 and f32, rwkv6_scan's
+   scores, max |s| / cap printed); gemma3-27b's (d 5376; hd 168, padded
+   to 176 inside the bf16 flash kernel, 32 query heads over 16 KV heads:
+   the same rows as gemma3-12b's, and the flash output written into a
+   NaN-poisoned buffer, each row and the 64 elements past the last held
+   against the plain version and NaN, so a store past column 167 shows);
+   the scans in bf16 and f32, rwkv6_scan's
    f32 being its serving dtype), and times
    kernel, plain version, one PyTorch library call computing the same
    function where there is one, and the bound (the larger of bytes /
    3.35 TB/s and flops / the peak of their type: 989 TFLOP/s bf16 and
    495 TFLOP/s TF32 tensor cores, 67 TFLOP/s f32); then, untimed, the
    edge cases: the attention kernels' (Sq != Sk, GQA, windows across
-   tile and split edges, ragged S, hd 16, 32 and 240, lengths on split
-   edges, a cache of several chunks a split, softcaps at hd 64 and 128)
+   tile and split edges, ragged S, hd 16, 32, 168 and 240, lengths on
+   split edges, a cache of several chunks a split, softcaps at hd 64, 128,
+   168 and 240)
    and fused_rmsnorm's (the looping
    path at d 8, 100, 8192 and 12288 and on a misaligned row, N 4096,
    x and w written by the kernel launched just before) in bf16 and in
@@ -51,7 +58,10 @@ package. In order it:
    of 1024 and 1 global layer; hd 240, 16 query heads over 8 KV heads, a
    tied head of 262,144 rows; served at max_len 2048 on prompts of up to
    1900 tokens, so that the window binds and the local layers' ring
-   caches wrap in prefill and in decode) at full width and depth (random
+   caches wrap in prefill and in decode) and gemma3-27b (62 layers: 10
+   such groups and a tail of 2 local layers, d 5376, hd 168, 32 query
+   heads over 16 KV heads; 28.4 B parameters, 59.4 GB, served as
+   gemma3-12b) at full width and depth (random
    weights from a seed), one model on the card at a time, its peak
    device memory printed:
    a. serves 8 ragged requests through ServingEngine, whose decode steps
@@ -62,16 +72,19 @@ package. In order it:
    b. times one prefill and one decode step, eager and graph replay, in
       turns in one run, beside the step's weight-read floor (for
       granite, of all 40 experts, which the dispatch runs, and of the 8
-      active ones; for gemma3-12b prefills of 513 and 1500 tokens and
-      the decode step after the longer one);
+      active ones; for gemma3 prefills of 513 and 1500 tokens and the
+      decode step after the longer one), and the config's billed
+      ms_per_token_decode;
    c. holds the graph replay against the eager LM.decode_step in f32 on
       twin caches (bitwise, or within 1e-6 of the logits' scale), for
       steps in one slot and right after a swap into another slot; the
       f32 weights are the bf16 ones cast (exact), for moonshot cut to its
       path-check depth (its f32 twin at full depth, ~110 GB, does not
-      fit), gemma3-12b to its first group and a tail layer with a prompt
+      fit), gemma3 to its first group and a tail layer with a prompt
       of 1100 tokens (> the window), after the serving model's graphs
-      and caches are freed;
+      and caches are freed and the bf16 weights themselves are cut to
+      that depth (gemma3-27b's 59.4 GB and a twin beside them would not
+      fit);
    d. holds the kernel path against the plain path on the card (prefill
       plus 4 teacher-forced decode steps), in f32 and in bf16; for
       the MoE models it also prints the route agreement of the two paths
@@ -83,7 +96,7 @@ package. In order it:
       (input_embeds_for on the card), LM.prefill(embeds=) and 4 decode
       steps through the kernels and through the plain versions in f32,
       at the path check's depth, held within 1e-3 of the logits' scale;
-   f. for gemma3-12b, the ring layout: after a 1500-token prefill and 4
+   f. for gemma3, the ring layout: after a 1500-token prefill and 4
       decode steps (the wrap point moves) each local layer's ring holds
       position p at slot p % 1024 for the last 1024 positions, and each
       global layer's cache every position, against the keys and values
@@ -159,7 +172,7 @@ SEED = 0
 GRANITE = "granite-moe-3b-a800m"
 MOONSHOT, QWEN, MUSICGEN = ("moonshot-v1-16b-a3b", "qwen2-vl-2b",
                             "musicgen-large")
-GEMMA = "gemma3-12b"
+GEMMA, GEMMA27 = "gemma3-12b", "gemma3-27b"
 REPS, WARMUP = 15, 3           # timed calls (median) after warm-up calls
 
 
@@ -370,9 +383,10 @@ def kernel_cases(kp):
     yield from rmsnorm_edge_cases(kp, randn)
     yield from ssm_edge_cases(kp, randn)
     yield from rwkv_edge_cases(kp, randn)
-    # last, from a generator of their own: the cases above draw the same
-    # inputs as before gemma3-12b's were added
-    yield from gemma_cases(kp)
+    # last, each model from a generator of its own: the cases above draw
+    # the same inputs as before gemma3-12b's were added
+    yield from gemma_cases(kp, GEMMA)
+    yield from gemma_cases(kp, GEMMA27)
 
 
 def gqa_decode_cases(kp, randn, bh, bh_kv, hd, model):
@@ -432,20 +446,72 @@ def max_score(q, k) -> float:
     return float(s.abs().max()) / q.shape[-1] ** 0.5
 
 
-def gemma_cases(kp):
-    """gemma3-12b's shapes, new to the kernels, on inputs of a generator of
-    their own. fused_rmsnorm at d 3840. Attention at hd 240 (15 k-steps
-    of 16; a key row of 30 bf16 / 60 f32 16-byte vectors), 16 query heads
-    over 8 KV heads: flash at S 600 causal in bf16 and f32, and at S 1500
-    with the local layers' window of 1024, where it binds (SDPA then takes
-    the mask); decode at cache 1024, lengths 1024 (a local layer's full
-    ring) and 600, and a global layer's cache of 2048 at 1904; both
-    kernels with a softcap that bends the scores (max |s| / cap in the
-    label; no single PyTorch call computes the same). Then, untimed, in
-    bf16 and f32: hd 240 with GQA, Sq != Sk, a window, S 1 and lengths on
-    split edges, and softcaps at hd 64, 128 and 240 on scores drawn at
-    twice the scale."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+# d, BH, BH_kv and hd of a gemma3 model's kernel rows (batch 1), and the
+# seed of their generator
+GEMMA_SHAPES = {GEMMA: (3840, 16, 8, 240, SEED + 6),
+                GEMMA27: (5376, 32, 16, 168, SEED + 7)}
+EDGES = [1, 63, 64, 65, 127, 128, 129, 1024]     # decode: split edges
+# untimed edge cases of each model's rows, in bf16 and f32.
+# flash: (label, BH, BH_kv, Sq, Sk, hd, causal, window, cap, input scale)
+# decode: (label, BH, BH_kv, cache, hd, window, cap, lengths, input scale)
+GEMMA_EDGES = {
+    GEMMA: ((
+        ("GQA BH 4 over 2, S 130", 4, 2, 130, 130, 240, True, 0, 0.0, 1.0),
+        ("Sq 64, Sk 150, non-causal", 2, 2, 64, 150, 240, False, 0, 0.0,
+         1.0),
+        ("S 200, window 64", 2, 1, 200, 200, 240, True, 64, 0.0, 1.0),
+        ("S 1", 2, 2, 1, 1, 240, True, 0, 0.0, 1.0),
+        ("softcap 1.0, S 96", 4, 4, 96, 96, 64, True, 0, 1.0, 2.0),
+        ("softcap 3.0, GQA BH 6 over 2, S 77, window 16", 6, 2, 77, 77, 128,
+         True, 16, 3.0, 2.0),
+        ("softcap 2.0, GQA BH 4 over 2, S 130, window 48", 4, 2, 130, 130,
+         240, True, 48, 2.0, 2.0)), (
+        ("GQA BH 8 over 4, lengths on split edges", 8, 4, 1024, 240, 0, 0.0,
+         EDGES, 1.0),
+        ("window 100 across split edges", 4, 4, 1024, 240, 100, 0.0,
+         [150, 1024, 64, 1], 1.0),
+        ("softcap 1.0", 4, 4, 512, 64, 0, 1.0, [512, 100, 7, 1], 2.0),
+        ("softcap 1.5, GQA BH 8 over 4", 8, 4, 1024, 240, 0, 1.5,
+         [1024, 1024, 700, 3, 1, 64, 65, 1000], 2.0))),
+    # hd 168: ragged S across the 64-row tiles, Sq != Sk both ways, a
+    # window across tile edges, a cap the template takes though the
+    # config's is 0
+    GEMMA27: ((
+        ("GQA BH 4 over 2, S 1", 4, 2, 1, 1, 168, True, 0, 0.0, 1.0),
+        ("GQA BH 4 over 2, S 63", 4, 2, 63, 63, 168, True, 0, 0.0, 1.0),
+        ("GQA BH 4 over 2, S 65", 4, 2, 65, 65, 168, True, 0, 0.0, 1.0),
+        ("GQA BH 4 over 2, S 130", 4, 2, 130, 130, 168, True, 0, 0.0, 1.0),
+        ("Sq 64, Sk 150, non-causal", 2, 2, 64, 150, 168, False, 0, 0.0,
+         1.0),
+        ("Sq 130, Sk 70, causal", 2, 2, 130, 70, 168, True, 0, 0.0, 1.0),
+        ("S 200, window 64", 2, 1, 200, 200, 168, True, 64, 0.0, 1.0),
+        ("softcap 2.0, GQA BH 4 over 2, S 130, window 48", 4, 2, 130, 130,
+         168, True, 48, 2.0, 2.0)), (
+        ("GQA BH 8 over 4, lengths on split edges", 8, 4, 1024, 168, 0, 0.0,
+         EDGES, 1.0),
+        ("window 100 across split edges", 4, 4, 1024, 168, 100, 0.0,
+         [150, 1024, 64, 1], 1.0),
+        ("softcap 1.5, GQA BH 8 over 4", 8, 4, 1024, 168, 0, 1.5,
+         [1024, 1024, 700, 3, 1, 64, 65, 1000], 2.0))),
+}
+
+
+def gemma_cases(kp, model):
+    """A gemma3 model's shapes (``GEMMA_SHAPES``), new to the kernels, on
+    inputs of a generator of their own. fused_rmsnorm at its d. Attention
+    at its hd (240: 15 k-steps of 16, a key row of 30 bf16 / 60 f32
+    16-byte vectors; 168: 11 k-steps, the last on columns zero-filled in
+    shared memory, 21 / 42 vectors), its query heads over its KV heads:
+    flash at S 600 causal in bf16 and f32, and at S 1500 with the local
+    layers' window of 1024, where it binds (SDPA then takes the mask);
+    decode at cache 1024, lengths 1024 (a local layer's full ring) and
+    600, and a global layer's cache of 2048 at 1904; both kernels with a
+    softcap that bends the scores (max |s| / cap in the label; no single
+    PyTorch call computes the same). Then, untimed, in bf16 and f32, the
+    edge cases of ``GEMMA_EDGES``, and at hd 168 the flash output written
+    into a NaN-poisoned buffer (:func:`poisoned_flash`)."""
+    d, bh, bh_kv, hd, seed = GEMMA_SHAPES[model]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     bf, f32 = torch.bfloat16, torch.float32
 
     def randn(*shape, dtype=bf, scale=1.0):
@@ -453,17 +519,15 @@ def gemma_cases(kp):
             .to(dtype)
 
     norm = kp["fused_rmsnorm"]
-    d = 3840
     for n in (1, 600, 1500):
         w = randn(d, dtype=f32, scale=0.1)
         x, w1 = randn(n, d), (1.0 + w).to(bf)
         yield Case("fused_rmsnorm", f"x ({n}, {d})",
                    lambda x=x, w=w: norm[0](x, w),
                    lambda x=x, w=w: norm[1](x, w),
-                   lambda x=x, w1=w1: F.rms_norm(x, (d,), w1, eps=1e-6),
+                   lambda x=x, w1=w1, d=d: F.rms_norm(x, (d,), w1, eps=1e-6),
                    2 * n * d * 2 + d * 4, 4 * n * d, BF16_FLOPS_PER_S, TOL,
-                   model=GEMMA)
-    bh, bh_kv, hd = 16, 8, 240
+                   model=model)
     flash, decode = kp["flash_attention"], kp["decode_attention"]
     for s, window, dt in ((600, 0, bf), (600, 0, f32), (1500, 1024, bf)):
         q = randn(bh, s, hd, dtype=dt)
@@ -485,8 +549,8 @@ def gemma_cases(kp):
             2 * (bh + bh_kv) * s * hd * q.element_size(),
             4 * hd * int(keep.sum()) * bh,
             BF16_FLOPS_PER_S if dt == bf else F32_FLOPS_PER_S,
-            TOL if dt == bf else F32_TOL, model=GEMMA)
-    yield from gqa_decode_cases(kp, randn, bh, bh_kv, hd, GEMMA)
+            TOL if dt == bf else F32_TOL, model=model)
+    yield from gqa_decode_cases(kp, randn, bh, bh_kv, hd, model)
     S, n = 2048, 1904
     q, k, v = randn(bh, 1, hd), randn(bh_kv, S, hd), randn(bh_kv, S, hd)
     lengths = torch.full((bh,), n, dtype=torch.int32, device="cuda")
@@ -499,7 +563,7 @@ def gemma_cases(kp):
         lambda q=q, k=k, v=v, m=mask: F.scaled_dot_product_attention(
             q[None], k[None], v[None], attn_mask=m, enable_gqa=True)[0],
         2 * bh_kv * n * hd * 2 + 2 * bh * hd * 2 + 4 * bh,
-        4 * hd * n * bh, BF16_FLOPS_PER_S, TOL, model=GEMMA)
+        4 * hd * n * bh, BF16_FLOPS_PER_S, TOL, model=model)
     cap, s, S = 2.0, 600, 1024
     q, k, v = randn(bh, s, hd), randn(bh_kv, s, hd), randn(bh_kv, s, hd)
     yield Case(
@@ -509,7 +573,7 @@ def gemma_cases(kp):
         lambda a=(q, k, v): flash[0](*a, softcap=cap),
         lambda a=(q, k, v): flash[1](*a, softcap=cap), None,
         2 * (bh + bh_kv) * s * hd * 2, 4 * hd * s * (s + 1) // 2 * bh,
-        BF16_FLOPS_PER_S, TOL, model=GEMMA)
+        BF16_FLOPS_PER_S, TOL, model=model)
     q, k, v = randn(bh, 1, hd), randn(bh_kv, S, hd), randn(bh_kv, S, hd)
     lengths = torch.full((bh,), S, dtype=torch.int32, device="cuda")
     yield Case(
@@ -519,57 +583,64 @@ def gemma_cases(kp):
         lambda a=(q, k, v, lengths): decode[0](*a, softcap=cap),
         lambda a=(q, k, v, lengths): decode[1](*a, softcap=cap), None,
         2 * bh_kv * S * hd * 2 + 2 * bh * hd * 2 + 4 * bh,
-        4 * hd * S * bh, BF16_FLOPS_PER_S, TOL, model=GEMMA)
-    # (label, BH, BH_kv, Sq, Sk, hd, causal, window, cap, input scale)
-    flash_edges = (
-        ("GQA BH 4 over 2, S 130", 4, 2, 130, 130, 240, True, 0, 0.0, 1.0),
-        ("Sq 64, Sk 150, non-causal", 2, 2, 64, 150, 240, False, 0, 0.0,
-         1.0),
-        ("S 200, window 64", 2, 1, 200, 200, 240, True, 64, 0.0, 1.0),
-        ("S 1", 2, 2, 1, 1, 240, True, 0, 0.0, 1.0),
-        ("softcap 1.0, S 96", 4, 4, 96, 96, 64, True, 0, 1.0, 2.0),
-        ("softcap 3.0, GQA BH 6 over 2, S 77, window 16", 6, 2, 77, 77, 128,
-         True, 16, 3.0, 2.0),
-        ("softcap 2.0, GQA BH 4 over 2, S 130, window 48", 4, 2, 130, 130,
-         240, True, 48, 2.0, 2.0))
-    # (label, BH, BH_kv, cache, hd, window, cap, lengths, input scale)
-    edges = [1, 63, 64, 65, 127, 128, 129, 1024]
-    decode_edges = (
-        ("GQA BH 8 over 4, lengths on split edges", 8, 4, 1024, 240, 0, 0.0,
-         edges, 1.0),
-        ("window 100 across split edges", 4, 4, 1024, 240, 100, 0.0,
-         [150, 1024, 64, 1], 1.0),
-        ("softcap 1.0", 4, 4, 512, 64, 0, 1.0, [512, 100, 7, 1], 2.0),
-        ("softcap 1.5, GQA BH 8 over 4", 8, 4, 1024, 240, 0, 1.5,
-         [1024, 1024, 700, 3, 1, 64, 65, 1000], 2.0))
+        4 * hd * S * bh, BF16_FLOPS_PER_S, TOL, model=model)
+    flash_edges, decode_edges = GEMMA_EDGES[model]
     for dt, tol in ((bf, TOL), (f32, F32_TOL)):
         tag = str(dt)[6:]
-        for label, bh, bh_kv, sq, sk, hd, causal, window, cap, sc in \
+        for label, bh, bh_kv, sq, sk, hd_e, causal, window, cap, sc in \
                 flash_edges:
-            q = randn(bh, sq, hd, dtype=dt, scale=sc)
-            k, v = randn(bh_kv, sk, hd, dtype=dt, scale=sc), randn(
-                bh_kv, sk, hd, dtype=dt)
+            q = randn(bh, sq, hd_e, dtype=dt, scale=sc)
+            k, v = randn(bh_kv, sk, hd_e, dtype=dt, scale=sc), randn(
+                bh_kv, sk, hd_e, dtype=dt)
             kw = dict(causal=causal, window=window, softcap=cap)
             bend = (f" (max |s| / cap {max_score(q, k) / cap:.2f})" if cap
                     else "")
-            yield Case("flash_attention", f"{label}, hd {hd}{bend}, {tag}",
+            yield Case("flash_attention", f"{label}, hd {hd_e}{bend}, {tag}",
                        lambda a=(q, k, v), kw=kw: flash[0](*a, **kw),
                        lambda a=(q, k, v), kw=kw: flash[1](*a, **kw),
                        None, 0, 0, BF16_FLOPS_PER_S, tol, timed=False)
-        for label, bh, bh_kv, S, hd, window, cap, lens, sc in decode_edges:
-            q = randn(bh, 1, hd, dtype=dt, scale=sc)
-            k, v = randn(bh_kv, S, hd, dtype=dt, scale=sc), randn(
-                bh_kv, S, hd, dtype=dt)
+        for label, bh, bh_kv, S, hd_e, window, cap, lens, sc in decode_edges:
+            q = randn(bh, 1, hd_e, dtype=dt, scale=sc)
+            k, v = randn(bh_kv, S, hd_e, dtype=dt, scale=sc), randn(
+                bh_kv, S, hd_e, dtype=dt)
             lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
             kw = dict(window=window, softcap=cap)
             bend = (f" (max |s| / cap {max_score(q, k) / cap:.2f})" if cap
                     else "")
-            yield Case("decode_attention", f"{label}, hd {hd}{bend}, {tag}",
+            yield Case("decode_attention", f"{label}, hd {hd_e}{bend}, {tag}",
                        lambda a=(q, k, v, lengths), kw=kw: decode[0](*a,
                                                                      **kw),
                        lambda a=(q, k, v, lengths), kw=kw: decode[1](*a,
                                                                      **kw),
                        None, 0, 0, BF16_FLOPS_PER_S, tol, timed=False)
+        if hd % 16:
+            for sq, window in ((130, 0), (600, 0), (1500, 1024)):
+                q = randn(4, sq, hd, dtype=dt)
+                k, v = randn(2, sq, hd, dtype=dt), randn(2, sq, hd, dtype=dt)
+                yield Case(
+                    "flash_attention",
+                    f"NaN-poisoned out, GQA BH 4 over 2, S {sq}"
+                    f"{f', window {window}' if window else ''}, hd {hd}: "
+                    f"every row, and 64 elements past the last still NaN, "
+                    f"{tag}",
+                    lambda a=(q, k, v), w=window: poisoned_flash(
+                        flash[0], *a, window=w),
+                    lambda a=(q, k, v), w=window: (
+                        flash[1](*a, window=w), torch.ones(64,
+                                                           device="cuda")),
+                    None, 0, 0, BF16_FLOPS_PER_S, tol, timed=False)
+
+
+def poisoned_flash(kern, q, k, v, **kw):
+    """The flash kernel writing into the head of a buffer of NaN with 64
+    elements past q's: (its output, 1 where each element past the output
+    is still NaN). A store past column hd - 1 of a row lands in the next
+    row's first columns (held against the plain version there) or, from
+    the last row, past the output (the tail)."""
+    n = q.numel()
+    buf = torch.full((n + 64,), float("nan"), dtype=q.dtype, device="cuda")
+    out = kern(q, k, v, out=buf[:n].view(q.shape), **kw)
+    return out, buf[n:].isnan().float()
 
 
 def ssm_tc_flops(bh: int, bh_bc: int, s: int, hd: int, ds: int,
@@ -800,11 +871,13 @@ SASS_KERNELS = ("flash_tc_kernel", "flash_f32_kernel", "decode_split_kernel",
 TENSOR_CORE_KERNELS = ("flash_tc", "ssm_tc")   # must show HMMA/HGMMA
 
 
-def sass_check(lib_path: Path) -> None:
+def sass_check(lib_path: Path, head_dims: tuple) -> None:
     """Count HMMA (mma.sync) and HGMMA (wgmma) instructions in the SASS of
     each attention and scan kernel (<n> is the template's head or state
-    dim); the bf16 flash and ssm kernels must have some (the rwkv6 kernel
-    runs on the CUDA cores and is listed for its count)."""
+    dim); the bf16 flash and ssm kernels must have some, and the bf16
+    flash kernel must be there at every head dim of ``head_dims`` (168:
+    padded to 176 inside it) with and without the softcap (the rwkv6
+    kernel runs on the CUDA cores and is listed for its count)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.isfile(tool):
         fail("cuobjdump not found: cannot show the tensor-core path")
@@ -832,6 +905,11 @@ def sass_check(lib_path: Path) -> None:
         if not tc or min(tc) == 0:
             fail(f"the bf16 {kernel}_kernel has no tensor-core instruction "
                  "in its SASS")
+    for hd in head_dims:
+        for cap in ("", ", softcap"):
+            if not counts.get(f"flash_tc_kernel<{hd}> bf16{cap}"):
+                fail(f"flash_tc_kernel<{hd}> bf16{cap}: not in the SASS, or "
+                     "no tensor-core instruction")
     mc_sass_check(res.stdout)
 
 
@@ -866,21 +944,23 @@ def mc_sass_check(sass: str) -> None:
 # -- phase 5: the serving paths ----------------------------------------------
 
 MODELS = ("deepseek-7b", "zamba2-1.2b", "rwkv6-1.6b", GRANITE, QWEN, MUSICGEN,
-          MOONSHOT, GEMMA)
+          MOONSHOT, GEMMA, GEMMA27)
 PROMPT_LENS = (32, 600, 77, 513, 200, 45, 333, 128)
 MAX_LEN = 1024
-# gemma3-12b: its local layers keep a window of 1024 keys in ring caches,
+# gemma3: its local layers keep a window of 1024 keys in ring caches,
 # so its prompts cross the window: 1020 (decode wraps the ring), 1024 (=
 # W), 1500 and 1900 (> W, not a multiple: prefill wraps it), at max_len
 # 2048; some below 600
-MODEL_PROMPTS = {GEMMA: (32, 1020, 1500, 1024, 200, 1900, 77, 513)}
-MODEL_MAX_LEN = {GEMMA: 2048}
+GEMMAS = (GEMMA, GEMMA27)
+MODEL_PROMPTS = {m: (32, 1020, 1500, 1024, 200, 1900, 77, 513)
+                 for m in GEMMAS}
+MODEL_MAX_LEN = {m: 2048 for m in GEMMAS}
 # prefill lengths timed (the decode step is timed after the longest)
-STEP_PROMPTS = {GEMMA: (513, 1500)}
-# prompt of the f32 graph check (gemma3-12b: past the window) and of the
-# path check (gemma3-12b: the window binds in prefill, decode past it)
-GRAPH_PROMPT = {GEMMA: 1100}
-PATH_PROMPT = {GEMMA: 1500}
+STEP_PROMPTS = {m: (513, 1500) for m in GEMMAS}
+# prompt of the f32 graph check (gemma3: past the window) and of the
+# path check (gemma3: the window binds in prefill, decode past it)
+GRAPH_PROMPT = {m: 1100 for m in GEMMAS}
+PATH_PROMPT = {m: 1500 for m in GEMMAS}
 
 
 def expected_launches(rt, cfg, n_prefill: int, n_decode: int) -> dict:
@@ -1041,8 +1121,9 @@ def step_times(rt, lm, cfg) -> None:
                          for k, ms in prefill_ms.items())
     print(f"step {cfg.name}: {prefills}; decode step (cache {n + 1}) eager "
           f"{eager_ms:.3f} ms, graph replay {graph_ms:.3f} ms wall (medians "
-          f"of 10, in turns); weight-read bound of a decode step {floor}",
-          flush=True)
+          f"of 10, in turns); weight-read bound of a decode step {floor}; "
+          f"the engine bills {cfg.ms_per_token_decode} ms a token "
+          f"(ms_per_token_decode)", flush=True)
 
 
 def graph_check(rt, cfg, params32) -> None:
@@ -1124,10 +1205,15 @@ def graph_check(rt, cfg, params32) -> None:
 # (25.3 GB) would leave no room for the checks, so they take its first
 # group (5 local layers and the global one) and the next local layer,
 # where every kind of layer and both cache layouts run.
-PATH_LAYERS = {"zamba2-1.2b": 6, GRANITE: 1, MOONSHOT: 4, GEMMA: 7}
-# models whose f32 twin is cut to the path check's depth for the graph
-# check too; every other twin is the full model
-TWIN_CUT = (MOONSHOT, GEMMA)
+# gemma3-27b: its bf16 weights alone take 59.4 GB, so the bf16 set is cut
+# before its twin is cast; the same first group and local layer (PERF.md
+# has the distance by depth from path_check).
+PATH_LAYERS = {"zamba2-1.2b": 6, GRANITE: 1, MOONSHOT: 4, GEMMA: 7,
+               GEMMA27: 7}
+# models whose bf16 weights are cut to the path check's depth once served,
+# and their f32 twin with them (the graph check too); every other twin is
+# the full model
+TWIN_CUT = (MOONSHOT, GEMMA, GEMMA27)
 
 
 def path_check(rt, cfg, params16, params32) -> None:
@@ -1307,9 +1393,14 @@ def model_phase(rt, arch: str) -> dict:
     del lm, done
     gc.collect()                  # the engine's graphs, pool and caches
     torch.cuda.empty_cache()
-    # the f32 twin: the bf16 draw cast (exact), so no second draw
-    cfg32, params32 = rt.path_check.f32_twin(
-        cfg, params, PATH_LAYERS[arch] if arch in TWIN_CUT else cfg.n_layers)
+    # the f32 twin: the bf16 draw cast (exact), so no second draw; a cut
+    # twin is cast from the cut bf16 set, the other layers' weights freed
+    # first
+    depth = PATH_LAYERS[arch] if arch in TWIN_CUT else cfg.n_layers
+    _, params = rt.path_check.depth_cut(cfg, params, depth)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32, params32 = rt.path_check.f32_twin(cfg, params, depth)
     graph_check(rt, cfg32, params32)
     path_check(rt, cfg, params, params32)
     if cfg.modality != "text":
@@ -1557,6 +1648,7 @@ def load_port() -> SimpleNamespace:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import configs, params
     from repro_torch.kernels import build, ops, plain
+    from repro_torch.kernels.common import HEAD_DIMS
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_rmsnorm as rn
@@ -1578,6 +1670,7 @@ def load_port() -> SimpleNamespace:
     from repro_torch.serving.graphs import SlotDecoder
     return SimpleNamespace(
         configs=configs, init_params=params.init_params, build=build,
+        HEAD_DIMS=HEAD_DIMS,
         ops=ops, plain=plain, LM=LM, MATMUL=MATMUL, family_kind=family_kind,
         transformer=transformer, lg_layers=lg_layers,
         input_embeds_for=input_embeds_for,
@@ -1626,7 +1719,7 @@ def main() -> None:
                 "spill" in line:
             print(f"ptxas: {line.strip()}", flush=True)
 
-    sass_check(lib_path)
+    sass_check(lib_path, rt.HEAD_DIMS)
     rows = kernel_phase(rt.kernels, Timer())
 
     by_model = {arch: model_phase(rt, arch) for arch in MODELS}

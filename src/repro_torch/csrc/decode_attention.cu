@@ -2,7 +2,8 @@
 // q (BH, 1, hd), k/v (BH_kv, S, hd) caches, lengths (BH,) int32, out
 // (BH, 1, hd); bf16 or f32. Row bh attends to keys 0 .. lengths[bh] - 1
 // (and, with a window W, only keys > lengths[bh] - 1 - W) of cache row
-// bh / (BH / BH_kv). hd is one of 16, 32, 64, 128 and 240 (gemma3-12b).
+// bh / (BH / BH_kv). hd is one of 16, 32, 64, 128, 168 (gemma3-27b) and
+// 240 (gemma3-12b).
 // A ring cache of W slots (gemma3's local layers) is passed with lengths
 // min(pos + 1, W) and no window: the ring holds exactly the keys the
 // window keeps, and softmax does not depend on their order.
@@ -33,10 +34,12 @@
 //   hd), so hd / 8 lanes cover a bf16 key and a warp covers 32 / (hd / 8)
 //   keys a load; all of a warp's K and V loads of a chunk are issued
 //   before the first is used. Where a key's 16-byte vectors are not a
-//   power of two that divides the warp (hd 240: 30 in bf16, 60 in f32), a
-//   key takes the whole warp and each lane up to two vectors, strided by
-//   32 (bf16: lanes 30 and 31 idle; f32: lanes 28 to 31 idle in the
-//   second vector), and the warp takes its 16 keys of a chunk in two
+//   power of two that divides the warp (hd 240: 30 in bf16, 60 in f32;
+//   hd 168: 21 and 42), a key takes the whole warp and each lane up to two
+//   vectors, strided by 32 (hd 240: bf16 lanes 30 and 31 idle, f32 lanes
+//   28 to 31 idle in the second vector; hd 168: bf16 lanes 21 to 31 idle,
+//   f32 lanes 10 to 31 idle in the second vector), and the warp takes its
+//   16 keys of a chunk in two
 //   batches of 8 at f32, so that K and V in flight stay at 16 vectors a
 //   lane. Dot products are reduced within each lane
 //   group with shuffles; each group keeps its own (m, l, acc), merged
@@ -355,6 +358,7 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
     case 32: return launch_hd<T, 32>(q, k, v, lengths, part, o, bh, bh_kv, S, span, splits, window, cap, stream);
     case 64: return launch_hd<T, 64>(q, k, v, lengths, part, o, bh, bh_kv, S, span, splits, window, cap, stream);
     case 128: return launch_hd<T, 128>(q, k, v, lengths, part, o, bh, bh_kv, S, span, splits, window, cap, stream);
+    case 168: return launch_hd<T, 168>(q, k, v, lengths, part, o, bh, bh_kv, S, span, splits, window, cap, stream);
     case 240: return launch_hd<T, 240>(q, k, v, lengths, part, o, bh, bh_kv, S, span, splits, window, cap, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

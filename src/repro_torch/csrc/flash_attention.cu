@@ -1,8 +1,8 @@
 // flash_attention: blocked online-softmax attention for prefill.
 // q (BH, Sq, hd), k/v (BH_kv, Sk, hd), out (BH, Sq, hd); bf16 or f32.
 // Row bh of q attends to row bh / (BH / BH_kv) of k and v (GQA indexing;
-// BH == BH_kv for multi-head attention). hd is one of 16, 32, 64, 128 and
-// 240 (gemma3-12b).
+// BH == BH_kv for multi-head attention). hd is one of 16, 32, 64, 128, 168
+// (gemma3-27b) and 240 (gemma3-12b).
 //
 // Replaces the Pallas TPU kernel flash_attention / _flash_kernel
 // (src/repro/kernels/flash_attention.py:77, body :26). Same function:
@@ -57,14 +57,30 @@
 //   not held either: each is read again from the Q tile in shared memory
 //   (ldmatrix) when it is used. The tile layout is the same (158,720
 //   bytes of dynamic shared memory at hd 240, one block an SM).
+//   An hd that is a multiple of 8 but not of 16 (168) is padded inside
+//   the kernel to HDP = round_up(hd, 16) (176): shared-memory rows hold
+//   HDP columns, of which the last HDP - hd are zero-filled by cp.async
+//   (src-size 0) in Q, K and V alike, so the last k-step of Q K^T adds
+//   exactly 0 and the last 16-column group of O computes zeros that are
+//   never stored (the store skips n-tiles from column hd on). Global
+//   addresses keep the row length hd: no tensor outside is padded. The
+//   row stride is HDP + 8 (184 bf16, 23 sixteen-byte units: odd, so every
+//   ldmatrix stays free of bank conflicts; 117,760 bytes at hd 168, one
+//   block an SM). At hd 168 one warp keeps a 16-row slice: its O is 11
+//   groups (88 f32 a thread; 242 registers, no spill), its Q fragments
+//   are re-read from shared memory at each k-step, as at hd 240. With
+//   the cap (whose tanhf made that instance spill 84 bytes at 255
+//   registers) two warps share a slice as at hd 240, 6 and 5 groups.
 //
 // flash_f32_kernel (f32): the checking path (the f32 path check at 1e-3,
 //   the f32 kernel tests at 2e-5), which neither bf16 nor TF32 tensor
 //   cores can meet. Scalar f32 FMAs: one block per (64-row q tile, bh), 4
-//   threads per q row owning float4 slices of hd, K/V tiles of 32 keys in
-//   shared memory (16 at hd 240, which keeps them in the 48 KB of static
-//   shared memory), q pre-scaled by 1/sqrt(hd) as the Pallas kernel does;
-//   the cap acts on that pre-scaled dot, c * tanh(dot / c).
+//   threads per q row owning float4 slices of hd (thread t the chunks t,
+//   t + 4, ...: at hd 168 threads 0-1 hold 11 of the 42 chunks and 2-3
+//   hold 10), K/V tiles of 32 keys in shared memory (16 above hd 128,
+//   which keeps them in the 48 KB of static shared memory), q pre-scaled
+//   by 1/sqrt(hd) as the Pallas kernel does; the cap acts on that
+//   pre-scaled dot, c * tanh(dot / c).
 #include <cstdint>
 
 #include "common.cuh"
@@ -133,33 +149,40 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-template <int HD>
+// warps a 16-row slice: two where one warp's O and S would spill (ptxas
+// at 255 registers: hd 240, and hd 168 with the cap's tanhf)
+template <int HD, bool CAP>
 struct TcLayout {
-  static constexpr int kStride = HD + 8;            // bf16 per smem row
+  static constexpr int kPad = (HD + 15) / 16 * 16;  // columns in smem
+  static constexpr int kStride = kPad + 8;          // bf16 per smem row
   static constexpr int kTile = kTcBQ * kStride;     // bf16 per 64-row tile
   static constexpr int kBytes = 5 * kTile * 2;      // Q + 2 x (K + V)
-  static constexpr int kSplit = HD > 128 ? 2 : 1;   // warps a 16-row slice
+  static constexpr int kSplit = kPad > 176 || (CAP && kPad > 128) ? 2 : 1;
   static constexpr int kThreads = kTcThreads * kSplit;
   static_assert(kTcBQ == kTcBK, "Q and K/V tiles share a layout");
+  static_assert(HD % 8 == 0 && (kStride / 8) % 2 == 1,
+                "rows of 16-byte chunks, an odd count of them a smem row");
 };
 
 // cap: scale / c and c * log2(e) (unused without CAP)
 template <int HD, bool CAP>
-__global__ void __launch_bounds__(TcLayout<HD>::kThreads)
+__global__ void __launch_bounds__(TcLayout<HD, CAP>::kThreads)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
                 __nv_bfloat16* __restrict__ o, int group, int sq, int sk,
                 int causal, int window, float scale_log2, float cap_in,
                 float cap_out) {
-  constexpr int kS = TcLayout<HD>::kStride;
-  constexpr int kTile = TcLayout<HD>::kTile;
-  constexpr int kCPR = HD / 8;         // 16-byte chunks per row
-  constexpr int kKS = HD / 16;         // k-steps of Q K^T
+  constexpr int kS = TcLayout<HD, CAP>::kStride;
+  constexpr int kTile = TcLayout<HD, CAP>::kTile;
+  constexpr int kHDP = TcLayout<HD, CAP>::kPad;  // padded columns
+  constexpr int kCPR = kHDP / 8;       // 16-byte chunks per smem row
+  constexpr int kCD = HD / 8;          // of them holding data
+  constexpr int kKS = kHDP / 16;       // k-steps of Q K^T
   constexpr int kST = kTcBK / 8;       // n-tiles of S
-  constexpr int kSplit = TcLayout<HD>::kSplit;
-  constexpr int kThr = TcLayout<HD>::kThreads;
-  constexpr int kNG = HD / 16;         // 16-column groups of O
+  constexpr int kSplit = TcLayout<HD, CAP>::kSplit;
+  constexpr int kThr = TcLayout<HD, CAP>::kThreads;
+  constexpr int kNG = kHDP / 16;       // 16-column groups of O
   constexpr int kGW = (kNG + kSplit - 1) / kSplit;  // groups of this warp
   constexpr int kNT = 2 * kGW;         // n-tiles of O in this warp
   constexpr int kChunks = kTcBQ * kCPR;  // 16-byte chunks of a tile
@@ -194,9 +217,9 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const int c = tid + i * kThr;
     if (kChunks % kThr != 0 && c >= kChunks) break;
     const int r = c / kCPR, cc = c % kCPR;
-    const bool ok = q0 + r < sq;
+    const bool ok = q0 + r < sq && (kCD == kCPR || cc < kCD);
     cp_async16(smem_addr(qs + r * kS + cc * 8),
-               qb + static_cast<size_t>(ok ? q0 + r : 0) * HD + cc * 8, ok);
+               qb + (ok ? static_cast<size_t>(q0 + r) * HD + cc * 8 : 0), ok);
   }
   auto load_kv = [&](int kt, int stage) {
     __nv_bfloat16* kd = ks + stage * kTile;
@@ -206,8 +229,8 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
       const int c = tid + i * kThr;
       if (kChunks % kThr != 0 && c >= kChunks) break;
       const int r = c / kCPR, cc = c % kCPR;
-      const bool ok = kt + r < sk;
-      const size_t off = static_cast<size_t>(ok ? kt + r : 0) * HD + cc * 8;
+      const bool ok = kt + r < sk && (kCD == kCPR || cc < kCD);
+      const size_t off = ok ? static_cast<size_t>(kt + r) * HD + cc * 8 : 0;
       cp_async16(smem_addr(kd + r * kS + cc * 8), kb + off, ok);
       cp_async16(smem_addr(vd + r * kS + cc * 8), vb + off, ok);
     }
@@ -342,6 +365,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
         if (kSplit != 1 && half * kGW + j / 2 >= kNG) break;
+        if (HD != kHDP && half * kGW * 16 + 8 * j >= HD) break;  // padding
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
             __floats2bfloat162_rn(oacc[j][2 * h] / denom,
                                   oacc[j][2 * h + 1] / denom);
@@ -354,7 +378,7 @@ template <int HD, bool CAP>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int bh,
               int group, int sq, int sk, int causal, int window, float cap,
               cudaStream_t stream) {
-  constexpr int kBytes = TcLayout<HD>::kBytes;
+  constexpr int kBytes = TcLayout<HD, CAP>::kBytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_tc_kernel<HD, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kBytes);
@@ -362,7 +386,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int bh,
   const dim3 grid(bh, (sq + kTcBQ - 1) / kTcBQ);
   const float scale = 1.f / sqrtf(static_cast<float>(HD));
   const float scale_log2 = kLog2e / sqrtf(static_cast<float>(HD));
-  flash_tc_kernel<HD, CAP><<<grid, TcLayout<HD>::kThreads, kBytes, stream>>>(
+  flash_tc_kernel<HD, CAP><<<grid, TcLayout<HD, CAP>::kThreads, kBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
@@ -386,9 +410,10 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // keys per shared-memory tile: K and V tiles stay within the 48 KB of
   // static shared memory
   constexpr int kBK = HD > 128 ? 16 : 32;
-  constexpr int kDPT = HD / kTPR;       // head dims per thread
-  constexpr int kNV4 = kDPT / 4;        // float4 chunks per thread
-  static_assert(kDPT % 4 == 0, "hd must be a multiple of 16");
+  constexpr int kC4 = HD / 4;           // float4 chunks a row
+  constexpr int kNV4 = (kC4 + kTPR - 1) / kTPR;  // float4 chunks per thread
+  constexpr int kDPT = 4 * kNV4;        // head dims per thread
+  static_assert(HD % 4 == 0, "hd must be a multiple of 4");
   __shared__ float4 ks[kBK][HD / 4];
   __shared__ float4 vs[kBK][HD / 4];
 
@@ -401,7 +426,13 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int qi = q0 + r;
   const bool q_valid = qi < sq;
 
-  // chunk c of this thread covers dims 4 * (sub + kTPR * c) .. + 3
+  // chunk c of this thread covers dims 4 * (sub + kTPR * c) .. + 3; where
+  // kC4 is not a multiple of kTPR the last one lies past the row for some
+  // threads (own[c] false): its q and acc are 0 and it is never read or
+  // written
+  bool own[kNV4];
+#pragma unroll
+  for (int c = 0; c < kNV4; ++c) own[c] = kC4 % kTPR == 0 || sub + kTPR * c < kC4;
   float qf[kDPT];
   float acc[kDPT];
   const float* qrow = q + (static_cast<size_t>(bh) * sq + (q_valid ? qi : 0)) * HD;
@@ -410,7 +441,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int dim = 4 * (sub + kTPR * c) + e;
-      qf[4 * c + e] = q_valid ? qrow[dim] * scale : 0.f;
+      qf[4 * c + e] = q_valid && own[c] ? qrow[dim] * scale : 0.f;
       acc[4 * c + e] = 0.f;
     }
   }
@@ -449,6 +480,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float part = 0.f;
 #pragma unroll
       for (int c = 0; c < kNV4; ++c) {
+        if (!own[c]) continue;
         const float4 kv4 = ks[j][sub + kTPR * c];
         part += qf[4 * c] * kv4.x + qf[4 * c + 1] * kv4.y +
                 qf[4 * c + 2] * kv4.z + qf[4 * c + 3] * kv4.w;
@@ -473,6 +505,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       psum += p;
 #pragma unroll
       for (int c = 0; c < kNV4; ++c) {
+        if (!own[c]) continue;
         const float4 v4 = vs[j][sub + kTPR * c];
         acc[4 * c] += p * v4.x;
         acc[4 * c + 1] += p * v4.y;
@@ -489,6 +522,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* orow = o + (static_cast<size_t>(bh) * sq + qi) * HD;
 #pragma unroll
     for (int c = 0; c < kNV4; ++c) {
+      if (!own[c]) continue;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         orow[4 * (sub + kTPR * c) + e] = acc[4 * c + e] / denom;
@@ -547,6 +581,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     case 32: rc = repro::launch_hd<32>(dtype, q, k, v, o, bh, group, sq, sk, causal, window, softcap, s); break;
     case 64: rc = repro::launch_hd<64>(dtype, q, k, v, o, bh, group, sq, sk, causal, window, softcap, s); break;
     case 128: rc = repro::launch_hd<128>(dtype, q, k, v, o, bh, group, sq, sk, causal, window, softcap, s); break;
+    case 168: rc = repro::launch_hd<168>(dtype, q, k, v, o, bh, group, sq, sk, causal, window, softcap, s); break;
     case 240: rc = repro::launch_hd<240>(dtype, q, k, v, o, bh, group, sq, sk, causal, window, softcap, s); break;
     default: rc = static_cast<int>(cudaErrorInvalidValue);
   }

@@ -4,8 +4,9 @@ from __future__ import annotations
 import torch
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims of the two attention kernels (240: gemma3-12b)
-HEAD_DIMS = (16, 32, 64, 128, 240)
+#: head dims of the two attention kernels (168: gemma3-27b, padded to 176
+#: inside the bf16 flash kernel; 240: gemma3-12b)
+HEAD_DIMS = (16, 32, 64, 128, 168, 240)
 #: head dims of the rwkv6_scan kernel
 SCAN_HEAD_DIMS = (16, 32, 64, 128)
 

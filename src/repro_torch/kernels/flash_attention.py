@@ -5,7 +5,10 @@ Port of the Pallas TPU kernel ``src/repro/kernels/flash_attention.py:77``.
 of ``repro.kernels.ref.flash_attention_ref``: one dense softmax);
 :func:`flash_attention_cuda` launches ``csrc/flash_attention.cu``, whose
 entry picks its kernel by dtype: bf16 runs on the tensor cores (P rounded
-to bf16 for P V), f32 on the CUDA cores (the f32 checking path).
+to bf16 for P V), f32 on the CUDA cores (the f32 checking path). Head
+dims are ``common.HEAD_DIMS``; an hd that is not a multiple of 16 (168)
+is padded to one inside the bf16 kernel only (zero columns in shared
+memory, never stored), so no tensor is padded or copied outside it.
 
 Layout: q (BH, Sq, hd), k/v (BH_kv, Sk, hd) with BH a multiple of BH_kv;
 q row ``bh`` attends to k/v row ``bh // (BH // BH_kv)``. The causal mask
@@ -18,6 +21,7 @@ no cap.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -60,7 +64,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
-                         softcap: float = 0.0) -> torch.Tensor:
+                         softcap: float = 0.0,
+                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out``, if given, is a contiguous tensor of q's shape, dtype and
+    device that the kernel writes in place (and returns); by default a
+    new one."""
     global launches
     for arg, t in (("q", q), ("k", k), ("v", v)):
         check_cuda_tensor(t, NAME, arg)
@@ -81,7 +89,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"unsupported sizes BH={BH} Sq={Sq} Sk={Sk}")
     require(window >= 0, NAME, "window must be >= 0")
     require(softcap >= 0, NAME, "softcap must be >= 0")
-    out = torch.empty_like(q)
+    if out is None:
+        out = torch.empty_like(q)
+    else:
+        check_cuda_tensor(out, NAME, "out")
+        require(out.shape == q.shape and out.dtype == q.dtype
+                and out.data_ptr() % 16 == 0, NAME,
+                "out must have q's shape and dtype and be 16-byte aligned")
     rc = build.library().repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, BHkv,
         Sq, Sk, hd, int(causal), window, softcap, DTYPE_CODES[q.dtype],

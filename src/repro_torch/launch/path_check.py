@@ -5,8 +5,12 @@ through their plain versions, by depth, on the card.
       --layers 6 12 24 38
   PYTHONPATH=src python -m repro_torch.launch.path_check --arch gemma3-12b \\
       --layers 6 7 12 --prompt 1500
+  PYTHONPATH=src python -m repro_torch.launch.path_check --arch gemma3-27b \\
+      --layers 6 7 12 --prompt 1500
 
-Builds ``--arch`` at full width with bf16 random weights (seed 0) and, for
+Builds ``--arch`` at full width with bf16 random weights (seed 0), keeps
+the first max(``--layers``) layers of them (so that a twin fits beside a
+model as large as gemma3-27b's 59.4 GB) and, for
 each depth N of ``--layers``, runs the model's first N layers (and its
 shared block; the same weights), cast to f32 (:func:`f32_twin`, the
 weights of ``chip_smoke.py``'s f32 checks), twice: through
@@ -231,6 +235,8 @@ def main(argv=None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(args.arch)
     params = init_params(cfg, seed=SEED, device="cuda", dtype=torch.bfloat16)
+    _, params = depth_cut(cfg, params, max(args.layers))
+    torch.cuda.empty_cache()
     toks = prompt(cfg, "cuda", args.prompt)
     for n in args.layers:
         cut, sub = f32_twin(cfg, params, n)

@@ -5,6 +5,8 @@
   PYTHONPATH=src python -m repro_torch.launch.profile --trace out.json
   PYTHONPATH=src python -m repro_torch.launch.profile --arch gemma3-12b \\
       --prompt 1500
+  PYTHONPATH=src python -m repro_torch.launch.profile --arch gemma3-27b \\
+      --prompt 1500
 
 Builds ``--arch`` (default deepseek-7b) at full width with random bf16
 weights (seed 0), then traces one prefill of a ``--prompt``-token prompt

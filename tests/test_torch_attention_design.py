@@ -9,8 +9,12 @@ and held against the plain versions of the port and against the JAX
 oracle (``repro.kernels.ref``) on inputs drawn with numpy from a seed;
 with a logit softcap against the plain versions, whose cap is held
 against the JAX model in test_torch_softcap.py. Both emulations cover hd
-240 (a key a warp in decode). The split planner of
-``kernels/decode_attention.py`` is tested too.
+240 (a key a warp in decode) and hd 168 (flash: padded to 176 inside the
+kernel, an 11th k-step and an 11th O group on zero columns; decode: a key
+a warp, lanes 21-31 idle in bf16). The tensor-core kernel's shared-memory
+layout and the f32 kernel's float4 chunks are checked for every head dim
+of ``HEAD_DIMS``. The split planner of ``kernels/decode_attention.py`` is
+tested too.
 """
 import numpy as np
 import pytest
@@ -21,6 +25,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels.common import HEAD_DIMS  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     MAX_SPLITS, SPLIT_CHUNK, decode_attention_plain, plan_splits)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -30,6 +35,7 @@ NEG_INF = -1e30
 BF16_TOL = 2e-2          # |kernel - plain| <= TOL * (1 + |plain|), chip_smoke
 F32_TOL = 2e-5
 H100_SMS = 132
+H100_SMEM_PER_BLOCK = 232448  # bytes of dynamic shared memory a block
 LOG2E = np.float32(1.4426950408889634)
 
 
@@ -50,22 +56,43 @@ def within(out, plain, tol):
 
 # -- flash_attention, bf16 tensor-core design ----------------------------------
 
+def tc_layout(hd, cap=False):
+    """flash_tc_kernel's TcLayout: (columns in shared memory, padded to a
+    multiple of 16; row stride in bf16; dynamic shared-memory bytes of Q
+    and two stages of K and V; warps a 16-row slice: two at hd 240, and
+    at hd 168 with the cap)."""
+    pad = -(-hd // 16) * 16
+    stride = pad + 8
+    split = 2 if pad > 176 or (cap and pad > 128) else 1
+    return pad, stride, 5 * 64 * stride * 2, split
+
+
 def flash_tc_emulated(q, k, v, *, causal, window, softcap=0.0, bq=64,
-                      bk=64):
+                      bk=64, padded_out=False):
     """flash_tc_kernel's arithmetic: q tiles of ``bq`` rows, key tiles of
     ``bk`` from the first tile the window reaches to the last the causal
-    mask allows; S = Q K^T of bf16 values in f32, taken to the exp2
+    mask allows; Q, K and V tiles in ``tc_layout(hd)[0]`` columns, those
+    past hd zero (hd 168: 176, an 11th k-step of 16 columns); S = Q K^T
+    of bf16 values in f32, taken to the exp2
     domain by scale * log2(e) (with a cap c: c log2(e) tanh(S scale / c));
     the mask applied only on tiles that need it
     (diagonal, window edge, past Sk); online softmax with f32 m and l;
-    P rounded to bf16 for P V; out = acc / max(l, 1e-30) in bf16."""
+    P rounded to bf16 for P V, O in all padded columns; out = acc /
+    max(l, 1e-30) in bf16, its first hd columns stored (with
+    ``padded_out``, every column, in f32)."""
     BH, Sq, hd = q.shape
     Sk = k.shape[1]
     group = BH // k.shape[0]
-    kf = k.float().repeat_interleave(group, dim=0)
-    vf = v.float().repeat_interleave(group, dim=0)
+    hdp = tc_layout(hd)[0]
+
+    def padded(t):
+        return torch.nn.functional.pad(t.float(), (0, hdp - hd))
+
+    q = padded(q)
+    kf = padded(k).repeat_interleave(group, dim=0)
+    vf = padded(v).repeat_interleave(group, dim=0)
     scale_log2 = float(LOG2E / np.sqrt(np.float32(hd), dtype=np.float32))
-    out = torch.empty(BH, Sq, hd, dtype=torch.bfloat16)
+    out = torch.empty(BH, Sq, hdp)
     for q0 in range(0, Sq, bq):
         rows = torch.arange(q0, min(q0 + bq, Sq))
         q_last = int(rows[-1])
@@ -74,11 +101,11 @@ def flash_tc_emulated(q, k, v, *, causal, window, softcap=0.0, bq=64,
         qt = q[:, rows].float()
         m = torch.full((BH, len(rows)), NEG_INF)
         l = torch.zeros(BH, len(rows))
-        acc = torch.zeros(BH, len(rows), hd)
+        acc = torch.zeros(BH, len(rows), hdp)
         for kt in range(k_begin, k_end, bk):
             keys = torch.arange(kt, kt + bk)
-            kk = torch.zeros(BH, bk, hd)          # zero-filled past Sk
-            vv = torch.zeros(BH, bk, hd)
+            kk = torch.zeros(BH, bk, hdp)         # zero-filled past Sk
+            vv = torch.zeros(BH, bk, hdp)
             n = min(bk, Sk - kt)
             kk[:, :n], vv[:, :n] = kf[:, kt:kt + n], vf[:, kt:kt + n]
             s = torch.matmul(qt, kk.transpose(1, 2))
@@ -104,8 +131,8 @@ def flash_tc_emulated(q, k, v, *, causal, window, softcap=0.0, bq=64,
             acc = acc * alpha[..., None] + torch.matmul(
                 p.to(torch.bfloat16).float(), vv)
             m = mx
-        out[:, rows] = (acc / l.clamp_min(1e-30)[..., None]).to(torch.bfloat16)
-    return out
+        out[:, rows] = acc / l.clamp_min(1e-30)[..., None]
+    return out if padded_out else out[..., :hd].to(torch.bfloat16)
 
 
 @pytest.mark.parametrize("bh,bh_kv,sq,sk,hd,causal,window", [
@@ -118,6 +145,10 @@ def flash_tc_emulated(q, k, v, *, causal, window, softcap=0.0, bq=64,
     (2, 2, 130, 70, 128, True, 0),      # Sq > Sk, causal on absolute index
     (4, 2, 130, 130, 240, True, 0),     # gemma3-12b's hd 240, GQA
     (2, 2, 200, 200, 240, True, 64),    # hd 240, window
+    (4, 2, 130, 130, 168, True, 0),     # gemma3-27b's hd 168, GQA
+    (2, 1, 200, 200, 168, True, 64),    # hd 168, window across tiles
+    (2, 2, 64, 150, 168, False, 0),     # hd 168, Sq != Sk
+    (4, 2, 63, 63, 168, True, 0),       # hd 168, ragged S
 ])
 def test_flash_tc_design_matches_plain_and_ref(bh, bh_kv, sq, sk, hd, causal,
                                                window):
@@ -136,7 +167,7 @@ def test_flash_tc_design_matches_plain_and_ref(bh, bh_kv, sq, sk, hd, causal,
 
 
 @pytest.mark.parametrize("hd,window,cap", [(64, 0, 1.0), (128, 48, 3.0),
-                                           (240, 0, 2.0)])
+                                           (240, 0, 2.0), (168, 48, 2.0)])
 def test_flash_tc_design_with_softcap_matches_plain(hd, window, cap):
     """The cap in natural units before the exp2 domain, against the plain
     version's c tanh(s / c); scores reach ~4 c, so the cap binds."""
@@ -150,6 +181,63 @@ def test_flash_tc_design_with_softcap_matches_plain(hd, window, cap):
     within(emu, plain, BF16_TOL)
     assert float((plain.float() - flash_attention_plain(
         tq, tk, tv, window=window).float()).abs().max()) > 5e-2
+
+
+def test_flash_tc_hd168_pads_only_inside_the_kernel():
+    """At hd 168 the tiles hold 176 columns: the 11th k-step multiplies
+    zero columns of Q and K (its product is exactly 0, so the padded S
+    equals the unpadded one), the 11th O group's last 8 columns are
+    exactly 0 (V's zero columns), and the stored columns are the first
+    168, equal to the unpadded emulation's."""
+    rng = np.random.default_rng(168)
+    tq, tk, tv = (draw(rng, (b, 130, 168), torch.bfloat16)[0]
+                  for b in (4, 2, 2))
+    full = flash_tc_emulated(tq, tk, tv, causal=True, window=0,
+                             padded_out=True)
+    assert full.shape == (4, 130, 176)
+    assert bool((full[..., 168:] == 0).all())
+    stored = flash_tc_emulated(tq, tk, tv, causal=True, window=0)
+    assert torch.equal(stored, full[..., :168].to(torch.bfloat16))
+    qp, kp = (torch.nn.functional.pad(t.float(), (0, 8)) for t in (tq, tk))
+    last = torch.matmul(qp[..., 160:176], kp[..., 160:176].transpose(1, 2)
+                        .repeat_interleave(2, 0))
+    part = torch.matmul(tq.float()[..., 160:168], tk.float()[..., 160:168]
+                        .transpose(1, 2).repeat_interleave(2, 0))
+    assert torch.equal(last, part)
+    within(stored, flash_attention_plain(tq, tk, tv), BF16_TOL)
+
+
+@pytest.mark.parametrize("cap", [False, True])
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_flash_tc_layout_is_conflict_free_and_fits(hd, cap):
+    """Every head dim's smem rows are an odd count of 16-byte units (so
+    the 8 rows an ldmatrix reads fall on distinct banks), the tiles fit
+    a block's shared memory, and a warp's O stays at most 11 groups of
+    16 columns (hd 240 splits them over two warps); hd 168: 176 columns,
+    a stride of 184, 117,760 bytes, one warp a slice without the cap and
+    two with it (6 and 5 groups)."""
+    pad, stride, nbytes, split = tc_layout(hd, cap)
+    assert pad % 16 == 0 and 0 <= pad - hd < 16 and hd % 8 == 0
+    assert (stride * 2 // 16) % 2 == 1
+    assert nbytes <= H100_SMEM_PER_BLOCK
+    assert -(-pad // 16 // split) <= 11
+    if hd == 168:
+        assert (pad, stride, nbytes, split) == (176, 184, 117760, 1 + cap)
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_flash_f32_chunks_cover_each_row_once(hd):
+    """flash_f32_kernel's 4 threads a row own float4 chunks sub + 4 c for
+    c < ceil(hd / 16), those past the row not owned: every chunk of the
+    row is owned exactly once (hd 168: 42 chunks, threads 0-1 own 11,
+    2-3 own 10)."""
+    n4, tpr = hd // 4, 4
+    owned = [sub + tpr * c for sub in range(tpr)
+             for c in range(-(-n4 // tpr)) if sub + tpr * c < n4]
+    assert sorted(owned) == list(range(n4))
+    if hd == 168:
+        assert [sum(1 for c in range(11) if sub + 4 * c < 42)
+                for sub in range(4)] == [11, 11, 10, 10]
 
 
 def test_flash_tc_tiles_skip_only_dead_keys():
@@ -173,7 +261,8 @@ def test_flash_tc_tiles_skip_only_dead_keys():
 
 def keys_per_warp_load(hd, element_size):
     """The split kernel's KeyLayout: a key's 16-byte vectors take hd / vec
-    lanes where that divides the warp, else the whole warp (hd 240)."""
+    lanes where that divides the warp, else the whole warp (hd 168 and
+    240)."""
     row = hd // (16 // element_size)
     return 32 // row if row <= 32 and 32 % row == 0 else 1
 
@@ -272,6 +361,9 @@ def decode_split_emulated(q, k, v, lengths, *, window, softcap=0.0):
     (4, 4, 5000, 32, 0, [5000, 129, 4097, 1]),         # span 128
     (4, 2, 1024, 240, 0, [1024, 600, 1, 65]),          # hd 240, GQA
     (4, 4, 300, 240, 100, [150, 300, 64, 1]),          # hd 240, window
+    (4, 2, 1024, 168, 0, [1024, 600, 1, 65]),          # hd 168, GQA
+    (8, 4, 1024, 168, 0, [1, 63, 64, 65, 127, 128, 129, 1024]),  # edges
+    (4, 4, 300, 168, 100, [150, 300, 64, 1]),          # hd 168, window
 ])
 def test_decode_split_design_matches_plain_and_ref(dtype, bh, bh_kv, s, hd,
                                                    window, lens):
@@ -292,7 +384,7 @@ def test_decode_split_design_matches_plain_and_ref(dtype, bh, bh_kv, s, hd,
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd,cap", [(64, 1.0), (240, 2.0)])
+@pytest.mark.parametrize("hd,cap", [(64, 1.0), (240, 2.0), (168, 1.5)])
 def test_decode_split_design_with_softcap_matches_plain(dtype, hd, cap):
     dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
     tol = F32_TOL if dtype == "float32" else BF16_TOL
@@ -308,7 +400,8 @@ def test_decode_split_design_with_softcap_matches_plain(dtype, hd, cap):
 
 @pytest.mark.parametrize("hd,size,kpl", [(128, 2, 2), (128, 4, 1),
                                          (64, 2, 4), (16, 4, 8),
-                                         (240, 2, 1), (240, 4, 1)])
+                                         (240, 2, 1), (240, 4, 1),
+                                         (168, 2, 1), (168, 4, 1)])
 def test_keys_per_warp_load(hd, size, kpl):
     assert keys_per_warp_load(hd, size) == kpl
 

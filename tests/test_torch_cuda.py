@@ -255,19 +255,90 @@ def test_cuda_attention_hd240_and_softcap_match_plain(card, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_attention_hd168_matches_plain(card, dtype):
+    """gemma3-27b's head dim 168 in both attention kernels (bf16 flash: 11
+    k-steps, the last on columns zero-filled in shared memory, stores
+    stopping at column 167; f32 flash: 42 float4 chunks over 4 threads;
+    decode: a key a warp, lanes 21-31 idle in bf16): its serving shapes
+    (BH 32 over 16, S 600 causal, S 1500 with the window of 1024; decode
+    at cache 1024, lengths 1024 and 600, and cache 2048 at 1904), ragged
+    S across the 64-row tiles, Sq != Sk, a window across tile edges, a
+    softcap, lengths on split edges. The flash output written into a
+    NaN-poisoned buffer equals the plain version in every row, and the
+    elements past it stay NaN. A head dim the kernels lack is refused."""
+    g = torch.Generator(device=card).manual_seed(5)
+    dt = TDT[dtype]
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=card) * scale).to(dt)
+
+    for bh, bh_kv, sq, sk, causal, window, cap in (
+            (32, 16, 600, 600, True, 0, 0.0),
+            (4, 2, 1500, 1500, True, 1024, 0.0),
+            (4, 2, 1, 1, True, 0, 0.0), (4, 2, 63, 63, True, 0, 0.0),
+            (4, 2, 65, 65, True, 0, 0.0), (4, 2, 130, 130, True, 0, 0.0),
+            (2, 2, 64, 150, False, 0, 0.0), (2, 2, 130, 70, True, 0, 0.0),
+            (2, 1, 200, 200, True, 64, 0.0),
+            (4, 2, 130, 130, True, 48, 2.0)):
+        sc = 2.0 if cap else 1.0
+        q = r(bh, sq, 168, scale=sc)
+        k, v = r(bh_kv, sk, 168, scale=sc), r(bh_kv, sk, 168)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        want = flash_attention_plain(q, k, v, **kw)
+        torch.testing.assert_close(flash_attention_cuda(q, k, v, **kw), want,
+                                   **TOL[dtype])
+        n = q.numel()
+        buf = torch.full((n + 64,), float("nan"), dtype=dt, device=card)
+        out = flash_attention_cuda(q, k, v, out=buf[:n].view(q.shape), **kw)
+        assert out.data_ptr() == buf.data_ptr()
+        torch.testing.assert_close(out, want, **TOL[dtype])
+        assert bool(buf[n:].isnan().all())
+    for bh, bh_kv, s, window, cap, lens in (
+            (32, 16, 1024, 0, 0.0, [1024, 600] * 16),
+            (32, 16, 2048, 0, 0.0, [1904] * 32),
+            (8, 4, 1024, 0, 0.0, [1, 63, 64, 65, 127, 128, 129, 1024]),
+            (4, 4, 1024, 100, 0.0, [150, 1024, 64, 1]),
+            (8, 4, 1024, 0, 1.5, [1024, 1024, 700, 3, 1, 64, 65, 1000])):
+        sc = 2.0 if cap else 1.0
+        q = r(bh, 1, 168, scale=sc)
+        k, v = r(bh_kv, s, 168, scale=sc), r(bh_kv, s, 168)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=card)
+        kw = dict(window=window, softcap=cap)
+        torch.testing.assert_close(
+            decode_attention_cuda(q, k, v, lengths, **kw),
+            decode_attention_plain(q, k, v, lengths, **kw), **TOL[dtype])
+    for hd in (8, 96, 176):
+        q, k = r(2, 16, hd), r(2, 16, hd)
+        with pytest.raises(ValueError, match="head dim"):
+            flash_attention_cuda(q, k, k)
+        with pytest.raises(ValueError, match="head dim"):
+            decode_attention_cuda(q[:, :1].contiguous(), k, k,
+                                  torch.full((2,), 16, dtype=torch.int32,
+                                             device=card))
+    torch.cuda.synchronize()
+
+
+# gemma3-27b at a narrow width that keeps its head dim 168
+GRAPH_CONFIGS = {"gemma3-27b": dict(d_model=336, n_heads=2, n_kv_heads=1)}
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["deepseek-7b", "zamba2-1.2b", "rwkv6-1.6b",
                                   "granite-moe-3b-a800m",
                                   "moonshot-v1-16b-a3b", "qwen2-vl-2b",
-                                  "musicgen-large", "gemma3-12b"])
+                                  "musicgen-large", "gemma3-12b",
+                                  "gemma3-27b"])
 def test_cuda_graph_replay_matches_eager_decode(card, arch):
     """Each slot's captured decode step against ``LM.decode_step`` on a
-    twin cache (gemma3-12b: its rings of 16 slots wrap during the steps),
+    twin cache (gemma3: its rings of 16 slots wrap during the steps;
+    gemma3-27b at d 336 over 2 heads, so hd 168),
     in f32 at smoke size, before and right after the request
     is swapped from slot 0 into slot 1 (slot 0 then holds NaN): within
     1e-6 of the logits' scale (bitwise where the graph replays the eager
     kernels as they are). The launch counts grow by the launches of one
     capture a replay; warm-up, capture and the eager twin count nothing."""
-    cfg = get_smoke(arch)
+    cfg = get_smoke(arch).with_(**GRAPH_CONFIGS.get(arch, {}))
     lm = LM.from_params(cfg, init_params(cfg, seed=0, device=card,
                                          dtype=torch.float32))
     g = torch.Generator(device=card).manual_seed(3)
