@@ -8,8 +8,8 @@ and the CUDA toolkit (nvcc). It imports nothing of JAX or of the JAX
 package. In order it:
 
 1. prints the card (nvidia-smi name and power limit) and the versions;
-2. builds the port's six CUDA kernels from src/repro_torch/csrc into
-   build/repro_torch/ (timed as set-up);
+2. builds the port's CUDA kernels (seven sources) from
+   src/repro_torch/csrc into build/repro_torch/ (timed as set-up);
 3. counts the tensor-core instructions (HMMA) of the attention and
    scan kernels in the built library's SASS (cuobjdump), and fails if
    the bf16 flash_attention kernel of any head dim of HEAD_DIMS or the
@@ -48,6 +48,36 @@ package. In order it:
    the rwkv6_scan chunks' in bf16 and f32, the state at 2e-5 (S 1, 15,
    16, 17, 513, hd 16 / 32 / 128, one u row, w at 0, 1, 1e-30 and
    1 - 2^-24);
+4b. holds the four backward kernels against autograd through the plain
+   versions, each twice for bitwise equality: fused_rmsnorm_bwd at
+   (8192, 4096) and (1, 4096), flash_bwd_preprocess, flash_bwd_dkdv and
+   flash_bwd_dq at BH 64 (2 x 32 heads), S 4096, hd 128, causal (the
+   training shapes), in bf16 and f32, timed beside the library's backward
+   (F.rms_norm's, SDPA's) and their bounds; untimed, the forward
+   kernels' log-sum-exp and the whole attention backward at hd 64, 168
+   and 240, GQA G = 3, a window of 1024 at S 1500 and ragged S 1, 63,
+   65, 130 (dw of the norm, a sum over N rows, at 2e-5 sqrt(N)); then
+   checks that decode_attention, ssm_scan, rwkv6_scan and a capped
+   flash_attention raise where a gradient is wanted;
+4c. trains deepseek-7b at full width (d 4096, 32 x 128 heads, d_ff
+   11008, vocab 102400) cut to 12 layers (3.267 B parameters, 52.3 GB of
+   f32 masters, grads and AdamW moments; 30 layers would take 111 GB)
+   for 5 steps of batch 4 x 4096 tokens in 2 microbatches through
+   make_train_step, f32 masters cast to bf16 on use, per-layer remat,
+   the launch counts set to 0 just before and read just after (each
+   layer's attention and two norms run forward twice, the forward and
+   the recomputation, and backward once); prints each step's loss, lr,
+   grad norm and wall, tokens/s, model TFLOP/s and its share of 989, the
+   traced last step's busy share and the backward kernels' share of the
+   wall, and peak memory; fails unless the losses are finite and fall
+   and every parameter has a non-zero gradient. At 2 layers: step 0's
+   loss and every gradient leaf through the kernels against the plain
+   path, f32 and bf16, within the noise floor measured there (the bf16
+   plain path's distance from the f32 one); the gradients with remat
+   bitwise equal to those without; 4 steps uninterrupted against 3
+   steps, a checkpoint (CheckpointManager, JAX's layout, written on a
+   thread), a fresh model and optimizer restored from it and step 3
+   again, bitwise;
 5. for each of deepseek-7b, zamba2-1.2b, rwkv6-1.6b,
    granite-moe-3b-a800m (32 layers of GQA attention and 40 experts, top
    8), qwen2-vl-2b (28 layers, M-RoPE, 12 query heads over 2 KV heads,
@@ -132,10 +162,13 @@ package. In order it:
 7. prints a JSON line of the kernels, then the result line.
 
 Any failed check exits non-zero. Without a CUDA device it exits non-zero
-and prints no result.
+and prints no result. ``--phases`` runs a subset of kernels, train,
+models and mc (for a partial check on the card); it then prints no
+result line.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import gc
 import json
@@ -226,14 +259,16 @@ def bound(nbytes: float, flops: float, flops_per_s: float
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def max_err(out, ref, tol: float = TOL) -> tuple[float, bool]:
+def max_err(out, ref, tol=TOL) -> tuple[float, bool]:
     """Max |out - ref| over a tensor or a tuple of tensors (a scan's output
-    and final state), and whether every element is within
-    ``tol * (1 + |ref|)`` and finite."""
+    and final state, a backward's gradients), and whether every element
+    is within ``tol * (1 + |ref|)`` and finite; ``tol`` is one tolerance
+    or one for each tensor."""
     if isinstance(out, torch.Tensor):
         out, ref = (out,), (ref,)
+    tols = tol if isinstance(tol, tuple) else (tol,) * len(out)
     err, ok = 0.0, True
-    for o, r in zip(out, ref, strict=True):
+    for o, r, tol in zip(out, ref, tols, strict=True):
         o, r = o.float(), r.float()
         diff = (o - r).abs()
         err = max(err, float(diff.max()))
@@ -257,6 +292,7 @@ class Case(NamedTuple):
     timed: bool = True   # False: an edge case, checked but not timed
     serving: bool = True  # in the serving path's dtype (the JSON line's)
     model: Optional[str] = None  # a model's own shape, listed apart
+    bitwise: bool = False  # two calls must give the same bits
 
 
 def kernel_cases(kp):
@@ -824,8 +860,14 @@ def kernel_phase(kp, timer) -> dict:
     tiny = torch.zeros(1, device="cuda")
     print(f"timer floor: a 1-element add_ takes {timer(lambda: tiny.add_(1.0)):.4f}"
           " ms in this timer (launch and L2 refill included)", flush=True)
-    rows = {}
-    for c in kernel_cases(kp):
+    return run_cases(kernel_cases(kp), timer, {})
+
+
+def run_cases(cases, timer, rows: dict) -> dict:
+    """Checks each case's kernel against its plain version (and, for a
+    ``bitwise`` case, a second call against the first), times the timed
+    ones and keeps each kernel's JSON row in ``rows``."""
+    for c in cases:
         out = c.kern()
         torch.cuda.synchronize()
         err, ok = max_err(out, c.plain(), c.tol)
@@ -833,6 +875,14 @@ def kernel_phase(kp, timer) -> dict:
             fail(f"{c.name} [{c.label}]: kernel disagrees with its plain "
                  f"version, max |diff| {err:.3e} (tolerance {c.tol} * (1 + "
                  f"|plain|))")
+        if c.bitwise:
+            again = c.kern()
+            if not all(torch.equal(a, b) for a, b in zip(
+                    (out,) if isinstance(out, torch.Tensor) else out,
+                    (again,) if isinstance(again, torch.Tensor) else again,
+                    strict=True)):
+                fail(f"{c.name} [{c.label}]: two calls differ in their bits")
+            del again
         if not c.timed:
             print(f"kernel {c.name} [{c.label}]: max_abs_err {err:.3e} "
                   f"(tolerance {c.tol})", flush=True)
@@ -861,6 +911,467 @@ def kernel_phase(kp, timer) -> dict:
         elif c.serving and b_ms >= row.get("bound_ms", -1.0):
             row.update(measured)
     return rows
+
+
+# -- phase 4b: the backward kernels against autograd through the plain versions
+
+# the forward kernels' log-sum-exp: f32 at the kernel tolerance; the bf16
+# kernel sums exp2 of log2-scaled scores and takes m ln 2 + ln l, an f32
+# rounding away from the plain logsumexp of the same inputs' scores
+LSE_TOL = {torch.float32: F32_TOL, torch.bfloat16: 1e-4}
+
+
+def dw_tol(n: int) -> float:
+    """dw sums n rows of f32 products (in either dtype): the rounding of
+    such a sum grows as sqrt(n) in any order (the plain version's own dw
+    is 4.5e-5 from the f64 sum at n 4096), so it is held at the f32
+    kernel tolerance times sqrt(n)."""
+    return F32_TOL * n ** 0.5
+
+
+def retained_grad(out, inputs, grad):
+    """A call computing d(out)/d(inputs) . grad on a graph built once (the
+    backward alone, as a train step runs it)."""
+    return lambda: torch.autograd.grad(out, inputs, grad, retain_graph=True)
+
+
+def backward_cases(rt):
+    """The backward kernels at the training phase's shapes (deepseek-7b at
+    full width: norms of (8192, 4096) rows of a microbatch and the
+    decode-sized (1, 4096); attention at BH 64 = 2 x 32 heads, S 4096,
+    hd 128, causal), in bf16 (the train step's dtype) and f32, each
+    against autograd through the plain version on the same inputs and
+    twice for bitwise equality; then untimed: the log-sum-exp of both
+    forward kernels, and the whole attention backward at hd 64, 168 and
+    240, GQA G = 3, a window of 1024 at S 1500, and ragged S 1, 63, 65,
+    130. From a generator of their own, after the forward rows."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    kb = rt.backward
+
+    def randn(*shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale) \
+            .to(dtype)
+
+    for dt, tol, peak in ((torch.bfloat16, TOL, BF16_FLOPS_PER_S),
+                          (torch.float32, F32_TOL, F32_FLOPS_PER_S)):
+        tag, size = str(dt)[6:], torch.finfo(dt).bits // 8
+        d = 4096
+        for n in (8192, 1):
+            x, dy = randn(n, d, dtype=dt), randn(n, d, dtype=dt)
+            w = randn(d, dtype=torch.float32, scale=0.1)
+            xg, wg = (t.clone().requires_grad_(True) for t in (x, w))
+            plain = retained_grad(kb["fused_rmsnorm_plain"](xg, wg), (xg, wg),
+                                  dy)
+            xl, wl = x.clone().requires_grad_(True), w.clone() \
+                .requires_grad_(True)
+            lib_out = F.rms_norm(xl, (d,), (1.0 + wl).to(dt), eps=1e-6)
+            yield Case("fused_rmsnorm_bwd", f"x ({n}, {d}), {tag}",
+                       lambda x=x, w=w, dy=dy: kb["fused_rmsnorm_bwd"](
+                           x, w, dy),
+                       plain, retained_grad(lib_out, (xl, wl), dy),
+                       3 * n * d * size + 2 * d * 4, 10 * n * d, peak,
+                       (tol, dw_tol(n)), serving=dt == torch.bfloat16,
+                       bitwise=True)
+        bh, s, hd = 64, 4096, 128
+        q, k, v, do = (randn(bh, s, hd, dtype=dt) for _ in range(4))
+        out, lse = kb["flash_lse"](q, k, v)
+        delta = kb["flash_bwd_preprocess"](out, do)
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+        plain = retained_grad(kb["flash_plain"](qg, kg, vg), (qg, kg, vg), do)
+        ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
+        lib = retained_grad(F.scaled_dot_product_attention(
+            ql[None], kl[None], vl[None], is_causal=True)[0], (ql, kl, vl),
+            do)
+        pairs = bh * s * (s + 1) // 2
+        label = f"BH {bh}, S {s}, hd {hd}, causal, {tag}"
+        serving = dt == torch.bfloat16
+        yield Case("flash_bwd_preprocess", label,
+                   lambda: kb["flash_bwd_preprocess"](out, do),
+                   lambda: kb["flash_bwd_preprocess_plain"](out, do), None,
+                   2 * bh * s * hd * size + bh * s * 4, 2 * bh * s * hd,
+                   peak, tol, serving=serving, bitwise=True)
+        rows_io = 2 * bh * s * 4                      # lse and D read
+        yield Case("flash_bwd_dkdv", label + " (plain and library: all "
+                   "three grads)",
+                   lambda: kb["flash_bwd_dkdv"](q, k, v, do, lse, delta),
+                   lambda: plain()[1:], lambda: lib()[1:],
+                   6 * bh * s * hd * size + rows_io, 8 * hd * pairs, peak,
+                   tol, serving=serving, bitwise=True)
+        yield Case("flash_bwd_dq", label + " (plain and library: all three "
+                   "grads)",
+                   lambda: kb["flash_bwd_dq"](q, k, v, do, lse, delta),
+                   lambda: plain()[0], lambda: lib()[0],
+                   5 * bh * s * hd * size + rows_io, 6 * hd * pairs, peak,
+                   tol, serving=serving, bitwise=True)
+        yield Case("flash_attention", f"lse, {label}",
+                   lambda: kb["flash_lse"](q, k, v)[1],
+                   lambda: kb["flash_lse_plain"](q, k), None, 0, 0, peak,
+                   LSE_TOL[dt], timed=False, bitwise=True)
+        del q, k, v, do, out, lse, delta, qg, kg, vg, ql, kl, vl, plain, lib
+    edges = (("hd 64", 8, 8, 600, 64, 0), ("hd 168, G = 2", 16, 8, 600, 168, 0),
+             ("hd 240, G = 2", 16, 8, 600, 240, 0),
+             ("GQA G = 3", 24, 8, 600, 64, 0),
+             ("window 1024, S 1500", 8, 8, 1500, 128, 1024),
+             ("S 1", 4, 4, 1, 128, 0), ("S 63", 4, 4, 63, 128, 0),
+             ("S 65", 4, 4, 65, 128, 0), ("S 130", 4, 4, 130, 128, 0))
+    for dt, tol in ((torch.bfloat16, TOL), (torch.float32, F32_TOL)):
+        for label, bh, bh_kv, s, hd, window in edges:
+            q, do = randn(bh, s, hd, dtype=dt), randn(bh, s, hd, dtype=dt)
+            k, v = randn(bh_kv, s, hd, dtype=dt), randn(bh_kv, s, hd, dtype=dt)
+            yield Case("flash_bwd", f"dq, dk, dv, {label}, {str(dt)[6:]}",
+                       lambda a=(q, k, v, do), w=window: kb["flash_grads"](
+                           *a, window=w),
+                       lambda a=(q, k, v, do), w=window: kb["flash_bwd_plain"](
+                           *a, window=w),
+                       None, 0, 0, BF16_FLOPS_PER_S, tol, timed=False,
+                       bitwise=True)
+            yield Case("flash_attention", f"lse, {label}, {str(dt)[6:]}",
+                       lambda a=(q, k, v), w=window: kb["flash_lse"](
+                           *a, window=w)[1],
+                       lambda a=(q, k), w=window: kb["flash_lse_plain"](
+                           *a, window=w),
+                       None, 0, 0, BF16_FLOPS_PER_S, LSE_TOL[dt], timed=False)
+
+
+def flash_grads(rt, q, k, v, do, window=0):
+    """(dq, dk, dv) of ``ops.flash_attention`` on the card through autograd:
+    the forward kernel with its log-sum-exp and the three backward
+    kernels."""
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    with rt.ops.uncounted():
+        rt.ops.flash_attention(qg, kg, vg, window=window).backward(do)
+    return qg.grad, kg.grad, vg.grad
+
+
+def guard_checks(rt) -> None:
+    """Kernels without a backward raise where a gradient is wanted, on the
+    card, and never hand back an output without a grad_fn."""
+    dev = "cuda"
+    q = torch.randn(2, 1, 64, device=dev, requires_grad=True)
+    k = torch.randn(2, 8, 64, device=dev)
+    lengths = torch.full((2,), 8, dtype=torch.int32, device=dev)
+    qq = torch.randn(2, 8, 64, device=dev, requires_grad=True)
+    x = torch.randn(2, 16, 16, device=dev, requires_grad=True)
+    w = torch.rand(2, 16, 16, device=dev)
+    calls = {
+        "decode_attention": lambda: rt.ops.decode_attention(q, k, k, lengths),
+        "flash_attention (softcap 2.0)": lambda: rt.ops.flash_attention(
+            qq, k, k, softcap=2.0),
+        "ssm_scan": lambda: rt.ops.ssm_scan(x, w, w, torch.zeros(
+            2, 16, device=dev), chunk=16),
+        "rwkv6_scan": lambda: rt.ops.rwkv6_scan(x, w, w, w, torch.zeros(
+            2, 16, device=dev)),
+    }
+    for name, call in calls.items():
+        try:
+            call()
+        except NotImplementedError as e:
+            print(f"guard {name}: raises under grad ({e})", flush=True)
+            continue
+        fail(f"guard {name}: returned an output where a gradient is wanted")
+
+
+# -- phase 5: training deepseek-7b at full width ------------------------------
+
+TRAIN_ARCH = "deepseek-7b"
+TRAIN_LAYERS = 12          # 3.267 B parameters, 52.3 GB of f32 state
+CHECK_LAYERS = 2           # the kernel-vs-plain, resume and remat checks
+TRAIN_STEPS = 5            # the last one traced
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MB = 4096, 4, 2    # train_4k; 16,384 tokens
+
+
+def train_config(rt, steps: int):
+    return rt.TrainConfig(lr=3e-4, warmup_steps=1, total_steps=steps,
+                          microbatches=TRAIN_MB)
+
+
+def train_model(rt, n_layers: int, dtype=torch.bfloat16, kernels=None,
+                params=None):
+    cfg = rt.configs.get_config(TRAIN_ARCH).with_(n_layers=n_layers)
+    if params is None:
+        params = rt.init_params(cfg, seed=SEED, device="cuda",
+                                dtype=torch.float32)
+    return rt.LM.from_params(cfg, params, dtype=dtype,
+                             kernels=kernels or rt.ops)
+
+
+def train_flops(cfg, tokens: int, seq: int) -> float:
+    """Model FLOPs of a train step (no remat recomputation): 6 per matmul
+    parameter (the layers' and the head's) a token, and the causal
+    attention's 2 S d a token a layer, three times (forward, backward)."""
+    d, L = cfg.d_model, cfg.n_layers
+    per_layer = 4 * d * cfg.n_heads * cfg.hd + 3 * d * cfg.d_ff
+    matmul = L * per_layer + d * cfg.vocab
+    return 6 * matmul * tokens + 3 * 2 * seq * d * L * tokens
+
+
+def train_launches(cfg, steps: int) -> dict:
+    """Kernel launches of ``steps`` train steps of TRAIN_MB microbatches
+    with remat: each layer's attention and two norms run forward twice
+    (the forward, the recomputation) and backward once; the final norm
+    is outside the checkpoints."""
+    L, n = cfg.n_layers, steps * TRAIN_MB
+    return {"fused_rmsnorm": (4 * L + 1) * n, "fused_rmsnorm_bwd": (2 * L + 1) * n,
+            "flash_attention": 2 * L * n, "flash_bwd_preprocess": L * n,
+            "flash_bwd_dkdv": L * n, "flash_bwd_dq": L * n}
+
+
+def train_phase(rt, smi: str) -> dict:
+    """(c): deepseek-7b at full width, TRAIN_LAYERS layers, trains
+    TRAIN_STEPS steps of batch 4 x 4096 tokens in 2 microbatches through
+    make_train_step; the launch counts set to 0 just before and read just
+    after."""
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = t0 = time.perf_counter()
+    lm = train_model(rt, TRAIN_LAYERS)
+    cfg = lm.cfg
+    params = dict(lm.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    opt = rt.init_opt_state(params)
+    torch.cuda.synchronize()
+    full = rt.configs.get_config(TRAIN_ARCH).n_layers
+    print(f"train {cfg.name}: {cfg.n_layers} of {full} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}: {n_params / 1e9:.3f} B parameters, f32 "
+          f"masters + grads + m + v {16 * n_params / 1e9:.1f} GB; set up in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    tcfg = train_config(rt, TRAIN_STEPS)
+    data = rt.SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                          batch=TRAIN_BATCH, seed=SEED, device="cuda")
+    step_fn = rt.make_train_step(lm, tcfg)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, tokens, TRAIN_SEQ)
+    losses, walls = [], []
+    rt.ops.reset_launch_counts()
+    for step in range(TRAIN_STEPS):
+        batch = data.next_batch()
+        traced = step == TRAIN_STEPS - 1
+        torch.cuda.synchronize()
+        if traced:
+            wall_ms, by_kernel = traced_step(rt, lambda: step_fn(opt, batch))
+            opt, metrics = by_kernel.pop("result")
+            wall = wall_ms / 1e3
+        else:
+            t0 = time.perf_counter()
+            opt, metrics = step_fn(opt, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        loss = float(metrics["loss"])
+        losses.append(loss)
+        walls.append(wall)
+        print(f"train step {step}: loss {loss:.4f} lr {metrics['lr']:.3e} "
+              f"gnorm {float(metrics['grad_norm']):.4f} wall {wall:.3f} s"
+              f"{' (traced)' if traced else ''}; {tokens / wall:.0f} tokens/s,"
+              f" model {flops / wall / 1e12:.1f} TFLOP/s "
+              f"({flops / wall / BF16_FLOPS_PER_S:.3f} of 989)", flush=True)
+    counts = rt.ops.launch_counts()
+    expect = train_launches(cfg, TRAIN_STEPS)
+    for name, n in counts.items():
+        if n != expect.get(name, 0):
+            fail(f"train: kernel {name}: {n} launches, the train steps make "
+                 f"{expect.get(name, 0)}")
+    print(f"train launches {counts}", flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"train: losses {losses} not finite or not falling")
+    no_grad = [n for n, p in params.items()
+               if p.grad is None or not bool(p.grad.abs().max() > 0)]
+    if no_grad:
+        fail(f"train: {len(no_grad)} parameters without a gradient, e.g. "
+             f"{no_grad[:4]}")
+    untraced = walls[1:-1]
+    wall = statistics.median(untraced)
+    busy, bwd = by_kernel["busy"], by_kernel["bwd"]
+    print(f"train {cfg.name} ({smi}): step wall median {wall:.3f} s of "
+          f"steps 1-{TRAIN_STEPS - 2} (step 0 {walls[0]:.3f} s), "
+          f"{tokens / wall:.0f} tokens/s, model {flops / wall / 1e12:.1f} "
+          f"TFLOP/s = {flops / wall / BF16_FLOPS_PER_S:.3f} of 989 "
+          f"({flops / 1e12:.1f} TFLOP a step); traced step busy "
+          f"{busy:.1f} ms of {walls[-1] * 1e3:.1f} ms wall (idle "
+          f"{1 - busy / (walls[-1] * 1e3):.3f}); backward kernels "
+          + ", ".join(f"{k} {ms:.1f} ms ({ms / (walls[-1] * 1e3):.3f} of "
+                      "the wall)" for k, ms in bwd.items())
+          + f"; every one of {len(params)} parameters has a non-zero "
+          f"gradient; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    for name, ms, calls in by_kernel["top"]:
+        print(f"train kernel {name[:90]}: {ms:.1f} ms in {calls} calls",
+              flush=True)
+    del lm, params, opt, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def traced_step(rt, fn):
+    """One step under torch.profiler: (wall ms, {"busy": device ms,
+    "bwd": {kernel group: device ms}, "top": the 8 longest kernels,
+    "result": fn's result})."""
+    prof = rt.profile
+    result = {}
+    wall_ms, by_group, kernels = prof.traced(
+        lambda: result.setdefault("r", fn()))
+    bwd = {"flash_bwd_dkdv": 0.0, "flash_bwd_dq": 0.0,
+           "flash_bwd_preprocess": 0.0, "rmsnorm_bwd": 0.0}
+    for name, ms, _ in kernels:
+        for key in bwd:
+            if key in name:
+                bwd[key] += ms
+    return wall_ms, {"busy": sum(ms for _, ms, _ in kernels), "bwd": bwd,
+                     "top": kernels[:8], "result": result["r"]}
+
+
+def grads_of(rt, lm, batch, remat=True):
+    """(loss, {name: f32 grad copy}) of one step's microbatches."""
+    for p in lm.parameters():
+        p.requires_grad_(True)
+    loss, grads = rt.loss_and_grads(lm, batch, train_config(rt, 1), remat)
+    out = {n: g.clone() for n, g in grads.items()}
+    for p in lm.parameters():
+        p.grad = None
+    return float(loss), out
+
+
+def rel_grad(a: dict, b: dict) -> dict:
+    """max |a - b| / max |b| of each leaf."""
+    return {n: float((a[n] - b[n]).abs().max())
+            / max(float(b[n].abs().max()), 1e-30) for n in b}
+
+
+def train_checks(rt) -> None:
+    """(d)-(f) at full width, the depth cut to CHECK_LAYERS: step 0's loss
+    and gradients through the kernels against the plain path (bf16 within
+    the noise floor measured here, f32 at F32_PATH_TOL); resume from a
+    checkpoint bitwise; remat bitwise."""
+    t0 = time.perf_counter()
+    cfg = rt.configs.get_config(TRAIN_ARCH).with_(n_layers=CHECK_LAYERS)
+    params = rt.init_params(cfg, seed=SEED, device="cuda",
+                            dtype=torch.float32)
+    batch = rt.SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                           batch=TRAIN_BATCH, seed=SEED,
+                           device="cuda").next_batch()
+    paths = {}
+    for key, dt, kern in (("k16", torch.bfloat16, rt.ops),
+                          ("p16", torch.bfloat16, rt.plain),
+                          ("k32", torch.float32, rt.ops),
+                          ("p32", torch.float32, rt.plain)):
+        with rt.ops.uncounted():
+            paths[key] = grads_of(rt, train_model(
+                rt, CHECK_LAYERS, dt, kern, params), batch)
+    (l_k16, g_k16), (l_p16, g_p16) = paths["k16"], paths["p16"]
+    (l_k32, g_k32), (l_p32, g_p32) = paths["k32"], paths["p32"]
+    f32_rel = abs(l_k32 - l_p32) / abs(l_p32)
+    k16_rel = abs(l_k16 - l_p32) / abs(l_p32)
+    p16_rel = abs(l_p16 - l_p32) / abs(l_p32)
+    loss_tol = max(F32_PATH_TOL, 2.0 * p16_rel)
+    print(f"train path check ({CHECK_LAYERS} layers, step 0): loss kernel/"
+          f"plain bf16 {l_k16:.6f}/{l_p16:.6f}, f32 {l_k32:.6f}/{l_p32:.6f};"
+          f" f32 |kernel - plain| {f32_rel:.3e} (tolerance {F32_PATH_TOL}); "
+          f"bf16 |kernel - f32| {k16_rel:.3e}, noise floor |plain - f32| "
+          f"{p16_rel:.3e} (tolerance {loss_tol:.3e})", flush=True)
+    if f32_rel > F32_PATH_TOL or k16_rel > loss_tol:
+        fail("train path check: the kernel path's loss is off the plain "
+             "path's")
+    # each leaf's floor is the bf16 plain path's distance from the f32
+    # plain path: the random weights (std 1 / sqrt(layers) by materialize's
+    # rule) saturate the softmax, where dS = P (dP - D) cancels and a
+    # leaf's gradient can be mostly amplified rounding (the embedding's)
+    r32, r16 = rel_grad(g_k32, g_p32), rel_grad(g_k16, g_p32)
+    floor = rel_grad(g_p16, g_p32)
+    bad = []
+    for n in g_p32:
+        tol32 = max(F32_PATH_TOL, floor[n])
+        tol16 = max(PATH_TOL, 2.0 * floor[n])
+        print(f"train grad {n}: f32 |kernel - plain| {r32[n]:.3e} (tolerance"
+              f" {tol32:.3e}); bf16 |kernel - f32| {r16[n]:.3e} (tolerance "
+              f"{tol16:.3e}); floor |bf16 plain - f32| {floor[n]:.3e}; "
+              f"bf16 |kernel - plain| "
+              f"{rel_grad({n: g_k16[n]}, {n: g_p16[n]})[n]:.3e} (of max |g|)",
+              flush=True)
+        if not (bool(g_k16[n].isfinite().all())
+                and bool(g_k32[n].isfinite().all())) \
+                or r32[n] > tol32 or r16[n] > tol16:
+            bad.append(n)
+    if bad:
+        fail(f"train grads {bad}: the kernel path's gradients are off the "
+             "plain path's beyond the noise floor")
+    del paths, g_k32, g_p32, g_p16, g_k16
+    # (f) remat: the same grads with and without the recomputation
+    lm = train_model(rt, CHECK_LAYERS, params=params)
+    with rt.ops.uncounted():
+        l_a, g_a = grads_of(rt, lm, batch, remat=True)
+        l_b, g_b = grads_of(rt, lm, batch, remat=False)
+    same = [n for n in g_a if torch.equal(g_a[n], g_b[n])]
+    print(f"train remat check: loss {l_a!r} / {l_b!r} with / without remat;"
+          f" {len(same)} of {len(g_a)} gradients bitwise equal", flush=True)
+    if l_a != l_b or len(same) != len(g_a):
+        fail("train remat check: remat changes the gradients")
+    del g_a, g_b, lm
+    resume_check(rt, cfg, params)
+    print(f"train checks {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def resume_check(rt, cfg, params) -> None:
+    """(e): 4 steps uninterrupted, against 3 steps, a checkpoint (saved on
+    a thread while step 3 runs), a fresh model and optimizer restored from
+    it, and step 3 again: the same bits."""
+    steps = 4
+    tcfg = train_config(rt, steps)
+    ckdir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    mgr = rt.CheckpointManager(str(ckdir), keep=1, async_save=True)
+
+    def run(lm, opt, data, first, last):
+        step_fn = rt.make_train_step(lm, tcfg)
+        out = None
+        for step in range(first, last):
+            opt, out = step_fn(opt, data.next_batch())
+            if step == 2:
+                t0 = time.perf_counter()
+                mgr.save(step + 1, rt.train_state(lm, opt, data.state_dict()))
+                print(f"train resume: state copied to the host in "
+                      f"{time.perf_counter() - t0:.1f} s", flush=True)
+        return opt, out
+
+    pa = {n: t.clone() for n, t in params.items()}
+    lm = train_model(rt, CHECK_LAYERS, params=pa)
+    data = rt.SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                          batch=TRAIN_BATCH, seed=SEED, device="cuda")
+    with rt.ops.uncounted():
+        _, out_a = run(lm, rt.init_opt_state(pa), data, 0, steps)
+    t0 = time.perf_counter()
+    mgr.wait()
+    print(f"train resume: checkpoint written {time.perf_counter() - t0:.1f}"
+          f" s after step 3 ended", flush=True)
+    loss_a = float(out_a["loss"])
+    del lm, out_a
+    gc.collect()
+    torch.cuda.empty_cache()
+    pb = {n: torch.zeros_like(t) for n, t in params.items()}
+    lm = train_model(rt, CHECK_LAYERS, params=pb)
+    opt = rt.init_opt_state(pb)
+    t0 = time.perf_counter()
+    latest, state = mgr.restore_latest(rt.state_like(cfg))
+    if latest != 3:
+        fail(f"train resume: restored step {latest}, expected 3")
+    opt, data_state = rt.load_train_state(state, lm, opt)
+    del state
+    data = rt.SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                          batch=TRAIN_BATCH, device="cuda")
+    data.load_state(data_state)
+    print(f"train resume: step {latest} restored in "
+          f"{time.perf_counter() - t0:.1f} s (hash {mgr.meta(3)['hash'][:16]})",
+          flush=True)
+    with rt.ops.uncounted():
+        _, out_b = run(lm, opt, data, latest, steps)
+    differ = [n for n in pa if not torch.equal(pa[n], pb[n])]
+    print(f"train resume: step 3 loss {loss_a!r} uninterrupted, "
+          f"{float(out_b['loss'])!r} resumed; {len(pa) - len(differ)} of "
+          f"{len(pa)} parameters bitwise equal after it", flush=True)
+    if differ or loss_a != float(out_b["loss"]):
+        fail(f"train resume: step 3 differs after the restore ({differ[:4]})")
+    shutil.rmtree(ckdir, ignore_errors=True)
 
 
 # -- phase 3: tensor-core instructions in the build ----------------------------
@@ -1638,7 +2149,18 @@ SOURCES = {"fused_rmsnorm": ("src/repro_torch/csrc/fused_rmsnorm.cu",
            "rwkv6_scan": ("src/repro_torch/csrc/rwkv6_scan.cu",
                           "src/repro/kernels/rwkv6_scan.py:46"),
            "mc_cell": ("src/repro_torch/csrc/mc_cell.cu",
-                       "src/repro/mc/kernels.py:112")}
+                       "src/repro/mc/kernels.py:112"),
+           # the backward kernels: the gradients of the Pallas kernels'
+           # functions (the JAX package has no backward kernel)
+           "fused_rmsnorm_bwd": ("src/repro_torch/csrc/fused_rmsnorm.cu",
+                                 "src/repro/kernels/fused_rmsnorm.py:19"),
+           "flash_bwd_preprocess": (
+               "src/repro_torch/csrc/flash_attention_bwd.cu",
+               "src/repro/kernels/flash_attention.py:77"),
+           "flash_bwd_dkdv": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                              "src/repro/kernels/flash_attention.py:77"),
+           "flash_bwd_dq": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention.py:77")}
 
 
 def load_port() -> SimpleNamespace:
@@ -1668,7 +2190,14 @@ def load_port() -> SimpleNamespace:
                                                 zamba_groups)
     from repro_torch.serving import LiveRequest, ServingEngine
     from repro_torch.serving.graphs import SlotDecoder
-    return SimpleNamespace(
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch import profile
+    from repro_torch.training import (SyntheticLM, init_opt_state,
+                                      load_train_state, loss_and_grads,
+                                      make_train_step, state_like,
+                                      train_state)
+    port = SimpleNamespace(
         configs=configs, init_params=params.init_params, build=build,
         HEAD_DIMS=HEAD_DIMS,
         ops=ops, plain=plain, LM=LM, MATMUL=MATMUL, family_kind=family_kind,
@@ -1693,9 +2222,38 @@ def load_port() -> SimpleNamespace:
                               ss.chunk_cumsum),
                  "rwkv6_scan": (rs.rwkv6_scan_cuda, rs.rwkv6_scan_plain,
                                 rs.CHUNK)})
+    vars(port).update(
+        TrainConfig=TrainConfig, SyntheticLM=SyntheticLM,
+        init_opt_state=init_opt_state, make_train_step=make_train_step,
+        loss_and_grads=loss_and_grads, CheckpointManager=CheckpointManager,
+        train_state=train_state, state_like=state_like,
+        load_train_state=load_train_state, profile=profile,
+        backward={"fused_rmsnorm_bwd": rn.fused_rmsnorm_bwd_cuda,
+                  "fused_rmsnorm_plain": rn.fused_rmsnorm_plain,
+                  "flash_lse": fa.flash_attention_lse_cuda,
+                  "flash_lse_plain": fa.flash_lse_plain,
+                  "flash_plain": fa.flash_attention_plain,
+                  "flash_bwd_plain": fa.flash_attention_bwd_plain,
+                  "flash_bwd_preprocess": fa.flash_bwd_preprocess_cuda,
+                  "flash_bwd_preprocess_plain": fa.flash_bwd_preprocess_plain,
+                  "flash_bwd_dkdv": fa.flash_bwd_dkdv_cuda,
+                  "flash_bwd_dq": fa.flash_bwd_dq_cuda})
+    port.backward["flash_grads"] = (
+        lambda *a, **kw: flash_grads(port, *a, **kw))
+    return port
+
+
+PHASES = ("kernels", "train", "models", "mc")
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description="on-card smoke run of the port")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES)
+                    + " (default: all; a subset prints no result line)")
+    phases = ap.parse_args().phases.split(",")
+    if not set(phases) <= set(PHASES):
+        fail(f"unknown phases {sorted(set(phases) - set(PHASES))}")
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs on the card only")
     rt = load_port()
@@ -1720,15 +2278,37 @@ def main() -> None:
             print(f"ptxas: {line.strip()}", flush=True)
 
     sass_check(lib_path, rt.HEAD_DIMS)
-    rows = kernel_phase(rt.kernels, Timer())
-
-    by_model = {arch: model_phase(rt, arch) for arch in MODELS}
-    t0 = time.perf_counter()
-    rows["mc_cell"] = mc_phase(rt, smi)
-    print(f"mc phase {time.perf_counter() - t0:.1f} s", flush=True)
-    by_model["paper grid"] = {"mc_cell": rows["mc_cell"]["launches"]}
+    rows, by_model = {}, {}
+    if "kernels" in phases:
+        timer = Timer()
+        rows = kernel_phase(rt.kernels, timer)
+        t0 = time.perf_counter()
+        run_cases(backward_cases(rt), timer, rows)
+        guard_checks(rt)
+        del timer
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"backward kernel phase {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    if "train" in phases:
+        t0 = time.perf_counter()
+        by_model[f"{TRAIN_ARCH} train"] = train_phase(rt, smi)
+        train_checks(rt)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"train phase {time.perf_counter() - t0:.1f} s", flush=True)
+    if "models" in phases:
+        by_model.update({arch: model_phase(rt, arch) for arch in MODELS})
+    if "mc" in phases:
+        t0 = time.perf_counter()
+        rows["mc_cell"] = mc_phase(rt, smi)
+        print(f"mc phase {time.perf_counter() - t0:.1f} s", flush=True)
+        by_model["paper grid"] = {"mc_cell": rows["mc_cell"]["launches"]}
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
           f" GB; total {time.perf_counter() - t_start:.1f} s", flush=True)
+    if len(phases) < len(PHASES):
+        print(f"phases {phases} only: no result line", flush=True)
+        return
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

@@ -67,3 +67,21 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Own copy of ``repro.configs.base.TrainConfig``: the same fields and
+    defaults (AdamW, the cosine schedule, clipping, z-loss)."""
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    z_loss: float = 1e-4
+    remat: str = "block"        # none | block | full
+    microbatches: int = 1       # gradient accumulation
+    seed: int = 0

@@ -25,6 +25,12 @@
 // S = 513, hd = 128 that is ~130 flops/byte, below the card's ~295
 // flops/byte bf16 balance. Reaching it takes the tensor cores.
 //
+// Both kernels take an optional lse (BH, Sq) f32: where it is not null
+// each row's natural log-sum-exp of its scaled (and capped) scores,
+// m + log(max(l, 1e-30)), is written there for the backward
+// (flash_attention_bwd.cu); a null pointer stores nothing more, the
+// serving path's cost.
+//
 // Two kernels, chosen by dtype in repro_flash_attention (not a fallback:
 // each dtype has exactly one kernel, and a call neither takes is refused):
 //
@@ -94,6 +100,7 @@ constexpr int kTcBQ = 64;              // q rows per block (16 per warp)
 constexpr int kTcBK = 64;              // keys per shared-memory tile
 constexpr int kTcThreads = 128;        // 4 warps
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -170,9 +177,9 @@ __global__ void __launch_bounds__(TcLayout<HD, CAP>::kThreads)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
-                __nv_bfloat16* __restrict__ o, int group, int sq, int sk,
-                int causal, int window, float scale_log2, float cap_in,
-                float cap_out) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                int group, int sq, int sk, int causal, int window,
+                float scale_log2, float cap_in, float cap_out) {
   constexpr int kS = TcLayout<HD, CAP>::kStride;
   constexpr int kTile = TcLayout<HD, CAP>::kTile;
   constexpr int kHDP = TcLayout<HD, CAP>::kPad;  // padded columns
@@ -359,6 +366,9 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
     lt += __shfl_xor_sync(0xffffffffu, lt, 2);
     const float denom = fmaxf(lt, 1e-30f);
     const int qi = row0 + 8 * h;
+    // m is in exp2 units: the natural log-sum-exp is m ln 2 + ln(l)
+    if (lse != nullptr && qi < sq && half == 0 && t == 0)
+      lse[static_cast<size_t>(bh) * sq + qi] = m[h] * kLn2 + logf(denom);
     if (qi < sq) {
       __nv_bfloat16* orow = o + (static_cast<size_t>(bh) * sq + qi) * HD +
                             half * kGW * 16;
@@ -375,9 +385,9 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int HD, bool CAP>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int bh,
-              int group, int sq, int sk, int causal, int window, float cap,
-              cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* o,
+              float* lse, int bh, int group, int sq, int sk, int causal,
+              int window, float cap, cudaStream_t stream) {
   constexpr int kBytes = TcLayout<HD, CAP>::kBytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_tc_kernel<HD, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -390,7 +400,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int bh,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      group, sq, sk, causal, window, scale_log2, CAP ? scale / cap : 0.f,
+      lse, group, sq, sk, causal, window, scale_log2, CAP ? scale / cap : 0.f,
       CAP ? cap * kLog2e : 0.f);
   return 0;
 }
@@ -405,8 +415,9 @@ template <int HD, bool CAP>
 __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 int group, int sq, int sk, int causal, int window,
-                 float scale, float cap, float inv_cap) {
+                 float* __restrict__ lse, int group, int sq, int sk,
+                 int causal, int window, float scale, float cap,
+                 float inv_cap) {
   // keys per shared-memory tile: K and V tiles stay within the 48 KB of
   // static shared memory
   constexpr int kBK = HD > 128 ? 16 : 32;
@@ -519,6 +530,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   if (q_valid) {
     const float denom = fmaxf(l, 1e-30f);
+    if (lse != nullptr && sub == 0)
+      lse[static_cast<size_t>(bh) * sq + qi] = m + logf(denom);
     float* orow = o + (static_cast<size_t>(bh) * sq + qi) * HD;
 #pragma unroll
     for (int c = 0; c < kNV4; ++c) {
@@ -532,15 +545,15 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int HD, bool CAP>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
-               int group, int sq, int sk, int causal, int window, float cap,
-               cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int bh, int group, int sq, int sk, int causal,
+               int window, float cap, cudaStream_t stream) {
   const dim3 grid((sq + kBQ - 1) / kBQ, bh);
   const float scale = 1.f / sqrtf(static_cast<float>(HD));
   flash_f32_kernel<HD, CAP><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), group, sq, sk,
-      causal, window, scale, cap, CAP ? 1.f / cap : 0.f);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, group, sq,
+      sk, causal, window, scale, cap, CAP ? 1.f / cap : 0.f);
   return 0;
 }
 
@@ -548,26 +561,27 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
 // > 0 the capped instance
 template <int HD, bool CAP>
 int launch_dt(int dtype, const void* q, const void* k, const void* v,
-              void* o, int bh, int group, int sq, int sk, int causal,
-              int window, float cap, cudaStream_t stream) {
-  if (dtype == kBF16) return launch_tc<HD, CAP>(q, k, v, o, bh, group, sq, sk, causal, window, cap, stream);
-  if (dtype == kF32) return launch_f32<HD, CAP>(q, k, v, o, bh, group, sq, sk, causal, window, cap, stream);
+              void* o, float* lse, int bh, int group, int sq, int sk,
+              int causal, int window, float cap, cudaStream_t stream) {
+  if (dtype == kBF16) return launch_tc<HD, CAP>(q, k, v, o, lse, bh, group, sq, sk, causal, window, cap, stream);
+  if (dtype == kF32) return launch_f32<HD, CAP>(q, k, v, o, lse, bh, group, sq, sk, causal, window, cap, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int HD>
 int launch_hd(int dtype, const void* q, const void* k, const void* v,
-              void* o, int bh, int group, int sq, int sk, int causal,
-              int window, float cap, cudaStream_t stream) {
-  if (cap > 0.f) return launch_dt<HD, true>(dtype, q, k, v, o, bh, group, sq, sk, causal, window, cap, stream);
-  return launch_dt<HD, false>(dtype, q, k, v, o, bh, group, sq, sk, causal, window, cap, stream);
+              void* o, float* lse, int bh, int group, int sq, int sk,
+              int causal, int window, float cap, cudaStream_t stream) {
+  if (cap > 0.f) return launch_dt<HD, true>(dtype, q, k, v, o, lse, bh, group, sq, sk, causal, window, cap, stream);
+  return launch_dt<HD, false>(dtype, q, k, v, o, lse, bh, group, sq, sk, causal, window, cap, stream);
 }
 
 }  // namespace
 }  // namespace repro
 
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, int bh,
+                                     const void* v, void* o, void* lse,
+                                     int bh,
                                      int bh_kv, int sq, int sk, int hd,
                                      int causal, int window, float softcap,
                                      int dtype, void* stream) {
@@ -577,12 +591,12 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   switch (hd) {
-    case 16: rc = repro::launch_hd<16>(dtype, q, k, v, o, bh, group, sq, sk, causal, window, softcap, s); break;
-    case 32: rc = repro::launch_hd<32>(dtype, q, k, v, o, bh, group, sq, sk, causal, window, softcap, s); break;
-    case 64: rc = repro::launch_hd<64>(dtype, q, k, v, o, bh, group, sq, sk, causal, window, softcap, s); break;
-    case 128: rc = repro::launch_hd<128>(dtype, q, k, v, o, bh, group, sq, sk, causal, window, softcap, s); break;
-    case 168: rc = repro::launch_hd<168>(dtype, q, k, v, o, bh, group, sq, sk, causal, window, softcap, s); break;
-    case 240: rc = repro::launch_hd<240>(dtype, q, k, v, o, bh, group, sq, sk, causal, window, softcap, s); break;
+    case 16: rc = repro::launch_hd<16>(dtype, q, k, v, o, static_cast<float*>(lse), bh, group, sq, sk, causal, window, softcap, s); break;
+    case 32: rc = repro::launch_hd<32>(dtype, q, k, v, o, static_cast<float*>(lse), bh, group, sq, sk, causal, window, softcap, s); break;
+    case 64: rc = repro::launch_hd<64>(dtype, q, k, v, o, static_cast<float*>(lse), bh, group, sq, sk, causal, window, softcap, s); break;
+    case 128: rc = repro::launch_hd<128>(dtype, q, k, v, o, static_cast<float*>(lse), bh, group, sq, sk, causal, window, softcap, s); break;
+    case 168: rc = repro::launch_hd<168>(dtype, q, k, v, o, static_cast<float*>(lse), bh, group, sq, sk, causal, window, softcap, s); break;
+    case 240: rc = repro::launch_hd<240>(dtype, q, k, v, o, static_cast<float*>(lse), bh, group, sq, sk, causal, window, softcap, s); break;
     default: rc = static_cast<int>(cudaErrorInvalidValue);
   }
   if (rc != 0) return rc;

@@ -27,6 +27,22 @@
 // rmsnorm_loop_kernel takes every other row (d not a multiple of the
 // vector, a pointer not 16-byte aligned, d <= 1024 or d > 4096): a block
 // of 256 threads a row, x read twice (the second time from L1/L2).
+//
+// The backward (repro_fused_rmsnorm_bwd; the JAX package has no backward
+// kernel, its model trains through XLA's autodiff of the jnp rmsnorm,
+// src/repro/models/layers.py:42). With r = rsqrt(mean(x^2) + eps) and
+// g = dy (1 + w):
+//   dx = r g - x r^3 / d * sum_k g_k x_k     (in x's dtype)
+//   dw = sum over rows of dy x r             (f32)
+// Bound: bytes (x and dy read, dx written; the dw partials are 4 d bytes
+// a block). rmsnorm_bwd_rows_kernel takes kBwdRows rows a block of 256
+// threads, any d: a first loop over each row's columns sums x^2 and g x
+// (warp shuffles, then the 8 warps in a fixed order) into r and the
+// row's coefficient; a second loop over the columns writes dx and the
+// block's partial of dw, its rows summed in order. rmsnorm_bwd_dw_kernel
+// then sums the partials of every block, a thread a column, in groups of
+// 32 blocks and then the groups in order. No float atomics: two runs give
+// the same bits.
 #include <cstdint>
 
 #include "common.cuh"
@@ -210,8 +226,118 @@ cudaError_t launch(const void* x, const void* w, void* out, int n, int d,
                           0, stream, xp, wp, op, d, eps);
 }
 
+constexpr int kBwdRows = 16;  // rows a block of the backward's first pass
+                              // (BWD_ROWS in kernels/fused_rmsnorm.py)
+
+template <typename T>
+__global__ void __launch_bounds__(kBlock)
+rmsnorm_bwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                        const T* __restrict__ dy, T* __restrict__ dx,
+                        float* __restrict__ partial, int n, int d,
+                        float eps) {
+  __shared__ float red[2][kBlock / 32];
+  __shared__ float r_s[kBwdRows], coef_s[kBwdRows];
+  const size_t r0 = static_cast<size_t>(blockIdx.x) * kBwdRows;
+  const int rows = min(static_cast<size_t>(kBwdRows), n - r0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int rr = 0; rr < rows; ++rr) {
+    const T* xr = x + (r0 + rr) * d;
+    const T* gr = dy + (r0 + rr) * d;
+    float ss = 0.f, dot = 0.f;
+    for (int c = tid; c < d; c += kBlock) {
+      const float xv = to_f32(xr[c]);
+      ss += xv * xv;
+      dot += to_f32(gr[c]) * (1.f + w[c]) * xv;
+    }
+    ss = warp_sum(ss);
+    dot = warp_sum(dot);
+    if (lane == 0) {
+      red[0][warp] = ss;
+      red[1][warp] = dot;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      float a = 0.f, b = 0.f;
+#pragma unroll
+      for (int k = 0; k < kBlock / 32; ++k) {
+        a += red[0][k];
+        b += red[1][k];
+      }
+      const float r = rsqrtf(a / static_cast<float>(d) + eps);
+      r_s[rr] = r;
+      coef_s[rr] = b * r * r * r / static_cast<float>(d);
+    }
+    __syncthreads();
+  }
+  for (int c = tid; c < d; c += kBlock) {
+    const float wc = 1.f + w[c];
+    float acc = 0.f;
+    for (int rr = 0; rr < rows; ++rr) {
+      const size_t off = (r0 + rr) * d + c;
+      const float xv = to_f32(x[off]), g = to_f32(dy[off]);
+      const float r = r_s[rr];
+      dx[off] = from_f32<T>(r * wc * g - xv * coef_s[rr]);
+      acc += g * xv * r;
+    }
+    partial[static_cast<size_t>(blockIdx.x) * d + c] = acc;
+  }
+}
+
+__global__ void __launch_bounds__(kBlock)
+rmsnorm_bwd_dw_kernel(const float* __restrict__ partial,
+                      float* __restrict__ dw, int blocks, int d) {
+  const int c = blockIdx.x * kBlock + threadIdx.x;
+  if (c >= d) return;
+  // groups of 32 partials summed, then the groups' sums: a fixed order
+  // that rounds as ~32 + blocks / 32 additions, not blocks
+  float acc = 0.f;
+  for (int b0 = 0; b0 < blocks; b0 += 32) {
+    float s = 0.f;
+    for (int b = b0; b < min(b0 + 32, blocks); ++b)
+      s += partial[static_cast<size_t>(b) * d + c];
+    acc += s;
+  }
+  dw[c] = acc;
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* x, const void* w, const void* dy, void* dx,
+                       void* dw, void* partial, int n, int d, float eps,
+                       cudaStream_t stream) {
+  const int blocks = (n + kBwdRows - 1) / kBwdRows;
+  rmsnorm_bwd_rows_kernel<T><<<blocks, kBlock, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w),
+      static_cast<const T*>(dy), static_cast<T*>(dx),
+      static_cast<float*>(partial), n, d, eps);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  rmsnorm_bwd_dw_kernel<<<(d + kBlock - 1) / kBlock, kBlock, 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<float*>(dw), blocks, d);
+  return cudaSuccess;
+}
+
 }  // namespace
 }  // namespace repro
+
+// partial: (ceil(n / kBwdRows), d) f32 scratch from the wrapper
+// (kernels/fused_rmsnorm.py's BWD_ROWS)
+extern "C" int repro_fused_rmsnorm_bwd(const void* x, const void* w,
+                                       const void* dy, void* dx, void* dw,
+                                       void* partial, int n, int d,
+                                       float eps, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (dtype == repro::kBF16) {
+    e = repro::launch_bwd<__nv_bfloat16>(x, w, dy, dx, dw, partial, n, d, eps,
+                                         s);
+  } else if (dtype == repro::kF32) {
+    e = repro::launch_bwd<float>(x, w, dy, dx, dw, partial, n, d, eps, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int repro_fused_rmsnorm(const void* x, const void* w, void* out,
                                    int n, int d, float eps, int dtype,

@@ -22,8 +22,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("fused_rmsnorm.cu", "flash_attention.cu", "decode_attention.cu",
-           "ssm_scan.cu", "rwkv6_scan.cu", "mc_cell.cu")
+SOURCES = ("fused_rmsnorm.cu", "flash_attention.cu", "flash_attention_bwd.cu",
+           "decode_attention.cu", "ssm_scan.cu", "rwkv6_scan.cu",
+           "mc_cell.cu")
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -41,10 +42,21 @@ _I = ctypes.c_int
 SIGNATURES = {
     # x, w, out, n, d, eps, dtype, stream
     "repro_fused_rmsnorm": (_P, _P, _P, _I, _I, ctypes.c_float, _I, _P),
-    # q, k, v, out, bh, bh_kv, sq, sk, hd, causal, window, softcap, dtype,
-    # stream
-    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              ctypes.c_float, _I, _P),
+    # x, w, dy, dx, dw, partial, n, d, eps, dtype, stream
+    "repro_fused_rmsnorm_bwd": (_P, _P, _P, _P, _P, _P, _I, _I,
+                                ctypes.c_float, _I, _P),
+    # q, k, v, out, lse (or null), bh, bh_kv, sq, sk, hd, causal, window,
+    # softcap, dtype, stream
+    "repro_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, ctypes.c_float, _I, _P),
+    # out, dout, delta, rows, hd, dtype, stream
+    "repro_flash_bwd_preprocess": (_P, _P, _P, _I, _I, _I, _P),
+    # q, k, v, dout, lse, delta, dk, dv, bh, bh_kv, sq, sk, hd, causal,
+    # window, dtype, stream
+    "repro_flash_bwd_dkdv": (_P,) * 8 + (_I,) * 8 + (_P,),
+    # q, k, v, dout, lse, delta, dq, bh, bh_kv, sq, sk, hd, causal, window,
+    # dtype, stream
+    "repro_flash_bwd_dq": (_P,) * 7 + (_I,) * 8 + (_P,),
     # q, k, v, lengths, partials, out, bh, bh_kv, S, hd, span, window,
     # softcap, dtype, stream
     "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -25,3 +25,19 @@ def check_cuda_tensor(t: torch.Tensor, name: str, arg: str) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd would record a call on these inputs."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """A kernel with no backward raises where a gradient is wanted: its
+    output would carry no ``grad_fn`` and training would silently lose
+    the gradients of everything before it."""
+    if needs_grad(*tensors):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no backward yet; a gradient "
+            "through it is not supported on the card")

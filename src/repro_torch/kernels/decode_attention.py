@@ -22,8 +22,8 @@ import math
 import torch
 
 from . import build
-from .common import (DTYPE_CODES, HEAD_DIMS, check_cuda_tensor, require,
-                     stream_of)
+from .common import (DTYPE_CODES, HEAD_DIMS, check_cuda_tensor, refuse_grad,
+                     require, stream_of)
 from .flash_attention import softcap_scores
 
 NAME = "decode_attention"
@@ -70,6 +70,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                           window: int = 0, softcap: float = 0.0
                           ) -> torch.Tensor:
     global launches
+    refuse_grad(NAME, q, k, v)
     for arg, t in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):
         check_cuda_tensor(t, NAME, arg)
     for arg, t in (("q", q), ("k", k), ("v", v)):   # 16-byte vector loads

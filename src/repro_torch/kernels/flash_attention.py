@@ -17,6 +17,16 @@ window W keeps keys ``k > q - W``. A ``softcap`` c > 0 caps each scaled
 score s to ``c * tanh(s / c)`` before the mask, as the JAX model's
 attention does (``repro.models.layers._softcap``); the Pallas kernel has
 no cap.
+
+Where autograd records a call it goes through :class:`FlashAttention`:
+the forward kernel also writes each row's log-sum-exp, and the backward
+is three hand-written kernels (``csrc/flash_attention_bwd.cu``):
+:func:`flash_bwd_preprocess_cuda` (D = rowsum(dO * O)),
+:func:`flash_bwd_dkdv_cuda` (dK, dV over key tiles, GQA summed inside)
+and :func:`flash_bwd_dq_cuda` (dQ over query tiles), with no float
+atomics. A capped call has no backward kernel and raises where a gradient
+is wanted. :func:`flash_attention_bwd_plain` is autograd through the
+plain version.
 """
 from __future__ import annotations
 
@@ -26,12 +36,18 @@ from typing import Optional
 import torch
 
 from . import build
-from .common import (DTYPE_CODES, HEAD_DIMS, check_cuda_tensor, require,
-                     stream_of)
+from .common import (DTYPE_CODES, HEAD_DIMS, check_cuda_tensor, needs_grad,
+                     require, stream_of)
 
 NAME = "flash_attention"
+PRE_NAME, DKDV_NAME, DQ_NAME = ("flash_bwd_preprocess", "flash_bwd_dkdv",
+                                "flash_bwd_dq")
 NEG_INF = -1e30
 launches = 0
+pre_launches = dkdv_launches = dq_launches = 0
+#: launch-count name -> counter attribute of the backward kernels
+BWD_COUNTERS = {PRE_NAME: "pre_launches", DKDV_NAME: "dkdv_launches",
+                DQ_NAME: "dq_launches"}
 
 
 def softcap_scores(s: torch.Tensor, softcap: float) -> torch.Tensor:
@@ -40,14 +56,13 @@ def softcap_scores(s: torch.Tensor, softcap: float) -> torch.Tensor:
     return torch.tanh(s / softcap) * softcap if softcap > 0 else s
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True, window: int = 0,
-                          softcap: float = 0.0) -> torch.Tensor:
+def _masked_scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                   window: int, softcap: float) -> torch.Tensor:
+    """The scaled, capped scores (BH, Sq, Sk) in f32, NEG_INF where
+    masked."""
     BH, Sq, hd = q.shape
     Sk = k.shape[1]
-    group = BH // k.shape[0]
-    kf = k.float().repeat_interleave(group, dim=0)
-    vf = v.float().repeat_interleave(group, dim=0)
+    kf = k.float().repeat_interleave(BH // k.shape[0], dim=0)
     s = softcap_scores(torch.matmul(q.float(), kf.transpose(1, 2))
                        / math.sqrt(hd), softcap)
     q_idx = torch.arange(Sq, device=q.device)[:, None]
@@ -57,9 +72,72 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask &= k_idx <= q_idx
     if window > 0:
         mask &= k_idx > q_idx - window
-    s = torch.where(mask, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    return torch.where(mask, s, NEG_INF)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0,
+                          softcap: float = 0.0) -> torch.Tensor:
+    vf = v.float().repeat_interleave(q.shape[0] // v.shape[0], dim=0)
+    p = torch.softmax(_masked_scores(q, k, causal, window, softcap), dim=-1)
     return torch.matmul(p, vf).to(q.dtype)
+
+
+def _check_qkv(q, k, v, name=NAME):
+    for arg, t in (("q", q), ("k", k), ("v", v)):
+        check_cuda_tensor(t, name, arg)
+        require(t.dim() == 3, name, f"{arg} must be 3-D, got {tuple(t.shape)}")
+        require(t.data_ptr() % 16 == 0, name,      # 16-byte async copies
+                f"{arg} must be 16-byte aligned")
+    require(q.dtype in DTYPE_CODES, name, f"dtype {q.dtype} not supported")
+    require(k.dtype == q.dtype and v.dtype == q.dtype, name,
+            "q, k and v must share a dtype")
+    BH, Sq, hd = q.shape
+    BHkv, Sk, hdk = k.shape
+    require(v.shape == k.shape, name, "k and v must have one shape")
+    require(hdk == hd and hd in HEAD_DIMS, name,
+            f"head dim must match and be one of {HEAD_DIMS}")
+    require(BHkv >= 1 and BH % BHkv == 0, name,
+            f"BH={BH} must be a multiple of BH_kv={BHkv}")
+    require(Sq >= 1 and Sk >= 1 and BH <= 65535 and Sq <= 65535 * 64, name,
+            f"unsupported sizes BH={BH} Sq={Sq} Sk={Sk}")
+
+
+def _forward(q, k, v, causal, window, softcap, out, lse):
+    global launches
+    BH, Sq, hd = q.shape
+    BHkv, Sk, _ = k.shape
+    rc = build.library().repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), BH, BHkv, Sq, Sk, hd,
+        int(causal), window, softcap, DTYPE_CODES[q.dtype], stream_of(q))
+    build.check(rc, NAME)
+    launches += 1
+    return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """The forward kernel (with its log-sum-exp) and the three backward
+    kernels; q, k, v, o and lse saved."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = torch.empty_like(q)
+        lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+        _forward(q, k, v, causal, window, 0.0, out, lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        delta = flash_bwd_preprocess_cuda(out, dout)
+        kw = dict(causal=ctx.causal, window=ctx.window)
+        dk, dv = flash_bwd_dkdv_cuda(q, k, v, dout, lse, delta, **kw)
+        dq = flash_bwd_dq_cuda(q, k, v, dout, lse, delta, **kw)
+        return dq, dk, dv, None, None
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -68,27 +146,20 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out``, if given, is a contiguous tensor of q's shape, dtype and
     device that the kernel writes in place (and returns); by default a
-    new one."""
-    global launches
-    for arg, t in (("q", q), ("k", k), ("v", v)):
-        check_cuda_tensor(t, NAME, arg)
-        require(t.dim() == 3, NAME, f"{arg} must be 3-D, got {tuple(t.shape)}")
-        require(t.data_ptr() % 16 == 0, NAME,      # 16-byte async copies
-                f"{arg} must be 16-byte aligned")
-    require(q.dtype in DTYPE_CODES, NAME, f"dtype {q.dtype} not supported")
-    require(k.dtype == q.dtype and v.dtype == q.dtype, NAME,
-            "q, k and v must share a dtype")
-    BH, Sq, hd = q.shape
-    BHkv, Sk, hdk = k.shape
-    require(v.shape == k.shape, NAME, "k and v must have one shape")
-    require(hdk == hd and hd in HEAD_DIMS, NAME,
-            f"head dim must match and be one of {HEAD_DIMS}")
-    require(BHkv >= 1 and BH % BHkv == 0, NAME,
-            f"BH={BH} must be a multiple of BH_kv={BHkv}")
-    require(Sq >= 1 and Sk >= 1 and BH <= 65535 and Sq <= 65535 * 64, NAME,
-            f"unsupported sizes BH={BH} Sq={Sq} Sk={Sk}")
+    new one. Where autograd records the call (an input requires grad) it
+    runs as :class:`FlashAttention`; a capped call then raises, having no
+    backward kernel, and so does an ``out``."""
+    grad = needs_grad(q, k, v)
+    if grad and softcap > 0:
+        raise NotImplementedError(
+            f"{NAME}: no backward kernel for a logit softcap; a gradient "
+            "through a capped call is not supported on the card")
+    _check_qkv(q, k, v)
     require(window >= 0, NAME, "window must be >= 0")
     require(softcap >= 0, NAME, "softcap must be >= 0")
+    if grad:
+        require(out is None, NAME, "out= takes no gradient")
+        return FlashAttention.apply(q, k, v, bool(causal), int(window))
     if out is None:
         out = torch.empty_like(q)
     else:
@@ -96,10 +167,115 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         require(out.shape == q.shape and out.dtype == q.dtype
                 and out.data_ptr() % 16 == 0, NAME,
                 "out must have q's shape and dtype and be 16-byte aligned")
-    rc = build.library().repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, BHkv,
-        Sq, Sk, hd, int(causal), window, softcap, DTYPE_CODES[q.dtype],
+    return _forward(q, k, v, causal, window, softcap, out, None)
+
+
+def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool = True,
+                             window: int = 0, softcap: float = 0.0
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse (BH, Sq) f32): the forward kernel with its natural
+    log-sum-exp of each row's scaled scores written out."""
+    _check_qkv(q, k, v)
+    require(window >= 0 and softcap >= 0, NAME,
+            "window and softcap must be >= 0")
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    _forward(q, k, v, causal, window, softcap, out, lse)
+    return out, lse
+
+
+def flash_lse_plain(q: torch.Tensor, k: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """Each row's log-sum-exp of the scaled, capped, masked scores (BH,
+    Sq) f32, as the plain version computes them."""
+    return torch.logsumexp(_masked_scores(q, k, causal, window, softcap),
+                           dim=-1)
+
+
+def flash_attention_bwd_plain(q, k, v, dout, *, causal: bool = True,
+                              window: int = 0
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """(dq, dk, dv): autograd through :func:`flash_attention_plain`."""
+    with torch.enable_grad():
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = flash_attention_plain(qg, kg, vg, causal=causal, window=window)
+        return torch.autograd.grad(out, (qg, kg, vg), dout)
+
+
+def flash_bwd_preprocess_plain(out: torch.Tensor, dout: torch.Tensor
+                               ) -> torch.Tensor:
+    """D = rowsum(dO * O) in f32, (BH, Sq)."""
+    return (dout.float() * out.float()).sum(-1)
+
+
+def flash_bwd_preprocess_cuda(out: torch.Tensor, dout: torch.Tensor
+                              ) -> torch.Tensor:
+    """D = rowsum(dO * O) (BH, Sq) f32 of the forward's output and its
+    gradient (both (BH, Sq, hd), one dtype, contiguous)."""
+    global pre_launches
+    for arg, t in (("out", out), ("dout", dout)):
+        check_cuda_tensor(t, PRE_NAME, arg)
+    require(out.dim() == 3 and dout.shape == out.shape
+            and dout.dtype == out.dtype and out.dtype in DTYPE_CODES,
+            PRE_NAME, "out and dout must be (BH, Sq, hd) of one dtype")
+    BH, Sq, hd = out.shape
+    delta = torch.empty((BH, Sq), dtype=torch.float32, device=out.device)
+    rc = build.library().repro_flash_bwd_preprocess(
+        out.data_ptr(), dout.data_ptr(), delta.data_ptr(), BH * Sq, hd,
+        DTYPE_CODES[out.dtype], stream_of(out))
+    build.check(rc, PRE_NAME)
+    pre_launches += 1
+    return delta
+
+
+def _check_bwd(name, q, k, v, dout, lse, delta):
+    _check_qkv(q, k, v, name)
+    check_cuda_tensor(dout, name, "dout")
+    require(dout.shape == q.shape and dout.dtype == q.dtype, name,
+            "dout must have q's shape and dtype")
+    for arg, t in (("lse", lse), ("delta", delta)):
+        check_cuda_tensor(t, name, arg)
+        require(t.shape == q.shape[:2] and t.dtype == torch.float32, name,
+                f"{arg} must be (BH, Sq) float32")
+
+
+def flash_bwd_dkdv_cuda(q, k, v, dout, lse, delta, *, causal: bool = True,
+                        window: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) of k's shape and dtype: a block a 32-key tile, summing
+    over its KV head's query heads and query tiles in order."""
+    global dkdv_launches
+    _check_bwd(DKDV_NAME, q, k, v, dout, lse, delta)
+    require(window >= 0, DKDV_NAME, "window must be >= 0")
+    BH, Sq, hd = q.shape
+    BHkv, Sk, _ = k.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    rc = build.library().repro_flash_bwd_dkdv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH,
+        BHkv, Sq, Sk, hd, int(causal), window, DTYPE_CODES[q.dtype],
         stream_of(q))
-    build.check(rc, NAME)
-    launches += 1
-    return out
+    build.check(rc, DKDV_NAME)
+    dkdv_launches += 1
+    return dk, dv
+
+
+def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, *, causal: bool = True,
+                      window: int = 0) -> torch.Tensor:
+    """dq of q's shape and dtype: a block a 32-row query tile, summing
+    over the key tiles in order."""
+    global dq_launches
+    _check_bwd(DQ_NAME, q, k, v, dout, lse, delta)
+    require(window >= 0, DQ_NAME, "window must be >= 0")
+    BH, Sq, hd = q.shape
+    BHkv, Sk, _ = k.shape
+    dq = torch.empty_like(q)
+    rc = build.library().repro_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, BHkv, Sq, Sk,
+        hd, int(causal), window, DTYPE_CODES[q.dtype], stream_of(q))
+    build.check(rc, DQ_NAME)
+    dq_launches += 1
+    return dq

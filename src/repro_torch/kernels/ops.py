@@ -7,6 +7,15 @@ call that the kernel cannot take raises, and nothing falls back. Each
 kernel module counts its own launches (``launch_counts``); a replay of a
 captured CUDA graph runs no wrapper, so it adds the launches counted at
 its capture (``uncounted``, ``add_launches``).
+
+Gradients: on the card ``fused_rmsnorm`` and uncapped
+``flash_attention`` are ``torch.autograd.Function``s whose backward is
+hand-written too (its launches counted under their own names:
+``fused_rmsnorm_bwd``, ``flash_bwd_preprocess``, ``flash_bwd_dkdv``,
+``flash_bwd_dq``); ``decode_attention``, ``ssm_scan``, ``rwkv6_scan`` and
+a capped ``flash_attention`` raise ``NotImplementedError`` where a
+gradient is wanted. On the CPU autograd differentiates the plain
+versions.
 """
 from __future__ import annotations
 
@@ -22,8 +31,12 @@ from . import mc_cell as _mc
 from . import rwkv6_scan as _rwkv
 from . import ssm_scan as _ssm
 
-# every kernel's launch counter (mc_cell's entry point is mc.run_grid)
-_MODULES = (_rmsnorm, _flash, _decode, _ssm, _rwkv, _mc)
+# every kernel's launch counter (mc_cell's entry point is mc.run_grid):
+# name -> (module, attribute)
+_COUNTERS = {m.NAME: (m, "launches")
+             for m in (_rmsnorm, _flash, _decode, _ssm, _rwkv, _mc)}
+_COUNTERS[_rmsnorm.BWD_NAME] = (_rmsnorm, "bwd_launches")
+_COUNTERS.update({n: (_flash, a) for n, a in _flash.BWD_COUNTERS.items()})
 
 
 def _on_card(t: torch.Tensor, name: str) -> bool:
@@ -77,12 +90,12 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last reset, by kernel name."""
-    return {m.NAME: m.launches for m in _MODULES}
+    return {n: getattr(m, a) for n, (m, a) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for m in _MODULES:
-        m.launches = 0
+    for m, a in _COUNTERS.values():
+        setattr(m, a, 0)
 
 
 @contextmanager
@@ -95,13 +108,13 @@ def uncounted() -> Iterator[dict[str, int]]:
     try:
         yield inside
     finally:
-        for m in _MODULES:
-            inside[m.NAME] = m.launches - before[m.NAME]
-            m.launches = before[m.NAME]
+        for n, (m, a) in _COUNTERS.items():
+            inside[n] = getattr(m, a) - before[n]
+            setattr(m, a, before[n])
 
 
 def add_launches(counts: dict[str, int]) -> None:
     """Counts the launches of one replay of a captured graph (``counts``
     from :func:`uncounted` at its capture)."""
-    for m in _MODULES:
-        m.launches += counts.get(m.NAME, 0)
+    for n, (m, a) in _COUNTERS.items():
+        setattr(m, a, getattr(m, a) + counts.get(n, 0))

@@ -23,7 +23,7 @@ import torch
 
 from . import build
 from .common import (DTYPE_CODES, SCAN_HEAD_DIMS, check_cuda_tensor,
-                     require, stream_of)
+                     refuse_grad, require, stream_of)
 
 NAME = "rwkv6_scan"
 CHUNK = 16          # steps a chunk in csrc/rwkv6_scan.cu (kT)
@@ -49,6 +49,7 @@ def rwkv6_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     w: torch.Tensor, u: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     global launches
+    refuse_grad(NAME, r, k, v, w, u)
     for arg, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u)):
         check_cuda_tensor(t, NAME, arg)
     require(r.dtype in DTYPE_CODES, NAME, f"dtype {r.dtype} not supported")

@@ -24,7 +24,8 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .common import DTYPE_CODES, check_cuda_tensor, require, stream_of
+from .common import (DTYPE_CODES, check_cuda_tensor, refuse_grad, require,
+                     stream_of)
 
 NAME = "ssm_scan"
 STATE_DIMS = (16, 32, 64, 128)
@@ -85,6 +86,7 @@ def ssm_scan_cuda(xbar: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                   cumlog: torch.Tensor, *, chunk: int
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     global launches
+    refuse_grad(NAME, xbar, B, C, cumlog)
     for arg, t in (("xbar", xbar), ("B", B), ("C", C), ("cumlog", cumlog)):
         check_cuda_tensor(t, NAME, arg)
     require(xbar.dtype == torch.float32 and cumlog.dtype == torch.float32,

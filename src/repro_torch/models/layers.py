@@ -5,8 +5,11 @@ Counterparts of ``repro.models.layers``: ``rmsnorm`` (:42), ``apply_rope``
 ``mlp`` (:295) and ``moe`` (:366, with ``_dispatch_row`` :322 and
 ``_combine_row`` :351). Weights are
 kept in JAX's ``(in, out)`` orientation and applied as ``x @ w``. Matmul
-weights are stored in the compute dtype (JAX casts its f32 weights on
-every use, which gives the same values); norm weights stay f32.
+weights are cast to the compute dtype (the activations' dtype) where
+they are used, as JAX's ``bf16`` (:34) casts its f32 masters: serving
+stores them in the compute dtype, so the cast is a no-op there; training
+keeps them as f32 masters (``LM(param_dtype=torch.float32)``), so the
+gradients land in f32. Norm weights stay f32.
 
 The three hot operations go through ``kernels`` (default
 :mod:`repro_torch.kernels.ops`, which launches the CUDA kernels on the
@@ -39,8 +42,16 @@ MATMUL = frozenset((
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
+    """A leaf that takes no gradient until a trainer turns it on
+    (``training.optimizer.make_train_step``); serving leaves it off."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
+
+
+def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in x's (the compute) dtype: the weight cast on use, a
+    no-op where it is stored in that dtype."""
+    return x @ w.to(x.dtype)
 
 
 # -- norms ----------------------------------------------------------------
@@ -127,9 +138,9 @@ def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     hd), k/v: (B, KV, S, hd)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p.wq).view(B, S, H, hd).transpose(1, 2)
-    k = (x @ p.wk).view(B, S, KV, hd).transpose(1, 2)
-    v = (x @ p.wv).view(B, S, KV, hd).transpose(1, 2).contiguous()
+    q = mm(x, p.wq).view(B, S, H, hd).transpose(1, 2)
+    k = mm(x, p.wk).view(B, S, KV, hd).transpose(1, 2)
+    v = mm(x, p.wv).view(B, S, KV, hd).transpose(1, 2).contiguous()
     if cfg.mrope:
         pos3 = (positions if positions.dim() == 3 else
                 positions[None].expand(3, *positions.shape))[:, :, None]
@@ -200,7 +211,7 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
         if update_cache:
             new_cache = {"k": k, "v": v}
     out = out.view(B, H, S, hd).transpose(1, 2).reshape(B, S, H * hd)
-    return out @ p.wo, new_cache
+    return mm(out, p.wo), new_cache
 
 
 # -- MLP -----------------------------------------------------------------------
@@ -224,8 +235,8 @@ def mlp(p: MLP, x: torch.Tensor, cfg: ModelConfig, *,
         kernels=ops) -> torch.Tensor:
     h = rmsnorm(x, p.norm, cfg.norm_eps, kernels=kernels)
     act = _act(cfg)
-    h = act(h @ p.w_gate) * (h @ p.w_up)
-    return h @ p.w_down
+    h = act(mm(h, p.w_gate)) * mm(h, p.w_up)
+    return mm(h, p.w_down)
 
 
 def _act(cfg: ModelConfig):
@@ -265,7 +276,7 @@ def route(p: MoE, h: torch.Tensor, cfg: ModelConfig):
     The top K are taken in ``jax.lax.top_k``'s order, ties to the lower
     expert index: a stable descending sort (``torch.topk`` orders ties
     arbitrarily, and bf16 router logits tie often)."""
-    logits = (h @ p.router).to(torch.float32)
+    logits = mm(h, p.router).to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     top = torch.sort(probs, dim=-1, descending=True, stable=True)
     K = cfg.top_k
@@ -322,11 +333,11 @@ def experts(p: MoE, buf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     the compute dtype; the activations are rounded to bf16 in every
     compute dtype (``layers.py:399-401``; in f32 the ``w_down`` product
     then runs in f32 on the rounded values)."""
-    act = _act(cfg)
-    hexp = act(torch.einsum("becd,edf->becf", buf, p.w_gate)) \
-        * torch.einsum("becd,edf->becf", buf, p.w_up)
-    hexp = hexp.to(torch.bfloat16).to(p.w_down.dtype)
-    return torch.einsum("becf,efd->becd", hexp, p.w_down)
+    act, dt = _act(cfg), buf.dtype
+    hexp = act(torch.einsum("becd,edf->becf", buf, p.w_gate.to(dt))) \
+        * torch.einsum("becd,edf->becf", buf, p.w_up.to(dt))
+    hexp = hexp.to(torch.bfloat16).to(dt)
+    return torch.einsum("becf,efd->becd", hexp, p.w_down.to(dt))
 
 
 def combine(yexp: torch.Tensor, slots: torch.Tensor,

@@ -29,7 +29,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from .layers import _param, rmsnorm
+from .layers import _param, mm, rmsnorm
 
 LORA = 64                 # rank of the data-dependent decay (rwkv.py:36)
 LOGW_MIN = -4.0           # clamp of the per-step log-decay (rwkv.py:77)
@@ -77,12 +77,12 @@ def _time_mix_projections(p: RWKV, x: torch.Tensor, cfg: ModelConfig,
     nh, hd = rwkv_dims(cfg)
     h = rmsnorm(x, p.tm_norm, cfg.norm_eps, kernels=kernels)
     shifted = _token_shift(h, x_tm)
-    r = _lerp(h, shifted, p.mu_r) @ p.w_r
-    k = _lerp(h, shifted, p.mu_k) @ p.w_k
-    v = _lerp(h, shifted, p.mu_v) @ p.w_v
-    g = F.silu(_lerp(h, shifted, p.mu_g) @ p.w_g)
+    r = mm(_lerp(h, shifted, p.mu_r), p.w_r)
+    k = mm(_lerp(h, shifted, p.mu_k), p.w_k)
+    v = mm(_lerp(h, shifted, p.mu_v), p.w_v)
+    g = F.silu(mm(_lerp(h, shifted, p.mu_g), p.w_g))
     xw = _lerp(h, shifted, p.mu_w)
-    logw = -torch.exp((xw @ p.wd_a) @ p.wd_b + p.w_bias)      # f32
+    logw = -torch.exp(mm(mm(xw, p.wd_a), p.wd_b) + p.w_bias)      # f32
     logw = torch.clamp(logw, min=LOGW_MIN)
     heads = [t.reshape(B, S, nh, hd).float() for t in (r, k, v, logw)]
     return (h, *heads, g)
@@ -123,7 +123,7 @@ def rwkv_time_mix(p: RWKV, x: torch.Tensor, cfg: ModelConfig,
         S_final = w_t[..., None] * state["S"] + kv
     o = rmsnorm(o.reshape(B, S, d).to(x.dtype), p.o_norm, cfg.norm_eps,
                 kernels=kernels) * g
-    return o @ p.w_o, {"S": S_final, "x_tm": h[:, -1].float()}
+    return mm(o, p.w_o), {"S": S_final, "x_tm": h[:, -1].float()}
 
 
 def rwkv_channel_mix(p: RWKV, x: torch.Tensor, cfg: ModelConfig,
@@ -131,8 +131,8 @@ def rwkv_channel_mix(p: RWKV, x: torch.Tensor, cfg: ModelConfig,
     """Squared-ReLU FFN with token shift. Returns (out, {"x_cm"})."""
     h = rmsnorm(x, p.cm_norm, cfg.norm_eps, kernels=kernels)
     kx = _lerp(h, _token_shift(h, x_cm), p.mu_ck)
-    hidden = torch.square(F.relu(kx @ p.w_ck))
-    return hidden @ p.w_cv, {"x_cm": h[:, -1].float()}
+    hidden = torch.square(F.relu(mm(kx, p.w_ck)))
+    return mm(hidden, p.w_cv), {"x_cm": h[:, -1].float()}
 
 
 def rwkv_block(p: RWKV, x: torch.Tensor, cfg: ModelConfig,

@@ -22,7 +22,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from ..kernels.ssm_scan import chunk_cumsum
-from .layers import _param, rmsnorm
+from .layers import _param, mm, rmsnorm
 
 
 def ssm_dims(cfg: ModelConfig) -> tuple[int, int, int, int]:
@@ -56,10 +56,10 @@ def _proj(p: SSM, x: torch.Tensor, cfg: ModelConfig, kernels):
     (compute dtype) and loga (B, S, nh) f32."""
     _, nh, hd, _ = ssm_dims(cfg)
     h = rmsnorm(x, p.norm, cfg.norm_eps, kernels=kernels)
-    xin, z = (h @ p.w_xz).chunk(2, dim=-1)
-    B_ = h @ p.w_B                                      # (B, S, ds)
-    C_ = h @ p.w_C
-    dt = F.softplus((h @ p.w_dt) + p.dt_bias)           # (B, S, nh) f32
+    xin, z = mm(h, p.w_xz).chunk(2, dim=-1)
+    B_ = mm(h, p.w_B)                                   # (B, S, ds)
+    C_ = mm(h, p.w_C)
+    dt = F.softplus(mm(h, p.w_dt) + p.dt_bias)           # (B, S, nh) f32
     loga = dt * -torch.exp(p.A_log.float())             # log decay, <= 0
     xh = xin.reshape(x.shape[0], x.shape[1], nh, hd)
     xbar = xh.float() * dt[..., None]                   # Mamba2 x * dt
@@ -73,7 +73,7 @@ def _out(p: SSM, y: torch.Tensor, xh: torch.Tensor, z: torch.Tensor,
     y = y + xh.float() * p.D[:, None]
     y = rmsnorm(y.reshape(B, S, -1).to(x.dtype), p.out_norm, cfg.norm_eps,
                 kernels=kernels)
-    return (y * F.silu(z)) @ p.w_out
+    return mm(y * F.silu(z), p.w_out)
 
 
 def ssm_block(p: SSM, x: torch.Tensor, cfg: ModelConfig, *,

@@ -49,7 +49,9 @@ import math
 from typing import Optional, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
@@ -58,6 +60,19 @@ from .layers import (MATMUL, MLP, Attention, MoE, _param, attention, mlp,
                      moe, rmsnorm)
 from .rwkv import RWKV, rwkv_block, rwkv_dims
 from .ssm import SSM, ssm_block, ssm_decode, ssm_dims
+
+
+CE_CHUNK = 256            # positions a chunk of the cross-entropy
+
+
+def ce_chunk(h: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
+             z_loss: float) -> torch.Tensor:
+    """Summed CE plus z-loss of one chunk: f32 logits ``h @ head``
+    (B, cs, V), ``sum(lse - logit[target]) + z_loss * sum(lse^2)``."""
+    logits = h.float() @ head.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, targets[..., None])[..., 0]
+    return (lse - tgt).sum() + z_loss * torch.square(lse).sum()
 
 
 def family_kind(cfg: ModelConfig) -> str:
@@ -129,8 +144,9 @@ class Block(nn.Module):
 class LM(nn.Module):
     """Parameters: ``embed`` (V, d), ``final_norm`` (d,) and ``lm_head``
     (d, V) in f32, as JAX reads them; the family's layers (module
-    docstring) with matmul weights in the compute ``dtype`` and every
-    other leaf in f32.
+    docstring) with matmul weights in ``param_dtype`` (default: the
+    compute ``dtype``; f32 masters for training, cast to ``dtype`` on
+    use) and every other leaf in f32.
 
     ``device=None`` means the card (and raises without one). ``kernels``
     is the namespace of the hot operations: :mod:`..kernels.ops`
@@ -139,7 +155,8 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *,
                  device: Optional[Union[str, torch.device]] = None,
-                 dtype: torch.dtype = torch.bfloat16, kernels=ops):
+                 dtype: torch.dtype = torch.bfloat16, kernels=ops,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         check_supported(cfg)
         dev = resolve_device(device)
@@ -147,6 +164,7 @@ class LM(nn.Module):
         self.kind = family_kind(cfg)
         self.dtype = dtype
         self.kernels = kernels
+        dtype = param_dtype or dtype          # the matmul weights' storage
         self.embed = _param((cfg.vocab, cfg.d_model), torch.float32, dev)
         self.final_norm = _param((cfg.d_model,), torch.float32, dev)
         if not cfg.tie_embeddings:
@@ -166,14 +184,17 @@ class LM(nn.Module):
 
     @classmethod
     def from_params(cls, cfg: ModelConfig, params: dict, *,
-                    kernels=ops) -> "LM":
+                    kernels=ops, dtype: Optional[torch.dtype] = None
+                    ) -> "LM":
         """Wrap a parameter dict (``repro_torch.params``) without copying
-        it; device and compute dtype are the parameters' own (the dtype
-        of the matmul weights)."""
-        dtype = next(t.dtype for n, t in params.items()
-                     if n.rsplit(".", 1)[-1] in MATMUL)
+        it; the device is the parameters' own, the compute ``dtype`` by
+        default the dtype the matmul weights are stored in (f32 masters
+        with a bf16 ``dtype``: the training layout)."""
+        stored = next(t.dtype for n, t in params.items()
+                      if n.rsplit(".", 1)[-1] in MATMUL)
         device = params["embed"].device
-        lm = cls(cfg, device="meta", dtype=dtype, kernels=kernels)
+        lm = cls(cfg, device="meta", dtype=dtype or stored, kernels=kernels,
+                 param_dtype=stored)
         expected = {n: (p.shape, p.dtype) for n, p in lm.named_parameters()}
         if set(params) != set(expected):
             raise ValueError(
@@ -196,8 +217,10 @@ class LM(nn.Module):
     # -- embeddings -----------------------------------------------------
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         """``LM.embed`` of the JAX model: scaled by sqrt(d_model) in f32,
-        then cast to the compute dtype."""
-        x = self.embed[tokens] * math.sqrt(self.cfg.d_model)
+        then cast to the compute dtype. ``F.embedding``: its backward on
+        the card is reproducible bit for bit, which the train phase's
+        remat and resume checks hold."""
+        x = F.embedding(tokens, self.embed) * math.sqrt(self.cfg.d_model)
         return x.to(self.dtype)
 
     def embed_vectors(self, embeds: torch.Tensor) -> torch.Tensor:
@@ -211,18 +234,23 @@ class LM(nn.Module):
 
     # -- one attention + mlp / moe layer ----------------------------------
     def _layer(self, attn: Attention, ffn: Union[MLP, MoE], x, positions, *,
-               window=0, cache=None, cache_pos=None, update_cache=False):
+               window=0, cache=None, cache_pos=None, update_cache=False,
+               aux=False):
+        """Returns (x, this layer's k/v or None, and with ``aux`` its MoE
+        load-balance loss, else None)."""
         a, new_kv = attention(attn, x, self.cfg, positions=positions,
                               window=window, cache=cache,
                               cache_pos=cache_pos,
                               update_cache=update_cache,
                               kernels=self.kernels)
         x = x + a
+        lb = None
         if isinstance(ffn, MoE):
-            x = x + moe(ffn, x, self.cfg, kernels=self.kernels, aux=False)[0]
+            y, lb = moe(ffn, x, self.cfg, kernels=self.kernels, aux=aux)
+            x = x + y
         else:
             x = x + mlp(ffn, x, self.cfg, kernels=self.kernels)
-        return x, new_kv
+        return x, new_kv, lb
 
     def _final_norm(self, x):
         return rmsnorm(x, self.final_norm, self.cfg.norm_eps,
@@ -243,27 +271,89 @@ class LM(nn.Module):
         return None
 
     # ======================== TRAIN =====================================
+    def hidden_train(self, x: torch.Tensor, positions: torch.Tensor,
+                     remat: bool = True):
+        """``LM.hidden_train``: the layer walk over x (B, S, d) in the
+        compute dtype. With ``remat`` each layer (the zamba shared block
+        apart from its SSM layers) runs under ``torch.utils.checkpoint``,
+        as JAX wraps each scanned block in ``jax.checkpoint``: its
+        activations are recomputed in the backward. Returns the
+        final-normed h and the summed MoE load-balance loss (0.0 without
+        experts)."""
+        cfg = self.cfg
+
+        def run(fn, *args):
+            if remat and torch.is_grad_enabled():
+                return checkpoint(fn, *args, use_reentrant=False)
+            return fn(*args)
+
+        aux = 0.0
+        lg = self._lg() if self.kind == "local_global" else None
+        for i, layer in enumerate(self.layers):
+            if self.kind in ("uniform", "local_global"):
+                window = lg[i][2] if lg else 0
+                moe_layer = isinstance(layer.ffn, MoE)
+
+                def body(xc, layer=layer, window=window, moe_layer=moe_layer):
+                    xc, _, lb = self._layer(layer.attn, layer.ffn, xc,
+                                            positions, window=window,
+                                            aux=moe_layer)
+                    return (xc, lb) if moe_layer else xc
+                if moe_layer:
+                    x, lb = run(body, x)
+                    aux = aux + lb
+                else:
+                    x = run(body, x)
+            elif self.kind == "zamba":
+                x = run(lambda xc, layer=layer: xc + ssm_block(
+                    layer, xc, cfg, kernels=self.kernels)[0], x)
+                if self._shared_after(i) is not None:
+                    x = run(lambda xc: self._layer(
+                        self.shared_attn, self.shared_mlp, xc, positions)[0],
+                        x)
+            else:
+                x = run(lambda xc, layer=layer: rwkv_block(
+                    layer, xc, cfg, kernels=self.kernels)[0], x)
+        return self._final_norm(x), aux
+
     def logits_train(self, tokens: torch.Tensor) -> torch.Tensor:
         """Full logits (B, S, V) in f32 — small inputs only (tests)."""
         B, S = tokens.shape
         x = self.embed_tokens(tokens)
         positions = torch.arange(S, device=tokens.device).expand(B, S)
-        lg = self._lg() if self.kind == "local_global" else None
-        for i, layer in enumerate(self.layers):
-            if self.kind == "uniform":
-                x, _ = self._layer(layer.attn, layer.ffn, x, positions)
-            elif self.kind == "local_global":
-                x, _ = self._layer(layer.attn, layer.ffn, x, positions,
-                                   window=lg[i][2])
-            elif self.kind == "zamba":
-                x = x + ssm_block(layer, x, self.cfg,
-                                  kernels=self.kernels)[0]
-                if self._shared_after(i) is not None:
-                    x, _ = self._layer(self.shared_attn, self.shared_mlp, x,
-                                       positions)
-            else:
-                x, _ = rwkv_block(layer, x, self.cfg, kernels=self.kernels)
-        return self.unembed(self._final_norm(x))
+        h, _ = self.hidden_train(x, positions, remat=False)
+        return self.unembed(h)
+
+    def loss(self, tokens: torch.Tensor, targets: torch.Tensor,
+             z_loss: float = 1e-4, embeds: Optional[torch.Tensor] = None,
+             remat: bool = True) -> torch.Tensor:
+        """``LM.loss``: mean cross-entropy of ``targets`` (B, S) over
+        chunks of ``CE_CHUNK`` positions (f32 logits ``h @ head``, their
+        logsumexp, plus ``z_loss * lse^2``), divided by B * n_chunk * cs,
+        plus ``0.01 * aux / n_layers`` for a config with experts. With
+        ``remat`` each chunk's logits are recomputed in the backward, so
+        no more than one chunk's (B, cs, V) f32 logits live at a time."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        x = (self.embed_tokens(tokens) if embeds is None
+             else self.embed_vectors(embeds))
+        positions = torch.arange(S, device=tokens.device).expand(B, S)
+        h, aux = self.hidden_train(x, positions, remat=remat)
+        head = self.embed.T if cfg.tie_embeddings else self.lm_head
+        n_chunk = max(S // CE_CHUNK, 1)
+        cs = S // n_chunk
+        targets = targets.long()
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c in range(n_chunk):
+            args = (h[:, c * cs:(c + 1) * cs], head,
+                    targets[:, c * cs:(c + 1) * cs], z_loss)
+            total = total + (checkpoint(ce_chunk, *args, use_reentrant=False)
+                             if remat and torch.is_grad_enabled()
+                             else ce_chunk(*args))
+        loss = total / (B * n_chunk * cs)
+        if cfg.n_experts:
+            loss = loss + 0.01 * aux / max(cfg.n_layers, 1)
+        return loss
 
     # ======================== PREFILL ===================================
     def new_cache(self, batch: int, max_len: int, device=None) -> dict:
@@ -321,14 +411,14 @@ class LM(nn.Module):
         positions = torch.arange(S, device=tokens.device).expand(B, S)
         if self.kind == "uniform":
             for i, block in enumerate(self.layers):
-                x, kv = self._layer(block.attn, block.ffn, x, positions,
-                                    update_cache=True)
+                x, kv, _ = self._layer(block.attn, block.ffn, x, positions,
+                                       update_cache=True)
                 cache["k"][i, :, :, :S] = kv["k"]
                 cache["v"][i, :, :, :S] = kv["v"]
         elif self.kind == "local_global":
             for block, (glob, j, window) in zip(self.layers, self._lg()):
-                x, kv = self._layer(block.attn, block.ffn, x, positions,
-                                    window=window, update_cache=True)
+                x, kv, _ = self._layer(block.attn, block.ffn, x, positions,
+                                       window=window, update_cache=True)
                 if glob:
                     cache["k"][j, :, :, :S] = kv["k"]
                     cache["v"][j, :, :, :S] = kv["v"]
@@ -344,8 +434,8 @@ class LM(nn.Module):
                 x = x + out
                 g = self._shared_after(i)
                 if g is not None:
-                    x, kv = self._layer(self.shared_attn, self.shared_mlp, x,
-                                        positions, update_cache=True)
+                    x, kv, _ = self._layer(self.shared_attn, self.shared_mlp,
+                                           x, positions, update_cache=True)
                     cache["k"][g, :, :, :S] = kv["k"]
                     cache["v"][g, :, :, :S] = kv["v"]
         else:
@@ -376,28 +466,29 @@ class LM(nn.Module):
         lg = self._lg() if self.kind == "local_global" else None
         for i, layer in enumerate(self.layers):
             if self.kind == "uniform":
-                x, _ = self._layer(layer.attn, layer.ffn, x, positions,
-                                   cache={"k": cache["k"][i],
-                                          "v": cache["v"][i]},
-                                   cache_pos=pos)
+                x, _, _ = self._layer(layer.attn, layer.ffn, x, positions,
+                                      cache={"k": cache["k"][i],
+                                             "v": cache["v"][i]},
+                                      cache_pos=pos)
             elif self.kind == "local_global":
                 glob, j, window = lg[i]
                 k, v = ("k", "v") if glob else ("k_win", "v_win")
-                x, _ = self._layer(layer.attn, layer.ffn, x, positions,
-                                   window=window,
-                                   cache={"k": cache[k][j], "v": cache[v][j]},
-                                   cache_pos=pos)
+                x, _, _ = self._layer(layer.attn, layer.ffn, x, positions,
+                                      window=window,
+                                      cache={"k": cache[k][j],
+                                             "v": cache[v][j]},
+                                      cache_pos=pos)
             elif self.kind == "zamba":
                 out, cache["ssm_h"][i] = ssm_decode(
                     layer, x, cfg, cache["ssm_h"][i], kernels=self.kernels)
                 x = x + out
                 g = self._shared_after(i)
                 if g is not None:
-                    x, _ = self._layer(self.shared_attn, self.shared_mlp, x,
-                                       positions,
-                                       cache={"k": cache["k"][g],
-                                              "v": cache["v"][g]},
-                                       cache_pos=pos)
+                    x, _, _ = self._layer(self.shared_attn, self.shared_mlp,
+                                          x, positions,
+                                          cache={"k": cache["k"][g],
+                                                 "v": cache["v"][g]},
+                                          cache_pos=pos)
             else:
                 x, st = rwkv_block(layer, x, cfg,
                                    {n: t[i] for n, t in cache.items()},

@@ -219,6 +219,28 @@ def from_jax_numpy(tree: dict, cfg: ModelConfig,
     return out
 
 
+def to_jax_numpy(lm_or_params, cfg: ModelConfig) -> dict:
+    """The inverse of :func:`from_jax_numpy`: an :class:`LM`'s parameters,
+    or any dict of tensors under its parameter names (AdamW's moments),
+    as JAX's nested tree of f32 numpy leaves, the per-layer tensors
+    stacked back into the (L, ...) leaves under JAX's paths. A checkpoint
+    of it is laid out as one of JAX's."""
+    params = (dict(lm_or_params.named_parameters())
+              if isinstance(lm_or_params, torch.nn.Module) else lm_or_params)
+    tree: dict = {}
+    for path, leaf in jax_leaves(cfg).items():
+        out = torch.empty((len(leaf.names),) + leaf.shape[leaf.stacked:],
+                          dtype=torch.float32)
+        for i, n in enumerate(leaf.names):       # one copy off the device
+            out[i].copy_(params[n].detach())
+        arr = out.numpy().reshape(leaf.shape)
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = arr
+    return tree
+
+
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device: Optional[Union[str, torch.device]] = None,
                 dtype: torch.dtype = torch.bfloat16) -> dict:

@@ -8,6 +8,7 @@ The first test builds the kernels with nvcc into build/repro_torch/.
 """
 import dataclasses
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -17,9 +18,11 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_cuda, decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_cuda, flash_attention_plain)
+    flash_attention_bwd_plain, flash_attention_cuda,
+    flash_attention_lse_cuda, flash_attention_plain, flash_lse_plain)
 from repro_torch.kernels.fused_rmsnorm import (  # noqa: E402
-    fused_rmsnorm_cuda, fused_rmsnorm_plain)
+    fused_rmsnorm_bwd_cuda, fused_rmsnorm_bwd_plain, fused_rmsnorm_cuda,
+    fused_rmsnorm_plain)
 from repro_torch.kernels.rwkv6_scan import (  # noqa: E402
     rwkv6_scan_cuda, rwkv6_scan_plain)
 from repro_torch.kernels.ssm_scan import (  # noqa: E402
@@ -443,3 +446,169 @@ def test_cuda_mc_cell_matches_plain_bitwise(card, monkeypatch, n_cores):
     cut = mc_cell.mc_cell_cuda(*(a.to(card) for a in args), n_cores=C)
     assert cut["ok"].tolist() == [False] * B
     assert cut["n_events"].tolist() == [100] * B
+
+
+# -- backward kernels ----------------------------------------------------------
+
+# the log-sum-exp of the forward kernels: f32 as the kernel tolerance; the
+# bf16 kernel sums exp2 of log2-scaled scores and takes m ln 2 + ln l, an
+# f32 rounding away from the plain logsumexp of scores of its own inputs
+LSE_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+           "bfloat16": dict(rtol=1e-4, atol=1e-4)}
+
+# (bh, bh_kv, s, hd, window): ragged S around the 32-row tiles, GQA, a
+# window across tiles, every head dim of HEAD_DIMS
+BWD_SHAPES = ((4, 4, 96, 64, 0), (6, 2, 77, 128, 0), (2, 2, 130, 64, 16),
+              (3, 3, 1, 16, 0), (2, 2, 63, 32, 0), (2, 2, 65, 168, 0),
+              (4, 2, 130, 240, 0), (4, 2, 200, 128, 64), (3, 1, 33, 168, 20))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_lse_matches_plain(card, dtype):
+    """The forward kernels' log-sum-exp (BH, Sq) against the plain
+    logsumexp of the masked scaled scores, the output unchanged."""
+    g = torch.Generator(device=card).manual_seed(5)
+    dt = TDT[dtype]
+    for bh, bh_kv, s, hd, window in BWD_SHAPES:
+        q, k, v = (torch.randn(shape, generator=g, device=card).to(dt)
+                   for shape in ((bh, s, hd), (bh_kv, s, hd), (bh_kv, s, hd)))
+        out, lse = flash_attention_lse_cuda(q, k, v, window=window)
+        torch.testing.assert_close(
+            out, flash_attention_cuda(q, k, v, window=window), rtol=0, atol=0)
+        torch.testing.assert_close(lse, flash_lse_plain(q, k, window=window),
+                                   **LSE_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_backward_matches_plain(card, dtype):
+    """dq, dk, dv of ``ops.flash_attention`` on the card (the forward kernel
+    with its log-sum-exp, then flash_bwd_preprocess, flash_bwd_dkdv and
+    flash_bwd_dq) against autograd through the plain version, at the
+    kernel tolerances (f32 2e-5, bf16 2e-2); a second backward gives the
+    same bits, and each backward kernel launches once a call."""
+    g = torch.Generator(device=card).manual_seed(6)
+    dt = TDT[dtype]
+    for bh, bh_kv, s, hd, window in BWD_SHAPES:
+        q, k, v, do = (torch.randn(shape, generator=g, device=card).to(dt)
+                       for shape in ((bh, s, hd), (bh_kv, s, hd),
+                                     (bh_kv, s, hd), (bh, s, hd)))
+        want = flash_attention_bwd_plain(q, k, v, do, window=window)
+        got = []
+        for _ in range(2):
+            qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+            ops.reset_launch_counts()
+            out = ops.flash_attention(qg, kg, vg, window=window)
+            assert out.grad_fn is not None
+            out.backward(do)
+            counts = ops.launch_counts()
+            assert [counts[n] for n in ("flash_attention",
+                                        "flash_bwd_preprocess",
+                                        "flash_bwd_dkdv",
+                                        "flash_bwd_dq")] == [1, 1, 1, 1]
+            got.append((qg.grad, kg.grad, vg.grad))
+        for a, b, w in zip(got[0], got[1], want):
+            assert torch.equal(a, b)
+            torch.testing.assert_close(a, w, **TOL[dtype])
+    torch.cuda.synchronize()
+
+
+def dw_tol(n):
+    """dw sums n rows of f32 products (in either dtype): the rounding of
+    such a sum grows as sqrt(n) in any order (the plain version's own dw
+    is 4.5e-5 from the f64 sum at n 4096 on the CPU), so it is held at
+    the f32 kernel tolerance times sqrt(n)."""
+    t = 2e-5 * n ** 0.5
+    return dict(rtol=t, atol=t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rmsnorm_backward_matches_plain(card, dtype):
+    """dx, dw of the norm's backward kernel (blocks of 16 rows, dw partials
+    summed in a fixed order) against autograd through the plain version,
+    dx at the kernel tolerances and dw at ``dw_tol``, over ragged N and d
+    (the register path's d 2048 and 4096, the looping path's), and two
+    runs bitwise equal."""
+    g = torch.Generator(device=card).manual_seed(7)
+    dt = TDT[dtype]
+    for n, d in ((1, 4096), (77, 4096), (600, 2048), (33, 1000), (5, 8),
+                 (17, 5376), (4096, 4096), (16, 3840), (3, 100)):
+        x = torch.randn(n, d, generator=g, device=card).to(dt)
+        dy = torch.randn(n, d, generator=g, device=card).to(dt)
+        w = torch.randn(d, generator=g, device=card) * 0.1
+        dx, dw = fused_rmsnorm_bwd_cuda(x, w, dy)
+        dx2, dw2 = fused_rmsnorm_bwd_cuda(x, w, dy)
+        assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+        want_dx, want_dw = fused_rmsnorm_bwd_plain(x, w, dy)
+        torch.testing.assert_close(dx, want_dx, **TOL[dtype])
+        torch.testing.assert_close(dw, want_dw, **dw_tol(n))
+        xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        ops.fused_rmsnorm(xg, wg).backward(dy)
+        assert torch.equal(xg.grad, dx) and torch.equal(wg.grad, dw)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_without_backward_raise_under_grad(card):
+    """decode_attention, ssm_scan, rwkv6_scan and a capped flash_attention
+    have no backward kernel: where a gradient is wanted they raise, never
+    returning an output without a grad_fn; under no_grad they run."""
+    q = torch.randn(2, 1, 64, device=card, requires_grad=True)
+    k = torch.randn(2, 8, 64, device=card)
+    lengths = torch.full((2,), 8, dtype=torch.int32, device=card)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.decode_attention(q, k, k, lengths)
+    qq = torch.randn(2, 8, 64, device=card, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="softcap"):
+        ops.flash_attention(qq, k, k, softcap=2.0)
+    xbar = torch.randn(2, 16, 16, device=card, requires_grad=True)
+    B = torch.randn(2, 16, 16, device=card)
+    cum = torch.zeros(2, 16, device=card)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.ssm_scan(xbar, B, B, cum, chunk=16)
+    r = torch.randn(2, 16, 16, device=card, requires_grad=True)
+    w = torch.rand(2, 16, 16, device=card)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.rwkv6_scan(r, w, w, w, torch.zeros(2, 16, device=card))
+    with torch.no_grad():
+        ops.flash_attention(qq, k, k, softcap=2.0)
+        ops.decode_attention(q, k, k, lengths)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-7b", "granite-moe-3b-a800m",
+                                  "gemma3-12b"])
+def test_cuda_smoke_trains_two_steps(card, arch):
+    """Two train steps of the smoke config on the card (f32 masters, bf16
+    compute, remat, 2 microbatches): the norms and attention run the
+    kernels forward and backward (granite: MoE and GQA; gemma3-12b: the
+    window of its local layers), every parameter gets a non-zero
+    gradient, the losses are finite and the launch counts add up."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.training import (SyntheticLM, init_opt_state,
+                                      make_train_step)
+    cfg = get_smoke(arch)
+    params = init_params(cfg, seed=0, device=card, dtype=torch.float32)
+    lm = LM.from_params(cfg, params, dtype=torch.bfloat16)
+    step_fn = make_train_step(lm, TrainConfig(lr=1e-3, warmup_steps=1,
+                                              total_steps=2, microbatches=2))
+    opt = init_opt_state(params)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=96, batch=4, device=card)
+    ops.reset_launch_counts()
+    losses = []
+    for _ in range(2):
+        opt, m = step_fn(opt, data.next_batch())
+        losses.append(float(m["loss"]))
+    counts = ops.launch_counts()
+    L, n = cfg.n_layers, 2 * 2                      # steps x microbatches
+    assert counts["flash_attention"] == 2 * L * n   # forward + recompute
+    for name in ("flash_bwd_preprocess", "flash_bwd_dkdv", "flash_bwd_dq"):
+        assert counts[name] == L * n
+    assert counts["fused_rmsnorm"] == (4 * L + 1) * n
+    assert counts["fused_rmsnorm_bwd"] == (2 * L + 1) * n
+    assert counts["decode_attention"] == 0
+    assert all(np.isfinite(losses))
+    for name, p in lm.named_parameters():
+        assert p.grad is not None and float(p.grad.abs().max()) > 0, name

@@ -164,7 +164,10 @@ def test_ops_dispatch_cpu_to_plain_without_counting():
                        plain.decode_attention(q[:, :1], q, q, lengths))
     assert ops.launch_counts() == {"fused_rmsnorm": 0, "flash_attention": 0,
                                    "decode_attention": 0, "ssm_scan": 0,
-                                   "rwkv6_scan": 0, "mc_cell": 0}
+                                   "rwkv6_scan": 0, "mc_cell": 0,
+                                   "fused_rmsnorm_bwd": 0,
+                                   "flash_bwd_preprocess": 0,
+                                   "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
 
 
 def test_ops_raise_on_a_device_without_kernel():
