@@ -12,8 +12,10 @@ package. In order it:
    src/repro_torch/csrc into build/repro_torch/ (timed as set-up);
 3. counts the tensor-core instructions (HMMA) of the attention and
    scan kernels in the built library's SASS (cuobjdump), and fails if
-   the bf16 flash_attention kernel of any head dim of HEAD_DIMS or the
-   bf16 ssm_scan kernel has none;
+   the bf16 flash_attention kernel of any head dim of HEAD_DIMS, the
+   bf16 ssm_scan kernel, or the flash backward's two bf16 tensor-core
+   kernels (flash_bwd_dkdv_tc, flash_bwd_dq_tc) at hd 16, 32, 64 or 128
+   have none;
 4. holds each kernel against its plain PyTorch version at the shapes the
    serving paths give it (fused_rmsnorm at d 4096, 2048 and 1536;
    bf16 attention at hd 128 and 64, and granite-moe-3b-a800m's GQA: flash
@@ -52,11 +54,12 @@ package. In order it:
    versions, each twice for bitwise equality: fused_rmsnorm_bwd at
    (8192, 4096) and (1, 4096), flash_bwd_preprocess, flash_bwd_dkdv and
    flash_bwd_dq at BH 64 (2 x 32 heads), S 4096, hd 128, causal (the
-   training shapes), in bf16 and f32, timed beside the library's backward
+   training shapes), in bf16 (the flash backward on the tensor cores)
+   and f32 (its SIMT kernels), timed beside the library's backward
    (F.rms_norm's, SDPA's) and their bounds; untimed, the forward
-   kernels' log-sum-exp and the whole attention backward at hd 64, 168
-   and 240, GQA G = 3, a window of 1024 at S 1500 and ragged S 1, 63,
-   65, 130 (dw of the norm, a sum over N rows, at 2e-5 sqrt(N)); then
+   kernels' log-sum-exp and the whole attention backward at hd 16, 32,
+   64, 168 and 240, GQA G = 3, a window of 1024 at S 1500 and ragged S
+   1, 63, 65, 130 (dw of the norm, a sum over N rows, at 2e-5 sqrt(N)); then
    checks that decode_attention, ssm_scan, rwkv6_scan and a capped
    flash_attention raise where a gradient is wanted;
 4c. trains deepseek-7b at full width (d 4096, 32 x 128 heads, d_ff
@@ -939,12 +942,14 @@ def backward_cases(rt):
     """The backward kernels at the training phase's shapes (deepseek-7b at
     full width: norms of (8192, 4096) rows of a microbatch and the
     decode-sized (1, 4096); attention at BH 64 = 2 x 32 heads, S 4096,
-    hd 128, causal), in bf16 (the train step's dtype) and f32, each
+    hd 128, causal), in bf16 (the train step's dtype; the flash
+    backward's tensor-core kernels) and f32 (its SIMT kernels), each
     against autograd through the plain version on the same inputs and
     twice for bitwise equality; then untimed: the log-sum-exp of both
-    forward kernels, and the whole attention backward at hd 64, 168 and
-    240, GQA G = 3, a window of 1024 at S 1500, and ragged S 1, 63, 65,
-    130. From a generator of their own, after the forward rows."""
+    forward kernels, and the whole attention backward at hd 16, 32, 64,
+    168 and 240, GQA G = 3, a window of 1024 at S 1500, and ragged S 1,
+    63, 65, 130. From a generator of their own, after the forward
+    rows."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     kb = rt.backward
 
@@ -984,6 +989,7 @@ def backward_cases(rt):
             do)
         pairs = bh * s * (s + 1) // 2
         label = f"BH {bh}, S {s}, hd {hd}, causal, {tag}"
+        design = "tensor cores" if dt == torch.bfloat16 else "SIMT"
         serving = dt == torch.bfloat16
         yield Case("flash_bwd_preprocess", label,
                    lambda: kb["flash_bwd_preprocess"](out, do),
@@ -991,14 +997,14 @@ def backward_cases(rt):
                    2 * bh * s * hd * size + bh * s * 4, 2 * bh * s * hd,
                    peak, tol, serving=serving, bitwise=True)
         rows_io = 2 * bh * s * 4                      # lse and D read
-        yield Case("flash_bwd_dkdv", label + " (plain and library: all "
-                   "three grads)",
+        yield Case("flash_bwd_dkdv", f"{label}, {design} (plain and "
+                   "library: all three grads)",
                    lambda: kb["flash_bwd_dkdv"](q, k, v, do, lse, delta),
                    lambda: plain()[1:], lambda: lib()[1:],
                    6 * bh * s * hd * size + rows_io, 8 * hd * pairs, peak,
                    tol, serving=serving, bitwise=True)
-        yield Case("flash_bwd_dq", label + " (plain and library: all three "
-                   "grads)",
+        yield Case("flash_bwd_dq", f"{label}, {design} (plain and library: "
+                   "all three grads)",
                    lambda: kb["flash_bwd_dq"](q, k, v, do, lse, delta),
                    lambda: plain()[0], lambda: lib()[0],
                    5 * bh * s * hd * size + rows_io, 6 * hd * pairs, peak,
@@ -1008,7 +1014,8 @@ def backward_cases(rt):
                    lambda: kb["flash_lse_plain"](q, k), None, 0, 0, peak,
                    LSE_TOL[dt], timed=False, bitwise=True)
         del q, k, v, do, out, lse, delta, qg, kg, vg, ql, kl, vl, plain, lib
-    edges = (("hd 64", 8, 8, 600, 64, 0), ("hd 168, G = 2", 16, 8, 600, 168, 0),
+    edges = (("hd 16", 8, 8, 600, 16, 0), ("hd 32", 8, 8, 600, 32, 0),
+             ("hd 64", 8, 8, 600, 64, 0), ("hd 168, G = 2", 16, 8, 600, 168, 0),
              ("hd 240, G = 2", 16, 8, 600, 240, 0),
              ("GQA G = 3", 24, 8, 600, 64, 0),
              ("window 1024, S 1500", 8, 8, 1500, 128, 1024),
@@ -1378,17 +1385,22 @@ def resume_check(rt, cfg, params) -> None:
 
 SASS_KERNELS = ("flash_tc_kernel", "flash_f32_kernel", "decode_split_kernel",
                 "decode_combine_kernel", "ssm_tc_kernel", "ssm_scan_kernel",
-                "rwkv6_chunk_kernel")
-TENSOR_CORE_KERNELS = ("flash_tc", "ssm_tc")   # must show HMMA/HGMMA
+                "rwkv6_chunk_kernel", "flash_bwd_dkdv_tc_kernel",
+                "flash_bwd_dq_tc_kernel")
+# must show HMMA/HGMMA
+TENSOR_CORE_KERNELS = ("flash_tc", "ssm_tc", "flash_bwd_dkdv_tc",
+                       "flash_bwd_dq_tc")
+BWD_TC_HEAD_DIMS = (16, 32, 64, 128)   # the backward's bf16 tensor-core hds
 
 
 def sass_check(lib_path: Path, head_dims: tuple) -> None:
     """Count HMMA (mma.sync) and HGMMA (wgmma) instructions in the SASS of
     each attention and scan kernel (<n> is the template's head or state
-    dim); the bf16 flash and ssm kernels must have some, and the bf16
-    flash kernel must be there at every head dim of ``head_dims`` (168:
-    padded to 176 inside it) with and without the softcap (the rwkv6
-    kernel runs on the CUDA cores and is listed for its count)."""
+    dim); the bf16 flash and ssm kernels must have some, the bf16 flash
+    kernel must be there at every head dim of ``head_dims`` (168: padded
+    to 176 inside it) with and without the softcap, and the backward's
+    two tensor-core kernels at every head dim of BWD_TC_HEAD_DIMS (the
+    rwkv6 kernel runs on the CUDA cores and is listed for its count)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.isfile(tool):
         fail("cuobjdump not found: cannot show the tensor-core path")
@@ -1421,6 +1433,11 @@ def sass_check(lib_path: Path, head_dims: tuple) -> None:
             if not counts.get(f"flash_tc_kernel<{hd}> bf16{cap}"):
                 fail(f"flash_tc_kernel<{hd}> bf16{cap}: not in the SASS, or "
                      "no tensor-core instruction")
+    for kernel in ("flash_bwd_dkdv_tc_kernel", "flash_bwd_dq_tc_kernel"):
+        for hd in BWD_TC_HEAD_DIMS:
+            if not counts.get(f"{kernel}<{hd}> bf16"):
+                fail(f"{kernel}<{hd}> bf16: not in the SASS, or no "
+                     "tensor-core instruction")
     mc_sass_check(res.stdout)
 
 

@@ -24,30 +24,83 @@
 // do 14 hd flops (dkdv: Q K^T, dO V^T, P^T dO, dS^T Q; dq: Q K^T,
 // dO V^T, dS K), 3.5x the forward's 4 hd; at the training shape (BH 64,
 // S 4096, hd 128, causal) that is ~960 GFLOP against ~0.3 GB of inputs
-// and outputs.
-//
-// Design: the simple SIMT form, every product an f32 FMA on the CUDA
-// cores (tensor cores, TMA and wgmma are later work). Tiles of 32 query
-// rows and 32 keys are held in shared memory as f32 rows of hd + 1
-// floats (an odd stride: the column loads of a warp fall in distinct
-// banks), with the 32 x 32 tiles of P and dS beside them. 256 threads:
-// in the score phase thread (ty, tx) computes the four entries (ty +
-// 16a, tx + 16b) of S and dP; in the product phase a row of the output
-// tile belongs to 8 threads, thread c of them owning columns c, c + 8, ...
-// (hd / 8 f32 accumulators each for dK and dV, or for dQ).
+// and outputs. dQ has a kernel of its own that computes S and dP again
+// (14 hd flops a pair, not FA2's 10 with a dQ summed by float atomics):
+// the price of sums in a fixed order.
 //
 // No float atomics: dK and dV of a key tile are summed by the one block
 // that owns it, over the G query heads of its KV head (GQA, in head
 // order) and the query tiles in order; dQ of a query tile by the one
 // block that owns it, over the key tiles in order. Every sum has a fixed
 // order, so two runs give the same bits. Tiles wholly outside the causal
-// or window band are skipped; a tile on an edge masks per element.
+// or window band are never loaded; only a tile on the causal diagonal,
+// on the window edge or past S masks per element.
+//
+// Two designs, picked by launch_hd from (dtype, hd) before any launch,
+// as the forward picks by dtype. This is a dispatch, not a fallback:
+// each (dtype, hd) has exactly one kernel, and nothing catches a failed
+// build or launch to retry another.
+//
+//   bf16, hd 16 / 32 / 64 / 128: flash_bwd_dkdv_tc_kernel and
+//     flash_bwd_dq_tc_kernel, FA2's backward on the tensor cores
+//     (mma.sync m16n8k16, bf16 in, f32 accumulators), below.
+//   f32, every hd: flash_bwd_dkdv_kernel and flash_bwd_dq_kernel, the
+//     SIMT form, every product an f32 FMA. They are the checking path
+//     (the kernel tests at 2e-5, the train path check at 1e-3), which
+//     neither bf16 nor TF32 tensor cores can meet, as flash_f32_kernel
+//     is for the forward.
+//   bf16, hd 168 / 240: the same SIMT kernels on bf16 tensors. At hd 128
+//     dK and dV already take 128 f32 accumulators a thread; wider heads
+//     need the forward's warp split several times over.
+//
+// The tensor-core design. 128 threads a block (4 warps, 16 rows each),
+// tiles of 64 rows in shared memory as bf16, each row HD + 8 bf16 (an
+// odd count of 16-byte units, so every ldmatrix is free of bank
+// conflicts), filled by 16-byte cp.async with zero-fill past S.
+//   dkdv: grid (BH_kv, key tiles of 64), the key tile counted from 0 on
+//     y, so every KV head's heaviest tile under the causal mask (the
+//     lowest keys see the most query rows) goes out before any lighter
+//     one. The block's K and V tiles stay in shared memory; the (query
+//     head, query tile) pairs it needs stream their Q and dO tiles, lse
+//     and D through a two-stage cp.async ring, the next pair in flight
+//     while this one is computed. Keys are the M dimension: a warp owns
+//     16 keys and computes S^T = K Q^T and dP^T = V dO^T over sub-steps
+//     of kNQ query columns (32 at hd 128, where dK and dV hold 128 f32
+//     a thread; 64 below). P^T and dS^T are formed on the accumulator
+//     fragments, and the C layout of an m16n8 accumulator is the A
+//     layout of m16n8k16: packed to bf16 they go straight from registers
+//     into dV += P^T dO and dK += dS^T Q, the B operand read from the dO
+//     or Q tile by ldmatrix.trans. Nothing of P or dS touches shared
+//     memory. K and V fragments are read again from shared memory at
+//     each k-step, not held. dK is scaled once, at the store.
+//   dq: grid (BH, query tiles of 64), y counted from the last tile (the
+//     heaviest under the causal mask), the forward's shape: the Q and
+//     dO tiles are held (as A fragments in registers at hd <= 64, read
+//     again at each k-step at hd 128), K and V tiles stream through the
+//     two-stage ring. S = Q K^T, dP = dO V^T and dS = P (dP - D) on the
+//     fragments, then dQ += dS K with dS packed to bf16 A fragments and
+//     K read by ldmatrix.trans.
+//   P is taken in the exp2 domain, as the forward does: exp2(s scale
+//   log2(e) - lse log2(e)), lse being the forward's natural log-sum-exp.
+//   P and dS are rounded to bf16 before their products (the forward
+//   rounds P for P V the same way); every sum is f32.
+//
+// The SIMT design. Tiles of 32 query rows and 32 keys are held in shared
+// memory as f32 rows of hd + 1 floats (an odd stride: the column loads
+// of a warp fall in distinct banks), with the 32 x 32 tiles of P and dS
+// beside them. 256 threads: in the score phase thread (ty, tx) computes
+// the four entries (ty + 16a, tx + 16b) of S and dP; in the product
+// phase a row of the output tile belongs to 8 threads, thread c of them
+// owning columns c, c + 8, ... (hd / 8 f32 accumulators each for dK and
+// dV, or for dQ).
 #include <cstdint>
 
 #include "common.cuh"
 
 namespace repro {
 namespace {
+
+// -- f32 SIMT kernels (f32, and bf16 at hd 168 / 240) --------------------------
 
 constexpr int kB = 32;            // query rows, and keys, a tile
 constexpr int kThreads = 256;     // 8 warps
@@ -282,6 +335,465 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// -- bf16 tensor-core kernels (hd 16, 32, 64, 128) ----------------------------
+
+constexpr int kTcB = 64;              // rows of a tile: keys or query rows
+constexpr int kTcThreads = 128;       // 4 warps, 16 rows each
+
+template <int HD>
+struct BwdTcLayout {
+  static constexpr int kStride = HD + 8;        // bf16 a smem row
+  static constexpr int kTile = kTcB * kStride;  // bf16 a 64-row tile
+  // dkdv: K, V and two stages of (Q, dO), then two stages of (lse, D)
+  static constexpr int kDkdvBytes = 6 * kTile * 2 + 2 * 2 * kTcB * 4;
+  // dq: Q, dO and two stages of (K, V)
+  static constexpr int kDqBytes = 6 * kTile * 2;
+  // query columns of a dkdv sub-step: S^T and dP^T take kNQ / 2 f32 a
+  // thread each beside dK and dV's HD
+  static constexpr int kNQ = HD > 64 ? 32 : 64;
+  static constexpr bool kHold = HD <= 64;       // dq: Q, dO fragments held
+  static_assert(HD % 16 == 0 && HD <= 128, "tensor-core head dims");
+  static_assert((kStride / 8) % 2 == 1,
+                "an odd count of 16-byte units a smem row");
+  static_assert(kTcThreads == 2 * kTcB, "a thread an lse or D row");
+};
+
+// rows row0 .. row0 + 63 of a (nrows, HD) bf16 matrix into a smem tile
+// of BwdTcLayout<HD>::kStride a row, 16-byte cp.async; rows past nrows
+// are zero-filled (their source is not read)
+template <int HD>
+__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* src,
+                                                int row0, int nrows) {
+  constexpr int kS = BwdTcLayout<HD>::kStride;
+  constexpr int kCPR = HD / 8;          // 16-byte chunks a row
+  constexpr int kChunks = kTcB * kCPR;
+  static_assert(kChunks % kTcThreads == 0, "whole rounds of chunks");
+#pragma unroll
+  for (int i = 0; i < kChunks / kTcThreads; ++i) {
+    const int c = threadIdx.x + i * kTcThreads;
+    const int r = c / kCPR, cc = c % kCPR;
+    const bool ok = row0 + r < nrows;
+    cp_async16(smem_addr(dst + r * kS + cc * 8),
+               src + (ok ? static_cast<size_t>(row0 + r) * HD + cc * 8 : 0),
+               ok);
+  }
+}
+
+// The m16n8k16 operands from a row-major smem tile of stride kS (the
+// forward's loads). ldsm_a: the A fragment of rows rb .. rb + 15 and
+// columns c0 .. c0 + 15. ldsm_b: the B fragments of two n-tiles, the
+// tile's rows nb .. nb + 15 as n and columns c0 .. c0 + 15 as k (b[0],
+// b[1] rows nb..; b[2], b[3] rows nb + 8..). ldsm_bt: the same read
+// transposed, rows kb .. kb + 15 as k and columns nb .. nb + 15 as n.
+template <int kS>
+__device__ __forceinline__ void ldsm_a(const __nv_bfloat16* t, int rb,
+                                       int c0, uint32_t (&a)[4]) {
+  const int lane = threadIdx.x & 31;
+  const int r = rb + (lane & 7) + ((lane >> 3) & 1) * 8;
+  ldsm_x4(smem_addr(t + r * kS + c0 + (lane >> 4) * 8), a);
+}
+
+template <int kS>
+__device__ __forceinline__ void ldsm_b(const __nv_bfloat16* t, int nb,
+                                       int c0, uint32_t (&b)[4]) {
+  const int lane = threadIdx.x & 31;
+  const int r = nb + (lane & 7) + (lane >> 4) * 8;
+  ldsm_x4(smem_addr(t + r * kS + c0 + ((lane >> 3) & 1) * 8), b);
+}
+
+template <int kS>
+__device__ __forceinline__ void ldsm_bt(const __nv_bfloat16* t, int kb,
+                                        int nb, uint32_t (&b)[4]) {
+  const int lane = threadIdx.x & 31;
+  const int r = kb + (lane & 7) + ((lane >> 3) & 1) * 8;
+  ldsm_x4_trans(smem_addr(t + r * kS + nb + (lane >> 4) * 8), b);
+}
+
+// the A fragment of k-step kk from the accumulators of n-tiles 2 kk and
+// 2 kk + 1 (the C layout of m16n8 is the A layout of m16n8k16), as bf16
+template <int N>
+__device__ __forceinline__ void pack_a(const float (&c)[N][4], int kk,
+                                       uint32_t (&a)[4]) {
+  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+}
+
+// grid (BH_kv, key tiles): a block owns keys k0 .. k0 + 63 of KV head
+// blockIdx.x, a warp 16 of them
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int group, int sq,
+                         int sk, int causal, int window, float scale,
+                         float scale_log2) {
+  using L = BwdTcLayout<HD>;
+  constexpr int kS = L::kStride, kTile = L::kTile, kNQ = L::kNQ;
+  constexpr int kKS = HD / 16;         // k-steps of S^T over hd
+  constexpr int kNT = kNQ / 8;         // n-tiles of S^T in a sub-step
+  constexpr int kDT = HD / 8;          // n-tiles of dK and dV
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* vs = ks + kTile;
+  __nv_bfloat16* qs = vs + kTile;      // stage s: Q at qs + 2 s kTile, dO after
+  float* rows_s = reinterpret_cast<float*>(qs + 4 * kTile);  // lse, D a stage
+
+  const int kvh = blockIdx.x;
+  const int k0 = blockIdx.y * kTcB;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int key0 = k0 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
+
+  // query rows that see a key of this tile: q >= k0 (causal) and
+  // q < k_max + W (window), in tiles of 64 from q_lo; the G query heads
+  // of the KV head in order, each over its query tiles in order
+  const int k_max = min(k0 + kTcB, sk) - 1;
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(sq, k_max + window) : sq;
+  const int n_qt = q_hi > q_lo ? (q_hi - q_lo + kTcB - 1) / kTcB : 0;
+  const int n_it = group * n_qt;
+
+  load_tile_async<HD>(ks, k + static_cast<size_t>(kvh) * sk * HD, k0, sk);
+  load_tile_async<HD>(vs, v + static_cast<size_t>(kvh) * sk * HD, k0, sk);
+  auto load_q = [&](int it, int stage) {
+    const int gi = it / n_qt;
+    const int q0 = q_lo + (it - gi * n_qt) * kTcB;
+    const size_t bh = static_cast<size_t>(kvh) * group + gi;
+    __nv_bfloat16* qd = qs + stage * 2 * kTile;
+    load_tile_async<HD>(qd, q + bh * sq * HD, q0, sq);
+    load_tile_async<HD>(qd + kTile, dout + bh * sq * HD, q0, sq);
+    // threads 0-63 copy lse of the 64 rows, 64-127 their D (0 past sq)
+    const int r = tid & (kTcB - 1);
+    const bool ok = q0 + r < sq;
+    cp_async4(smem_addr(rows_s + stage * 2 * kTcB + tid),
+              (tid < kTcB ? lse : delta) + (ok ? bh * sq + q0 + r : 0), ok);
+  };
+  if (n_it > 0) load_q(0, 0);
+  cp_async_commit();                   // group 0: K, V and the first pair
+
+  float dka[kDT][4], dva[kDT][4];
+#pragma unroll
+  for (int j = 0; j < kDT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+  }
+
+  for (int it = 0; it < n_it; ++it) {
+    if (it + 1 < n_it) load_q(it + 1, (it + 1) & 1);
+    cp_async_commit();                 // (empty on the last pair)
+    cp_async_wait<1>();                // this pair (and K, V) has landed
+    __syncthreads();
+    const int q0 = q_lo + (it % n_qt) * kTcB;
+    const __nv_bfloat16* qt = qs + (it & 1) * 2 * kTile;
+    const __nv_bfloat16* dot = qt + kTile;
+    const float* lse_t = rows_s + (it & 1) * 2 * kTcB;
+    const float* d_t = lse_t + kTcB;
+    const bool need_mask = q0 + kTcB > sq || k0 + kTcB > sk ||
+                           (causal && k0 + kTcB - 1 > q0) ||
+                           (window > 0 && k0 <= q0 + kTcB - 1 - window);
+#pragma unroll
+    for (int h = 0; h < kTcB / kNQ; ++h) {
+      const int c0 = h * kNQ;          // the sub-step's first query column
+      // S^T = K Q^T and dP^T = V dO^T: 16 keys x kNQ queries a warp
+      float s[kNT][4], dp[kNT][4];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < kKS; ++kk) {
+        uint32_t a[4];
+        ldsm_a<kS>(ks, warp * 16, kk * 16, a);
+#pragma unroll
+        for (int nj = 0; nj < kNT / 2; ++nj) {
+          uint32_t b[4];
+          ldsm_b<kS>(qt, c0 + nj * 16, kk * 16, b);
+          mma_bf16(s[2 * nj], a, b[0], b[1]);
+          mma_bf16(s[2 * nj + 1], a, b[2], b[3]);
+        }
+        ldsm_a<kS>(vs, warp * 16, kk * 16, a);
+#pragma unroll
+        for (int nj = 0; nj < kNT / 2; ++nj) {
+          uint32_t b[4];
+          ldsm_b<kS>(dot, c0 + nj * 16, kk * 16, b);
+          mma_bf16(dp[2 * nj], a, b[0], b[1]);
+          mma_bf16(dp[2 * nj + 1], a, b[2], b[3]);
+        }
+      }
+      // P^T = exp2(s scale log2e - lse log2e) and dS^T = P^T (dP^T - D)
+      // on the fragments: element e of n-tile j is key key0 + 8 (e >> 1),
+      // query column c0 + 8 j + 2 t + (e & 1)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const int col = c0 + 8 * j + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_t + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(d_t + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lq = (e & 1) ? l2.y : l2.x;
+          const float dd = (e & 1) ? d2.y : d2.x;
+          float p = exp2f(s[j][e] * scale_log2 - lq * kLog2e);
+          if (need_mask) {
+            const int qi = q0 + col + (e & 1);
+            const int key = key0 + 8 * (e >> 1);
+            bool ok = qi < sq && key < sk;
+            if (causal) ok = ok && key <= qi;
+            if (window > 0) ok = ok && key > qi - window;
+            p = ok ? p : 0.f;
+          }
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - dd);
+        }
+      }
+      // dV += P^T dO and dK += dS^T Q, A from the fragments as bf16
+#pragma unroll
+      for (int kk = 0; kk < kNQ / 16; ++kk) {
+        uint32_t pa[4], da[4];
+        pack_a(s, kk, pa);
+        pack_a(dp, kk, da);
+#pragma unroll
+        for (int nd = 0; nd < HD / 16; ++nd) {
+          uint32_t b[4];
+          ldsm_bt<kS>(dot, c0 + kk * 16, nd * 16, b);
+          mma_bf16(dva[2 * nd], pa, b[0], b[1]);
+          mma_bf16(dva[2 * nd + 1], pa, b[2], b[3]);
+          ldsm_bt<kS>(qt, c0 + kk * 16, nd * 16, b);
+          mma_bf16(dka[2 * nd], da, b[0], b[1]);
+          mma_bf16(dka[2 * nd + 1], da, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();                   // this stage is free for pair it + 2
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = key0 + 8 * hh;
+    if (key < sk) {
+      const size_t off = (static_cast<size_t>(kvh) * sk + key) * HD + 2 * t;
+#pragma unroll
+      for (int j = 0; j < kDT; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j) =
+            __floats2bfloat162_rn(dka[j][2 * hh] * scale,
+                                  dka[j][2 * hh + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j) =
+            __floats2bfloat162_rn(dva[j][2 * hh], dva[j][2 * hh + 1]);
+      }
+    }
+  }
+}
+
+// grid (BH, query tiles): y counts query tiles from the last (the
+// heaviest under the causal mask); a warp owns 16 query rows
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dq, int group, int sq,
+                       int sk, int causal, int window, float scale,
+                       float scale_log2) {
+  using L = BwdTcLayout<HD>;
+  constexpr int kS = L::kStride, kTile = L::kTile;
+  constexpr bool kHold = L::kHold;
+  constexpr int kKS = HD / 16;         // k-steps of S over hd
+  constexpr int kST = kTcB / 8;        // n-tiles of S
+  constexpr int kDT = HD / 8;          // n-tiles of dQ
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* dos = qs + kTile;
+  __nv_bfloat16* ks = dos + kTile;     // stage s: K at ks + 2 s kTile, V after
+
+  const int bh = blockIdx.x;
+  const int kvh = bh / group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcB;  // heaviest first
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+
+  // keys this tile's rows see: k <= q_last (causal), k > q0 - W (window,
+  // from the 64-key tile holding it), in order
+  const int q_last = min(q0 + kTcB, sq) - 1;
+  const int k_end = causal ? min(sk, q_last + 1) : sk;
+  const int k_begin = (window > 0 ? max(0, q0 - window + 1) : 0) / kTcB * kTcB;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kTcB - 1) / kTcB : 0;
+
+  const size_t qoff = static_cast<size_t>(bh) * sq;
+  const __nv_bfloat16* kb = k + static_cast<size_t>(kvh) * sk * HD;
+  const __nv_bfloat16* vb = v + static_cast<size_t>(kvh) * sk * HD;
+  load_tile_async<HD>(qs, q + qoff * HD, q0, sq);
+  load_tile_async<HD>(dos, dout + qoff * HD, q0, sq);
+  auto load_kv = [&](int kt, int stage) {
+    __nv_bfloat16* kd = ks + stage * 2 * kTile;
+    load_tile_async<HD>(kd, kb, kt, sk);
+    load_tile_async<HD>(kd + kTile, vb, kt, sk);
+  };
+  if (n_tiles > 0) load_kv(k_begin, 0);
+  cp_async_commit();                   // group 0: Q, dO and the first K/V
+
+  // this thread's rows: lse in exp2 units, and D (0 past sq)
+  float lse2[2], dd[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = row0 + 8 * h;
+    lse2[h] = qi < sq ? lse[qoff + qi] * kLog2e : 0.f;
+    dd[h] = qi < sq ? delta[qoff + qi] : 0.f;
+  }
+
+  uint32_t qf[kHold ? kKS : 1][4], of[kHold ? kKS : 1][4];
+  float acc[kDT][4];
+#pragma unroll
+  for (int j = 0; j < kDT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int kt = k_begin + it * kTcB;
+    if (it + 1 < n_tiles) load_kv(kt + kTcB, (it + 1) & 1);
+    cp_async_commit();                 // (empty on the last tile)
+    cp_async_wait<1>();                // this tile (and Q, dO) has landed
+    __syncthreads();
+    if (kHold && it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < kKS; ++kk) {
+        ldsm_a<kS>(qs, warp * 16, kk * 16, qf[kk]);
+        ldsm_a<kS>(dos, warp * 16, kk * 16, of[kk]);
+      }
+    }
+    const __nv_bfloat16* kt_s = ks + (it & 1) * 2 * kTile;
+    const __nv_bfloat16* vt_s = kt_s + kTile;
+
+    // S = Q K^T and dP = dO V^T: 16 rows x 64 keys a warp
+    float s[kST][4], dp[kST][4];
+#pragma unroll
+    for (int j = 0; j < kST; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kKS; ++kk) {
+      if (!kHold) ldsm_a<kS>(qs, warp * 16, kk * 16, qf[0]);
+#pragma unroll
+      for (int nj = 0; nj < kST / 2; ++nj) {
+        uint32_t b[4];
+        ldsm_b<kS>(kt_s, nj * 16, kk * 16, b);
+        mma_bf16(s[2 * nj], qf[kHold ? kk : 0], b[0], b[1]);
+        mma_bf16(s[2 * nj + 1], qf[kHold ? kk : 0], b[2], b[3]);
+      }
+      if (!kHold) ldsm_a<kS>(dos, warp * 16, kk * 16, of[0]);
+#pragma unroll
+      for (int nj = 0; nj < kST / 2; ++nj) {
+        uint32_t b[4];
+        ldsm_b<kS>(vt_s, nj * 16, kk * 16, b);
+        mma_bf16(dp[2 * nj], of[kHold ? kk : 0], b[0], b[1]);
+        mma_bf16(dp[2 * nj + 1], of[kHold ? kk : 0], b[2], b[3]);
+      }
+    }
+
+    // dS = P (dP - D), P = exp2(s scale log2e - lse log2e), 0 where masked
+    const bool need_mask = kt + kTcB > sk ||
+                           (causal && kt + kTcB - 1 > q0) ||
+                           (window > 0 && kt <= q0 + kTcB - 1 - window);
+#pragma unroll
+    for (int j = 0; j < kST; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        float p = exp2f(s[j][e] * scale_log2 - lse2[h]);
+        if (need_mask) {
+          const int key = kt + 8 * j + 2 * t + (e & 1);
+          const int qi = row0 + 8 * h;
+          bool ok = key < sk;
+          if (causal) ok = ok && key <= qi;
+          if (window > 0) ok = ok && key > qi - window;
+          p = ok ? p : 0.f;
+        }
+        dp[j][e] = p * (dp[j][e] - dd[h]);
+      }
+    }
+
+    // dQ += dS K, dS as bf16 A fragments, K read transposed
+#pragma unroll
+    for (int kk = 0; kk < kTcB / 16; ++kk) {
+      uint32_t da[4];
+      pack_a(dp, kk, da);
+#pragma unroll
+      for (int nd = 0; nd < HD / 16; ++nd) {
+        uint32_t b[4];
+        ldsm_bt<kS>(kt_s, kk * 16, nd * 16, b);
+        mma_bf16(acc[2 * nd], da, b[0], b[1]);
+        mma_bf16(acc[2 * nd + 1], da, b[2], b[3]);
+      }
+    }
+    __syncthreads();                   // this stage is free for tile it + 2
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = row0 + 8 * h;
+    if (qi < sq) {
+      __nv_bfloat16* row = dq + (qoff + qi) * HD + 2 * t;
+#pragma unroll
+      for (int j = 0; j < kDT; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
+            __floats2bfloat162_rn(acc[j][2 * h] * scale,
+                                  acc[j][2 * h + 1] * scale);
+    }
+  }
+}
+
+template <int HD>
+int launch_tc(const void* q, const void* k, const void* v, const void* dout,
+              const float* lse, const float* delta, void* dq, void* dk,
+              void* dv, int bh, int group, int sq, int sk, int causal,
+              int window, cudaStream_t stream) {
+  using L = BwdTcLayout<HD>;
+  using bf16 = __nv_bfloat16;
+  const float scale = 1.f / sqrtf(static_cast<float>(HD));
+  const float scale_log2 = kLog2e / sqrtf(static_cast<float>(HD));
+  const bf16* qp = static_cast<const bf16*>(q);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  const bf16* dp = static_cast<const bf16*>(dout);
+  if (dk != nullptr) {
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        flash_bwd_dkdv_tc_kernel<HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, L::kDkdvBytes);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const dim3 grid(bh / group, (sk + kTcB - 1) / kTcB);
+    flash_bwd_dkdv_tc_kernel<HD><<<grid, kTcThreads, L::kDkdvBytes, stream>>>(
+        qp, kp, vp, dp, lse, delta, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), group, sq, sk, causal, window, scale,
+        scale_log2);
+  } else {
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        flash_bwd_dq_tc_kernel<HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, L::kDqBytes);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const dim3 grid(bh, (sq + kTcB - 1) / kTcB);
+    flash_bwd_dq_tc_kernel<HD><<<grid, kTcThreads, L::kDqBytes, stream>>>(
+        qp, kp, vp, dp, lse, delta, static_cast<bf16*>(dq), group, sq, sk,
+        causal, window, scale, scale_log2);
+  }
+  return 0;
+}
+
+// -- dispatch ------------------------------------------------------------------
+
 template <typename T, int HD>
 int launch_grads(const void* q, const void* k, const void* v,
                  const void* dout, const float* lse, const float* delta,
@@ -315,15 +827,23 @@ int launch_grads(const void* q, const void* k, const void* v,
   return 0;
 }
 
+// (dtype, hd) picks the kernel: bf16 at hd <= 128 the tensor cores, f32
+// and bf16 at hd 168 / 240 the SIMT kernels. Not a fallback: one kernel
+// for each pair, and an error from it is returned, never retried.
 template <int HD>
 int launch_hd(int dtype, const void* q, const void* k, const void* v,
               const void* dout, const float* lse, const float* delta,
               void* dq, void* dk, void* dv, int bh, int group, int sq,
               int sk, int causal, int window, cudaStream_t stream) {
-  if (dtype == kBF16)
-    return launch_grads<__nv_bfloat16, HD>(q, k, v, dout, lse, delta, dq, dk,
-                                           dv, bh, group, sq, sk, causal,
-                                           window, stream);
+  if (dtype == kBF16) {
+    if constexpr (HD <= 128)
+      return launch_tc<HD>(q, k, v, dout, lse, delta, dq, dk, dv, bh, group,
+                           sq, sk, causal, window, stream);
+    else
+      return launch_grads<__nv_bfloat16, HD>(q, k, v, dout, lse, delta, dq,
+                                             dk, dv, bh, group, sq, sk,
+                                             causal, window, stream);
+  }
   if (dtype == kF32)
     return launch_grads<float, HD>(q, k, v, dout, lse, delta, dq, dk, dv, bh,
                                    group, sq, sk, causal, window, stream);

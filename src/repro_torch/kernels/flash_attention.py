@@ -24,9 +24,14 @@ is three hand-written kernels (``csrc/flash_attention_bwd.cu``):
 :func:`flash_bwd_preprocess_cuda` (D = rowsum(dO * O)),
 :func:`flash_bwd_dkdv_cuda` (dK, dV over key tiles, GQA summed inside)
 and :func:`flash_bwd_dq_cuda` (dQ over query tiles), with no float
-atomics. A capped call has no backward kernel and raises where a gradient
-is wanted. :func:`flash_attention_bwd_plain` is autograd through the
-plain version.
+atomics. The source picks the dK/dV and dQ kernels by (dtype, hd): bf16
+at hd 16, 32, 64 and 128 runs them on the tensor cores (64-row tiles, P
+and dS rounded to bf16 before their products); f32 at any hd, and bf16
+at hd 168 and 240, run the SIMT kernels (f32 FMAs, 32-row tiles), the
+f32 ones being the checking path. That is a dispatch, not a fallback:
+each (dtype, hd) has one kernel, and a failed launch raises. A capped
+call has no backward kernel and raises where a gradient is wanted.
+:func:`flash_attention_bwd_plain` is autograd through the plain version.
 """
 from __future__ import annotations
 
@@ -244,8 +249,9 @@ def _check_bwd(name, q, k, v, dout, lse, delta):
 
 def flash_bwd_dkdv_cuda(q, k, v, dout, lse, delta, *, causal: bool = True,
                         window: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) of k's shape and dtype: a block a 32-key tile, summing
-    over its KV head's query heads and query tiles in order."""
+    """(dk, dv) of k's shape and dtype: a block a key tile (64 keys on the
+    tensor cores, 32 on the SIMT path), summing over its KV head's query
+    heads and query tiles in order."""
     global dkdv_launches
     _check_bwd(DKDV_NAME, q, k, v, dout, lse, delta)
     require(window >= 0, DKDV_NAME, "window must be >= 0")
@@ -264,8 +270,9 @@ def flash_bwd_dkdv_cuda(q, k, v, dout, lse, delta, *, causal: bool = True,
 
 def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, *, causal: bool = True,
                       window: int = 0) -> torch.Tensor:
-    """dq of q's shape and dtype: a block a 32-row query tile, summing
-    over the key tiles in order."""
+    """dq of q's shape and dtype: a block a query tile (64 rows on the
+    tensor cores, 32 on the SIMT path), summing over the key tiles in
+    order."""
     global dq_launches
     _check_bwd(DQ_NAME, q, k, v, dout, lse, delta)
     require(window >= 0, DQ_NAME, "window must be >= 0")

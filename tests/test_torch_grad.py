@@ -6,20 +6,28 @@
   ragged S.
 * A design test of the backward kernels (``csrc/fused_rmsnorm.cu``'s
   backward, ``csrc/flash_attention_bwd.cu``): their tiling, the tiles
-  they skip and their fixed reduction orders emulated in PyTorch (32-row
-  query and 32-key tiles, dK/dV summed over the G query heads of a KV
-  head and the query tiles in order, dQ separately over the key tiles;
-  dw partials of 16-row blocks summed in groups of 32 blocks), run
+  they skip and their fixed reduction orders emulated in PyTorch, run
   through the autograd Functions on the CPU with the kernels replaced by
-  the emulation, against autograd through the plain versions. Keep the
-  emulation in step with the .cu files.
+  the emulation, against autograd through the plain versions. The flash
+  backward's emulation is routed as ``launch_hd`` dispatches: bf16 at
+  hd 16-128 to the tensor-core kernels' (64-key and 64-row tiles, the
+  dkdv block's query sub-steps, P in the exp2 domain, P and dS rounded
+  to bf16 before their products, f32 sums; also held against
+  ``jax.grad`` of ``flash_attention_xla``), f32 and bf16 at hd 168/240
+  to the SIMT kernels' (32-row query and 32-key tiles). Both sum dK/dV
+  over the G query heads of a KV head and the query tiles in order, dQ
+  separately over the key tiles; dw partials of 16-row blocks are summed
+  in groups of 32 blocks. The tensor-core kernels' shared-memory layout
+  and skipped tiles are checked too. Keep the emulation in step with the
+  .cu files.
 * The guards: ``decode_attention``, ``ssm_scan``, ``rwkv6_scan`` and a
   capped ``flash_attention`` refuse a gradient in their CUDA wrappers,
   before any device check.
 
 Tolerances: f32 2e-5 (tests/test_kernels.py:23) for elementwise outputs;
 dw, a sum over N rows, at 2e-5 * sqrt(N) (the rounding of a sum of N
-unit-scale f32 terms grows as sqrt(N) in any order).
+unit-scale f32 terms grows as sqrt(N) in any order); bf16 2e-2 * (1 +
+|reference|), the card's kernel tolerance (chip_smoke.py's TOL).
 """
 import math
 
@@ -40,7 +48,13 @@ from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan_cuda  # noqa: E402
 
 TOL = dict(rtol=2e-5, atol=2e-5)
-TILE = 32              # the backward kernels' query rows and keys a tile
+BF16_TOL = 2e-2        # |kernel - reference| <= BF16_TOL * (1 + |reference|)
+TILE = 32              # the SIMT kernels' query rows and keys a tile
+TC_TILE = 64           # the tensor-core kernels' rows a tile
+TC_HEAD_DIMS = (16, 32, 64, 128)   # bf16 head dims on the tensor cores
+LOG2E = np.float32(1.4426950408889634)
+H100_SMEM_PER_BLOCK = 232448       # bytes of dynamic shared memory a block
+H100_SMEM_PER_SM = 233472          # 228 KB, 1 KB of it reserved a block
 
 
 def dw_tol(n):
@@ -203,11 +217,166 @@ def emulate_dq(q, k, v, do, lse, delta, *, causal=True, window=0):
     return dq.to(q.dtype)
 
 
+# -- the tensor-core backward (bf16, hd 16-128) ---------------------------------
+
+def tc_layout(hd):
+    """BwdTcLayout<hd>: (row stride in bf16, dkdv bytes, dq bytes, query
+    columns of a dkdv sub-step)."""
+    stride = hd + 8
+    tiles = 6 * TC_TILE * stride * 2
+    return stride, tiles + 2 * 2 * TC_TILE * 4, tiles, 32 if hd > 64 else 64
+
+
+def dkdv_tc_tiles(sq, sk, causal, window):
+    """flash_bwd_dkdv_tc_kernel's (key tile k0, [query tiles q0]) in the
+    order a block visits them: q >= k0 (causal), q < k_max + W (window)."""
+    for k0 in range(0, sk, TC_TILE):
+        k_max = min(k0 + TC_TILE, sk) - 1
+        q_lo = k0 if causal else 0
+        q_hi = min(sq, k_max + window) if window > 0 else sq
+        yield k0, list(range(q_lo, q_hi, TC_TILE))
+
+
+def dq_tc_tiles(sq, sk, causal, window):
+    """flash_bwd_dq_tc_kernel's (query tile q0, [key tiles kt]): keys up to
+    the tile's last row (causal), from the 64-key tile holding q0 - W + 1
+    (window)."""
+    for q0 in range(0, sq, TC_TILE):
+        q_last = min(q0 + TC_TILE, sq) - 1
+        k_end = min(sk, q_last + 1) if causal else sk
+        k_begin = (max(0, q0 - window + 1) if window > 0 else 0) \
+            // TC_TILE * TC_TILE
+        yield q0, list(range(k_begin, k_end, TC_TILE))
+
+
+def _tc_mask(q0, k0, sq, sk, causal, window, rows):
+    """The (64 query, 64 key) mask of a tile pair, or None where the
+    kernel applies none: only a tile past S, on the causal diagonal or on
+    the window edge masks per element. ``rows``: query rows past sq are
+    masked too (dkdv, which sums over them; dq never stores them)."""
+    B = TC_TILE
+    need = ((rows and q0 + B > sq) or k0 + B > sk
+            or (causal and k0 + B - 1 > q0)
+            or (window > 0 and k0 <= q0 + B - 1 - window))
+    if not need:
+        return None
+    qi = torch.arange(q0, q0 + B)[:, None]
+    key = torch.arange(k0, k0 + B)[None, :]
+    ok = (key < sk) & ((qi < sq) if rows else torch.ones(B, 1, dtype=bool))
+    if causal:
+        ok &= key <= qi
+    if window > 0:
+        ok &= key > qi - window
+    return ok
+
+
+def _tile(t, r0, n=TC_TILE):
+    """Rows r0 .. r0 + n - 1 of t (..., rows[, hd]) in f32, zero past the
+    end (cp.async's zero-fill)."""
+    part = t[:, r0:r0 + n].float()
+    pad = [0, 0] * (t.dim() - 2) + [0, n - part.shape[1]]
+    return torch.nn.functional.pad(part, pad)
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def emulate_dkdv_tc(q, k, v, do, lse, delta, *, causal=True, window=0):
+    """flash_bwd_dkdv_tc_kernel: a block per (KV head, 64-key tile), here
+    every KV head at once; for each of the G query heads in order its
+    query tiles in order, each in sub-steps of ``tc_layout(hd)[3]``
+    query columns: S^T = K Q^T and dP^T = V dO^T of bf16 values in f32,
+    P^T = exp2(S^T scale log2(e) - lse log2(e)) (0 where the tile's mask
+    drops a pair), dS^T = P^T (dP^T - D); dV += bf16(P^T) dO and dK +=
+    bf16(dS^T) Q in f32; dK scaled once at the store."""
+    BH, sq, hd = q.shape
+    bh_kv, sk, _ = k.shape
+    G = BH // bh_kv
+    scale = float(np.float32(1) / np.sqrt(np.float32(hd)))
+    scale_log2 = float(LOG2E / np.sqrt(np.float32(hd), dtype=np.float32))
+    nq = tc_layout(hd)[3]
+    dk, dv = torch.zeros(k.shape), torch.zeros(v.shape)
+    for k0, q_tiles in dkdv_tc_tiles(sq, sk, causal, window):
+        kt, vt = _tile(k, k0), _tile(v, k0)
+        dk_acc, dv_acc = torch.zeros(kt.shape), torch.zeros(vt.shape)
+        for g in range(G):
+            heads = torch.arange(bh_kv) * G + g
+            for q0 in q_tiles:
+                qt, dot = _tile(q[heads], q0), _tile(do[heads], q0)
+                lt, dt = _tile(lse[heads], q0), _tile(delta[heads], q0)
+                ok = _tc_mask(q0, k0, sq, sk, causal, window, rows=True)
+                for c0 in range(0, TC_TILE, nq):
+                    cols = slice(c0, c0 + nq)
+                    qs, dos = qt[:, cols], dot[:, cols]
+                    st = kt @ qs.transpose(1, 2)
+                    dpt = vt @ dos.transpose(1, 2)
+                    p = torch.exp2(st * scale_log2
+                                   - (lt[:, None, cols] * float(LOG2E)))
+                    if ok is not None:
+                        p = torch.where(ok[cols].T, p, 0.0)
+                    ds = p * (dpt - dt[:, None, cols])
+                    dv_acc += _bf16(p) @ dos
+                    dk_acc += _bf16(ds) @ qs
+        n = min(TC_TILE, sk - k0)
+        dk[:, k0:k0 + n] = (dk_acc * scale)[:, :n]
+        dv[:, k0:k0 + n] = dv_acc[:, :n]
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def emulate_dq_tc(q, k, v, do, lse, delta, *, causal=True, window=0):
+    """flash_bwd_dq_tc_kernel: a block per (query head, 64-row tile), here
+    every head at once; the key tiles in order: S = Q K^T, dP = dO V^T,
+    P = exp2(S scale log2(e) - lse log2(e)), 0 where masked, dS = P (dP -
+    D), dQ += bf16(dS) K in f32, scaled at the store."""
+    BH, sq, hd = q.shape
+    G = BH // k.shape[0]
+    scale = float(np.float32(1) / np.sqrt(np.float32(hd)))
+    scale_log2 = float(LOG2E / np.sqrt(np.float32(hd), dtype=np.float32))
+    kf, vf = (t.repeat_interleave(G, dim=0) for t in (k, v))
+    sk = k.shape[1]
+    dq = torch.zeros(q.shape)
+    for q0, k_tiles in dq_tc_tiles(sq, sk, causal, window):
+        qt, dot = _tile(q, q0), _tile(do, q0)
+        lse2 = _tile(lse, q0) * float(LOG2E)
+        dt = _tile(delta, q0)
+        acc = torch.zeros(qt.shape)
+        for kt in k_tiles:
+            kk, vv = _tile(kf, kt), _tile(vf, kt)
+            p = torch.exp2(qt @ kk.transpose(1, 2) * scale_log2
+                           - lse2[..., None])
+            ok = _tc_mask(q0, kt, sq, sk, causal, window, rows=False)
+            if ok is not None:
+                p = torch.where(ok, p, 0.0)
+            ds = p * (dot @ vv.transpose(1, 2) - dt[..., None])
+            acc += _bf16(ds) @ kk
+        n = min(TC_TILE, sq - q0)
+        dq[:, q0:q0 + n] = (acc * scale)[:, :n]
+    return dq.to(q.dtype)
+
+
+def on_tensor_cores(q):
+    """launch_hd's rule: bf16 at hd 16-128 runs the tensor-core kernels,
+    f32 and bf16 at hd 168/240 the SIMT ones."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS
+
+
+def dispatch_dkdv(q, *args, **kw):
+    return (emulate_dkdv_tc if on_tensor_cores(q) else emulate_dkdv)(
+        q, *args, **kw)
+
+
+def dispatch_dq(q, *args, **kw):
+    return (emulate_dq_tc if on_tensor_cores(q) else emulate_dq)(
+        q, *args, **kw)
+
+
 @pytest.fixture
 def emulated_kernels(monkeypatch):
     """The Functions' kernels replaced by the plain forward (with the
-    plain log-sum-exp) and the emulated backward, so that the autograd
-    wiring of the card runs on CPU tensors."""
+    plain log-sum-exp) and the emulated backward, routed by (dtype, hd)
+    as the card's dispatch routes them, so that the autograd wiring of
+    the card runs on CPU tensors."""
     def flash_forward(q, k, v, causal, window, softcap, out, lse):
         out.copy_(fa.flash_attention_plain(q, k, v, causal=causal,
                                            window=window))
@@ -217,8 +386,8 @@ def emulated_kernels(monkeypatch):
     monkeypatch.setattr(fa, "_forward", flash_forward)
     monkeypatch.setattr(fa, "flash_bwd_preprocess_cuda",
                         fa.flash_bwd_preprocess_plain)
-    monkeypatch.setattr(fa, "flash_bwd_dkdv_cuda", emulate_dkdv)
-    monkeypatch.setattr(fa, "flash_bwd_dq_cuda", emulate_dq)
+    monkeypatch.setattr(fa, "flash_bwd_dkdv_cuda", dispatch_dkdv)
+    monkeypatch.setattr(fa, "flash_bwd_dq_cuda", dispatch_dq)
     monkeypatch.setattr(rn, "_forward",
                         lambda x, w, eps: rn.fused_rmsnorm_plain(x, w, eps=eps))
     monkeypatch.setattr(rn, "fused_rmsnorm_bwd_cuda",
@@ -265,6 +434,119 @@ def test_flash_backward_design_matches_plain(emulated_kernels, bh, bh_kv, sq,
     for got, want in ((qg.grad, qp.grad), (kg.grad, kp.grad),
                       (vg.grad, vp.grad)):
         torch.testing.assert_close(got, want, **TOL)
+
+
+# (bh, bh_kv, sq, sk, hd, causal, window), bf16: GQA (G = 2, 3), windows
+# across and inside a 64 tile, S 1, 63, 65, 130, Sq != Sk, non-causal,
+# every tensor-core head dim; hd 168 and 240 take the SIMT kernels
+TC_DESIGN = [(4, 4, 130, 130, 128, True, 0), (6, 3, 77, 77, 64, True, 0),
+             (6, 2, 65, 65, 32, True, 0), (2, 2, 200, 200, 16, True, 100),
+             (3, 3, 130, 130, 64, True, 20), (2, 2, 1, 1, 128, True, 0),
+             (2, 2, 63, 63, 32, True, 0), (4, 2, 64, 150, 16, False, 0),
+             (2, 1, 130, 70, 128, True, 0), (2, 2, 70, 130, 64, True, 0),
+             (3, 3, 31, 31, 16, False, 8), (2, 2, 65, 65, 168, True, 0),
+             (4, 2, 40, 40, 240, True, 0)]
+
+
+@pytest.mark.parametrize("bh,bh_kv,sq,sk,hd,causal,window", TC_DESIGN)
+def test_flash_tc_backward_design_matches_plain_and_jax(
+        emulated_kernels, bh, bh_kv, sq, sk, hd, causal, window):
+    """bf16 through the autograd Function, the backward routed as the card
+    routes it, against autograd through the plain version on the same
+    bf16 inputs and against jax.grad of the JAX model's
+    flash_attention_xla on their f32 values, at 2e-2 (1 + |reference|)."""
+    rng = np.random.default_rng(bh * 1000 + sq * 7 + sk + hd)
+    shapes = ((bh, sq, hd), (bh_kv, sk, hd), (bh_kv, sk, hd), (bh, sq, hd))
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(sh).astype(
+        np.float32)).to(torch.bfloat16) for sh in shapes)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    fa.FlashAttention.apply(qg, kg, vg, causal, window).backward(do)
+    got = (qg.grad, kg.grad, vg.grad)
+    plain = fa.flash_attention_bwd_plain(q, k, v, do, causal=causal,
+                                         window=window)
+    G = bh // bh_kv
+    jq, jk, jv, jdo = (t.float().numpy() for t in (q, k, v, do))
+
+    def f(q, k, v):
+        out = flash_attention_xla(q.reshape(1, bh_kv, G, sq, hd), k[None],
+                                  v[None], causal=causal, window=window,
+                                  q_block=64, k_block=64)
+        return jnp.sum(out.reshape(bh, sq, hd) * jdo)
+    oracle = jax.jit(jax.grad(f, argnums=(0, 1, 2)))(jq, jk, jv)
+    for g, p, o in zip(got, plain, oracle):
+        assert g.dtype == torch.bfloat16
+        for ref in (p.float(), torch.from_numpy(np.array(o))):
+            diff = (g.float() - ref).abs()
+            assert bool(g.float().isfinite().all())
+            assert bool((diff <= BF16_TOL * (1 + ref.abs())).all()), \
+                float(diff.max())
+
+
+def test_flash_tc_backward_rounds_p_and_ds_to_bf16():
+    """The tensor-core emulation differs from the SIMT one (f32 P and dS)
+    by the bf16 rounding of P and dS alone: on the same f32-valued bf16
+    inputs, both within the bf16 tolerance of the plain backward, but
+    not equal."""
+    rng = np.random.default_rng(7)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 96, 64)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(4))
+    lse = fa.flash_lse_plain(q, k)
+    delta = fa.flash_bwd_preprocess_plain(
+        fa.flash_attention_plain(q, k, v), do)
+    tc = emulate_dkdv_tc(q, k, v, do, lse, delta) + (
+        emulate_dq_tc(q, k, v, do, lse, delta),)
+    simt = emulate_dkdv(q, k, v, do, lse, delta) + (
+        emulate_dq(q, k, v, do, lse, delta),)
+    assert any(not torch.equal(a, b) for a, b in zip(tc, simt))
+    for a, b in zip(tc, simt):
+        diff = (a.float() - b.float()).abs()
+        assert bool((diff <= BF16_TOL * (1 + b.float().abs())).all())
+
+
+@pytest.mark.parametrize("hd", TC_HEAD_DIMS)
+def test_flash_tc_backward_layout_is_conflict_free_and_fits(hd):
+    """Each tensor-core backward kernel's smem rows are an odd count of
+    16-byte units (the 8 rows an ldmatrix reads fall on distinct banks),
+    its bytes fit a block, and two blocks fit an SM at hd 128 (six
+    64 x 136 bf16 tiles: 104,448 bytes, dkdv 1,024 more for lse and D);
+    a 64-row tile's chunks are whole rounds of the 128 threads; a dkdv
+    sub-step takes 32 query columns at hd 128, 64 below."""
+    stride, dkdv, dq, nq = tc_layout(hd)
+    assert (stride * 2 // 16) % 2 == 1
+    for nbytes in (dkdv, dq):
+        assert nbytes <= H100_SMEM_PER_BLOCK
+        assert 2 * (nbytes + 1024) <= H100_SMEM_PER_SM
+    assert TC_TILE * (hd // 8) % 128 == 0
+    assert TC_TILE % nq == 0 and nq % 16 == 0
+    if hd == 128:
+        assert (stride, dkdv, dq, nq) == (136, 105472, 104448, 32)
+
+
+@pytest.mark.parametrize("sq,sk,causal,window", [
+    (600, 600, True, 100), (600, 600, True, 0), (130, 70, True, 0),
+    (70, 130, True, 0), (200, 200, True, 64), (150, 90, False, 30),
+    (65, 65, False, 0)])
+def test_flash_tc_backward_tiles_skip_only_dead_pairs(sq, sk, causal,
+                                                      window):
+    """The tile pairs the two tensor-core kernels never load hold no live
+    (query, key) pair, and under a binding mask they skip some."""
+    qi, ki = np.meshgrid(np.arange(sq), np.arange(sk), indexing="ij")
+    live = np.ones((sq, sk), bool)
+    if causal:
+        live &= ki <= qi
+    if window > 0:
+        live &= ki > qi - window
+    B = TC_TILE
+    for tiles, kv_major in ((dkdv_tc_tiles(sq, sk, causal, window), True),
+                            (dq_tc_tiles(sq, sk, causal, window), False)):
+        visited = np.zeros((sq, sk), bool)
+        for outer, inner in tiles:
+            for i in inner:
+                q0, k0 = (i, outer) if kv_major else (outer, i)
+                visited[q0:q0 + B, k0:k0 + B] = True
+        assert not (live & ~visited).any()
+        if (causal or window) and min(sq, sk) > 2 * B:
+            assert visited.sum() < sq * sk
 
 
 def test_flash_lse_plain_is_the_log_normaliser():
