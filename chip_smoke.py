@@ -14,8 +14,9 @@ package. In order it:
    scan kernels in the built library's SASS (cuobjdump), and fails if
    the bf16 flash_attention kernel of any head dim of HEAD_DIMS, the
    bf16 ssm_scan kernel, or the flash backward's two bf16 tensor-core
-   kernels (flash_bwd_dkdv_tc, flash_bwd_dq_tc) at hd 16, 32, 64 or 128
-   have none;
+   kernels (flash_bwd_dkdv_tc, flash_bwd_dq_tc) at hd 16, 32, 64, 128,
+   168 or 240 have none (the build's ptxas lines, registers and spills
+   of every instance, are printed before it);
 4. holds each kernel against its plain PyTorch version at the shapes the
    serving paths give it (fused_rmsnorm at d 4096, 2048 and 1536;
    bf16 attention at hd 128 and 64, and granite-moe-3b-a800m's GQA: flash
@@ -55,8 +56,15 @@ package. In order it:
    (8192, 4096) and (1, 4096), flash_bwd_preprocess, flash_bwd_dkdv and
    flash_bwd_dq at BH 64 (2 x 32 heads), S 4096, hd 128, causal (the
    training shapes), in bf16 (the flash backward on the tensor cores)
-   and f32 (its SIMT kernels), timed beside the library's backward
-   (F.rms_norm's, SDPA's) and their bounds; untimed, the forward
+   and f32 (its SIMT kernels), and at gemma3's training shapes in bf16,
+   listed apart: fused_rmsnorm_bwd at (8192, 3840) and (8192, 5376), and
+   the flash backward at hd 240 (BH 32 over 16 KV heads) and hd 168
+   (BH 64 over 32), S 4096, causal (a global layer) and with the window
+   of 1024 (a local one); all timed beside the library's backward
+   (F.rms_norm's, SDPA's, with enable_gqa and the window's mask) and
+   their bounds; each bf16 flash backward row's dq, dk and dv also
+   within BWD_LIB_RATIO times SDPA's ||grad - plain|| / ||plain||;
+   untimed, the forward
    kernels' log-sum-exp and the whole attention backward at hd 16, 32,
    64, 168 and 240, GQA G = 3, a window of 1024 at S 1500 and ragged S
    1, 63, 65, 130 (dw of the norm, a sum over N rows, at 2e-5 sqrt(N)); then
@@ -80,7 +88,13 @@ package. In order it:
    bitwise equal to those without; 4 steps uninterrupted against 3
    steps, a checkpoint (CheckpointManager, JAX's layout, written on a
    thread), a fresh model and optimizer restored from it and step 3
-   again, bitwise;
+   again, bitwise; then gemma3-12b at full width (d 3840, 16 query heads
+   over 8 KV heads of hd 240, d_ff 15360, a tied head of 262,144 rows)
+   cut to 6 layers (one group of 5 local layers, window 1024, and a
+   global one: 2.33 B parameters, 37 GB of f32 state) for 3 steps of the
+   same batches, the last traced, with the same prints and checks (its
+   model FLOPs count GQA's K/V widths and the local layers' windowed
+   pairs), so that the flash backward at hd 240 runs in a train step;
 5. for each of deepseek-7b, zamba2-1.2b, rwkv6-1.6b,
    granite-moe-3b-a800m (32 layers of GQA attention and 40 experts, top
    8), qwen2-vl-2b (28 layers, M-RoPE, 12 query heads over 2 KV heads,
@@ -165,9 +179,10 @@ package. In order it:
 7. prints a JSON line of the kernels, then the result line.
 
 Any failed check exits non-zero. Without a CUDA device it exits non-zero
-and prints no result. ``--phases`` runs a subset of kernels, train,
-models and mc (for a partial check on the card); it then prints no
-result line.
+and prints no result. ``--phases`` runs a subset of sass (step 3),
+kernels (4), train (4c), models (5) and mc (6) (for a partial check on
+the card, or to time another checkout's kernels with this script); it
+then prints no result line.
 """
 from __future__ import annotations
 
@@ -204,6 +219,11 @@ SSM_TOL = 2e-4
 F32_PATH_TOL = 1e-3            # f32 logits: max |kernel - plain| / max |plain|
 GRAPH_TOL = 1e-6               # f32 logits: max |replay - eager| / max |eager|
 PATH_TOL = 2e-2                # least bf16 path tolerance (see path_check)
+# bf16 flash backward: each gradient's ||kernel - plain|| / ||plain|| at
+# most this times SDPA's backward's at the same shape (both round P and
+# dS to bf16), which an error confined to a few tiles cannot hide in as
+# it can in TOL * (1 + |plain|)
+BWD_LIB_RATIO = 2.0
 SEED = 0
 GRANITE = "granite-moe-3b-a800m"
 MOONSHOT, QWEN, MUSICGEN = ("moonshot-v1-16b-a3b", "qwen2-vl-2b",
@@ -262,6 +282,15 @@ def bound(nbytes: float, flops: float, flops_per_s: float
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def norm_rel(out, ref) -> list:
+    """||out - ref|| / ||ref|| (Frobenius, in f32) of a tensor or of each
+    tensor of a tuple."""
+    if isinstance(out, torch.Tensor):
+        out, ref = (out,), (ref,)
+    return [float((o.float() - r.float()).norm() / r.float().norm())
+            for o, r in zip(out, ref, strict=True)]
+
+
 def max_err(out, ref, tol=TOL) -> tuple[float, bool]:
     """Max |out - ref| over a tensor or a tuple of tensors (a scan's output
     and final state, a backward's gradients), and whether every element
@@ -296,6 +325,9 @@ class Case(NamedTuple):
     serving: bool = True  # in the serving path's dtype (the JSON line's)
     model: Optional[str] = None  # a model's own shape, listed apart
     bitwise: bool = False  # two calls must give the same bits
+    # each output's ||kern - plain|| / ||plain|| at most this many times
+    # the library's own (the Frobenius norm over the whole tensor)
+    lib_ratio: Optional[float] = None
 
 
 def kernel_cases(kp):
@@ -895,6 +927,18 @@ def run_cases(cases, timer, rows: dict) -> dict:
         if c.lib is not None:
             lib_err, _ = max_err(c.lib(), c.plain())
             lib_ms = timer(c.lib)
+        if c.lib_ratio is not None:
+            ref = c.plain()
+            rel, lib_rel = norm_rel(out, ref), norm_rel(c.lib(), ref)
+            print(f"kernel {c.name} [{c.label}]: ||kernel - plain|| / "
+                  f"||plain|| {', '.join(f'{e:.3e}' for e in rel)}, the "
+                  f"library's {', '.join(f'{e:.3e}' for e in lib_rel)} "
+                  f"(at most {c.lib_ratio}x)", flush=True)
+            if not all(a <= c.lib_ratio * b for a, b in zip(rel, lib_rel)):
+                fail(f"{c.name} [{c.label}]: the kernel's norm-relative error "
+                     f"{rel} is more than {c.lib_ratio}x the library's "
+                     f"{lib_rel}")
+            del ref
         b_ms, b_by = bound(c.nbytes, c.flops, c.flops_per_s)
         lib = ("library none" if lib_ms is None else
                f"library_ms {lib_ms:.4f} (library err {lib_err:.3e})")
@@ -945,11 +989,16 @@ def backward_cases(rt):
     hd 128, causal), in bf16 (the train step's dtype; the flash
     backward's tensor-core kernels) and f32 (its SIMT kernels), each
     against autograd through the plain version on the same inputs and
-    twice for bitwise equality; then untimed: the log-sum-exp of both
-    forward kernels, and the whole attention backward at hd 16, 32, 64,
-    168 and 240, GQA G = 3, a window of 1024 at S 1500, and ragged S 1,
-    63, 65, 130. From a generator of their own, after the forward
-    rows."""
+    twice for bitwise equality; gemma3's, listed apart (``TRAIN_SHAPES``,
+    bf16, the dtype gemma3 trains in: norms of (8192, 3840) and (8192,
+    5376), and the flash backward at hd 240, BH 32 over 16, and at hd
+    168, BH 64 over 32, S 4096, causal and with the local layers' window
+    of 1024); each bf16 flash backward row also held to BWD_LIB_RATIO
+    times SDPA's norm-relative error; then untimed: the
+    log-sum-exp of both forward kernels, and the whole attention backward
+    at hd 16, 32, 64, 168 and 240, GQA G = 3, a window of 1024 at S 1500,
+    and ragged S 1, 63, 65, 130. From a generator of their own, after the
+    forward rows."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     kb = rt.backward
 
@@ -957,26 +1006,26 @@ def backward_cases(rt):
         return (torch.randn(shape, generator=gen, device="cuda") * scale) \
             .to(dtype)
 
+    def norm_case(n, d, dt, tol, peak, model=None):
+        size = torch.finfo(dt).bits // 8
+        x, dy = randn(n, d, dtype=dt), randn(n, d, dtype=dt)
+        w = randn(d, dtype=torch.float32, scale=0.1)
+        xg, wg = (t.clone().requires_grad_(True) for t in (x, w))
+        plain = retained_grad(kb["fused_rmsnorm_plain"](xg, wg), (xg, wg), dy)
+        xl, wl = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        lib_out = F.rms_norm(xl, (d,), (1.0 + wl).to(dt), eps=1e-6)
+        return Case("fused_rmsnorm_bwd", f"x ({n}, {d}), {str(dt)[6:]}",
+                    lambda: kb["fused_rmsnorm_bwd"](x, w, dy), plain,
+                    retained_grad(lib_out, (xl, wl), dy),
+                    3 * n * d * size + 2 * d * 4, 10 * n * d, peak,
+                    (tol, dw_tol(n)), serving=dt == torch.bfloat16,
+                    bitwise=True, model=model)
+
     for dt, tol, peak in ((torch.bfloat16, TOL, BF16_FLOPS_PER_S),
                           (torch.float32, F32_TOL, F32_FLOPS_PER_S)):
         tag, size = str(dt)[6:], torch.finfo(dt).bits // 8
-        d = 4096
         for n in (8192, 1):
-            x, dy = randn(n, d, dtype=dt), randn(n, d, dtype=dt)
-            w = randn(d, dtype=torch.float32, scale=0.1)
-            xg, wg = (t.clone().requires_grad_(True) for t in (x, w))
-            plain = retained_grad(kb["fused_rmsnorm_plain"](xg, wg), (xg, wg),
-                                  dy)
-            xl, wl = x.clone().requires_grad_(True), w.clone() \
-                .requires_grad_(True)
-            lib_out = F.rms_norm(xl, (d,), (1.0 + wl).to(dt), eps=1e-6)
-            yield Case("fused_rmsnorm_bwd", f"x ({n}, {d}), {tag}",
-                       lambda x=x, w=w, dy=dy: kb["fused_rmsnorm_bwd"](
-                           x, w, dy),
-                       plain, retained_grad(lib_out, (xl, wl), dy),
-                       3 * n * d * size + 2 * d * 4, 10 * n * d, peak,
-                       (tol, dw_tol(n)), serving=dt == torch.bfloat16,
-                       bitwise=True)
+            yield norm_case(n, 4096, dt, tol, peak)
         bh, s, hd = 64, 4096, 128
         q, k, v, do = (randn(bh, s, hd, dtype=dt) for _ in range(4))
         out, lse = kb["flash_lse"](q, k, v)
@@ -996,24 +1045,46 @@ def backward_cases(rt):
                    lambda: kb["flash_bwd_preprocess_plain"](out, do), None,
                    2 * bh * s * hd * size + bh * s * 4, 2 * bh * s * hd,
                    peak, tol, serving=serving, bitwise=True)
-        rows_io = 2 * bh * s * 4                      # lse and D read
-        yield Case("flash_bwd_dkdv", f"{label}, {design} (plain and "
-                   "library: all three grads)",
-                   lambda: kb["flash_bwd_dkdv"](q, k, v, do, lse, delta),
-                   lambda: plain()[1:], lambda: lib()[1:],
-                   6 * bh * s * hd * size + rows_io, 8 * hd * pairs, peak,
-                   tol, serving=serving, bitwise=True)
-        yield Case("flash_bwd_dq", f"{label}, {design} (plain and library: "
-                   "all three grads)",
-                   lambda: kb["flash_bwd_dq"](q, k, v, do, lse, delta),
-                   lambda: plain()[0], lambda: lib()[0],
-                   5 * bh * s * hd * size + rows_io, 6 * hd * pairs, peak,
-                   tol, serving=serving, bitwise=True)
+        yield from flash_bwd_cases(kb, (q, k, v, do, lse, delta), plain, lib,
+                                   f"{label}, {design}", pairs, peak, tol,
+                                   serving, lib_ratio=BWD_LIB_RATIO
+                                   if serving else None)
         yield Case("flash_attention", f"lse, {label}",
                    lambda: kb["flash_lse"](q, k, v)[1],
                    lambda: kb["flash_lse_plain"](q, k), None, 0, 0, peak,
                    LSE_TOL[dt], timed=False, bitwise=True)
         del q, k, v, do, out, lse, delta, qg, kg, vg, ql, kl, vl, plain, lib
+    bf = torch.bfloat16
+    for model, (d, bh, bh_kv, hd) in TRAIN_SHAPES.items():
+        yield norm_case(8192, d, bf, TOL, BF16_FLOPS_PER_S, model)
+        s = 4096
+        for window in (0, 1024):
+            q, do = randn(bh, s, hd, dtype=bf), randn(bh, s, hd, dtype=bf)
+            k, v = randn(bh_kv, s, hd, dtype=bf), randn(bh_kv, s, hd, dtype=bf)
+            out, lse = kb["flash_lse"](q, k, v, window=window)
+            delta = kb["flash_bwd_preprocess"](out, do)
+            qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+            plain = retained_grad(kb["flash_plain"](qg, kg, vg, window=window),
+                                  (qg, kg, vg), do)
+            i = torch.arange(s, device="cuda")
+            keep = i[None, :] <= i[:, None]
+            if window:
+                keep &= i[None, :] > i[:, None] - window
+            sdpa = (dict(is_causal=True) if not window else
+                    dict(attn_mask=keep[None, None]))
+            ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
+            lib = retained_grad(F.scaled_dot_product_attention(
+                ql[None], kl[None], vl[None], enable_gqa=True, **sdpa)[0],
+                (ql, kl, vl), do)
+            label = (f"BH {bh} over {bh_kv}, S {s}, hd {hd}, causal"
+                     f"{f', window {window}' if window else ''}, bf16, "
+                     "tensor cores")
+            yield from flash_bwd_cases(
+                kb, (q, k, v, do, lse, delta), plain, lib, label,
+                bh * int(keep.sum()), BF16_FLOPS_PER_S, TOL, True, window,
+                model, BWD_LIB_RATIO)
+            del q, k, v, do, out, lse, delta, qg, kg, vg, ql, kl, vl, plain
+            del lib, keep, sdpa
     edges = (("hd 16", 8, 8, 600, 16, 0), ("hd 32", 8, 8, 600, 32, 0),
              ("hd 64", 8, 8, 600, 64, 0), ("hd 168, G = 2", 16, 8, 600, 168, 0),
              ("hd 240, G = 2", 16, 8, 600, 240, 0),
@@ -1038,6 +1109,32 @@ def backward_cases(rt):
                        lambda a=(q, k), w=window: kb["flash_lse_plain"](
                            *a, window=w),
                        None, 0, 0, BF16_FLOPS_PER_S, LSE_TOL[dt], timed=False)
+
+
+def flash_bwd_cases(kb, args, plain, lib, label, pairs, peak, tol, serving,
+                    window=0, model=None, lib_ratio=None):
+    """flash_bwd_dkdv (8 hd flops a live pair) and flash_bwd_dq (6 hd) on
+    args = (q, k, v, dO, lse, D), each against the dk, dv or dq of
+    ``plain`` and ``lib`` (retained backward calls computing all three
+    grads); bytes: each input read once (K and V once a KV head), each
+    output written once."""
+    q, k = args[0], args[1]
+    bh, s, hd = q.shape
+    qo, kv = bh * s * hd * q.element_size(), k.numel() * k.element_size()
+    rows = 2 * bh * s * 4                         # lse and D read
+    note = "(plain and library: all three grads)"
+    yield Case("flash_bwd_dkdv", f"{label} {note}",
+               lambda: kb["flash_bwd_dkdv"](*args, window=window),
+               lambda: plain()[1:], lambda: lib()[1:],
+               2 * qo + 4 * kv + rows, 8 * hd * pairs, peak, tol,
+               serving=serving, bitwise=True, model=model,
+               lib_ratio=lib_ratio)
+    yield Case("flash_bwd_dq", f"{label} {note}",
+               lambda: kb["flash_bwd_dq"](*args, window=window),
+               lambda: plain()[0], lambda: lib()[0],
+               3 * qo + 2 * kv + rows, 6 * hd * pairs, peak, tol,
+               serving=serving, bitwise=True, model=model,
+               lib_ratio=lib_ratio)
 
 
 def flash_grads(rt, q, k, v, do, window=0):
@@ -1078,13 +1175,18 @@ def guard_checks(rt) -> None:
         fail(f"guard {name}: returned an output where a gradient is wanted")
 
 
-# -- phase 5: training deepseek-7b at full width ------------------------------
+# -- phase 5: training deepseek-7b and gemma3-12b at full width ---------------
 
 TRAIN_ARCH = "deepseek-7b"
 TRAIN_LAYERS = 12          # 3.267 B parameters, 52.3 GB of f32 state
 CHECK_LAYERS = 2           # the kernel-vs-plain, resume and remat checks
 TRAIN_STEPS = 5            # the last one traced
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_MB = 4096, 4, 2    # train_4k; 16,384 tokens
+# gemma3-12b: one group of 5 local layers (window 1024) and a global one,
+# 2.33 B parameters, 37 GB of f32 state; 3 steps, the last traced
+GEMMA_TRAIN_LAYERS, GEMMA_TRAIN_STEPS = 6, 3
+# a microbatch's shapes of gemma3's train steps: (d, BH, BH_kv, hd)
+TRAIN_SHAPES = {GEMMA: (3840, 32, 16, 240), GEMMA27: (5376, 64, 32, 168)}
 
 
 def train_config(rt, steps: int):
@@ -1093,8 +1195,8 @@ def train_config(rt, steps: int):
 
 
 def train_model(rt, n_layers: int, dtype=torch.bfloat16, kernels=None,
-                params=None):
-    cfg = rt.configs.get_config(TRAIN_ARCH).with_(n_layers=n_layers)
+                params=None, arch=TRAIN_ARCH):
+    cfg = rt.configs.get_config(arch).with_(n_layers=n_layers)
     if params is None:
         params = rt.init_params(cfg, seed=SEED, device="cuda",
                                 dtype=torch.float32)
@@ -1102,14 +1204,30 @@ def train_model(rt, n_layers: int, dtype=torch.bfloat16, kernels=None,
                              kernels=kernels or rt.ops)
 
 
-def train_flops(cfg, tokens: int, seq: int) -> float:
+def attended_pairs(seq: int, window: int) -> int:
+    """(query, key) pairs of causal attention over seq positions, keys
+    also within ``window`` of the query where it is > 0."""
+    if window <= 0 or window >= seq:
+        return seq * (seq + 1) // 2
+    return window * (window + 1) // 2 + (seq - window) * window
+
+
+def train_flops(rt, cfg, tokens: int, seq: int) -> float:
     """Model FLOPs of a train step (no remat recomputation): 6 per matmul
-    parameter (the layers' and the head's) a token, and the causal
-    attention's 2 S d a token a layer, three times (forward, backward)."""
-    d, L = cfg.d_model, cfg.n_layers
-    per_layer = 4 * d * cfg.n_heads * cfg.hd + 3 * d * cfg.d_ff
+    parameter (the layers' q, k, v, o at GQA's widths, the MLP's three,
+    and the head's) a token, and each layer's attention, 4 hd flops a
+    (query head, attended pair) forward, three times (forward,
+    backward): causal pairs for a global layer, pairs within the window
+    for a local one."""
+    d, L, H, KV, hd = cfg.d_model, cfg.n_layers, cfg.n_heads, \
+        cfg.n_kv_heads, cfg.hd
+    per_layer = d * hd * (2 * H + 2 * KV) + 3 * d * cfg.d_ff
     matmul = L * per_layer + d * cfg.vocab
-    return 6 * matmul * tokens + 3 * 2 * seq * d * L * tokens
+    windows = ([0 if glob else cfg.local_window for glob, _ in
+                rt.lg_layers(cfg)] if rt.family_kind(cfg) == "local_global"
+               else [0] * L)
+    attn = sum(3 * 4 * H * hd * attended_pairs(seq, w) for w in windows)
+    return 6 * matmul * tokens + attn * tokens / seq
 
 
 def train_launches(cfg, steps: int) -> dict:
@@ -1123,36 +1241,40 @@ def train_launches(cfg, steps: int) -> dict:
             "flash_bwd_dkdv": L * n, "flash_bwd_dq": L * n}
 
 
-def train_phase(rt, smi: str) -> dict:
-    """(c): deepseek-7b at full width, TRAIN_LAYERS layers, trains
-    TRAIN_STEPS steps of batch 4 x 4096 tokens in 2 microbatches through
+def train_phase(rt, smi: str, arch: str = TRAIN_ARCH,
+                n_layers: int = TRAIN_LAYERS, steps: int = TRAIN_STEPS
+                ) -> dict:
+    """(c): ``arch`` at full width, ``n_layers`` layers, trains ``steps``
+    steps of batch 4 x 4096 tokens in 2 microbatches through
     make_train_step; the launch counts set to 0 just before and read just
     after."""
     torch.cuda.reset_peak_memory_stats()
     t_phase = t0 = time.perf_counter()
-    lm = train_model(rt, TRAIN_LAYERS)
+    lm = train_model(rt, n_layers, arch=arch)
     cfg = lm.cfg
     params = dict(lm.named_parameters())
     n_params = sum(p.numel() for p in params.values())
     opt = rt.init_opt_state(params)
     torch.cuda.synchronize()
-    full = rt.configs.get_config(TRAIN_ARCH).n_layers
+    full = rt.configs.get_config(arch).n_layers
     print(f"train {cfg.name}: {cfg.n_layers} of {full} layers, d_model "
-          f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, "
-          f"vocab {cfg.vocab}: {n_params / 1e9:.3f} B parameters, f32 "
-          f"masters + grads + m + v {16 * n_params / 1e9:.1f} GB; set up in "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV heads"
+          f" of {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}"
+          f"{f', window {cfg.local_window}' if cfg.local_window else ''}: "
+          f"{n_params / 1e9:.3f} B parameters, f32 masters + grads + m + v "
+          f"{16 * n_params / 1e9:.1f} GB; set up in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    tcfg = train_config(rt, TRAIN_STEPS)
+    tcfg = train_config(rt, steps)
     data = rt.SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                           batch=TRAIN_BATCH, seed=SEED, device="cuda")
     step_fn = rt.make_train_step(lm, tcfg)
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    flops = train_flops(cfg, tokens, TRAIN_SEQ)
+    flops = train_flops(rt, cfg, tokens, TRAIN_SEQ)
     losses, walls = [], []
     rt.ops.reset_launch_counts()
-    for step in range(TRAIN_STEPS):
+    for step in range(steps):
         batch = data.next_batch()
-        traced = step == TRAIN_STEPS - 1
+        traced = step == steps - 1
         torch.cuda.synchronize()
         if traced:
             wall_ms, by_kernel = traced_step(rt, lambda: step_fn(opt, batch))
@@ -1172,24 +1294,25 @@ def train_phase(rt, smi: str) -> dict:
               f" model {flops / wall / 1e12:.1f} TFLOP/s "
               f"({flops / wall / BF16_FLOPS_PER_S:.3f} of 989)", flush=True)
     counts = rt.ops.launch_counts()
-    expect = train_launches(cfg, TRAIN_STEPS)
+    expect = train_launches(cfg, steps)
     for name, n in counts.items():
         if n != expect.get(name, 0):
-            fail(f"train: kernel {name}: {n} launches, the train steps make "
-                 f"{expect.get(name, 0)}")
+            fail(f"train {cfg.name}: kernel {name}: {n} launches, the train "
+                 f"steps make {expect.get(name, 0)}")
     print(f"train launches {counts}", flush=True)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        fail(f"train: losses {losses} not finite or not falling")
+        fail(f"train {cfg.name}: losses {losses} not finite or not falling")
     no_grad = [n for n, p in params.items()
                if p.grad is None or not bool(p.grad.abs().max() > 0)]
     if no_grad:
-        fail(f"train: {len(no_grad)} parameters without a gradient, e.g. "
-             f"{no_grad[:4]}")
+        fail(f"train {cfg.name}: {len(no_grad)} parameters without a "
+             f"gradient, e.g. {no_grad[:4]}")
     untraced = walls[1:-1]
     wall = statistics.median(untraced)
     busy, bwd = by_kernel["busy"], by_kernel["bwd"]
+    flash_bwd = sum(ms for k, ms in bwd.items() if k.startswith("flash"))
     print(f"train {cfg.name} ({smi}): step wall median {wall:.3f} s of "
-          f"steps 1-{TRAIN_STEPS - 2} (step 0 {walls[0]:.3f} s), "
+          f"steps 1-{steps - 2} (step 0 {walls[0]:.3f} s), "
           f"{tokens / wall:.0f} tokens/s, model {flops / wall / 1e12:.1f} "
           f"TFLOP/s = {flops / wall / BF16_FLOPS_PER_S:.3f} of 989 "
           f"({flops / 1e12:.1f} TFLOP a step); traced step busy "
@@ -1197,7 +1320,9 @@ def train_phase(rt, smi: str) -> dict:
           f"{1 - busy / (walls[-1] * 1e3):.3f}); backward kernels "
           + ", ".join(f"{k} {ms:.1f} ms ({ms / (walls[-1] * 1e3):.3f} of "
                       "the wall)" for k, ms in bwd.items())
-          + f"; every one of {len(params)} parameters has a non-zero "
+          + f"; the flash backward {flash_bwd:.1f} ms "
+          f"({flash_bwd / (walls[-1] * 1e3):.3f}); every one of "
+          f"{len(params)} parameters has a non-zero "
           f"gradient; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB of "
           f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f}; "
@@ -1220,7 +1345,8 @@ def traced_step(rt, fn):
     wall_ms, by_group, kernels = prof.traced(
         lambda: result.setdefault("r", fn()))
     bwd = {"flash_bwd_dkdv": 0.0, "flash_bwd_dq": 0.0,
-           "flash_bwd_preprocess": 0.0, "rmsnorm_bwd": 0.0}
+           "flash_bwd_preprocess": 0.0, "rmsnorm_bwd_rows": 0.0,
+           "rmsnorm_bwd_dw": 0.0, "rmsnorm_bwd_loop": 0.0}
     for name, ms, _ in kernels:
         for key in bwd:
             if key in name:
@@ -1390,7 +1516,7 @@ SASS_KERNELS = ("flash_tc_kernel", "flash_f32_kernel", "decode_split_kernel",
 # must show HMMA/HGMMA
 TENSOR_CORE_KERNELS = ("flash_tc", "ssm_tc", "flash_bwd_dkdv_tc",
                        "flash_bwd_dq_tc")
-BWD_TC_HEAD_DIMS = (16, 32, 64, 128)   # the backward's bf16 tensor-core hds
+BWD_TC_HEAD_DIMS = (16, 32, 64, 128, 168, 240)   # the backward's bf16 hds
 
 
 def sass_check(lib_path: Path, head_dims: tuple) -> None:
@@ -2260,7 +2386,7 @@ def load_port() -> SimpleNamespace:
     return port
 
 
-PHASES = ("kernels", "train", "models", "mc")
+PHASES = ("sass", "kernels", "train", "models", "mc")
 
 
 def main() -> None:
@@ -2294,7 +2420,8 @@ def main() -> None:
                 "spill" in line:
             print(f"ptxas: {line.strip()}", flush=True)
 
-    sass_check(lib_path, rt.HEAD_DIMS)
+    if "sass" in phases:
+        sass_check(lib_path, rt.HEAD_DIMS)
     rows, by_model = {}, {}
     if "kernels" in phases:
         timer = Timer()
@@ -2313,6 +2440,8 @@ def main() -> None:
         train_checks(rt)
         gc.collect()
         torch.cuda.empty_cache()
+        by_model[f"{GEMMA} train"] = train_phase(
+            rt, smi, GEMMA, GEMMA_TRAIN_LAYERS, GEMMA_TRAIN_STEPS)
         print(f"train phase {time.perf_counter() - t0:.1f} s", flush=True)
     if "models" in phases:
         by_model.update({arch: model_phase(rt, arch) for arch in MODELS})

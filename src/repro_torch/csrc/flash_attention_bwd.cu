@@ -41,22 +41,21 @@
 // each (dtype, hd) has exactly one kernel, and nothing catches a failed
 // build or launch to retry another.
 //
-//   bf16, hd 16 / 32 / 64 / 128: flash_bwd_dkdv_tc_kernel and
-//     flash_bwd_dq_tc_kernel, FA2's backward on the tensor cores
+//   bf16, every hd (16 / 32 / 64 / 128 / 168 / 240): flash_bwd_dkdv_tc_kernel
+//     and flash_bwd_dq_tc_kernel, FA2's backward on the tensor cores
 //     (mma.sync m16n8k16, bf16 in, f32 accumulators), below.
 //   f32, every hd: flash_bwd_dkdv_kernel and flash_bwd_dq_kernel, the
 //     SIMT form, every product an f32 FMA. They are the checking path
 //     (the kernel tests at 2e-5, the train path check at 1e-3), which
 //     neither bf16 nor TF32 tensor cores can meet, as flash_f32_kernel
-//     is for the forward.
-//   bf16, hd 168 / 240: the same SIMT kernels on bf16 tensors. At hd 128
-//     dK and dV already take 128 f32 accumulators a thread; wider heads
-//     need the forward's warp split several times over.
+//     is for the forward. They are not redesigned: no model trains in
+//     f32 on the card.
 //
-// The tensor-core design. 128 threads a block (4 warps, 16 rows each),
-// tiles of 64 rows in shared memory as bf16, each row HD + 8 bf16 (an
-// odd count of 16-byte units, so every ldmatrix is free of bank
-// conflicts), filled by 16-byte cp.async with zero-fill past S.
+// The tensor-core design. Tiles of 64 rows in shared memory as bf16,
+// each row kPad + 8 bf16 (kPad = hd rounded up to 16; an odd count of
+// 16-byte units, so every ldmatrix is free of bank conflicts), filled by
+// 16-byte cp.async with zero-fill past S. A warp owns 16 rows (keys in
+// dkdv, query rows in dq).
 //   dkdv: grid (BH_kv, key tiles of 64), the key tile counted from 0 on
 //     y, so every KV head's heaviest tile under the causal mask (the
 //     lowest keys see the most query rows) goes out before any lighter
@@ -65,18 +64,18 @@
 //     and D through a two-stage cp.async ring, the next pair in flight
 //     while this one is computed. Keys are the M dimension: a warp owns
 //     16 keys and computes S^T = K Q^T and dP^T = V dO^T over sub-steps
-//     of kNQ query columns (32 at hd 128, where dK and dV hold 128 f32
-//     a thread; 64 below). P^T and dS^T are formed on the accumulator
-//     fragments, and the C layout of an m16n8 accumulator is the A
-//     layout of m16n8k16: packed to bf16 they go straight from registers
-//     into dV += P^T dO and dK += dS^T Q, the B operand read from the dO
-//     or Q tile by ldmatrix.trans. Nothing of P or dS touches shared
-//     memory. K and V fragments are read again from shared memory at
-//     each k-step, not held. dK is scaled once, at the store.
+//     of kNQ query columns (32 above hd 64, where dK and dV hold 128 f32
+//     a thread at hd 128; 64 below). P^T and dS^T are formed on the
+//     accumulator fragments, and the C layout of an m16n8 accumulator is
+//     the A layout of m16n8k16: packed to bf16 they go straight from
+//     registers into dV += P^T dO and dK += dS^T Q, the B operand read
+//     from the dO or Q tile by ldmatrix.trans. Nothing of P or dS touches
+//     shared memory. K and V fragments are read again from shared memory
+//     at each k-step, not held. dK is scaled once, at the store.
 //   dq: grid (BH, query tiles of 64), y counted from the last tile (the
 //     heaviest under the causal mask), the forward's shape: the Q and
 //     dO tiles are held (as A fragments in registers at hd <= 64, read
-//     again at each k-step at hd 128), K and V tiles stream through the
+//     again at each k-step above), K and V tiles stream through the
 //     two-stage ring. S = Q K^T, dP = dO V^T and dS = P (dP - D) on the
 //     fragments, then dQ += dS K with dS packed to bf16 A fragments and
 //     K read by ldmatrix.trans.
@@ -84,6 +83,40 @@
 //   log2(e) - lse log2(e)), lse being the forward's natural log-sum-exp.
 //   P and dS are rounded to bf16 before their products (the forward
 //   rounds P for P V the same way); every sum is f32.
+//
+// The wide heads, hd 168 (gemma3-27b) and 240 (gemma3-12b), in the same
+// two kernels:
+//   - hd 168 is padded to kPad = 176 in shared memory only, as the
+//     forward pads it: columns 168-175 of every Q, K, V and dO tile are
+//     zero-filled by cp.async (src-size 0), so the last k-step of S^T,
+//     dP^T, S and dP adds exactly 0; the global rows keep 168 columns
+//     (336 bytes, 21 sixteen-byte chunks) and no column from 168 on of
+//     dQ, dK or dV is stored. Rows of 184 bf16 (23 units) at hd 168 and
+//     248 (31 units) at hd 240. One block an SM: dkdv 142,336 / 191,488
+//     bytes, dq 141,312 / 190,464 at hd 168 / 240.
+//   - dkdv: one warp's dK and dV would take kPad f32 a thread (176, 240)
+//     beside S^T and dP^T, past the 255-register ceiling. So each 16-key
+//     slice has two warps (8 a block, 256 threads), each owning half of
+//     dK's and dV's 16-column groups (6 and 5 at hd 168, 8 and 7 at hd
+//     240: 96 or 128 f32 a thread). Both warps of a pair form the slice's
+//     S^T and dP^T over the whole head, as the forward's two warps of a
+//     slice both form S at hd 240: the same instructions on the same
+//     inputs, so the same values. Chosen over each warp taking half of
+//     the contraction and the halves summed in shared memory: that would
+//     save a third of the tensor-core work (12 hd flops a pair here
+//     against 8) but add an exchange of 32 f32 a thread and two pair
+//     barriers at each sub-step, and make dS a sum of two halves; the
+//     duplicate keeps every sum in the one-warp order.
+//   - dq: 16 rows of dQ take kPad / 2 f32 a thread (88, 120) beside S and
+//     dP, so S and dP go in sub-steps of kNK keys through the 64-key tile
+//     (32 at hd 168, 16 at hd 240: 16 or 8 f32 each), one warp a 16-row
+//     slice as at hd <= 128. dQ's sum order is that of the whole tile:
+//     its 16-key k-steps in order.
+//   - ptxas (sm_90a): dkdv 222 registers at hd 168, no spill; 255 at hd
+//     240 with 32 bytes spilled (sub-steps of 16 query columns spill
+//     nothing but took 3.60 ms against 3.14-3.22 at gemma3-12b's global
+//     layer on an H100, so the 32 stay); dq 255 at both, 4 bytes spilled
+//     at hd 168.
 //
 // The SIMT design. Tiles of 32 query rows and 32 keys are held in shared
 // memory as f32 rows of hd + 1 floats (an odd stride: the column loads
@@ -100,7 +133,7 @@
 namespace repro {
 namespace {
 
-// -- f32 SIMT kernels (f32, and bf16 at hd 168 / 240) --------------------------
+// -- f32 SIMT kernels ------------------------------------------------------------
 
 constexpr int kB = 32;            // query rows, and keys, a tile
 constexpr int kThreads = 256;     // 8 warps
@@ -117,15 +150,15 @@ struct BwdLayout {
 };
 
 // rows row0 .. row0 + kB - 1 of a (nrows, HD) matrix into a (kB, HD + 1)
-// f32 tile; rows past nrows are zero
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
-                                          int nrows) {
+// tile; rows past nrows are zero
+template <int HD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int row0, int nrows) {
   for (int e = threadIdx.x; e < kB * HD; e += kThreads) {
     const int r = e / HD, c = e - r * HD;
     const int row = row0 + r;
     dst[r * (HD + 1) + c] =
-        row < nrows ? to_f32(src[static_cast<size_t>(row) * HD + c]) : 0.f;
+        row < nrows ? src[static_cast<size_t>(row) * HD + c] : 0.f;
   }
 }
 
@@ -202,13 +235,15 @@ flash_bwd_preprocess_kernel(const T* __restrict__ o,
 }
 
 // grid (key tiles, BH_kv)
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkdv_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
                       const float* __restrict__ lse,
-                      const float* __restrict__ delta, T* __restrict__ dk,
-                      T* __restrict__ dv, int group, int sq, int sk,
+                      const float* __restrict__ delta, float* __restrict__ dk,
+                      float* __restrict__ dv, int group, int sq, int sk,
                       int causal, int window, float scale) {
   using L = BwdLayout<HD>;
   constexpr int kS = L::kS, kP = L::kP, kDPT = L::kDPT;
@@ -224,8 +259,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int kvh = blockIdx.y;
   const int k0 = blockIdx.x * kB;
-  load_tile<T, HD>(ks, k + static_cast<size_t>(kvh) * sk * HD, k0, sk);
-  load_tile<T, HD>(vs, v + static_cast<size_t>(kvh) * sk * HD, k0, sk);
+  load_tile<HD>(ks, k + static_cast<size_t>(kvh) * sk * HD, k0, sk);
+  load_tile<HD>(vs, v + static_cast<size_t>(kvh) * sk * HD, k0, sk);
   // query rows that see a key of this tile: q >= k0 (causal) and
   // q < k_max + W (window)
   const int k_max = min(k0 + kB, sk) - 1;
@@ -242,8 +277,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t bh = static_cast<size_t>(kvh) * group + g;
     for (int q0 = q_lo; q0 < q_hi; q0 += kB) {
       __syncthreads();                 // the previous tile is consumed
-      load_tile<T, HD>(qs, q + bh * sq * HD, q0, sq);
-      load_tile<T, HD>(dos, dout + bh * sq * HD, q0, sq);
+      load_tile<HD>(qs, q + bh * sq * HD, q0, sq);
+      load_tile<HD>(dos, dout + bh * sq * HD, q0, sq);
       load_rows(lse_s, d_s, lse, delta, bh * sq, q0, sq);
       __syncthreads();
       scores<HD>(qs, dos, ks, vs, lse_s, d_s, ps, dss, q0, k0, sq, sk,
@@ -267,19 +302,20 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kDPT; ++c) {
       const int d = c0 + kCols * c;
-      dk[off + d] = from_f32<T>(dk_acc[c] * scale);
-      dv[off + d] = from_f32<T>(dv_acc[c]);
+      dk[off + d] = dk_acc[c] * scale;
+      dv[off + d] = dv_acc[c];
     }
   }
 }
 
 // grid (query tiles, BH)
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int group, int sq, int sk, int causal, int window,
                     float scale) {
   using L = BwdLayout<HD>;
@@ -297,8 +333,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t bh = blockIdx.y;
   const size_t kvh = bh / group;
   const int q0 = blockIdx.x * kB;
-  load_tile<T, HD>(qs, q + bh * sq * HD, q0, sq);
-  load_tile<T, HD>(dos, dout + bh * sq * HD, q0, sq);
+  load_tile<HD>(qs, q + bh * sq * HD, q0, sq);
+  load_tile<HD>(dos, dout + bh * sq * HD, q0, sq);
   load_rows(lse_s, d_s, lse, delta, bh * sq, q0, sq);
   // keys this tile's rows see: k <= q_last (causal), k > q0 - W (window)
   const int q_last = min(q0 + kB, sq) - 1;
@@ -313,8 +349,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = k_lo; k0 < k_hi; k0 += kB) {
     __syncthreads();                   // the previous K/V and dS are consumed
-    load_tile<T, HD>(ks, k + kvh * sk * HD, k0, sk);
-    load_tile<T, HD>(vs, v + kvh * sk * HD, k0, sk);
+    load_tile<HD>(ks, k + kvh * sk * HD, k0, sk);
+    load_tile<HD>(vs, v + kvh * sk * HD, k0, sk);
     __syncthreads();
     scores<HD>(qs, dos, ks, vs, lse_s, d_s, ps, dss, q0, k0, sq, sk, causal,
                window, scale);
@@ -328,52 +364,63 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   if (q0 + i < sq) {
-    T* row = dq + (bh * sq + q0 + i) * HD;
+    float* row = dq + (bh * sq + q0 + i) * HD;
 #pragma unroll
     for (int c = 0; c < kDPT; ++c)
-      row[c0 + kCols * c] = from_f32<T>(acc[c] * scale);
+      row[c0 + kCols * c] = acc[c] * scale;
   }
 }
 
-// -- bf16 tensor-core kernels (hd 16, 32, 64, 128) ----------------------------
+// -- bf16 tensor-core kernels --------------------------------------------------
 
 constexpr int kTcB = 64;              // rows of a tile: keys or query rows
 constexpr int kTcThreads = 128;       // 4 warps, 16 rows each
 
 template <int HD>
 struct BwdTcLayout {
-  static constexpr int kStride = HD + 8;        // bf16 a smem row
+  static constexpr int kPad = (HD + 15) / 16 * 16;  // columns in smem
+  static constexpr int kStride = kPad + 8;      // bf16 a smem row
   static constexpr int kTile = kTcB * kStride;  // bf16 a 64-row tile
   // dkdv: K, V and two stages of (Q, dO), then two stages of (lse, D)
   static constexpr int kDkdvBytes = 6 * kTile * 2 + 2 * 2 * kTcB * 4;
   // dq: Q, dO and two stages of (K, V)
   static constexpr int kDqBytes = 6 * kTile * 2;
-  // query columns of a dkdv sub-step: S^T and dP^T take kNQ / 2 f32 a
-  // thread each beside dK and dV's HD
+  // dkdv: warps a 16-key slice, two above hd 128 (each half of dK and
+  // dV's column groups); query columns of a sub-step: S^T and dP^T take
+  // kNQ / 2 f32 a thread each beside dK and dV
+  static constexpr int kSplit = kPad > 128 ? 2 : 1;
+  static constexpr int kDkdvThreads = kTcThreads * kSplit;
   static constexpr int kNQ = HD > 64 ? 32 : 64;
+  // dq: keys of a sub-step (S and dP take kNK / 2 f32 a thread each
+  // beside dQ's kPad / 2); per wide instance the faster of 16 and 32 on
+  // an H100 (hd 240: 16, no spill; hd 168: 32, 4 bytes spilled, where
+  // 16 spills 16 and is slower)
+  static constexpr int kNK = kPad > 176 ? 16 : kPad > 128 ? 32 : 64;
   static constexpr bool kHold = HD <= 64;       // dq: Q, dO fragments held
-  static_assert(HD % 16 == 0 && HD <= 128, "tensor-core head dims");
+  static_assert(HD % 8 == 0 && kPad <= 240, "tensor-core head dims");
   static_assert((kStride / 8) % 2 == 1,
                 "an odd count of 16-byte units a smem row");
   static_assert(kTcThreads == 2 * kTcB, "a thread an lse or D row");
 };
 
 // rows row0 .. row0 + 63 of a (nrows, HD) bf16 matrix into a smem tile
-// of BwdTcLayout<HD>::kStride a row, 16-byte cp.async; rows past nrows
-// are zero-filled (their source is not read)
-template <int HD>
+// of BwdTcLayout<HD>::kStride a row by THREADS threads, 16-byte
+// cp.async; rows past nrows, and the pad columns HD .. kPad - 1, are
+// zero-filled (their source is not read)
+template <int HD, int THREADS>
 __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
                                                 const __nv_bfloat16* src,
                                                 int row0, int nrows) {
   constexpr int kS = BwdTcLayout<HD>::kStride;
-  constexpr int kCPR = HD / 8;          // 16-byte chunks a row
+  constexpr int kCPR = BwdTcLayout<HD>::kPad / 8;  // 16-byte chunks a row
+  constexpr int kCD = HD / 8;           // of them holding data
   constexpr int kChunks = kTcB * kCPR;
-  static_assert(kChunks % kTcThreads == 0, "whole rounds of chunks");
 #pragma unroll
-  for (int i = 0; i < kChunks / kTcThreads; ++i) {
-    const int c = threadIdx.x + i * kTcThreads;
+  for (int i = 0; i < (kChunks + THREADS - 1) / THREADS; ++i) {
+    const int c = threadIdx.x + i * THREADS;
+    if (kChunks % THREADS != 0 && c >= kChunks) break;
     const int r = c / kCPR, cc = c % kCPR;
-    const bool ok = row0 + r < nrows;
+    const bool ok = row0 + r < nrows && (kCD == kCPR || cc < kCD);
     cp_async16(smem_addr(dst + r * kS + cc * 8),
                src + (ok ? static_cast<size_t>(row0 + r) * HD + cc * 8 : 0),
                ok);
@@ -422,9 +469,9 @@ __device__ __forceinline__ void pack_a(const float (&c)[N][4], int kk,
 }
 
 // grid (BH_kv, key tiles): a block owns keys k0 .. k0 + 63 of KV head
-// blockIdx.x, a warp 16 of them
+// blockIdx.x, a warp (above hd 128 a pair of warps) 16 of them
 template <int HD>
-__global__ void __launch_bounds__(kTcThreads)
+__global__ void __launch_bounds__(BwdTcLayout<HD>::kDkdvThreads)
 flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
@@ -437,9 +484,11 @@ flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                          float scale_log2) {
   using L = BwdTcLayout<HD>;
   constexpr int kS = L::kStride, kTile = L::kTile, kNQ = L::kNQ;
-  constexpr int kKS = HD / 16;         // k-steps of S^T over hd
+  constexpr int kThr = L::kDkdvThreads, kSplit = L::kSplit;
+  constexpr int kKS = L::kPad / 16;    // k-steps of S^T over the padded hd
   constexpr int kNT = kNQ / 8;         // n-tiles of S^T in a sub-step
-  constexpr int kDT = HD / 8;          // n-tiles of dK and dV
+  constexpr int kNG = L::kPad / 16;    // 16-column groups of dK and dV
+  constexpr int kGW = (kNG + kSplit - 1) / kSplit;  // groups of this warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* vs = ks + kTile;
@@ -449,7 +498,9 @@ flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int kvh = blockIdx.x;
   const int k0 = blockIdx.y * kTcB;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
+  const int warp = kSplit == 1 ? tid >> 5 : (tid >> 5) % 4;  // key slice
+  const int half = kSplit == 1 ? 0 : (tid >> 5) / 4;  // dK/dV column groups
+  const int lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int key0 = k0 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
 
@@ -462,27 +513,31 @@ flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int n_qt = q_hi > q_lo ? (q_hi - q_lo + kTcB - 1) / kTcB : 0;
   const int n_it = group * n_qt;
 
-  load_tile_async<HD>(ks, k + static_cast<size_t>(kvh) * sk * HD, k0, sk);
-  load_tile_async<HD>(vs, v + static_cast<size_t>(kvh) * sk * HD, k0, sk);
+  load_tile_async<HD, kThr>(ks, k + static_cast<size_t>(kvh) * sk * HD, k0,
+                            sk);
+  load_tile_async<HD, kThr>(vs, v + static_cast<size_t>(kvh) * sk * HD, k0,
+                            sk);
   auto load_q = [&](int it, int stage) {
     const int gi = it / n_qt;
     const int q0 = q_lo + (it - gi * n_qt) * kTcB;
     const size_t bh = static_cast<size_t>(kvh) * group + gi;
     __nv_bfloat16* qd = qs + stage * 2 * kTile;
-    load_tile_async<HD>(qd, q + bh * sq * HD, q0, sq);
-    load_tile_async<HD>(qd + kTile, dout + bh * sq * HD, q0, sq);
+    load_tile_async<HD, kThr>(qd, q + bh * sq * HD, q0, sq);
+    load_tile_async<HD, kThr>(qd + kTile, dout + bh * sq * HD, q0, sq);
     // threads 0-63 copy lse of the 64 rows, 64-127 their D (0 past sq)
-    const int r = tid & (kTcB - 1);
-    const bool ok = q0 + r < sq;
-    cp_async4(smem_addr(rows_s + stage * 2 * kTcB + tid),
-              (tid < kTcB ? lse : delta) + (ok ? bh * sq + q0 + r : 0), ok);
+    if (tid < 2 * kTcB) {
+      const int r = tid & (kTcB - 1);
+      const bool ok = q0 + r < sq;
+      cp_async4(smem_addr(rows_s + stage * 2 * kTcB + tid),
+                (tid < kTcB ? lse : delta) + (ok ? bh * sq + q0 + r : 0), ok);
+    }
   };
   if (n_it > 0) load_q(0, 0);
   cp_async_commit();                   // group 0: K, V and the first pair
 
-  float dka[kDT][4], dva[kDT][4];
+  float dka[2 * kGW][4], dva[2 * kGW][4];
 #pragma unroll
-  for (int j = 0; j < kDT; ++j) {
+  for (int j = 0; j < 2 * kGW; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
   }
@@ -503,7 +558,8 @@ flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int h = 0; h < kTcB / kNQ; ++h) {
       const int c0 = h * kNQ;          // the sub-step's first query column
-      // S^T = K Q^T and dP^T = V dO^T: 16 keys x kNQ queries a warp
+      // S^T = K Q^T and dP^T = V dO^T: 16 keys x kNQ queries a warp (both
+      // warps of a pair alike)
       float s[kNT][4], dp[kNT][4];
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
@@ -555,21 +611,24 @@ flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
           dp[j][e] = p * (dp[j][e] - dd);
         }
       }
-      // dV += P^T dO and dK += dS^T Q, A from the fragments as bf16
+      // dV += P^T dO and dK += dS^T Q over this warp's column groups, A
+      // from the fragments as bf16
 #pragma unroll
       for (int kk = 0; kk < kNQ / 16; ++kk) {
         uint32_t pa[4], da[4];
         pack_a(s, kk, pa);
         pack_a(dp, kk, da);
 #pragma unroll
-        for (int nd = 0; nd < HD / 16; ++nd) {
+        for (int gi = 0; gi < kGW; ++gi) {
+          const int nd = half * kGW + gi;
+          if (kSplit != 1 && nd >= kNG) break;
           uint32_t b[4];
           ldsm_bt<kS>(dot, c0 + kk * 16, nd * 16, b);
-          mma_bf16(dva[2 * nd], pa, b[0], b[1]);
-          mma_bf16(dva[2 * nd + 1], pa, b[2], b[3]);
+          mma_bf16(dva[2 * gi], pa, b[0], b[1]);
+          mma_bf16(dva[2 * gi + 1], pa, b[2], b[3]);
           ldsm_bt<kS>(qt, c0 + kk * 16, nd * 16, b);
-          mma_bf16(dka[2 * nd], da, b[0], b[1]);
-          mma_bf16(dka[2 * nd + 1], da, b[2], b[3]);
+          mma_bf16(dka[2 * gi], da, b[0], b[1]);
+          mma_bf16(dka[2 * gi + 1], da, b[2], b[3]);
         }
       }
     }
@@ -577,13 +636,18 @@ flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
   cp_async_wait<0>();
 
+  // n-tile j of this warp holds columns half kGW 16 + 8 j ..; none from
+  // HD on (the padding) is stored
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int key = key0 + 8 * hh;
     if (key < sk) {
-      const size_t off = (static_cast<size_t>(kvh) * sk + key) * HD + 2 * t;
+      const size_t off = (static_cast<size_t>(kvh) * sk + key) * HD +
+                         half * kGW * 16 + 2 * t;
 #pragma unroll
-      for (int j = 0; j < kDT; ++j) {
+      for (int j = 0; j < 2 * kGW; ++j) {
+        if (kSplit != 1 && half * kGW + j / 2 >= kNG) break;
+        if (HD != L::kPad && half * kGW * 16 + 8 * j >= HD) break;
         *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j) =
             __floats2bfloat162_rn(dka[j][2 * hh] * scale,
                                   dka[j][2 * hh + 1] * scale);
@@ -608,11 +672,11 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
                        int sk, int causal, int window, float scale,
                        float scale_log2) {
   using L = BwdTcLayout<HD>;
-  constexpr int kS = L::kStride, kTile = L::kTile;
+  constexpr int kS = L::kStride, kTile = L::kTile, kNK = L::kNK;
   constexpr bool kHold = L::kHold;
-  constexpr int kKS = HD / 16;         // k-steps of S over hd
-  constexpr int kST = kTcB / 8;        // n-tiles of S
-  constexpr int kDT = HD / 8;          // n-tiles of dQ
+  constexpr int kKS = L::kPad / 16;    // k-steps of S over the padded hd
+  constexpr int kST = kNK / 8;         // n-tiles of S in a sub-step
+  constexpr int kDT = L::kPad / 8;     // n-tiles of dQ
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* dos = qs + kTile;
@@ -636,12 +700,12 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const size_t qoff = static_cast<size_t>(bh) * sq;
   const __nv_bfloat16* kb = k + static_cast<size_t>(kvh) * sk * HD;
   const __nv_bfloat16* vb = v + static_cast<size_t>(kvh) * sk * HD;
-  load_tile_async<HD>(qs, q + qoff * HD, q0, sq);
-  load_tile_async<HD>(dos, dout + qoff * HD, q0, sq);
+  load_tile_async<HD, kTcThreads>(qs, q + qoff * HD, q0, sq);
+  load_tile_async<HD, kTcThreads>(dos, dout + qoff * HD, q0, sq);
   auto load_kv = [&](int kt, int stage) {
     __nv_bfloat16* kd = ks + stage * 2 * kTile;
-    load_tile_async<HD>(kd, kb, kt, sk);
-    load_tile_async<HD>(kd + kTile, vb, kt, sk);
+    load_tile_async<HD, kTcThreads>(kd, kb, kt, sk);
+    load_tile_async<HD, kTcThreads>(kd + kTile, vb, kt, sk);
   };
   if (n_tiles > 0) load_kv(k_begin, 0);
   cp_async_commit();                   // group 0: Q, dO and the first K/V
@@ -675,67 +739,71 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
     }
     const __nv_bfloat16* kt_s = ks + (it & 1) * 2 * kTile;
     const __nv_bfloat16* vt_s = kt_s + kTile;
-
-    // S = Q K^T and dP = dO V^T: 16 rows x 64 keys a warp
-    float s[kST][4], dp[kST][4];
-#pragma unroll
-    for (int j = 0; j < kST; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < kKS; ++kk) {
-      if (!kHold) ldsm_a<kS>(qs, warp * 16, kk * 16, qf[0]);
-#pragma unroll
-      for (int nj = 0; nj < kST / 2; ++nj) {
-        uint32_t b[4];
-        ldsm_b<kS>(kt_s, nj * 16, kk * 16, b);
-        mma_bf16(s[2 * nj], qf[kHold ? kk : 0], b[0], b[1]);
-        mma_bf16(s[2 * nj + 1], qf[kHold ? kk : 0], b[2], b[3]);
-      }
-      if (!kHold) ldsm_a<kS>(dos, warp * 16, kk * 16, of[0]);
-#pragma unroll
-      for (int nj = 0; nj < kST / 2; ++nj) {
-        uint32_t b[4];
-        ldsm_b<kS>(vt_s, nj * 16, kk * 16, b);
-        mma_bf16(dp[2 * nj], of[kHold ? kk : 0], b[0], b[1]);
-        mma_bf16(dp[2 * nj + 1], of[kHold ? kk : 0], b[2], b[3]);
-      }
-    }
-
-    // dS = P (dP - D), P = exp2(s scale log2e - lse log2e), 0 where masked
     const bool need_mask = kt + kTcB > sk ||
                            (causal && kt + kTcB - 1 > q0) ||
                            (window > 0 && kt <= q0 + kTcB - 1 - window);
-#pragma unroll
-    for (int j = 0; j < kST; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        float p = exp2f(s[j][e] * scale_log2 - lse2[h]);
-        if (need_mask) {
-          const int key = kt + 8 * j + 2 * t + (e & 1);
-          const int qi = row0 + 8 * h;
-          bool ok = key < sk;
-          if (causal) ok = ok && key <= qi;
-          if (window > 0) ok = ok && key > qi - window;
-          p = ok ? p : 0.f;
-        }
-        dp[j][e] = p * (dp[j][e] - dd[h]);
-      }
-    }
 
-    // dQ += dS K, dS as bf16 A fragments, K read transposed
 #pragma unroll
-    for (int kk = 0; kk < kTcB / 16; ++kk) {
-      uint32_t da[4];
-      pack_a(dp, kk, da);
+    for (int h = 0; h < kTcB / kNK; ++h) {
+      const int c0 = h * kNK;          // the sub-step's first key in the tile
+      // S = Q K^T and dP = dO V^T: 16 rows x kNK keys a warp
+      float s[kST][4], dp[kST][4];
 #pragma unroll
-      for (int nd = 0; nd < HD / 16; ++nd) {
-        uint32_t b[4];
-        ldsm_bt<kS>(kt_s, kk * 16, nd * 16, b);
-        mma_bf16(acc[2 * nd], da, b[0], b[1]);
-        mma_bf16(acc[2 * nd + 1], da, b[2], b[3]);
+      for (int j = 0; j < kST; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < kKS; ++kk) {
+        if (!kHold) ldsm_a<kS>(qs, warp * 16, kk * 16, qf[0]);
+#pragma unroll
+        for (int nj = 0; nj < kST / 2; ++nj) {
+          uint32_t b[4];
+          ldsm_b<kS>(kt_s, c0 + nj * 16, kk * 16, b);
+          mma_bf16(s[2 * nj], qf[kHold ? kk : 0], b[0], b[1]);
+          mma_bf16(s[2 * nj + 1], qf[kHold ? kk : 0], b[2], b[3]);
+        }
+        if (!kHold) ldsm_a<kS>(dos, warp * 16, kk * 16, of[0]);
+#pragma unroll
+        for (int nj = 0; nj < kST / 2; ++nj) {
+          uint32_t b[4];
+          ldsm_b<kS>(vt_s, c0 + nj * 16, kk * 16, b);
+          mma_bf16(dp[2 * nj], of[kHold ? kk : 0], b[0], b[1]);
+          mma_bf16(dp[2 * nj + 1], of[kHold ? kk : 0], b[2], b[3]);
+        }
+      }
+
+      // dS = P (dP - D), P = exp2(s scale log2e - lse log2e), 0 where masked
+#pragma unroll
+      for (int j = 0; j < kST; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hr = e >> 1;
+          float p = exp2f(s[j][e] * scale_log2 - lse2[hr]);
+          if (need_mask) {
+            const int key = kt + c0 + 8 * j + 2 * t + (e & 1);
+            const int qi = row0 + 8 * hr;
+            bool ok = key < sk;
+            if (causal) ok = ok && key <= qi;
+            if (window > 0) ok = ok && key > qi - window;
+            p = ok ? p : 0.f;
+          }
+          dp[j][e] = p * (dp[j][e] - dd[hr]);
+        }
+      }
+
+      // dQ += dS K, dS as bf16 A fragments, K read transposed
+#pragma unroll
+      for (int kk = 0; kk < kNK / 16; ++kk) {
+        uint32_t da[4];
+        pack_a(dp, kk, da);
+#pragma unroll
+        for (int nd = 0; nd < kDT / 2; ++nd) {
+          uint32_t b[4];
+          ldsm_bt<kS>(kt_s, c0 + kk * 16, nd * 16, b);
+          mma_bf16(acc[2 * nd], da, b[0], b[1]);
+          mma_bf16(acc[2 * nd + 1], da, b[2], b[3]);
+        }
       }
     }
     __syncthreads();                   // this stage is free for tile it + 2
@@ -748,10 +816,12 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
     if (qi < sq) {
       __nv_bfloat16* row = dq + (qoff + qi) * HD + 2 * t;
 #pragma unroll
-      for (int j = 0; j < kDT; ++j)
+      for (int j = 0; j < kDT; ++j) {
+        if (HD != L::kPad && 8 * j >= HD) break;  // the padding
         *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
             __floats2bfloat162_rn(acc[j][2 * h] * scale,
                                   acc[j][2 * h + 1] * scale);
+      }
     }
   }
 }
@@ -775,10 +845,11 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout,
         cudaFuncAttributeMaxDynamicSharedMemorySize, L::kDkdvBytes);
     if (attr != cudaSuccess) return static_cast<int>(attr);
     const dim3 grid(bh / group, (sk + kTcB - 1) / kTcB);
-    flash_bwd_dkdv_tc_kernel<HD><<<grid, kTcThreads, L::kDkdvBytes, stream>>>(
-        qp, kp, vp, dp, lse, delta, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), group, sq, sk, causal, window, scale,
-        scale_log2);
+    flash_bwd_dkdv_tc_kernel<HD>
+        <<<grid, L::kDkdvThreads, L::kDkdvBytes, stream>>>(
+            qp, kp, vp, dp, lse, delta, static_cast<bf16*>(dk),
+            static_cast<bf16*>(dv), group, sq, sk, causal, window, scale,
+            scale_log2);
   } else {
     static const cudaError_t attr = cudaFuncSetAttribute(
         flash_bwd_dq_tc_kernel<HD>,
@@ -794,59 +865,53 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout,
 
 // -- dispatch ------------------------------------------------------------------
 
-template <typename T, int HD>
-int launch_grads(const void* q, const void* k, const void* v,
-                 const void* dout, const float* lse, const float* delta,
-                 void* dq, void* dk, void* dv, int bh, int group, int sq,
-                 int sk, int causal, int window, cudaStream_t stream) {
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, void* dq, void* dk,
+               void* dv, int bh, int group, int sq, int sk, int causal,
+               int window, cudaStream_t stream) {
   constexpr int kBytes = BwdLayout<HD>::kBytes;
   const float scale = 1.f / sqrtf(static_cast<float>(HD));
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const T* dp = static_cast<const T*>(dout);
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  const float* dp = static_cast<const float*>(dout);
   if (dk != nullptr) {
     static const cudaError_t attr = cudaFuncSetAttribute(
-        flash_bwd_dkdv_kernel<T, HD>,
+        flash_bwd_dkdv_kernel<HD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
     if (attr != cudaSuccess) return static_cast<int>(attr);
     const dim3 grid((sk + kB - 1) / kB, bh / group);
-    flash_bwd_dkdv_kernel<T, HD><<<grid, kThreads, kBytes, stream>>>(
-        qp, kp, vp, dp, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-        group, sq, sk, causal, window, scale);
+    flash_bwd_dkdv_kernel<HD><<<grid, kThreads, kBytes, stream>>>(
+        qp, kp, vp, dp, lse, delta, static_cast<float*>(dk),
+        static_cast<float*>(dv), group, sq, sk, causal, window, scale);
   } else {
     static const cudaError_t attr = cudaFuncSetAttribute(
-        flash_bwd_dq_kernel<T, HD>,
+        flash_bwd_dq_kernel<HD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
     if (attr != cudaSuccess) return static_cast<int>(attr);
     const dim3 grid((sq + kB - 1) / kB, bh);
-    flash_bwd_dq_kernel<T, HD><<<grid, kThreads, kBytes, stream>>>(
-        qp, kp, vp, dp, lse, delta, static_cast<T*>(dq), group, sq, sk,
+    flash_bwd_dq_kernel<HD><<<grid, kThreads, kBytes, stream>>>(
+        qp, kp, vp, dp, lse, delta, static_cast<float*>(dq), group, sq, sk,
         causal, window, scale);
   }
   return 0;
 }
 
-// (dtype, hd) picks the kernel: bf16 at hd <= 128 the tensor cores, f32
-// and bf16 at hd 168 / 240 the SIMT kernels. Not a fallback: one kernel
-// for each pair, and an error from it is returned, never retried.
+// (dtype, hd) picks the kernel: bf16 the tensor cores, f32 the SIMT
+// kernels. Not a fallback: one kernel for each pair, and an error from it
+// is returned, never retried.
 template <int HD>
 int launch_hd(int dtype, const void* q, const void* k, const void* v,
               const void* dout, const float* lse, const float* delta,
               void* dq, void* dk, void* dv, int bh, int group, int sq,
               int sk, int causal, int window, cudaStream_t stream) {
-  if (dtype == kBF16) {
-    if constexpr (HD <= 128)
-      return launch_tc<HD>(q, k, v, dout, lse, delta, dq, dk, dv, bh, group,
-                           sq, sk, causal, window, stream);
-    else
-      return launch_grads<__nv_bfloat16, HD>(q, k, v, dout, lse, delta, dq,
-                                             dk, dv, bh, group, sq, sk,
-                                             causal, window, stream);
-  }
+  if (dtype == kBF16)
+    return launch_tc<HD>(q, k, v, dout, lse, delta, dq, dk, dv, bh, group,
+                         sq, sk, causal, window, stream);
   if (dtype == kF32)
-    return launch_grads<float, HD>(q, k, v, dout, lse, delta, dq, dk, dv, bh,
-                                   group, sq, sk, causal, window, stream);
+    return launch_f32<HD>(q, k, v, dout, lse, delta, dq, dk, dv, bh, group,
+                          sq, sk, causal, window, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -34,15 +34,32 @@
 // g = dy (1 + w):
 //   dx = r g - x r^3 / d * sum_k g_k x_k     (in x's dtype)
 //   dw = sum over rows of dy x r             (f32)
-// Bound: bytes (x and dy read, dx written; the dw partials are 4 d bytes
-// a block). rmsnorm_bwd_rows_kernel takes kBwdRows rows a block of 256
-// threads, any d: a first loop over each row's columns sums x^2 and g x
-// (warp shuffles, then the 8 warps in a fixed order) into r and the
-// row's coefficient; a second loop over the columns writes dx and the
-// block's partial of dw, its rows summed in order. rmsnorm_bwd_dw_kernel
-// then sums the partials of every block, a thread a column, in groups of
-// 32 blocks and then the groups in order. No float atomics: two runs give
-// the same bits.
+// Bound: bytes (x and dy read once, dx written once; the dw partials are
+// 4 d bytes a block, a few per cent of it). Two dependent launches:
+// - rmsnorm_bwd_rows_kernel: at most kBwdBlocks blocks of 256 threads,
+//   each walking a contiguous range of rows_per_block rows. The forward's
+//   register layout: a row goes to a group of TPR threads (the least of
+//   32, 64, 128, 256 with 4 16-byte vectors a thread covering d: bf16 d
+//   <= 8192, f32 d <= 4096), kBlock / TPR rows a pass; each thread loads
+//   its vectors of x and dy once into registers, ss and g.x are reduced
+//   by warp shuffles and one shared-memory exchange across the row's
+//   warps in a fixed order (double-buffered: one __syncthreads a pass),
+//   and dx is written from the same registers. A thread's columns are
+//   fixed, so its (1 + w) is loaded once and its dw terms of every row it
+//   takes are summed in registers in row order; at the end the block's
+//   row groups are summed in shared memory in group order into one f32
+//   partial row a block.
+// - rmsnorm_bwd_loop_kernel takes every other case (d not a multiple of
+//   the vector, a misaligned pointer, wider rows): the same block range,
+//   16 rows at a time with the whole block on a row, x and dy read twice,
+//   the partial row carried in global memory by the thread that owns the
+//   column, the rows in order.
+// - rmsnorm_bwd_dw_kernel: a block of 8 warps per 32 columns (d / 32
+//   blocks fill the card), warp k summing partial rows k, k + 8, ... in
+//   order, then the 8 warp sums in warp order.
+// No float atomics: two runs give the same bits. Both launches are
+// programmatic dependent launches (they read only after
+// wait_previous_grid()).
 #include <cstdint>
 
 #include "common.cuh"
@@ -226,101 +243,277 @@ cudaError_t launch(const void* x, const void* w, void* out, int n, int d,
                           0, stream, xp, wp, op, d, eps);
 }
 
-constexpr int kBwdRows = 16;  // rows a block of the backward's first pass
-                              // (BWD_ROWS in kernels/fused_rmsnorm.py)
+constexpr int kBwdBlocks = 264;  // most blocks of the backward's row pass
+                                 // (BWD_BLOCKS in kernels/fused_rmsnorm.py)
+constexpr int kBwdVecs = 4;      // 16-byte vectors of x, and of dy, a thread
+constexpr int kLoopRows = 16;    // rows at a time of the looping path
+constexpr int kDwCols = 32;      // columns a block of the dw pass
 
-template <typename T>
+template <typename T, int TPR>
 __global__ void __launch_bounds__(kBlock)
 rmsnorm_bwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ w,
                         const T* __restrict__ dy, T* __restrict__ dx,
                         float* __restrict__ partial, int n, int d,
-                        float eps) {
-  __shared__ float red[2][kBlock / 32];
-  __shared__ float r_s[kBwdRows], coef_s[kBwdRows];
-  const size_t r0 = static_cast<size_t>(blockIdx.x) * kBwdRows;
-  const int rows = min(static_cast<size_t>(kBwdRows), n - r0);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int rr = 0; rr < rows; ++rr) {
-    const T* xr = x + (r0 + rr) * d;
-    const T* gr = dy + (r0 + rr) * d;
+                        int rows_per_block, float eps) {
+  constexpr int kVec = 16 / sizeof(T);       // elements a 16-byte vector
+  constexpr int kNV = kBwdVecs;              // vectors a thread
+  constexpr int kWPR = TPR / 32;             // warps a row
+  constexpr int kRows = kBlock / TPR;        // rows a pass
+  // columns a row group covers, kept in shared memory to sum the groups
+  constexpr int kCols = kRows > 1 ? TPR * kNV * kVec : 4;
+  __shared__ float red[2][kRows][kWPR][2];
+  __shared__ __align__(16) float sums[kRows][kCols];
+  const int rib = threadIdx.x / TPR;         // row group in the block
+  const int t = threadIdx.x % TPR;
+  const int nvec = d / kVec;
+  const int start = blockIdx.x * rows_per_block;
+  const int end = min(start + rows_per_block, n);
+  const int n_pass = (end - start + kRows - 1) / kRows;
+
+  // the kernel before this one may write x, w or dy
+  wait_previous_grid();
+  float wc[kNV][kVec], acc[kNV][kVec];
+#pragma unroll
+  for (int i = 0; i < kNV; ++i) {
+    const int v = t + i * TPR;
+#pragma unroll
+    for (int j = 0; j < kVec / 4; ++j) {
+      const float4 w4 = v < nvec
+          ? reinterpret_cast<const float4*>(w)[v * (kVec / 4) + j]
+          : make_float4(0.f, 0.f, 0.f, 0.f);
+      wc[i][4 * j] = 1.f + w4.x;
+      wc[i][4 * j + 1] = 1.f + w4.y;
+      wc[i][4 * j + 2] = 1.f + w4.z;
+      wc[i][4 * j + 3] = 1.f + w4.w;
+    }
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[i][e] = 0.f;
+  }
+
+  for (int it = 0; it < n_pass; ++it) {
+    const int row = start + it * kRows + rib;
+    const bool live = row < end;
+    const uint4* xr = reinterpret_cast<const uint4*>(x + static_cast<size_t>(row) * d);
+    const uint4* gr = reinterpret_cast<const uint4*>(dy + static_cast<size_t>(row) * d);
+    uint4 xv[kNV], gv[kNV];
+#pragma unroll
+    for (int i = 0; i < kNV; ++i) {
+      const int v = t + i * TPR;
+      const bool ok = live && v < nvec;
+      xv[i] = ok ? xr[v] : make_uint4(0u, 0u, 0u, 0u);
+      gv[i] = ok ? gr[v] : make_uint4(0u, 0u, 0u, 0u);
+    }
     float ss = 0.f, dot = 0.f;
-    for (int c = tid; c < d; c += kBlock) {
-      const float xv = to_f32(xr[c]);
-      ss += xv * xv;
-      dot += to_f32(gr[c]) * (1.f + w[c]) * xv;
+#pragma unroll
+    for (int i = 0; i < kNV; ++i) {
+      float f[kVec], g[kVec];
+      unpack16(xv[i], f);
+      unpack16(gv[i], g);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        ss += f[e] * f[e];
+        dot += g[e] * wc[i][e] * f[e];
+      }
     }
     ss = warp_sum(ss);
     dot = warp_sum(dot);
-    if (lane == 0) {
-      red[0][warp] = ss;
-      red[1][warp] = dot;
+    if ((t & 31) == 0) {
+      red[it & 1][rib][t >> 5][0] = ss;
+      red[it & 1][rib][t >> 5][1] = dot;
     }
     __syncthreads();
-    if (tid == 0) {
-      float a = 0.f, b = 0.f;
+    ss = dot = 0.f;
 #pragma unroll
-      for (int k = 0; k < kBlock / 32; ++k) {
-        a += red[0][k];
-        b += red[1][k];
+    for (int k = 0; k < kWPR; ++k) {
+      ss += red[it & 1][rib][k][0];
+      dot += red[it & 1][rib][k][1];
+    }
+    const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+    const float coef = dot * r * r * r / static_cast<float>(d);
+    uint4* dxr = reinterpret_cast<uint4*>(dx + static_cast<size_t>(row) * d);
+#pragma unroll
+    for (int i = 0; i < kNV; ++i) {
+      const int v = t + i * TPR;
+      if (!live || v >= nvec) continue;
+      float f[kVec], g[kVec];
+      unpack16(xv[i], f);
+      unpack16(gv[i], g);
+      alignas(16) T e[kVec];
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        e[k] = from_f32<T>(r * wc[i][k] * g[k] - f[k] * coef);
+        acc[i][k] += g[k] * f[k] * r;
       }
-      const float r = rsqrtf(a / static_cast<float>(d) + eps);
-      r_s[rr] = r;
-      coef_s[rr] = b * r * r * r / static_cast<float>(d);
+      dxr[v] = *reinterpret_cast<const uint4*>(e);
     }
-    __syncthreads();
   }
-  for (int c = tid; c < d; c += kBlock) {
-    const float wc = 1.f + w[c];
-    float acc = 0.f;
-    for (int rr = 0; rr < rows; ++rr) {
-      const size_t off = (r0 + rr) * d + c;
-      const float xv = to_f32(x[off]), g = to_f32(dy[off]);
-      const float r = r_s[rr];
-      dx[off] = from_f32<T>(r * wc * g - xv * coef_s[rr]);
-      acc += g * xv * r;
+
+  // the block's partial row: its row groups summed in group order
+  float* prow = partial + static_cast<size_t>(blockIdx.x) * d;
+  if constexpr (kRows == 1) {
+#pragma unroll
+    for (int i = 0; i < kNV; ++i) {
+      const int v = t + i * TPR;
+      if (v >= nvec) continue;
+#pragma unroll
+      for (int j = 0; j < kVec / 4; ++j)
+        reinterpret_cast<float4*>(prow + v * kVec)[j] =
+            make_float4(acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2],
+                        acc[i][4 * j + 3]);
     }
-    partial[static_cast<size_t>(blockIdx.x) * d + c] = acc;
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < kNV; ++i) {
+    const int v = t + i * TPR;
+#pragma unroll
+    for (int j = 0; j < kVec / 4; ++j)
+      reinterpret_cast<float4*>(&sums[rib][v * kVec])[j] =
+          make_float4(acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2],
+                      acc[i][4 * j + 3]);
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < d; c += kBlock) {
+    float s = sums[0][c];
+#pragma unroll
+    for (int k = 1; k < kRows; ++k) s += sums[k][c];
+    prow[c] = s;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBlock)
+rmsnorm_bwd_loop_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                        const T* __restrict__ dy, T* __restrict__ dx,
+                        float* __restrict__ partial, int n, int d,
+                        int rows_per_block, float eps) {
+  __shared__ float red[2][kBlock / 32];
+  __shared__ float r_s[kLoopRows], coef_s[kLoopRows];
+  const int start = blockIdx.x * rows_per_block;
+  const int end = min(start + rows_per_block, n);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* prow = partial + static_cast<size_t>(blockIdx.x) * d;
+  wait_previous_grid();
+  for (int r0 = start; r0 < end; r0 += kLoopRows) {
+    const int rows = min(kLoopRows, end - r0);
+    for (int rr = 0; rr < rows; ++rr) {
+      const T* xr = x + static_cast<size_t>(r0 + rr) * d;
+      const T* gr = dy + static_cast<size_t>(r0 + rr) * d;
+      float ss = 0.f, dot = 0.f;
+      for (int c = tid; c < d; c += kBlock) {
+        const float xv = to_f32(xr[c]);
+        ss += xv * xv;
+        dot += to_f32(gr[c]) * (1.f + w[c]) * xv;
+      }
+      ss = warp_sum(ss);
+      dot = warp_sum(dot);
+      if (lane == 0) {
+        red[0][warp] = ss;
+        red[1][warp] = dot;
+      }
+      __syncthreads();
+      if (tid == 0) {
+        float a = 0.f, b = 0.f;
+#pragma unroll
+        for (int k = 0; k < kBlock / 32; ++k) {
+          a += red[0][k];
+          b += red[1][k];
+        }
+        const float r = rsqrtf(a / static_cast<float>(d) + eps);
+        r_s[rr] = r;
+        coef_s[rr] = b * r * r * r / static_cast<float>(d);
+      }
+      __syncthreads();
+    }
+    for (int c = tid; c < d; c += kBlock) {
+      const float wc = 1.f + w[c];
+      float acc = r0 == start ? 0.f : prow[c];
+      for (int rr = 0; rr < rows; ++rr) {
+        const size_t off = static_cast<size_t>(r0 + rr) * d + c;
+        const float xv = to_f32(x[off]), g = to_f32(dy[off]);
+        const float r = r_s[rr];
+        dx[off] = from_f32<T>(r * wc * g - xv * coef_s[rr]);
+        acc += g * xv * r;
+      }
+      prow[c] = acc;
+    }
   }
 }
 
 __global__ void __launch_bounds__(kBlock)
 rmsnorm_bwd_dw_kernel(const float* __restrict__ partial,
                       float* __restrict__ dw, int blocks, int d) {
-  const int c = blockIdx.x * kBlock + threadIdx.x;
-  if (c >= d) return;
-  // groups of 32 partials summed, then the groups' sums: a fixed order
-  // that rounds as ~32 + blocks / 32 additions, not blocks
-  float acc = 0.f;
-  for (int b0 = 0; b0 < blocks; b0 += 32) {
-    float s = 0.f;
-    for (int b = b0; b < min(b0 + 32, blocks); ++b)
+  constexpr int kWarps = kBlock / 32;
+  __shared__ float red[kWarps][kDwCols];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * kDwCols + lane;
+  wait_previous_grid();                // the partials of the row pass
+  float s = 0.f;
+  if (c < d) {
+#pragma unroll 8
+    for (int b = warp; b < blocks; b += kWarps)
       s += partial[static_cast<size_t>(b) * d + c];
-    acc += s;
   }
-  dw[c] = acc;
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && c < d) {
+    float total = 0.f;
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k) total += red[k][lane];
+    dw[c] = total;
+  }
+}
+
+template <typename T, int TPR>
+cudaError_t launch_bwd_rows(const T* x, const float* w, const T* dy, T* dx,
+                            float* partial, int n, int d, int rows,
+                            int blocks, float eps, cudaStream_t stream) {
+  return launch_dependent(rmsnorm_bwd_rows_kernel<T, TPR>, dim3(blocks),
+                          dim3(kBlock), 0, stream, x, w, dy, dx, partial, n,
+                          d, rows, eps);
 }
 
 template <typename T>
 cudaError_t launch_bwd(const void* x, const void* w, const void* dy, void* dx,
                        void* dw, void* partial, int n, int d, float eps,
                        cudaStream_t stream) {
-  const int blocks = (n + kBwdRows - 1) / kBwdRows;
-  rmsnorm_bwd_rows_kernel<T><<<blocks, kBlock, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w),
-      static_cast<const T*>(dy), static_cast<T*>(dx),
-      static_cast<float*>(partial), n, d, eps);
-  const cudaError_t e = cudaGetLastError();
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPerThread = kBwdVecs * kVec;  // columns a thread
+  const int rows = (n + kBwdBlocks - 1) / kBwdBlocks;  // rows a block
+  const int blocks = (n + rows - 1) / rows;
+  const T* xp = static_cast<const T*>(x);
+  const T* gp = static_cast<const T*>(dy);
+  const float* wp = static_cast<const float*>(w);
+  T* dxp = static_cast<T*>(dx);
+  float* pp = static_cast<float*>(partial);
+  const bool vec = d % kVec == 0 && aligned16(x) && aligned16(w) &&
+                   aligned16(dy) && aligned16(dx);
+  cudaError_t e;
+  if (vec && d <= 32 * kPerThread)
+    e = launch_bwd_rows<T, 32>(xp, wp, gp, dxp, pp, n, d, rows, blocks, eps, stream);
+  else if (vec && d <= 64 * kPerThread)
+    e = launch_bwd_rows<T, 64>(xp, wp, gp, dxp, pp, n, d, rows, blocks, eps, stream);
+  else if (vec && d <= 128 * kPerThread)
+    e = launch_bwd_rows<T, 128>(xp, wp, gp, dxp, pp, n, d, rows, blocks, eps, stream);
+  else if (vec && d <= 256 * kPerThread)
+    e = launch_bwd_rows<T, 256>(xp, wp, gp, dxp, pp, n, d, rows, blocks, eps, stream);
+  else
+    e = launch_dependent(rmsnorm_bwd_loop_kernel<T>, dim3(blocks),
+                         dim3(kBlock), 0, stream, xp, wp, gp, dxp, pp, n, d,
+                         rows, eps);
   if (e != cudaSuccess) return e;
-  rmsnorm_bwd_dw_kernel<<<(d + kBlock - 1) / kBlock, kBlock, 0, stream>>>(
-      static_cast<const float*>(partial), static_cast<float*>(dw), blocks, d);
-  return cudaSuccess;
+  return launch_dependent(rmsnorm_bwd_dw_kernel,
+                          dim3((d + kDwCols - 1) / kDwCols), dim3(kBlock), 0,
+                          stream, static_cast<const float*>(partial),
+                          static_cast<float*>(dw), blocks, d);
 }
 
 }  // namespace
 }  // namespace repro
 
-// partial: (ceil(n / kBwdRows), d) f32 scratch from the wrapper
-// (kernels/fused_rmsnorm.py's BWD_ROWS)
+// partial: (kBwdBlocks, d) f32 scratch from the wrapper (BWD_BLOCKS in
+// kernels/fused_rmsnorm.py); the row pass fills its first
+// ceil(n / ceil(n / kBwdBlocks)) rows
 extern "C" int repro_fused_rmsnorm_bwd(const void* x, const void* w,
                                        const void* dy, void* dx, void* dw,
                                        void* partial, int n, int d,

@@ -7,9 +7,9 @@ Port of the Pallas TPU kernel ``src/repro/kernels/fused_rmsnorm.py:19``.
 launches the hand-written kernel ``csrc/fused_rmsnorm.cu``. Where autograd
 records the call, it goes through :class:`FusedRMSNorm`, whose backward
 is the hand-written ``repro_fused_rmsnorm_bwd`` (dx in x's dtype, dw in
-f32, the dw partials of blocks of ``BWD_ROWS`` rows summed in a fixed
-order); :func:`fused_rmsnorm_bwd_plain` is autograd through the plain
-version.
+f32: a partial row for each block of contiguous rows, at most
+``BWD_BLOCKS`` of them, summed in a fixed order);
+:func:`fused_rmsnorm_bwd_plain` is autograd through the plain version.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ from .common import (DTYPE_CODES, check_cuda_tensor, needs_grad, require,
 
 NAME = "fused_rmsnorm"
 BWD_NAME = "fused_rmsnorm_bwd"
-BWD_ROWS = 16         # rows a block of the backward (csrc kBwdRows)
+BWD_BLOCKS = 264      # most blocks of the backward's row pass (csrc kBwdBlocks)
 launches = 0
 bwd_launches = 0
 
@@ -107,8 +107,8 @@ def fused_rmsnorm_bwd_cuda(x: torch.Tensor, w: torch.Tensor,
     n, d = x.shape
     dx = torch.empty_like(x)
     dw = torch.empty_like(w)
-    partial = torch.empty(((n + BWD_ROWS - 1) // BWD_ROWS, d),
-                          dtype=torch.float32, device=x.device)
+    partial = torch.empty((BWD_BLOCKS, d), dtype=torch.float32,
+                          device=x.device)
     rc = build.library().repro_fused_rmsnorm_bwd(
         x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
         dw.data_ptr(), partial.data_ptr(), n, d, eps, DTYPE_CODES[x.dtype],

@@ -14,12 +14,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_smoke  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels.common import DTYPE_CODES, stream_of  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_cuda, decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bwd_plain, flash_attention_cuda,
-    flash_attention_lse_cuda, flash_attention_plain, flash_lse_plain)
+    flash_attention_lse_cuda, flash_attention_plain, flash_bwd_dkdv_cuda,
+    flash_bwd_dq_cuda, flash_bwd_preprocess_cuda, flash_lse_plain)
 from repro_torch.kernels.fused_rmsnorm import (  # noqa: E402
     fused_rmsnorm_bwd_cuda, fused_rmsnorm_bwd_plain, fused_rmsnorm_cuda,
     fused_rmsnorm_plain)
@@ -514,6 +516,84 @@ def test_cuda_flash_backward_matches_plain(card, dtype):
     torch.cuda.synchronize()
 
 
+# bf16 at gemma3's head dims on the tensor cores (hd 168 padded to 176,
+# two warps a dkdv key slice, 32-key dq sub-steps): GQA G = 2, the local
+# layers' window of 1024 binding at S 1100 (17 tiles of 64 and 12 rows),
+# ragged S, non-causal
+BWD_WIDE = ((4, 2, 1100, 240, 1024, True), (4, 2, 1100, 168, 1024, True),
+            (4, 2, 130, 240, 0, True), (4, 2, 77, 168, 0, True),
+            (2, 1, 200, 240, 0, False))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_backward_wide_heads_on_tensor_cores(card):
+    """bf16 dq, dk, dv at hd 168 and 240 against autograd through the plain
+    version at 2e-2 (1 + |plain|), two runs bitwise equal."""
+    g = torch.Generator(device=card).manual_seed(8)
+    for bh, bh_kv, s, hd, window, causal in BWD_WIDE:
+        q, k, v, do = (torch.randn(shape, generator=g, device=card)
+                       .to(torch.bfloat16)
+                       for shape in ((bh, s, hd), (bh_kv, s, hd),
+                                     (bh_kv, s, hd), (bh, s, hd)))
+        want = flash_attention_bwd_plain(q, k, v, do, causal=causal,
+                                         window=window)
+        got = []
+        for _ in range(2):
+            qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+            ops.flash_attention(qg, kg, vg, causal=causal,
+                                window=window).backward(do)
+            got.append((qg.grad, kg.grad, vg.grad))
+        for a, b, w in zip(got[0], got[1], want):
+            assert torch.equal(a, b)
+            diff = (a.float() - w.float()).abs()
+            assert bool((diff <= 2e-2 * (1 + w.float().abs())).all()), \
+                (hd, window, float(diff.max()))
+    torch.cuda.synchronize()
+
+
+def poisoned(shape, dtype):
+    """(a view of shape at the head of a buffer of NaN with 64 elements
+    past it, that tail)"""
+    n = int(np.prod(shape))
+    buf = torch.full((n + 64,), float("nan"), dtype=dtype, device="cuda")
+    return buf[:n].view(shape), buf[n:]
+
+
+@pytest.mark.cuda
+def test_cuda_flash_backward_hd168_stores_no_pad_column(card):
+    """At hd 168 the kernels compute 176 columns (the pad zero-filled) and
+    store 168: dq, dk and dv written by the library into the head of
+    NaN-poisoned buffers equal the wrappers' outputs row by row (a store
+    past column 167 of a row lands in the next row's first columns) and
+    leave the 64 elements past the last row NaN."""
+    g = torch.Generator(device=card).manual_seed(9)
+    bh, bh_kv, s, hd = 4, 2, 130, 168
+    q, k, v, do = (torch.randn(shape, generator=g, device=card)
+                   .to(torch.bfloat16)
+                   for shape in ((bh, s, hd), (bh_kv, s, hd), (bh_kv, s, hd),
+                                 (bh, s, hd)))
+    out, lse = flash_attention_lse_cuda(q, k, v)
+    delta = flash_bwd_preprocess_cuda(out, do)
+    dk_w, dv_w = flash_bwd_dkdv_cuda(q, k, v, do, lse, delta)
+    dq_w = flash_bwd_dq_cuda(q, k, v, do, lse, delta)
+    (dq, dq_tail), (dk, dk_tail), (dv, dv_tail) = (
+        poisoned(t.shape, t.dtype) for t in (q, k, v))
+    lib, code, st = build.library(), DTYPE_CODES[q.dtype], stream_of(q)
+    build.check(lib.repro_flash_bwd_dkdv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh,
+        bh_kv, s, s, hd, 1, 0, code, st), "flash_bwd_dkdv")
+    build.check(lib.repro_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, bh_kv, s, s, hd,
+        1, 0, code, st), "flash_bwd_dq")
+    torch.cuda.synchronize()
+    for got, want, tail in ((dq, dq_w, dq_tail), (dk, dk_w, dk_tail),
+                            (dv, dv_w, dv_tail)):
+        assert torch.equal(got, want)
+        assert bool(tail.isnan().all())
+
+
 def dw_tol(n):
     """dw sums n rows of f32 products (in either dtype): the rounding of
     such a sum grows as sqrt(n) in any order (the plain version's own dw
@@ -526,15 +606,16 @@ def dw_tol(n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_rmsnorm_backward_matches_plain(card, dtype):
-    """dx, dw of the norm's backward kernel (blocks of 16 rows, dw partials
-    summed in a fixed order) against autograd through the plain version,
-    dx at the kernel tolerances and dw at ``dw_tol``, over ragged N and d
-    (the register path's d 2048 and 4096, the looping path's), and two
-    runs bitwise equal."""
+    """dx, dw of the norm's backward kernel (a block a contiguous range of
+    rows, dw partials summed in a fixed order) against autograd through
+    the plain version, dx at the kernel tolerances and dw at ``dw_tol``,
+    over ragged N and d (the register path's d 2048, 3840, 4096 and, in
+    bf16, 5376; the looping path's), and two runs bitwise equal."""
     g = torch.Generator(device=card).manual_seed(7)
     dt = TDT[dtype]
     for n, d in ((1, 4096), (77, 4096), (600, 2048), (33, 1000), (5, 8),
-                 (17, 5376), (4096, 4096), (16, 3840), (3, 100)):
+                 (17, 5376), (4096, 4096), (16, 3840), (3, 100),
+                 (2049, 3840), (1001, 5376)):
         x = torch.randn(n, d, generator=g, device=card).to(dt)
         dy = torch.randn(n, d, generator=g, device=card).to(dt)
         w = torch.randn(d, generator=g, device=card) * 0.1
@@ -577,19 +658,28 @@ def test_cuda_kernels_without_backward_raise_under_grad(card):
         ops.decode_attention(q, k, k, lengths)
 
 
+# gemma3 at narrow widths that keep the real head dims
+TRAIN_WIDE = {"gemma3-12b-hd240": ("gemma3-12b", dict(d_model=480, n_heads=2,
+                                                      n_kv_heads=1)),
+              "gemma3-27b-hd168": ("gemma3-27b", dict(d_model=336, n_heads=2,
+                                                      n_kv_heads=1))}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["deepseek-7b", "granite-moe-3b-a800m",
-                                  "gemma3-12b"])
+                                  "gemma3-12b", *TRAIN_WIDE])
 def test_cuda_smoke_trains_two_steps(card, arch):
     """Two train steps of the smoke config on the card (f32 masters, bf16
     compute, remat, 2 microbatches): the norms and attention run the
     kernels forward and backward (granite: MoE and GQA; gemma3-12b: the
-    window of its local layers), every parameter gets a non-zero
+    window of its local layers; gemma3 at hd 240 and 168: the tensor-core
+    backward at those head dims), every parameter gets a non-zero
     gradient, the losses are finite and the launch counts add up."""
     from repro_torch.configs import TrainConfig
     from repro_torch.training import (SyntheticLM, init_opt_state,
                                       make_train_step)
-    cfg = get_smoke(arch)
+    name, widths = TRAIN_WIDE.get(arch, (arch, {}))
+    cfg = get_smoke(name).with_(**widths)
     params = init_params(cfg, seed=0, device=card, dtype=torch.float32)
     lm = LM.from_params(cfg, params, dtype=torch.bfloat16)
     step_fn = make_train_step(lm, TrainConfig(lr=1e-3, warmup_steps=1,

@@ -10,16 +10,17 @@
   through the autograd Functions on the CPU with the kernels replaced by
   the emulation, against autograd through the plain versions. The flash
   backward's emulation is routed as ``launch_hd`` dispatches: bf16 at
-  hd 16-128 to the tensor-core kernels' (64-key and 64-row tiles, the
-  dkdv block's query sub-steps, P in the exp2 domain, P and dS rounded
-  to bf16 before their products, f32 sums; also held against
-  ``jax.grad`` of ``flash_attention_xla``), f32 and bf16 at hd 168/240
-  to the SIMT kernels' (32-row query and 32-key tiles). Both sum dK/dV
-  over the G query heads of a KV head and the query tiles in order, dQ
-  separately over the key tiles; dw partials of 16-row blocks are summed
-  in groups of 32 blocks. The tensor-core kernels' shared-memory layout
-  and skipped tiles are checked too. Keep the emulation in step with the
-  .cu files.
+  every hd to the tensor-core kernels' (64-key and 64-row tiles, the
+  dkdv block's query sub-steps and the dq block's key sub-steps, hd 168
+  padded to 176 with zero columns, P in the exp2 domain, P and dS
+  rounded to bf16 before their products, f32 sums; also held against
+  ``jax.grad`` of ``flash_attention_xla``), f32 to the SIMT kernels'
+  (32-row query and 32-key tiles). Both sum dK/dV over the G query heads
+  of a KV head and the query tiles in order, dQ separately over the key
+  tiles. The norm's dw is a partial row a block of contiguous rows (its
+  row groups summed in order), then the partials by warp, then the warps
+  in order. The tensor-core kernels' shared-memory layout and skipped
+  tiles are checked too. Keep the emulation in step with the .cu files.
 * The guards: ``decode_attention``, ``ssm_scan``, ``rwkv6_scan`` and a
   capped ``flash_attention`` refuse a gradient in their CUDA wrappers,
   before any device check.
@@ -51,10 +52,12 @@ TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = 2e-2        # |kernel - reference| <= BF16_TOL * (1 + |reference|)
 TILE = 32              # the SIMT kernels' query rows and keys a tile
 TC_TILE = 64           # the tensor-core kernels' rows a tile
-TC_HEAD_DIMS = (16, 32, 64, 128)   # bf16 head dims on the tensor cores
+TC_HEAD_DIMS = (16, 32, 64, 128, 168, 240)   # bf16 head dims (all of them)
 LOG2E = np.float32(1.4426950408889634)
 H100_SMEM_PER_BLOCK = 232448       # bytes of dynamic shared memory a block
 H100_SMEM_PER_SM = 233472          # 228 KB, 1 KB of it reserved a block
+DW_WARPS = 8                       # warps a block of the norm's dw pass
+BWD_VECS = 4      # 16-byte vectors of x, and of dy, a thread (kBwdVecs)
 
 
 def dw_tol(n):
@@ -121,27 +124,53 @@ def test_plain_flash_grads_match_jax(bh, bh_kv, s, hd, window):
 
 # -- the backward kernels' design, emulated -----------------------------------
 
-def emulate_rmsnorm_bwd(x, w, dy, eps=1e-6, rows=rn.BWD_ROWS):
-    """rmsnorm_bwd_rows_kernel then rmsnorm_bwd_dw_kernel: blocks of
-    ``rows`` rows (r and the row's coefficient b r^3 / d), each block's dw
-    partial summed over its rows in order, the partials in groups of 32
-    blocks, then the groups in order."""
+def bwd_layout(n: int, d: int, dtype: torch.dtype) -> tuple[int, int, int]:
+    """The norm backward's row pass as ``launch_bwd`` lays it out for
+    16-byte aligned tensors: (rows a block, blocks, row groups a block).
+    A block takes a contiguous range of ceil(n / BWD_BLOCKS) rows; on the
+    register path (d a multiple of the 16-byte vector, d <= 256 threads x
+    BWD_VECS vectors) its 256 threads hold 256 / TPR row groups of TPR
+    threads, TPR the least of 32, 64, 128, 256 that covers d, group k
+    taking rows k, k + groups, ...; on the looping path the block is one
+    group of its rows in order."""
+    rows = -(-n // rn.BWD_BLOCKS)
+    blocks = -(-n // rows)
+    vec = 16 // (torch.finfo(dtype).bits // 8)   # elements a vector
+    if d % vec == 0:
+        for tpr in (32, 64, 128, 256):
+            if d <= tpr * BWD_VECS * vec:
+                return rows, blocks, 256 // tpr
+    return rows, blocks, 1
+
+
+def emulate_rmsnorm_bwd(x, w, dy, eps=1e-6):
+    """rmsnorm_bwd_{rows,loop}_kernel then rmsnorm_bwd_dw_kernel, laid out
+    by ``bwd_layout``: r and the row's coefficient b r^3 / d; each block's
+    contiguous rows in its row groups (group k the rows k, k + groups, ...
+    of the block, each summed in row order), the groups summed in group
+    order into the block's partial row; then warp k of the dw pass sums
+    partials k, k + 8, ... in order, and the 8 warp sums in warp order."""
     n, d = x.shape
     xf, g = x.float(), dy.float()
     wc = 1.0 + w
     r = torch.rsqrt((xf * xf).sum(-1, keepdim=True) / d + eps)
     coef = (g * wc * xf).sum(-1, keepdim=True) * r ** 3 / d
     dx = (r * wc * g - xf * coef).to(x.dtype)
+    rows, blocks, groups = bwd_layout(n, d, x.dtype)
     partials = []
-    for b0 in range(0, n, rows):
-        acc = torch.zeros(d)
-        for i in range(b0, min(b0 + rows, n)):
-            acc = acc + g[i] * xf[i] * r[i]
-        partials.append(acc)
+    for b in range(blocks):
+        start, end = b * rows, min(b * rows + rows, n)
+        part = None
+        for k in range(groups):
+            acc = torch.zeros(d)
+            for i in range(start + k, end, groups):
+                acc = acc + g[i] * xf[i] * r[i]
+            part = acc if part is None else part + acc
+        partials.append(part)
     dw = torch.zeros(d)
-    for g0 in range(0, len(partials), 32):
+    for k in range(DW_WARPS):
         s = torch.zeros(d)
-        for p in partials[g0:g0 + 32]:
+        for p in partials[k::DW_WARPS]:
             s = s + p
         dw = dw + s
     return dx, dw
@@ -217,14 +246,19 @@ def emulate_dq(q, k, v, do, lse, delta, *, causal=True, window=0):
     return dq.to(q.dtype)
 
 
-# -- the tensor-core backward (bf16, hd 16-128) ---------------------------------
+# -- the tensor-core backward (bf16, every hd) --------------------------------
 
 def tc_layout(hd):
     """BwdTcLayout<hd>: (row stride in bf16, dkdv bytes, dq bytes, query
-    columns of a dkdv sub-step)."""
-    stride = hd + 8
+    columns of a dkdv sub-step, padded columns, warps a dkdv 16-key
+    slice, keys of a dq sub-step)."""
+    pad = -(-hd // 16) * 16
+    stride = pad + 8
     tiles = 6 * TC_TILE * stride * 2
-    return stride, tiles + 2 * 2 * TC_TILE * 4, tiles, 32 if hd > 64 else 64
+    split = 2 if pad > 128 else 1
+    nk = 16 if pad > 176 else 32 if pad > 128 else 64
+    return (stride, tiles + 2 * 2 * TC_TILE * 4, tiles, 32 if hd > 64 else 64,
+            pad, split, nk)
 
 
 def dkdv_tc_tiles(sq, sk, causal, window):
@@ -270,11 +304,14 @@ def _tc_mask(q0, k0, sq, sk, causal, window, rows):
     return ok
 
 
-def _tile(t, r0, n=TC_TILE):
+def _tile(t, r0, n=TC_TILE, cols=None):
     """Rows r0 .. r0 + n - 1 of t (..., rows[, hd]) in f32, zero past the
-    end (cp.async's zero-fill)."""
+    end, and with ``cols`` the columns zero from hd to ``cols`` (cp.async's
+    zero-fill of the rows past S and of the pad columns)."""
     part = t[:, r0:r0 + n].float()
     pad = [0, 0] * (t.dim() - 2) + [0, n - part.shape[1]]
+    if cols is not None:
+        pad[1] = cols - t.shape[-1]
     return torch.nn.functional.pad(part, pad)
 
 
@@ -284,80 +321,91 @@ def _bf16(t):
 
 def emulate_dkdv_tc(q, k, v, do, lse, delta, *, causal=True, window=0):
     """flash_bwd_dkdv_tc_kernel: a block per (KV head, 64-key tile), here
-    every KV head at once; for each of the G query heads in order its
-    query tiles in order, each in sub-steps of ``tc_layout(hd)[3]``
-    query columns: S^T = K Q^T and dP^T = V dO^T of bf16 values in f32,
-    P^T = exp2(S^T scale log2(e) - lse log2(e)) (0 where the tile's mask
-    drops a pair), dS^T = P^T (dP^T - D); dV += bf16(P^T) dO and dK +=
-    bf16(dS^T) Q in f32; dK scaled once at the store."""
+    every KV head at once; tiles of ``tc_layout(hd)[4]`` columns (hd 168
+    padded to 176 with zeros); for each of the G query heads in order its
+    query tiles in order, each in sub-steps of ``tc_layout(hd)[3]`` query
+    columns: S^T = K Q^T and dP^T = V dO^T of bf16 values in f32, P^T =
+    exp2(S^T scale log2(e) - lse log2(e)) (0 where the tile's mask drops
+    a pair), dS^T = P^T (dP^T - D); dV += bf16(P^T) dO and dK += bf16(dS^T)
+    Q in f32; dK scaled once at the store, no pad column stored. Above hd
+    128 a key slice's two warps each own half of dK and dV's columns but
+    both form the whole S^T and dP^T, so the sums are the one-warp
+    design's."""
     BH, sq, hd = q.shape
     bh_kv, sk, _ = k.shape
     G = BH // bh_kv
     scale = float(np.float32(1) / np.sqrt(np.float32(hd)))
     scale_log2 = float(LOG2E / np.sqrt(np.float32(hd), dtype=np.float32))
-    nq = tc_layout(hd)[3]
+    _, _, _, nq, cols, _, _ = tc_layout(hd)
     dk, dv = torch.zeros(k.shape), torch.zeros(v.shape)
     for k0, q_tiles in dkdv_tc_tiles(sq, sk, causal, window):
-        kt, vt = _tile(k, k0), _tile(v, k0)
+        kt, vt = _tile(k, k0, cols=cols), _tile(v, k0, cols=cols)
         dk_acc, dv_acc = torch.zeros(kt.shape), torch.zeros(vt.shape)
         for g in range(G):
             heads = torch.arange(bh_kv) * G + g
             for q0 in q_tiles:
-                qt, dot = _tile(q[heads], q0), _tile(do[heads], q0)
+                qt = _tile(q[heads], q0, cols=cols)
+                dot = _tile(do[heads], q0, cols=cols)
                 lt, dt = _tile(lse[heads], q0), _tile(delta[heads], q0)
                 ok = _tc_mask(q0, k0, sq, sk, causal, window, rows=True)
                 for c0 in range(0, TC_TILE, nq):
-                    cols = slice(c0, c0 + nq)
-                    qs, dos = qt[:, cols], dot[:, cols]
+                    sub = slice(c0, c0 + nq)
+                    qs, dos = qt[:, sub], dot[:, sub]
                     st = kt @ qs.transpose(1, 2)
                     dpt = vt @ dos.transpose(1, 2)
                     p = torch.exp2(st * scale_log2
-                                   - (lt[:, None, cols] * float(LOG2E)))
+                                   - (lt[:, None, sub] * float(LOG2E)))
                     if ok is not None:
-                        p = torch.where(ok[cols].T, p, 0.0)
-                    ds = p * (dpt - dt[:, None, cols])
+                        p = torch.where(ok[sub].T, p, 0.0)
+                    ds = p * (dpt - dt[:, None, sub])
                     dv_acc += _bf16(p) @ dos
                     dk_acc += _bf16(ds) @ qs
         n = min(TC_TILE, sk - k0)
-        dk[:, k0:k0 + n] = (dk_acc * scale)[:, :n]
-        dv[:, k0:k0 + n] = dv_acc[:, :n]
+        dk[:, k0:k0 + n] = (dk_acc * scale)[:, :n, :hd]
+        dv[:, k0:k0 + n] = dv_acc[:, :n, :hd]
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def emulate_dq_tc(q, k, v, do, lse, delta, *, causal=True, window=0):
     """flash_bwd_dq_tc_kernel: a block per (query head, 64-row tile), here
-    every head at once; the key tiles in order: S = Q K^T, dP = dO V^T,
+    every head at once; tiles of ``tc_layout(hd)[4]`` columns (hd 168
+    padded with zeros); the key tiles in order, each in sub-steps of
+    ``tc_layout(hd)[6]`` keys (32 at hd 168, 16 at 240): S = Q K^T, dP = dO V^T,
     P = exp2(S scale log2(e) - lse log2(e)), 0 where masked, dS = P (dP -
-    D), dQ += bf16(dS) K in f32, scaled at the store."""
+    D), dQ += bf16(dS) K in f32, scaled at the store, no pad column
+    stored."""
     BH, sq, hd = q.shape
     G = BH // k.shape[0]
     scale = float(np.float32(1) / np.sqrt(np.float32(hd)))
     scale_log2 = float(LOG2E / np.sqrt(np.float32(hd), dtype=np.float32))
+    _, _, _, _, cols, _, nk = tc_layout(hd)
     kf, vf = (t.repeat_interleave(G, dim=0) for t in (k, v))
     sk = k.shape[1]
     dq = torch.zeros(q.shape)
     for q0, k_tiles in dq_tc_tiles(sq, sk, causal, window):
-        qt, dot = _tile(q, q0), _tile(do, q0)
+        qt, dot = _tile(q, q0, cols=cols), _tile(do, q0, cols=cols)
         lse2 = _tile(lse, q0) * float(LOG2E)
         dt = _tile(delta, q0)
         acc = torch.zeros(qt.shape)
         for kt in k_tiles:
-            kk, vv = _tile(kf, kt), _tile(vf, kt)
-            p = torch.exp2(qt @ kk.transpose(1, 2) * scale_log2
-                           - lse2[..., None])
+            kk, vv = _tile(kf, kt, cols=cols), _tile(vf, kt, cols=cols)
             ok = _tc_mask(q0, kt, sq, sk, causal, window, rows=False)
-            if ok is not None:
-                p = torch.where(ok, p, 0.0)
-            ds = p * (dot @ vv.transpose(1, 2) - dt[..., None])
-            acc += _bf16(ds) @ kk
+            for c0 in range(0, TC_TILE, nk):
+                sub = slice(c0, c0 + nk)
+                p = torch.exp2(qt @ kk[:, sub].transpose(1, 2) * scale_log2
+                               - lse2[..., None])
+                if ok is not None:
+                    p = torch.where(ok[:, sub], p, 0.0)
+                ds = p * (dot @ vv[:, sub].transpose(1, 2) - dt[..., None])
+                acc += _bf16(ds) @ kk[:, sub]
         n = min(TC_TILE, sq - q0)
-        dq[:, q0:q0 + n] = (acc * scale)[:, :n]
+        dq[:, q0:q0 + n] = (acc * scale)[:, :n, :hd]
     return dq.to(q.dtype)
 
 
 def on_tensor_cores(q):
-    """launch_hd's rule: bf16 at hd 16-128 runs the tensor-core kernels,
-    f32 and bf16 at hd 168/240 the SIMT ones."""
+    """launch_hd's rule: bf16 runs the tensor-core kernels at every hd,
+    f32 the SIMT ones."""
     return q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS
 
 
@@ -395,7 +443,11 @@ def emulated_kernels(monkeypatch):
                                                                   eps))
 
 
-@pytest.mark.parametrize("n,d", [(1, 4096), (77, 64), (1000, 48), (16, 8)])
+# d 3840, 4096, 5376 (gemma3-12b, deepseek-7b, gemma3-27b) at row counts
+# that leave a last block short: 601 = 200 x 3 + 1, 1001 = 250 x 4 + 1,
+# 533 = 177 x 3 + 2
+@pytest.mark.parametrize("n,d", [(1, 4096), (77, 64), (1000, 48), (16, 8),
+                                 (601, 3840), (1001, 4096), (533, 5376)])
 def test_rmsnorm_backward_design_matches_plain(emulated_kernels, n, d):
     x, w, dy = (torch.from_numpy(a) for a in arrays(n + d, (n, d), (d,),
                                                     (n, d)))
@@ -407,6 +459,16 @@ def test_rmsnorm_backward_design_matches_plain(emulated_kernels, n, d):
     torch.testing.assert_close(out, rn.fused_rmsnorm_plain(x, w), **TOL)
     torch.testing.assert_close(xg.grad, want_dx, **TOL)
     torch.testing.assert_close(wg.grad, want_dw, **dw_tol(n))
+
+
+@pytest.mark.parametrize("n", [1, 263, 264, 265, 529, 8192, 100_003])
+def test_rmsnorm_backward_blocks_fit_the_partial_rows(n):
+    """The row pass's blocks cover the n rows, each block holds at least
+    one, and there are never more than the BWD_BLOCKS partial rows the
+    wrapper allocates."""
+    rows, blocks, _ = bwd_layout(n, 4096, torch.bfloat16)
+    assert 1 <= blocks <= rn.BWD_BLOCKS
+    assert (blocks - 1) * rows < n <= blocks * rows
 
 
 # (bh, bh_kv, sq, sk, hd, causal, window): GQA (G = 2, 3), windows across
@@ -438,14 +500,18 @@ def test_flash_backward_design_matches_plain(emulated_kernels, bh, bh_kv, sq,
 
 # (bh, bh_kv, sq, sk, hd, causal, window), bf16: GQA (G = 2, 3), windows
 # across and inside a 64 tile, S 1, 63, 65, 130, Sq != Sk, non-causal,
-# every tensor-core head dim; hd 168 and 240 take the SIMT kernels
+# every head dim; hd 168 (padded to 176) and 240 (two warps a dkdv key
+# slice, 32-key dq sub-steps) with G = 2, windows and S ragged across
+# the 64-row tiles
 TC_DESIGN = [(4, 4, 130, 130, 128, True, 0), (6, 3, 77, 77, 64, True, 0),
              (6, 2, 65, 65, 32, True, 0), (2, 2, 200, 200, 16, True, 100),
              (3, 3, 130, 130, 64, True, 20), (2, 2, 1, 1, 128, True, 0),
              (2, 2, 63, 63, 32, True, 0), (4, 2, 64, 150, 16, False, 0),
              (2, 1, 130, 70, 128, True, 0), (2, 2, 70, 130, 64, True, 0),
              (3, 3, 31, 31, 16, False, 8), (2, 2, 65, 65, 168, True, 0),
-             (4, 2, 40, 40, 240, True, 0)]
+             (4, 2, 40, 40, 240, True, 0), (4, 2, 150, 150, 168, True, 40),
+             (4, 2, 130, 130, 240, True, 20), (4, 2, 70, 140, 240, True, 0),
+             (4, 2, 97, 97, 168, False, 0)]
 
 
 @pytest.mark.parametrize("bh,bh_kv,sq,sk,hd,causal,window", TC_DESIGN)
@@ -506,20 +572,40 @@ def test_flash_tc_backward_rounds_p_and_ds_to_bf16():
 @pytest.mark.parametrize("hd", TC_HEAD_DIMS)
 def test_flash_tc_backward_layout_is_conflict_free_and_fits(hd):
     """Each tensor-core backward kernel's smem rows are an odd count of
-    16-byte units (the 8 rows an ldmatrix reads fall on distinct banks),
-    its bytes fit a block, and two blocks fit an SM at hd 128 (six
-    64 x 136 bf16 tiles: 104,448 bytes, dkdv 1,024 more for lse and D);
-    a 64-row tile's chunks are whole rounds of the 128 threads; a dkdv
-    sub-step takes 32 query columns at hd 128, 64 below."""
-    stride, dkdv, dq, nq = tc_layout(hd)
+    16-byte units (the 8 rows an ldmatrix reads fall on distinct banks)
+    and its bytes fit a block; at hd <= 128 two blocks fit an SM (six
+    64 x 136 bf16 tiles at hd 128: 104,448 bytes, dkdv 1,024 more for lse
+    and D) and a 64-row tile's chunks are whole rounds of the 128
+    threads, above it one block an SM (hd 168 padded to 176: rows of 184;
+    hd 240: rows of 248) whose 256 dkdv threads take guarded rounds; a
+    dkdv sub-step takes 32 query columns above hd 64, 64 below; the f32
+    accumulators a thread stay at or under hd 128's (dK and dV 128, S^T
+    and dP^T 32): above hd 128 a key slice has two warps, each half of
+    dK and dV's 16-column groups, and dq's sub-steps take 32 keys at hd
+    168, 16 at hd 240."""
+    stride, dkdv, dq, nq, pad, split, nk = tc_layout(hd)
     assert (stride * 2 // 16) % 2 == 1
+    assert pad % 16 == 0 and 0 <= pad - hd < 16
     for nbytes in (dkdv, dq):
         assert nbytes <= H100_SMEM_PER_BLOCK
-        assert 2 * (nbytes + 1024) <= H100_SMEM_PER_SM
-    assert TC_TILE * (hd // 8) % 128 == 0
+        blocks = 2 if hd <= 128 else 1
+        assert blocks * (nbytes + 1024) <= H100_SMEM_PER_SM
+    if hd <= 128:
+        assert split == 1 and nk == TC_TILE
+        assert TC_TILE * (hd // 8) % 128 == 0
+    else:
+        assert split == 2 and nk == (32 if hd == 168 else 16)
     assert TC_TILE % nq == 0 and nq % 16 == 0
+    assert TC_TILE % nk == 0 and nk % 16 == 0
+    groups = -(-(pad // 16) // split)          # dK/dV column groups a warp
+    assert 2 * (2 * groups) * 4 + nq <= 160    # dkdv: dK, dV, S^T, dP^T
+    assert pad // 2 + nk <= 160                # dq: dQ, S and dP
     if hd == 128:
         assert (stride, dkdv, dq, nq) == (136, 105472, 104448, 32)
+    if hd == 168:
+        assert (stride, pad, dkdv, dq) == (184, 176, 142336, 141312)
+    if hd == 240:
+        assert (stride, dkdv, dq, groups) == (248, 191488, 190464, 8)
 
 
 @pytest.mark.parametrize("sq,sk,causal,window", [

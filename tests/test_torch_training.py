@@ -14,6 +14,8 @@ Tolerances, stated before any run:
 * microbatches 4 against 1: test_training.py:49-51's rel 2e-2, 5e-3.
 * remat against no remat, batches, checkpoints and compression: exact.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -113,6 +115,81 @@ def test_loss_and_grads_match_jax(setup):
         scale = float(np.abs(want).max())
         np.testing.assert_allclose(g, want, rtol=0, atol=1e-4 * scale,
                                    err_msg=jax.tree_util.keystr(path))
+
+
+# gemma3 at narrow widths that keep the real head dims (hd 240 and 168):
+# 7 layers, a group of 5 local layers (window 16) and a global one, then
+# a local tail
+GEMMA_WIDE = {"gemma3-12b": dict(d_model=480, n_heads=2, n_kv_heads=1,
+                                 n_layers=7),
+              "gemma3-27b": dict(d_model=336, n_heads=2, n_kv_heads=1,
+                                 n_layers=7)}
+FLOOR_DRAWS = 3
+FLOOR_CEILING = {"gemma3-12b": 0.1, "gemma3-27b": 1e-2}
+
+
+def rel_by_leaf(got, want_tree):
+    """{leaf: max |got - want| / max |want|} over the leaves of want_tree,
+    got in the same nesting (to_jax_numpy's)."""
+    out = {}
+    for path, want in leaves(want_tree):
+        g = got
+        for p in path:
+            g = g[p.key]
+        want = np.asarray(want)
+        out[jax.tree_util.keystr(path)] = float(
+            np.abs(g - want).max() / np.abs(want).max())
+    return out
+
+
+@pytest.mark.parametrize("arch", list(GEMMA_WIDE))
+def test_gemma3_grads_match_jax_at_the_rounding_floor(arch):
+    """Every gradient leaf of loss_and_grads against jax.value_and_grad at
+    gemma3's real head dims (S 64, batch 2, both in f32; the port's
+    attention backward there is the kernels' on the card).
+
+    The tolerance is each leaf's own rounding floor on this random-weight
+    stack, measured here: each f32 weight nudged by one ulp up or down at
+    random (np.nextafter, signs from a numpy generator of seed 1), the
+    port's gradients computed again, and the leaf's max |nudged -
+    unnudged| / max |g|, the largest over FLOOR_DRAWS draws. Each leaf's
+    max |port - JAX| / max |JAX| must be within twice its own floor, and
+    each floor under FLOOR_CEILING, so a floor that grows fails rather
+    than widening its own tolerance (the floors reach 0.053 at hd 240,
+    where the two heads' saturated softmax amplifies rounding, and 4.1e-3
+    at hd 168); the losses within 1e-5."""
+    w = GEMMA_WIDE[arch]
+    jcfg = dataclasses.replace(jax_get_smoke(arch), **w)
+    cfg = get_smoke(arch).with_(**w)
+    assert cfg.hd == {"gemma3-12b": 240, "gemma3-27b": 168}[arch]
+    jparams = materialize(model_specs(jcfg), jax.random.PRNGKey(0))
+    tree = jax.tree.map(np.asarray, jparams)
+    b = batch_of(cfg.vocab, 64, 2)
+    with f32_compute():
+        jloss, jgrads = jax.value_and_grad(
+            lambda p: JaxLM(jcfg).loss(p, b["tokens"], b["targets"]))(jparams)
+
+    def port(tr):
+        loss, grads = loss_and_grads(port_lm(cfg, tr), torch_batch(b),
+                                     TrainConfig())
+        return float(loss), to_jax_numpy(grads, cfg)
+    loss, got = port(tree)
+    np.testing.assert_allclose(loss, float(jloss), rtol=1e-5)
+    rng = np.random.default_rng(1)
+    floor = {}
+    for _ in range(FLOOR_DRAWS):
+        nudged = jax.tree.map(
+            lambda a: np.nextafter(a, np.where(rng.random(a.shape) < 0.5,
+                                               -np.inf, np.inf).astype(a.dtype))
+            if a.dtype == np.float32 else a, tree)
+        for k, v in rel_by_leaf(port(nudged)[1], got).items():
+            floor[k] = max(floor.get(k, 0.0), v)
+    rel = rel_by_leaf(got, jgrads)
+    assert len(rel) == len(leaves(jgrads)) == len(floor)
+    high = {k: v for k, v in floor.items() if not v < FLOOR_CEILING[arch]}
+    assert not high, high
+    bad = {k: (v, floor[k]) for k, v in rel.items() if not v <= 2 * floor[k]}
+    assert not bad, bad
 
 
 def test_granite_loss_includes_the_moe_aux_term():
