@@ -8,7 +8,7 @@ and the CUDA toolkit (nvcc). It imports nothing of JAX or of the JAX
 package. In order it:
 
 1. prints the card (nvidia-smi name and power limit) and the versions;
-2. builds the port's CUDA kernels (seven sources) from
+2. builds the port's CUDA kernels (nine sources) from
    src/repro_torch/csrc into build/repro_torch/ (timed as set-up);
 3. counts the tensor-core instructions (HMMA) of the attention and
    scan kernels in the built library's SASS (cuobjdump), and fails if
@@ -67,9 +67,20 @@ package. In order it:
    untimed, the forward
    kernels' log-sum-exp and the whole attention backward at hd 16, 32,
    64, 168 and 240, GQA G = 3, a window of 1024 at S 1500 and ragged S
-   1, 63, 65, 130 (dw of the norm, a sum over N rows, at 2e-5 sqrt(N)); then
-   checks that decode_attention, ssm_scan, rwkv6_scan and a capped
-   flash_attention raise where a gradient is wanted;
+   1, 63, 65, 130 (dw of the norm, a sum over N rows, at 2e-5 sqrt(N));
+   then the scans' backward kernels: ssm_scan_bwd at zamba2-1.2b's
+   training microbatch (BH 128 = 2 x 64 heads over 2 B/C groups, S 4096,
+   hd 64, ds 64, chunk 256, B/C bf16) and rwkv6_scan_bwd at rwkv6-1.6b's
+   (BH 64 = 2 x 32 heads, S 4096, hd 64, f32), each against autograd
+   through the plain version (f32 gradients within 2e-5 sqrt(S) (1 +
+   |plain|), bf16 dB / dC within 2e-2 (1 + |plain|)), twice for bitwise
+   equality, every gradient finite, timed beside the plain backward and
+   the bound, then untimed at the CPU design test's edge cases (ragged S,
+   chunk 1, S 1, B/C groups, nonzero final-state gradients, a chunk whose
+   log-decay spans more than 88; rwkv6's checkpoint edges, hd 16 to 128,
+   one u row, w at 0 and 1, bf16); then checks that decode_attention and
+   a capped flash_attention raise where a gradient is wanted, and that
+   ssm_scan's and rwkv6_scan's outputs carry a grad_fn;
 4c. trains deepseek-7b at full width (d 4096, 32 x 128 heads, d_ff
    11008, vocab 102400) cut to 12 layers (3.267 B parameters, 52.3 GB of
    f32 masters, grads and AdamW moments; 30 layers would take 111 GB)
@@ -95,6 +106,16 @@ package. In order it:
    same batches, the last traced, with the same prints and checks (its
    model FLOPs count GQA's K/V widths and the local layers' windowed
    pairs), so that the flash backward at hd 240 runs in a train step;
+   then zamba2-1.2b (38 Mamba2 layers, 64 heads of 64, ds 64, chunk 256,
+   the shared attention block after every 6; 1.104 B parameters, 17.7 GB
+   of f32 state) and rwkv6-1.6b (24 layers; 1.483 B, 23.7 GB) at full
+   width and depth, 3 steps of the same batches each, the last traced,
+   with the same prints (the model FLOPs by part: matmul parameters,
+   attention pairs and the scans' own flops; the scans' backward kernels'
+   share of the traced step) and checks, but for the losses' fall (these
+   two start at ln(vocab), where three steps on three batches move the
+   loss less than the batches differ: their losses must be finite), and
+   every parameter's gradient finite;
 5. for each of deepseek-7b, zamba2-1.2b, rwkv6-1.6b,
    granite-moe-3b-a800m (32 layers of GQA attention and 40 experts, top
    8), qwen2-vl-2b (28 layers, M-RoPE, 12 query heads over 2 KV heads,
@@ -230,6 +251,7 @@ MOONSHOT, QWEN, MUSICGEN = ("moonshot-v1-16b-a3b", "qwen2-vl-2b",
                             "musicgen-large")
 GEMMA, GEMMA27 = "gemma3-12b", "gemma3-27b"
 REPS, WARMUP = 15, 3           # timed calls (median) after warm-up calls
+SLOW_PLAIN_S, SLOW_REPS = 0.5, 3   # a plain call slower than this: 3 calls
 
 
 def fail(msg: str) -> None:
@@ -257,12 +279,12 @@ class Timer:
     def __init__(self):
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
-    def __call__(self, fn) -> float:
-        for _ in range(WARMUP):
+    def __call__(self, fn, reps: int = REPS, warmup: int = WARMUP) -> float:
+        for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
         times = []
-        for _ in range(REPS):
+        for _ in range(reps):
             self.flush.zero_()
             torch.cuda._sleep(2_000_000)
             a = torch.cuda.Event(enable_timing=True)
@@ -922,7 +944,15 @@ def run_cases(cases, timer, rows: dict) -> dict:
             print(f"kernel {c.name} [{c.label}]: max_abs_err {err:.3e} "
                   f"(tolerance {c.tol})", flush=True)
             continue
-        ms, plain_ms = timer(c.kern), timer(c.plain)
+        # a plain version that takes seconds (rwkv6_scan's backward, a host
+        # loop over the steps) is timed over SLOW_REPS calls
+        t_plain = time.perf_counter()
+        c.plain()
+        torch.cuda.synchronize()
+        slow = time.perf_counter() - t_plain > SLOW_PLAIN_S
+        ms = timer(c.kern)
+        plain_ms = (timer(c.plain, SLOW_REPS, 0) if slow else
+                    timer(c.plain))
         lib_ms = lib_err = None
         if c.lib is not None:
             lib_err, _ = max_err(c.lib(), c.plain())
@@ -1111,6 +1141,130 @@ def backward_cases(rt):
                        None, 0, 0, BF16_FLOPS_PER_S, LSE_TOL[dt], timed=False)
 
 
+def ssm_bwd_flops(bh: int, bh_bc: int, s: int, hd: int, ds: int,
+                  chunk: int) -> int:
+    """The f32 flops the ssm_scan backward needs on these shapes (an FMA
+    is 2): per chunk of n steps and its n(n+1)/2 live pairs, C B^T once a
+    B/C group (2 ds a pair), and a head's dY X^T and P^T dY (2 hd a pair
+    each) and M^T C and M B (2 ds each); per step a head's three state
+    products (G B^T, X G, dY H) and the two passes carrying the state and
+    its gradient over the chunks, 2 hd ds each."""
+    total = 0
+    for t0 in range(0, s, chunk):
+        n = min(chunk, s - t0)
+        pairs = n * (n + 1) // 2
+        total += bh_bc * pairs * 2 * ds + bh * (pairs * (4 * hd + 4 * ds)
+                                                + n * 10 * hd * ds)
+    return total
+
+
+def rwkv_bwd_flops(bh: int, s: int, hd: int) -> int:
+    """The f32 flops the rwkv6_scan backward needs (an FMA is 2): per step
+    and head the state forward, dr, dk, dw, dv and the carry of dS back,
+    2 hd^2 each, and the bonus terms, 10 hd."""
+    return bh * s * (12 * hd * hd + 10 * hd)
+
+
+def scan_backward_cases(rt):
+    """The two scans' backward kernels at the training phase's shapes,
+    each against autograd through the plain version on the same inputs
+    and twice for bitwise equality: ssm_scan_bwd at zamba2-1.2b's
+    microbatch (BH 128 = 2 x 64 heads over 2 B/C groups, S 4096, hd 64,
+    ds 64, chunk 256, B/C bf16, the state's gradient zero as in training)
+    and rwkv6_scan_bwd at rwkv6-1.6b's (BH 64 = 2 x 32 heads, u (32, 64),
+    S 4096, hd 64, f32); f32 gradients within dw_tol(S) (of du, a sum over
+    the steps of the 2 heads of a u row, dw_tol(2 S)), bf16 dB and dC
+    within TOL. Then, untimed, the edge cases of the CPU design test
+    (tests/test_torch_scan_grad.py): ragged S, chunk 1, S 1, B/C groups, a
+    nonzero gradient of the final state, hd 128 / ds 128, B/C in f32, and
+    a chunk whose log-decay spans more than 88 (every gradient finite);
+    rwkv6 at S 1, 15, 16, 17 and 513, hd 16, 32 and 128, one u row, w at
+    0 and 1, bf16. From a generator of their own, after the other
+    backward rows."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    kb = rt.backward
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale) \
+            .to(dtype)
+
+    def ssm_case(bh, bh_bc, s, hd, ds, chunk, dt, *, decay=0.2, dh=False,
+                 timed=False):
+        xbar, dy = randn(bh, s, hd, scale=0.5), randn(bh, s, hd)
+        B, C = (randn(bh_bc, s, ds, scale=0.5, dtype=dt) for _ in range(2))
+        cum = kb["chunk_cumsum"](-randn(bh, s, scale=decay).abs(), chunk)
+        dhv = randn(bh, hd, ds) if dh else torch.zeros(bh, hd, ds,
+                                                       device="cuda")
+        ins = [t.clone().requires_grad_(True) for t in (xbar, B, C, cum)]
+        plain = retained_grad(kb["ssm_plain"](*ins, chunk=chunk), ins,
+                              (dy, dhv))
+        esize = B.element_size()
+        nbytes = 3 * bh * s * hd * 4 + 4 * bh_bc * s * ds * esize + \
+            2 * bh * s * 4 + bh * hd * ds * 4
+        tf = F32_TOL * s ** 0.5
+        tol = (tf, TOL, TOL, tf) if dt == torch.bfloat16 else (tf,) * 4
+        label = (f"BH {bh} over {bh_bc}, S {s}, hd {hd}, ds {ds}, chunk "
+                 f"{chunk}, B/C {str(dt)[6:]}"
+                 f"{', dh nonzero' if dh else ''}"
+                 f"{f', log-decay {decay} a step' if decay > 1 else ''}")
+        return Case("ssm_scan_bwd", label,
+                    lambda: kb["ssm_bwd"](xbar, B, C, cum, dy, dhv,
+                                          chunk=chunk),
+                    plain, None, nbytes,
+                    ssm_bwd_flops(bh, bh_bc, s, hd, ds, chunk),
+                    F32_FLOPS_PER_S, tol, timed=timed, bitwise=True)
+
+    def rwkv_case(bh, n_u, s, hd, dt, *, extreme=False, dstate=False,
+                  timed=False):
+        r, k, v = (randn(bh, s, hd, scale=0.3, dtype=dt) for _ in range(3))
+        if extreme:       # exact 0s and 1s: channels that forget, or never
+            picks = torch.tensor([0.0, 1.0, 0.5, 0.9], device="cuda")
+            w = picks[torch.randint(0, 4, (bh, s, hd), generator=gen,
+                                    device="cuda")].to(dt)
+        else:
+            w = torch.sigmoid(randn(bh, s, hd)).to(dt)
+        u, do = randn(n_u, hd, scale=0.1), randn(bh, s, hd, dtype=dt)
+        ds = randn(bh, hd, hd) if dstate else torch.zeros(bh, hd, hd,
+                                                          device="cuda")
+        ins = [t.clone().requires_grad_(True) for t in (r, k, v, w, u)]
+        plain = retained_grad(kb["rwkv_plain"](*ins), ins, (do, ds))
+        esize = r.element_size()
+        nbytes = 9 * bh * s * hd * esize + 2 * n_u * hd * 4 + \
+            bh * hd * hd * 4
+        tf = F32_TOL * s ** 0.5
+        tb = TOL if dt == torch.bfloat16 else tf
+        tol = (tb,) * 4 + (F32_TOL * (s * bh // n_u) ** 0.5,)
+        label = (f"BH {bh}, NU {n_u}, S {s}, hd {hd}, {str(dt)[6:]}"
+                 f"{', w at 0 and 1' if extreme else ''}"
+                 f"{', dS nonzero' if dstate else ''}")
+        return Case("rwkv6_scan_bwd", label,
+                    lambda: kb["rwkv_bwd"](r, k, v, w, u, do, ds), plain,
+                    None, nbytes, rwkv_bwd_flops(bh, s, hd),
+                    F32_FLOPS_PER_S, tol, timed=timed, bitwise=True)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    yield ssm_case(128, 2, 4096, 64, 64, 256, bf, timed=True)
+    gc.collect()
+    yield rwkv_case(64, 32, 4096, 64, f32, timed=True)
+    gc.collect()
+    for args, kw in (((2, 1, 300, 64, 64, 150), {}),
+                     ((2, 2, 40, 32, 16, 1), {}),
+                     ((2, 1, 1, 64, 64, 256), {}),
+                     ((4, 2, 128, 64, 64, 64), {}),
+                     ((2, 1, 200, 64, 32, 64), {"dh": True}),
+                     ((2, 1, 130, 128, 128, 100), {"dh": True}),
+                     ((2, 1, 128, 64, 64, 128), {"decay": 4.0})):
+        for dt in (bf, f32):
+            yield ssm_case(*args, dt, **kw)
+    for args, kw in (((2, 2, 1, 64), {}), ((2, 2, 15, 32), {}),
+                     ((2, 2, 16, 64), {}), ((4, 2, 17, 64), {"dstate": True}),
+                     ((4, 2, 513, 64), {}), ((4, 4, 33, 16), {}),
+                     ((2, 1, 40, 128), {"dstate": True}),
+                     ((4, 2, 70, 64), {"extreme": True})):
+        for dt in (f32, bf):
+            yield rwkv_case(*args, dt, **kw)
+
+
 def flash_bwd_cases(kb, args, plain, lib, label, pairs, peak, tol, serving,
                     window=0, model=None, lib_ratio=None):
     """flash_bwd_dkdv (8 hd flops a live pair) and flash_bwd_dq (6 hd) on
@@ -1149,22 +1303,17 @@ def flash_grads(rt, q, k, v, do, window=0):
 
 def guard_checks(rt) -> None:
     """Kernels without a backward raise where a gradient is wanted, on the
-    card, and never hand back an output without a grad_fn."""
+    card, and never hand back an output without a grad_fn; the scans,
+    which have one, hand back outputs with a grad_fn."""
     dev = "cuda"
     q = torch.randn(2, 1, 64, device=dev, requires_grad=True)
     k = torch.randn(2, 8, 64, device=dev)
     lengths = torch.full((2,), 8, dtype=torch.int32, device=dev)
     qq = torch.randn(2, 8, 64, device=dev, requires_grad=True)
-    x = torch.randn(2, 16, 16, device=dev, requires_grad=True)
-    w = torch.rand(2, 16, 16, device=dev)
     calls = {
         "decode_attention": lambda: rt.ops.decode_attention(q, k, k, lengths),
         "flash_attention (softcap 2.0)": lambda: rt.ops.flash_attention(
             qq, k, k, softcap=2.0),
-        "ssm_scan": lambda: rt.ops.ssm_scan(x, w, w, torch.zeros(
-            2, 16, device=dev), chunk=16),
-        "rwkv6_scan": lambda: rt.ops.rwkv6_scan(x, w, w, w, torch.zeros(
-            2, 16, device=dev)),
     }
     for name, call in calls.items():
         try:
@@ -1173,6 +1322,18 @@ def guard_checks(rt) -> None:
             print(f"guard {name}: raises under grad ({e})", flush=True)
             continue
         fail(f"guard {name}: returned an output where a gradient is wanted")
+    x = torch.randn(2, 16, 16, device=dev, requires_grad=True)
+    w = torch.rand(2, 16, 16, device=dev)
+    with rt.ops.uncounted():
+        outs = {"ssm_scan": rt.ops.ssm_scan(x, w, w, torch.zeros(
+                    2, 16, device=dev), chunk=16),
+                "rwkv6_scan": rt.ops.rwkv6_scan(x, w, w, w, torch.zeros(
+                    2, 16, device=dev))}
+    for name, out in outs.items():
+        if any(t.grad_fn is None for t in out):
+            fail(f"guard {name}: an output without a grad_fn under grad")
+        print(f"guard {name}: outputs carry {type(out[0].grad_fn).__name__}",
+              flush=True)
 
 
 # -- phase 5: training deepseek-7b and gemma3-12b at full width ---------------
@@ -1185,6 +1346,10 @@ TRAIN_SEQ, TRAIN_BATCH, TRAIN_MB = 4096, 4, 2    # train_4k; 16,384 tokens
 # gemma3-12b: one group of 5 local layers (window 1024) and a global one,
 # 2.33 B parameters, 37 GB of f32 state; 3 steps, the last traced
 GEMMA_TRAIN_LAYERS, GEMMA_TRAIN_STEPS = 6, 3
+# zamba2-1.2b (38 layers, 1.104 B parameters, 17.7 GB of f32 state) and
+# rwkv6-1.6b (24 layers, 1.483 B, 23.7 GB) at full width and depth: 3
+# steps, the last traced
+SCAN_TRAIN_ARCHS, SCAN_TRAIN_STEPS = ("zamba2-1.2b", "rwkv6-1.6b"), 3
 # a microbatch's shapes of gemma3's train steps: (d, BH, BH_kv, hd)
 TRAIN_SHAPES = {GEMMA: (3840, 32, 16, 240), GEMMA27: (5376, 64, 32, 168)}
 
@@ -1212,33 +1377,80 @@ def attended_pairs(seq: int, window: int) -> int:
     return window * (window + 1) // 2 + (seq - window) * window
 
 
-def train_flops(rt, cfg, tokens: int, seq: int) -> float:
-    """Model FLOPs of a train step (no remat recomputation): 6 per matmul
-    parameter (the layers' q, k, v, o at GQA's widths, the MLP's three,
-    and the head's) a token, and each layer's attention, 4 hd flops a
-    (query head, attended pair) forward, three times (forward,
-    backward): causal pairs for a global layer, pairs within the window
-    for a local one."""
-    d, L, H, KV, hd = cfg.d_model, cfg.n_layers, cfg.n_heads, \
-        cfg.n_kv_heads, cfg.hd
-    per_layer = d * hd * (2 * H + 2 * KV) + 3 * d * cfg.d_ff
-    matmul = L * per_layer + d * cfg.vocab
-    windows = ([0 if glob else cfg.local_window for glob, _ in
-                rt.lg_layers(cfg)] if rt.family_kind(cfg) == "local_global"
-               else [0] * L)
-    attn = sum(3 * 4 * H * hd * attended_pairs(seq, w) for w in windows)
-    return 6 * matmul * tokens + attn * tokens / seq
+def train_flops(rt, cfg, tokens: int, seq: int) -> dict:
+    """Model FLOPs of a train step (no remat recomputation), by part:
+    "matmul", 6 per matmul parameter a token (the transformer families'
+    q, k, v, o at GQA's widths and the MLP's three; zamba2's Mamba layers'
+    in, B, C, dt and out projections and its shared block once for each
+    of its applications; rwkv6's r, k, v, g, o, decay LoRA and channel
+    mix; and the head); "attention", 4 hd flops a (query head, attended
+    pair) forward, three times (forward, backward): causal pairs for a
+    global layer and zamba2's shared block, pairs within the window for a
+    local one; "scan", the scans' forward flops three times: zamba2's
+    chunked SSD form (C B^T once a B/C group, 2 ds a live pair; P X, 2 hd
+    a pair; C H^T and the state update, 4 hd ds a step, a head) and
+    rwkv6's recurrence (4 hd^2 a step and head)."""
+    d, L, V = cfg.d_model, cfg.n_layers, cfg.vocab
+    kind = rt.family_kind(cfg)
+    seqs = tokens / seq
+    causal = seq * (seq + 1) // 2
+    attn = scan = 0.0
+    if kind == "zamba":
+        d_in, nh, hd, ds = rt.ssm_dims(cfg)
+        shared = rt.zamba_groups(cfg)[0]
+        H, KV, ahd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        ssm = d * 2 * d_in + 2 * d * ds + d * nh + d_in * d
+        block = d * ahd * (2 * H + 2 * KV) + 3 * d * cfg.d_ff
+        matmul = L * ssm + shared * block + d * V
+        attn = shared * 3 * 4 * H * ahd * causal * seqs
+        chunk = min(cfg.ssm_chunk, seq)
+        fwd = 0
+        for t0 in range(0, seq, chunk):
+            n = min(chunk, seq - t0)
+            pairs = n * (n + 1) // 2
+            fwd += pairs * 2 * ds + nh * (pairs * 2 * hd + n * 4 * hd * ds)
+        scan = 3 * L * fwd * seqs
+    elif kind == "rwkv":
+        nh, hd = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+        matmul = L * (5 * d * d + 2 * d * rt.LORA + 2 * d * cfg.d_ff) + d * V
+        scan = 3 * L * nh * 4 * hd * hd * tokens
+    else:
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        per_layer = d * hd * (2 * H + 2 * KV) + 3 * d * cfg.d_ff
+        matmul = L * per_layer + d * V
+        windows = ([0 if glob else cfg.local_window for glob, _ in
+                    rt.lg_layers(cfg)] if kind == "local_global"
+                   else [0] * L)
+        attn = sum(3 * 4 * H * hd * attended_pairs(seq, w)
+                   for w in windows) * seqs
+    return {"matmul": 6 * matmul * tokens, "attention": attn, "scan": scan}
 
 
-def train_launches(cfg, steps: int) -> dict:
+def train_launches(rt, cfg, steps: int) -> dict:
     """Kernel launches of ``steps`` train steps of TRAIN_MB microbatches
-    with remat: each layer's attention and two norms run forward twice
-    (the forward, the recomputation) and backward once; the final norm
-    is outside the checkpoints."""
+    with remat: each norm, attention and scan inside a checkpoint runs
+    forward twice (the forward, the recomputation) and backward once; the
+    final norm is outside the checkpoints. A transformer layer holds two
+    norms and attention; a zamba2 Mamba layer two norms and ssm_scan, and
+    its shared block (two norms and attention) runs after every group of
+    layers; an rwkv6 layer three norms and rwkv6_scan."""
     L, n = cfg.n_layers, steps * TRAIN_MB
-    return {"fused_rmsnorm": (4 * L + 1) * n, "fused_rmsnorm_bwd": (2 * L + 1) * n,
-            "flash_attention": 2 * L * n, "flash_bwd_preprocess": L * n,
-            "flash_bwd_dkdv": L * n, "flash_bwd_dq": L * n}
+    kind = rt.family_kind(cfg)
+    scans = {}
+    if kind == "zamba":
+        shared = rt.zamba_groups(cfg)[0]
+        norms, attn, scans = 2 * L + 2 * shared, shared, {"ssm_scan": L}
+    elif kind == "rwkv":
+        norms, attn, scans = 3 * L, 0, {"rwkv6_scan": L}
+    else:
+        norms, attn = 2 * L, L
+    out = {"fused_rmsnorm": (2 * norms + 1) * n,
+           "fused_rmsnorm_bwd": (norms + 1) * n,
+           "flash_attention": 2 * attn * n, "flash_bwd_preprocess": attn * n,
+           "flash_bwd_dkdv": attn * n, "flash_bwd_dq": attn * n}
+    for name, k in scans.items():
+        out[name], out[f"{name}_bwd"] = 2 * k * n, k * n
+    return out
 
 
 def train_phase(rt, smi: str, arch: str = TRAIN_ARCH,
@@ -1257,9 +1469,20 @@ def train_phase(rt, smi: str, arch: str = TRAIN_ARCH,
     opt = rt.init_opt_state(params)
     torch.cuda.synchronize()
     full = rt.configs.get_config(arch).n_layers
+    kind = rt.family_kind(cfg)
+    if kind == "rwkv":
+        heads = (f"{cfg.d_model // cfg.rwkv_head_dim} RWKV6 heads of "
+                 f"{cfg.rwkv_head_dim}")
+    else:
+        heads = (f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads of "
+                 f"{cfg.hd}")
+    if kind == "zamba":
+        _, nh, hd, ds = rt.ssm_dims(cfg)
+        heads = (f"{nh} SSM heads of {hd}, ds {ds}, chunk "
+                 f"{min(cfg.ssm_chunk, TRAIN_SEQ)}; the shared block ("
+                 f"{heads}) after every {cfg.shared_attn_every} layers")
     print(f"train {cfg.name}: {cfg.n_layers} of {full} layers, d_model "
-          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV heads"
-          f" of {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}"
+          f"{cfg.d_model}, {heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab}"
           f"{f', window {cfg.local_window}' if cfg.local_window else ''}: "
           f"{n_params / 1e9:.3f} B parameters, f32 masters + grads + m + v "
           f"{16 * n_params / 1e9:.1f} GB; set up in "
@@ -1269,7 +1492,11 @@ def train_phase(rt, smi: str, arch: str = TRAIN_ARCH,
                           batch=TRAIN_BATCH, seed=SEED, device="cuda")
     step_fn = rt.make_train_step(lm, tcfg)
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    flops = train_flops(rt, cfg, tokens, TRAIN_SEQ)
+    parts = train_flops(rt, cfg, tokens, TRAIN_SEQ)
+    flops = sum(parts.values())
+    print(f"train {cfg.name}: model FLOPs a step {flops / 1e12:.1f} T = "
+          + " + ".join(f"{k} {v / 1e12:.1f}" for k, v in parts.items()),
+          flush=True)
     losses, walls = [], []
     rt.ops.reset_launch_counts()
     for step in range(steps):
@@ -1294,25 +1521,36 @@ def train_phase(rt, smi: str, arch: str = TRAIN_ARCH,
               f" model {flops / wall / 1e12:.1f} TFLOP/s "
               f"({flops / wall / BF16_FLOPS_PER_S:.3f} of 989)", flush=True)
     counts = rt.ops.launch_counts()
-    expect = train_launches(cfg, steps)
+    expect = train_launches(rt, cfg, steps)
     for name, n in counts.items():
         if n != expect.get(name, 0):
             fail(f"train {cfg.name}: kernel {name}: {n} launches, the train "
                  f"steps make {expect.get(name, 0)}")
     print(f"train launches {counts}", flush=True)
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        fail(f"train {cfg.name}: losses {losses} not finite or not falling")
+    if not all(np.isfinite(losses)):
+        fail(f"train {cfg.name}: losses {losses} not finite")
+    # the scan families' random-init losses sit at ln(vocab) (zamba2-1.2b
+    # on an H100: 10.4123 at step 0 against ln 32000 = 10.3735), where
+    # three steps on three batches move them less than the batches differ
+    # (10.4123, 10.4145, 10.4125): their losses must be finite, and the
+    # transformer families' must also fall
+    if kind in ("uniform", "local_global") and not losses[-1] < losses[0]:
+        fail(f"train {cfg.name}: losses {losses} not falling")
     no_grad = [n for n, p in params.items()
-               if p.grad is None or not bool(p.grad.abs().max() > 0)]
+               if p.grad is None or not bool(p.grad.isfinite().all())
+               or not bool(p.grad.abs().max() > 0)]
     if no_grad:
         fail(f"train {cfg.name}: {len(no_grad)} parameters without a "
-             f"gradient, e.g. {no_grad[:4]}")
+             f"finite non-zero gradient, e.g. {no_grad[:4]}")
     untraced = walls[1:-1]
     wall = statistics.median(untraced)
     busy, bwd = by_kernel["busy"], by_kernel["bwd"]
     flash_bwd = sum(ms for k, ms in bwd.items() if k.startswith("flash"))
+    scan_bwd = sum(ms for k, ms in bwd.items()
+                   if k.startswith(("ssm_bwd", "rwkv6_bwd", "sum_partials")))
     print(f"train {cfg.name} ({smi}): step wall median {wall:.3f} s of "
-          f"steps 1-{steps - 2} (step 0 {walls[0]:.3f} s), "
+          f"steps {'1' if steps == 3 else f'1-{steps - 2}'} (step 0 "
+          f"{walls[0]:.3f} s), "
           f"{tokens / wall:.0f} tokens/s, model {flops / wall / 1e12:.1f} "
           f"TFLOP/s = {flops / wall / BF16_FLOPS_PER_S:.3f} of 989 "
           f"({flops / 1e12:.1f} TFLOP a step); traced step busy "
@@ -1321,8 +1559,9 @@ def train_phase(rt, smi: str, arch: str = TRAIN_ARCH,
           + ", ".join(f"{k} {ms:.1f} ms ({ms / (walls[-1] * 1e3):.3f} of "
                       "the wall)" for k, ms in bwd.items())
           + f"; the flash backward {flash_bwd:.1f} ms "
-          f"({flash_bwd / (walls[-1] * 1e3):.3f}); every one of "
-          f"{len(params)} parameters has a non-zero "
+          f"({flash_bwd / (walls[-1] * 1e3):.3f}), the scans' backward "
+          f"{scan_bwd:.1f} ms ({scan_bwd / (walls[-1] * 1e3):.3f}); every "
+          f"one of {len(params)} parameters has a finite, non-zero "
           f"gradient; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB of "
           f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f}; "
@@ -1346,7 +1585,9 @@ def traced_step(rt, fn):
         lambda: result.setdefault("r", fn()))
     bwd = {"flash_bwd_dkdv": 0.0, "flash_bwd_dq": 0.0,
            "flash_bwd_preprocess": 0.0, "rmsnorm_bwd_rows": 0.0,
-           "rmsnorm_bwd_dw": 0.0, "rmsnorm_bwd_loop": 0.0}
+           "rmsnorm_bwd_dw": 0.0, "rmsnorm_bwd_loop": 0.0,
+           "ssm_bwd_state_kernel": 0.0, "ssm_bwd_chunk_kernel": 0.0,
+           "rwkv6_bwd_kernel": 0.0, "sum_partials_kernel": 0.0}
     for name, ms, _ in kernels:
         for key in bwd:
             if key in name:
@@ -2303,7 +2544,11 @@ SOURCES = {"fused_rmsnorm": ("src/repro_torch/csrc/fused_rmsnorm.cu",
            "flash_bwd_dkdv": ("src/repro_torch/csrc/flash_attention_bwd.cu",
                               "src/repro/kernels/flash_attention.py:77"),
            "flash_bwd_dq": ("src/repro_torch/csrc/flash_attention_bwd.cu",
-                            "src/repro/kernels/flash_attention.py:77")}
+                            "src/repro/kernels/flash_attention.py:77"),
+           "ssm_scan_bwd": ("src/repro_torch/csrc/ssm_scan_bwd.cu",
+                            "src/repro/kernels/ssm_scan.py:49"),
+           "rwkv6_scan_bwd": ("src/repro_torch/csrc/rwkv6_scan_bwd.cu",
+                              "src/repro/kernels/rwkv6_scan.py:46")}
 
 
 def load_port() -> SimpleNamespace:
@@ -2329,6 +2574,8 @@ def load_port() -> SimpleNamespace:
     from repro_torch.models.frontends import input_embeds_for
     from repro_torch.models.layers import MATMUL
     from repro_torch.models import transformer
+    from repro_torch.models.rwkv import LORA
+    from repro_torch.models.ssm import ssm_dims
     from repro_torch.models.transformer import (family_kind, lg_layers,
                                                 zamba_groups)
     from repro_torch.serving import LiveRequest, ServingEngine
@@ -2347,7 +2594,8 @@ def load_port() -> SimpleNamespace:
         transformer=transformer, lg_layers=lg_layers,
         input_embeds_for=input_embeds_for,
         path_check=path_check, mc_time=mc_time,
-        zamba_groups=zamba_groups, LiveRequest=LiveRequest,
+        zamba_groups=zamba_groups, ssm_dims=ssm_dims, LORA=LORA,
+        LiveRequest=LiveRequest,
         ServingEngine=ServingEngine, SlotDecoder=SlotDecoder,
         Cell=Cell, Task=Task, run_cells=run_cells,
         paper_digests=paper_digests,
@@ -2380,7 +2628,14 @@ def load_port() -> SimpleNamespace:
                   "flash_bwd_preprocess": fa.flash_bwd_preprocess_cuda,
                   "flash_bwd_preprocess_plain": fa.flash_bwd_preprocess_plain,
                   "flash_bwd_dkdv": fa.flash_bwd_dkdv_cuda,
-                  "flash_bwd_dq": fa.flash_bwd_dq_cuda})
+                  "flash_bwd_dq": fa.flash_bwd_dq_cuda,
+                  "ssm_plain": ss.ssm_scan_plain,
+                  "ssm_bwd": ss.ssm_scan_bwd_cuda,
+                  "ssm_bwd_plain": ss.ssm_scan_bwd_plain,
+                  "chunk_cumsum": ss.chunk_cumsum,
+                  "rwkv_plain": rs.rwkv6_scan_plain,
+                  "rwkv_bwd": rs.rwkv6_scan_bwd_cuda,
+                  "rwkv_bwd_plain": rs.rwkv6_scan_bwd_plain})
     port.backward["flash_grads"] = (
         lambda *a, **kw: flash_grads(port, *a, **kw))
     return port
@@ -2428,6 +2683,7 @@ def main() -> None:
         rows = kernel_phase(rt.kernels, timer)
         t0 = time.perf_counter()
         run_cases(backward_cases(rt), timer, rows)
+        run_cases(scan_backward_cases(rt), timer, rows)
         guard_checks(rt)
         del timer
         gc.collect()
@@ -2442,6 +2698,15 @@ def main() -> None:
         torch.cuda.empty_cache()
         by_model[f"{GEMMA} train"] = train_phase(
             rt, smi, GEMMA, GEMMA_TRAIN_LAYERS, GEMMA_TRAIN_STEPS)
+        for arch in SCAN_TRAIN_ARCHS:       # full width and depth
+            t1 = time.perf_counter()
+            gc.collect()
+            torch.cuda.empty_cache()
+            by_model[f"{arch} train"] = train_phase(
+                rt, smi, arch, rt.configs.get_config(arch).n_layers,
+                SCAN_TRAIN_STEPS)
+            print(f"train {arch} {time.perf_counter() - t1:.1f} s",
+                  flush=True)
         print(f"train phase {time.perf_counter() - t0:.1f} s", flush=True)
     if "models" in phases:
         by_model.update({arch: model_phase(rt, arch) for arch in MODELS})

@@ -1,7 +1,8 @@
 // Shared helpers of the port's CUDA kernels: dtype codes, f32 conversion,
-// warp reductions, and the asynchronous copies, ldmatrix loads and bf16
+// warp reductions, the asynchronous copies, ldmatrix loads and bf16
 // mma.sync of the attention kernels (flash_attention.cu,
-// flash_attention_bwd.cu). Every kernel computes in f32 and reads/writes
+// flash_attention_bwd.cu), and the fixed-order sum of partials of the
+// scans' backward kernels (ssm_scan_bwd.cu, rwkv6_scan_bwd.cu). Every kernel computes in f32 and reads/writes
 // bf16 or f32 tensors; the dtype code is what the Python wrappers pass.
 // A source that keeps its own copy of a helper under the same name
 // (ssm_scan.cu, rwkv6_scan.cu) declares it in its anonymous namespace,
@@ -134,4 +135,40 @@ cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid,
   return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
 }
 
+namespace {
+
+// Sums partial results in a fixed order, with no atomics, so that two
+// calls give the same bits: out[g * E + e] = the sum over m = 0, 1, ..
+// M - 1, in that order, of part[g * sg + m * sm + e], cast to Tout, for
+// g < G and e < E; a thread an element, neighbours on neighbouring e.
+// The scans' backward kernels write a partial a head (ssm_scan_bwd.cu:
+// dB and dC, summed over the heads of a B/C group; rwkv6_scan_bwd.cu:
+// du, over the heads that share a row of u) or a block of rows
+// (rwkv6_scan_bwd.cu: dv). In an anonymous namespace: each source that
+// launches it compiles its own instance.
+template <typename Tout>
+__global__ void __launch_bounds__(256)
+sum_partials_kernel(const float* __restrict__ part, Tout* __restrict__ out,
+                    long long G, long long E, int M, long long sg,
+                    long long sm) {
+  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x +
+                        threadIdx.x;
+  if (idx >= G * E) return;
+  const long long g = idx / E, e = idx % E;
+  const float* p = part + g * sg + e;
+  float acc = 0.f;
+  for (int m = 0; m < M; ++m) acc += p[m * sm];
+  out[idx] = from_f32<Tout>(acc);
+}
+
+template <typename Tout>
+void sum_partials(const float* part, Tout* out, long long G, long long E,
+                  int M, long long sg, long long sm, cudaStream_t stream) {
+  const long long n = G * E;
+  if (n <= 0) return;
+  sum_partials_kernel<Tout><<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                              stream>>>(part, out, G, E, M, sg, sm);
+}
+
+}  // namespace
 }  // namespace repro

@@ -23,8 +23,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("fused_rmsnorm.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-           "decode_attention.cu", "ssm_scan.cu", "rwkv6_scan.cu",
-           "mc_cell.cu")
+           "decode_attention.cu", "ssm_scan.cu", "ssm_scan_bwd.cu",
+           "rwkv6_scan.cu", "rwkv6_scan_bwd.cu", "mc_cell.cu")
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -64,8 +64,14 @@ SIGNATURES = {
     # xbar, B, C, cumlog, y, h, bh, bh_bc, S, hd, ds, chunk, dtype, stream
     "repro_ssm_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _P),
+    # xbar, B, C, cumlog, dy, dh, dxbar, dB, dC, dcumlog, states, partial,
+    # bh, bh_bc, S, hd, ds, chunk, dtype, stream
+    "repro_ssm_scan_bwd": (_P,) * 12 + (_I,) * 7 + (_P,),
     # r, k, v, w, u, o, state, bh, n_u, S, hd, dtype, stream
     "repro_rwkv6_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # r, k, v, w, u, do, dstate, dr, dk, dv, dw, du, ckpt, dv_part,
+    # du_part, bh, n_u, S, hd, dtype, stream
+    "repro_rwkv6_scan_bwd": (_P,) * 15 + (_I,) * 5 + (_P,),
     # arrival, n_tasks, n_fifo, limit, max_events, rem, vr, rq,
     # completion, first_run, cpu_time, preemptions, ctx_switches,
     # migrations, ok, n_events, slices, K, B, C, N, ctx, stream

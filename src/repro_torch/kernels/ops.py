@@ -8,14 +8,14 @@ kernel module counts its own launches (``launch_counts``); a replay of a
 captured CUDA graph runs no wrapper, so it adds the launches counted at
 its capture (``uncounted``, ``add_launches``).
 
-Gradients: on the card ``fused_rmsnorm`` and uncapped
-``flash_attention`` are ``torch.autograd.Function``s whose backward is
-hand-written too (its launches counted under their own names:
-``fused_rmsnorm_bwd``, ``flash_bwd_preprocess``, ``flash_bwd_dkdv``,
-``flash_bwd_dq``); ``decode_attention``, ``ssm_scan``, ``rwkv6_scan`` and
-a capped ``flash_attention`` raise ``NotImplementedError`` where a
-gradient is wanted. On the CPU autograd differentiates the plain
-versions.
+Gradients: on the card ``fused_rmsnorm``, uncapped ``flash_attention``,
+``ssm_scan`` and ``rwkv6_scan`` are ``torch.autograd.Function``s whose
+backward is hand-written too (its launches counted under their own
+names: ``fused_rmsnorm_bwd``, ``flash_bwd_preprocess``,
+``flash_bwd_dkdv``, ``flash_bwd_dq``, ``ssm_scan_bwd``,
+``rwkv6_scan_bwd``); ``decode_attention`` and a capped
+``flash_attention`` raise ``NotImplementedError`` where a gradient is
+wanted. On the CPU autograd differentiates the plain versions.
 """
 from __future__ import annotations
 
@@ -35,7 +35,8 @@ from . import ssm_scan as _ssm
 # name -> (module, attribute)
 _COUNTERS = {m.NAME: (m, "launches")
              for m in (_rmsnorm, _flash, _decode, _ssm, _rwkv, _mc)}
-_COUNTERS[_rmsnorm.BWD_NAME] = (_rmsnorm, "bwd_launches")
+_COUNTERS.update({m.BWD_NAME: (m, "bwd_launches")
+                  for m in (_rmsnorm, _ssm, _rwkv)})
 _COUNTERS.update({n: (_flash, a) for n, a in _flash.BWD_COUNTERS.items()})
 
 

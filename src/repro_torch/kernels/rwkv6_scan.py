@@ -15,7 +15,16 @@ Returns o (BH, S, hd) in r's dtype and S (BH, hd, hd) f32, indexed
 Any S is taken: the Pallas chunk was only the TPU's tile. The kernel
 computes the recurrence regrouped into chunks of :data:`CHUNK` steps,
 every decay a product of w's (its source note; the arithmetic is
-emulated in ``tests/test_torch_rwkv_design.py``).
+emulated in ``tests/test_torch_rwkv_design.py``). Where autograd records
+the call it goes through :class:`RWKV6Scan`, whose backward is the
+hand-written ``repro_rwkv6_scan_bwd`` (``csrc/rwkv6_scan_bwd.cu``: a
+block a (head, rows of the state) steps the recurrence forward writing
+a checkpoint of the state every :data:`BWD_CHUNK` steps and dr, then
+walks the chunks in reverse, recomputing each chunk's states from its
+checkpoint and carrying dS back through them; dv and du are summed over
+the row blocks and the heads that share a u row in a fixed order);
+:func:`rwkv6_scan_bwd_plain` is autograd through the plain version.
+Nothing divides by w, which may be exactly 0.
 """
 from __future__ import annotations
 
@@ -23,11 +32,20 @@ import torch
 
 from . import build
 from .common import (DTYPE_CODES, SCAN_HEAD_DIMS, check_cuda_tensor,
-                     refuse_grad, require, stream_of)
+                     needs_grad, require, stream_of)
 
 NAME = "rwkv6_scan"
+BWD_NAME = "rwkv6_scan_bwd"
 CHUNK = 16          # steps a chunk in csrc/rwkv6_scan.cu (kT)
+BWD_CHUNK = 16      # steps between checkpoints in csrc/rwkv6_scan_bwd.cu (kT)
 launches = 0
+bwd_launches = 0
+
+
+def bwd_rows(hd: int) -> int:
+    """Rows of the state a block of the backward owns (kRB): 1024
+    elements of the state a block, at most hd rows."""
+    return min(hd, 1024 // hd)
 
 
 def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -45,29 +63,31 @@ def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(r.dtype), state
 
 
-def rwkv6_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    w: torch.Tensor, u: torch.Tensor
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    global launches
-    refuse_grad(NAME, r, k, v, w, u)
+def _check(r, k, v, w, u, name=NAME) -> None:
     for arg, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u)):
-        check_cuda_tensor(t, NAME, arg)
-    require(r.dtype in DTYPE_CODES, NAME, f"dtype {r.dtype} not supported")
-    require(all(t.dtype == r.dtype for t in (k, v, w)), NAME,
+        check_cuda_tensor(t, name, arg)
+    require(r.dtype in DTYPE_CODES, name, f"dtype {r.dtype} not supported")
+    require(all(t.dtype == r.dtype for t in (k, v, w)), name,
             "r, k, v and w must share a dtype")
-    require(u.dtype == torch.float32, NAME, "u must be float32")
+    require(u.dtype == torch.float32, name, "u must be float32")
     require(r.dim() == 3 and all(t.shape == r.shape for t in (k, v, w)),
-            NAME, "r, k, v and w must be (BH, S, hd) of one shape")
+            name, "r, k, v and w must be (BH, S, hd) of one shape")
     BH, S, hd = r.shape
-    require(hd in SCAN_HEAD_DIMS, NAME,
+    require(hd in SCAN_HEAD_DIMS, name,
             f"head dim must be one of {SCAN_HEAD_DIMS}")
     require(u.dim() == 2 and u.shape[1] == hd and u.shape[0] >= 1
-            and BH % u.shape[0] == 0, NAME,
+            and BH % u.shape[0] == 0, name,
             f"u must be (NU, {hd}) with BH={BH} a multiple of NU")
-    require(S >= 1 and BH <= 2 ** 31 - 1, NAME,
+    require(S >= 1 and BH <= 2 ** 31 - 1, name,
             f"unsupported sizes BH={BH} S={S}")
+
+
+def _forward(r, k, v, w, u):
+    global launches
+    _check(r, k, v, w, u)
     require(all(t.data_ptr() % 16 == 0 for t in (r, k, v, w, u)), NAME,
             "r, k, v, w and u must be 16-byte aligned")   # 16-byte copies
+    BH, S, hd = r.shape
     o = torch.empty_like(r)
     state = torch.empty((BH, hd, hd), dtype=torch.float32, device=r.device)
     rc = build.library().repro_rwkv6_scan(
@@ -77,3 +97,73 @@ def rwkv6_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.check(rc, NAME)
     launches += 1
     return o, state
+
+
+class RWKV6Scan(torch.autograd.Function):
+    """The kernel with the hand-written backward (the inputs saved; the
+    backward recomputes the states from them)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        ctx.save_for_backward(r, k, v, w, u)
+        return _forward(r, k, v, w, u)
+
+    @staticmethod
+    def backward(ctx, do, dstate):
+        return rwkv6_scan_bwd_cuda(*ctx.saved_tensors, do.contiguous(),
+                                   dstate.contiguous())
+
+
+def rwkv6_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    w: torch.Tensor, u: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    if needs_grad(r, k, v, w, u):
+        return RWKV6Scan.apply(r, k, v, w, u)
+    return _forward(r, k, v, w, u)
+
+
+def rwkv6_scan_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         w: torch.Tensor, u: torch.Tensor, do: torch.Tensor,
+                         dstate: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """(dr, dk, dv, dw, du): autograd through :func:`rwkv6_scan_plain`
+    for the gradients do of o and dstate of the final state."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (r, k, v, w, u)]
+        o, state = rwkv6_scan_plain(*ins)
+        return torch.autograd.grad((o, state), ins, (do, dstate))
+
+
+def rwkv6_scan_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        w: torch.Tensor, u: torch.Tensor, do: torch.Tensor,
+                        dstate: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """(dr, dk, dv, dw in r's dtype, du (NU, hd) f32) for the gradients do
+    (r's shape and dtype) of o and dstate (BH, hd, hd) f32 of the final
+    state: one call of ``repro_rwkv6_scan_bwd`` (the scan, then the sums
+    of dv over the row blocks and of du over the heads of a u row)."""
+    global bwd_launches
+    _check(r, k, v, w, u, BWD_NAME)
+    BH, S, hd = r.shape
+    check_cuda_tensor(do, BWD_NAME, "do")
+    check_cuda_tensor(dstate, BWD_NAME, "dstate")
+    require(do.shape == r.shape and do.dtype == r.dtype, BWD_NAME,
+            "do must have r's shape and dtype")
+    require(dstate.shape == (BH, hd, hd) and dstate.dtype == torch.float32,
+            BWD_NAME, f"dstate must be float32 ({BH}, {hd}, {hd})")
+    nrb = hd // bwd_rows(hd)
+    nc = -(-S // BWD_CHUNK)
+    f32 = dict(dtype=torch.float32, device=r.device)
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.empty_like(u)
+    # scratch: the checkpoints, each row block's dv and each head's du
+    ckpt = torch.empty((BH, nc, hd, hd), **f32)
+    dv_part = torch.empty((BH, nrb, S, hd), **f32)
+    du_part = torch.empty((BH, hd), **f32)
+    rc = build.library().repro_rwkv6_scan_bwd(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        do.data_ptr(), dstate.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dw.data_ptr(), du.data_ptr(), ckpt.data_ptr(),
+        dv_part.data_ptr(), du_part.data_ptr(), BH, u.shape[0], S, hd,
+        DTYPE_CODES[r.dtype], stream_of(r))
+    build.check(rc, BWD_NAME)
+    bwd_launches += 1
+    return dr, dk, dv, dw, du

@@ -10,6 +10,16 @@ bf16 (the serving path's) runs the chunked form on the tensor cores in
 16-byte aligned inputs), f32 the recurrence on CUDA cores (the checking
 path). Both also return the final state ``h``,
 which the Pallas kernel drops and prefill needs for the decode cache.
+Where autograd records the call it goes through :class:`SSMScan`, whose
+backward is the hand-written ``repro_ssm_scan_bwd``
+(``csrc/ssm_scan_bwd.cu``: the states at the chunk starts, their
+gradients carried back from the last chunk, then a block a (head,
+chunk) forming dxbar, dB, dC and dcumlog, dB/dC summed over the heads
+of a group in a fixed order); :func:`ssm_scan_bwd_plain` is autograd
+through the plain version. The exponent's argument is masked (j <= i)
+before ``exp`` in both, so the gradient stays finite where a chunk's
+log-decay spans more than ~88 (the Pallas kernel and JAX's
+``ssm_block`` mask after it, and their gradient is NaN there).
 
 Layout: xbar (BH, S, hd) f32 dt-weighted inputs; B, C (BH_bc, S, ds) with
 BH a multiple of BH_bc, row ``bh`` reading B/C row ``bh // (BH // BH_bc)``
@@ -24,12 +34,15 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .common import (DTYPE_CODES, check_cuda_tensor, refuse_grad, require,
+from .common import (DTYPE_CODES, check_cuda_tensor, needs_grad, require,
                      stream_of)
 
 NAME = "ssm_scan"
+BWD_NAME = "ssm_scan_bwd"
 STATE_DIMS = (16, 32, 64, 128)
+BWD_MAX_HD = 128    # the backward's head dim: at most 2 panels of 64 (kHP)
 launches = 0
+bwd_launches = 0
 
 
 def chunk_cumsum(loga: torch.Tensor, chunk: int) -> torch.Tensor:
@@ -61,16 +74,19 @@ def ssm_scan_plain(xbar: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
         Bf = torch.nn.functional.pad(Bf, (0, 0, 0, pad))
         Cf = torch.nn.functional.pad(Cf, (0, 0, 0, pad))
         cum = torch.cat([cum, cum[:, -1:].expand(BH, pad)], dim=1)
-    tril = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
-                                 device=xbar.device))
+    above = ~torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                   device=xbar.device))
     h = torch.zeros(BH, hd, ds, dtype=torch.float32, device=xbar.device)
     ys = []
     for c in range(nc):
         sl = slice(c * chunk, (c + 1) * chunk)
         xc, Bc, Cc, cm = xb[:, sl], Bf[:, sl], Cf[:, sl], cum[:, sl]
-        # intra-chunk: L[i, j] = exp(cum_i - cum_j) for j <= i
-        L = torch.where(tril, torch.exp(cm[:, :, None] - cm[:, None, :]),
-                        0.0)
+        # intra-chunk: L[i, j] = exp(cum_i - cum_j) for j <= i, the
+        # argument masked to -inf above the diagonal before exp (exp of it
+        # can overflow there, and the gradient of a mask after exp is
+        # 0 * inf = NaN); exp(-inf) = 0, so y is what a mask after gives
+        L = torch.exp((cm[:, :, None] - cm[:, None, :])
+                      .masked_fill(above, float("-inf")))
         y = ((Cc @ Bc.transpose(1, 2)) * L) @ xc
         # inter-chunk: the carried state, decayed to each position
         y = y + torch.exp(cm)[..., None] * (Cc @ h.transpose(1, 2))
@@ -82,28 +98,31 @@ def ssm_scan_plain(xbar: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     return y.to(xbar.dtype), h
 
 
-def ssm_scan_cuda(xbar: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
-                  cumlog: torch.Tensor, *, chunk: int
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    global launches
-    refuse_grad(NAME, xbar, B, C, cumlog)
+def _check(xbar, B, C, cumlog, chunk, name=NAME) -> None:
     for arg, t in (("xbar", xbar), ("B", B), ("C", C), ("cumlog", cumlog)):
-        check_cuda_tensor(t, NAME, arg)
+        check_cuda_tensor(t, name, arg)
     require(xbar.dtype == torch.float32 and cumlog.dtype == torch.float32,
-            NAME, "xbar and cumlog must be float32")
-    require(B.dtype in DTYPE_CODES and C.dtype == B.dtype, NAME,
+            name, "xbar and cumlog must be float32")
+    require(B.dtype in DTYPE_CODES and C.dtype == B.dtype, name,
             f"B and C must share a dtype of {list(DTYPE_CODES)}")
-    require(xbar.dim() == 3 and B.dim() == 3 and C.shape == B.shape, NAME,
+    require(xbar.dim() == 3 and B.dim() == 3 and C.shape == B.shape, name,
             "xbar must be (BH, S, hd), B and C (BH_bc, S, ds) of one shape")
     BH, S, hd = xbar.shape
     BHbc, Sb, ds = B.shape
-    require(Sb == S and cumlog.shape == (BH, S), NAME,
+    require(Sb == S and cumlog.shape == (BH, S), name,
             f"B, C and cumlog must cover S={S} steps")
-    require(ds in STATE_DIMS, NAME, f"state dim must be one of {STATE_DIMS}")
-    require(BHbc >= 1 and BH % BHbc == 0, NAME,
+    require(ds in STATE_DIMS, name, f"state dim must be one of {STATE_DIMS}")
+    require(BHbc >= 1 and BH % BHbc == 0, name,
             f"BH={BH} must be a multiple of BH_bc={BHbc}")
-    require(S >= 1 and hd >= 1 and chunk >= 1 and BH <= 2 ** 31 - 1, NAME,
+    require(S >= 1 and hd >= 1 and chunk >= 1 and BH <= 2 ** 31 - 1, name,
             f"unsupported sizes BH={BH} S={S} hd={hd} chunk={chunk}")
+
+
+def _forward(xbar, B, C, cumlog, chunk):
+    global launches
+    _check(xbar, B, C, cumlog, chunk)
+    BH, S, hd = xbar.shape
+    BHbc, _, ds = B.shape
     if B.dtype == torch.bfloat16:      # the tensor-core kernel's 16-byte copies
         require(hd % 4 == 0, NAME, f"bf16 B/C need hd % 4 == 0, got {hd}")
         require(all(t.data_ptr() % 16 == 0 for t in (xbar, B, C)), NAME,
@@ -117,3 +136,82 @@ def ssm_scan_cuda(xbar: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     build.check(rc, NAME)
     launches += 1
     return y, h
+
+
+class SSMScan(torch.autograd.Function):
+    """The kernel with the hand-written backward (the inputs saved; the
+    backward recomputes the chunk states from them)."""
+
+    @staticmethod
+    def forward(ctx, xbar, B, C, cumlog, chunk):
+        ctx.save_for_backward(xbar, B, C, cumlog)
+        ctx.chunk = chunk
+        return _forward(xbar, B, C, cumlog, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        xbar, B, C, cumlog = ctx.saved_tensors
+        grads = ssm_scan_bwd_cuda(xbar, B, C, cumlog, dy.contiguous(),
+                                  dh.contiguous(), chunk=ctx.chunk)
+        return (*grads, None)
+
+
+def ssm_scan_cuda(xbar: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                  cumlog: torch.Tensor, *, chunk: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    if needs_grad(xbar, B, C, cumlog):
+        return SSMScan.apply(xbar, B, C, cumlog, chunk)
+    return _forward(xbar, B, C, cumlog, chunk)
+
+
+def ssm_scan_bwd_plain(xbar: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                       cumlog: torch.Tensor, dy: torch.Tensor,
+                       dh: torch.Tensor, *, chunk: int
+                       ) -> tuple[torch.Tensor, ...]:
+    """(dxbar, dB, dC, dcumlog): autograd through :func:`ssm_scan_plain`
+    for the gradients dy of y and dh of the final state."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (xbar, B, C, cumlog)]
+        y, h = ssm_scan_plain(*ins, chunk=chunk)
+        return torch.autograd.grad((y, h), ins, (dy, dh))
+
+
+def ssm_scan_bwd_cuda(xbar: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                      cumlog: torch.Tensor, dy: torch.Tensor,
+                      dh: torch.Tensor, *, chunk: int
+                      ) -> tuple[torch.Tensor, ...]:
+    """(dxbar f32, dB and dC in B's dtype, dcumlog f32) for the gradients
+    dy (BH, S, hd) f32 of y and dh (BH, hd, ds) f32 of the final state:
+    one call of ``repro_ssm_scan_bwd`` (the state pass, the chunk pass and
+    the sums over the heads of a group)."""
+    global bwd_launches
+    _check(xbar, B, C, cumlog, chunk, BWD_NAME)
+    BH, S, hd = xbar.shape
+    BHbc, _, ds = B.shape
+    check_cuda_tensor(dy, BWD_NAME, "dy")
+    check_cuda_tensor(dh, BWD_NAME, "dh")
+    require(dy.shape == xbar.shape and dy.dtype == torch.float32, BWD_NAME,
+            "dy must be float32 of xbar's shape")
+    require(dh.shape == (BH, hd, ds) and dh.dtype == torch.float32, BWD_NAME,
+            f"dh must be float32 ({BH}, {hd}, {ds})")
+    require(hd <= BWD_MAX_HD, BWD_NAME,
+            f"head dim must be at most {BWD_MAX_HD}, got {hd}")
+    nc = -(-S // chunk)
+    require(nc <= 65535, BWD_NAME, f"at most 65535 chunks, got {nc}")
+    f32 = dict(dtype=torch.float32, device=xbar.device)
+    dxbar = torch.empty_like(xbar)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    dcum = torch.empty_like(cumlog)
+    # scratch: the state at each chunk's start and its gradient at each
+    # chunk's end, and each head's dB, dC before the sum over its group
+    states = torch.empty((2, BH, nc, hd, ds), **f32)
+    partial = torch.empty((2, BH, S, ds), **f32)
+    rc = build.library().repro_ssm_scan_bwd(
+        xbar.data_ptr(), B.data_ptr(), C.data_ptr(), cumlog.data_ptr(),
+        dy.data_ptr(), dh.data_ptr(), dxbar.data_ptr(), dB.data_ptr(),
+        dC.data_ptr(), dcum.data_ptr(), states.data_ptr(),
+        partial.data_ptr(), BH, BHbc, S, hd, ds, chunk,
+        DTYPE_CODES[B.dtype], stream_of(xbar))
+    build.check(rc, BWD_NAME)
+    bwd_launches += 1
+    return dxbar, dB, dC, dcum

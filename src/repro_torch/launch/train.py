@@ -6,14 +6,18 @@ resumable data pipeline (counterpart of ``repro.launch.train``).
       --steps 20 --ckpt-dir /tmp/ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --full --layers 12 \\
       --steps 5 --batch 4 --seq 4096 --microbatches 2 --lr 3e-4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
+      --full --steps 3 --batch 4 --seq 4096 --microbatches 2 --lr 3e-4
 
 Runs on the card unless ``--device cpu``; the arch's smoke config
-unless ``--full`` (its published widths; ``--layers`` cuts the depth).
-Parameters are f32 masters drawn from ``TrainConfig.seed``, cast to
-bf16 where used; on the card every norm and attention runs the
-hand-written kernels forward and backward. Logs step, loss, lr, grad
-norm and seconds as JAX's launcher does, and resumes from the newest
-checkpoint in ``--ckpt-dir`` whose hash holds.
+unless ``--full`` (its published widths; ``--layers`` cuts the depth:
+deepseek-7b's 30 layers need 111 GB of f32 state, zamba2-1.2b (17.7 GB)
+and rwkv6-1.6b (23.7 GB) train uncut). Every family trains. Parameters
+are f32 masters drawn from ``TrainConfig.seed``, cast to bf16 where
+used; on the card every norm, attention and scan (``ssm_scan``,
+``rwkv6_scan``) runs the hand-written kernels forward and backward.
+Logs step, loss, lr, grad norm and seconds as JAX's launcher does, and
+resumes from the newest checkpoint in ``--ckpt-dir`` whose hash holds.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ import time
 import torch
 
 from ..checkpoint import CheckpointManager
-from ..configs import TrainConfig, get_config, get_smoke
+from ..configs import ARCHS, TrainConfig, get_config, get_smoke
 from ..device import resolve_device
 from ..distributed.elastic import StepWatchdog
 from ..models import LM
@@ -33,7 +37,7 @@ from ..training import (SyntheticLM, init_opt_state, load_train_state,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="deepseek-7b")
+    ap.add_argument("--arch", default="deepseek-7b", choices=ARCHS)
     ap.add_argument("--full", action="store_true",
                     help="the published config instead of the smoke one")
     ap.add_argument("--layers", type=int, default=0,

@@ -33,6 +33,9 @@ from .layers import _param, mm, rmsnorm
 
 LORA = 64                 # rank of the data-dependent decay (rwkv.py:36)
 LOGW_MIN = -4.0           # clamp of the per-step log-decay (rwkv.py:77)
+# clamp of the decay's exponent argument: exp(2) > -LOGW_MIN, so past it
+# the clamp at LOGW_MIN binds anyway and logw keeps every bit
+LOGW_ARG_MAX = 2.0
 
 
 def rwkv_dims(cfg: ModelConfig) -> tuple[int, int]:
@@ -82,7 +85,11 @@ def _time_mix_projections(p: RWKV, x: torch.Tensor, cfg: ModelConfig,
     v = mm(_lerp(h, shifted, p.mu_v), p.w_v)
     g = F.silu(mm(_lerp(h, shifted, p.mu_g), p.w_g))
     xw = _lerp(h, shifted, p.mu_w)
-    logw = -torch.exp(mm(mm(xw, p.wd_a), p.wd_b) + p.w_bias)      # f32
+    # the exponent's argument is clamped before exp: exp of a large one
+    # overflows to inf, and the gradient through the clamp at LOGW_MIN is
+    # then 0 * inf = NaN (as JAX's, rwkv.py:91-93, is there)
+    logw = -torch.exp(torch.clamp(mm(mm(xw, p.wd_a), p.wd_b) + p.w_bias,
+                                  max=LOGW_ARG_MAX))                 # f32
     logw = torch.clamp(logw, min=LOGW_MIN)
     heads = [t.reshape(B, S, nh, hd).float() for t in (r, k, v, logw)]
     return (h, *heads, g)

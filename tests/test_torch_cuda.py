@@ -26,10 +26,14 @@ from repro_torch.kernels.fused_rmsnorm import (  # noqa: E402
     fused_rmsnorm_bwd_cuda, fused_rmsnorm_bwd_plain, fused_rmsnorm_cuda,
     fused_rmsnorm_plain)
 from repro_torch.kernels.rwkv6_scan import (  # noqa: E402
-    rwkv6_scan_cuda, rwkv6_scan_plain)
+    rwkv6_scan_bwd_cuda, rwkv6_scan_bwd_plain, rwkv6_scan_cuda,
+    rwkv6_scan_plain)
 from repro_torch.kernels.ssm_scan import (  # noqa: E402
-    chunk_cumsum, ssm_scan_cuda, ssm_scan_plain)
+    chunk_cumsum, ssm_scan_bwd_cuda, ssm_scan_bwd_plain, ssm_scan_cuda,
+    ssm_scan_plain)
 from repro_torch.models import LM  # noqa: E402
+from repro_torch.models.transformer import (family_kind,  # noqa: E402
+                                            zamba_groups)
 from repro_torch.params import init_params  # noqa: E402
 from repro_torch.serving.graphs import SlotDecoder  # noqa: E402
 
@@ -633,9 +637,10 @@ def test_cuda_rmsnorm_backward_matches_plain(card, dtype):
 
 @pytest.mark.cuda
 def test_cuda_kernels_without_backward_raise_under_grad(card):
-    """decode_attention, ssm_scan, rwkv6_scan and a capped flash_attention
-    have no backward kernel: where a gradient is wanted they raise, never
-    returning an output without a grad_fn; under no_grad they run."""
+    """decode_attention and a capped flash_attention have no backward
+    kernel: where a gradient is wanted they raise, never returning an
+    output without a grad_fn; under no_grad they run. ssm_scan and
+    rwkv6_scan have one: under grad their outputs carry a grad_fn."""
     q = torch.randn(2, 1, 64, device=card, requires_grad=True)
     k = torch.randn(2, 8, 64, device=card)
     lengths = torch.full((2,), 8, dtype=torch.int32, device=card)
@@ -646,16 +651,113 @@ def test_cuda_kernels_without_backward_raise_under_grad(card):
         ops.flash_attention(qq, k, k, softcap=2.0)
     xbar = torch.randn(2, 16, 16, device=card, requires_grad=True)
     B = torch.randn(2, 16, 16, device=card)
-    cum = torch.zeros(2, 16, device=card)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ops.ssm_scan(xbar, B, B, cum, chunk=16)
+    y, h = ops.ssm_scan(xbar, B, B, torch.zeros(2, 16, device=card),
+                        chunk=16)
+    assert y.grad_fn is not None and h.grad_fn is not None
     r = torch.randn(2, 16, 16, device=card, requires_grad=True)
     w = torch.rand(2, 16, 16, device=card)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ops.rwkv6_scan(r, w, w, w, torch.zeros(2, 16, device=card))
+    o, st = ops.rwkv6_scan(r, w, w, w, torch.zeros(2, 16, device=card))
+    assert o.grad_fn is not None and st.grad_fn is not None
     with torch.no_grad():
         ops.flash_attention(qq, k, k, softcap=2.0)
         ops.decode_attention(q, k, k, lengths)
+
+
+def scan_tol(n):
+    """f32 gradients of a scan over n steps: 2e-5 sqrt(n) (1 + |plain|),
+    as the norm's dw over n rows (dw_tol)."""
+    t = 2e-5 * max(n, 1) ** 0.5
+    return dict(rtol=t, atol=t)
+
+
+def check_backward(got, again, want, s):
+    """Two calls bitwise equal, each gradient finite, of the plain
+    version's dtype and within its tolerance: bf16 at 2e-2, f32 at
+    scan_tol over the scan's s steps."""
+    for a, b, w in zip(got, again, want, strict=True):
+        assert torch.equal(a, b) and a.dtype == w.dtype
+        assert bool(a.isfinite().all())
+        tol = TOL["bfloat16"] if a.dtype == torch.bfloat16 else scan_tol(s)
+        torch.testing.assert_close(a, w, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ssm_scan_backward_matches_plain(card, dtype):
+    """ssm_scan's backward kernel (dxbar, dB, dC, dcumlog) against autograd
+    through the plain version, with a nonzero gradient of the final
+    state, over ragged S, chunks of 1 to 256 steps (a chunk of 3 tiles of
+    64), B/C groups, ds 16 to 128, hd up to 128 and a log-decay span above
+    88 in a chunk (every gradient finite), B/C in ``dtype``; two calls
+    bitwise equal, and the autograd Function's gradients the kernel's."""
+    g = torch.Generator(device=card).manual_seed(5)
+    dt = TDT[dtype]
+
+    def r(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=card) * scale
+
+    for bh, bh_bc, s, hd, ds, chunk, decay in (
+            (4, 4, 96, 64, 16, 32, 0.2), (4, 2, 300, 64, 64, 150, 0.2),
+            (128, 2, 600, 64, 64, 256, 0.2), (2, 2, 1, 64, 32, 256, 0.2),
+            (3, 3, 33, 128, 128, 16, 0.2), (2, 2, 40, 32, 64, 1, 0.2),
+            (2, 1, 65, 96, 64, 256, 0.2), (4, 1, 128, 64, 64, 128, 4.0)):
+        xbar, dy = r(bh, s, hd, scale=0.5), r(bh, s, hd)
+        B, C = (r(bh_bc, s, ds, scale=0.5).to(dt) for _ in range(2))
+        cum = chunk_cumsum(-r(bh, s, scale=decay).abs(), chunk)
+        dh = r(bh, hd, ds)
+        got = ssm_scan_bwd_cuda(xbar, B, C, cum, dy, dh, chunk=chunk)
+        again = ssm_scan_bwd_cuda(xbar, B, C, cum, dy, dh, chunk=chunk)
+        want = ssm_scan_bwd_plain(xbar, B, C, cum, dy, dh, chunk=chunk)
+        check_backward(got, again, want, s)
+        ins = [t.clone().requires_grad_(True) for t in (xbar, B, C, cum)]
+        y, h = ops.ssm_scan(*ins, chunk=chunk)
+        torch.autograd.backward((y, h), (dy, dh))
+        for t, a in zip(ins, got):
+            assert torch.equal(t.grad, a)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rwkv6_scan_backward_matches_plain(card, dtype):
+    """rwkv6_scan's backward kernel (dr, dk, dv, dw, du) against autograd
+    through the plain version, with a nonzero gradient of the final
+    state, over the checkpoint edges (S 15, 16, 17, 513), hd 16 to 128,
+    one u row and w at 0 and 1, r, k, v, w in ``dtype``; two calls
+    bitwise equal, and the autograd Function's gradients the kernel's."""
+    g = torch.Generator(device=card).manual_seed(6)
+    dt = TDT[dtype]
+
+    def r(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=card) * scale
+
+    picks = torch.tensor([0.0, 1.0, 0.5, 0.9], device=card)
+    for bh, n_u, s, hd, extreme in (
+            (4, 2, 100, 64, False), (64, 32, 600, 64, False),
+            (2, 2, 1, 64, False), (2, 2, 15, 32, False),
+            (2, 2, 16, 64, False), (4, 2, 17, 64, False),
+            (4, 2, 513, 64, False), (2, 1, 40, 16, False),
+            (8, 8, 200, 128, False), (4, 1, 77, 64, False),
+            (4, 2, 70, 64, True)):
+        rr, kk, vv = (r(bh, s, hd, scale=0.3).to(dt) for _ in range(3))
+        if extreme:
+            ww = picks[torch.randint(0, len(picks), (bh, s, hd),
+                                     generator=g, device=card)].to(dt)
+        else:
+            ww = torch.sigmoid(r(bh, s, hd)).to(dt)
+        u, do, dstate = r(n_u, hd, scale=0.1), r(bh, s, hd).to(dt), \
+            r(bh, hd, hd)
+        args = (rr, kk, vv, ww, u, do, dstate)
+        got = rwkv6_scan_bwd_cuda(*args)
+        again = rwkv6_scan_bwd_cuda(*args)
+        want = rwkv6_scan_bwd_plain(*args)
+        check_backward(got, again, want, s)
+        ins = [t.clone().requires_grad_(True) for t in (rr, kk, vv, ww, u)]
+        o, st = ops.rwkv6_scan(*ins)
+        torch.autograd.backward((o, st), (do, dstate))
+        for t, a in zip(ins, got):
+            assert torch.equal(t.grad, a)
+    torch.cuda.synchronize()
 
 
 # gemma3 at narrow widths that keep the real head dims
@@ -665,16 +767,43 @@ TRAIN_WIDE = {"gemma3-12b-hd240": ("gemma3-12b", dict(d_model=480, n_heads=2,
                                                       n_kv_heads=1))}
 
 
+def train_launches(cfg, n):
+    """Kernel launches of n microbatches with per-layer remat: each norm,
+    attention and scan inside a checkpoint runs forward twice (the
+    forward, the recomputation) and backward once; the final norm once
+    each way. zamba2: two norms and a scan a Mamba layer, and the shared
+    block (two norms, attention) after every group; rwkv6: three norms and
+    a scan a layer; the others two norms and attention a layer."""
+    L, kind = cfg.n_layers, family_kind(cfg)
+    scans = {}
+    if kind == "zamba":
+        shared = zamba_groups(cfg)[0]
+        norms, attn, scans = 2 * L + 2 * shared, shared, {"ssm_scan": L}
+    elif kind == "rwkv":
+        norms, attn, scans = 3 * L, 0, {"rwkv6_scan": L}
+    else:
+        norms, attn = 2 * L, L
+    out = {"fused_rmsnorm": (2 * norms + 1) * n,
+           "fused_rmsnorm_bwd": (norms + 1) * n,
+           "flash_attention": 2 * attn * n, "flash_bwd_preprocess": attn * n,
+           "flash_bwd_dkdv": attn * n, "flash_bwd_dq": attn * n}
+    for name, k in scans.items():
+        out[name], out[f"{name}_bwd"] = 2 * k * n, k * n
+    return out
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["deepseek-7b", "granite-moe-3b-a800m",
-                                  "gemma3-12b", *TRAIN_WIDE])
+                                  "gemma3-12b", *TRAIN_WIDE, "zamba2-1.2b",
+                                  "rwkv6-1.6b"])
 def test_cuda_smoke_trains_two_steps(card, arch):
     """Two train steps of the smoke config on the card (f32 masters, bf16
-    compute, remat, 2 microbatches): the norms and attention run the
-    kernels forward and backward (granite: MoE and GQA; gemma3-12b: the
-    window of its local layers; gemma3 at hd 240 and 168: the tensor-core
-    backward at those head dims), every parameter gets a non-zero
-    gradient, the losses are finite and the launch counts add up."""
+    compute, remat, 2 microbatches): the norms, attention and scans run
+    the kernels forward and backward (granite: MoE and GQA; gemma3-12b:
+    the window of its local layers; gemma3 at hd 240 and 168: the
+    tensor-core backward at those head dims; zamba2 and rwkv6: the scans'
+    backward kernels), every parameter gets a non-zero gradient, the
+    losses are finite and the launch counts add up."""
     from repro_torch.configs import TrainConfig
     from repro_torch.training import (SyntheticLM, init_opt_state,
                                       make_train_step)
@@ -692,13 +821,8 @@ def test_cuda_smoke_trains_two_steps(card, arch):
         opt, m = step_fn(opt, data.next_batch())
         losses.append(float(m["loss"]))
     counts = ops.launch_counts()
-    L, n = cfg.n_layers, 2 * 2                      # steps x microbatches
-    assert counts["flash_attention"] == 2 * L * n   # forward + recompute
-    for name in ("flash_bwd_preprocess", "flash_bwd_dkdv", "flash_bwd_dq"):
-        assert counts[name] == L * n
-    assert counts["fused_rmsnorm"] == (4 * L + 1) * n
-    assert counts["fused_rmsnorm_bwd"] == (2 * L + 1) * n
-    assert counts["decode_attention"] == 0
+    want = train_launches(cfg, 2 * 2)               # steps x microbatches
+    assert counts == {k: want.get(k, 0) for k in counts}
     assert all(np.isfinite(losses))
     for name, p in lm.named_parameters():
         assert p.grad is not None and float(p.grad.abs().max()) > 0, name

@@ -21,9 +21,10 @@
   row groups summed in order), then the partials by warp, then the warps
   in order. The tensor-core kernels' shared-memory layout and skipped
   tiles are checked too. Keep the emulation in step with the .cu files.
-* The guards: ``decode_attention``, ``ssm_scan``, ``rwkv6_scan`` and a
-  capped ``flash_attention`` refuse a gradient in their CUDA wrappers,
-  before any device check.
+* The guards: ``decode_attention`` and a capped ``flash_attention``
+  refuse a gradient in their CUDA wrappers, before any device check;
+  the four differentiable kernels (``fused_rmsnorm``, ``flash_attention``,
+  ``ssm_scan``, ``rwkv6_scan``) go on to it.
 
 Tolerances: f32 2e-5 (tests/test_kernels.py:23) for elementwise outputs;
 dw, a sum over N rows, at 2e-5 * sqrt(N) (the rounding of a sum of N
@@ -654,9 +655,6 @@ def _guarded_calls():
     return {
         "decode_attention": lambda: decode_attention_cuda(
             t[:, :1], t, t, lengths),
-        "ssm_scan": lambda: ssm_scan_cuda(t, t, t, torch.zeros(2, 16),
-                                          chunk=16),
-        "rwkv6_scan": lambda: rwkv6_scan_cuda(t, t, t, t, torch.zeros(2, 16)),
         "flash_attention softcap": lambda: fa.flash_attention_cuda(
             t, t, t, softcap=2.0),
     }
@@ -675,12 +673,23 @@ def test_kernels_without_backward_refuse_grad(name):
         call()
 
 
-def test_differentiable_kernels_take_grad_to_the_device_check():
-    """fused_rmsnorm and uncapped flash_attention do not refuse a gradient:
-    they go on to their checks (a CPU tensor is refused as such)."""
+def _differentiable_calls():
     x = torch.zeros(4, 64, requires_grad=True)
-    with pytest.raises(ValueError, match="must be a CUDA tensor"):
-        rn.fused_rmsnorm_cuda(x, torch.zeros(64))
     q = torch.zeros(2, 8, 64, requires_grad=True)
+    t = torch.zeros(2, 16, 16, requires_grad=True)
+    return {
+        "fused_rmsnorm": lambda: rn.fused_rmsnorm_cuda(x, torch.zeros(64)),
+        "flash_attention": lambda: fa.flash_attention_cuda(q, q, q),
+        "ssm_scan": lambda: ssm_scan_cuda(t, t, t, torch.zeros(2, 16),
+                                          chunk=16),
+        "rwkv6_scan": lambda: rwkv6_scan_cuda(t, t, t, t, torch.zeros(2, 16)),
+    }
+
+
+@pytest.mark.parametrize("name", list(_differentiable_calls()))
+def test_differentiable_kernels_take_grad_to_the_device_check(name):
+    """fused_rmsnorm, uncapped flash_attention, ssm_scan and rwkv6_scan do
+    not refuse a gradient: they go on to their checks (a CPU tensor is
+    refused as such)."""
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
-        fa.flash_attention_cuda(q, q, q)
+        _differentiable_calls()[name]()

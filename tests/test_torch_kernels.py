@@ -167,7 +167,8 @@ def test_ops_dispatch_cpu_to_plain_without_counting():
                                    "rwkv6_scan": 0, "mc_cell": 0,
                                    "fused_rmsnorm_bwd": 0,
                                    "flash_bwd_preprocess": 0,
-                                   "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+                                   "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
+                                   "ssm_scan_bwd": 0, "rwkv6_scan_bwd": 0}
 
 
 def test_ops_raise_on_a_device_without_kernel():
