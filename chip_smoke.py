@@ -13,10 +13,12 @@ package. In order it:
 3. counts the tensor-core instructions (HMMA) of the attention and
    scan kernels in the built library's SASS (cuobjdump), and fails if
    the bf16 flash_attention kernel of any head dim of HEAD_DIMS, the
-   bf16 ssm_scan kernel, or the flash backward's two bf16 tensor-core
+   bf16 ssm_scan kernel, the flash backward's two bf16 tensor-core
    kernels (flash_bwd_dkdv_tc, flash_bwd_dq_tc) at hd 16, 32, 64, 128,
-   168 or 240 have none (the build's ptxas lines, registers and spills
-   of every instance, are printed before it);
+   168 or 240, or any instance, bf16 or f32 B/C, of the ssm backward's
+   two product kernels (ssm_bwd_prep, ssm_bwd_chunk: 3xTF32) have none
+   (the build's ptxas lines, registers and spills of every instance,
+   are printed before it);
 4. holds each kernel against its plain PyTorch version at the shapes the
    serving paths give it (fused_rmsnorm at d 4096, 2048 and 1536;
    bf16 attention at hd 128 and 64, and granite-moe-3b-a800m's GQA: flash
@@ -75,7 +77,10 @@ package. In order it:
    through the plain version (f32 gradients within 2e-5 sqrt(S) (1 +
    |plain|), bf16 dB / dC within 2e-2 (1 + |plain|)), twice for bitwise
    equality, every gradient finite, timed beside the plain backward and
-   the bound, then untimed at the CPU design test's edge cases (ragged S,
+   the bound (ssm_scan_bwd's products on the tensor cores, each at the
+   TF32 rate over its passes: 3 where both operands are f32, 2 where B
+   or C is bf16, C B^T in bf16 at 989), then untimed at the CPU design
+   test's edge cases (ragged S,
    chunk 1, S 1, B/C groups, nonzero final-state gradients, a chunk whose
    log-decay spans more than 88; rwkv6's checkpoint edges, hd 16 to 128,
    one u row, w at 0 and 1, bf16); then checks that decode_attention and
@@ -1142,19 +1147,29 @@ def backward_cases(rt):
 
 
 def ssm_bwd_flops(bh: int, bh_bc: int, s: int, hd: int, ds: int,
-                  chunk: int) -> int:
+                  chunk: int, bf16: Optional[bool] = None) -> float:
     """The f32 flops the ssm_scan backward needs on these shapes (an FMA
     is 2): per chunk of n steps and its n(n+1)/2 live pairs, C B^T once a
     B/C group (2 ds a pair), and a head's dY X^T and P^T dY (2 hd a pair
     each) and M^T C and M B (2 ds each); per step a head's three state
-    products (G B^T, X G, dY H) and the two passes carrying the state and
-    its gradient over the chunks, 2 hd ds each."""
+    products (G B^T, X G, dY H) and the chunk's own terms of the state
+    and its gradient (X^T B, dY^T C), 2 hd ds each. With ``bf16`` (B/C's
+    dtype is bf16, or f32 when False), each product's flops weighted by
+    the passes the kernel runs it in on the tensor cores, so that their
+    time at the TF32 peak is the bound: 3 (3xTF32) where both operands
+    are f32, 2 where one is B or C in bf16 (exact in TF32), and C B^T on
+    bf16 at the bf16 rate (1/2)."""
+    if bf16 is None:
+        w3 = w2 = wcb = 1
+    else:
+        w3, w2, wcb = 3, (2 if bf16 else 3), (0.5 if bf16 else 3)
     total = 0
     for t0 in range(0, s, chunk):
         n = min(chunk, s - t0)
         pairs = n * (n + 1) // 2
-        total += bh_bc * pairs * 2 * ds + bh * (pairs * (4 * hd + 4 * ds)
-                                                + n * 10 * hd * ds)
+        total += bh_bc * pairs * 2 * ds * wcb + bh * (
+            pairs * (4 * hd * w3 + 4 * ds * w2)
+            + n * 2 * hd * ds * (3 * w2 + 2 * w3))
     return total
 
 
@@ -1211,8 +1226,9 @@ def scan_backward_cases(rt):
                     lambda: kb["ssm_bwd"](xbar, B, C, cum, dy, dhv,
                                           chunk=chunk),
                     plain, None, nbytes,
-                    ssm_bwd_flops(bh, bh_bc, s, hd, ds, chunk),
-                    F32_FLOPS_PER_S, tol, timed=timed, bitwise=True)
+                    ssm_bwd_flops(bh, bh_bc, s, hd, ds, chunk,
+                                  bf16=dt == torch.bfloat16),
+                    TF32_FLOPS_PER_S, tol, timed=timed, bitwise=True)
 
     def rwkv_case(bh, n_u, s, hd, dt, *, extreme=False, dstate=False,
                   timed=False):
@@ -1586,12 +1602,17 @@ def traced_step(rt, fn):
     bwd = {"flash_bwd_dkdv": 0.0, "flash_bwd_dq": 0.0,
            "flash_bwd_preprocess": 0.0, "rmsnorm_bwd_rows": 0.0,
            "rmsnorm_bwd_dw": 0.0, "rmsnorm_bwd_loop": 0.0,
-           "ssm_bwd_state_kernel": 0.0, "ssm_bwd_chunk_kernel": 0.0,
-           "rwkv6_bwd_kernel": 0.0, "sum_partials_kernel": 0.0}
+           "ssm_bwd_prep_kernel": 0.0, "ssm_bwd_carry_kernel": 0.0,
+           "ssm_bwd_chunk_kernel": 0.0, "rwkv6_bwd_sum_kernel": 0.0,
+           "rwkv6_bwd_carry_kernel": 0.0, "rwkv6_bwd_chunk_kernel": 0.0,
+           "sum_partials_kernel": 0.0,
+           # a parent tree's (PR 27's) scan backward, timed by this script
+           "ssm_bwd_state_kernel": 0.0, "rwkv6_bwd_kernel": 0.0}
     for name, ms, _ in kernels:
         for key in bwd:
             if key in name:
                 bwd[key] += ms
+    bwd = {k: ms for k, ms in bwd.items() if ms > 0}
     return wall_ms, {"busy": sum(ms for _, ms, _ in kernels), "bwd": bwd,
                      "top": kernels[:8], "result": result["r"]}
 
@@ -1753,21 +1774,24 @@ def resume_check(rt, cfg, params) -> None:
 SASS_KERNELS = ("flash_tc_kernel", "flash_f32_kernel", "decode_split_kernel",
                 "decode_combine_kernel", "ssm_tc_kernel", "ssm_scan_kernel",
                 "rwkv6_chunk_kernel", "flash_bwd_dkdv_tc_kernel",
-                "flash_bwd_dq_tc_kernel")
-# must show HMMA/HGMMA
+                "flash_bwd_dq_tc_kernel", "ssm_bwd_prep_kernel",
+                "ssm_bwd_chunk_kernel")
+# must show HMMA/HGMMA (every instance: the ssm backward's f32 ones too)
 TENSOR_CORE_KERNELS = ("flash_tc", "ssm_tc", "flash_bwd_dkdv_tc",
-                       "flash_bwd_dq_tc")
+                       "flash_bwd_dq_tc", "ssm_bwd_prep", "ssm_bwd_chunk")
 BWD_TC_HEAD_DIMS = (16, 32, 64, 128, 168, 240)   # the backward's bf16 hds
 
 
 def sass_check(lib_path: Path, head_dims: tuple) -> None:
     """Count HMMA (mma.sync) and HGMMA (wgmma) instructions in the SASS of
-    each attention and scan kernel (<n> is the template's head or state
-    dim); the bf16 flash and ssm kernels must have some, the bf16 flash
-    kernel must be there at every head dim of ``head_dims`` (168: padded
-    to 176 inside it) with and without the softcap, and the backward's
-    two tensor-core kernels at every head dim of BWD_TC_HEAD_DIMS (the
-    rwkv6 kernel runs on the CUDA cores and is listed for its count)."""
+    each attention and scan kernel (<n, ..> are the template's head or
+    state dims); the bf16 flash and ssm kernels and every instance of the
+    ssm backward's two product kernels (bf16 and f32 B/C, each hd and
+    ds) must have some, the bf16 flash kernel must be there at every
+    head dim of ``head_dims`` (168: padded to 176 inside it) with and
+    without the softcap, and the flash backward's two tensor-core
+    kernels at every head dim of BWD_TC_HEAD_DIMS (the rwkv6 kernel runs
+    on the CUDA cores and is listed for its count)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.isfile(tool):
         fail("cuobjdump not found: cannot show the tensor-core path")
@@ -1780,8 +1804,8 @@ def sass_check(lib_path: Path, head_dims: tuple) -> None:
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
             m = re.search("|".join(SASS_KERNELS), fn)
-            hd = re.search(r"Li(\d+)E", fn)
-            fn = (f"{m.group(0)}<{hd.group(1) if hd else ''}> "
+            dims = ",".join(re.findall(r"Li(\d+)E", fn))
+            fn = (f"{m.group(0)}<{dims}> "
                   f"{'bf16' if 'bfloat16' in fn else 'f32'}"
                   f"{', softcap' if 'Lb1E' in fn else ''}") if m else None
             if fn:
@@ -1793,8 +1817,8 @@ def sass_check(lib_path: Path, head_dims: tuple) -> None:
     for kernel in TENSOR_CORE_KERNELS:
         tc = [n for name, n in counts.items() if name.startswith(kernel)]
         if not tc or min(tc) == 0:
-            fail(f"the bf16 {kernel}_kernel has no tensor-core instruction "
-                 "in its SASS")
+            fail(f"an instance of {kernel}_kernel has no tensor-core "
+                 "instruction in its SASS")
     for hd in head_dims:
         for cap in ("", ", softcap"):
             if not counts.get(f"flash_tc_kernel<{hd}> bf16{cap}"):

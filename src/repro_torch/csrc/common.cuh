@@ -1,7 +1,8 @@
 // Shared helpers of the port's CUDA kernels: dtype codes, f32 conversion,
 // warp reductions, the asynchronous copies, ldmatrix loads and bf16
 // mma.sync of the attention kernels (flash_attention.cu,
-// flash_attention_bwd.cu), and the fixed-order sum of partials of the
+// flash_attention_bwd.cu), the TF32 mma.sync of the ssm kernels
+// (ssm_scan.cu, ssm_scan_bwd.cu), and the fixed-order sum of partials of the
 // scans' backward kernels (ssm_scan_bwd.cu, rwkv6_scan_bwd.cu). Every kernel computes in f32 and reads/writes
 // bf16 or f32 tensors; the dtype code is what the Python wrappers pass.
 // A source that keeps its own copy of a helper under the same name
@@ -92,6 +93,16 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16x8 TF32, row) * b (8x8 TF32, col), f32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -153,26 +153,6 @@ __device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
 __device__ __forceinline__ uint32_t bf16_bits(const uint16_t* p) {
   return static_cast<uint32_t>(*p) << 16;
 }
-// d += a (16x8 TF32, row) * b (8x8 TF32, col), f32 accumulators
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // the end of the tile starting at t0: 64 steps, the chunk's end or S
 __device__ __forceinline__ int tile_end(int t0, int S, int chunk) {
   return min(min(t0 + kTcT, (t0 / chunk + 1) * chunk), S);

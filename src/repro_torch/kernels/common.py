@@ -41,3 +41,9 @@ def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
         raise NotImplementedError(
             f"{name}: the CUDA kernel has no backward yet; a gradient "
             "through it is not supported on the card")
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a fresh copy of it where its data is not 16-byte aligned
+    (for kernels that stage rows with 16-byte copies)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -17,12 +17,15 @@ computes the recurrence regrouped into chunks of :data:`CHUNK` steps,
 every decay a product of w's (its source note; the arithmetic is
 emulated in ``tests/test_torch_rwkv_design.py``). Where autograd records
 the call it goes through :class:`RWKV6Scan`, whose backward is the
-hand-written ``repro_rwkv6_scan_bwd`` (``csrc/rwkv6_scan_bwd.cu``: a
-block a (head, rows of the state) steps the recurrence forward writing
-a checkpoint of the state every :data:`BWD_CHUNK` steps and dr, then
-walks the chunks in reverse, recomputing each chunk's states from its
-checkpoint and carrying dS back through them; dv and du are summed over
-the row blocks and the heads that share a u row in a fixed order);
+hand-written ``repro_rwkv6_scan_bwd`` (``csrc/rwkv6_scan_bwd.cu``: what
+each chunk of :data:`BWD_CHUNK` steps adds to the state and to its
+gradient, as products of w; a carry over the chunks for the state at
+each chunk's start and its gradient at each chunk's end; then a block a
+(head, chunk, rows of the state) steps its chunk forward from the
+checkpoint, keeping the state every :data:`BWD_SUB` steps, and walks
+those sub-chunks in reverse, recomputing their states and carrying dS
+back through them; dv and du are summed over the row blocks and over
+the chunks and heads that share a u row in a fixed order);
 :func:`rwkv6_scan_bwd_plain` is autograd through the plain version.
 Nothing divides by w, which may be exactly 0.
 """
@@ -31,13 +34,14 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .common import (DTYPE_CODES, SCAN_HEAD_DIMS, check_cuda_tensor,
-                     needs_grad, require, stream_of)
+from .common import (DTYPE_CODES, SCAN_HEAD_DIMS, aligned16,
+                     check_cuda_tensor, needs_grad, require, stream_of)
 
 NAME = "rwkv6_scan"
 BWD_NAME = "rwkv6_scan_bwd"
 CHUNK = 16          # steps a chunk in csrc/rwkv6_scan.cu (kT)
-BWD_CHUNK = 16      # steps between checkpoints in csrc/rwkv6_scan_bwd.cu (kT)
+BWD_CHUNK = 64      # steps between checkpoints in csrc/rwkv6_scan_bwd.cu (kT)
+BWD_SUB = 16        # steps a sub-chunk there, its states in registers (kTs)
 launches = 0
 bwd_launches = 0
 
@@ -138,8 +142,9 @@ def rwkv6_scan_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dstate: torch.Tensor) -> tuple[torch.Tensor, ...]:
     """(dr, dk, dv, dw in r's dtype, du (NU, hd) f32) for the gradients do
     (r's shape and dtype) of o and dstate (BH, hd, hd) f32 of the final
-    state: one call of ``repro_rwkv6_scan_bwd`` (the scan, then the sums
-    of dv over the row blocks and of du over the heads of a u row)."""
+    state: one call of ``repro_rwkv6_scan_bwd`` (the chunk summaries, the
+    carry over the chunks, the chunk pass, then the sums of dv over the
+    row blocks and of du over the chunks and the heads of a u row)."""
     global bwd_launches
     _check(r, k, v, w, u, BWD_NAME)
     BH, S, hd = r.shape
@@ -154,10 +159,13 @@ def rwkv6_scan_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     f32 = dict(dtype=torch.float32, device=r.device)
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du = torch.empty_like(u)
-    # scratch: the checkpoints, each row block's dv and each head's du
-    ckpt = torch.empty((BH, nc, hd, hd), **f32)
+    r, k, v, w, do = (aligned16(t) for t in (r, k, v, w, do))
+    # scratch: the state at each chunk's start and its gradient at each
+    # chunk's end, each chunk's decay, v_t . do_t by chunk; each row
+    # block's dv; each (chunk, head)'s du
+    ckpt = torch.empty(BH * nc * (2 * hd * hd + hd + BWD_CHUNK), **f32)
     dv_part = torch.empty((BH, nrb, S, hd), **f32)
-    du_part = torch.empty((BH, hd), **f32)
+    du_part = torch.empty((nc, BH, hd), **f32)
     rc = build.library().repro_rwkv6_scan_bwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         do.data_ptr(), dstate.data_ptr(), dr.data_ptr(), dk.data_ptr(),

@@ -12,10 +12,12 @@ path). Both also return the final state ``h``,
 which the Pallas kernel drops and prefill needs for the decode cache.
 Where autograd records the call it goes through :class:`SSMScan`, whose
 backward is the hand-written ``repro_ssm_scan_bwd``
-(``csrc/ssm_scan_bwd.cu``: the states at the chunk starts, their
-gradients carried back from the last chunk, then a block a (head,
-chunk) forming dxbar, dB, dC and dcumlog, dB/dC summed over the heads
-of a group in a fixed order); :func:`ssm_scan_bwd_plain` is autograd
+(``csrc/ssm_scan_bwd.cu``: each chunk's own state terms and C B^T once
+a B/C group on the tensor cores, the states at the chunk starts and
+their gradients carried over the chunks, then a block a (head, chunk)
+forming dxbar, dB, dC and dcumlog in one sweep of 64-step tiles, every
+product in 3xTF32, dB/dC summed over the heads of a group in a fixed
+order); :func:`ssm_scan_bwd_plain` is autograd
 through the plain version. The exponent's argument is masked (j <= i)
 before ``exp`` in both, so the gradient stays finite where a chunk's
 log-decay spans more than ~88 (the Pallas kernel and JAX's
@@ -34,13 +36,14 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .common import (DTYPE_CODES, check_cuda_tensor, needs_grad, require,
-                     stream_of)
+from .common import (DTYPE_CODES, aligned16, check_cuda_tensor, needs_grad,
+                     require, stream_of)
 
 NAME = "ssm_scan"
 BWD_NAME = "ssm_scan_bwd"
 STATE_DIMS = (16, 32, 64, 128)
-BWD_MAX_HD = 128    # the backward's head dim: at most 2 panels of 64 (kHP)
+BWD_MAX_HD = 128    # the backward's head dim, padded to 64 or 128 (HP)
+BWD_TILE = 64       # steps a tile in csrc/ssm_scan_bwd.cu (kT)
 launches = 0
 bwd_launches = 0
 
@@ -54,6 +57,18 @@ def chunk_cumsum(loga: torch.Tensor, chunk: int) -> torch.Tensor:
     padded = torch.nn.functional.pad(loga, (0, nc * chunk - S))
     return padded.view(BH, nc, chunk).cumsum(-1).view(BH, -1)[:, :S] \
         .contiguous()
+
+
+def bwd_scratch_floats(BH: int, BH_bc: int, S: int, hd: int, ds: int,
+                       chunk: int) -> int:
+    """The backward's f32 workspace: the state at each chunk's start and
+    its gradient at each chunk's end (BH, nc, hd, ds) each, then C B^T of
+    each (B/C group, chunk) as the 64 x 64 tiles on and below the
+    diagonal of the longest chunk."""
+    nc = -(-S // chunk)
+    nt = -(-min(chunk, S) // BWD_TILE)
+    return 2 * BH * nc * hd * ds + \
+        BH_bc * nc * (nt * (nt + 1) // 2) * BWD_TILE ** 2
 
 
 def ssm_scan_plain(xbar: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
@@ -182,8 +197,10 @@ def ssm_scan_bwd_cuda(xbar: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                       ) -> tuple[torch.Tensor, ...]:
     """(dxbar f32, dB and dC in B's dtype, dcumlog f32) for the gradients
     dy (BH, S, hd) f32 of y and dh (BH, hd, ds) f32 of the final state:
-    one call of ``repro_ssm_scan_bwd`` (the state pass, the chunk pass and
-    the sums over the heads of a group)."""
+    one call of ``repro_ssm_scan_bwd`` (the prep pass, the carry over the
+    chunks, the chunk pass and the sums over the heads of a group). A
+    head dim that is not a multiple of 4 is padded with zero columns,
+    which add nothing to any gradient, and dropped from dxbar."""
     global bwd_launches
     _check(xbar, B, C, cumlog, chunk, BWD_NAME)
     BH, S, hd = xbar.shape
@@ -198,20 +215,28 @@ def ssm_scan_bwd_cuda(xbar: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
             f"head dim must be at most {BWD_MAX_HD}, got {hd}")
     nc = -(-S // chunk)
     require(nc <= 65535, BWD_NAME, f"at most 65535 chunks, got {nc}")
+    pad = -hd % 4
+    if pad:
+        xbar, dy = (torch.nn.functional.pad(t, (0, pad)) for t in (xbar, dy))
+        dh = torch.nn.functional.pad(dh, (0, 0, 0, pad))
+    xbar, B, C, dy = (aligned16(t) for t in (xbar, B, C, dy))
     f32 = dict(dtype=torch.float32, device=xbar.device)
     dxbar = torch.empty_like(xbar)
     dB, dC = torch.empty_like(B), torch.empty_like(C)
     dcum = torch.empty_like(cumlog)
-    # scratch: the state at each chunk's start and its gradient at each
-    # chunk's end, and each head's dB, dC before the sum over its group
-    states = torch.empty((2, BH, nc, hd, ds), **f32)
+    # scratch: the chunks' states, their gradients and C B^T; each head's
+    # dB, dC before the sum over its group
+    states = torch.empty(bwd_scratch_floats(BH, BHbc, S, hd + pad, ds, chunk),
+                         **f32)
     partial = torch.empty((2, BH, S, ds), **f32)
     rc = build.library().repro_ssm_scan_bwd(
         xbar.data_ptr(), B.data_ptr(), C.data_ptr(), cumlog.data_ptr(),
         dy.data_ptr(), dh.data_ptr(), dxbar.data_ptr(), dB.data_ptr(),
         dC.data_ptr(), dcum.data_ptr(), states.data_ptr(),
-        partial.data_ptr(), BH, BHbc, S, hd, ds, chunk,
+        partial.data_ptr(), BH, BHbc, S, hd + pad, ds, chunk,
         DTYPE_CODES[B.dtype], stream_of(xbar))
     build.check(rc, BWD_NAME)
     bwd_launches += 1
+    if pad:
+        dxbar = dxbar[..., :hd].contiguous()
     return dxbar, dB, dC, dcum

@@ -9,19 +9,25 @@ and u a row, so both are repeated per head and JAX's gradients summed
 back over the heads that share them), on inputs drawn with numpy from a
 seed.
 
-* ``ssm_scan``: the state at each chunk's start (a forward pass over the
-  chunks), the gradient of the state at each chunk's end carried back
-  from dh (the reverse pass), then a (head, chunk) at a time in tiles of
-  64 steps: a sweep over the column tiles j (against the row tiles i >=
-  j) for dX, dB and the column sums of R = dP o P, a sweep over the row
-  tiles i (against the tiles j <= i) for dC and the row sums, the state
-  terms, and dcum; the exponent's argument masked (j <= i) before exp.
-  dB and dC are summed over the heads of a group in order.
-* ``rwkv6_scan``: a block a (head, RB rows of the state); pass 1 steps
-  forward, writes a checkpoint of the state every 16 steps and forms dr;
-  pass 2 walks the chunks in reverse, recomputes each chunk's states from
-  its checkpoint and carries dS back through them; dv is summed over the
-  row blocks and du over the heads of a u row.
+* ``ssm_scan``: the prep pass (each chunk's own state terms X^T
+  diag(exp(tot - cum)) B and dY^T diag(exp(cum)) C over 64-step tiles,
+  and C B^T once a B/C group), the carry over the chunks (the state at
+  each chunk's start, its gradient at each chunk's end from dh), then a
+  (head, chunk) at a time one sweep of 64-step tile pairs: the column
+  tiles j in order, each against the row tiles i from the last down to
+  j, dX and dB of tile j and dC and R's row sums of tile i added as the
+  pairs come, the state terms once the pair (j, j) is done; the
+  exponent's argument masked (j <= i) before exp; every product as the
+  kernel's mma.sync takes it, each f32 operand split into its TF32 part
+  and the rest (3xTF32). dB and dC are summed over a group's heads in
+  order.
+* ``rwkv6_scan``: each 64-step chunk's decay and what it adds to the
+  state and to the state's gradient, as products of w; the carry over
+  the chunks; then a chunk at a time its state stepped forward from the
+  checkpoint and kept every 16 steps, the 16-step sub-chunks walked in
+  reverse (states recomputed, dr on the way, dS carried back); dv is
+  summed over the row blocks, du over the chunks and the heads of a u
+  row.
 
 Tolerances: f32 2e-5 (``tests/test_kernels.py:23``, ``TOL`` of
 ``tests/test_torch_grad.py``) for gradients of a few terms a step; a
@@ -45,9 +51,31 @@ from repro_torch.kernels import ssm_scan as ss  # noqa: E402
 from repro_torch.kernels.ssm_scan import chunk_cumsum  # noqa: E402
 
 F32_TOL = 2e-5           # tests/test_kernels.py:23
-TILE = 64                # ssm_bwd_chunk_kernel's steps a tile (kT)
-GP = 32                  # rows of G or H a staged panel (kGP)
+TILE = ss.BWD_TILE       # ssm_bwd_chunk_kernel's steps a tile (kT)
 H100_SMEM_PER_BLOCK = 232448
+H100_SMEM_PER_SM = 233472    # 228 KB, of which the hardware keeps 1 KB a block
+
+
+def tf32_read(x):
+    """What the tensor cores read of an f32 operand in TF32: its sign,
+    exponent and top 10 mantissa bits (the low 13 bits are not read)."""
+    return (x.float().contiguous().view(torch.int32) & ~0x1FFF) \
+        .view(torch.float32)
+
+
+def product(a, b, rounding):
+    """a @ b as ssm_scan_bwd.cu's mma.sync takes it: "exact"; "tf32", each
+    operand read once in TF32; or "tf32x3", the kernel's, each operand
+    split x = hi + lo exactly (hi = its TF32 part, lo the rest, read in
+    TF32 in turn) and lo*hi + hi*lo + hi*hi summed (a bf16 operand's lo is
+    0: its product has two terms, as in the kernel)."""
+    if rounding == "exact":
+        return a @ b
+    if rounding == "tf32":
+        return tf32_read(a) @ tf32_read(b)
+    ah, bh = tf32_read(a), tf32_read(b)
+    al, bl = tf32_read(a - ah), tf32_read(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
 
 
 @pytest.fixture(autouse=True)
@@ -78,40 +106,75 @@ def f32(rng, shape, scale=1.0):
 
 # -- ssm_scan ---------------------------------------------------------------------
 
-def ssm_states_emulated(u, v, cum, x0, chunk, reverse):
-    """ssm_bwd_state_kernel: X (BH, hd, ds) carried over the chunks (in
-    reverse for the gradient), written at each chunk before its update
-    X <- exp(tot) X + sum_t wt_t u_t^T v_t, with wt = exp(tot - cum)
-    forward (u = xbar, v = B: the state at each chunk's start) and
-    exp(cum) in reverse (u = dy, v = C: the state's gradient at each
-    chunk's end). Returns (BH, nc, hd, ds)."""
-    BH, S, _ = u.shape
+def ssm_prep_emulated(X, DY, Bg, Cg, cum, chunk, group, rounding):
+    """ssm_bwd_prep_kernel: each chunk's own state terms U_c = X^T
+    diag(exp(tot - cum)) B and V_c = dY^T diag(exp(cum)) C (BH, nc, hd,
+    ds), summed tile by tile over the chunk's 64-step tiles, and C B^T of
+    each (B/C group, chunk) once (exact products of bf16 B/C; 3xTF32 for
+    f32)."""
+    BH, S, hd = X.shape
+    ds = Bg.shape[-1]
     nc = -(-S // chunk)
-    out = [None] * nc
-    X = x0.clone()
-    for c in (range(nc - 1, -1, -1) if reverse else range(nc)):
+    Bh, Ch = (t.repeat_interleave(group, 0) for t in (Bg, Cg))
+    U, V = torch.empty(BH, nc, hd, ds), torch.empty(BH, nc, hd, ds)
+    CB = []
+    for c in range(nc):
         t0, n = c * chunk, min(chunk, S - c * chunk)
         cm = cum[:, t0:t0 + n]
-        tot = cm[:, -1]
-        out[c] = X
-        wt = torch.exp(cm) if reverse else torch.exp(tot[:, None] - cm)
-        acc = (u[:, t0:t0 + n] * wt[..., None]).transpose(1, 2) @ \
-            v[:, t0:t0 + n]
-        X = torch.exp(tot)[:, None, None] * X + acc
-    return torch.stack(out, 1)
+        e, f = torch.exp(cm[:, -1:] - cm), torch.exp(cm)
+        u = v = 0
+        for a in range(0, n, TILE):
+            sl = slice(t0 + a, t0 + min(a + TILE, n))
+            ws = slice(a, min(a + TILE, n))
+            u = u + product((X[:, sl] * e[:, ws, None]).transpose(1, 2),
+                            Bh[:, sl], rounding)
+            v = v + product((DY[:, sl] * f[:, ws, None]).transpose(1, 2),
+                            Ch[:, sl], rounding)
+        U[:, c], V[:, c] = u, v
+        CB.append(product(Cg[:, t0:t0 + n], Bg[:, t0:t0 + n].transpose(1, 2),
+                          rounding))
+    return U, V, CB
 
 
-def ssm_bwd_emulated(xbar, B, C, cumlog, dy, dh, *, chunk):
-    """repro_ssm_scan_bwd's arithmetic: (dxbar, dB, dC, dcumlog)."""
+def ssm_carry_emulated(Z, cum, x0, chunk, reverse):
+    """ssm_bwd_carry_kernel: X (BH, hd, ds) carried over the chunks (in
+    reverse for the gradient), written at each chunk before its update
+    X <- exp(tot) X + Z_c: the state at each chunk's start from U, its
+    gradient at each chunk's end from V and dh. Returns (BH, nc, hd, ds)."""
+    BH, nc = Z.shape[:2]
+    S = cum.shape[1]
+    out = torch.empty_like(Z)
+    X = x0.clone()
+    for c in (range(nc - 1, -1, -1) if reverse else range(nc)):
+        tot = cum[:, min(S, (c + 1) * chunk) - 1]
+        out[:, c] = X
+        X = torch.exp(tot)[:, None, None] * X + Z[:, c]
+    return out
+
+
+def ssm_bwd_emulated(xbar, B, C, cumlog, dy, dh, *, chunk,
+                     rounding="tf32x3"):
+    """repro_ssm_scan_bwd's arithmetic: (dxbar, dB, dC, dcumlog). The
+    prep and carry passes, then a (head, chunk) at a time one sweep of
+    64-step tiles: the column tiles j in order, for each the row tiles i
+    from the last down to j; a pair forms dP and takes C B^T once, adds
+    P^T dY and M^T C into the column tile's dX, dB and M B and R's row
+    sums into the row tile's dC and dcum; after the pair (j, j) the state
+    terms finish tile j. Every product as the kernel's mma.sync takes it
+    (``rounding``, test_torch_ssm_design.product: 3xTF32 in the kernel)."""
     BH, S, hd = xbar.shape
     bh_bc, _, ds = B.shape
     group = BH // bh_bc
     X, DY, cum = xbar.float(), dy.float(), cumlog.float()
-    Bf = B.float().repeat_interleave(group, 0)
-    Cf = C.float().repeat_interleave(group, 0)
-    Hs = ssm_states_emulated(X, Bf, cum, torch.zeros(BH, hd, ds), chunk,
-                             False)
-    Gs = ssm_states_emulated(DY, Cf, cum, dh.float(), chunk, True)
+    Bg, Cg = B.float(), C.float()
+    Bf, Cf = (t.repeat_interleave(group, 0) for t in (Bg, Cg))
+
+    def mm(a, b):
+        return product(a, b, rounding)
+
+    U, V, CB = ssm_prep_emulated(X, DY, Bg, Cg, cum, chunk, group, rounding)
+    Hs = ssm_carry_emulated(U, cum, torch.zeros(BH, hd, ds), chunk, False)
+    Gs = ssm_carry_emulated(V, cum, dh.float(), chunk, True)
     dx = torch.empty(BH, S, hd)
     dBp, dCp = torch.empty(BH, S, ds), torch.empty(BH, S, ds)
     dcum = torch.empty(BH, S)
@@ -119,52 +182,42 @@ def ssm_bwd_emulated(xbar, B, C, cumlog, dy, dh, *, chunk):
         t0, n = c * chunk, min(chunk, S - c * chunk)
         sl = slice(t0, t0 + n)
         x, d, b, cc, cm = X[:, sl], DY[:, sl], Bf[:, sl], Cf[:, sl], cum[:, sl]
+        cb = CB[c].repeat_interleave(group, 0)
         H, G = Hs[:, c], Gs[:, c]
         tot = cm[:, -1]
         tiles = [(a, min(a + TILE, n)) for a in range(0, n, TILE)]
-
-        def pair(ti, tj):
-            (i0, i1), (j0, j1) = ti, tj
-            ii = torch.arange(i0, i1)[:, None]
-            jj = torch.arange(j0, j1)[None, :]
-            diff = cm[:, i0:i1, None] - cm[:, None, j0:j1]
-            L = torch.exp(diff.masked_fill(jj > ii, float("-inf")))
-            P = (cc[:, i0:i1] @ b[:, j0:j1].transpose(1, 2)) * L
-            dP = d[:, i0:i1] @ x[:, j0:j1].transpose(1, 2)
-            return P, dP * L, dP * P
-
+        dc, dcm = torch.zeros(BH, n, ds), torch.zeros(BH, n)
         ksum = torch.zeros(BH)
-        for k, (j0, j1) in enumerate(tiles):             # sweep A
+        for k, (j0, j1) in enumerate(tiles):
             adx = torch.zeros(BH, j1 - j0, hd)
             adb = torch.zeros(BH, j1 - j0, ds)
             cs = torch.zeros(BH, j1 - j0)
-            for ti in tiles[k:]:
-                P, M, R = pair(ti, (j0, j1))
-                adx = adx + P.transpose(1, 2) @ d[:, ti[0]:ti[1]]
-                adb = adb + M.transpose(1, 2) @ cc[:, ti[0]:ti[1]]
+            for i0, i1 in reversed(tiles[k:]):
+                ii = torch.arange(i0, i1)[:, None]
+                jj = torch.arange(j0, j1)[None, :]
+                diff = cm[:, i0:i1, None] - cm[:, None, j0:j1]
+                L = torch.exp(diff.masked_fill(jj > ii, float("-inf")))
+                P = cb[:, i0:i1, j0:j1] * L
+                dP = mm(d[:, i0:i1], x[:, j0:j1].transpose(1, 2))
+                M, R = dP * L, dP * P
+                adx = adx + mm(P.transpose(1, 2), d[:, i0:i1])
+                adb = adb + mm(M.transpose(1, 2), cc[:, i0:i1])
+                dc[:, i0:i1] += mm(M, b[:, j0:j1])
+                dcm[:, i0:i1] += R.sum(2)
                 cs = cs + R.sum(1)
             e = torch.exp(tot[:, None] - cm[:, j0:j1])[..., None]
-            adx = adx + e * (b[:, j0:j1] @ G.transpose(1, 2))
-            V = e * (x[:, j0:j1] @ G)
-            adb = adb + V
-            K = (b[:, j0:j1] * V).sum(-1)
+            adx = adx + e * mm(b[:, j0:j1], G.transpose(1, 2))
+            Vj = e * mm(x[:, j0:j1], G)
+            adb = adb + Vj
+            K = (b[:, j0:j1] * Vj).sum(-1)
+            W = torch.exp(cm[:, j0:j1])[..., None] * mm(d[:, j0:j1], H)
+            dc[:, j0:j1] += W
+            dcm[:, j0:j1] += -cs - K + (cc[:, j0:j1] * W).sum(-1)
+            ksum = ksum + K.sum(-1)
             dx[:, t0 + j0:t0 + j1] = adx
             dBp[:, t0 + j0:t0 + j1] = adb
-            dcum[:, t0 + j0:t0 + j1] = -cs - K
-            ksum = ksum + K.sum(-1)
-        dtot = ksum + torch.exp(tot) * (G * H).sum((1, 2))
-        for k, (i0, i1) in enumerate(tiles):             # sweep B
-            adc = torch.zeros(BH, i1 - i0, ds)
-            rsum = torch.zeros(BH, i1 - i0)
-            for tj in tiles[:k + 1]:
-                _, M, R = pair((i0, i1), tj)
-                adc = adc + M @ b[:, tj[0]:tj[1]]
-                rsum = rsum + R.sum(2)
-            W = torch.exp(cm[:, i0:i1])[..., None] * (d[:, i0:i1] @ H)
-            adc = adc + W
-            dCp[:, t0 + i0:t0 + i1] = adc
-            dcum[:, t0 + i0:t0 + i1] += rsum + (cc[:, i0:i1] * W).sum(-1)
-        dcum[:, t0 + n - 1] += dtot
+        dcm[:, n - 1] += ksum + torch.exp(tot) * (G * H).sum((1, 2))
+        dCp[:, sl], dcum[:, sl] = dc, dcm
     dB = dBp.view(bh_bc, group, S, ds).sum(1).to(B.dtype)
     dC = dCp.view(bh_bc, group, S, ds).sum(1).to(C.dtype)
     return dx, dB, dC, dcum
@@ -339,75 +392,162 @@ def test_ssm_scan_function_runs_the_backward(monkeypatch):
         within(t.grad, w, tol)
 
 
-def ssm_chunk_smem_bytes(hp, ds):
-    """ChunkLayout<HP, DS>::kBytes: X, dY (64 x HP + 1), B, C (64 x DS +
-    1), P, M, R (64 x 65), a panel of G / H (32 x DS + 1), two tiles' cum,
-    K, the sums."""
-    xs, bs, ps = hp + 1, ds + 1, TILE + 1
-    return 4 * (2 * TILE * xs + 2 * TILE * bs + 3 * TILE * ps + GP * bs
-                + 3 * TILE + 1 + 256 // 32)
+def ssm_chunk_smem_bytes(esize, hp, ds):
+    """ChunkLayout<Tin, HP, DS>::kBytes: the column tile's X (64 x HP + 8
+    f32), B (64 x DS + 8 of B's dtype) and cum, the row tile's dY, C and
+    cum; the pair's C B^T (64 x 72 f32); P and M (2 x 64 x 72 f32), or G
+    or H (HP x DS + 8 f32) where larger; the sums (10 x 64, 8 warps)."""
+    xs, bs, ts = hp + 8, ds + 8, TILE + 8
+    pm = max(2 * TILE * ts * 4, hp * bs * 4)
+    return 2 * (TILE * xs * 4 + TILE * bs * esize + TILE * 4) + \
+        TILE * ts * 4 + pm + (10 * TILE + 8) * 4
 
 
+def spreads_banks(stride):
+    """A float2 a lane along a row (half a warp: lanes g, q at g stride +
+    2q) and a word a lane down a column (a warp: q stride + g) each hit 32
+    distinct banks."""
+    along = {(g * stride + 2 * q + e) % 32 for g in range(4)
+             for q in range(4) for e in range(2)}
+    down = {(q * stride + g) % 32 for g in range(8) for q in range(4)}
+    return len(along) == 32 and len(down) == 32
+
+
+@pytest.mark.parametrize("esize", [2, 4], ids=["bf16", "f32"])
 @pytest.mark.parametrize("hp", [64, 128])
 @pytest.mark.parametrize("ds", ss.STATE_DIMS)
-def test_ssm_backward_layout_fits_and_spreads_banks(hp, ds):
-    """Every instance's shared memory fits a block of an H100, and every
-    staged row has an odd stride (a column read by 16 threads hits 16
-    banks)."""
-    assert ssm_chunk_smem_bytes(hp, ds) <= H100_SMEM_PER_BLOCK
-    assert (hp + 1) % 2 == 1 and (ds + 1) % 2 == 1 and (TILE + 1) % 2 == 1
-    assert hp // 16 >= 1 and ds % 16 == 0 and hp % GP == 0
+def test_ssm_backward_layout_fits_and_spreads_banks(esize, hp, ds):
+    """Every instance's shared memory fits a block of an H100; two blocks
+    (16 warps) fit an SM at hd, ds <= 64 with bf16 B/C, zamba2's shape and
+    the design's occupancy (kMinBlocks), and never at hd or ds 128; every
+    staged f32 row's stride spreads the fragments' reads over the banks."""
+    b = ssm_chunk_smem_bytes(esize, hp, ds)
+    assert b <= H100_SMEM_PER_BLOCK
+    two = 2 * (b + 1024) <= H100_SMEM_PER_SM
+    if esize == 2 and hp == 64 and ds <= 64:
+        assert two
+    if hp == 128 or ds == 128:
+        assert not two
+    for stride in (hp + 8, ds + 8, TILE + 8):
+        assert spreads_banks(stride), stride
+    assert hp % 16 == 0 and ds % 16 == 0
+
+
+def test_ssm_backward_needs_three_tf32_products():
+    """One TF32 rounding of each product's operands puts the gradients
+    past the tolerance that the kernel's 3xTF32 products meet with room
+    (zamba2's chunk and widths, one B/C group of 8 heads)."""
+    rng = np.random.default_rng(11)
+    bh, S, hd, ds, chunk = 8, 256, 64, 64, 256
+    xbar, B, C, cum, dy, dh = ssm_inputs(rng, bh, 1, S, hd, ds, chunk)
+    plain = ss.ssm_scan_bwd_plain(xbar, B, C, cum, dy, dh, chunk=chunk)
+    tols = ssm_tols(bh, chunk, hd, ds)
+
+    def worst(rounding):
+        got = ssm_bwd_emulated(xbar, B, C, cum, dy, dh, chunk=chunk,
+                               rounding=rounding)
+        return max(float(((g - p).abs() / (1 + p.abs())).max()) / tol
+                   for g, p, tol in zip(got, plain, tols))
+
+    one, three = worst("tf32"), worst("tf32x3")
+    assert one > 1.0, one
+    assert three < 0.1 and 30 * three < one, (three, one)
 
 
 # -- rwkv6_scan --------------------------------------------------------------------
 
-def rwkv_bwd_emulated(r, k, v, w, u, do, dstate, *, T=rs.BWD_CHUNK):
-    """repro_rwkv6_scan_bwd's arithmetic: (dr, dk, dv, dw, du). Blocks of
-    RB rows (rs.bwd_rows) step their rows independently; dv is summed
-    over the row blocks, du over the heads of a u row."""
+def rwkv_summaries_emulated(rf, kf, vf, wf, df, T):
+    """rwkv6_bwd_sum_kernel: each chunk's decay g (BH, nc, hd), what it
+    adds to the state, U = sum_t diag(b_t) k_t^T v_t (b_t the product of
+    the w's after t in the chunk), and what it adds to the state's
+    gradient across it, V = sum_t diag(a_t) r_t^T do_t (a_t the product
+    of the w's before t): products of w only, never quotients."""
+    BH, S, hd = rf.shape
+    nc = -(-S // T)
+    g = torch.empty(BH, nc, hd)
+    U, V = torch.empty(BH, nc, hd, hd), torch.empty(BH, nc, hd, hd)
+    for c in range(nc):
+        t0, n = c * T, min(T, S - c * T)
+        rt, kt = torch.empty(BH, n, hd), torch.empty(BH, n, hd)
+        a = torch.ones(BH, hd)
+        for t in range(n):
+            rt[:, t] = a * rf[:, t0 + t]
+            a = a * wf[:, t0 + t]
+        g[:, c] = a
+        b = torch.ones(BH, hd)
+        for t in range(n - 1, -1, -1):
+            kt[:, t] = b * kf[:, t0 + t]
+            b = b * wf[:, t0 + t]
+        U[:, c] = kt.transpose(1, 2) @ vf[:, t0:t0 + n]
+        V[:, c] = rt.transpose(1, 2) @ df[:, t0:t0 + n]
+    return g, U, V
+
+
+def rwkv_carry_emulated(g, Z, x0, reverse):
+    """rwkv6_bwd_carry_kernel: X (BH, hd, hd) carried over the chunks,
+    written at each before X <- diag(g_c) X + Z_c: the state at each
+    chunk's start (from U), its gradient at each chunk's end (from V and
+    dS, in reverse)."""
+    nc = Z.shape[1]
+    out = torch.empty_like(Z)
+    X = x0.clone()
+    for c in (range(nc - 1, -1, -1) if reverse else range(nc)):
+        out[:, c] = X
+        X = g[:, c, :, None] * X + Z[:, c]
+    return out
+
+
+def rwkv_bwd_emulated(r, k, v, w, u, do, dstate, *, T=rs.BWD_CHUNK,
+                      Ts=rs.BWD_SUB):
+    """repro_rwkv6_scan_bwd's arithmetic: (dr, dk, dv, dw, du). The chunk
+    summaries and the carry, then a chunk at a time: its state stepped
+    forward from the checkpoint and kept every Ts steps, the sub-chunks
+    walked in reverse (states recomputed from the kept one, dr on the way,
+    dS carried back from the chunk's end checkpoint). The rows of the
+    state are independent, so blocks of RB rows (rs.bwd_rows) run here as
+    one; dv is summed over each block's rows, then over the blocks in
+    order, du over the chunks and the heads of a u row."""
     BH, S, hd = r.shape
     nu = u.shape[0]
-    RB = rs.bwd_rows(hd)
-    nrb = hd // RB
+    nrb = hd // rs.bwd_rows(hd)
     rf, kf, vf, wf, df = (t.float() for t in (r, k, v, w, do))
     uf = u.float().repeat(BH // nu, 1)                    # (BH, hd)
     vdo = (vf * df).sum(-1)                               # (BH, S)
     nc = -(-S // T)
-    dr, dk, dw = (torch.empty(BH, S, hd) for _ in range(3))
-    dv_part = torch.empty(BH, nrb, S, hd)
-    du_part = torch.empty(BH, hd)
-    for b in range(nrb):
-        rows = slice(b * RB, (b + 1) * RB)
-        st = torch.zeros(BH, RB, hd)
-        ckpt = []
-        for c in range(nc):                               # pass 1
-            ckpt.append(st)
-            for t in range(c * T, min(S, (c + 1) * T)):
-                dr[:, t, rows] = (st @ df[:, t, :, None])[..., 0] + \
-                    uf[:, rows] * kf[:, t, rows] * vdo[:, t, None]
-                st = wf[:, t, rows, None] * st + \
-                    kf[:, t, rows, None] * vf[:, t, None, :]
-        du_part[:, rows] = (rf[:, :, rows] * kf[:, :, rows]
-                            * vdo[..., None]).sum(1)
-        ds = dstate[:, rows].float()
-        for c in range(nc - 1, -1, -1):                   # pass 2
-            steps = range(c * T, min(S, (c + 1) * T))
-            sts, cur = [], ckpt[c]                        # the recompute
-            for t in steps:
-                sts.append(cur)
-                cur = wf[:, t, rows, None] * cur + \
-                    kf[:, t, rows, None] * vf[:, t, None, :]
+    g, U, V = rwkv_summaries_emulated(rf, kf, vf, wf, df, T)
+    Ss = rwkv_carry_emulated(g, U, torch.zeros(BH, hd, hd), False)
+    dSs = rwkv_carry_emulated(g, V, dstate.float(), True)
+    dr, dk, dw, dv = (torch.empty(BH, S, hd) for _ in range(4))
+    du_part = torch.empty(nc, BH, hd)
+    for c in range(nc):
+        t0, n = c * T, min(T, S - c * T)
+        subs = [(a, min(a + Ts, n)) for a in range(0, n, Ts)]
+        kept, st = [], Ss[:, c]
+        for a, b in subs:                                 # forward
+            kept.append(st)
+            for t in range(t0 + a, t0 + b):
+                st = wf[:, t, :, None] * st + kf[:, t, :, None] * vf[:, t, None]
+        ds = dSs[:, c]
+        for (a, b), st in reversed(list(zip(subs, kept))):
+            steps = range(t0 + a, t0 + b)
+            sts = []
+            for t in steps:                               # recompute, dr
+                sts.append(st)
+                dr[:, t] = (st @ df[:, t, :, None])[..., 0] + \
+                    uf * kf[:, t] * vdo[:, t, None]
+                st = wf[:, t, :, None] * st + kf[:, t, :, None] * vf[:, t, None]
             for t, s_prev in zip(reversed(steps), reversed(sts)):
-                dk[:, t, rows] = (ds @ vf[:, t, :, None])[..., 0] + \
-                    rf[:, t, rows] * uf[:, rows] * vdo[:, t, None]
-                dw[:, t, rows] = (ds * s_prev).sum(-1)
-                ruk = rf[:, t, rows] * uf[:, rows] * kf[:, t, rows]
-                dv_part[:, b, t] = (ds * kf[:, t, rows, None]).sum(1) + \
-                    ruk.sum(-1, keepdim=True) * df[:, t]
-                ds = wf[:, t, rows, None] * ds + \
-                    rf[:, t, rows, None] * df[:, t, None, :]
-    dv = dv_part.sum(1)
-    du = du_part.view(BH // nu, nu, hd).sum(0)
+                dk[:, t] = (ds @ vf[:, t, :, None])[..., 0] + \
+                    rf[:, t] * uf * vdo[:, t, None]
+                dw[:, t] = (ds * s_prev).sum(-1)
+                ruk = (rf[:, t] * uf * kf[:, t]).view(BH, nrb, -1)
+                part = (ds * kf[:, t, :, None]).view(BH, nrb, -1, hd).sum(2) \
+                    + ruk.sum(-1, keepdim=True) * df[:, t, None]
+                dv[:, t] = part.sum(1)                    # the blocks in order
+                ds = wf[:, t, :, None] * ds + rf[:, t, :, None] * df[:, t, None]
+        du_part[c] = (rf[:, t0:t0 + n] * kf[:, t0:t0 + n]
+                      * vdo[:, t0:t0 + n, None]).sum(1)
+    du = du_part.view(nc * (BH // nu), nu, hd).sum(0)
     return (dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype), dw.to(r.dtype),
             du)
 
@@ -508,15 +648,91 @@ def test_rwkv_scan_function_runs_the_backward(monkeypatch):
 
 @pytest.mark.parametrize("hd", [16, 32, 64, 128])
 def test_rwkv_backward_layout_fits(hd):
-    """BwdLayout<HD>: a block owns RB rows, RB hd = 1024 entries (or the
+    """ChunkLayout<HD>: a block owns RB rows, RB hd = 1024 entries (or the
     whole state at hd 16, 32), a row on TPR <= 32 lanes of one warp, CPT
-    columns a thread, and the shared memory fits a block of an H100."""
+    neighbouring columns a thread (16-byte reads where CPT is 4); its
+    shared memory fits a block of an H100, two blocks (16 warps) an SM up
+    to hd 64, rwkv6's (kMinBlocks); the summaries' fit a block. The
+    checkpoints of a (head, chunk) of T steps hold the state every Ts
+    steps, and T keeps their traffic under the operation bound at rwkv6's
+    microbatch (BH 64, S 4096, hd 64)."""
     rb = rs.bwd_rows(hd)
     tpr = 256 // rb
     cpt = hd // tpr
     assert hd % rb == 0 and tpr <= 32 and 32 % tpr == 0 and tpr * cpt == hd
-    assert rb * hd == min(hd * hd, 1024)
-    T = rs.BWD_CHUNK
-    floats = 3 * T * rb + 2 * T * hd + T + rb + T * 8 * hd + \
-        2 * T * rb * (tpr + 1)
-    assert 4 * floats <= H100_SMEM_PER_BLOCK
+    assert rb * hd == min(hd * hd, 1024) and cpt in (1, 4)
+    T, Ts = rs.BWD_CHUNK, rs.BWD_SUB
+    assert T % Ts == 0
+    for esize in (2, 4):             # bf16, f32 inputs
+        # two stages (r, k, w rows and v, do in the inputs' dtype, v . do
+        # f32), then u, the kept states, dv by warp, two arrays of row
+        # partials (f32)
+        stage = (3 * Ts * rb + 2 * Ts * hd) * esize + 4 * Ts
+        assert stage % 16 == 0 and (3 * Ts * rb * esize) % 16 == 0
+        floats = -(-rb // 4) * 4 + (T // Ts) * rb * hd + Ts * 8 * hd + \
+            2 * Ts * rb * (tpr + 1)
+        b = 2 * stage + 4 * floats
+        assert b <= H100_SMEM_PER_BLOCK
+        assert (2 * (b + 1024) <= H100_SMEM_PER_SM) == (hd <= 64)
+    assert 5 * T * hd * 4 <= H100_SMEM_PER_BLOCK
+    bh, S = 64, 4096
+    ckpt = 2 * bh * (S // T) * 64 * 64 * 4          # S and dS (U, V before)
+    assert 2 * 2 * ckpt / 3.35e12 < 0.195e-3       # written, read; twice
+
+
+def test_rwkv_chunk_parallel_states_equal_the_recurrence():
+    """The summaries and the carry give the state at each chunk's start
+    and its gradient at each chunk's end; stepping the recurrence one
+    step at a time gives the same within 2e-5, with w holding exact 0s
+    (and 1s): every decay a product, nothing divided by w."""
+    rng = np.random.default_rng(21)
+    bh, S, hd, T = 4, 150, 32, rs.BWD_CHUNK
+    r, k, v, w, u, do, dstate = rwkv_inputs(rng, bh, 2, S, hd, dstate=True)
+    w = w.clone()
+    w[:, ::7] = 0.0
+    w[0, :, :4] = 0.0
+    w[1, :, :4] = 1.0
+    g, U, V = rwkv_summaries_emulated(r, k, v, w, do, T)
+    Ss = rwkv_carry_emulated(g, U, torch.zeros(bh, hd, hd), False)
+    dSs = rwkv_carry_emulated(g, V, dstate, True)
+    st = torch.zeros(bh, hd, hd)
+    for t in range(S):
+        if t % T == 0:
+            within(Ss[:, t // T], st, F32_TOL)
+        st = w[:, t, :, None] * st + k[:, t, :, None] * v[:, t, None]
+    ds = dstate.clone()
+    for t in range(S - 1, -1, -1):
+        if t == S - 1 or (t + 1) % T == 0:
+            within(dSs[:, t // T], ds, F32_TOL)
+        ds = w[:, t, :, None] * ds + r[:, t, :, None] * do[:, t, None]
+
+
+def test_ssm_chunk_parallel_states_equal_the_recurrence():
+    """The prep pass's chunk terms (64-step tiles, 3xTF32) and the carry
+    give the state at each chunk's start and its gradient at each chunk's
+    end; stepping h_t = a_t h_{t-1} + x_t^T B_t, and its gradient s_t =
+    a_{t+1} s_{t+1} + dy_t^T C_t back from dh, one step at a time gives
+    the same within 2e-5 (G_c is what reaches the next chunk's start,
+    a s there)."""
+    rng = np.random.default_rng(22)
+    bh, S, hd, ds, chunk = 2, 200, 32, 16, 64
+    xbar, B, C, cum, dy, dh = ssm_inputs(rng, bh, 1, S, hd, ds, chunk,
+                                         dh=True)
+    U, V, _ = ssm_prep_emulated(xbar, dy, B, C, cum, chunk, bh, "tf32x3")
+    Hs = ssm_carry_emulated(U, cum, torch.zeros(bh, hd, ds), chunk, False)
+    Gs = ssm_carry_emulated(V, cum, dh, chunk, True)
+    Bf, Cf = B.repeat(bh, 1, 1), C.repeat(bh, 1, 1)
+    prev = torch.nn.functional.pad(cum, (1, 0))[:, :S]
+    a = torch.exp(torch.where(torch.arange(S) % chunk == 0, cum, cum - prev))
+    h = torch.zeros(bh, hd, ds)
+    for t in range(S):
+        if t % chunk == 0:
+            within(Hs[:, t // chunk], h, F32_TOL)
+        h = a[:, t, None, None] * h + xbar[:, t, :, None] * Bf[:, t, None]
+    within(Gs[:, -1], dh, F32_TOL)
+    sg = dh.clone()
+    for t in range(S - 1, -1, -1):
+        sg = sg + dy[:, t, :, None] * Cf[:, t, None]
+        if t % chunk == 0 and t > 0:
+            within(Gs[:, t // chunk - 1], a[:, t, None, None] * sg, F32_TOL)
+        sg = a[:, t, None, None] * sg
