@@ -85,8 +85,23 @@ package. In order it:
    log-decay spans more than 88; rwkv6's checkpoint edges, hd 16 to 128,
    one u row, w at 0 and 1, bf16); then checks that decode_attention and
    a capped flash_attention raise where a gradient is wanted, and that
-   ssm_scan's and rwkv6_scan's outputs carry a grad_fn;
-4c. trains deepseek-7b at full width (d 4096, 32 x 128 heads, d_ff
+   ssm_scan's and rwkv6_scan's outputs carry a grad_fn; then holds the
+   dry run's meta route (src/repro_torch/launch/dryrun.py) against the
+   card: each kernel and backward kernel at the training shapes of its
+   backward rows (decode at deepseek-7b's serving shape), the forward
+   kernels under grad, the bytes its call holds at its peak on the meta
+   device (each allocation rounded to 512 bytes, as the caching
+   allocator does) equal to the card call's max_memory_allocated delta;
+4c. (before each of the four train cells below, the dry run reckons the
+   same step, arch, depth, batch, microbatches, dtypes and remat, on the
+   host's meta device: its peak plus what is live on the card as the
+   cell starts must lie within DRY_RUN_TOL (5 %) of the cell's measured
+   max_memory_allocated, both printed, with the predicted flops a step
+   and the TFLOP/s they make at the measured wall; after it, the card's
+   total_memory must equal the dry run's capacity, and what is held
+   outside the caching allocator stay within the room it leaves for
+   that) trains deepseek-7b at
+   full width (d 4096, 32 x 128 heads, d_ff
    11008, vocab 102400) cut to 12 layers (3.267 B parameters, 52.3 GB of
    f32 masters, grads and AdamW moments; 30 layers would take 111 GB)
    for 5 steps of batch 4 x 4096 tokens in 2 microbatches through
@@ -137,7 +152,11 @@ package. In order it:
    gemma3-12b) at full width and depth (random
    weights from a seed), one model on the card at a time, its peak
    device memory printed:
-   a. serves 8 ragged requests through ServingEngine, whose decode steps
+   a. checks that the bytes the dry run reckons for a slot's cache
+      (cache_specs) equal what new_cache allocates on the card (new_cache
+      allocates from cache_specs, so this holds only the allocator's
+      512-byte rounding; the CPU tests hold cache_specs to JAX's), then
+      serves 8 ragged requests through ServingEngine, whose decode steps
       are replays of one CUDA graph of LM.decode_step a slot, with the
       launch counts set to 0 just before and read just after (a replay
       adds the launches of its graph's capture), and holds the bf16
@@ -232,10 +251,21 @@ import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
-TF32_FLOPS_PER_S = 495e12      # H100 SXM dense TF32 tensor-core peak
-F32_FLOPS_PER_S = 67e12        # H100 SXM f32 peak outside the tensor cores
+sys.path.insert(0, str(ROOT / "src"))
+try:
+    # the card's peaks (H100 SXM at 700 W, dense) and each kernel's bytes
+    # and flops: the port's one copy, which its dry run also reads
+    from repro_torch.kernels import costs
+    from repro_torch.kernels.costs import bound
+    from repro_torch.launch.mesh import (HBM_BW as HBM_BYTES_PER_S,
+                                         HBM_BYTES, HBM_OUTSIDE_ALLOCATOR,
+                                         PEAK_FLOPS_BF16 as BF16_FLOPS_PER_S,
+                                         PEAK_FLOPS_F32 as F32_FLOPS_PER_S,
+                                         PEAK_FLOPS_TF32 as TF32_FLOPS_PER_S)
+except ImportError as e:
+    print(f"chip_smoke: FAIL: the port's package is not beside this script "
+          f"({e})", file=sys.stderr, flush=True)
+    sys.exit(1)
 TOL = 2e-2                     # bf16 kernel vs plain: |a - b| <= TOL * (1 + |b|)
 F32_TOL = 2e-5                 # f32 kernel vs plain (test_kernels.py:23)
 # ssm_scan: the plain version is the chunked SSD form, the f32 kernel the
@@ -300,13 +330,6 @@ class Timer:
             b.synchronize()
             times.append(a.elapsed_time(b))
         return statistics.median(times)
-
-
-def bound(nbytes: float, flops: float, flops_per_s: float
-          ) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def norm_rel(out, ref) -> list:
@@ -383,24 +406,21 @@ def kernel_cases(kp):
                        lambda x=x, w=w: kp["fused_rmsnorm"][1](x, w),
                        lambda x=x, w1=w1, d=d: F.rms_norm(x, (d,), w1,
                                                           eps=1e-6),
-                       2 * n * d * 2 + d * 4, 4 * n * d, BF16_FLOPS_PER_S,
-                       TOL, model=GRANITE if d == 1536 else None)
+                       *costs.rmsnorm(n, d, bf), TOL,
+                       model=GRANITE if d == 1536 else None)
     for hd, lens in ((128, (1, 77, 200, 513, 600)), (64, (77, 200, 513, 600))):
         for s in lens:
             q, k, v = randn(BH, s, hd), randn(BH, s, hd), randn(BH, s, hd)
-            pairs = s * (s + 1) // 2
             yield Case(
                 "flash_attention", f"BH {BH}, Sq = Sk = {s}, hd {hd}, causal",
                 lambda q=q, k=k, v=v: kp["flash_attention"][0](q, k, v),
                 lambda q=q, k=k, v=v: kp["flash_attention"][1](q, k, v),
                 lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                     q[None], k[None], v[None], is_causal=True)[0],
-                4 * BH * s * hd * 2, 4 * hd * pairs * BH, BF16_FLOPS_PER_S,
-                TOL)
+                *costs.flash(BH, BH, s, s, hd, bf), TOL)
     bh, bh_kv, hd = 24, 8, 64                    # granite: GQA, G = 3
     for s in (513, 600):
         q, k, v = randn(bh, s, hd), randn(bh_kv, s, hd), randn(bh_kv, s, hd)
-        pairs = s * (s + 1) // 2
         yield Case(
             "flash_attention",
             f"BH {bh} over {bh_kv}, Sq = Sk = {s}, hd {hd}, causal",
@@ -409,8 +429,7 @@ def kernel_cases(kp):
             lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                 q[None], k[None], v[None], is_causal=True,
                 enable_gqa=True)[0],
-            2 * (bh + bh_kv) * s * hd * 2, 4 * hd * pairs * bh,
-            BF16_FLOPS_PER_S, TOL, model=GRANITE)
+            *costs.flash(bh, bh_kv, s, s, hd, bf), TOL, model=GRANITE)
     for hd, labels in ((128, ("1", "77", "600", "1024", "mixed 1..1024")),
                        (64, ("77", "600", "1024"))):
         for label in labels:
@@ -429,8 +448,7 @@ def kernel_cases(kp):
                     q, k, v, l),
                 lambda q=q, k=k, v=v, m=mask: F.scaled_dot_product_attention(
                     q[None], k[None], v[None], attn_mask=m)[0],
-                2 * sum(lens) * hd * 2 + 2 * BH * hd * 2 + 4 * BH,
-                4 * hd * sum(lens), BF16_FLOPS_PER_S, TOL)
+                *costs.decode(BH, BH, hd, bf, sum(lens), sum(lens)), TOL)
     yield from gqa_decode_cases(kp, randn, 24, 8, 64, GRANITE)   # G = 3
     chunk_cumsum = kp["ssm_scan"][2]
     bh, hd, ds = 64, 64, 64                      # zamba2: 64 heads, 1 group
@@ -443,9 +461,6 @@ def kernel_cases(kp):
                                       scale=0.2).abs(), chunk)
             # bf16 B/C: the chunked form in 3xTF32 on the tensor cores;
             # f32: the recurrence's 4 BH S hd ds flops on CUDA cores
-            flops, peak = ((ssm_tc_flops(bh, 1, s, hd, ds, chunk),
-                            TF32_FLOPS_PER_S) if dt == bf else
-                           (4 * bh * s * hd * ds, F32_FLOPS_PER_S))
             yield Case(
                 "ssm_scan", f"BH {bh}, S {s}, hd {hd}, ds {ds}, chunk {chunk}, "
                 f"B/C {str(dt)[6:]}",
@@ -453,10 +468,8 @@ def kernel_cases(kp):
                     *a, chunk=c),
                 lambda a=(xbar, B, C, cum), c=chunk: kp["ssm_scan"][1](
                     *a, chunk=c),
-                None,
-                4 * bh * s * hd * 2 + 2 * s * ds * B.element_size()
-                + 4 * bh * s + 4 * bh * hd * ds,
-                flops, peak, SSM_TOL, serving=dt == bf)
+                None, *costs.ssm(bh, 1, s, hd, ds, chunk, dt), SSM_TOL,
+                serving=dt == bf)
     bh, hd = 32, 64                              # rwkv6: 32 heads of 64
     chunk = kp["rwkv6_scan"][2]
     for s in (32, 200, 513, 600):
@@ -465,16 +478,13 @@ def kernel_cases(kp):
                        for _ in range(3))
             w = torch.sigmoid(randn(bh, s, hd, dtype=torch.float32)).to(dt)
             u = randn(bh, hd, dtype=torch.float32, scale=0.1)
-            esize = r.element_size()
             # the serving path passes f32 (models/rwkv.py casts r, k, v
             # and the decay): that case is the JSON line's
             yield Case(
                 "rwkv6_scan", f"BH {bh}, S {s}, hd {hd}, {str(dt)[6:]}",
                 lambda a=(r, k, v, w, u): kp["rwkv6_scan"][0](*a),
                 lambda a=(r, k, v, w, u): kp["rwkv6_scan"][1](*a),
-                None,
-                5 * bh * s * hd * esize + 4 * bh * hd + 4 * bh * hd * hd,
-                rwkv_chunk_flops(bh, s, hd, chunk), F32_FLOPS_PER_S, tol,
+                None, *costs.rwkv(bh, bh, s, hd, dt, chunk), tol,
                 serving=dt == torch.float32)
     yield from qwen_cases(kp, randn)
     yield from attention_edge_cases(kp, randn)
@@ -506,8 +516,8 @@ def gqa_decode_cases(kp, randn, bh, bh_kv, hd, model):
                 q, k, v, l),
             lambda q=q, k=k, v=v, m=mask: F.scaled_dot_product_attention(
                 q[None], k[None], v[None], attn_mask=m, enable_gqa=True)[0],
-            2 * bh_kv * n * hd * 2 + 2 * bh * hd * 2 + 4 * bh,
-            4 * hd * n * bh, BF16_FLOPS_PER_S, TOL, model=model)
+            *costs.decode(bh, bh_kv, hd, torch.bfloat16, n * bh, n * bh_kv),
+            TOL, model=model)
 
 
 def qwen_cases(kp, randn):
@@ -516,9 +526,7 @@ def qwen_cases(kp, randn):
     path's kernel), and decode at BH 12 over 2, cache 1024."""
     bh, bh_kv, hd, s = 12, 2, 128, 600
     bf = torch.bfloat16
-    pairs = s * (s + 1) // 2
-    for dt, tol, peak in ((bf, TOL, BF16_FLOPS_PER_S),
-                          (torch.float32, F32_TOL, F32_FLOPS_PER_S)):
+    for dt, tol in ((bf, TOL), (torch.float32, F32_TOL)):
         q = randn(bh, s, hd, dtype=dt)
         k, v = randn(bh_kv, s, hd, dtype=dt), randn(bh_kv, s, hd, dtype=dt)
         yield Case(
@@ -530,8 +538,7 @@ def qwen_cases(kp, randn):
             lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                 q[None], k[None], v[None], is_causal=True,
                 enable_gqa=True)[0],
-            2 * (bh + bh_kv) * s * hd * q.element_size(),
-            4 * hd * pairs * bh, peak, tol, model=QWEN)
+            *costs.flash(bh, bh_kv, s, s, hd, dt), tol, model=QWEN)
     yield from gqa_decode_cases(kp, randn, bh, bh_kv, hd, QWEN)
 
 
@@ -624,8 +631,7 @@ def gemma_cases(kp, model):
                    lambda x=x, w=w: norm[0](x, w),
                    lambda x=x, w=w: norm[1](x, w),
                    lambda x=x, w1=w1, d=d: F.rms_norm(x, (d,), w1, eps=1e-6),
-                   2 * n * d * 2 + d * 4, 4 * n * d, BF16_FLOPS_PER_S, TOL,
-                   model=model)
+                   *costs.rmsnorm(n, d, bf), TOL, model=model)
     flash, decode = kp["flash_attention"], kp["decode_attention"]
     for s, window, dt in ((600, 0, bf), (600, 0, f32), (1500, 1024, bf)):
         q = randn(bh, s, hd, dtype=dt)
@@ -644,9 +650,7 @@ def gemma_cases(kp, model):
             lambda a=(q, k, v), w=window: flash[1](*a, window=w),
             lambda a=(q, k, v), kw=sdpa: F.scaled_dot_product_attention(
                 *(t[None] for t in a), enable_gqa=True, **kw)[0],
-            2 * (bh + bh_kv) * s * hd * q.element_size(),
-            4 * hd * int(keep.sum()) * bh,
-            BF16_FLOPS_PER_S if dt == bf else F32_FLOPS_PER_S,
+            *costs.flash(bh, bh_kv, s, s, hd, dt, window=window),
             TOL if dt == bf else F32_TOL, model=model)
     yield from gqa_decode_cases(kp, randn, bh, bh_kv, hd, model)
     S, n = 2048, 1904
@@ -660,8 +664,8 @@ def gemma_cases(kp, model):
         lambda a=(q, k, v, lengths): decode[1](*a),
         lambda q=q, k=k, v=v, m=mask: F.scaled_dot_product_attention(
             q[None], k[None], v[None], attn_mask=m, enable_gqa=True)[0],
-        2 * bh_kv * n * hd * 2 + 2 * bh * hd * 2 + 4 * bh,
-        4 * hd * n * bh, BF16_FLOPS_PER_S, TOL, model=model)
+        *costs.decode(bh, bh_kv, hd, bf, n * bh, n * bh_kv), TOL,
+        model=model)
     cap, s, S = 2.0, 600, 1024
     q, k, v = randn(bh, s, hd), randn(bh_kv, s, hd), randn(bh_kv, s, hd)
     yield Case(
@@ -670,8 +674,7 @@ def gemma_cases(kp, model):
         f"{cap} (max |s| / cap {max_score(q, k) / cap:.2f}), bfloat16",
         lambda a=(q, k, v): flash[0](*a, softcap=cap),
         lambda a=(q, k, v): flash[1](*a, softcap=cap), None,
-        2 * (bh + bh_kv) * s * hd * 2, 4 * hd * s * (s + 1) // 2 * bh,
-        BF16_FLOPS_PER_S, TOL, model=model)
+        *costs.flash(bh, bh_kv, s, s, hd, bf), TOL, model=model)
     q, k, v = randn(bh, 1, hd), randn(bh_kv, S, hd), randn(bh_kv, S, hd)
     lengths = torch.full((bh,), S, dtype=torch.int32, device="cuda")
     yield Case(
@@ -680,8 +683,7 @@ def gemma_cases(kp, model):
         f"{max_score(q, k) / cap:.2f})",
         lambda a=(q, k, v, lengths): decode[0](*a, softcap=cap),
         lambda a=(q, k, v, lengths): decode[1](*a, softcap=cap), None,
-        2 * bh_kv * S * hd * 2 + 2 * bh * hd * 2 + 4 * bh,
-        4 * hd * S * bh, BF16_FLOPS_PER_S, TOL, model=model)
+        *costs.decode(bh, bh_kv, hd, bf, S * bh, S * bh_kv), TOL, model=model)
     flash_edges, decode_edges = GEMMA_EDGES[model]
     for dt, tol in ((bf, TOL), (f32, F32_TOL)):
         tag = str(dt)[6:]
@@ -739,41 +741,6 @@ def poisoned_flash(kern, q, k, v, **kw):
     buf = torch.full((n + 64,), float("nan"), dtype=q.dtype, device="cuda")
     out = kern(q, k, v, out=buf[:n].view(q.shape), **kw)
     return out, buf[n:].isnan().float()
-
-
-def ssm_tc_flops(bh: int, bh_bc: int, s: int, hd: int, ds: int,
-                 chunk: int) -> int:
-    """The TF32 flops of the chunked SSD form as the bf16 ssm_scan kernel
-    tiles it (tiles of at most 64 steps that restart at chunk starts):
-    per tile of n steps, G = C B^T on and below the diagonal once per B/C
-    group (bf16, at twice the TF32 rate: counted half), and per head P X
-    on and below it (3xTF32: 3 products), C H^T and the state update (2
-    each, B and C being exact in TF32)."""
-    total, t0 = 0, 0
-    while t0 < s:
-        n = min(t0 + 64, (t0 // chunk + 1) * chunk, s) - t0
-        tri = n * (n + 1)               # 2 * the pairs j <= i
-        total += bh_bc * tri * ds // 2 + bh * (3 * tri * hd
-                                               + 8 * n * hd * ds)
-        t0 += n
-    return total
-
-
-def rwkv_chunk_flops(bh: int, s: int, hd: int, chunk: int) -> int:
-    """The f32 flops of the chunked form the rwkv6_scan kernel computes
-    (an FMA is 2), per head and chunk of n steps, counting A once a head
-    (the kernel forms it again in each block of value columns): o from
-    the state, 2 n hd^2; the state update, 2 n hd^2 + hd^2 (g times S);
-    A v on and below the diagonal, 2 hd n(n+1)/2; A below it, 4 hd
-    n(n-1)/2 (k D, the FMA and the running product D w); A's diagonal
-    r . (u k), 3 n hd; the prefix and suffix products and r a, k b,
-    4 n hd."""
-    total = 0
-    for t0 in range(0, s, chunk):
-        n = min(chunk, s - t0)
-        total += (4 * n + 1) * hd * hd + hd * n * (n + 1) \
-            + 2 * hd * n * (n - 1) + 7 * n * hd
-    return bh * total
 
 
 def rwkv_edge_cases(kp, randn):
@@ -1041,8 +1008,7 @@ def backward_cases(rt):
         return (torch.randn(shape, generator=gen, device="cuda") * scale) \
             .to(dtype)
 
-    def norm_case(n, d, dt, tol, peak, model=None):
-        size = torch.finfo(dt).bits // 8
+    def norm_case(n, d, dt, tol, model=None):
         x, dy = randn(n, d, dtype=dt), randn(n, d, dtype=dt)
         w = randn(d, dtype=torch.float32, scale=0.1)
         xg, wg = (t.clone().requires_grad_(True) for t in (x, w))
@@ -1052,15 +1018,14 @@ def backward_cases(rt):
         return Case("fused_rmsnorm_bwd", f"x ({n}, {d}), {str(dt)[6:]}",
                     lambda: kb["fused_rmsnorm_bwd"](x, w, dy), plain,
                     retained_grad(lib_out, (xl, wl), dy),
-                    3 * n * d * size + 2 * d * 4, 10 * n * d, peak,
+                    *costs.rmsnorm_bwd(n, d, dt),
                     (tol, dw_tol(n)), serving=dt == torch.bfloat16,
                     bitwise=True, model=model)
 
-    for dt, tol, peak in ((torch.bfloat16, TOL, BF16_FLOPS_PER_S),
-                          (torch.float32, F32_TOL, F32_FLOPS_PER_S)):
-        tag, size = str(dt)[6:], torch.finfo(dt).bits // 8
+    for dt, tol in ((torch.bfloat16, TOL), (torch.float32, F32_TOL)):
+        tag = str(dt)[6:]
         for n in (8192, 1):
-            yield norm_case(n, 4096, dt, tol, peak)
+            yield norm_case(n, 4096, dt, tol)
         bh, s, hd = 64, 4096, 128
         q, k, v, do = (randn(bh, s, hd, dtype=dt) for _ in range(4))
         out, lse = kb["flash_lse"](q, k, v)
@@ -1071,27 +1036,27 @@ def backward_cases(rt):
         lib = retained_grad(F.scaled_dot_product_attention(
             ql[None], kl[None], vl[None], is_causal=True)[0], (ql, kl, vl),
             do)
-        pairs = bh * s * (s + 1) // 2
         label = f"BH {bh}, S {s}, hd {hd}, causal, {tag}"
         design = "tensor cores" if dt == torch.bfloat16 else "SIMT"
         serving = dt == torch.bfloat16
         yield Case("flash_bwd_preprocess", label,
                    lambda: kb["flash_bwd_preprocess"](out, do),
                    lambda: kb["flash_bwd_preprocess_plain"](out, do), None,
-                   2 * bh * s * hd * size + bh * s * 4, 2 * bh * s * hd,
-                   peak, tol, serving=serving, bitwise=True)
+                   *costs.flash_bwd_preprocess(bh, s, hd, dt), tol,
+                   serving=serving, bitwise=True)
         yield from flash_bwd_cases(kb, (q, k, v, do, lse, delta), plain, lib,
-                                   f"{label}, {design}", pairs, peak, tol,
-                                   serving, lib_ratio=BWD_LIB_RATIO
+                                   f"{label}, {design}", tol, serving,
+                                   lib_ratio=BWD_LIB_RATIO
                                    if serving else None)
         yield Case("flash_attention", f"lse, {label}",
                    lambda: kb["flash_lse"](q, k, v)[1],
-                   lambda: kb["flash_lse_plain"](q, k), None, 0, 0, peak,
+                   lambda: kb["flash_lse_plain"](q, k), None, 0, 0,
+                   costs.peak_rate(dt),
                    LSE_TOL[dt], timed=False, bitwise=True)
         del q, k, v, do, out, lse, delta, qg, kg, vg, ql, kl, vl, plain, lib
     bf = torch.bfloat16
     for model, (d, bh, bh_kv, hd) in TRAIN_SHAPES.items():
-        yield norm_case(8192, d, bf, TOL, BF16_FLOPS_PER_S, model)
+        yield norm_case(8192, d, bf, TOL, model)
         s = 4096
         for window in (0, 1024):
             q, do = randn(bh, s, hd, dtype=bf), randn(bh, s, hd, dtype=bf)
@@ -1115,9 +1080,8 @@ def backward_cases(rt):
                      f"{f', window {window}' if window else ''}, bf16, "
                      "tensor cores")
             yield from flash_bwd_cases(
-                kb, (q, k, v, do, lse, delta), plain, lib, label,
-                bh * int(keep.sum()), BF16_FLOPS_PER_S, TOL, True, window,
-                model, BWD_LIB_RATIO)
+                kb, (q, k, v, do, lse, delta), plain, lib, label, TOL, True,
+                window, model, BWD_LIB_RATIO)
             del q, k, v, do, out, lse, delta, qg, kg, vg, ql, kl, vl, plain
             del lib, keep, sdpa
     edges = (("hd 16", 8, 8, 600, 16, 0), ("hd 32", 8, 8, 600, 32, 0),
@@ -1144,40 +1108,6 @@ def backward_cases(rt):
                        lambda a=(q, k), w=window: kb["flash_lse_plain"](
                            *a, window=w),
                        None, 0, 0, BF16_FLOPS_PER_S, LSE_TOL[dt], timed=False)
-
-
-def ssm_bwd_flops(bh: int, bh_bc: int, s: int, hd: int, ds: int,
-                  chunk: int, bf16: Optional[bool] = None) -> float:
-    """The f32 flops the ssm_scan backward needs on these shapes (an FMA
-    is 2): per chunk of n steps and its n(n+1)/2 live pairs, C B^T once a
-    B/C group (2 ds a pair), and a head's dY X^T and P^T dY (2 hd a pair
-    each) and M^T C and M B (2 ds each); per step a head's three state
-    products (G B^T, X G, dY H) and the chunk's own terms of the state
-    and its gradient (X^T B, dY^T C), 2 hd ds each. With ``bf16`` (B/C's
-    dtype is bf16, or f32 when False), each product's flops weighted by
-    the passes the kernel runs it in on the tensor cores, so that their
-    time at the TF32 peak is the bound: 3 (3xTF32) where both operands
-    are f32, 2 where one is B or C in bf16 (exact in TF32), and C B^T on
-    bf16 at the bf16 rate (1/2)."""
-    if bf16 is None:
-        w3 = w2 = wcb = 1
-    else:
-        w3, w2, wcb = 3, (2 if bf16 else 3), (0.5 if bf16 else 3)
-    total = 0
-    for t0 in range(0, s, chunk):
-        n = min(chunk, s - t0)
-        pairs = n * (n + 1) // 2
-        total += bh_bc * pairs * 2 * ds * wcb + bh * (
-            pairs * (4 * hd * w3 + 4 * ds * w2)
-            + n * 2 * hd * ds * (3 * w2 + 2 * w3))
-    return total
-
-
-def rwkv_bwd_flops(bh: int, s: int, hd: int) -> int:
-    """The f32 flops the rwkv6_scan backward needs (an FMA is 2): per step
-    and head the state forward, dr, dk, dw, dv and the carry of dS back,
-    2 hd^2 each, and the bonus terms, 10 hd."""
-    return bh * s * (12 * hd * hd + 10 * hd)
 
 
 def scan_backward_cases(rt):
@@ -1213,9 +1143,6 @@ def scan_backward_cases(rt):
         ins = [t.clone().requires_grad_(True) for t in (xbar, B, C, cum)]
         plain = retained_grad(kb["ssm_plain"](*ins, chunk=chunk), ins,
                               (dy, dhv))
-        esize = B.element_size()
-        nbytes = 3 * bh * s * hd * 4 + 4 * bh_bc * s * ds * esize + \
-            2 * bh * s * 4 + bh * hd * ds * 4
         tf = F32_TOL * s ** 0.5
         tol = (tf, TOL, TOL, tf) if dt == torch.bfloat16 else (tf,) * 4
         label = (f"BH {bh} over {bh_bc}, S {s}, hd {hd}, ds {ds}, chunk "
@@ -1225,10 +1152,9 @@ def scan_backward_cases(rt):
         return Case("ssm_scan_bwd", label,
                     lambda: kb["ssm_bwd"](xbar, B, C, cum, dy, dhv,
                                           chunk=chunk),
-                    plain, None, nbytes,
-                    ssm_bwd_flops(bh, bh_bc, s, hd, ds, chunk,
-                                  bf16=dt == torch.bfloat16),
-                    TF32_FLOPS_PER_S, tol, timed=timed, bitwise=True)
+                    plain, None,
+                    *costs.ssm_bwd(bh, bh_bc, s, hd, ds, chunk, dt), tol,
+                    timed=timed, bitwise=True)
 
     def rwkv_case(bh, n_u, s, hd, dt, *, extreme=False, dstate=False,
                   timed=False):
@@ -1244,9 +1170,6 @@ def scan_backward_cases(rt):
                                                           device="cuda")
         ins = [t.clone().requires_grad_(True) for t in (r, k, v, w, u)]
         plain = retained_grad(kb["rwkv_plain"](*ins), ins, (do, ds))
-        esize = r.element_size()
-        nbytes = 9 * bh * s * hd * esize + 2 * n_u * hd * 4 + \
-            bh * hd * hd * 4
         tf = F32_TOL * s ** 0.5
         tb = TOL if dt == torch.bfloat16 else tf
         tol = (tb,) * 4 + (F32_TOL * (s * bh // n_u) ** 0.5,)
@@ -1255,8 +1178,8 @@ def scan_backward_cases(rt):
                  f"{', dS nonzero' if dstate else ''}")
         return Case("rwkv6_scan_bwd", label,
                     lambda: kb["rwkv_bwd"](r, k, v, w, u, do, ds), plain,
-                    None, nbytes, rwkv_bwd_flops(bh, s, hd),
-                    F32_FLOPS_PER_S, tol, timed=timed, bitwise=True)
+                    None, *costs.rwkv_bwd(bh, n_u, s, hd, dt), tol,
+                    timed=timed, bitwise=True)
 
     bf, f32 = torch.bfloat16, torch.float32
     yield ssm_case(128, 2, 4096, 64, 64, 256, bf, timed=True)
@@ -1281,28 +1204,27 @@ def scan_backward_cases(rt):
             yield rwkv_case(*args, dt, **kw)
 
 
-def flash_bwd_cases(kb, args, plain, lib, label, pairs, peak, tol, serving,
-                    window=0, model=None, lib_ratio=None):
+def flash_bwd_cases(kb, args, plain, lib, label, tol, serving, window=0,
+                    model=None, lib_ratio=None):
     """flash_bwd_dkdv (8 hd flops a live pair) and flash_bwd_dq (6 hd) on
-    args = (q, k, v, dO, lse, D), each against the dk, dv or dq of
+    args = (q, k, v, dO, lse, D), causal, each against the dk, dv or dq of
     ``plain`` and ``lib`` (retained backward calls computing all three
     grads); bytes: each input read once (K and V once a KV head), each
-    output written once."""
+    output written once (``costs.flash_bwd_dkdv``, ``flash_bwd_dq``)."""
     q, k = args[0], args[1]
-    bh, s, hd = q.shape
-    qo, kv = bh * s * hd * q.element_size(), k.numel() * k.element_size()
-    rows = 2 * bh * s * 4                         # lse and D read
+    shape = (q.shape[0], k.shape[0], q.shape[1], k.shape[1], q.shape[2],
+             q.dtype, True, window)
     note = "(plain and library: all three grads)"
     yield Case("flash_bwd_dkdv", f"{label} {note}",
                lambda: kb["flash_bwd_dkdv"](*args, window=window),
                lambda: plain()[1:], lambda: lib()[1:],
-               2 * qo + 4 * kv + rows, 8 * hd * pairs, peak, tol,
+               *costs.flash_bwd_dkdv(*shape), tol,
                serving=serving, bitwise=True, model=model,
                lib_ratio=lib_ratio)
     yield Case("flash_bwd_dq", f"{label} {note}",
                lambda: kb["flash_bwd_dq"](*args, window=window),
                lambda: plain()[0], lambda: lib()[0],
-               3 * qo + 2 * kv + rows, 6 * hd * pairs, peak, tol,
+               *costs.flash_bwd_dq(*shape), tol,
                serving=serving, bitwise=True, model=model,
                lib_ratio=lib_ratio)
 
@@ -1352,6 +1274,96 @@ def guard_checks(rt) -> None:
               flush=True)
 
 
+def meta_alloc_checks(rt) -> None:
+    """The dry run's meta route against the card: each kernel and backward
+    kernel at the training shapes of its backward rows (deepseek-7b's
+    norm and attention, gemma3-12b's attention at hd 240 over 16 KV heads
+    with the window of 1024, zamba2-1.2b's and rwkv6-1.6b's scans; decode
+    at deepseek-7b's serving shape), the forward kernels under grad (their
+    saved tensors and log-sum-exps live): the bytes the call holds at its
+    peak on meta (``dryrun.peak_of``, each allocation rounded to 512 as
+    the caching allocator does) must equal its max_memory_allocated delta
+    on the card."""
+    bf, f32, i32 = torch.bfloat16, torch.float32, torch.int32
+    kb, ops = rt.backward, rt.ops
+    G = (True,)                  # an input that requires grad
+
+    def flash_in(bh, bh_kv, hd):
+        return ((bh, 4096, hd, bf), (bh_kv, 4096, hd, bf),
+                (bh_kv, 4096, hd, bf), (bh, 4096, hd, bf), (bh, 4096, f32),
+                (bh, 4096, f32))
+    ds_flash, gemma_flash = flash_in(64, 64, 128), flash_in(32, 16, 240)
+    ssm_in = ((128, 4096, 64, f32), (2, 4096, 64, bf), (2, 4096, 64, bf),
+              (128, 4096, f32), (128, 4096, 64, f32), (128, 64, 64, f32))
+    rwkv_in = ((64, 4096, 64, f32),) * 4 + ((32, 64, f32),
+                                            (64, 4096, 64, f32),
+                                            (64, 64, 64, f32))
+    cases = (
+        ("fused_rmsnorm", "under grad, x (8192, 4096) bf16",
+         ((8192, 4096, bf) + G, (4096, f32) + G), ops.fused_rmsnorm),
+        ("fused_rmsnorm_bwd", "x (8192, 4096) bf16",
+         ((8192, 4096, bf), (4096, f32), (8192, 4096, bf)),
+         kb["fused_rmsnorm_bwd"]),
+        ("flash_attention", "under grad, BH 64, S 4096, hd 128, bf16",
+         tuple(t + G for t in ds_flash[:3]), ops.flash_attention),
+        ("flash_attention", "under grad, BH 32 over 16, S 4096, hd 240, "
+         "window 1024, bf16", tuple(t + G for t in gemma_flash[:3]),
+         lambda q, k, v: ops.flash_attention(q, k, v, window=1024)),
+        ("flash_bwd_preprocess", "BH 64, S 4096, hd 128, bf16",
+         (ds_flash[0], ds_flash[3]), kb["flash_bwd_preprocess"]),
+        ("flash_bwd_dkdv", "BH 64, S 4096, hd 128, bf16", ds_flash,
+         kb["flash_bwd_dkdv"]),
+        ("flash_bwd_dq", "BH 64, S 4096, hd 128, bf16", ds_flash,
+         kb["flash_bwd_dq"]),
+        ("flash_bwd_dkdv", "BH 32 over 16, S 4096, hd 240, window 1024, "
+         "bf16", gemma_flash,
+         lambda *a: kb["flash_bwd_dkdv"](*a, window=1024)),
+        ("flash_bwd_dq", "BH 32 over 16, S 4096, hd 240, window 1024, bf16",
+         gemma_flash, lambda *a: kb["flash_bwd_dq"](*a, window=1024)),
+        ("decode_attention", "BH 32, cache 1024, hd 128, bf16",
+         ((32, 1, 128, bf), (32, 1024, 128, bf), (32, 1024, 128, bf),
+          (32, i32)), ops.decode_attention),
+        ("ssm_scan", "under grad, BH 128 over 2, S 4096, hd 64, ds 64, "
+         "chunk 256, B/C bf16", tuple(t + G for t in ssm_in[:4]),
+         lambda *a: ops.ssm_scan(*a, chunk=256)),
+        ("ssm_scan_bwd", "BH 128 over 2, S 4096, hd 64, ds 64, chunk 256, "
+         "B/C bf16", ssm_in, lambda *a: kb["ssm_bwd"](*a, chunk=256)),
+        ("rwkv6_scan", "under grad, BH 64, NU 32, S 4096, hd 64, f32",
+         tuple(t + G for t in rwkv_in[:5]), ops.rwkv6_scan),
+        ("rwkv6_scan_bwd", "BH 64, NU 32, S 4096, hd 64, f32", rwkv_in,
+         kb["rwkv_bwd"]))
+
+    def make(specs, device):
+        out = []
+        for spec in specs:
+            grad = spec[-1] is True
+            *shape, dt = spec[:-1] if grad else spec
+            t = (torch.ones(shape, dtype=dt, device=device) if dt == i32
+                 else torch.rand(shape, device=device).to(dt))
+            out.append(t.requires_grad_(grad))
+        return tuple(out)
+
+    for name, label, specs, call in cases:
+        ins = make(specs, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with ops.uncounted():
+            out = call(*ins)
+        torch.cuda.synchronize()
+        card = torch.cuda.max_memory_allocated() - base
+        del out, ins
+        meta_ins = make(specs, "meta")
+        pred = rt.dryrun.peak_of(lambda: call(*meta_ins), meta_ins)
+        print(f"meta alloc {name} [{label}]: meta {pred} B, card {card} B",
+              flush=True)
+        if pred != card:
+            fail(f"{name} [{label}]: the meta route holds {pred} bytes at "
+                 f"its peak, the card's call {card}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # -- phase 5: training deepseek-7b and gemma3-12b at full width ---------------
 
 TRAIN_ARCH = "deepseek-7b"
@@ -1366,6 +1378,8 @@ GEMMA_TRAIN_LAYERS, GEMMA_TRAIN_STEPS = 6, 3
 # rwkv6-1.6b (24 layers, 1.483 B, 23.7 GB) at full width and depth: 3
 # steps, the last traced
 SCAN_TRAIN_ARCHS, SCAN_TRAIN_STEPS = ("zamba2-1.2b", "rwkv6-1.6b"), 3
+# the dry run's predicted train peak: within this share of the measured one
+DRY_RUN_TOL = 0.05
 # a microbatch's shapes of gemma3's train steps: (d, BH, BH_kv, hd)
 TRAIN_SHAPES = {GEMMA: (3840, 32, 16, 240), GEMMA27: (5376, 64, 32, 168)}
 
@@ -1383,63 +1397,6 @@ def train_model(rt, n_layers: int, dtype=torch.bfloat16, kernels=None,
                                 dtype=torch.float32)
     return rt.LM.from_params(cfg, params, dtype=dtype,
                              kernels=kernels or rt.ops)
-
-
-def attended_pairs(seq: int, window: int) -> int:
-    """(query, key) pairs of causal attention over seq positions, keys
-    also within ``window`` of the query where it is > 0."""
-    if window <= 0 or window >= seq:
-        return seq * (seq + 1) // 2
-    return window * (window + 1) // 2 + (seq - window) * window
-
-
-def train_flops(rt, cfg, tokens: int, seq: int) -> dict:
-    """Model FLOPs of a train step (no remat recomputation), by part:
-    "matmul", 6 per matmul parameter a token (the transformer families'
-    q, k, v, o at GQA's widths and the MLP's three; zamba2's Mamba layers'
-    in, B, C, dt and out projections and its shared block once for each
-    of its applications; rwkv6's r, k, v, g, o, decay LoRA and channel
-    mix; and the head); "attention", 4 hd flops a (query head, attended
-    pair) forward, three times (forward, backward): causal pairs for a
-    global layer and zamba2's shared block, pairs within the window for a
-    local one; "scan", the scans' forward flops three times: zamba2's
-    chunked SSD form (C B^T once a B/C group, 2 ds a live pair; P X, 2 hd
-    a pair; C H^T and the state update, 4 hd ds a step, a head) and
-    rwkv6's recurrence (4 hd^2 a step and head)."""
-    d, L, V = cfg.d_model, cfg.n_layers, cfg.vocab
-    kind = rt.family_kind(cfg)
-    seqs = tokens / seq
-    causal = seq * (seq + 1) // 2
-    attn = scan = 0.0
-    if kind == "zamba":
-        d_in, nh, hd, ds = rt.ssm_dims(cfg)
-        shared = rt.zamba_groups(cfg)[0]
-        H, KV, ahd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        ssm = d * 2 * d_in + 2 * d * ds + d * nh + d_in * d
-        block = d * ahd * (2 * H + 2 * KV) + 3 * d * cfg.d_ff
-        matmul = L * ssm + shared * block + d * V
-        attn = shared * 3 * 4 * H * ahd * causal * seqs
-        chunk = min(cfg.ssm_chunk, seq)
-        fwd = 0
-        for t0 in range(0, seq, chunk):
-            n = min(chunk, seq - t0)
-            pairs = n * (n + 1) // 2
-            fwd += pairs * 2 * ds + nh * (pairs * 2 * hd + n * 4 * hd * ds)
-        scan = 3 * L * fwd * seqs
-    elif kind == "rwkv":
-        nh, hd = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
-        matmul = L * (5 * d * d + 2 * d * rt.LORA + 2 * d * cfg.d_ff) + d * V
-        scan = 3 * L * nh * 4 * hd * hd * tokens
-    else:
-        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        per_layer = d * hd * (2 * H + 2 * KV) + 3 * d * cfg.d_ff
-        matmul = L * per_layer + d * V
-        windows = ([0 if glob else cfg.local_window for glob, _ in
-                    rt.lg_layers(cfg)] if kind == "local_global"
-                   else [0] * L)
-        attn = sum(3 * 4 * H * hd * attended_pairs(seq, w)
-                   for w in windows) * seqs
-    return {"matmul": 6 * matmul * tokens, "attention": attn, "scan": scan}
 
 
 def train_launches(rt, cfg, steps: int) -> dict:
@@ -1475,8 +1432,16 @@ def train_phase(rt, smi: str, arch: str = TRAIN_ARCH,
     """(c): ``arch`` at full width, ``n_layers`` layers, trains ``steps``
     steps of batch 4 x 4096 tokens in 2 microbatches through
     make_train_step; the launch counts set to 0 just before and read just
-    after."""
+    after. Before it, the dry run reckons the same step on the host (meta
+    device); its peak, plus what is live on the card as the phase
+    starts, must lie within DRY_RUN_TOL of the phase's
+    max_memory_allocated."""
+    t0 = time.perf_counter()
+    dry = rt.dryrun.run_cell(arch, "train_4k", layers=n_layers,
+                             batch=TRAIN_BATCH, microbatches=TRAIN_MB)
+    dry_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     t_phase = t0 = time.perf_counter()
     lm = train_model(rt, n_layers, arch=arch)
     cfg = lm.cfg
@@ -1508,7 +1473,7 @@ def train_phase(rt, smi: str, arch: str = TRAIN_ARCH,
                           batch=TRAIN_BATCH, seed=SEED, device="cuda")
     step_fn = rt.make_train_step(lm, tcfg)
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    parts = train_flops(rt, cfg, tokens, TRAIN_SEQ)
+    parts = rt.dryrun.train_flops(cfg, tokens, TRAIN_SEQ)
     flops = sum(parts.values())
     print(f"train {cfg.name}: model FLOPs a step {flops / 1e12:.1f} T = "
           + " + ".join(f"{k} {v / 1e12:.1f}" for k, v in parts.items()),
@@ -1585,6 +1550,36 @@ def train_phase(rt, smi: str, arch: str = TRAIN_ARCH,
     for name, ms, calls in by_kernel["top"]:
         print(f"train kernel {name[:90]}: {ms:.1f} ms in {calls} calls",
               flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    pred = dry["peak_bytes"] + base
+    gap = pred - peak
+    dry_flops = dry["hlo_flops_dev"]
+    print(f"train {cfg.name} dry run (host, meta device, {dry_s:.1f} s): "
+          f"predicted peak {dry['peak_bytes'] / 1e9:.3f} GB + "
+          f"{base / 1e9:.3f} GB live as the phase starts = {pred / 1e9:.3f}"
+          f" GB, measured max_memory_allocated {peak / 1e9:.3f} GB, gap "
+          f"{gap / 1e9:+.3f} GB ({gap / peak:+.4f} of measured, limit "
+          f"{DRY_RUN_TOL}); predicted {dry_flops / 1e12:.1f} TFLOP a step "
+          f"(aten and kernels, remat included), {dry_flops / wall / 1e12:.1f}"
+          f" TFLOP/s at the measured median wall; t_compute "
+          f"{dry['t_compute']:.3f} s, t_memory {dry['t_memory']:.3f} s, "
+          f"bottleneck {dry['bottleneck']}", flush=True)
+    if abs(gap) > DRY_RUN_TOL * peak:
+        fail(f"train {cfg.name}: the dry run's peak {pred} B is more than "
+             f"{DRY_RUN_TOL} of the measured {peak} B away")
+    total = torch.cuda.get_device_properties(0).total_memory
+    free, _ = torch.cuda.mem_get_info()
+    outside = total - free - torch.cuda.memory_reserved()
+    print(f"train {cfg.name} capacity: total_memory {total} B (the dry "
+          f"run's {HBM_BYTES} B), {outside} B outside the caching allocator "
+          f"(the dry run leaves {HBM_OUTSIDE_ALLOCATOR} B), max reserved "
+          f"{torch.cuda.max_memory_reserved()} B", flush=True)
+    if total != HBM_BYTES:
+        fail(f"the card holds {total} B, the dry run's capacity is "
+             f"{HBM_BYTES} B")
+    if outside > HBM_OUTSIDE_ALLOCATOR:
+        fail(f"train {cfg.name}: {outside} B outside the caching allocator, "
+             f"the dry run leaves {HBM_OUTSIDE_ALLOCATOR} B")
     del lm, params, opt, step_fn
     gc.collect()
     torch.cuda.empty_cache()
@@ -1961,6 +1956,28 @@ def serving_phase(rt, cfg, params):
     return counts, done, eng.lm
 
 
+def cache_check(rt, lm, cfg) -> None:
+    """The bytes the dry run reckons for a slot's cache (``cache_specs``,
+    each leaf rounded to 512) against what ``new_cache`` allocates on the
+    card. ``new_cache`` allocates from ``cache_specs`` itself, so this
+    checks only that the card's allocator rounds as ``alloc_bytes``
+    does; the tie to JAX's cache layout is the CPU test
+    ``test_new_cache_bytes_are_jax_s``."""
+    max_len = MODEL_MAX_LEN.get(cfg.name, MAX_LEN)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    cache = lm.new_cache(1, max_len)
+    torch.cuda.synchronize()
+    card = torch.cuda.memory_allocated() - before
+    del cache
+    pred = rt.dryrun.cache_bytes(cfg, 1, max_len, lm.dtype)
+    print(f"cache {cfg.name}: new_cache(1, {max_len}) allocates {card} B on "
+          f"the card, the dry run reckons {pred} B", flush=True)
+    if pred != card:
+        fail(f"{cfg.name}: new_cache allocates {card} B, the dry run "
+             f"reckons {pred} B")
+
+
 def redecode_check(lm, cfg, done) -> None:
     """The engine's tokens (graph replays, slots swapped on preemption)
     against an eager greedy decode of each request on its own cache."""
@@ -2306,6 +2323,7 @@ def model_phase(rt, arch: str) -> dict:
           f"{n_params / 1e9:.3f} B parameters, {gb:.2f} GB on the card, "
           f"initialised in {time.perf_counter() - t0:.1f} s", flush=True)
     counts, done, lm = serving_phase(rt, cfg, params)
+    cache_check(rt, lm, cfg)
     redecode_check(lm, cfg, done)
     step_times(rt, lm, cfg)
     serving_peak = torch.cuda.max_memory_allocated()
@@ -2606,7 +2624,7 @@ def load_port() -> SimpleNamespace:
     from repro_torch.serving.graphs import SlotDecoder
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import TrainConfig
-    from repro_torch.launch import profile
+    from repro_torch.launch import dryrun, profile
     from repro_torch.training import (SyntheticLM, init_opt_state,
                                       load_train_state, loss_and_grads,
                                       make_train_step, state_like,
@@ -2642,7 +2660,7 @@ def load_port() -> SimpleNamespace:
         init_opt_state=init_opt_state, make_train_step=make_train_step,
         loss_and_grads=loss_and_grads, CheckpointManager=CheckpointManager,
         train_state=train_state, state_like=state_like,
-        load_train_state=load_train_state, profile=profile,
+        load_train_state=load_train_state, profile=profile, dryrun=dryrun,
         backward={"fused_rmsnorm_bwd": rn.fused_rmsnorm_bwd_cuda,
                   "fused_rmsnorm_plain": rn.fused_rmsnorm_plain,
                   "flash_lse": fa.flash_attention_lse_cuda,
@@ -2710,6 +2728,10 @@ def main() -> None:
         run_cases(scan_backward_cases(rt), timer, rows)
         guard_checks(rt)
         del timer
+        t1 = time.perf_counter()
+        meta_alloc_checks(rt)
+        print(f"meta allocation checks {time.perf_counter() - t1:.1f} s",
+              flush=True)
         gc.collect()
         torch.cuda.empty_cache()
         print(f"backward kernel phase {time.perf_counter() - t0:.1f} s",

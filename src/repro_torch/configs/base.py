@@ -1,7 +1,10 @@
-"""Model configuration dataclass (own copy of ``repro.configs.base``).
+"""Model configuration dataclass and the input shapes (own copy of
+``repro.configs.base``).
 
 Kept field for field with the JAX package's ``ModelConfig`` so a config
-crosses between the two packages as ``ModelConfig(**asdict(cfg))``.
+crosses between the two packages as ``ModelConfig(**asdict(cfg))``;
+``ShapeConfig``, ``SHAPES`` and ``shape_applicable`` are copies of
+``src/repro/configs/base.py:74-100``, the dry run's (arch x shape) cells.
 """
 from __future__ import annotations
 
@@ -67,6 +70,35 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # train | prefill | decode
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"
+
+
+# The assigned input-shape set (same four for every LM arch).
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k":   ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """long_500k needs sub-quadratic attention."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("skipped: pure full-attention arch; 500k-token KV "
+                       "decode requires sub-quadratic attention")
+    return True, ""
 
 
 @dataclass(frozen=True)

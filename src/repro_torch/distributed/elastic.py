@@ -1,15 +1,21 @@
-"""Straggler detection and mesh choices (own copies of
-``repro.distributed.elastic``'s ``StepWatchdog`` and ``viable_meshes``).
+"""Straggler detection, mesh choices and the re-mesh loop (counterpart
+of ``repro.distributed.elastic``: ``StepWatchdog``, ``viable_meshes`` and
+``ElasticRunner``).
 
-``ElasticRunner``, which re-lowers a step over a JAX device mesh, waits
-for the sharding slice (ROADMAP.md); on one card there is no mesh to
-rebuild.
+Device loss shows up as a failed collective; the recovery path is:
+checkpoint-restore, build a smaller or larger mesh, build the step again.
+``ElasticRunner`` packages the last two. On one card its mesh is 1 x 1
+and the step is built once.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Callable, Optional, Sequence
 
 import numpy as np
+import torch
+
+from .sharding import Mesh, use_mesh
 
 
 @dataclass
@@ -40,3 +46,31 @@ def viable_meshes(n_devices: int) -> list[tuple[int, int]]:
         if n_devices % model == 0:
             out.append((n_devices // model, model))
     return out
+
+
+class ElasticRunner:
+    """Re-mesh and rebuild the step when the device count changes the
+    mesh's shape. ``build_step(ctx)`` gets the ``ShardingCtx`` of the new
+    mesh (installed with ``use_mesh`` while it runs) and returns the step
+    function."""
+
+    def __init__(self, build_step: Callable):
+        self.build_step = build_step
+        self.step_fn = None
+        self.mesh: Optional[Mesh] = None
+
+    def ensure(self, devices: Optional[Sequence[torch.device]] = None):
+        """The step for ``devices`` (default: every CUDA device), on the
+        (data, model) mesh of ``viable_meshes(len(devices))[-1]``; built
+        again only where that mesh's shape differs from the last one."""
+        if devices is None:
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+        from ..launch.mesh import make_mesh   # launch.mesh imports this package
+        mesh = make_mesh(*viable_meshes(len(devices))[-1], devices)
+        if self.mesh is not None and mesh.shape == self.mesh.shape:
+            return self.step_fn
+        self.mesh = mesh
+        with use_mesh(mesh) as ctx:
+            self.step_fn = self.build_step(ctx)
+        return self.step_fn

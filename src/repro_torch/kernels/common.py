@@ -1,7 +1,13 @@
-"""Checks shared by the kernel wrappers before a pointer reaches CUDA."""
+"""Checks shared by the kernel wrappers before a pointer reaches CUDA, and
+the meta route: on a meta tensor a wrapper allocates what its CUDA call
+allocates, then skips the launch (:func:`skip_launch`)."""
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
+
+from . import costs
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims of the two attention kernels (168: gemma3-27b, padded to 176
@@ -21,6 +27,32 @@ def check_cuda_tensor(t: torch.Tensor, name: str, arg: str) -> None:
     require(t.is_contiguous(), name, f"{arg} must be contiguous")
     require(t.device.index == torch.cuda.current_device(), name,
             f"{arg} is on {t.device}, not the current device")
+
+
+def check_kernel_tensor(t: torch.Tensor, name: str, arg: str,
+                        like: torch.Tensor) -> None:
+    """:func:`check_cuda_tensor`, which a meta tensor also passes: the dry
+    run's route through a wrapper (no pointer reaches CUDA). ``like`` is
+    the input that decides the route (:func:`skip_launch`'s): every
+    argument must lie on its device, so a meta argument (data pointer 0)
+    never reaches a launch on the card, nor a CUDA one a skipped launch."""
+    require(t.device == like.device, name,
+            f"{arg} is on {t.device}, not on {like.device} as the other inputs")
+    if t.is_meta:
+        require(t.is_contiguous(), name, f"{arg} must be contiguous")
+    else:
+        check_cuda_tensor(t, name, arg)
+
+
+def skip_launch(t: torch.Tensor, name: str,
+                cost: Callable[[], costs.Cost]) -> bool:
+    """True where ``t`` is a meta tensor: the kernel ``name`` is not
+    launched (nor counted as launched), and its ``cost()`` is recorded
+    (``costs.record``). False on the card, where nothing else is done."""
+    if not t.is_meta:
+        return False
+    costs.record(name, cost())
+    return True
 
 
 def stream_of(t: torch.Tensor) -> int:

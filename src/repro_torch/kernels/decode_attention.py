@@ -21,9 +21,9 @@ import math
 
 import torch
 
-from . import build
-from .common import (DTYPE_CODES, HEAD_DIMS, check_cuda_tensor, refuse_grad,
-                     require, stream_of)
+from . import build, costs
+from .common import (DTYPE_CODES, HEAD_DIMS, check_kernel_tensor, refuse_grad,
+                     require, skip_launch, stream_of)
 from .flash_attention import softcap_scores
 
 NAME = "decode_attention"
@@ -72,7 +72,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     global launches
     refuse_grad(NAME, q, k, v)
     for arg, t in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):
-        check_cuda_tensor(t, NAME, arg)
+        check_kernel_tensor(t, NAME, arg, q)
     for arg, t in (("q", q), ("k", k), ("v", v)):   # 16-byte vector loads
         require(t.data_ptr() % 16 == 0, NAME, f"{arg} must be 16-byte aligned")
     require(q.dtype in DTYPE_CODES, NAME, f"dtype {q.dtype} not supported")
@@ -98,6 +98,11 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty_like(q)
     partials = torch.empty((BH, splits, hd + 2), dtype=torch.float32,
                            device=q.device)
+    # no lengths are read on the meta device: every slot counted live (a
+    # full cache)
+    if skip_launch(q, NAME, lambda: costs.decode(
+            BH, BHkv, hd, q.dtype, BH * S, BHkv * S)):
+        return out
     rc = build.library().repro_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         partials.data_ptr(), out.data_ptr(), BH, BHkv, S, hd, span, window,

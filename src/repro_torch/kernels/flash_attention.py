@@ -40,9 +40,9 @@ from typing import Optional
 
 import torch
 
-from . import build
-from .common import (DTYPE_CODES, HEAD_DIMS, check_cuda_tensor, needs_grad,
-                     require, stream_of)
+from . import build, costs
+from .common import (DTYPE_CODES, HEAD_DIMS, check_kernel_tensor, needs_grad,
+                     require, skip_launch, stream_of)
 
 NAME = "flash_attention"
 PRE_NAME, DKDV_NAME, DQ_NAME = ("flash_bwd_preprocess", "flash_bwd_dkdv",
@@ -90,7 +90,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _check_qkv(q, k, v, name=NAME):
     for arg, t in (("q", q), ("k", k), ("v", v)):
-        check_cuda_tensor(t, name, arg)
+        check_kernel_tensor(t, name, arg, q)
         require(t.dim() == 3, name, f"{arg} must be 3-D, got {tuple(t.shape)}")
         require(t.data_ptr() % 16 == 0, name,      # 16-byte async copies
                 f"{arg} must be 16-byte aligned")
@@ -112,6 +112,9 @@ def _forward(q, k, v, causal, window, softcap, out, lse):
     global launches
     BH, Sq, hd = q.shape
     BHkv, Sk, _ = k.shape
+    if skip_launch(q, NAME, lambda: costs.flash(
+            BH, BHkv, Sq, Sk, hd, q.dtype, causal, window, lse is not None)):
+        return out
     rc = build.library().repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), BH, BHkv, Sq, Sk, hd,
@@ -168,7 +171,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out is None:
         out = torch.empty_like(q)
     else:
-        check_cuda_tensor(out, NAME, "out")
+        check_kernel_tensor(out, NAME, "out", q)
         require(out.shape == q.shape and out.dtype == q.dtype
                 and out.data_ptr() % 16 == 0, NAME,
                 "out must have q's shape and dtype and be 16-byte aligned")
@@ -222,12 +225,15 @@ def flash_bwd_preprocess_cuda(out: torch.Tensor, dout: torch.Tensor
     gradient (both (BH, Sq, hd), one dtype, contiguous)."""
     global pre_launches
     for arg, t in (("out", out), ("dout", dout)):
-        check_cuda_tensor(t, PRE_NAME, arg)
+        check_kernel_tensor(t, PRE_NAME, arg, out)
     require(out.dim() == 3 and dout.shape == out.shape
             and dout.dtype == out.dtype and out.dtype in DTYPE_CODES,
             PRE_NAME, "out and dout must be (BH, Sq, hd) of one dtype")
     BH, Sq, hd = out.shape
     delta = torch.empty((BH, Sq), dtype=torch.float32, device=out.device)
+    if skip_launch(out, PRE_NAME, lambda: costs.flash_bwd_preprocess(
+            BH, Sq, hd, out.dtype)):
+        return delta
     rc = build.library().repro_flash_bwd_preprocess(
         out.data_ptr(), dout.data_ptr(), delta.data_ptr(), BH * Sq, hd,
         DTYPE_CODES[out.dtype], stream_of(out))
@@ -238,11 +244,11 @@ def flash_bwd_preprocess_cuda(out: torch.Tensor, dout: torch.Tensor
 
 def _check_bwd(name, q, k, v, dout, lse, delta):
     _check_qkv(q, k, v, name)
-    check_cuda_tensor(dout, name, "dout")
+    check_kernel_tensor(dout, name, "dout", q)
     require(dout.shape == q.shape and dout.dtype == q.dtype, name,
             "dout must have q's shape and dtype")
     for arg, t in (("lse", lse), ("delta", delta)):
-        check_cuda_tensor(t, name, arg)
+        check_kernel_tensor(t, name, arg, q)
         require(t.shape == q.shape[:2] and t.dtype == torch.float32, name,
                 f"{arg} must be (BH, Sq) float32")
 
@@ -258,6 +264,9 @@ def flash_bwd_dkdv_cuda(q, k, v, dout, lse, delta, *, causal: bool = True,
     BH, Sq, hd = q.shape
     BHkv, Sk, _ = k.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if skip_launch(q, DKDV_NAME, lambda: costs.flash_bwd_dkdv(
+            BH, BHkv, Sq, Sk, hd, q.dtype, causal, window)):
+        return dk, dv
     rc = build.library().repro_flash_bwd_dkdv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH,
@@ -279,6 +288,9 @@ def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, *, causal: bool = True,
     BH, Sq, hd = q.shape
     BHkv, Sk, _ = k.shape
     dq = torch.empty_like(q)
+    if skip_launch(q, DQ_NAME, lambda: costs.flash_bwd_dq(
+            BH, BHkv, Sq, Sk, hd, q.dtype, causal, window)):
+        return dq
     rc = build.library().repro_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, BHkv, Sq, Sk,

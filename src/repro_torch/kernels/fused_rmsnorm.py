@@ -15,9 +15,9 @@ from __future__ import annotations
 
 import torch
 
-from . import build
-from .common import (DTYPE_CODES, check_cuda_tensor, needs_grad, require,
-                     stream_of)
+from . import build, costs
+from .common import (DTYPE_CODES, check_kernel_tensor, needs_grad, require,
+                     skip_launch, stream_of)
 
 NAME = "fused_rmsnorm"
 BWD_NAME = "fused_rmsnorm_bwd"
@@ -35,8 +35,8 @@ def fused_rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, *,
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
-    check_cuda_tensor(x, NAME, "x")
-    check_cuda_tensor(w, NAME, "w")
+    check_kernel_tensor(x, NAME, "x", x)
+    check_kernel_tensor(w, NAME, "w", x)
     require(x.dim() == 2, NAME, f"x must be (N, d), got {tuple(x.shape)}")
     require(x.dtype in DTYPE_CODES, NAME, f"x dtype {x.dtype} not supported")
     require(w.dtype == torch.float32, NAME, "w must be float32")
@@ -50,6 +50,8 @@ def _forward(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     _check(x, w)
     n, d = x.shape
     out = torch.empty_like(x)
+    if skip_launch(x, NAME, lambda: costs.rmsnorm(n, d, x.dtype)):
+        return out
     rc = build.library().repro_fused_rmsnorm(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), n, d, eps,
         DTYPE_CODES[x.dtype], stream_of(x))
@@ -101,7 +103,7 @@ def fused_rmsnorm_bwd_cuda(x: torch.Tensor, w: torch.Tensor,
     and dtype, contiguous): one launch of the rows pass and the dw pass."""
     global bwd_launches
     _check(x, w)
-    check_cuda_tensor(dy, BWD_NAME, "dy")
+    check_kernel_tensor(dy, BWD_NAME, "dy", x)
     require(dy.shape == x.shape and dy.dtype == x.dtype, BWD_NAME,
             "dy must have x's shape and dtype")
     n, d = x.shape
@@ -109,6 +111,8 @@ def fused_rmsnorm_bwd_cuda(x: torch.Tensor, w: torch.Tensor,
     dw = torch.empty_like(w)
     partial = torch.empty((BWD_BLOCKS, d), dtype=torch.float32,
                           device=x.device)
+    if skip_launch(x, BWD_NAME, lambda: costs.rmsnorm_bwd(n, d, x.dtype)):
+        return dx, dw
     rc = build.library().repro_fused_rmsnorm_bwd(
         x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
         dw.data_ptr(), partial.data_ptr(), n, d, eps, DTYPE_CODES[x.dtype],

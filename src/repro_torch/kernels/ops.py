@@ -16,6 +16,11 @@ names: ``fused_rmsnorm_bwd``, ``flash_bwd_preprocess``,
 ``rwkv6_scan_bwd``); ``decode_attention`` and a capped
 ``flash_attention`` raise ``NotImplementedError`` where a gradient is
 wanted. On the CPU autograd differentiates the plain versions.
+
+A meta tensor (``launch/dryrun.py``) takes the card's route through the
+same wrappers and Functions: each allocates and saves what its CUDA call
+does, skips the launch and records its bytes and flops
+(``kernels.costs``); it counts no launch.
 """
 from __future__ import annotations
 
@@ -41,7 +46,10 @@ _COUNTERS.update({n: (_flash, a) for n, a in _flash.BWD_COUNTERS.items()})
 
 
 def _on_card(t: torch.Tensor, name: str) -> bool:
-    if t.device.type == "cuda":
+    """The kernel's route for a CUDA tensor and for a meta tensor (the dry
+    run: the same wrapper and autograd Function, the launch skipped), the
+    plain version's for a CPU tensor."""
+    if t.device.type in ("cuda", "meta"):
         return True
     if t.device.type == "cpu":
         return False

@@ -33,9 +33,10 @@ from __future__ import annotations
 
 import torch
 
-from . import build
+from . import build, costs
 from .common import (DTYPE_CODES, SCAN_HEAD_DIMS, aligned16,
-                     check_cuda_tensor, needs_grad, require, stream_of)
+                     check_kernel_tensor, needs_grad, require, skip_launch,
+                     stream_of)
 
 NAME = "rwkv6_scan"
 BWD_NAME = "rwkv6_scan_bwd"
@@ -69,7 +70,7 @@ def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _check(r, k, v, w, u, name=NAME) -> None:
     for arg, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u)):
-        check_cuda_tensor(t, name, arg)
+        check_kernel_tensor(t, name, arg, r)
     require(r.dtype in DTYPE_CODES, name, f"dtype {r.dtype} not supported")
     require(all(t.dtype == r.dtype for t in (k, v, w)), name,
             "r, k, v and w must share a dtype")
@@ -94,6 +95,9 @@ def _forward(r, k, v, w, u):
     BH, S, hd = r.shape
     o = torch.empty_like(r)
     state = torch.empty((BH, hd, hd), dtype=torch.float32, device=r.device)
+    if skip_launch(r, NAME, lambda: costs.rwkv(BH, u.shape[0], S, hd,
+                                               r.dtype, CHUNK)):
+        return o, state
     rc = build.library().repro_rwkv6_scan(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         o.data_ptr(), state.data_ptr(), BH, u.shape[0], S, hd,
@@ -148,8 +152,8 @@ def rwkv6_scan_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global bwd_launches
     _check(r, k, v, w, u, BWD_NAME)
     BH, S, hd = r.shape
-    check_cuda_tensor(do, BWD_NAME, "do")
-    check_cuda_tensor(dstate, BWD_NAME, "dstate")
+    check_kernel_tensor(do, BWD_NAME, "do", r)
+    check_kernel_tensor(dstate, BWD_NAME, "dstate", r)
     require(do.shape == r.shape and do.dtype == r.dtype, BWD_NAME,
             "do must have r's shape and dtype")
     require(dstate.shape == (BH, hd, hd) and dstate.dtype == torch.float32,
@@ -166,6 +170,9 @@ def rwkv6_scan_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ckpt = torch.empty(BH * nc * (2 * hd * hd + hd + BWD_CHUNK), **f32)
     dv_part = torch.empty((BH, nrb, S, hd), **f32)
     du_part = torch.empty((nc, BH, hd), **f32)
+    if skip_launch(r, BWD_NAME, lambda: costs.rwkv_bwd(BH, u.shape[0], S, hd,
+                                                       r.dtype)):
+        return dr, dk, dv, dw, du
     rc = build.library().repro_rwkv6_scan_bwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         do.data_ptr(), dstate.data_ptr(), dr.data_ptr(), dk.data_ptr(),

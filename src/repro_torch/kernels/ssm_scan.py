@@ -35,9 +35,9 @@ from __future__ import annotations
 
 import torch
 
-from . import build
-from .common import (DTYPE_CODES, aligned16, check_cuda_tensor, needs_grad,
-                     require, stream_of)
+from . import build, costs
+from .common import (DTYPE_CODES, aligned16, check_kernel_tensor, needs_grad,
+                     require, skip_launch, stream_of)
 
 NAME = "ssm_scan"
 BWD_NAME = "ssm_scan_bwd"
@@ -115,7 +115,7 @@ def ssm_scan_plain(xbar: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
 
 def _check(xbar, B, C, cumlog, chunk, name=NAME) -> None:
     for arg, t in (("xbar", xbar), ("B", B), ("C", C), ("cumlog", cumlog)):
-        check_cuda_tensor(t, name, arg)
+        check_kernel_tensor(t, name, arg, xbar)
     require(xbar.dtype == torch.float32 and cumlog.dtype == torch.float32,
             name, "xbar and cumlog must be float32")
     require(B.dtype in DTYPE_CODES and C.dtype == B.dtype, name,
@@ -144,6 +144,9 @@ def _forward(xbar, B, C, cumlog, chunk):
                 "xbar, B and C must be 16-byte aligned")
     y = torch.empty_like(xbar)
     h = torch.empty((BH, hd, ds), dtype=torch.float32, device=xbar.device)
+    if skip_launch(xbar, NAME, lambda: costs.ssm(BH, BHbc, S, hd, ds, chunk,
+                                                 B.dtype)):
+        return y, h
     rc = build.library().repro_ssm_scan(
         xbar.data_ptr(), B.data_ptr(), C.data_ptr(), cumlog.data_ptr(),
         y.data_ptr(), h.data_ptr(), BH, BHbc, S, hd, ds, chunk,
@@ -205,8 +208,8 @@ def ssm_scan_bwd_cuda(xbar: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     _check(xbar, B, C, cumlog, chunk, BWD_NAME)
     BH, S, hd = xbar.shape
     BHbc, _, ds = B.shape
-    check_cuda_tensor(dy, BWD_NAME, "dy")
-    check_cuda_tensor(dh, BWD_NAME, "dh")
+    check_kernel_tensor(dy, BWD_NAME, "dy", xbar)
+    check_kernel_tensor(dh, BWD_NAME, "dh", xbar)
     require(dy.shape == xbar.shape and dy.dtype == torch.float32, BWD_NAME,
             "dy must be float32 of xbar's shape")
     require(dh.shape == (BH, hd, ds) and dh.dtype == torch.float32, BWD_NAME,
@@ -229,6 +232,9 @@ def ssm_scan_bwd_cuda(xbar: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     states = torch.empty(bwd_scratch_floats(BH, BHbc, S, hd + pad, ds, chunk),
                          **f32)
     partial = torch.empty((2, BH, S, ds), **f32)
+    if skip_launch(xbar, BWD_NAME, lambda: costs.ssm_bwd(
+            BH, BHbc, S, hd, ds, chunk, B.dtype)):
+        return (dxbar[..., :hd].contiguous() if pad else dxbar), dB, dC, dcum
     rc = build.library().repro_ssm_scan_bwd(
         xbar.data_ptr(), B.data_ptr(), C.data_ptr(), cumlog.data_ptr(),
         dy.data_ptr(), dh.data_ptr(), dxbar.data_ptr(), dB.data_ptr(),

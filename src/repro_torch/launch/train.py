@@ -105,6 +105,14 @@ def main(argv=None) -> None:
         ckpt.save(args.steps, train_state(lm, opt, data.state_dict()))
         ckpt.wait()
     print(f"[train] done in {time.time() - t_run:.1f}s", flush=True)
+    if dev.type == "cuda":
+        free, total = torch.cuda.mem_get_info(dev)
+        print(f"[train] peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev)} B allocated, "
+              f"{torch.cuda.max_memory_reserved(dev)} B reserved, of "
+              f"{torch.cuda.get_device_properties(dev).total_memory} B; "
+              f"{total - free - torch.cuda.memory_reserved(dev)} B held "
+              "outside the caching allocator", flush=True)
 
 
 if __name__ == "__main__":

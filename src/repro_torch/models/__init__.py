@@ -2,7 +2,7 @@
 zamba hybrid and rwkv; the vision and audio frontend stubs)."""
 from .layers import (MLP, Attention, apply_mrope, apply_rope, attention, mlp,
                      rmsnorm)
-from .transformer import LM, family_kind
+from .transformer import LM, cache_specs, family_kind
 
 __all__ = ["MLP", "Attention", "apply_mrope", "apply_rope", "attention",
-           "mlp", "rmsnorm", "LM", "family_kind"]
+           "mlp", "rmsnorm", "LM", "cache_specs", "family_kind"]

@@ -61,7 +61,9 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
     """``x * rsqrt(mean(x^2) + eps) * (1 + w)`` in f32, cast back to x's
     dtype; x is (..., d)."""
     d = x.shape[-1]
-    return kernels.fused_rmsnorm(x.reshape(-1, d), w, eps=eps) \
+    # contiguous: prefill's last positions x[:, -1:] of a batch of rows
+    # are strided, and the kernel reads rows of d
+    return kernels.fused_rmsnorm(x.reshape(-1, d).contiguous(), w, eps=eps) \
         .reshape(x.shape)
 
 

@@ -55,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..distributed.sharding import TensorSpec
 from ..kernels import ops
 from .layers import (MATMUL, MLP, Attention, MoE, _param, attention, mlp,
                      moe, rmsnorm)
@@ -116,6 +117,40 @@ def check_supported(cfg: ModelConfig) -> None:
         raise ValueError(f"{cfg.name}: local_global needs local_window > 0")
     if cfg.attn_logit_softcap < 0:
         raise ValueError(f"{cfg.name}: attn_logit_softcap must be >= 0")
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
+                dtype: torch.dtype = torch.bfloat16) -> dict[str, TensorSpec]:
+    """The decode cache of :meth:`LM.new_cache` described without storage:
+    each leaf's shape, dtype (KV in the compute ``dtype``, states f32) and
+    the logical axes of JAX's ``cache_specs``
+    (``src/repro/models/transformer.py:126``), the layer axes first and
+    replicated. The leaves are the port's layout (module docstring); the
+    bytes are JAX's at a bf16 ``dtype``, its caches' dtype."""
+    kind = family_kind(cfg)
+    kv_axes = (None, "batch", "kv_heads", "kv_seq", None)
+    if kind == "rwkv":
+        nh, hd = rwkv_dims(cfg)
+        L, d = cfg.n_layers, cfg.d_model
+        x = TensorSpec((L, batch, d), (None, "batch", None))
+        return {"S": TensorSpec((L, batch, nh, hd, hd),
+                                (None, "batch", None, None, None)),
+                "x_tm": x, "x_cm": x}
+    n = {"uniform": cfg.n_layers, "local_global": lg_groups(cfg)[0],
+         "zamba": zamba_groups(cfg)[0]}[kind]
+    kv = TensorSpec((n, batch, cfg.n_kv_heads, max_len, cfg.hd), kv_axes,
+                    dtype)
+    out = {"k": kv, "v": kv}
+    if kind == "local_global":
+        ring = TensorSpec((cfg.n_layers - n, batch, cfg.n_kv_heads,
+                           min(cfg.local_window, max_len), cfg.hd), kv_axes,
+                          dtype)
+        out.update(k_win=ring, v_win=ring)
+    if kind == "zamba":
+        _, nh, hd, ds = ssm_dims(cfg)
+        out["ssm_h"] = TensorSpec((cfg.n_layers, batch, nh, hd, ds),
+                                  (None, "batch", None, None, None))
+    return out
 
 
 def d_ff_head(cfg: ModelConfig) -> int:
@@ -357,32 +392,12 @@ class LM(nn.Module):
 
     # ======================== PREFILL ===================================
     def new_cache(self, batch: int, max_len: int, device=None) -> dict:
-        """A zeroed cache in the family's layout (module docstring), on
-        ``device`` (default: the parameters')."""
-        cfg, dev = self.cfg, device or self.device
-        f32 = dict(dtype=torch.float32, device=dev)
-        if self.kind == "rwkv":
-            nh, hd = rwkv_dims(cfg)
-            return {"S": torch.zeros(cfg.n_layers, batch, nh, hd, hd, **f32),
-                    "x_tm": torch.zeros(cfg.n_layers, batch, cfg.d_model,
-                                        **f32),
-                    "x_cm": torch.zeros(cfg.n_layers, batch, cfg.d_model,
-                                        **f32)}
-        n = {"uniform": cfg.n_layers, "local_global": lg_groups(cfg)[0],
-             "zamba": zamba_groups(cfg)[0]}[self.kind]
-        shape = (n, batch, cfg.n_kv_heads, max_len, cfg.hd)
-        cache = {"k": torch.zeros(shape, dtype=self.dtype, device=dev),
-                 "v": torch.zeros(shape, dtype=self.dtype, device=dev)}
-        if self.kind == "local_global":
-            ring = (cfg.n_layers - n, batch, cfg.n_kv_heads,
-                    min(cfg.local_window, max_len), cfg.hd)
-            cache["k_win"] = torch.zeros(ring, dtype=self.dtype, device=dev)
-            cache["v_win"] = torch.zeros(ring, dtype=self.dtype, device=dev)
-        if self.kind == "zamba":
-            _, nh, hd, ds = ssm_dims(cfg)
-            cache["ssm_h"] = torch.zeros(cfg.n_layers, batch, nh, hd, ds,
-                                         **f32)
-        return cache
+        """A zeroed cache in the family's layout (module docstring,
+        :func:`cache_specs`), on ``device`` (default: the parameters')."""
+        dev = device or self.device
+        return {n: torch.zeros(s.shape, dtype=s.dtype, device=dev)
+                for n, s in cache_specs(self.cfg, batch, max_len,
+                                        self.dtype).items()}
 
     def prefill(self, tokens: torch.Tensor, max_len: int,
                 cache: Optional[dict] = None,

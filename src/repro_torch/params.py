@@ -18,6 +18,7 @@ import torch
 
 from .configs.base import ModelConfig
 from .device import resolve_device
+from .distributed.sharding import ShardingCtx, TensorSpec
 from .models.layers import MATMUL
 from .models.rwkv import LORA, rwkv_dims
 from .models.ssm import ssm_dims
@@ -35,6 +36,12 @@ class Leaf:
     scale: float = 1.0
     names: tuple = ()
     stacked: int = 0
+    axes: tuple = ()            # JAX's ParamSpec.axes, one a dim
+
+    def __post_init__(self):
+        if len(self.axes) != len(self.shape):
+            raise ValueError(f"{self.names[:1]}: shape {self.shape}, axes "
+                             f"{self.axes}")
 
     @property
     def std(self) -> float:
@@ -48,78 +55,89 @@ class Leaf:
         return self.scale / math.sqrt(fan_in)
 
 
+# A table maps a leaf name to (shape, logical axes, init, scale) as the
+# JAX ``*_specs`` give them (``src/repro/models/layers.py:84``, ``:282``,
+# ``:305``; ``ssm.py:31``; ``rwkv.py:31``).
+NORM = ((None,), "zeros", 1.0)
+
+
 def _attn(cfg: ModelConfig) -> dict:
-    """leaf -> (shape, init, scale) of ``attn_specs``."""
+    """``attn_specs``."""
     d, hd, H, KV = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
     out = 1.0 / math.sqrt(2 * cfg.n_layers)
-    return {"wq": ((d, H * hd), "normal", 1.0),
-            "wk": ((d, KV * hd), "normal", 1.0),
-            "wv": ((d, KV * hd), "normal", 1.0),
-            "wo": ((H * hd, d), "normal", out),
-            "norm": ((d,), "zeros", 1.0)}
+    return {"wq": ((d, H * hd), ("embed_w", "qkv"), "normal", 1.0),
+            "wk": ((d, KV * hd), ("embed_w", "kv"), "normal", 1.0),
+            "wv": ((d, KV * hd), ("embed_w", "kv"), "normal", 1.0),
+            "wo": ((H * hd, d), ("qkv", "embed_w"), "normal", out),
+            "norm": ((d,), *NORM)}
 
 
 def _mlp(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:
-    """leaf -> (shape, init, scale) of ``mlp_specs``."""
+    """``mlp_specs``."""
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    return {"w_gate": ((d, f), "normal", 1.0),
-            "w_up": ((d, f), "normal", 1.0),
-            "w_down": ((f, d), "normal", 1.0 / math.sqrt(2 * cfg.n_layers)),
-            "norm": ((d,), "zeros", 1.0)}
+    return {"w_gate": ((d, f), ("embed_w", "mlp"), "normal", 1.0),
+            "w_up": ((d, f), ("embed_w", "mlp"), "normal", 1.0),
+            "w_down": ((f, d), ("mlp", "embed_w"), "normal",
+                       1.0 / math.sqrt(2 * cfg.n_layers)),
+            "norm": ((d,), *NORM)}
 
 
 def _moe(cfg: ModelConfig) -> dict:
-    """leaf -> (shape, init, scale) of ``moe_specs``."""
+    """``moe_specs``."""
     d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
-    return {"router": ((d, E), "normal", 1.0),
-            "w_gate": ((E, d, f), "normal", 1.0),
-            "w_up": ((E, d, f), "normal", 1.0),
-            "w_down": ((E, f, d), "normal", 1.0 / math.sqrt(2 * cfg.n_layers)),
-            "norm": ((d,), "zeros", 1.0)}
+    return {"router": ((d, E), ("embed_w", None), "normal", 1.0),
+            "w_gate": ((E, d, f), ("experts", "moe_d", "mlp"), "normal",
+                       1.0),
+            "w_up": ((E, d, f), ("experts", "moe_d", "mlp"), "normal", 1.0),
+            "w_down": ((E, f, d), ("experts", "mlp", "moe_d"), "normal",
+                       1.0 / math.sqrt(2 * cfg.n_layers)),
+            "norm": ((d,), *NORM)}
 
 
 def _ssm(cfg: ModelConfig) -> dict:
-    """leaf -> (shape, init, scale) of ``ssm_specs``."""
+    """``ssm_specs``."""
     d = cfg.d_model
     d_in, nh, _, ds = ssm_dims(cfg)
-    return {"w_xz": ((d, 2 * d_in), "normal", 1.0),
-            "w_B": ((d, ds), "normal", 1.0),
-            "w_C": ((d, ds), "normal", 1.0),
-            "w_dt": ((d, nh), "normal", 1.0),
-            "dt_bias": ((nh,), "zeros", 1.0),
-            "A_log": ((nh,), "zeros", 1.0),
-            "D": ((nh,), "ones", 1.0),
-            "w_out": ((d_in, d), "normal",
+    return {"w_xz": ((d, 2 * d_in), ("embed_w", "mlp"), "normal", 1.0),
+            "w_B": ((d, ds), ("embed_w", None), "normal", 1.0),
+            "w_C": ((d, ds), ("embed_w", None), "normal", 1.0),
+            "w_dt": ((d, nh), ("embed_w", None), "normal", 1.0),
+            "dt_bias": ((nh,), *NORM),
+            "A_log": ((nh,), *NORM),
+            "D": ((nh,), (None,), "ones", 1.0),
+            "w_out": ((d_in, d), ("mlp", "embed_w"), "normal",
                       1.0 / math.sqrt(2 * max(cfg.n_layers, 1))),
-            "norm": ((d,), "zeros", 1.0),
-            "out_norm": ((d_in,), "zeros", 1.0)}
+            "norm": ((d,), *NORM),
+            "out_norm": ((d_in,), *NORM)}
 
 
 def _rwkv(cfg: ModelConfig) -> dict:
-    """leaf -> (shape, init, scale) of ``rwkv_specs``."""
+    """``rwkv_specs``."""
     d, f = cfg.d_model, cfg.d_ff
     nh, hd = rwkv_dims(cfg)
     out = 1.0 / math.sqrt(2 * cfg.n_layers)
-    leaves = {n: ((d,), "zeros", 1.0) for n in (
+    leaves = {n: ((d,), *NORM) for n in (
         "tm_norm", "mu_r", "mu_k", "mu_v", "mu_g", "mu_w", "w_bias",
         "o_norm", "cm_norm", "mu_ck")}
-    leaves.update({n: ((d, d), "normal", 1.0)
+    leaves.update({n: ((d, d), ("embed_w", "qkv"), "normal", 1.0)
                    for n in ("w_r", "w_k", "w_v", "w_g")})
-    leaves.update({"w_o": ((d, d), "normal", out),
-                   "wd_a": ((d, LORA), "normal", 1.0),
-                   "wd_b": ((LORA, d), "normal", 1.0),
-                   "u": ((nh, hd), "zeros", 1.0),
-                   "w_ck": ((d, f), "normal", 1.0),
-                   "w_cv": ((f, d), "normal", out)})
+    leaves.update({"w_o": ((d, d), ("qkv", "embed_w"), "normal", out),
+                   "wd_a": ((d, LORA), ("embed_w", None), "normal", 1.0),
+                   "wd_b": ((LORA, d), (None, None), "normal", 1.0),
+                   "u": ((nh, hd), (None, None), "zeros", 1.0),
+                   "w_ck": ((d, f), ("embed_w", "mlp"), "normal", 1.0),
+                   "w_cv": ((f, d), ("mlp", "embed_w"), "normal", out)})
     return leaves
 
 
 def _stacked(table: dict, path: tuple, lead: tuple, names) -> dict:
-    """Leaves of ``table`` under ``path`` with the stacked axes ``lead``;
-    ``names(leaf)`` gives the port names of the slices, in order."""
+    """Leaves of ``table`` under ``path`` with the stacked axes ``lead``
+    (replicated, as JAX's ``_stack`` adds them); ``names(leaf)`` gives
+    the port names of the slices, in order."""
     return {path + (leaf,): Leaf(lead + shape, init, scale,
-                                 tuple(names(leaf)), len(lead))
-            for leaf, (shape, init, scale) in table.items()}
+                                 tuple(names(leaf)), len(lead),
+                                 (None,) * len(lead) + axes)
+            for leaf, (shape, axes, init, scale) in table.items()}
 
 
 def jax_leaves(cfg: ModelConfig) -> dict[tuple, Leaf]:
@@ -132,10 +150,13 @@ def jax_leaves(cfg: ModelConfig) -> dict[tuple, Leaf]:
     check_supported(cfg)
     kind = family_kind(cfg)
     L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab
-    leaves = {("embed",): Leaf((V, d), names=("embed",)),
-              ("final_norm",): Leaf((d,), "zeros", names=("final_norm",))}
+    leaves = {("embed",): Leaf((V, d), names=("embed",),
+                               axes=("vocab", "embed_w")),
+              ("final_norm",): Leaf((d,), "zeros", names=("final_norm",),
+                                    axes=(None,))}
     if not cfg.tie_embeddings:
-        leaves[("lm_head",)] = Leaf((d, V), names=("lm_head",))
+        leaves[("lm_head",)] = Leaf((d, V), names=("lm_head",),
+                                    axes=("embed_w", "vocab"))
     if kind == "uniform":
         k = cfg.first_k_dense
         ffn = ("moe", _moe(cfg)) if cfg.n_experts else ("mlp", _mlp(cfg))
@@ -194,6 +215,38 @@ def jax_leaves(cfg: ModelConfig) -> dict[tuple, Leaf]:
 
 def _dtype_of(name: str, dtype: torch.dtype) -> torch.dtype:
     return dtype if name.rsplit(".", 1)[-1] in MATMUL else torch.float32
+
+
+def param_specs(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16
+                ) -> dict[str, TensorSpec]:
+    """Each parameter of :class:`LM` by name: its shape, its leaf's logical
+    axes past the stacked ones, and its dtype (matmul weights in
+    ``dtype``, the rest f32; ``dtype`` f32 is the training layout)."""
+    return {name: TensorSpec(leaf.shape[leaf.stacked:],
+                             leaf.axes[leaf.stacked:], _dtype_of(name, dtype))
+            for leaf in jax_leaves(cfg).values() for name in leaf.names}
+
+
+def count_params(cfg: ModelConfig) -> int:
+    """``count_params(model_specs(cfg))`` of the JAX package."""
+    return sum(math.prod(leaf.shape) for leaf in jax_leaves(cfg).values())
+
+
+def param_specs_pspec(cfg: ModelConfig, ctx: Optional[ShardingCtx] = None
+                      ) -> dict[str, tuple]:
+    """Each parameter's resolved spec under ``ctx`` (the installed
+    context by default), by name; a stacked leaf's layers share the spec
+    of its dims past the layer axes, which JAX's replicates."""
+    return {n: s.spec(ctx) for n, s in param_specs(cfg).items()}
+
+
+def param_bytes_per_device(cfg: ModelConfig,
+                           ctx: Optional[ShardingCtx] = None,
+                           dtype: torch.dtype = torch.bfloat16
+                           ) -> dict[str, int]:
+    """Bytes of each parameter on one device of ``ctx``'s mesh."""
+    return {n: s.bytes_per_device(ctx)
+            for n, s in param_specs(cfg, dtype).items()}
 
 
 def from_jax_numpy(tree: dict, cfg: ModelConfig,

@@ -18,7 +18,20 @@ import numpy as np
 import torch
 
 from ..configs.base import TrainConfig
+from ..distributed.sharding import TensorSpec
 from ..params import jax_leaves
+
+
+def opt_state_specs(param_specs: dict[str, TensorSpec]) -> dict:
+    """The state :func:`init_opt_state` makes, described without storage
+    (``repro.training.optimizer.opt_state_specs``): f32 ``m`` and ``v``
+    mirroring each parameter's shape and axes, and JAX's int32 ``step``
+    (the port keeps it as a Python int)."""
+    def zero(p: TensorSpec) -> TensorSpec:
+        return TensorSpec(p.shape, p.axes, torch.float32)
+    return {"m": {n: zero(p) for n, p in param_specs.items()},
+            "v": {n: zero(p) for n, p in param_specs.items()},
+            "step": TensorSpec((), (), torch.int32)}
 
 
 def init_opt_state(params: dict) -> dict:
@@ -86,6 +99,15 @@ def adamw_update(params: dict, grads: dict, opt: dict, tcfg: TrainConfig,
     return {**opt, "step": step}, {"lr": lr, "grad_norm": gnorm}
 
 
+def zero_missing_grads(params: dict) -> None:
+    """A parameter the loss does not reach (the token embedding, where a
+    frontend's ``embeds`` replace the tokens, in an untied model) gets a
+    zero gradient, as ``jax.value_and_grad`` gives it."""
+    for p in params.values():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+
+
 def loss_and_grads(lm, batch: dict, tcfg: TrainConfig,
                    remat: bool = True) -> tuple[torch.Tensor, dict]:
     """The batch's loss and f32 gradients, by parameter name (the
@@ -110,6 +132,7 @@ def loss_and_grads(lm, batch: dict, tcfg: TrainConfig,
                        remat=remat)
         loss.backward()
         total = loss.detach() if total is None else total + loss.detach()
+    zero_missing_grads(params)
     grads = {name: p.grad for name, p in params.items()}
     if mb > 1:
         total = total / mb

@@ -58,6 +58,28 @@ def test_no_source_names_jax_or_repro(path):
                 f"{path.name} imports {m}"
 
 
+DRY_RUN = """
+import sys
+from repro_torch.launch import dryrun, mesh
+from repro_torch.distributed import sharding, elastic
+from repro_torch.kernels import costs
+res = dryrun.run_cell("rwkv6-1.6b", "train_4k", layers=1, batch=1)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(res["status"], bad)
+"""
+
+
+def test_dry_run_modules_load_no_jax_or_repro():
+    """The dry run, the mesh, the sharding resolver, ElasticRunner and the
+    kernels' cost formulas stand alone, also while a cell runs."""
+    res = subprocess.run([sys.executable, "-c", DRY_RUN], cwd=ROOT,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok []"
+
+
 def _no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
