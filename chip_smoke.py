@@ -221,19 +221,40 @@ package. In order it:
       slowest cell alone (cells/s, ns and cycles an event at the card's
       top SM clock), then a sweep: the grid 11 times over in one launch
       (132 cells), every copy's digest equal to its cell's (cells/s);
-7. prints a JSON line of the kernels, then the result line.
+7. runs the cost model's measure mode and prices the simulator with it:
+   a. calibrate(mode="measure") at the small cases (BH 2, S 128, hd 64,
+      ds 16) and the full ones (4, 512, 64, 16), f32, 20 timed calls a
+      case (CUDA events, the median) after a warm-up call, with the
+      launch counts set to 0 before and read after (each of the five
+      forward kernels 42 times, nothing else); each row's op, flops,
+      bytes, trips, measured and predicted ms and bound, the recorded
+      counts held equal to the cost formulas at the case's shapes, then
+      the fit's weights and MAPE; both artifacts written under
+      build/costmodel/ and round-tripped through load_artifact into a
+      LearnedCostModel;
+   b. the full-shape artifact's token costs for every served arch beside
+      its graphed decode wall from step 5 (the engine keeps billing the
+      spec's constants); then deepseek-7b's llm_workload at the default
+      trace (2 minutes, 12,643 requests), priced with those token costs
+      as the JAX package's scenario.run applies them and with the spec's
+      constants, through execute_policy under fifo, cfs and hybrid on 50
+      cores: at its own reference model and seq the anchored costs are
+      the constants, so each priced record must equal the static one,
+      and hybrid must bill less than cfs;
+8. prints a JSON line of the kernels, then the result line.
 
 Any failed check exits non-zero. Without a CUDA device it exits non-zero
 and prints no result. ``--phases`` runs a subset of sass (step 3),
-kernels (4), train (4c), models (5) and mc (6) (for a partial check on
-the card, or to time another checkout's kernels with this script); it
-then prints no result line.
+kernels (4), train (4c), models (5), mc (6) and costmodel (7) (for a
+partial check on the card, or to time another checkout's kernels with
+this script); it then prints no result line.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import gc
+import importlib
 import json
 import os
 import re
@@ -2038,6 +2059,7 @@ def step_times(rt, lm, cfg) -> None:
             walls["graph"].append(time.perf_counter() - t0)
     eager_ms, graph_ms = (statistics.median(walls[k]) * 1e3
                           for k in ("eager", "graph"))
+    GRAPH_DECODE_MS[cfg.name] = graph_ms
     weight_bytes = sum(p.numel() * p.element_size() for n, p in
                        lm.named_parameters()
                        if n != "embed" or cfg.tie_embeddings)
@@ -2562,6 +2584,144 @@ def mc_phase(rt, smi: str) -> dict:
             "sweep_cells": n_sweep, "sweep_ms": sweep_ms}
 
 
+# -- phase 7: the cost model's measure mode and the priced simulation ---------
+
+COST_REPEATS = 20             # timed calls of each kernel case (median)
+COST_KERNELS = ("flash_attention", "decode_attention", "ssm_scan",
+                "rwkv6_scan", "fused_rmsnorm")
+COST_ARCH, COST_SEQ, COST_CORES = "deepseek-7b", 4096, 50
+COST_POLICIES = ("fifo", "cfs", "hybrid")
+COST_DIR = ROOT / "build" / "costmodel"
+# the graph-replay wall of one decode step of each served arch, from the
+# models phase (step_times), where it ran
+GRAPH_DECODE_MS: dict = {}
+
+
+def case_formula(rt, op: str, small: bool) -> tuple:
+    """(bytes, flops, flops_per_s) of a calibration case by the cost
+    formulas, at the case's shapes (f32)."""
+    BH, S, hd, ds = rt.cost_features.kernel_shapes(small)
+    f32 = torch.float32
+    return {
+        "flash_attention": lambda: costs.flash(BH, BH, S, S, hd, f32),
+        "decode_attention": lambda: costs.decode(BH, BH, hd, f32, BH * S,
+                                                 BH * S),
+        "ssm_scan": lambda: costs.ssm(BH, BH, S, hd, ds,
+                                      rt.cost_features.SSM_CHUNK, f32),
+        "rwkv6_scan": lambda: costs.rwkv(BH, BH, S, hd, f32,
+                                         rt.kernels["rwkv6_scan"][2]),
+        "fused_rmsnorm": lambda: costs.rmsnorm(S * BH, 4 * hd, f32),
+    }[op]()
+
+
+def measure_rows(rt, smi: str, small: bool) -> dict:
+    """One measure-mode calibration on the card; prints its rows, weights
+    and MAPE and checks each row's counts against the formulas."""
+    t0 = time.perf_counter()
+    art = rt.calibrate.calibrate(mode="measure", small=small,
+                                 repeats=COST_REPEATS)
+    shapes = "BH {}, S {}, hd {}, ds {}".format(
+        *rt.cost_features.kernel_shapes(small))
+    print(f"costmodel measure ({'small' if small else 'full'}: {shapes}, "
+          f"f32, median of {COST_REPEATS} after a warm-up call; {smi}): "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if [r["op"] for r in art["rows"]] != list(COST_KERNELS):
+        fail(f"costmodel: rows {[r['op'] for r in art['rows']]}")
+    for r in art["rows"]:
+        nbytes, flops, rate = case_formula(rt, r["op"], small)
+        b_ms, b_by = bound(r["bytes"], r["flops"], rate)
+        print(f"costmodel row {r['op']:16s} flops {r['flops']:.0f} bytes "
+              f"{r['bytes']:.0f} trips {r['trips']} measured_ms "
+              f"{r['measured_ms']:.5f} predicted_ms {r['predicted_ms']:.5f}"
+              f" bound_ms {b_ms:.6f} ({b_by})", flush=True)
+        if (r["bytes"], r["flops"], r["trips"]) != (nbytes, flops, 1):
+            fail(f"costmodel {r['op']}: recorded bytes {r['bytes']} flops "
+                 f"{r['flops']} trips {r['trips']}, the formula's {nbytes} "
+                 f"{flops} 1")
+        if not r["measured_ms"] > 0.0:
+            fail(f"costmodel {r['op']}: measured {r['measured_ms']} ms")
+    print(f"costmodel fit: weights {art['weights']} (ms, ms/GFLOP, ms/MB); "
+          f"MAPE {art['mape']:.4f}", flush=True)
+    return art
+
+
+def costmodel_phase(rt, smi: str) -> dict:
+    """Phase 7; returns the launch counts of the measure runs."""
+    rt.ops.reset_launch_counts()
+    arts = {small: measure_rows(rt, smi, small) for small in (True, False)}
+    counts = rt.ops.launch_counts()
+    want = 2 * (1 + COST_REPEATS)
+    for name, n in counts.items():
+        if n != (want if name in COST_KERNELS else 0):
+            fail(f"costmodel: the measure runs launched {name} {n} times "
+                 f"(want {want if name in COST_KERNELS else 0}): {counts}")
+    print(f"costmodel launches {counts}", flush=True)
+
+    COST_DIR.mkdir(parents=True, exist_ok=True)
+    for small, art in arts.items():
+        path = rt.calibrate.save_artifact(
+            art, COST_DIR / f"measured_{'small' if small else 'full'}.json")
+        back = rt.calibrate.load_artifact(path)
+        learned = rt.LearnedCostModel(str(path))
+        if back != art or learned.weights != art["weights"]:
+            fail(f"costmodel: {path.name} does not round-trip")
+    learned = rt.LearnedCostModel(rt.calibrate.load_artifact(path))
+    print(f"costmodel artifact {path.relative_to(ROOT)} loads into "
+          f"{learned.describe()}", flush=True)
+
+    # the full-shape artifact's token costs for every served arch, beside
+    # the graphed decode wall; ServingEngine keeps billing the constants
+    for arch in MODELS:
+        cfg = rt.configs.get_config(arch)
+        pre, dec = learned.token_costs(cfg, COST_SEQ)
+        wall = GRAPH_DECODE_MS.get(arch)
+        wall = f"{wall:.3f} ms" if wall is not None else \
+            "not measured in this run"
+        print(f"costmodel tokens {arch:22s} ms_per_token_decode learned "
+              f"{dec:.3f} (spec {cfg.ms_per_token_decode}, the engine's "
+              f"bill), graphed decode wall {wall}; ms_per_ktoken_prefill "
+              f"learned {pre:.3f} (spec {cfg.ms_per_ktoken_prefill})",
+              flush=True)
+
+    # the LLM-as-FaaS bill of deepseek-7b at the default trace, priced by
+    # the card's artifact as scenario.run prices it, against the spec's
+    # constants: at its own reference model and seq the anchored costs
+    # are the constants, so every record must be equal
+    cfg = rt.configs.get_config(COST_ARCH)
+    tc = learned.token_costs(cfg, COST_SEQ)
+    priced_cfg = cfg.with_(ms_per_ktoken_prefill=tc[0],
+                           ms_per_token_decode=tc[1])
+    bills = {}
+    for label, c in (("static", cfg), ("priced", priced_cfg)):
+        t0 = time.perf_counter()
+        tasks, meta = rt.llm_workload(rt.LLMSpec(model=c), rt.TraceSpec())
+        print(f"costmodel llm {label}: {meta['n_requests']} requests, "
+              f"{meta['n_chunks']} chunks built in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        for policy in COST_POLICIES:
+            t0 = time.perf_counter()
+            res = rt.execute_policy(policy, tasks, n_cores=COST_CORES)
+            wall = time.perf_counter() - t0
+            s = res.summary()
+            bills[label, policy] = (s["cost_usd"], s["makespan_s"],
+                                    s["preemptions"], s["n"],
+                                    s["p99_execution_s"])
+            print(f"costmodel bill {label} {policy:6s}: cost_usd "
+                  f"{s['cost_usd']!r} makespan_s {s['makespan_s']!r} "
+                  f"preemptions {s['preemptions']} n {s['n']} "
+                  f"p99_execution_s {s['p99_execution_s']:.3f}; "
+                  f"{wall:.2f} s on the host", flush=True)
+    for policy in COST_POLICIES:
+        if bills["priced", policy] != bills["static", policy]:
+            fail(f"costmodel: the priced {policy} run "
+                 f"{bills['priced', policy]} differs from the static "
+                 f"{bills['static', policy]}")
+    if not bills["priced", "hybrid"][0] < bills["priced", "cfs"][0]:
+        fail(f"costmodel: hybrid bills {bills['priced', 'hybrid'][0]} and "
+             f"cfs {bills['priced', 'cfs'][0]}")
+    return counts
+
+
 # -----------------------------------------------------------------------------
 
 SOURCES = {"fused_rmsnorm": ("src/repro_torch/csrc/fused_rmsnorm.cu",
@@ -2625,6 +2785,12 @@ def load_port() -> SimpleNamespace:
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import TrainConfig
     from repro_torch.launch import dryrun, profile
+    from repro_torch.core import execute_policy
+    from repro_torch.costmodel import LearnedCostModel
+    from repro_torch.costmodel import features as cost_features
+    from repro_torch.serving.llm import LLMSpec, llm_workload
+    # the module, which the package's calibrate function shadows
+    calibrate = importlib.import_module("repro_torch.costmodel.calibrate")
     from repro_torch.training import (SyntheticLM, init_opt_state,
                                       load_train_state, loss_and_grads,
                                       make_train_step, state_like,
@@ -2661,6 +2827,9 @@ def load_port() -> SimpleNamespace:
         loss_and_grads=loss_and_grads, CheckpointManager=CheckpointManager,
         train_state=train_state, state_like=state_like,
         load_train_state=load_train_state, profile=profile, dryrun=dryrun,
+        execute_policy=execute_policy, LearnedCostModel=LearnedCostModel,
+        cost_features=cost_features, calibrate=calibrate, LLMSpec=LLMSpec,
+        llm_workload=llm_workload,
         backward={"fused_rmsnorm_bwd": rn.fused_rmsnorm_bwd_cuda,
                   "fused_rmsnorm_plain": rn.fused_rmsnorm_plain,
                   "flash_lse": fa.flash_attention_lse_cuda,
@@ -2683,7 +2852,7 @@ def load_port() -> SimpleNamespace:
     return port
 
 
-PHASES = ("sass", "kernels", "train", "models", "mc")
+PHASES = ("sass", "kernels", "train", "models", "mc", "costmodel")
 
 
 def main() -> None:
@@ -2761,6 +2930,10 @@ def main() -> None:
         rows["mc_cell"] = mc_phase(rt, smi)
         print(f"mc phase {time.perf_counter() - t0:.1f} s", flush=True)
         by_model["paper grid"] = {"mc_cell": rows["mc_cell"]["launches"]}
+    if "costmodel" in phases:
+        t0 = time.perf_counter()
+        by_model["costmodel measure"] = costmodel_phase(rt, smi)
+        print(f"costmodel phase {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
           f" GB; total {time.perf_counter() - t_start:.1f} s", flush=True)
     if len(phases) < len(PHASES):

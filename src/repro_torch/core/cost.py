@@ -1,5 +1,6 @@
 """AWS Lambda pricing of a workload (own copy of the parts of
-``repro.core.cost`` that ``SimResult`` bills with).
+``repro.core.cost`` that ``SimResult`` bills with, the cold-start and
+warm-pool shares included).
 
 AWS bills wall-clock execution duration per millisecond, at a
 per-GB-second rate, plus a flat per-request fee. Rates come from the
@@ -32,6 +33,24 @@ def invocation_cost_usd(execution_ms: float, mem_mb: float,
     p = pricing if pricing is not None else DEFAULT_PRICING
     return execution_ms * price_per_ms(mem_mb, p) * price_mult \
         + p.price_per_request
+
+
+def cold_start_cost_usd(init_ms: float, mem_mb: float,
+                        pricing: Optional[PricingSpec] = None) -> float:
+    """The share of one invocation's bill attributable to sandbox boot
+    (no per-request fee: the request is billed once, in
+    ``invocation_cost_usd``)."""
+    return init_ms * price_per_ms(mem_mb, pricing)
+
+
+def warm_pool_hold_cost_usd(warm_mb_ms: float,
+                            pricing: Optional[PricingSpec] = None,
+                            ) -> float:
+    """Provider-side cost of the idle warm set: the integral of resident
+    idle sandbox memory over time (MB x ms), as accumulated by
+    ``ContainerPool.warm_mb_ms``."""
+    p = pricing if pricing is not None else DEFAULT_PRICING
+    return (warm_mb_ms / 1024.0 / 1000.0) * p.warm_hold_per_gb_second
 
 
 def workload_cost_usd(execution_ms: Iterable[float],

@@ -1,5 +1,5 @@
-"""The pricing spec (own copy of ``repro.costmodel.pricing.PricingSpec``
-and ``DEFAULT_PRICING``): every dollar the serving engine bills.
+"""The pricing spec (own copy of ``repro.costmodel.pricing``): every
+dollar the serving engine, the simulator and the cost model bill.
 
 :data:`DEFAULT_PRICING`'s fields are exactly the JAX package's, and the
 derived rates are the same float expressions, so both engines bill a
@@ -8,6 +8,7 @@ request identically.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import Optional, Union
 
 
 @dataclass(frozen=True)
@@ -56,3 +57,45 @@ class PricingSpec:
 
 #: The JAX package's default pricing, field for field.
 DEFAULT_PRICING = PricingSpec()
+
+#: Named presets for the sweep/CLI ``--pricing`` axis. Additions are
+#: cheap; renames are schema changes (rows key on the name).
+PRICINGS = {
+    "default": DEFAULT_PRICING,
+    # Duration rate doubled: what the scheduler choice is worth when
+    # compute is expensive relative to the request fee.
+    "premium": PricingSpec(name="premium",
+                           price_per_gb_second=2 * 1.66667e-5),
+    # Request fee waived: pure duration billing — shedding becomes
+    # literally free for the operator, which the roll-ups must show.
+    "free_requests": PricingSpec(name="free_requests",
+                                 price_per_request=0.0),
+}
+
+
+def make_pricing(pricing: Union[None, str, dict, PricingSpec],
+                 ) -> PricingSpec:
+    """Coerce ``None`` | preset name | kwargs dict | ``PricingSpec`` —
+    the same accept-anything contract the container/admission specs
+    give every other Scenario argument."""
+    if pricing is None:
+        return DEFAULT_PRICING
+    if isinstance(pricing, PricingSpec):
+        return pricing
+    if isinstance(pricing, str):
+        if pricing not in PRICINGS:
+            raise KeyError(f"unknown pricing preset {pricing!r}; "
+                           f"have {sorted(PRICINGS)}")
+        return PRICINGS[pricing]
+    if isinstance(pricing, dict):
+        return PricingSpec(**pricing)
+    raise TypeError(f"cannot build PricingSpec from {type(pricing)!r}")
+
+
+def resolve_pricing(pricing: Union[None, str, dict, PricingSpec],
+                    ) -> Optional[PricingSpec]:
+    """Like :func:`make_pricing` but maps ``None`` to ``None`` — for
+    call sites that must distinguish "caller said nothing" (keep the
+    legacy constant path, bit-identically) from "caller asked for the
+    default spec"."""
+    return None if pricing is None else make_pricing(pricing)

@@ -1,11 +1,29 @@
-"""Preemption cost model (own copy of ``repro.serving.request.kv_bytes``
-and ``preemption_penalty_ms``)."""
+"""Inference request model and per-arch service / preemption cost (own
+copy of ``repro.serving.request``)."""
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 from ..configs.base import ModelConfig
 
 HOST_OFFLOAD_BW = 10e9          # bytes/s device<->host for KV offload
 DISPATCH_BUBBLE_MS = 2.0        # re-dispatch latency after a swap
+
+
+@dataclass
+class RequestSpec:
+    rid: int
+    arrival_ms: float
+    prompt_tokens: int
+    decode_tokens: int
+    mem_gb: float = 0.5          # billed footprint (weights share + KV)
+    func_id: int = 0             # model endpoint (FaaS function) it hits
+
+
+def service_ms(cfg: ModelConfig, prompt: int, decode: int) -> float:
+    """Modelled uninterrupted service time of a request on one slot."""
+    return (cfg.ms_per_ktoken_prefill * prompt / 1000.0
+            + cfg.ms_per_token_decode * decode)
 
 
 def kv_bytes(cfg: ModelConfig, seq_len: int) -> float:

@@ -1,6 +1,6 @@
 """Workload construction following the paper's Sec. V-B (own copy of
 ``repro.traces.workload``: ``Workload``, ``generate_workload``,
-``P90_ANCHOR_MS`` and ``scale_load``).
+``P90_ANCHOR_MS``, ``scale_load`` and ``keepalive_hints``).
 
 "We assume that the function arrives at regular intervals every minute.
 Then we can calculate the function interval time in that minute by
@@ -102,3 +102,33 @@ def scale_load(tasks: list[Task], factor: float) -> list[Task]:
         c.deadline = c.arrival + slack
         out.append(c)
     return out
+
+
+def keepalive_hints(tasks: list[Task],
+                    config: "ContainerConfig | None" = None,
+                    ) -> dict[int, float]:
+    """Per-function keep-alive signals for the container layer.
+
+    For each function with >= 2 invocations, suggest holding its sandbox
+    warm for ``hist_margin`` x the ``hist_pct``-th percentile of its
+    observed inter-arrival times (clamped to the config's hist bounds) —
+    the trace-driven analogue of the Azure histogram policy (Shahrad et
+    al.). The knobs come from the SAME ``ContainerConfig`` the hints
+    will feed, so pre-observation hints and the pool's own
+    post-observation estimates agree. Functions seen once get no hint;
+    the pool falls back to its default TTL for them. Feed the result to
+    ``ContainerConfig(prewarm=...)`` (e.g. via ``dataclasses.replace``).
+    """
+    from ..core.containers import ContainerConfig
+    cfg = config if config is not None else ContainerConfig()
+    arrivals: dict[int, list[float]] = {}
+    for t in sorted(tasks, key=lambda x: x.arrival):
+        arrivals.setdefault(t.func_id, []).append(t.arrival)
+    hints: dict[int, float] = {}
+    for fid, at in arrivals.items():
+        if len(at) < 2:
+            continue
+        iats = np.diff(np.asarray(at))
+        ka = float(np.percentile(iats, cfg.hist_pct)) * cfg.hist_margin
+        hints[fid] = min(max(ka, cfg.hist_min_ms), cfg.hist_max_ms)
+    return hints
