@@ -241,11 +241,40 @@ package. In order it:
       cores: at its own reference model and seq the anchored costs are
       the constants, so each priced record must equal the static one,
       and hybrid must bill less than cfs;
+7c. runs the fleet simulator (cluster/, scenario.run, the serving
+   gateway; host simulation, src/repro_torch/launch/fleet.py's cases)
+   in spawned host processes, one a run, at most 8 at once, and holds
+   each to a committed record: the golden 3-node fleet
+   (cluster-hybrid-s0) to tests/golden/engine_golden.json; the serving
+   gateway's default run (rwkv6-1.6b, 1 minute at 3,000 a minute, 50
+   slots, fifo / cfs / hybrid) and the same requests on a fleet of 4 x
+   16 slots, the paper's default trace (12,643 invocations) on 4 x 50
+   cores under fifo / cfs / hybrid, and the cost model's scenario
+   (deepseek-7b as an llm workload, cost_aware dispatch, hybrid,
+   max_load "auto"; small: 1 minute at 120 a minute on 2 x 4 cores;
+   full: the default trace on 4 x 50 cores) with the static cost model,
+   to tests/golden/torch_fleet_golden.json: every summary field, every
+   cost and a digest of every task equal. Then the same two scenarios
+   learned from the small artifact step 7 measured in this run, handed
+   over in memory (under --phases without costmodel the phase measures
+   it itself, its launches counted under their own key and held to the
+   formulas as step 7 holds them), each run twice and once more after a
+   save_artifact / load_artifact round trip, all three equal, with
+   cost_obs > 0; it prints static against learned total_cost_usd, the
+   delta, cost_coeff, cost_obs, n_requests and the host seconds, and
+   whether the synthetic calibration's weights bill the same. deepseek-7b
+   is the calibration's reference model, billed at its anchored token
+   costs whatever the weights, so the small scenario is also run serving
+   zamba2-1.2b (llm-transfer: static to its pin, learned as above),
+   whose tokens the fit's ratios price: its learned record must differ
+   from the synthetic weights' one, so the measured timings reach a
+   checked bill;
 8. prints a JSON line of the kernels, then the result line.
 
 Any failed check exits non-zero. Without a CUDA device it exits non-zero
 and prints no result. ``--phases`` runs a subset of sass (step 3),
-kernels (4), train (4c), models (5), mc (6) and costmodel (7) (for a
+kernels (4), train (4c), models (5), mc (6), costmodel (7) and fleet
+(7c) (for a
 partial check on the card, or to time another checkout's kernels with
 this script); it then prints no result line.
 """
@@ -2645,8 +2674,9 @@ def measure_rows(rt, smi: str, small: bool) -> dict:
     return art
 
 
-def costmodel_phase(rt, smi: str) -> dict:
-    """Phase 7; returns the launch counts of the measure runs."""
+def costmodel_phase(rt, smi: str) -> tuple:
+    """Phase 7; returns the launch counts of the measure runs and the
+    small measured artifact, which the fleet phase prices with."""
     rt.ops.reset_launch_counts()
     arts = {small: measure_rows(rt, smi, small) for small in (True, False)}
     counts = rt.ops.launch_counts()
@@ -2719,6 +2749,143 @@ def costmodel_phase(rt, smi: str) -> dict:
     if not bills["priced", "hybrid"][0] < bills["priced", "cfs"][0]:
         fail(f"costmodel: hybrid bills {bills['priced', 'hybrid'][0]} and "
              f"cfs {bills['priced', 'cfs'][0]}")
+    return counts, arts[True]
+
+
+# -- step 7c: the fleet simulator, priced by the card's cost model ------------
+
+FLEET_PINS = ROOT / "tests" / "golden" / "torch_fleet_golden.json"
+ENGINE_GOLDEN = ROOT / "tests" / "golden" / "engine_golden.json"
+FLEET_DIR = ROOT / "build" / "fleet"
+FLEET_WORKERS = 8              # host processes for the fleet runs
+
+
+def first_difference(got, want, path="") -> str:
+    """Where two records first differ (for the failure message)."""
+    if isinstance(want, dict) and isinstance(got, dict):
+        for k in sorted(set(got) | set(want)):
+            if got.get(k) != want.get(k):
+                return first_difference(got.get(k), want.get(k),
+                                        f"{path}.{k}")
+    if isinstance(want, list) and isinstance(got, list) \
+            and len(got) == len(want):
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g != w:
+                return first_difference(g, w, f"{path}[{i}]")
+    return f"{path or 'record'}: {str(got)[:200]} != {str(want)[:200]}"
+
+
+def fleet_runs(rt, jobs: list) -> dict:
+    """Each job's ``(record, host seconds)``: ``launch.fleet``'s cases,
+    run in parallel in spawned host processes (the simulator touches no
+    device), which the pool stops when they are done."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    workers = min(len(jobs), os.cpu_count() or 1, FLEET_WORKERS)
+    with ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        futs = {key: ex.submit(rt.fleet.timed_case, name, art)
+                for key, (name, art) in jobs}
+        return {key: f.result() for key, f in futs.items()}
+
+
+def fleet_phase(rt, smi: str, artifact: Optional[dict]) -> dict:
+    """Phase 7c; returns the launch counts of its own measure run (none
+    when the cost-model phase handed it this run's artifact)."""
+    counts = {}
+    if artifact is None:        # --phases without costmodel: measure here
+        rt.ops.reset_launch_counts()
+        artifact = measure_rows(rt, smi, small=True)
+        counts = rt.ops.launch_counts()
+        for name, n in counts.items():
+            if n != (1 + COST_REPEATS if name in COST_KERNELS else 0):
+                fail(f"fleet: the measure run launched {name} {n} times: "
+                     f"{counts}")
+        print(f"fleet measure launches {counts}", flush=True)
+    if artifact.get("mode") != "measure":
+        fail(f"fleet: the artifact's mode is {artifact.get('mode')!r}")
+    FLEET_DIR.mkdir(parents=True, exist_ok=True)
+    path = FLEET_DIR / "measured_small.json"
+    path.unlink(missing_ok=True)
+    loaded = rt.calibrate.load_artifact(
+        rt.calibrate.save_artifact(artifact, path))
+    if loaded != artifact:
+        fail(f"fleet: {path.name} does not round-trip")
+    # the synthetic calibration's weights, to show that the measured
+    # weights move the transferred model's bill (the calibration's
+    # reference model is billed at its spec's anchored costs either way)
+    synthetic = rt.calibrate.calibrate(mode="synthetic", seed=0)
+    reference = artifact["token_costs"]["model"]
+    pins = json.loads(FLEET_PINS.read_text())
+    golden = json.loads(ENGINE_GOLDEN.read_text())["cluster-hybrid-s0"]
+
+    jobs = [(name, (name, None)) for name in rt.fleet.CASES]
+    for name in rt.fleet.LEARNED:
+        jobs += [((name, "learned"), (name, artifact)),
+                 ((name, "learned again"), (name, artifact)),
+                 ((name, "learned reloaded"), (name, loaded)),
+                 ((name, "synthetic weights"), (name, synthetic))]
+    t0 = time.perf_counter()
+    out = fleet_runs(rt, jobs)
+    print(f"fleet: {len(jobs)} runs in {time.perf_counter() - t0:.1f} s on "
+          f"{min(len(jobs), os.cpu_count() or 1, FLEET_WORKERS)} host "
+          f"processes (host seconds each below); card {smi}", flush=True)
+
+    rec, secs = out["cluster-hybrid-s0"]
+    if rec != golden:
+        fail(f"fleet cluster-hybrid-s0 against engine_golden.json: "
+             f"{first_difference(rec, golden)}")
+    print(f"fleet cluster-hybrid-s0: equal to tests/golden/"
+          f"engine_golden.json (cost_usd {rec['cost_usd']!r}); {secs:.2f} s",
+          flush=True)
+    for name in pins:
+        rec, secs = out[name]
+        if rec != pins[name]:
+            fail(f"fleet {name} against {FLEET_PINS.name}: "
+                 f"{first_difference(rec, pins[name])}")
+        s = rec["summary"]
+        shown = {k: s[k] for k in ("n", "total_cost_usd", "cost_usd",
+                                   "preemptions", "cost_coeff", "cost_obs")
+                 if k in s}
+        print(f"fleet {name}: equal to its pin; {json.dumps(shown)}; "
+              f"{secs:.2f} s", flush=True)
+    rows = {p: out[f"gateway-{p}"][0]["row"] for p in ("fifo", "cfs",
+                                                       "hybrid")}
+    print(f"fleet gateway {rt.fleet.GATEWAY_ARCH}: hybrid saves "
+          f"{rows['cfs']['cost_usd'] / rows['hybrid']['cost_usd']:.3f}x vs "
+          f"CFS-analogue (rows {json.dumps(rows)})", flush=True)
+
+    for name, arch in rt.fleet.LEARNED.items():
+        static, s_secs = out[name]
+        learned, l_secs = out[name, "learned"]
+        for again in ("learned again", "learned reloaded"):
+            if out[name, again][0] != learned:
+                fail(f"fleet {name} {again}: "
+                     f"{first_difference(out[name, again][0], learned)}")
+        st, le = static["summary"], learned["summary"]
+        if le["cost_model"] != "learned" or not le["cost_obs"] > 0:
+            fail(f"fleet {name} learned: cost_model {le['cost_model']} "
+                 f"cost_obs {le['cost_obs']}")
+        print(f"fleet {name} static against learned ({smi}; learned from "
+              f"this run's measured artifact, MAPE "
+              f"{artifact['mape']:.4f}): static total_cost_usd "
+              f"{st['total_cost_usd']!r} learned {le['total_cost_usd']!r} "
+              f"delta {le['total_cost_usd'] - st['total_cost_usd']!r}; "
+              f"chunks served {st['n']} / {le['n']}, shed {st['shed']} / "
+              f"{le['shed']}; "
+              f"cost_coeff {st['cost_coeff']!r} / {le['cost_coeff']!r}; "
+              f"cost_obs {st['cost_obs']} / {le['cost_obs']}; n_requests "
+              f"{le['n_requests']}; host {s_secs:.2f} s / {l_secs:.2f} s; "
+              f"learned again and after save/load: equal", flush=True)
+        syn = out[name, "synthetic weights"][0]
+        print(f"fleet {name} ({arch}) learned with the synthetic "
+              f"calibration's weights: total_cost_usd "
+              f"{syn['summary']['total_cost_usd']!r}, equal to the measured "
+              f"artifact's: {syn == learned}", flush=True)
+        if arch != reference and syn == learned:
+            fail(f"fleet {name}: {arch} is priced by the fit's ratios "
+                 f"against {reference}, yet the measured artifact bills "
+                 f"as the synthetic weights do")
     return counts
 
 
@@ -2789,6 +2956,7 @@ def load_port() -> SimpleNamespace:
     from repro_torch.costmodel import LearnedCostModel
     from repro_torch.costmodel import features as cost_features
     from repro_torch.serving.llm import LLMSpec, llm_workload
+    from repro_torch.launch import fleet
     # the module, which the package's calibrate function shadows
     calibrate = importlib.import_module("repro_torch.costmodel.calibrate")
     from repro_torch.training import (SyntheticLM, init_opt_state,
@@ -2829,7 +2997,7 @@ def load_port() -> SimpleNamespace:
         load_train_state=load_train_state, profile=profile, dryrun=dryrun,
         execute_policy=execute_policy, LearnedCostModel=LearnedCostModel,
         cost_features=cost_features, calibrate=calibrate, LLMSpec=LLMSpec,
-        llm_workload=llm_workload,
+        llm_workload=llm_workload, fleet=fleet,
         backward={"fused_rmsnorm_bwd": rn.fused_rmsnorm_bwd_cuda,
                   "fused_rmsnorm_plain": rn.fused_rmsnorm_plain,
                   "flash_lse": fa.flash_attention_lse_cuda,
@@ -2852,7 +3020,7 @@ def load_port() -> SimpleNamespace:
     return port
 
 
-PHASES = ("sass", "kernels", "train", "models", "mc", "costmodel")
+PHASES = ("sass", "kernels", "train", "models", "mc", "costmodel", "fleet")
 
 
 def main() -> None:
@@ -2930,10 +3098,17 @@ def main() -> None:
         rows["mc_cell"] = mc_phase(rt, smi)
         print(f"mc phase {time.perf_counter() - t0:.1f} s", flush=True)
         by_model["paper grid"] = {"mc_cell": rows["mc_cell"]["launches"]}
+    measured = None
     if "costmodel" in phases:
         t0 = time.perf_counter()
-        by_model["costmodel measure"] = costmodel_phase(rt, smi)
+        by_model["costmodel measure"], measured = costmodel_phase(rt, smi)
         print(f"costmodel phase {time.perf_counter() - t0:.1f} s", flush=True)
+    if "fleet" in phases:
+        t0 = time.perf_counter()
+        counts = fleet_phase(rt, smi, measured)
+        if counts:
+            by_model["fleet measure"] = counts
+        print(f"fleet phase {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
           f" GB; total {time.perf_counter() - t_start:.1f} s", flush=True)
     if len(phases) < len(PHASES):

@@ -1,5 +1,5 @@
 """High-level entry point: run a named policy over a workload (own copy
-of ``repro.core.simulate``, less ``run_policy``).
+of ``repro.core.simulate``).
 
 The microVM mode (paper Sec. VI-E, Fig. 21/22) models Firecracker:
 per-invocation boot overhead, auxiliary VMM threads scheduled under the
@@ -10,6 +10,7 @@ microVMs on a 512 GB box).
 from __future__ import annotations
 
 import copy
+import warnings
 from typing import Optional
 
 from .containers import ContainerConfig, ContainerPool
@@ -75,9 +76,33 @@ def execute_policy(policy: str, workload: list[Task], *,
     return collect(sched, policy)
 
 
-# ``run_policy`` routes through the Scenario layer (``scenario.run``),
-# which the port does not have yet: it comes with ``scenario.py`` and
-# ``cluster/``.
+def run_policy(policy: str, workload: list[Task], *,
+               n_cores: int = 50,
+               adapt_pct: Optional[float] = None,
+               rightsize: bool = False,
+               microvm: bool = False,
+               ghost_mode: bool = False,
+               containers: Optional[ContainerConfig] = None,
+               fresh_tasks: bool = True,
+               **kw) -> SimResult:
+    """Deprecated: build a :class:`repro_torch.Scenario` and call
+    ``repro_torch.run``. This shim routes through exactly that path, so
+    its results stay bit-identical to the Scenario API."""
+    warnings.warn(
+        "run_policy() is deprecated; use repro_torch.run(Scenario(workload="
+        "WorkloadSpec(kind='tasks', tasks=...), ...)) instead",
+        DeprecationWarning, stacklevel=2)
+    from ..scenario import (FleetSpec, PolicySpec, Scenario, WorkloadSpec,
+                            run)
+    sc = Scenario(
+        workload=WorkloadSpec(kind="tasks", tasks=workload,
+                              fresh=fresh_tasks),
+        fleet=FleetSpec(n_nodes=1, cores_per_node=n_cores,
+                        containers=containers),
+        policy=PolicySpec(name=policy, adapt_pct=adapt_pct,
+                          rightsize=rightsize, microvm=microvm,
+                          ghost_mode=ghost_mode, kw=kw))
+    return run(sc).raw
 
 
 # -- ghOSt native-CFS interference model --------------------------------------

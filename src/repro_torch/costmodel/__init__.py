@@ -1,5 +1,4 @@
-"""Profiled, learned cost models (own copy of ``repro.costmodel``, less
-the pre-warm forecast, which waits for ``cluster/``).
+"""Profiled, learned cost models (own copy of ``repro.costmodel``).
 
 * :mod:`~repro_torch.costmodel.pricing`   — the frozen
   :class:`PricingSpec` every cost helper and consumer prices with;
@@ -9,6 +8,7 @@ the pre-warm forecast, which waits for ``cluster/``).
   ridge fit, persisted as a versioned JSON artifact;
 * :mod:`~repro_torch.costmodel.online`    — the online estimators
   (ScalarRLS, EWMA rates);
+* :mod:`~repro_torch.costmodel.forecast`  — the online pre-warm planner;
 * :mod:`~repro_torch.costmodel.model`     — the :class:`CostModel`
   protocol (:class:`StaticCostModel` / :class:`LearnedCostModel`).
 """

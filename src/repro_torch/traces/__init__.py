@@ -1,8 +1,10 @@
 """repro_torch.traces — own copy of the Azure-like workload synthesis."""
 from .azure import BUCKET_MS, FIB_N, FunctionMeta, TraceSpec, synth_functions
 from .workload import (P90_ANCHOR_MS, Workload, generate_workload,
-                       keepalive_hints, scale_load)
+                       keepalive_hints, scale_load, shard_tasks,
+                       workload_file)
 
 __all__ = ["BUCKET_MS", "FIB_N", "FunctionMeta", "TraceSpec",
            "synth_functions", "P90_ANCHOR_MS", "Workload",
-           "generate_workload", "keepalive_hints", "scale_load"]
+           "generate_workload", "keepalive_hints", "scale_load",
+           "shard_tasks", "workload_file"]

@@ -1,6 +1,5 @@
 """Workload construction following the paper's Sec. V-B (own copy of
-``repro.traces.workload``: ``Workload``, ``generate_workload``,
-``P90_ANCHOR_MS``, ``scale_load`` and ``keepalive_hints``).
+``repro.traces.workload``).
 
 "We assume that the function arrives at regular intervals every minute.
 Then we can calculate the function interval time in that minute by
@@ -20,7 +19,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..core.events import Task
-from .azure import BUCKET_MS, FunctionMeta, TraceSpec, synth_functions
+from .azure import BUCKET_MS, FIB_N, FunctionMeta, TraceSpec, synth_functions
 
 P90_ANCHOR_MS = 1633.0  # paper Sec. II-E: 90th pct of the 2-min workload
 
@@ -104,6 +103,30 @@ def scale_load(tasks: list[Task], factor: float) -> list[Task]:
     return out
 
 
+def shard_tasks(tasks: list[Task], n_shards: int,
+                by: str = "hash") -> list[list[Task]]:
+    """Statically partition a workload across ``n_shards`` nodes.
+
+    ``by='hash'`` keys on ``func_id`` (every invocation of a function
+    lands in one shard — the static analogue of affinity dispatch);
+    ``by='interleave'`` deals arrivals round-robin (load-balanced but
+    affinity-free). Dynamic routing lives in ``repro_torch.cluster.dispatch``.
+    """
+    if n_shards < 1:
+        raise ValueError("need at least one shard")
+    shards: list[list[Task]] = [[] for _ in range(n_shards)]
+    ordered = sorted(tasks, key=lambda t: (t.arrival, t.tid))
+    if by == "hash":
+        for t in ordered:
+            shards[t.func_id % n_shards].append(t)
+    elif by == "interleave":
+        for i, t in enumerate(ordered):
+            shards[i % n_shards].append(t)
+    else:
+        raise KeyError(f"unknown shard key {by!r}")
+    return shards
+
+
 def keepalive_hints(tasks: list[Task],
                     config: "ContainerConfig | None" = None,
                     ) -> dict[int, float]:
@@ -132,3 +155,14 @@ def keepalive_hints(tasks: list[Task],
         ka = float(np.percentile(iats, cfg.hist_pct)) * cfg.hist_margin
         hints[fid] = min(max(ka, cfg.hist_min_ms), cfg.hist_max_ms)
     return hints
+
+
+def workload_file(w: Workload) -> list[dict]:
+    """The paper's workload-file rows: IAT + Fibonacci argument N."""
+    rows = []
+    prev = 0.0
+    for t in w.tasks:
+        rows.append({"iat_ms": t.arrival - prev, "fib_n": FIB_N[t.bucket],
+                     "mem_mb": t.mem_mb, "func_id": t.func_id})
+        prev = t.arrival
+    return rows

@@ -1,11 +1,12 @@
 """The port's simulator (``repro_torch.core``) against the JAX package's.
 
-Every single-node entry of ``tests/golden/engine_golden.json`` (fifo, cfs,
-hybrid and edf at seeds 0-2 with the container pool, the adaptive limit
-with the rightsizer, and the ghOSt interference model) is reproduced by
-the port's ``execute_policy`` exactly, its record computed as
-``tests/test_engine_equivalence.py`` computes it. The golden file is read,
-never written. ``cluster-hybrid-s0`` waits for the port's ``cluster/``.
+Every entry of ``tests/golden/engine_golden.json`` is reproduced by the
+port exactly, its record computed as ``tests/test_engine_equivalence.py``
+computes it: the single-node ones (fifo, cfs, hybrid and edf at seeds 0-2
+with the container pool, the adaptive limit with the rightsizer, and the
+ghOSt interference model) through the port's ``execute_policy``, and the
+3-node fleet ``cluster-hybrid-s0`` through its ``run_cluster``. The golden
+file is read, never written.
 The policies with no golden entry (``fifo_preempt``, ``rr``) and the
 microVM mode are held against the JAX package on small traces: every
 ``SimResult`` field and every task's every field equal."""
@@ -25,6 +26,7 @@ from repro.traces import generate_workload as jax_generate  # noqa: E402
 from repro_torch.core import (POLICIES, ContainerConfig, SimResult,  # noqa: E402
                               Task, execute_policy, make_scheduler)
 from repro_torch.core import simulate  # noqa: E402
+from repro_torch.cluster import run_cluster  # noqa: E402
 from repro_torch.traces import TraceSpec, generate_workload  # noqa: E402
 
 SEEDS = (0, 1, 2)
@@ -37,7 +39,7 @@ def _trace(seed: int):
 
 
 def _golden_specs():
-    """The golden file's single-node entries, run by the port."""
+    """The golden file's entries, run by the port."""
     specs = {}
     for policy in GOLDEN_POLICIES:
         for seed in SEEDS:
@@ -50,6 +52,10 @@ def _golden_specs():
         trace_util=True)
     specs["cfs-ghost-s0"] = lambda: execute_policy(
         "cfs", _trace(0), n_cores=8, ghost_mode=True)
+    specs["cluster-hybrid-s0"] = lambda: run_cluster(
+        _trace(0), n_nodes=3, cores_per_node=8, node_policy="hybrid",
+        dispatcher="least_loaded", seed=0,
+        containers=ContainerConfig(**_POOL))
     return specs
 
 
@@ -69,8 +75,8 @@ def test_port_reproduces_the_golden_entry(golden, name):
 
 
 def test_every_single_node_golden_entry_is_covered(golden):
-    # the one golden entry left is the 3-node cluster run
-    assert set(golden) - set(_golden_specs()) == {"cluster-hybrid-s0"}
+    # every golden entry, the 3-node cluster run included
+    assert set(golden) == set(_golden_specs())
 
 
 TASK_FIELDS = [f.name for f in fields(Task)]
@@ -143,4 +149,8 @@ def test_policies_and_scheduler_factory():
     assert type(make_scheduler("edf", n_cores=2)).__name__ == "EDF"
     with pytest.raises(KeyError):
         make_scheduler("lottery", n_cores=2)
-    assert not hasattr(simulate, "run_policy")
+    # run_policy is the deprecated shim over repro_torch.run
+    tasks = generate_workload(TraceSpec(**SMALL, seed=5)).tasks
+    with pytest.warns(DeprecationWarning):
+        shim = simulate.run_policy("fifo", tasks, n_cores=4)
+    _same_result(shim, execute_policy("fifo", tasks, n_cores=4))
