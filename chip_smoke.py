@@ -221,6 +221,26 @@ package. In order it:
       slowest cell alone (cells/s, ns and cycles an event at the card's
       top SM clock), then a sweep: the grid 11 times over in one launch
       (132 cells), every copy's digest equal to its cell's (cells/s);
+6d. runs the MC engine's Scenario front door and the grid runner at the
+   paper's volume (the default trace: 2 minutes, 6,221 invocations a
+   minute, 250 functions, 12,643 tasks at seed 0), with the launch counts
+   set to 0 before each run and read after it, and CUDA events around
+   each mc_cell launch:
+   a. MonteCarlo(Scenario(the trace, 50 cores, fifo / cfs / hybrid with
+      25 FIFO cores and 1633 ms), seeds 0-3, load 1.0) on the card, a run
+      a policy: every cell's digest equal to paper_digests.DIGESTS, no
+      fallback, mc_cell launched once a (cores, slots) bucket and nothing
+      else, the hybrid billing less than cfs at every seed;
+   b. run_sweep(backend="torch") over fifo / cfs / hybrid x round_robin /
+      random / least_loaded on 4 nodes x 16 cores (the heavy_traffic
+      preset's shape, containers off): the round_robin and random cells
+      batched as one cell a node, launched once a bucket and nothing
+      else, the least_loaded cells on the scalar engine with
+      fallback_reason fleet_dispatcher; every row, less backend and
+      fallback_reason, equal to the scalar engine's row of the cell, run
+      in spawned host processes (launch.fleet.timed_cell);
+   each run's wall (host work included), the kernel's share of it,
+   events and cells/s are printed;
 7. runs the cost model's measure mode and prices the simulator with it:
    a. calibrate(mode="measure") at the small cases (BH 2, S 128, hd 64,
       ds 16) and the full ones (4, 512, 64, 16), f32, 20 timed calls a
@@ -273,8 +293,8 @@ package. In order it:
 
 Any failed check exits non-zero. Without a CUDA device it exits non-zero
 and prints no result. ``--phases`` runs a subset of sass (step 3),
-kernels (4), train (4c), models (5), mc (6), costmodel (7) and fleet
-(7c) (for a
+kernels (4), train (4c), models (5), mc (6), sweep (6d), costmodel (7)
+and fleet (7c) (for a
 partial check on the card, or to time another checkout's kernels with
 this script); it then prints no result line.
 """
@@ -2613,6 +2633,166 @@ def mc_phase(rt, smi: str) -> dict:
             "sweep_cells": n_sweep, "sweep_ms": sweep_ms}
 
 
+# -- phase 6d: the MC engine's Scenario front door and the grid runner --------
+
+SWEEP_DISPATCHERS = ("round_robin", "random", "least_loaded")
+SWEEP_NODES = 4
+# the heavy_traffic preset's shape (cluster/sweep.py's PRESETS) with the
+# containers off, at the paper's volume
+SWEEP_GRID = dict(cores_per_node=16, minutes=2, invocations_per_min=6221.0,
+                  n_functions=250, seed=0)
+
+
+class KernelSpans:
+    """CUDA events around each mc_cell launch the batched engine makes
+    while installed (``with KernelSpans(rt) as spans``): the wrapper
+    itself is unchanged and still counts its launches."""
+
+    def __init__(self, rt):
+        self.mod, self.spans = rt.mc_kernels, []
+
+    def __enter__(self):
+        real = self.real = self.mod.mc_cell_cuda
+
+        def timed(*args, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = real(*args, **kw)
+            b.record()
+            self.spans.append((a, b, tuple(args[0].shape)))
+            return out
+        self.mod.mc_cell_cuda = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.mc_cell_cuda = self.real
+
+    def seconds(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b, _ in self.spans) / 1e3
+
+
+def check_launches(label: str, counts: dict, spans: KernelSpans,
+                   buckets: set) -> int:
+    """mc_cell launched once a (cores, slots) bucket and nothing else."""
+    if counts["mc_cell"] != len(buckets) or len(spans.spans) != len(buckets):
+        fail(f"{label}: mc_cell launched {counts['mc_cell']} times "
+             f"({len(spans.spans)} timed), not once for each of the buckets "
+             f"{sorted(buckets)}")
+    if any(n for name, n in counts.items() if name != "mc_cell"):
+        fail(f"{label}: other kernels launched: {counts}")
+    return counts["mc_cell"]
+
+
+def mc_front_door(rt, smi: str) -> int:
+    """Step 6d (a): MonteCarlo over the paper grid, a run a policy; returns
+    its mc_cell launches."""
+    pd, cfg = rt.paper_digests, rt.paper_config
+    cost, launches = {}, 0
+    for policy in MC_POLICIES:
+        sc = rt.Scenario(
+            workload=rt.WorkloadSpec(kind="azure", trace=cfg.trace),
+            fleet=rt.FleetSpec(cores_per_node=cfg.sched.n_cores),
+            policy=rt.PolicySpec(name=policy, kw=pd.paper_kw(policy)))
+        mc = rt.MonteCarlo(sc, seeds=pd.SEEDS, loads=(1.0,))
+        rt.ops.reset_launch_counts()
+        with KernelSpans(rt) as spans:
+            t0 = time.perf_counter()
+            out = mc.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = rt.ops.launch_counts()
+        kernel_s = spans.seconds()
+        buckets = {(cfg.sched.n_cores, rt.mc_bucket(len(r.raw.tasks)))
+                   for r in out.results}
+        label = f"montecarlo {policy}"
+        launches += check_launches(label, counts, spans, buckets)
+        if out.meta["fallback"] or set(out.meta["backends"]) != {"torch"}:
+            fail(f"{label}: cells fell back: {out.meta}")
+        for row, res in zip(out.rows, out.results):
+            seed = row["seed"]
+            cost[policy, seed] = row["cost_usd"]
+            if pd.cell_digest(res.raw.tasks) != pd.DIGESTS[policy, seed]:
+                fail(f"{label} seed {seed}: the digest differs from the "
+                     "scalar engine's")
+        events = sum(r.mc_stats["events"] for r in out.results)
+        print(f"{label}: {len(out.results)} cells (seeds {pd.SEEDS}, "
+              f"{cfg.sched.n_cores} cores), every digest equal to the scalar "
+              f"engine's, fallback 0; wall {wall:.3f} s (host work "
+              f"included), kernel {kernel_s:.3f} s ({kernel_s / wall:.3f} of "
+              f"the wall), launches {counts['mc_cell']} {sorted(buckets)}, "
+              f"events {events}, {len(out.results) / wall:.2f} cells/s "
+              f"({smi}); cost_usd "
+              f"{[round(r['cost_usd'], 6) for r in out.rows]}", flush=True)
+    for seed in pd.SEEDS:
+        if not cost["hybrid", seed] < cost["cfs", seed]:
+            fail(f"montecarlo seed {seed}: hybrid bills "
+                 f"{cost['hybrid', seed]} and cfs {cost['cfs', seed]}")
+    return launches
+
+
+def fleet_sweep(rt, smi: str) -> int:
+    """Step 6d (b): a fleet grid through run_sweep(backend="torch"), each
+    row held to the scalar engine's; returns its mc_cell launches."""
+    grid = rt.sweep.build_grid(MC_POLICIES, SWEEP_DISPATCHERS, [SWEEP_NODES],
+                               (1.0,), **SWEEP_GRID)
+    t0 = time.perf_counter()
+    ref = fleet_runs(rt, [(k, (cell,)) for k, cell in enumerate(grid)],
+                     rt.fleet.timed_cell)
+    print(f"sweep: {len(grid)} scalar rows in {time.perf_counter() - t0:.1f}"
+          f" s on {min(len(grid), os.cpu_count() or 1, FLEET_WORKERS)} host "
+          f"processes ({', '.join(f'{ref[k][1]:.2f}' for k in ref)} s)",
+          flush=True)
+    batched = [c for c in grid if rt.mc_supported(c.to_scenario()) is None]
+    buckets = set()
+    for c in batched:
+        sc = c.to_scenario()
+        sel = rt.replay_assignments(sc, len(sc.workload.build()[0]))
+        buckets |= {(c.cores_per_node, rt.mc_bucket(sel.count(i)))
+                    for i in range(c.n_nodes) if i in sel}
+    rt.ops.reset_launch_counts()
+    with KernelSpans(rt) as spans:
+        t0 = time.perf_counter()
+        rows = rt.sweep.run_sweep(grid, backend="torch")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = rt.ops.launch_counts()
+    kernel_s = spans.seconds()
+    launches = check_launches("sweep", counts, spans, buckets)
+    rows_b = [s[2][0] for s in spans.spans]
+    for k, (cell, row) in enumerate(zip(grid, rows)):
+        want = ref[k][0]
+        tag = {"backend": "torch"} if cell in batched else {
+            "backend": "python", "fallback_reason": "fleet_dispatcher"}
+        if {c: row.get(c) for c in tag} != tag:
+            fail(f"sweep {cell.node_policy} {cell.dispatcher}: routed "
+                 f"{row.get('backend')} ({row.get('fallback_reason')}), not "
+                 f"{tag}")
+        if {c: v for c, v in row.items() if c not in tag} \
+                != {c: v for c, v in want.items() if c not in tag}:
+            fail(f"sweep {cell.node_policy} {cell.dispatcher}: "
+                 f"{first_difference(row, want)}")
+        print(f"sweep {cell.node_policy:6s} {cell.dispatcher:12s}: "
+              f"{row['backend']:6s} cost_usd {row['cost_usd']!r} "
+              f"p99_slowdown {row['p99_slowdown']!r} util_range "
+              f"{row['util_range']!r}; equal to the scalar row", flush=True)
+    print(f"sweep: {len(grid)} cells of {SWEEP_NODES} x "
+          f"{SWEEP_GRID['cores_per_node']} cores, {len(batched)} batched as "
+          f"{sum(rows_b)} node cells in {len(buckets)} launch(es) "
+          f"{sorted(buckets)}, {len(grid) - len(batched)} fallen back; wall "
+          f"{wall:.3f} s (host work and the fallback pool included), kernel "
+          f"{kernel_s:.3f} s ({kernel_s / wall:.3f} of the wall), "
+          f"{len(grid) / wall:.2f} cells/s ({smi})", flush=True)
+    return launches
+
+
+def sweep_phase(rt, smi: str) -> dict:
+    """Phase 6d; returns the launches of (a) and (b) by part."""
+    return {"montecarlo": {"mc_cell": mc_front_door(rt, smi)},
+            "sweep": {"mc_cell": fleet_sweep(rt, smi)}}
+
+
 # -- phase 7: the cost model's measure mode and the priced simulation ---------
 
 COST_REPEATS = 20             # timed calls of each kernel case (median)
@@ -2775,17 +2955,18 @@ def first_difference(got, want, path="") -> str:
     return f"{path or 'record'}: {str(got)[:200]} != {str(want)[:200]}"
 
 
-def fleet_runs(rt, jobs: list) -> dict:
-    """Each job's ``(record, host seconds)``: ``launch.fleet``'s cases,
-    run in parallel in spawned host processes (the simulator touches no
-    device), which the pool stops when they are done."""
+def fleet_runs(rt, jobs: list, fn: Optional[Callable] = None) -> dict:
+    """Each job's ``(record, host seconds)``: ``fn(*args)`` of each ``(key,
+    args)`` job (``launch.fleet.timed_case`` by default), run in parallel
+    in spawned host processes (the simulator touches no device), which
+    the pool stops when they are done."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
+    fn = fn or rt.fleet.timed_case
     workers = min(len(jobs), os.cpu_count() or 1, FLEET_WORKERS)
     with ProcessPoolExecutor(
             workers, mp_context=multiprocessing.get_context("spawn")) as ex:
-        futs = {key: ex.submit(rt.fleet.timed_case, name, art)
-                for key, (name, art) in jobs}
+        futs = {key: ex.submit(fn, *args) for key, args in jobs}
         return {key: f.result() for key, f in futs.items()}
 
 
@@ -2936,8 +3117,14 @@ def load_port() -> SimpleNamespace:
     from repro_torch.kernels.mc_cell import mc_cell_cuda, run_grid_plain
     from repro_torch.core.events import Task
     from repro_torch.launch import mc_time, path_check
-    from repro_torch.mc import Cell, paper_digests, run_cells
-    from repro_torch.mc.engine import _bucket, pack
+    from repro_torch.mc import (Cell, MonteCarlo, paper_digests, run_cells,
+                                run_scenarios, supported)
+    from repro_torch.mc import kernels as mc_kernels
+    from repro_torch.mc.engine import _bucket, pack, replay_assignments
+    from repro_torch.cluster import sweep
+    from repro_torch.configs.paper import CONFIG as paper_config
+    from repro_torch.scenario import FleetSpec, PolicySpec, Scenario, \
+        WorkloadSpec
     from repro_torch.traces import TraceSpec, generate_workload, scale_load
     from repro_torch.models import LM
     from repro_torch.models.frontends import input_embeds_for
@@ -2997,7 +3184,11 @@ def load_port() -> SimpleNamespace:
         load_train_state=load_train_state, profile=profile, dryrun=dryrun,
         execute_policy=execute_policy, LearnedCostModel=LearnedCostModel,
         cost_features=cost_features, calibrate=calibrate, LLMSpec=LLMSpec,
-        llm_workload=llm_workload, fleet=fleet,
+        llm_workload=llm_workload, fleet=fleet, MonteCarlo=MonteCarlo,
+        run_scenarios=run_scenarios, mc_supported=supported,
+        replay_assignments=replay_assignments, mc_kernels=mc_kernels,
+        sweep=sweep, paper_config=paper_config, Scenario=Scenario,
+        FleetSpec=FleetSpec, PolicySpec=PolicySpec, WorkloadSpec=WorkloadSpec,
         backward={"fused_rmsnorm_bwd": rn.fused_rmsnorm_bwd_cuda,
                   "fused_rmsnorm_plain": rn.fused_rmsnorm_plain,
                   "flash_lse": fa.flash_attention_lse_cuda,
@@ -3020,7 +3211,8 @@ def load_port() -> SimpleNamespace:
     return port
 
 
-PHASES = ("sass", "kernels", "train", "models", "mc", "costmodel", "fleet")
+PHASES = ("sass", "kernels", "train", "models", "mc", "sweep", "costmodel",
+          "fleet")
 
 
 def main() -> None:
@@ -3098,6 +3290,10 @@ def main() -> None:
         rows["mc_cell"] = mc_phase(rt, smi)
         print(f"mc phase {time.perf_counter() - t0:.1f} s", flush=True)
         by_model["paper grid"] = {"mc_cell": rows["mc_cell"]["launches"]}
+    if "sweep" in phases:
+        t0 = time.perf_counter()
+        by_model.update(sweep_phase(rt, smi))
+        print(f"sweep phase {time.perf_counter() - t0:.1f} s", flush=True)
     measured = None
     if "costmodel" in phases:
         t0 = time.perf_counter()

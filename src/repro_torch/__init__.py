@@ -12,9 +12,10 @@ The simulator's front door is the Scenario API::
     res = repro_torch.run(sc)
     print(res.summary())
 
-Scenario and cost-model names are imported lazily, so that
+Scenario, Monte-Carlo and cost-model names are imported lazily, so that
 ``import repro_torch`` stays light.
 """
+__version__ = "1.0.0"
 
 _SCENARIO_EXPORTS = (
     "run", "Scenario", "ScenarioResult", "WorkloadSpec", "FleetSpec",
@@ -22,17 +23,24 @@ _SCENARIO_EXPORTS = (
     "SCHEMA_VERSION", "SUMMARY_KEYS_V1",
 )
 
+# The batched Monte-Carlo front door.
+_MC_EXPORTS = ("MonteCarlo", "MonteCarloResult")
+
 # Cost-model substrate: pricing + learned models.
 _COSTMODEL_EXPORTS = ("PricingSpec", "CostModel", "StaticCostModel",
                       "LearnedCostModel", "make_cost_model")
 
-__all__ = [*_SCENARIO_EXPORTS, *_COSTMODEL_EXPORTS]
+__all__ = ["__version__", *_SCENARIO_EXPORTS, *_MC_EXPORTS,
+           *_COSTMODEL_EXPORTS]
 
 
 def __getattr__(name):
     if name in _SCENARIO_EXPORTS:
         from . import scenario
         return getattr(scenario, name)
+    if name in _MC_EXPORTS:
+        from . import mc
+        return getattr(mc, name)
     if name in _COSTMODEL_EXPORTS:
         from . import costmodel
         return getattr(costmodel, name)
@@ -41,4 +49,4 @@ def __getattr__(name):
 
 def __dir__():
     return sorted(set(globals()) | set(_SCENARIO_EXPORTS)
-                  | set(_COSTMODEL_EXPORTS))
+                  | set(_MC_EXPORTS) | set(_COSTMODEL_EXPORTS))

@@ -32,7 +32,9 @@ assignments), so two records are equal only if the runs agree bit for
 bit. ``run_case(name, artifact, api)`` takes the entry points from
 ``api`` (``port_api()`` by default): a namespace holding the names of
 ``API``, so the same cases can be run through another package of the
-same interface. Host simulation only: nothing here touches a device.
+same interface. ``timed_cell(cell)`` runs one grid cell of
+``cluster.sweep`` on the scalar engine, the rows the batched sweep is
+held to. Host simulation only: nothing here touches a device.
 """
 from __future__ import annotations
 
@@ -237,3 +239,11 @@ def timed_case(name: str, artifact: Optional[dict] = None) -> tuple:
     rec = run_case(name, artifact)
     return rec, time.perf_counter() - t0
 
+
+def timed_cell(cell) -> tuple:
+    """``(row, host seconds)`` of one ``cluster.sweep.Cell`` run on the
+    scalar engine (``run_cell``); a process pool's worker."""
+    from ..cluster.sweep import run_cell
+    t0 = time.perf_counter()
+    row = run_cell(cell)
+    return row, time.perf_counter() - t0

@@ -1,36 +1,46 @@
-"""The task-level batching layer: cells -> padded arrays -> one launch a
-shape bucket -> ``Task`` and ``SimResult`` objects (the task-level body
-of ``repro.mc.engine.run_scenarios``, ``src/repro/mc/engine.py:105-215``).
+"""The batching layer: cells -> padded arrays -> one launch a shape bucket
+-> ``Task``, ``SimResult``, ``ClusterResult`` and ``ScenarioResult``
+objects (own copy of ``repro.mc.engine``).
 
 A :class:`Cell` names a policy, its core count, its hybrid knobs and a
 built task list. :func:`run_cells` groups the cells by (cores, padded
 task count), advances each group in one :func:`~.kernels.run_grid` call,
 and writes the outputs into copies of the cells' tasks, so every roll-up
 (``SimResult.summary``, the bill) reads exactly what the scalar engine
-would have produced. The scenario layer (``supported``, ``run_scenarios``,
-``MonteCarlo``, the fleet replay) waits for the port's copy of
-``scenario.py``.
+would have produced.
+
+:func:`run_scenarios` is the Scenario layer over the same launches: it
+decomposes each in-regime scenario (``dispatch.supported``) into kernel
+cells (a single-node scenario is one cell; an admitted flat fleet one
+cell a node, holding the dispatch subsequence its state-oblivious
+dispatcher is replayed to in Python), then rebuilds the ``ScenarioResult``
+the scalar engine gives, bit for bit.
 """
 from __future__ import annotations
 
 import copy
+import random
 from dataclasses import dataclass, field
-from typing import Optional, Sequence, Union
+from typing import TYPE_CHECKING, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..core.events import Task
 from ..core.metrics import SimResult
-from .dispatch import tasks_supported
+from .dispatch import _HYBRID_KW, SUPPORTED_POLICIES, supported, \
+    tasks_supported
 from .kernels import run_grid
+
+if TYPE_CHECKING:
+    from ..cluster.metrics import ClusterResult
+    from ..scenario import Scenario, ScenarioResult
 
 _INF = float("inf")
 
 # Hybrid defaults mirrored from core.hybrid.HybridScheduler.
 _HYBRID_TIME_LIMIT_MS = 1633.0
-POLICIES = ("fifo", "cfs", "hybrid")
-_HYBRID_KW = {"n_fifo", "time_limit_ms"}
+Device = Optional[Union[str, torch.device]]
 
 
 @dataclass
@@ -55,8 +65,9 @@ def cell_params(policy: str, n_cores: int, kw: dict) -> tuple[int, float]:
     """(n_fifo, fifo budget limit) of a cell: the two per-cell scalars
     that select the policy inside the kernel. Raises on a cell outside
     the regime."""
-    if policy not in POLICIES:
-        raise ValueError(f"policy {policy!r} not batched; have {POLICIES}")
+    if policy not in SUPPORTED_POLICIES:
+        raise ValueError(f"policy {policy!r} not batched; have "
+                         f"{SUPPORTED_POLICIES}")
     if kw and (policy != "hybrid" or not set(kw) <= _HYBRID_KW):
         raise ValueError(f"scheduler kwargs {sorted(kw)} not batched")
     if policy == "fifo":
@@ -67,6 +78,13 @@ def cell_params(policy: str, n_cores: int, kw: dict) -> tuple[int, float]:
     if not 1 <= n_fifo < n_cores:
         raise ValueError("hybrid needs 1 <= n_fifo < n_cores")
     return n_fifo, float(kw.get("time_limit_ms", _HYBRID_TIME_LIMIT_MS))
+
+
+def scenario_cell(sc: "Scenario", tasks: Sequence[Task]) -> Cell:
+    """The kernel cell of a supported scenario's node over ``tasks``:
+    ``cell_params`` of this cell is JAX's ``cell_params(sc)``."""
+    return Cell(sc.policy.name, sc.fleet.cores_per_node, tasks,
+                dict(sc.policy.kw))
 
 
 def pack(cells: Sequence[Cell], n_slots: int) -> tuple[np.ndarray, ...]:
@@ -88,22 +106,11 @@ def pack(cells: Sequence[Cell], n_slots: int) -> tuple[np.ndarray, ...]:
     return arrival, service, n_tasks, n_fifo, limit
 
 
-def run_cells(cells: Sequence[Cell], *,
-              device: Optional[Union[str, torch.device]] = None
-              ) -> list[SimResult]:
-    """Run the cells on the batched engine; one ``SimResult`` a cell, in
-    order, each with ``mc_stats`` = ``{"iters", "events"}``. Raises
-    ``ValueError`` on a cell outside the regime and ``RuntimeError`` if
-    a cell did not drain (event cap hit or a task left unfinished).
-    ``device=None`` is the card; ``device="cpu"`` the plain version."""
-    for cell in cells:
-        why = tasks_supported(cell.tasks)
-        if why is not None:
-            raise ValueError(f"cell outside the batched regime ({why}); "
-                             f"run it on the scalar engine")
-        cell_params(cell.policy, cell.n_cores, cell.kw)
-    tasks = [[copy.copy(t) for t in cell.tasks] for cell in cells]
-
+def _launch(cells: Sequence[Cell], device: Device) -> list[dict]:
+    """Advance the cells, one ``run_grid`` call a (cores, padded slots)
+    bucket, and write each output into the cell's own task objects;
+    returns each cell's ``{"iters", "events"}``. Raises ``RuntimeError``
+    if a cell did not drain (event cap hit or a task left unfinished)."""
     groups: dict[tuple[int, int], list[int]] = {}
     for k, cell in enumerate(cells):
         key = (cell.n_cores, _bucket(len(cell.tasks)))
@@ -123,7 +130,7 @@ def run_cells(cells: Sequence[Cell], *,
         npre, nctx, nmig = (out[k].tolist() for k in
                             ("preemptions", "ctx_switches", "migrations"))
         for b, k in enumerate(ks):
-            for i, task in enumerate(tasks[k]):
+            for i, task in enumerate(cells[k].tasks):
                 task.completion = comp[b][i]
                 task.first_run = fr[b][i]
                 task.preemptions = npre[b][i]
@@ -133,8 +140,144 @@ def run_cells(cells: Sequence[Cell], *,
                 task.remaining = 0.0
             stats[k] = {"iters": int(out["n_iters"][b]),
                         "events": int(out["n_events"][b])}
+    return stats
 
-    return [SimResult(policy=cell.policy, tasks=ts,
-                      total_ctx=sum(t.ctx_switches for t in ts),
+
+def run_cells(cells: Sequence[Cell], *, device: Device = None
+              ) -> list[SimResult]:
+    """Run the cells on the batched engine; one ``SimResult`` a cell, in
+    order, each with ``mc_stats`` = ``{"iters", "events"}``. Raises
+    ``ValueError`` on a cell outside the regime and ``RuntimeError`` if
+    a cell did not drain (event cap hit or a task left unfinished).
+    ``device=None`` is the card; ``device="cpu"`` the plain version."""
+    for cell in cells:
+        why = tasks_supported(cell.tasks)
+        if why is not None:
+            raise ValueError(f"cell outside the batched regime ({why}); "
+                             f"run it on the scalar engine")
+        cell_params(cell.policy, cell.n_cores, cell.kw)
+    cells = [Cell(c.policy, c.n_cores, [copy.copy(t) for t in c.tasks], c.kw)
+             for c in cells]
+    stats = _launch(cells, device)
+    return [SimResult(policy=cell.policy, tasks=cell.tasks,
+                      total_ctx=sum(t.ctx_switches for t in cell.tasks),
                       mc_stats=st)
-            for cell, ts, st in zip(cells, tasks, stats)]
+            for cell, st in zip(cells, stats)]
+
+
+def replay_assignments(sc: "Scenario", n_tasks: int) -> list[int]:
+    """Node index a task, in canonical stream order. Exact because the
+    admitted dispatchers never observe node state: ``round_robin`` is a
+    counter over dispatch order, ``random`` draws once a dispatch from
+    ``random.Random(fleet.seed)``, and the canonical-stream check makes
+    ``ClusterSim``'s (arrival, tid) dispatch order the list order."""
+    name = sc.fleet.dispatcher
+    n = sc.fleet.n_nodes
+    if name == "round_robin":
+        return [k % n for k in range(n_tasks)]
+    if name == "random":
+        rng = random.Random(sc.fleet.seed)
+        return [rng.randrange(n) for _ in range(n_tasks)]
+    raise ValueError(f"dispatcher {name!r} is not replayable")
+
+
+def _fleet_result(sc: "Scenario", tasks, sel: list[int]) -> "ClusterResult":
+    """The ``ClusterResult`` that ``ClusterSim.result()`` gives for an
+    in-regime fleet: the flat node0..node{n-1} roster, assignments in
+    dispatch order, unit price multipliers, no resilience bookkeeping
+    (the gate refuses every such layer)."""
+    from ..cluster.metrics import ClusterResult
+
+    fl, pol = sc.fleet, sc.policy
+    n = fl.n_nodes
+    node_ids = [f"node{i}" for i in range(n)]
+    per_node: list[list] = [[] for _ in range(n)]
+    for j, i in enumerate(sel):
+        per_node[i].append(tasks[j])
+    node_results = [
+        SimResult(policy=pol.name, tasks=ts,
+                  total_ctx=sum(t.ctx_switches for t in ts))
+        for ts in per_node]
+    meta = [{"node_id": nid, "zone": None, "rack": None, "sku": None,
+             "spot": False, "price_mult": 1.0, "base_price_mult": 1.0,
+             "spot_discount": 0.0} for nid in node_ids]
+    return ClusterResult(
+        node_results=node_results,
+        node_ids=node_ids,
+        node_policies=[pol.name] * n,
+        dispatcher=fl.dispatcher,
+        cores_per_node=fl.cores_per_node,
+        assignments=[(tasks[j].tid, node_ids[i])
+                     for j, i in enumerate(sel)],
+        node_meta=meta,
+    )
+
+
+def run_scenarios(scenarios: Sequence["Scenario"],
+                  prebuilt: Optional[Sequence] = None, *,
+                  device: Device = None) -> list["ScenarioResult"]:
+    """Run in-regime scenarios on the batched engine.
+
+    ``prebuilt`` optionally supplies ``(tasks, meta)`` a scenario (e.g.
+    ``MonteCarlo`` builds each trace once); otherwise each
+    ``workload.build()`` runs here. Raises ``ValueError`` on an
+    out-of-regime scenario: callers partition with
+    ``dispatch.supported`` first. Each result carries ``mc_stats`` =
+    ``{"iters", "events"}``, summed over a fleet's node cells.
+    ``device=None`` is the card; ``device="cpu"`` the plain version.
+    """
+    from ..scenario import ScenarioResult
+
+    built = []
+    for k, sc in enumerate(scenarios):
+        why = supported(sc)
+        tasks = meta = None
+        if why is None:
+            tasks, meta = (prebuilt[k] if prebuilt is not None
+                           else sc.workload.build())
+            why = tasks_supported(tasks)
+        if why is not None:
+            raise ValueError(f"scenario outside the batched regime "
+                             f"({why}); route it to the scalar engine")
+        built.append((tasks, meta))
+
+    # Kernel cells: a fleet's nodes never interact once assignments are
+    # fixed, so each node's subsequence is an independent cell. Its tids
+    # are not its list indices, so the canonical check above ran on the
+    # whole stream; the outputs land in the stream's own task objects.
+    cells: list[Cell] = []
+    owner: list[int] = []
+    fleet_sel: dict[int, list[int]] = {}
+    for k, sc in enumerate(scenarios):
+        tasks = built[k][0]
+        if sc.fleet.is_fleet:
+            sel = replay_assignments(sc, len(tasks))
+            fleet_sel[k] = sel
+            for i in range(sc.fleet.n_nodes):
+                sub = [t for t, s in zip(tasks, sel) if s == i]
+                if sub:           # an empty node needs no kernel cell
+                    cells.append(scenario_cell(sc, sub))
+                    owner.append(k)
+        else:
+            cells.append(scenario_cell(sc, tasks))
+            owner.append(k)
+
+    iters = [0] * len(scenarios)
+    events = [0] * len(scenarios)
+    for k, st in zip(owner, _launch(cells, device)):
+        iters[k] += st["iters"]
+        events[k] += st["events"]
+
+    results: list["ScenarioResult"] = []
+    for k, sc in enumerate(scenarios):
+        tasks, meta = built[k]
+        if sc.fleet.is_fleet:
+            raw = _fleet_result(sc, tasks, fleet_sel[k])
+        else:
+            raw = SimResult(
+                policy=sc.policy.name, tasks=tasks,
+                total_ctx=sum(t.ctx_switches for t in tasks))
+        results.append(ScenarioResult(
+            scenario=sc, raw=raw, meta=dict(meta),
+            mc_stats={"iters": iters[k], "events": events[k]}))
+    return results

@@ -86,18 +86,28 @@ def _no_card():
 
 
 @pytest.mark.parametrize("entry", ["ServingEngine", "LM", "init_params",
-                                   "run_grid", "run_cells"])
+                                   "run_grid", "run_cells", "run_scenarios",
+                                   "MonteCarlo", "run_sweep", "sweep_cli"])
 def test_default_device_raises_without_cuda(entry):
     _no_card()
     import numpy as np
+    from repro_torch import FleetSpec, PolicySpec, Scenario, WorkloadSpec
+    from repro_torch.cluster import sweep
     from repro_torch.configs import get_smoke
     from repro_torch.core.events import Task
-    from repro_torch.mc import Cell, run_cells, run_grid
+    from repro_torch.mc import Cell, MonteCarlo, run_cells, run_grid, \
+        run_scenarios
     from repro_torch.models import LM
     from repro_torch.params import init_params
     from repro_torch.serving import ServingEngine
+    from repro_torch.traces import TraceSpec
     cfg = get_smoke("deepseek-7b")
     tasks = [Task(tid=i, arrival=float(i), service=5.0) for i in range(3)]
+    sc = Scenario(workload=WorkloadSpec(kind="azure", trace=TraceSpec(
+        minutes=1, invocations_per_min=20.0, n_functions=4)),
+        fleet=FleetSpec(cores_per_node=2), policy=PolicySpec(name="cfs"))
+    small = dict(cores_per_node=2, minutes=1, invocations_per_min=20.0,
+                 n_functions=4)
     calls = {
         "ServingEngine": lambda: ServingEngine(
             cfg, init_params(cfg, device="cpu")),
@@ -107,6 +117,14 @@ def test_default_device_raises_without_cuda(entry):
             np.zeros((1, 4)), np.ones((1, 4)), np.array([4], np.int32),
             np.array([0], np.int32), np.array([np.inf]), n_cores=2),
         "run_cells": lambda: run_cells([Cell("cfs", 2, tasks)]),
+        "run_scenarios": lambda: run_scenarios([sc]),
+        "MonteCarlo": lambda: MonteCarlo(sc).run(),
+        "run_sweep": lambda: sweep.run_sweep(
+            [sweep.Cell("cfs", "none", 1, **small)], backend="torch"),
+        "sweep_cli": lambda: sweep.main(
+            ["--nodes", "1", "--policies", "cfs", "--dispatchers", "none",
+             "--cores-per-node", "2", "--invocations-per-min", "20",
+             "--n-functions", "4", "--serial"]),
     }
     with pytest.raises(RuntimeError, match="pass device='cpu'"):
         calls[entry]()

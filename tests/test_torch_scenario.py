@@ -346,17 +346,19 @@ def test_the_lazy_exports_are_jax_s():
              "FleetSpec", "PolicySpec", "ServingSpec", "ResilienceSpec",
              "SCHEMA_VERSION", "SUMMARY_KEYS_V1", "PricingSpec",
              "CostModel", "StaticCostModel", "LearnedCostModel",
-             "make_cost_model")
-    assert set(repro_torch.__all__) == set(names)
-    assert set(names) <= set(repro.__all__)
+             "make_cost_model", "MonteCarlo", "MonteCarloResult")
+    assert set(repro_torch.__all__) == set(names) | {"__version__"}
+    assert set(repro_torch.__all__) == set(repro.__all__)
+    assert repro_torch.__version__ == repro.__version__
     scenario = importlib.import_module("repro_torch.scenario")
     costmodel = importlib.import_module("repro_torch.costmodel")
+    mc = importlib.import_module("repro_torch.mc")
     for name in names:
-        src = scenario if hasattr(scenario, name) else costmodel
+        src = next(m for m in (scenario, costmodel, mc) if hasattr(m, name))
         assert getattr(repro_torch, name) is getattr(src, name)
         assert name in dir(repro_torch)
     with pytest.raises(AttributeError):
-        repro_torch.MonteCarlo       # the MC Scenario half is not here
+        repro_torch.run_cells        # only the front doors are lazy exports
     core = importlib.import_module("repro_torch.core")
     assert "run_policy" in core.__all__
     serving = importlib.import_module("repro_torch.serving")

@@ -1,0 +1,217 @@
+"""The port's surface covers the JAX package's: every module of
+``src/repro/`` has a counterpart in ``src/repro_torch/`` of the same
+dotted name, and every public name of a JAX module (its ``__all__``, or
+else each function and class it defines) exists in the counterpart, a
+submodule for a submodule. The exceptions are listed below, each with
+its reason (ROADMAP.md §1 "Not ported, by design") and, where the port
+has one under another name, the counterpart, which must exist.
+
+    pytest -q tests/test_torch_surface.py
+"""
+import importlib
+import inspect
+import os
+import types
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+JAX_SRC = ROOT / "src" / "repro"
+
+NO_MODULE = {
+    "repro.kernels.ref": ("repro_torch.kernels.plain",
+                          "the JAX oracle; the port's plain versions"),
+    "repro.distributed.params": ("repro_torch.params",
+                                 "materialize, the weights' source; the "
+                                 "port's params.py"),
+    "repro.launch.hlo_analysis": ("repro_torch.kernels.costs",
+                                  "parses XLA's HLO text; the kernels' "
+                                  "recorded bytes and flops instead"),
+}
+
+_SPECS = "makes parameter specs; the port's live in params.py"
+_PARAMS = "of distributed.params, not ported; the port's params.py"
+_SHARD = "a JAX sharding helper: nothing to place on one card"
+_WRAPPER = "a kernel wrapper; the port's dispatches by device"
+
+NO_NAME = {
+    ("repro.costmodel.features", "compile_kernel"): (
+        "repro_torch.costmodel.features.kernel_features",
+        "XLA's compile of a kernel; the port reads its rows on the meta "
+        "device"),
+    ("repro.mc.dispatch", "enable_compile_cache"): (
+        "repro_torch.kernels.build.build",
+        "XLA's persistent compile cache; the kernels are built once into "
+        "build/repro_torch/"),
+    ("repro.mc.dispatch", "compile_cache_entries"): (
+        "repro_torch.kernels.build.build", "the same cache's entry count"),
+    ("repro.mc.kernels", "make_cell_kernel"): (
+        "repro_torch.kernels.mc_cell.mc_cell_cuda",
+        "the jitted vmap(while_loop) factory; the CUDA kernel's wrapper"),
+    ("repro.mc.kernels", "grid_kernel"): (
+        "repro_torch.kernels.mc_cell.run_grid_plain",
+        "the cached jitted grid; the plain version"),
+    ("repro.launch.mesh", "make_production_mesh"): (
+        "repro_torch.launch.mesh.mesh_preset", "the TPU pod meshes"),
+    ("repro.launch.mesh", "make_debug_mesh"): (
+        "repro_torch.launch.mesh.make_mesh", "a jax.sharding.Mesh"),
+    ("repro.distributed", "named_sharding"): (None, _SHARD),
+    ("repro.distributed", "shard"): (None, _SHARD),
+    ("repro.distributed.sharding", "named_sharding"): (None, _SHARD),
+    ("repro.distributed.sharding", "shard"): (None, _SHARD),
+    ("repro.distributed", "ParamSpec"): ("repro_torch.params.Leaf", _PARAMS),
+    ("repro.distributed", "abstract_params"): (
+        "repro_torch.params.param_specs", _PARAMS),
+    ("repro.distributed", "count_params"): (
+        "repro_torch.params.count_params", _PARAMS),
+    ("repro.distributed", "is_spec"): (None, _PARAMS),
+    ("repro.distributed", "materialize"): (
+        "repro_torch.params.init_params", _PARAMS),
+    ("repro.distributed", "param_shardings"): (
+        "repro_torch.params.param_specs_pspec", _PARAMS),
+    ("repro.distributed", "param_specs_pspec"): (
+        "repro_torch.params.param_specs_pspec", _PARAMS),
+    ("repro.distributed", "tree_map_specs"): (None, _PARAMS),
+    ("repro.kernels", "ref"): ("repro_torch.kernels.plain",
+                               "the JAX oracle; the port's plain versions"),
+    ("repro.kernels", "gqa_flash_attention"): (
+        "repro_torch.kernels.ops.flash_attention",
+        "only repeats K/V; the port's kernels take GQA natively"),
+    ("repro.kernels.ops", "gqa_flash_attention"): (
+        "repro_torch.kernels.ops.flash_attention",
+        "only repeats K/V; the port's kernels take GQA natively"),
+    ("repro.models", "bf16"): ("repro_torch.models.layers.mm",
+                               "a cast to the compute dtype; the port "
+                               "casts f32 masters on use"),
+    ("repro.models.layers", "bf16"): ("repro_torch.models.layers.mm",
+                                      "the same cast"),
+    ("repro.models.layers", "set_compute_dtype"): (
+        "repro_torch.models.LM",
+        "a global compute dtype; the port's LM takes its dtype"),
+    ("repro.models", "flash_attention_xla"): (
+        "repro_torch.kernels.flash_attention.flash_attention_plain",
+        "JAX's XLA attention; the models call the kernels"),
+    ("repro.models.layers", "flash_attention_xla"): (
+        "repro_torch.kernels.flash_attention.flash_attention_plain",
+        "the same"),
+    ("repro.models", "attend_cache"): (
+        "repro_torch.kernels.decode_attention.decode_attention_plain",
+        "JAX's XLA decode attention; the models call the kernels"),
+    ("repro.models.layers", "attend_cache"): (
+        "repro_torch.kernels.decode_attention.decode_attention_plain",
+        "the same"),
+}
+for _mod in ("repro.models", "repro.models.layers"):
+    for _n in ("attn_specs", "mlp_specs", "moe_specs"):
+        NO_NAME[_mod, _n] = ("repro_torch.params.param_specs", _SPECS)
+for _mod, _n in (("repro.models", "ssm_specs"), ("repro.models.ssm",
+                                                  "ssm_specs"),
+                 ("repro.models", "rwkv_specs"), ("repro.models.rwkv",
+                                                   "rwkv_specs"),
+                 ("repro.models", "model_specs"),
+                 ("repro.models.transformer", "model_specs")):
+    NO_NAME[_mod, _n] = ("repro_torch.params.param_specs", _SPECS)
+for _n in ("decode_attention", "flash_attention", "fused_rmsnorm",
+           "rwkv6_scan", "ssm_scan"):
+    NO_NAME["repro.kernels", _n] = (f"repro_torch.kernels.ops.{_n}",
+                                    _WRAPPER)
+    NO_NAME[f"repro.kernels.{_n}", _n] = (f"repro_torch.kernels.ops.{_n}",
+                                          _WRAPPER)
+
+
+def jax_modules() -> list[str]:
+    """Every module of src/repro/ by its file (launch/ is a namespace
+    package, which pkgutil does not walk)."""
+    out = []
+    for p in sorted(JAX_SRC.rglob("*.py")):
+        parts = list(p.relative_to(JAX_SRC.parent).with_suffix("").parts)
+        if parts[-1] == "__init__":
+            parts.pop()
+        out.append(".".join(parts))
+    return out
+
+
+def public_names(mod) -> list[str]:
+    if hasattr(mod, "__all__"):
+        return list(mod.__all__)
+    return [n for n, o in vars(mod).items()
+            if not n.startswith("_") and (inspect.isfunction(o)
+                                          or inspect.isclass(o))
+            and o.__module__ == mod.__name__]
+
+
+def import_jax(name: str):
+    """Import a JAX module, undoing the one import-time side effect in the
+    package (``launch/dryrun.py`` sets XLA_FLAGS to 512 host devices, which
+    would reach every later JAX test in this process)."""
+    before = os.environ.get("XLA_FLAGS")
+    try:
+        return importlib.import_module(name)
+    finally:
+        if before is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = before
+
+
+def resolve(path: str):
+    """A dotted path to a module or to an attribute of one."""
+    try:
+        return importlib.import_module(path)
+    except ModuleNotFoundError:
+        mod, _, attr = path.rpartition(".")
+        return getattr(importlib.import_module(mod), attr)
+
+
+def counterpart(name: str) -> str:
+    return "repro_torch" + name[len("repro"):]
+
+
+MODULES = jax_modules()
+
+
+def test_walk_finds_the_whole_package():
+    assert len(MODULES) > 80
+    assert "repro.launch.hlo_analysis" in MODULES
+    assert "repro.cluster.sweep" in MODULES
+    assert "repro.mc.montecarlo" in MODULES
+
+
+@pytest.mark.parametrize("name", MODULES)
+def test_module_has_its_counterpart(name):
+    if name in NO_MODULE:
+        target, reason = NO_MODULE[name]
+        assert reason
+        resolve(target)
+        with pytest.raises(ModuleNotFoundError):
+            importlib.import_module(counterpart(name))
+        return
+    jmod = import_jax(name)
+    tmod = importlib.import_module(counterpart(name))
+    for n in public_names(jmod):
+        if (name, n) in NO_NAME:
+            continue
+        assert hasattr(tmod, n), f"{counterpart(name)} lacks {n}"
+        assert isinstance(getattr(jmod, n), types.ModuleType) \
+            == isinstance(getattr(tmod, n), types.ModuleType), \
+            f"{counterpart(name)}.{n} is not the same kind of object"
+
+
+@pytest.mark.parametrize("key", sorted(NO_NAME), ids="{0[0]}:{0[1]}".format)
+def test_exception_is_still_needed_and_has_its_counterpart(key):
+    """Each listed name is public in JAX's module and missing (or of
+    another kind) in the port's; its counterpart exists."""
+    mod, n = key
+    target, reason = NO_NAME[key]
+    assert reason
+    jmod = import_jax(mod)
+    assert n in public_names(jmod)
+    tmod = importlib.import_module(counterpart(mod))
+    if hasattr(tmod, n):
+        assert isinstance(getattr(tmod, n), types.ModuleType) \
+            != isinstance(getattr(jmod, n), types.ModuleType)
+    if target is not None:
+        resolve(target)
