@@ -10,6 +10,28 @@ package. In order it:
 1. prints the card (nvidia-smi name and power limit) and the versions;
 2. builds the port's CUDA kernels (nine sources) from
    src/repro_torch/csrc into build/repro_torch/ (timed as set-up);
+2b. the sharded step (the shard phase), before anything else touches the
+   card, one spawned process a cell, each ended before the next starts:
+   deepseek-7b train_4k (batch 4 in 2 microbatches, all 30 layers) and
+   deepseek-67b decode_32k at batch SHARD_DECODE_BATCH (14, the most
+   whose quad peak the dry run puts within mesh.HBM_USABLE; batch 15 is
+   reckoned too and must not fit), cells one card cannot hold. The
+   process dry-runs the cell on the quad mesh (rank 0 under the fake
+   process group, meta DTensors), then runs rank 0 of the same step on
+   the card under launch.mesh.fake_group(4) with a cuda device mesh
+   (parameters drawn as this rank's shards, never whole): its
+   max_memory_allocated must lie within DRY_RUN_TOL (5 %) of the dry
+   run's peak, its collectives (counted by dryrun.CollectiveCounter) must
+   equal the dry run's in kind and count, and each kernel of the path
+   (flash_attention and its backward, decode_attention, fused_rmsnorm
+   and its backward) must launch as many times as the dry run's meta
+   route calls it, at local shapes (printed). The fake group moves no
+   data: values after the first collective are garbage, and no step time
+   is printed. So each kernel is then held against its plain version at
+   the local shapes and dtypes the step gave it, on fresh inputs, at the
+   kernel phase's tolerances (shard_kernel_checks): the forward, for the
+   train cell also the backward kernels, and decode_attention with every
+   row at the cache's length and at ragged lengths;
 3. counts the tensor-core instructions (HMMA) of the attention and
    scan kernels in the built library's SASS (cuobjdump), and fails if
    the bf16 flash_attention kernel of any head dim of HEAD_DIMS, the
@@ -292,9 +314,9 @@ package. In order it:
 8. prints a JSON line of the kernels, then the result line.
 
 Any failed check exits non-zero. Without a CUDA device it exits non-zero
-and prints no result. ``--phases`` runs a subset of sass (step 3),
-kernels (4), train (4c), models (5), mc (6), sweep (6d), costmodel (7)
-and fleet (7c) (for a
+and prints no result. ``--phases`` runs a subset of shard (step 2b),
+sass (3), kernels (4), train (4c), models (5), mc (6), sweep (6d),
+costmodel (7) and fleet (7c) (for a
 partial check on the card, or to time another checkout's kernels with
 this script); it then prints no result line.
 """
@@ -1654,6 +1676,247 @@ def train_phase(rt, smi: str, arch: str = TRAIN_ARCH,
     gc.collect()
     torch.cuda.empty_cache()
     return counts
+
+
+# -- the sharded step (step 2b) -----------------------------------------------------
+
+SHARD_MESH = "quad"
+#: deepseek-67b decode_32k: the most rows whose quad peak fits HBM_USABLE
+SHARD_DECODE_BATCH = 14
+#: (arch, shape, batch, microbatches): cells one card cannot hold
+SHARD_CELLS = (("deepseek-7b", "train_4k", TRAIN_BATCH, TRAIN_MB),
+               ("deepseek-67b", "decode_32k", SHARD_DECODE_BATCH, 0))
+SHARD_KERNELS = {"train": ("fused_rmsnorm", "fused_rmsnorm_bwd",
+                           "flash_attention", "flash_bwd_preprocess",
+                           "flash_bwd_dkdv", "flash_bwd_dq"),
+                 "decode": ("fused_rmsnorm", "decode_attention")}
+
+
+def shard_cell(arch: str, shape: str, batch: int, microbatches: int) -> dict:
+    """In a spawned process: the cell's quad dry run, then rank 0 of the
+    same step on the card under the fake group of 4: launch counts,
+    collectives, local shapes and the step's max_memory_allocated."""
+    import contextlib
+
+    from repro_torch.configs import SHAPES, TrainConfig, get_config
+    from repro_torch.distributed.sharding import TensorSpec, on_mesh
+    from repro_torch.kernels import build, common, ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import mesh_preset
+    from repro_torch.models import LM
+    from repro_torch.params import shard_params
+    from repro_torch.training import init_opt_state, make_train_step
+    out = {}
+    t0 = time.perf_counter()
+    out["dry"] = dryrun.run_cell(arch, shape, SHARD_MESH, batch=batch,
+                                 microbatches=microbatches)
+    out["dry_s"] = time.perf_counter() - t0
+    kind, S = SHAPES[shape].kind, SHAPES[shape].seq_len
+    if kind == "decode":                  # the next batch must not fit
+        out["dry_next"] = dryrun.run_cell(arch, shape, SHARD_MESH,
+                                          batch=batch + 1)
+    build.library()
+    cfg = get_config(arch)
+    bf16, f32 = torch.bfloat16, torch.float32
+    with contextlib.ExitStack() as stack:
+        try:
+            ctx = stack.enter_context(dryrun.sharded_step(
+                mesh_preset(SHARD_MESH), "cuda"))
+        except Exception as e:            # torch refuses the fake group
+            return {**out, "error": f"the fake group on cuda: {e!r}"}
+        torch.cuda.reset_peak_memory_stats()
+        out["base"] = torch.cuda.memory_allocated()
+        out["free_before"] = torch.cuda.mem_get_info()[0]
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+
+        def ids(shape_, axes, fill=None):
+            spec = TensorSpec(shape_, axes, torch.int32 if kind == "train"
+                              else torch.int64)
+            local = (torch.randint(0, cfg.vocab, spec.local_shape(ctx),
+                                   generator=gen, device="cuda",
+                                   dtype=spec.dtype) if fill is None else
+                     torch.full(spec.local_shape(ctx), fill, device="cuda",
+                                dtype=spec.dtype))
+            return on_mesh(local, spec.shape, spec.spec(ctx), ctx)
+        counter = dryrun.CollectiveCounter()
+        if kind == "train":
+            lm = LM(cfg, device="meta", dtype=bf16, param_dtype=f32)
+            shard_params(lm, ctx, device="cuda")
+            opt = init_opt_state(dict(lm.named_parameters()))
+            step = make_train_step(lm, TrainConfig(
+                microbatches=microbatches))
+            data = {k: ids((batch, S), ("batch", "seq"))
+                    for k in ("tokens", "targets")}
+            run = lambda: step(opt, data)  # noqa: E731
+        else:
+            lm = LM(cfg, device="meta", dtype=bf16)
+            shard_params(lm, ctx, device="cuda")
+            cache = lm.new_cache(batch, S)
+            token = ids((batch,), ("batch",))
+            # every row at the cache's last slot: all of it live, as the
+            # dry run counts it
+            pos = ids((batch,), ("batch",), fill=S - 1)
+            run = torch.no_grad()(lambda: lm.decode_step(token, cache, pos))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with common.local_calls() as calls, counter:
+            run()
+        torch.cuda.synchronize()
+        out.update(peak=torch.cuda.max_memory_allocated(),
+                   reserved=torch.cuda.max_memory_reserved(),
+                   counts=ops.launch_counts(),
+                   collectives=counter.collectives,
+                   local_calls=sorted(set(calls)))
+    return out
+
+
+def shard_phase(rt, smi: str) -> dict:
+    """Step 2b; returns the launch counts of each cell's card step."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    by_cell = {}
+    for arch, shape, batch, mb in SHARD_CELLS:
+        t0 = time.perf_counter()
+        with ProcessPoolExecutor(
+                1, mp_context=multiprocessing.get_context("spawn")) as ex:
+            res = ex.submit(shard_cell, arch, shape, batch, mb).result()
+        label = (f"shard {arch} {shape} batch {batch}"
+                 + (f" in {mb} microbatches" if mb else ""))
+        dry = res["dry"]
+        dry_coll = {k: c["count"] for k, c in dry["collectives"].items()}
+        print(f"{label} dry run ({SHARD_MESH}, rank 0 of 4 under the fake "
+              f"group, meta device, {res['dry_s']:.1f} s): "
+              f"{rt.dryrun.cell_line(dry)}, collectives "
+              f"{json.dumps(dry['collectives'])}, t_collective "
+              f"{dry['t_collective'] * 1e3:.3f} ms at NVLink 450 GB/s, "
+              f"useful flops ratio {dry['useful_flops_ratio']:.4f}",
+              flush=True)
+        if "dry_next" in res:
+            nxt = res["dry_next"]
+            print(f"{label}: batch {batch + 1} peaks at "
+                  f"{nxt['peak_bytes'] / 1e9:.3f} GB, fits {nxt['fits']}",
+                  flush=True)
+            if nxt["fits"] or not dry["fits"]:
+                fail(f"{label}: batch {batch} is not the most rows whose "
+                     "quad peak fits HBM_USABLE")
+        if "error" in res:
+            fail(f"{label}: {res['error']}")
+        if not dry["fits"]:
+            fail(f"{label}: the dry run's quad peak does not fit")
+        peak, base = res["peak"], res["base"]
+        pred = dry["peak_bytes"] + base
+        gap = pred - peak
+        print(f"{label} rank 0 on the card ({smi}; fake group of 4, cuda "
+              f"device mesh): max_memory_allocated {peak / 1e9:.3f} GB "
+              f"(max reserved {res['reserved'] / 1e9:.3f} GB, free before "
+              f"{res['free_before'] / 1e9:.3f} GB), predicted "
+              f"{dry['peak_bytes'] / 1e9:.3f} GB + {base / 1e9:.3f} GB "
+              f"live before = {pred / 1e9:.3f} GB, gap {gap / 1e9:+.3f} GB "
+              f"({gap / peak:+.4f} of measured, limit {DRY_RUN_TOL})",
+              flush=True)
+        card_coll = {k: c["count"] for k, c in res["collectives"].items()}
+        print(f"{label} collectives: card {json.dumps(res['collectives'])}"
+              f", dry run {json.dumps(dry['collectives'])}", flush=True)
+        counts = {n: c for n, c in res["counts"].items() if c}
+        print(f"{label} launches {counts}", flush=True)
+        for name, args in res["local_calls"]:
+            print(f"{label} local call {name}: {list(args)}", flush=True)
+        if abs(gap) > DRY_RUN_TOL * peak:
+            fail(f"{label}: the dry run's peak {pred} B is more than "
+                 f"{DRY_RUN_TOL} of the measured {peak} B away")
+        if card_coll != dry_coll:
+            fail(f"{label}: collectives {card_coll} on the card, "
+                 f"{dry_coll} in the dry run")
+        want = {n: k["calls"] for n, k in dry["kernels"].items()}
+        kind = "train" if mb else "decode"
+        missing = [n for n in SHARD_KERNELS[kind] if not counts.get(n)]
+        if missing or counts != want:
+            fail(f"{label}: launches {counts}, the dry run's meta route "
+                 f"calls {want} (missing {missing}): a kernel fell to its "
+                 "plain version")
+        shard_kernel_checks(rt, label, res["local_calls"], kind == "train")
+        by_cell[f"{arch} {SHARD_MESH} rank 0 {kind}"] = counts
+        print(f"{label}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return by_cell
+
+
+def shard_kernel_checks(rt, label: str, calls, train: bool) -> None:
+    """Each kernel of the sharded step at the local shapes and dtypes its
+    rank-0 run gave it (``common.local_calls``; the attention arguments
+    flattened as ``kernels.ops`` flattens them), on fresh inputs, against
+    its plain version at the kernel phase's tolerances: the forward, in
+    the train cell also the backward kernels (against autograd through
+    the plain version), and decode_attention with every row at the
+    cache's length (the main path's) and at ragged lengths. The step's
+    own values are not held: the fake group moves no data. Uncounted."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 33)
+    kp, kb = rt.kernels, rt.backward
+
+    def randn(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale) \
+            .to(dtype)
+
+    def flat(shape):                     # (..., S, hd) -> (BH, S, hd)
+        return (int(np.prod(shape[:-2])), *shape[-2:])
+
+    def held(name, case, out, ref, tol):
+        err, ok = max_err(out, ref, tol)
+        print(f"{label} local {name} [{case}]: max_abs_err {err:.3e} "
+              f"(tolerance {tol})", flush=True)
+        if not ok:
+            fail(f"{label}: {name} at the sharded step's local shapes "
+                 f"[{case}] disagrees with its plain version ({err:.3e})")
+
+    with rt.ops.uncounted():
+        for name, args in calls:
+            shapes = [s for s, _ in args]
+            dts = [getattr(torch, d) for _, d in args]
+            if name == "fused_rmsnorm":
+                (xs, ws), (xd, wd) = shapes, dts
+                x, w = randn(xs, xd), randn(ws, wd, 0.1)
+                case = f"x {xs} {xd}"
+                held(name, case, kp[name][0](x, w), kp[name][1](x, w), TOL)
+                if train:
+                    dy = randn(xs, xd)
+                    xg, wg = (t.clone().requires_grad_(True) for t in (x, w))
+                    ref = torch.autograd.grad(
+                        kb["fused_rmsnorm_plain"](xg, wg), (xg, wg), dy)
+                    held("fused_rmsnorm_bwd", f"{case}, dx and dw",
+                         kb["fused_rmsnorm_bwd"](x, w, dy), ref,
+                         (TOL, dw_tol(int(np.prod(xs[:-1])))))
+                del x, w
+            elif name == "flash_attention":
+                q, k, v = (randn(flat(s), d) for s, d in zip(shapes, dts))
+                case = (f"q {tuple(q.shape)} over k {tuple(k.shape)} "
+                        f"{dts[0]}, causal")
+                held(name, case, kp[name][0](q, k, v), kp[name][1](q, k, v),
+                     TOL)
+                if train:
+                    do = randn(q.shape, q.dtype)
+                    held("flash_bwd", f"{case}, dq, dk, dv",
+                         kb["flash_grads"](q, k, v, do),
+                         kb["flash_bwd_plain"](q, k, v, do), TOL)
+                    del do
+                del q, k, v
+            elif name == "decode_attention":
+                q, k, v = (randn(flat(s), d)
+                           for s, d in zip(shapes[:3], dts[:3]))
+                n, S = q.shape[0], k.shape[1]
+                for what, lengths in (
+                        (f"every row at {S}", torch.full((n,), S)),
+                        (f"ragged 1..{S}", torch.randint(
+                            1, S + 1, (n,), generator=gen, device="cuda"))):
+                    lengths = lengths.to("cuda", dts[3])
+                    held(name, f"q {tuple(q.shape)} over cache "
+                         f"{tuple(k.shape)} {dts[0]}, lengths {what}",
+                         kp[name][0](q, k, v, lengths),
+                         kp[name][1](q, k, v, lengths), TOL)
+                del q, k, v
+            else:
+                fail(f"{label}: no check for kernel {name}")
+            gc.collect()
+            torch.cuda.empty_cache()
 
 
 def traced_step(rt, fn):
@@ -3211,8 +3474,8 @@ def load_port() -> SimpleNamespace:
     return port
 
 
-PHASES = ("sass", "kernels", "train", "models", "mc", "sweep", "costmodel",
-          "fleet")
+PHASES = ("shard", "sass", "kernels", "train", "models", "mc", "sweep",
+          "costmodel", "fleet")
 
 
 def main() -> None:
@@ -3246,9 +3509,13 @@ def main() -> None:
                 "spill" in line:
             print(f"ptxas: {line.strip()}", flush=True)
 
+    rows, by_model = {}, {}
+    if "shard" in phases:
+        t0 = time.perf_counter()
+        by_model.update(shard_phase(rt, smi))
+        print(f"shard phase {time.perf_counter() - t0:.1f} s", flush=True)
     if "sass" in phases:
         sass_check(lib_path, rt.HEAD_DIMS)
-    rows, by_model = {}, {}
     if "kernels" in phases:
         timer = Timer()
         rows = kernel_phase(rt.kernels, timer)

@@ -12,23 +12,41 @@ A mesh here is a numpy array of ``torch.device`` objects with axis
 names; no process group is needed to resolve a spec. A spec is a tuple
 in JAX's ``PartitionSpec`` layout: one entry a dimension, ``None``, a
 mesh-axis name or a tuple of names, trailing ``None``s dropped, so that
-it compares entry for entry with JAX's. The port has no sharded step, so
-JAX's ``shard`` (a sharding constraint inside a jitted step) and
-``named_sharding`` have no counterpart: the dry run uses the specs to
-reckon each tensor's bytes on one device of a mesh.
+it compares entry for entry with JAX's. The dry run reckons each
+tensor's bytes on one device of a mesh from its spec.
+
+The sharded step runs on DTensors: a context with a
+``torch.distributed`` ``DeviceMesh`` over the mesh (``use_mesh(...,
+device_mesh=)``, dims named as the mesh's axes) places a tensor by
+:func:`placements` of its spec (:func:`named_sharding`), and
+:func:`shard`, JAX's sharding constraint, redistributes a DTensor to its
+logical axes' placements. Without a device mesh, and on a plain tensor,
+both leave everything as it is: the single-device path never changes.
 """
 from __future__ import annotations
 
 import math
-import threading
 from contextlib import contextmanager
 from dataclasses import dataclass, field
+from types import SimpleNamespace
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-_STATE = threading.local()
+# The installed context, one a process (JAX keeps one a thread): autograd
+# runs a CUDA backward, and with it the layers' recomputation under
+# checkpoint, on a worker thread of its own, whose ``shard`` calls must
+# see the step's context.
+_STATE = SimpleNamespace(ctx=None)
+
+# DTensor's class, looked up once (every kernel call asks is_dtensor); a
+# build without torch.distributed has none, and ``isinstance(x, ())`` is
+# False
+if torch.distributed.is_available():
+    from torch.distributed.tensor import DTensor as _DTENSOR
+else:
+    _DTENSOR = ()
 
 # Candidate chains: logical axis -> mesh-axis tuples to try in order; None
 # replicates. Axes a mesh lacks (a single-host mesh has no "pod") are
@@ -89,9 +107,12 @@ class Mesh:
 
 @dataclass
 class ShardingCtx:
+    """The mesh, the rules, and the ``DeviceMesh`` the sharded step's
+    DTensors live on (None: the specs are only reckoned)."""
     mesh: Mesh
     rules: dict[str, list[Optional[tuple[str, ...]]]] = field(
         default_factory=lambda: dict(DEFAULT_RULES))
+    device_mesh: Optional[object] = None
 
     def axis_size(self, name: str) -> int:
         return dict(zip(self.mesh.axis_names, self.mesh.devices.shape))[name]
@@ -102,14 +123,31 @@ def current_ctx() -> Optional[ShardingCtx]:
 
 
 @contextmanager
-def use_mesh(mesh: Mesh, rules: Optional[dict] = None):
+def use_mesh(mesh: Mesh, rules: Optional[dict] = None, device_mesh=None):
+    """Installs a context of ``mesh`` (and, for the sharded step, the
+    ``DeviceMesh`` over it: ``launch.mesh.device_mesh``). With a device
+    mesh a plain tensor that meets a DTensor in the block (positions, a
+    row index, rotary angles: the same on every rank) counts as
+    replicated: run the step's backward inside the block too."""
+    if device_mesh is not None and (
+            tuple(device_mesh.mesh_dim_names or ()) != tuple(mesh.axis_names)
+            or tuple(device_mesh.shape) != mesh.devices.shape):
+        raise ValueError(f"device mesh {device_mesh} is not laid out as "
+                         f"{mesh.shape}")
     prev = getattr(_STATE, "ctx", None)
     merged = dict(DEFAULT_RULES)
     if rules:
         merged.update(rules)
-    _STATE.ctx = ShardingCtx(mesh=mesh, rules=merged)
+    _STATE.ctx = ShardingCtx(mesh=mesh, rules=merged,
+                             device_mesh=device_mesh)
     try:
-        yield _STATE.ctx
+        if device_mesh is None:
+            yield _STATE.ctx
+        else:
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+            with implicit_replication():
+                yield _STATE.ctx
     finally:
         _STATE.ctx = prev
 
@@ -154,14 +192,69 @@ def dim_divides(dim: int, size: int) -> bool:
     return size > 0 and dim % size == 0
 
 
+def _entry_axes(entry) -> tuple:
+    return () if entry is None else entry if isinstance(entry, tuple) \
+        else (entry,)
+
+
 def spec_shards(spec: tuple, ctx: Optional[ShardingCtx]) -> int:
     """The devices a tensor of ``spec`` is split over (1: replicated)."""
     n = 1
     for entry in spec:
-        for a in (() if entry is None else
-                  entry if isinstance(entry, tuple) else (entry,)):
+        for a in _entry_axes(entry):
             n *= ctx.axis_size(a)
     return n
+
+
+def placements(spec: tuple, device_mesh) -> tuple:
+    """The DTensor placements of a resolved spec on ``device_mesh`` (its
+    dims named as the mesh axes): ``Shard(i)`` on each mesh dim that
+    tensor dim i carries, ``Replicate()`` on the others. A dim that
+    carries several axes takes them in the mesh's order, major first, as
+    JAX's ``NamedSharding`` lays them out. A mesh dim of one device
+    replicates: the same layout, which DTensor then never redistributes
+    (``quad``'s data axis)."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(device_mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for i, entry in enumerate(spec):
+        at = [names.index(a) for a in _entry_axes(entry)]
+        if at != sorted(at):
+            raise ValueError(f"spec {spec}: dim {i} takes mesh axes out of "
+                             f"the mesh's order {names}")
+        for m in at:
+            if device_mesh.size(m) > 1:
+                out[m] = Shard(i)
+    return tuple(out)
+
+
+def named_sharding(shape: Sequence[int], axes: Sequence[Optional[str]],
+                   ctx: Optional[ShardingCtx] = None):
+    """``(device_mesh, placements)`` of a tensor of ``shape`` with logical
+    ``axes`` under ``ctx`` (the installed context by default); None
+    outside a context with a device mesh."""
+    ctx = ctx or current_ctx()
+    if ctx is None or ctx.device_mesh is None:
+        return None
+    return ctx.device_mesh, placements(resolve_spec(shape, axes, ctx),
+                                       ctx.device_mesh)
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (False without ``torch.distributed``)."""
+    return isinstance(x, _DTENSOR)
+
+
+def shard(x, *axes: Optional[str]):
+    """JAX's sharding constraint: a DTensor ``x`` redistributed to the
+    placements of its logical ``axes`` under the installed context. The
+    identity outside a context with a device mesh and on a plain tensor,
+    as JAX's is outside a mesh."""
+    ctx = current_ctx()
+    if ctx is None or ctx.device_mesh is None or not is_dtensor(x):
+        return x
+    mesh, want = named_sharding(x.shape, axes, ctx)
+    return x if tuple(x.placements) == want else x.redistribute(mesh, want)
 
 
 @dataclass(frozen=True)
@@ -188,6 +281,28 @@ class TensorSpec:
     def spec(self, ctx: Optional[ShardingCtx] = None) -> tuple:
         return resolve_spec(self.shape, self.axes, ctx)
 
+    def local_shape(self, ctx: Optional[ShardingCtx] = None) -> tuple:
+        """The shape of one device's shard under ``ctx`` (the resolver
+        picks only mesh axes that divide their dim)."""
+        ctx = ctx or current_ctx()
+        if ctx is None:
+            return tuple(self.shape)
+        spec = self.spec(ctx)
+        return tuple(n // (spec_shards((spec[i],), ctx) if i < len(spec)
+                           else 1) for i, n in enumerate(self.shape))
+
+    def zeros(self, device, ctx: Optional[ShardingCtx] = None
+              ) -> torch.Tensor:
+        """A zeroed tensor of this spec on ``device``; under a context
+        with a device mesh a DTensor of its placements, each rank's shard
+        made in place (never the whole tensor)."""
+        ctx = ctx or current_ctx()
+        if ctx is None or ctx.device_mesh is None:
+            return torch.zeros(self.shape, dtype=self.dtype, device=device)
+        local = torch.zeros(self.local_shape(ctx), dtype=self.dtype,
+                            device=device)
+        return on_mesh(local, self.shape, self.spec(ctx), ctx)
+
     def bytes_per_device(self, ctx: Optional[ShardingCtx] = None) -> int:
         """Bytes one device holds under ``ctx`` (the whole tensor without
         one); the resolver picks only mesh axes that divide their dim."""
@@ -195,3 +310,24 @@ class TensorSpec:
         if ctx is None:
             return self.nbytes
         return self.nbytes // spec_shards(self.spec(ctx), ctx)
+
+
+def on_mesh(local: torch.Tensor, shape: Sequence[int], spec: tuple,
+            ctx: ShardingCtx):
+    """The DTensor of global ``shape`` whose shard on this rank is
+    ``local`` (contiguous), placed by ``spec`` on ``ctx``'s device mesh;
+    no collective runs."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, ctx.device_mesh,
+                              placements(spec, ctx.device_mesh),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
+def contiguous_stride(shape: Sequence[int]) -> tuple:
+    """The row-major strides of ``shape``."""
+    out, n = [], 1
+    for s in reversed(tuple(shape)):
+        out.append(n)
+        n *= s
+    return tuple(reversed(out))

@@ -1,9 +1,12 @@
-"""Checks shared by the kernel wrappers before a pointer reaches CUDA, and
-the meta route: on a meta tensor a wrapper allocates what its CUDA call
-allocates, then skips the launch (:func:`skip_launch`)."""
+"""Checks shared by the kernel wrappers before a pointer reaches CUDA, the
+meta route: on a meta tensor a wrapper allocates what its CUDA call
+allocates, then skips the launch (:func:`skip_launch`), and the sharded
+route: on DTensors a wrapper runs on each rank's shards
+(:func:`on_shards`)."""
 from __future__ import annotations
 
-from typing import Callable
+from contextlib import contextmanager
+from typing import Callable, Iterator, Optional, Sequence
 
 import torch
 
@@ -79,3 +82,73 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
     """t, or a fresh copy of it where its data is not 16-byte aligned
     (for kernels that stage rows with 16-byte copies)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+_LOCAL_CALLS: Optional[list] = None
+
+
+@contextmanager
+def local_calls() -> Iterator[list]:
+    """Inside the block, each :func:`on_shards` call appends ``(name,
+    ((local shape, dtype name) of each argument))`` to the yielded
+    list."""
+    global _LOCAL_CALLS
+    prev, _LOCAL_CALLS = _LOCAL_CALLS, []
+    try:
+        yield _LOCAL_CALLS
+    finally:
+        _LOCAL_CALLS = prev
+
+
+def on_shards(name: str, fn: Callable, args: Sequence, *,
+              whole: Sequence[Sequence[int]],
+              sum_grads: Sequence[bool] = ()):
+    """``fn`` on this rank's shards of the DTensors ``args``, its output a
+    DTensor of ``args[0]``'s shape and placements, contiguous: the local
+    call takes the wrapper's own route (kernel, meta or plain) on local
+    tensors, and no collective runs. This is ``local_map`` with the
+    output's global shape and stride stated, where ``local_map`` infers a
+    stride from the shard that a later view of a tensor split on two
+    dims refuses. ``whole[i]`` are the dims of ``args[i]`` a kernel
+    must see whole (a norm's rows, attention's sequence and head dims):
+    an argument split on one of them, or a partial sum, raises. Each
+    argument's gradient takes its placements, but where ``sum_grads[i]``
+    (a replicated weight of sharded rows) it is a partial sum over the
+    mesh dims that split ``args[0]``, reduced where it is used."""
+    from torch.distributed._functional_collectives import \
+        AsyncCollectiveTensor
+    from torch.distributed.tensor import DTensor, Partial
+
+    from ..distributed.sharding import contiguous_stride
+    mesh = args[0].device_mesh
+    for i, (a, keep) in enumerate(zip(args, whole, strict=True)):
+        require(isinstance(a, DTensor) and a.device_mesh == mesh, name,
+                f"argument {i} is not a DTensor on {mesh}")
+        kept = {k % a.ndim for k in keep}
+        require(not any(p.is_partial() for p in a.placements), name,
+                f"argument {i} is a partial sum ({a.placements})")
+        split = {p.dim % a.ndim for p in a.placements if p.is_shard()}
+        require(not split & kept, name,
+                f"argument {i} of shape {tuple(a.shape)} is split on dims "
+                f"{sorted(split & kept)} ({a.placements}), which the kernel "
+                "takes whole")
+    grads = []
+    for i, a in enumerate(args):
+        if i < len(sum_grads) and sum_grads[i]:
+            grads.append(tuple(Partial() if p.is_shard() else q
+                               for p, q in zip(args[0].placements,
+                                               a.placements)))
+        else:
+            grads.append(tuple(a.placements))
+    if _LOCAL_CALLS is not None:
+        _LOCAL_CALLS.append((name, tuple(
+            (tuple(a.to_local().shape), str(a.dtype).removeprefix("torch."))
+            for a in args)))
+    local = []
+    for a, g in zip(args, grads):
+        t = a.to_local(grad_placements=g)
+        local.append(t.wait() if isinstance(t, AsyncCollectiveTensor) else t)
+    like = args[0]
+    return DTensor.from_local(fn(*local), mesh, like.placements,
+                              run_check=False, shape=like.shape,
+                              stride=contiguous_stride(like.shape))

@@ -21,6 +21,16 @@ A meta tensor (``launch/dryrun.py``) takes the card's route through the
 same wrappers and Functions: each allocates and saves what its CUDA call
 does, skips the launch and records its bytes and flops
 (``kernels.costs``); it counts no launch.
+
+DTensors (the sharded step, ``distributed.sharding``) go through
+``common.on_shards``: each rank's shards take the route above, so the
+kernels launch at local shapes. The attention entries then take any
+leading dims (q (..., Sq, hd), k / v (..., Sk, hd), ``decode_attention``'s
+lengths (...) as q's leading dims), flattened on each rank: a flat (B *
+H) dim cannot keep batch and heads both split, so the model hands them
+over unflattened. Attention is split on its leading dims (batch, heads),
+the norm on rows with d whole (its weight replicated, its gradient a
+partial sum reduced across the row shards).
 """
 from __future__ import annotations
 
@@ -29,12 +39,14 @@ from typing import Iterator
 
 import torch
 
+from ..distributed.sharding import is_dtensor
 from . import decode_attention as _decode
 from . import flash_attention as _flash
 from . import fused_rmsnorm as _rmsnorm
 from . import mc_cell as _mc
 from . import rwkv6_scan as _rwkv
 from . import ssm_scan as _ssm
+from .common import on_shards
 
 # every kernel's launch counter (mc_cell's entry point is mc.run_grid):
 # name -> (module, attribute)
@@ -58,6 +70,10 @@ def _on_card(t: torch.Tensor, name: str) -> bool:
 
 def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
                   eps: float = 1e-6) -> torch.Tensor:
+    if is_dtensor(x):
+        return on_shards(_rmsnorm.NAME,
+                         lambda x, w: fused_rmsnorm(x, w, eps=eps), (x, w),
+                         whole=((-1,), (0,)), sum_grads=(False, True))
     if _on_card(x, _rmsnorm.NAME):
         return _rmsnorm.fused_rmsnorm_cuda(x, w, eps=eps)
     return _rmsnorm.fused_rmsnorm_plain(x, w, eps=eps)
@@ -67,6 +83,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
     kw = dict(causal=causal, window=window, softcap=softcap)
+    if is_dtensor(q):
+        return on_shards(_flash.NAME,
+                         lambda q, k, v: flash_attention(q, k, v, **kw),
+                         (q, k, v), whole=((-2, -1),) * 3)
+    if q.dim() > 3:
+        return flash_attention(q.flatten(0, -3), k.flatten(0, -3),
+                               v.flatten(0, -3), **kw).view(q.shape)
     if _on_card(q, _flash.NAME):
         return _flash.flash_attention_cuda(q, k, v, **kw)
     return _flash.flash_attention_plain(q, k, v, **kw)
@@ -76,6 +99,21 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor, *, window: int = 0,
                      softcap: float = 0.0) -> torch.Tensor:
     kw = dict(window=window, softcap=softcap)
+    if is_dtensor(q):
+        if any(p.is_shard(k.ndim - 2) for p in k.placements):
+            raise ValueError(
+                f"{_decode.NAME}: the cache's sequence dim is split "
+                f"({k.placements}): JAX's flash-decode fallback where the "
+                "KV heads do not divide the model axis, which the sharded "
+                "step does not run")
+        return on_shards(
+            _decode.NAME,
+            lambda q, k, v, lengths: decode_attention(q, k, v, lengths, **kw),
+            (q, k, v, lengths), whole=((-2, -1), (-2, -1), (-2, -1), ()))
+    if q.dim() > 3:
+        return decode_attention(q.flatten(0, -3), k.flatten(0, -3),
+                                v.flatten(0, -3), lengths.flatten(),
+                                **kw).view(q.shape)
     if _on_card(q, _decode.NAME):
         return _decode.decode_attention_cuda(q, k, v, lengths, **kw)
     return _decode.decode_attention_plain(q, k, v, lengths, **kw)

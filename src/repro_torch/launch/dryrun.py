@@ -25,11 +25,18 @@ A train cell runs ONE microbatch on meta: where there are several, the
 gradient accumulator (f32, a parameter's size each) is live from its
 start, as on the card's later microbatches, and the step's peak is that
 microbatch's peak or the update's; its flops and bytes are the
-microbatch's times the count, plus the update's. The port has no
-sharded step: on a mesh of more than one device only the argument bytes
-per device are exact (each tensor's resolved spec,
-``distributed/sharding.py``), and the temp bytes, flops and collective
-time are null, with a reason.
+microbatch's times the count, plus the update's.
+
+On a mesh of more than one device the dense ``uniform`` stacks
+(deepseek-7b, deepseek-67b) run the sharded step: rank 0 of the mesh
+under ``mesh.fake_group`` on a ``cpu`` device mesh, its parameters,
+optimizer state, cache and batch meta DTensors at their resolved specs
+(``params.shard_params``, ``TensorSpec.zeros``). The tracker sees each
+rank's local ops (:class:`CollectiveCounter`), so the memory, flops and
+bytes are one device's, and it counts the collectives by kind with their
+operand bytes (XLA's ``collective_bytes``); ``t_collective`` is those
+bytes over ``mesh.NVLINK_BW``. Every other family keeps the argument
+bytes per device only, with the reason it waits for (:data:`NOT_SHARDED`).
 
   python -m repro_torch.launch.dryrun --arch deepseek-7b --shape train_4k \\
       --mesh single
@@ -46,33 +53,53 @@ import time
 import traceback
 import weakref
 from collections import defaultdict
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Callable, Iterator, Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
 from ..configs import (ARCHS, SHAPES, ModelConfig, TrainConfig, get_config,
                        shape_applicable)
-from ..distributed.sharding import ShardingCtx, TensorSpec, use_mesh
+from ..distributed.sharding import (ShardingCtx, TensorSpec, current_ctx,
+                                   is_dtensor, use_mesh)
 from ..kernels import costs
 from ..models.rwkv import LORA
 from ..models.ssm import ssm_dims
 from ..models.transformer import (LM, cache_specs, family_kind, lg_layers,
                                   zamba_groups)
-from ..params import count_params, param_specs
+from ..params import count_params, param_specs, shard_params
 from ..training.optimizer import (adamw_update, init_opt_state, leaf_order,
-                                  opt_state_specs, zero_missing_grads)
-from .mesh import (HBM_BW, HBM_USABLE, MESHES, PEAK_FLOPS_BF16,
-                   PEAK_FLOPS_F32, mesh_preset)
+                                  opt_state_specs, place_grads,
+                                  zero_missing_grads)
+from .mesh import (HBM_BW, HBM_USABLE, MESHES, NVLINK_BW, PEAK_FLOPS_BF16,
+                   PEAK_FLOPS_F32, Mesh, device_mesh, fake_group, mesh_preset)
 
 ALLOC_ROUND = 512       # the caching allocator's block granularity
 META = torch.device("meta")
 OUT_DIR = "results/dryrun_torch"
-NO_SHARDED_STEP = ("the port has no sharded step: on a mesh of more than "
-                   "one device only the argument bytes per device are exact")
+#: why a family runs no sharded step yet: the slice it waits for
+NOT_SHARDED = {
+    "moe": "the sharded step of the MoE stacks (experts on the model axis) "
+           "is a later slice",
+    "local_global": "the sharded step of gemma3's rings is a later slice",
+    "scan": "the sharded step of zamba2 and rwkv6 (the scans on their "
+            "heads) is a later slice",
+    "frontend": "the sharded step of the frontend archs is a later slice "
+                "(qwen2-vl's 2 KV heads put its cache's sequence on the "
+                "model axis; musicgen's audio embeddings)",
+}
+#: the functional collectives (DTensor's) by XLA's kind names
+COLLECTIVES = {"all_gather_into_tensor": "all-gather",
+               "all_reduce": "all-reduce",
+               "reduce_scatter_tensor": "reduce-scatter",
+               "all_to_all_single": "all-to-all"}
+_FUNCOL = ("_c10d_functional", "c10d_functional", "_c10d_functional_autograd")
 
 
 def alloc_bytes(nbytes: int) -> int:
@@ -80,15 +107,68 @@ def alloc_bytes(nbytes: int) -> int:
     return -(-nbytes // ALLOC_ROUND) * ALLOC_ROUND
 
 
-class MetaTracker(TorchDispatchMode):
+def not_sharded(cfg: ModelConfig) -> Optional[str]:
+    """None where the family runs the sharded step (the dense ``uniform``
+    stacks with text input), else the reason it does not yet."""
+    kind = family_kind(cfg)
+    if kind in ("zamba", "rwkv"):
+        return NOT_SHARDED["scan"]
+    if kind == "local_global":
+        return NOT_SHARDED["local_global"]
+    if cfg.n_experts:
+        return NOT_SHARDED["moe"]
+    if cfg.modality != "text" or cfg.mrope:
+        return NOT_SHARDED["frontend"]
+    return None
+
+
+def _group_size(group_name: str) -> int:
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    return _resolve_process_group(group_name).size()
+
+
+class CollectiveCounter(TorchDispatchMode):
+    """Sees one rank's local ops: an op on DTensors is handed back
+    (``NotImplemented``), so DTensor runs it on the local shards, whose
+    ops, and the collectives a redistribution issues, come here; the
+    fake-tensor ops of DTensor's shape propagation are passed by.
+    ``collectives`` counts each kind (:data:`COLLECTIVES`) and its
+    operand bytes; a collective over a group of one rank moves nothing
+    and is not counted. Runs on the card as on the meta device."""
+
+    def __init__(self):
+        super().__init__()
+        self.collectives: dict[str, dict] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        flat = tree_flatten((args, kwargs, out))[0]
+        if not any(isinstance(t, FakeTensor) for t in flat):
+            self.local_op(func, args, kwargs, out)
+        return out
+
+    def local_op(self, func, args, kwargs, out) -> None:
+        kind = COLLECTIVES.get(func._overloadpacket.__name__)
+        # a functional collective's last argument names its group
+        if func.namespace in _FUNCOL and kind and _group_size(args[-1]) > 1:
+            c = self.collectives.setdefault(kind, {"count": 0, "bytes": 0})
+            c["count"] += 1
+            c["bytes"] += args[0].numel() * args[0].element_size()
+
+
+class MetaTracker(CollectiveCounter):
     """Inside the block: every meta storage an op makes is live until its
     last tensor dies (a weak reference to the storage, which PyTorch keeps
     as long as any tensor, view or saved tensor holds it), at
     :func:`alloc_bytes` of its size; ``peak`` is the most live at once.
-    ``op_bytes`` sums each aten op's input and output bytes (views move
-    none), ``flops`` each op's flops by the peak rate of its inputs'
-    dtype. A CUDA tensor raises: the dry run allocates nothing on a
-    device."""
+    ``op_bytes`` sums each aten op's input and output bytes (views and
+    collectives move none), ``flops`` each op's flops by the peak rate of
+    its inputs' dtype. On DTensors all of it is one rank's: its local
+    shards (:class:`CollectiveCounter`). A CUDA tensor raises: the dry run
+    allocates nothing on a device."""
 
     def __init__(self):
         super().__init__()
@@ -111,6 +191,8 @@ class MetaTracker(TorchDispatchMode):
         return self.live - before
 
     def _hold(self, t: torch.Tensor) -> None:
+        if is_dtensor(t):
+            t = t._local_tensor
         if t.device.type == "cuda":
             raise RuntimeError("the dry run met a CUDA tensor: it allocates "
                                "nothing on a device")
@@ -126,9 +208,8 @@ class MetaTracker(TorchDispatchMode):
         self.live += n
         self.peak = max(self.peak, self.live)
 
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        out = func(*args, **kwargs)
+    def local_op(self, func, args, kwargs, out) -> None:
+        super().local_op(func, args, kwargs, out)
         ins = [t for t in tree_flatten((args, kwargs))[0]
                if isinstance(t, torch.Tensor)]
         outs = [t for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)]
@@ -137,7 +218,7 @@ class MetaTracker(TorchDispatchMode):
                 raise RuntimeError(f"the dry run met a CUDA tensor in {func}")
         for t in outs:
             self._hold(t)
-        if not func.is_view:
+        if not func.is_view and func.namespace not in _FUNCOL:
             self.op_bytes += sum(t.numel() * t.element_size()
                                  for t in {id(t): t for t in ins + outs}
                                  .values())
@@ -148,11 +229,14 @@ class MetaTracker(TorchDispatchMode):
                     else PEAK_FLOPS_F32)
             self.flops[rate] += flop_registry[packet](*args, **kwargs,
                                                       out_val=out)
-        return out
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t._local_tensor if is_dtensor(t) else t
 
 
 def _nbytes(tree) -> int:
-    return sum(alloc_bytes(t.untyped_storage().nbytes())
+    return sum(alloc_bytes(_local(t).untyped_storage().nbytes())
                for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor))
 
 
@@ -169,7 +253,7 @@ def trace(fn: Callable, args: tuple) -> dict:
         out = fn(tracker, *args)
     return {"peak": tracker.peak, "arg": arg, "op_bytes": tracker.op_bytes,
             "flops": dict(tracker.flops), "kernels": tracker.calls,
-            "out": out}
+            "collectives": tracker.collectives, "out": out}
 
 
 def peak_of(fn: Callable[[], object], inputs) -> int:
@@ -205,21 +289,41 @@ def batch_specs(cfg: ModelConfig, batch: int, seq: int, kind: str
 
 
 def on_meta(specs: dict[str, TensorSpec]) -> dict[str, torch.Tensor]:
-    return {n: torch.empty(s.shape, dtype=s.dtype, device=META)
-            for n, s in specs.items()}
+    """The tensors of ``specs`` on the meta device (DTensors under a
+    context with a device mesh)."""
+    return {n: s.zeros(META) for n, s in specs.items()}
+
+
+def meta_lm(cfg: ModelConfig, **kw) -> LM:
+    """:class:`LM` on the meta device, its parameters meta DTensors under
+    a context with a device mesh (this rank's shards)."""
+    lm = LM(cfg, device=META, **kw)
+    ctx = current_ctx()
+    if ctx is not None and ctx.device_mesh is not None:
+        shard_params(lm, ctx)
+    return lm
+
+
+@contextmanager
+def sharded_step(mesh: Mesh, device_type: str = "cpu") -> Iterator:
+    """Rank 0 of ``mesh`` under a fake process group, with a context of
+    ``mesh`` and a device mesh of ``device_type`` over it: the steps
+    traced (or run on the card) inside are that rank's."""
+    with fake_group(mesh.size), use_mesh(
+            mesh, device_mesh=device_mesh(mesh, device_type)) as ctx:
+        yield ctx
 
 
 def trace_train(cfg: ModelConfig, batch: int, seq: int,
-                microbatches: int = 1, tcfg: Optional[TrainConfig] = None
-                ) -> dict:
+                microbatches: int = 1, tcfg: Optional[TrainConfig] = None,
+                dtype: torch.dtype = torch.bfloat16) -> dict:
     """One train step of ``batch`` x ``seq`` tokens in ``microbatches``,
     as ``training.make_train_step`` runs it on the card: f32 masters cast
-    to bf16 on use, remat unless ``tcfg.remat`` is "none". One
-    microbatch runs (module docstring); ``fwdbwd`` holds its counters
-    apart from the update's (the result's ``out``)."""
+    to the compute ``dtype`` on use, remat unless ``tcfg.remat`` is
+    "none". One microbatch runs (module docstring); ``fwdbwd`` holds its
+    counters apart from the update's (the result's ``out``)."""
     tcfg = tcfg or TrainConfig(microbatches=microbatches)
-    lm = LM(cfg, device=META, dtype=torch.bfloat16,
-            param_dtype=torch.float32)
+    lm = meta_lm(cfg, dtype=dtype, param_dtype=torch.float32)
     params = dict(lm.named_parameters())
     opt = init_opt_state(params)
     data = on_meta(batch_specs(cfg, batch, seq, "train"))
@@ -239,7 +343,9 @@ def trace_train(cfg: ModelConfig, batch: int, seq: int,
         loss.backward()
         del loss
         zero_missing_grads(params)
-        fwdbwd = (tracker.op_bytes, dict(tracker.flops), len(tracker.calls))
+        place_grads(params)
+        fwdbwd = (tracker.op_bytes, dict(tracker.flops), len(tracker.calls),
+                  {k: dict(c) for k, c in tracker.collectives.items()})
         grads = {name: p.grad for name, p in params.items()}
         for g in grads.values():
             g.div_(microbatches)
@@ -252,10 +358,11 @@ def trace_train(cfg: ModelConfig, batch: int, seq: int,
     return res
 
 
-def trace_prefill(cfg: ModelConfig, batch: int, seq: int) -> dict:
+def trace_prefill(cfg: ModelConfig, batch: int, seq: int,
+                  dtype: torch.dtype = torch.bfloat16) -> dict:
     """``LM.prefill`` of a (B, S) prompt into a new cache of S positions,
-    the serving layout (bf16 matmul weights)."""
-    lm = LM(cfg, device=META, dtype=torch.bfloat16)
+    the serving layout (matmul weights in the compute ``dtype``)."""
+    lm = meta_lm(cfg, dtype=dtype)
     data = on_meta(batch_specs(cfg, batch, seq, "prefill"))
 
     def step(tracker, params, data):
@@ -267,10 +374,12 @@ def trace_prefill(cfg: ModelConfig, batch: int, seq: int) -> dict:
     return res
 
 
-def trace_decode(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+def trace_decode(cfg: ModelConfig, batch: int, max_len: int,
+                 dtype: torch.dtype = torch.bfloat16) -> dict:
     """One ``LM.decode_step`` of B tokens over a cache of ``max_len``
-    positions (``new_cache``), written in place (donated)."""
-    lm = LM(cfg, device=META, dtype=torch.bfloat16)
+    positions (``new_cache``), written in place (donated); the compute
+    ``dtype`` as :func:`trace_prefill`'s."""
+    lm = meta_lm(cfg, dtype=dtype)
     cache = lm.new_cache(batch, max_len)
     data = on_meta(batch_specs(cfg, batch, max_len, "decode"))
 
@@ -413,8 +522,9 @@ def run_cell(arch: str, shape_name: str, mesh_name: str = "single", *,
     with use_mesh(mesh) as ctx:
         out["mem_arg_bytes"] = arg_bytes_per_device(
             arg_specs(cfg, shape.kind, B, S), ctx)
-    if chips > 1:
-        out.update(reason=NO_SHARDED_STEP, lower_s=None, mem_temp_bytes=None,
+    why = not_sharded(cfg) if chips > 1 else None
+    if why:
+        out.update(reason=why, lower_s=None, mem_temp_bytes=None,
                    mem_out_bytes=None, mem_alias_bytes=None, peak_bytes=None,
                    fits=False if out["mem_arg_bytes"] > HBM_USABLE else None,
                    hlo_flops_dev=None, hlo_bytes_dev=None,
@@ -423,12 +533,13 @@ def run_cell(arch: str, shape_name: str, mesh_name: str = "single", *,
                    roofline_fraction=None, useful_flops_ratio=None)
         return out
     t0 = time.time()
-    if shape.kind == "train":
-        res = trace_train(cfg, B, S, mb)
-    elif shape.kind == "prefill":
-        res = trace_prefill(cfg, B, S)
-    else:
-        res = trace_decode(cfg, B, S)
+    with sharded_step(mesh) if chips > 1 else nullcontext():
+        if shape.kind == "train":
+            res = trace_train(cfg, B, S, mb)
+        elif shape.kind == "prefill":
+            res = trace_prefill(cfg, B, S)
+        else:
+            res = trace_decode(cfg, B, S)
     out["lower_s"] = round(time.time() - t0, 2)
     # aten flops at their dtype's rate, kernels' at their own
     flops = defaultdict(float, res["flops"])
@@ -436,12 +547,16 @@ def run_cell(arch: str, shape_name: str, mesh_name: str = "single", *,
     by_kernel: dict = defaultdict(lambda: [0, 0.0, 0.0])
     calls = res["kernels"]
     op_bytes = res["op_bytes"]
+    coll = {k: dict(c) for k, c in res["collectives"].items()}
     if shape.kind == "train":
-        op_fb, flops_fb, n_fb = res["out"]
+        op_fb, flops_fb, n_fb, coll_fb = res["out"]
         # the microbatch's counts times the count, the update's once
         op_bytes += (mb - 1) * op_fb
         for rate, f in flops_fb.items():
             flops[rate] += (mb - 1) * f
+        for kind, c in coll_fb.items():
+            for key in ("count", "bytes"):
+                coll[kind][key] += (mb - 1) * c[key]
         weights = [mb] * n_fb + [1] * (len(calls) - n_fb)
         out["counts_note"] = (
             f"one microbatch of {B // mb} rows ran on meta; its flops and "
@@ -459,17 +574,19 @@ def run_cell(arch: str, shape_name: str, mesh_name: str = "single", *,
         k[2] += w * nbytes
     flops_dev = sum(flops.values())
     bytes_dev = op_bytes + kernel_bytes
+    coll_bytes = sum(c["bytes"] for c in coll.values())
     peak = res["peak"]
     temp = peak - res["arg"] - (res["out_bytes"] - res["alias_bytes"])
     out.update(
         mem_arg_bytes=res["arg"], mem_temp_bytes=temp,
         mem_out_bytes=res["out_bytes"], mem_alias_bytes=res["alias_bytes"],
         peak_bytes=peak, fits=peak <= HBM_USABLE,
-        hlo_flops_dev=flops_dev, hlo_bytes_dev=bytes_dev, coll_bytes_dev=0,
+        hlo_flops_dev=flops_dev, hlo_bytes_dev=bytes_dev,
+        coll_bytes_dev=coll_bytes, collectives=coll,
         kernels={n: {"calls": c, "flops": f, "bytes": b}
                  for n, (c, f, b) in by_kernel.items()},
         t_compute=sum(f / rate for rate, f in flops.items()),
-        t_memory=bytes_dev / HBM_BW, t_collective=0.0,
+        t_memory=bytes_dev / HBM_BW, t_collective=coll_bytes / NVLINK_BW,
         useful_flops_ratio=(out["model_flops"] / (flops_dev * chips)
                             if flops_dev else None))
     terms = {"compute": out["t_compute"], "memory": out["t_memory"],
@@ -522,8 +639,8 @@ def cell_line(res: dict) -> str:
 
 SUMMARY = ("arch", "shape", "mesh", "status", "reason", "lower_s",
            "mem_arg_bytes", "mem_temp_bytes", "peak_bytes", "fits",
-           "hlo_flops_dev", "t_compute", "t_memory", "t_collective",
-           "bottleneck", "useful_flops_ratio")
+           "hlo_flops_dev", "coll_bytes_dev", "t_compute", "t_memory",
+           "t_collective", "bottleneck", "useful_flops_ratio")
 
 
 def main(argv=None) -> None:

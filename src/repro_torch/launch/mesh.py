@@ -14,10 +14,19 @@ dry run reckons a four-card cell on a host with none. The presets stand
 in for JAX's TPU meshes (a 16 x 16 pod, two of them): ``single`` is one
 card, ``quad`` one data row over four model-parallel cards, the four
 NVLink-joined cards of one host.
+
+The sharded step runs on a ``torch.distributed`` ``DeviceMesh`` over a
+mesh (:func:`device_mesh`), which needs a process group of the mesh's
+size. :func:`fake_group` is a measuring device, not a group to train
+on: one rank of a mesh runs alone and its collectives move no data, so
+the dry run reckons a rank's memory, flops and collectives on the meta
+device, and one card holds rank 0's footprint. No entry point uses it
+in place of a real group.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from contextlib import contextmanager
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -66,3 +75,38 @@ def mesh_preset(name: str) -> Mesh:
     if name not in MESHES:
         raise KeyError(f"mesh {name!r}: one of {sorted(MESHES)}")
     return make_mesh(*MESHES[name])
+
+
+def device_mesh(mesh: Mesh, device_type: str = "cuda"):
+    """A ``DeviceMesh`` of ``device_type`` over ``mesh``'s layout, rank r
+    at r's place in row-major order, its dims named as the mesh's axes
+    (``data``, ``model``). The default process group must be up, of the
+    mesh's size."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    if not dist.is_initialized() or dist.get_world_size() != mesh.size:
+        raise RuntimeError(f"a {mesh.shape} device mesh needs a process "
+                           f"group of {mesh.size} ranks")
+    ranks = torch.arange(mesh.size).reshape(mesh.devices.shape)
+    return DeviceMesh(device_type, ranks, mesh_dim_names=mesh.axis_names)
+
+
+@contextmanager
+def fake_group(world_size: int, rank: int = 0) -> Iterator[None]:
+    """Inside the block the default process group is ``torch``'s fake
+    one: this process is ``rank`` of ``world_size``, and a collective
+    allocates its output and moves nothing (values after it are
+    garbage). ``init_process_group`` is global to a process: start the
+    block where no group is up, best in a fresh process; it is torn down
+    on exit."""
+    import torch.distributed as dist
+    # registers the "fake" backend for cpu and cuda
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already up in this process")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()

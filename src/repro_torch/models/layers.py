@@ -11,6 +11,11 @@ stores them in the compute dtype, so the cast is a no-op there; training
 keeps them as f32 masters (``LM(param_dtype=torch.float32)``), so the
 gradients land in f32. Norm weights stay f32.
 
+On DTensors (the sharded step) the same code runs each rank's shards:
+``shard`` stands where JAX's model places its sharding constraints, the
+matmuls split as their weights' placements say, and the kernels run on
+local shards (``kernels.ops``); a plain tensor is the identity's case.
+
 The three hot operations go through ``kernels`` (default
 :mod:`repro_torch.kernels.ops`, which launches the CUDA kernels on the
 card and the plain versions on the CPU): every norm through
@@ -30,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import is_dtensor, shard
 from ..kernels import ops
 
 #: Leaf names of the matmul weights of every family: stored in the compute
@@ -176,6 +182,10 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     cap = cfg.attn_logit_softcap
     h = rmsnorm(x, p.norm, cfg.norm_eps, kernels=kernels)
     q, k, v = _qkv(p, h, cfg, positions)
+    # DTensors reach the kernels unflattened: kernels.ops flattens each
+    # rank's shard, where one flat (B * H) dim could not keep batch and
+    # heads both split
+    sharded = is_dtensor(q)
     new_cache = None
     if cache is not None and S == 1:            # decode step
         k_cache, v_cache = cache["k"], cache["v"]
@@ -194,26 +204,47 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
         # Written IN PLACE into the caller's preallocated cache, where the
         # JAX reference is functional (dynamic_update_slice returns a new
         # cache array); slot `slot` of each row is overwritten.
-        rows = torch.arange(B, device=x.device)
-        k_cache[rows, :, slot] = k[:, :, 0].to(k_cache.dtype)
-        v_cache[rows, :, slot] = v[:, :, 0].to(v_cache.dtype)
-        # a length a query head (a repeat, not repeat_interleave, whose
-        # output size may be read on the host: the step is captured in a
-        # CUDA graph; `%` and `clamp` are device ops)
-        lengths = n_live.to(torch.int32)[:, None].repeat(1, H).view(B * H)
-        out = kernels.decode_attention(
-            q.reshape(B * H, 1, hd), k_cache.view(B * KV, -1, hd),
-            v_cache.view(B * KV, -1, hd), lengths, softcap=cap)
+        write_slot(slot, (k_cache, k[:, :, 0].to(k_cache.dtype)),
+                   (v_cache, v[:, :, 0].to(v_cache.dtype)))
+        # a length a query head, as q's leading dims (an expand, whose
+        # size is known on the host: the step is captured in a CUDA
+        # graph; `%` and `clamp` are device ops), made contiguous for
+        # the kernel (a flat view of an expand of one row has stride 0)
+        lengths = shard(n_live.to(torch.int32)[:, None, None]
+                        .expand(B, KV, H // KV), "batch", "kv_heads",
+                        None).contiguous()
+        args = ((q, k_cache, v_cache, lengths) if sharded else
+                (q.flatten(0, 2), k_cache.flatten(0, 1),   # a row a head
+                 v_cache.flatten(0, 1), lengths.flatten()))
+        out = kernels.decode_attention(*args, softcap=cap)
         new_cache = cache
     else:                                        # train / prefill
-        out = kernels.flash_attention(
-            q.reshape(B * H, S, hd), k.reshape(B * KV, S, hd),
-            v.reshape(B * KV, S, hd), causal=True, window=window,
-            softcap=cap)
+        args = ((q, k, v) if sharded else
+                (q.flatten(0, 2), k.flatten(0, 1), v.flatten(0, 1)))
+        out = kernels.flash_attention(*args, causal=True, window=window,
+                                      softcap=cap)
         if update_cache:
             new_cache = {"k": k, "v": v}
     out = out.view(B, H, S, hd).transpose(1, 2).reshape(B, S, H * hd)
-    return mm(out, p.wo), new_cache
+    return shard(mm(out, p.wo), "batch", "seq", None), new_cache
+
+
+def write_slot(slot: torch.Tensor, *pairs) -> None:
+    """``cache[b, :, slot[b]] = new[b]`` for every row b of each ``(cache,
+    new)`` pair, (B, KV, S, hd) caches, in place, with one row index for
+    all; on DTensors each rank writes its own rows and heads (``new`` and
+    ``slot`` placed as the cache's rows and heads)."""
+    def write(slot, *tensors):
+        rows = torch.arange(slot.shape[0], device=slot.device)
+        for cache, new in zip(tensors[::2], tensors[1::2]):
+            cache[rows, :, slot] = new
+    tensors = [t for pair in pairs for t in pair]
+    if not is_dtensor(slot):
+        return write(slot, *tensors)
+    from torch.distributed.tensor.experimental import local_map
+    local_map(write, out_placements=None,
+              in_placements=tuple(t.placements for t in (slot, *tensors)),
+              device_mesh=slot.device_mesh)(slot, *tensors)
 
 
 # -- MLP -----------------------------------------------------------------------
@@ -237,8 +268,8 @@ def mlp(p: MLP, x: torch.Tensor, cfg: ModelConfig, *,
         kernels=ops) -> torch.Tensor:
     h = rmsnorm(x, p.norm, cfg.norm_eps, kernels=kernels)
     act = _act(cfg)
-    h = act(mm(h, p.w_gate)) * mm(h, p.w_up)
-    return mm(h, p.w_down)
+    h = shard(act(mm(h, p.w_gate)) * mm(h, p.w_up), "batch", "seq", "mlp")
+    return shard(mm(h, p.w_down), "batch", "seq", None)
 
 
 def _act(cfg: ModelConfig):

@@ -55,7 +55,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from ..distributed.sharding import TensorSpec
+from ..distributed.sharding import TensorSpec, is_dtensor, shard
 from ..kernels import ops
 from .layers import (MATMUL, MLP, Attention, MoE, _param, attention, mlp,
                      moe, rmsnorm)
@@ -70,10 +70,23 @@ def ce_chunk(h: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
              z_loss: float) -> torch.Tensor:
     """Summed CE plus z-loss of one chunk: f32 logits ``h @ head``
     (B, cs, V), ``sum(lse - logit[target]) + z_loss * sum(lse^2)``."""
-    logits = h.float() @ head.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = logits.gather(-1, targets[..., None])[..., 0]
+    logits = shard(h.float() @ head.float(), "batch", "ce_seq", "vocab")
+    lse = logsumexp(logits)
+    tgt = logits.gather(-1, targets[..., None])
     return (lse - tgt).sum() + z_loss * torch.square(lse).sum()
+
+
+def logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """The log-sum-exp of the last dim, kept (B, cs, 1). On a DTensor
+    split over the vocabulary, as XLA partitions it: the shards' max
+    (reduced once), then the shards' sums of exp (reduced once), where
+    ``torch.logsumexp`` would gather the whole logits on every rank."""
+    if not is_dtensor(logits):
+        return torch.logsumexp(logits, dim=-1, keepdim=True)
+    m = shard(logits.detach().amax(-1, keepdim=True), "batch", "seq", None)
+    s = shard(torch.exp(logits - m).sum(-1, keepdim=True), "batch", "seq",
+              None)
+    return m + torch.log(s)
 
 
 def family_kind(cfg: ModelConfig) -> str:
@@ -255,17 +268,21 @@ class LM(nn.Module):
         then cast to the compute dtype. ``F.embedding``: its backward on
         the card is reproducible bit for bit, which the train phase's
         remat and resume checks hold."""
-        x = F.embedding(tokens, self.embed) * math.sqrt(self.cfg.d_model)
-        return x.to(self.dtype)
+        # the table gathered over its FSDP dim first (a lookup of rows
+        # split over the vocabulary, summed across the model axis)
+        table = shard(self.embed, "vocab", None)
+        x = F.embedding(tokens, table) * math.sqrt(self.cfg.d_model)
+        return shard(x.to(self.dtype), "batch", "seq", None)
 
     def embed_vectors(self, embeds: torch.Tensor) -> torch.Tensor:
         """``LM.embed_vectors``: a modality frontend's embeddings (B, S,
         d) cast to the compute dtype, unscaled."""
-        return embeds.to(self.dtype)
+        return shard(embeds.to(self.dtype), "batch", "seq", None)
 
     def unembed(self, h: torch.Tensor) -> torch.Tensor:
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        return h.to(torch.float32) @ head.to(torch.float32)
+        return shard(h.to(torch.float32) @ head.to(torch.float32), "batch",
+                     "seq", "vocab")
 
     # -- one attention + mlp / moe layer ----------------------------------
     def _layer(self, attn: Attention, ffn: Union[MLP, MoE], x, positions, *,
@@ -393,9 +410,11 @@ class LM(nn.Module):
     # ======================== PREFILL ===================================
     def new_cache(self, batch: int, max_len: int, device=None) -> dict:
         """A zeroed cache in the family's layout (module docstring,
-        :func:`cache_specs`), on ``device`` (default: the parameters')."""
+        :func:`cache_specs`), on ``device`` (default: the parameters');
+        under a context with a device mesh, DTensors at JAX's cache specs
+        (each rank's shard made in place)."""
         dev = device or self.device
-        return {n: torch.zeros(s.shape, dtype=s.dtype, device=dev)
+        return {n: s.zeros(dev)
                 for n, s in cache_specs(self.cfg, batch, max_len,
                                         self.dtype).items()}
 

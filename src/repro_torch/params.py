@@ -18,7 +18,8 @@ import torch
 
 from .configs.base import ModelConfig
 from .device import resolve_device
-from .distributed.sharding import ShardingCtx, TensorSpec
+from .distributed.sharding import (ShardingCtx, TensorSpec, current_ctx,
+                                   on_mesh, placements)
 from .models.layers import MATMUL
 from .models.rwkv import LORA, rwkv_dims
 from .models.ssm import ssm_dims
@@ -251,11 +252,23 @@ def param_bytes_per_device(cfg: ModelConfig,
 
 def from_jax_numpy(tree: dict, cfg: ModelConfig,
                    device: Optional[Union[str, torch.device]] = None,
-                   dtype: torch.dtype = torch.bfloat16) -> dict:
+                   dtype: torch.dtype = torch.bfloat16,
+                   ctx: Optional[ShardingCtx] = None) -> dict:
     """The nested dict ``materialize(model_specs(cfg), key)`` returns,
     with numpy leaves, as the port's parameters: the layer axes of the
-    stacked leaves are unstacked into per-layer tensors."""
+    stacked leaves are unstacked into per-layer tensors. Under ``ctx``
+    with a device mesh each parameter is a DTensor at its resolved
+    placements, cut from the whole tensor on every rank (each rank holds
+    the same tree; no collective runs)."""
     dev = resolve_device(device)
+    if ctx is not None and ctx.device_mesh is not None:
+        from torch.distributed.tensor import distribute_tensor
+        specs = param_specs(cfg)
+        return {n: distribute_tensor(
+                    t, ctx.device_mesh,
+                    placements(specs[n].spec(ctx), ctx.device_mesh),
+                    src_data_rank=None)
+                for n, t in from_jax_numpy(tree, cfg, dev, dtype).items()}
     out = {}
     for path, leaf in jax_leaves(cfg).items():
         node = tree
@@ -270,6 +283,53 @@ def from_jax_numpy(tree: dict, cfg: ModelConfig,
             t = torch.from_numpy(np.array(part, dtype=np.float32))
             out[name] = t.to(device=dev, dtype=_dtype_of(name, dtype))
     return out
+
+
+def shard_params(lm, ctx: Optional[ShardingCtx] = None, *,
+                 device: Optional[Union[str, torch.device]] = None):
+    """Turns each parameter of ``lm`` (an :class:`LM` on the meta device)
+    into a DTensor at
+    its ``param_specs_pspec`` placements on ``ctx``'s device mesh (the
+    installed context by default), in place; returns ``lm``. A meta
+    parameter becomes this rank's shard made directly: on the meta
+    device, or with ``device`` (the card) drawn there as
+    :func:`init_params` draws it (a generator seeded with the rank). The
+    whole tensor is never made: deepseek-67b's f32 masters whole are
+    269.7 GB. Parameters with values take :func:`from_jax_numpy`'s
+    sharded form."""
+    ctx = ctx or current_ctx()
+    if ctx is None or ctx.device_mesh is None:
+        raise ValueError("shard_params needs a context with a device mesh")
+    mesh = ctx.device_mesh
+    specs = param_specs(lm.cfg)
+    init = {n: leaf for leaf in jax_leaves(lm.cfg).values()
+            for n in leaf.names}
+    gen = None
+    if device is not None:
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(mesh.get_rank())
+    for name, p in list(lm.named_parameters()):
+        if not p.is_meta:
+            raise ValueError(f"shard_params: {name} is not on the meta "
+                             "device (from_jax_numpy(..., ctx=) places "
+                             "parameters with values)")
+        spec = TensorSpec(tuple(p.shape), specs[name].axes, p.dtype)
+        shape = spec.local_shape(ctx)
+        if gen is None:
+            local = torch.empty(shape, dtype=p.dtype, device=p.device)
+        elif init[name].init in ("zeros", "ones"):
+            fill = torch.zeros if init[name].init == "zeros" else torch.ones
+            local = fill(shape, dtype=p.dtype, device=dev)
+        else:
+            local = (torch.randn(shape, generator=gen, device=dev)
+                     * init[name].std).to(p.dtype)
+        t = on_mesh(local, p.shape, spec.spec(ctx), ctx)
+        owner, _, leaf = name.rpartition(".")
+        module = lm.get_submodule(owner) if owner else lm
+        module._parameters[leaf] = torch.nn.Parameter(
+            t, requires_grad=p.requires_grad)
+    return lm
 
 
 def to_jax_numpy(lm_or_params, cfg: ModelConfig) -> dict:

@@ -3,7 +3,10 @@ with microbatch accumulation (counterpart of ``repro.training.optimizer``).
 
 The optimizer state mirrors the parameters, keyed by the port's
 parameter names: f32 ``m`` and ``v`` beside the f32 master parameters
-and their f32 gradients, 16 bytes a parameter as in JAX. The update is
+and their f32 gradients, 16 bytes a parameter as in JAX. On DTensor
+parameters (the sharded step) the gradients and moments take the
+parameters' placements, as JAX's ``opt_state_specs`` mirror its
+parameter specs, and the update runs on each rank's shards. The update is
 JAX's formula, ``p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``, which
 ``torch.optim.AdamW`` (``p * (1 - lr * wd)`` first) does not compute. The
 port updates the parameters and moments in place where JAX returns new
@@ -18,7 +21,7 @@ import numpy as np
 import torch
 
 from ..configs.base import TrainConfig
-from ..distributed.sharding import TensorSpec
+from ..distributed.sharding import TensorSpec, is_dtensor
 from ..params import jax_leaves
 
 
@@ -69,11 +72,15 @@ def leaf_order(params: dict, cfg) -> list[list[str]]:
 def global_norm(grads: dict, order: list[list[str]]) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient in f32, summed leaf by
     leaf in ``order`` (:func:`leaf_order`), as JAX's Python ``sum`` over
-    its tree leaves."""
-    total = 0.0
+    its tree leaves. On DTensors each shard's squares are summed, and the
+    partial sums reduced once, at the root: the norm over all shards."""
+    total = None
     for group in order:
-        sq = sum(torch.sum(torch.square(grads[n].float())) for n in group)
-        total = total + sq
+        part = None
+        for n in group:
+            sq = torch.sum(torch.square(grads[n].float()))
+            part = sq if part is None else part + sq
+        total = part if total is None else total + part
     return torch.sqrt(total)
 
 
@@ -108,6 +115,16 @@ def zero_missing_grads(params: dict) -> None:
             p.grad = torch.zeros_like(p)
 
 
+def place_grads(params: dict) -> None:
+    """A DTensor parameter's gradient at the parameter's placements (a
+    partial sum reduced, a replicated one cut), as JAX's gradients take
+    their parameters' shardings; a plain tensor's is left as it is."""
+    for p in params.values():
+        g = p.grad
+        if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+            p.grad = g.redistribute(p.device_mesh, p.placements)
+
+
 def loss_and_grads(lm, batch: dict, tcfg: TrainConfig,
                    remat: bool = True) -> tuple[torch.Tensor, dict]:
     """The batch's loss and f32 gradients, by parameter name (the
@@ -131,6 +148,9 @@ def loss_and_grads(lm, batch: dict, tcfg: TrainConfig,
                        embeds=None if embeds is None else embeds[sl],
                        remat=remat)
         loss.backward()
+        # sharded: the sum kept at the parameters' placements, as JAX's
+        # scan carries it, not as a full partial sum a rank
+        place_grads(params)
         total = loss.detach() if total is None else total + loss.detach()
     zero_missing_grads(params)
     grads = {name: p.grad for name, p in params.items()}

@@ -40,7 +40,9 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_rmsnorm as rn
 from repro_torch.kernels import rwkv6_scan as rs
 from repro_torch.kernels import ssm_scan as ss
+from repro_torch.distributed.sharding import use_mesh
 from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import NVLINK_BW, mesh_preset
 from repro_torch.models import LM, cache_specs
 from repro_torch.params import count_params, param_specs
 from repro_torch.training import opt_state_specs
@@ -200,11 +202,72 @@ def test_dry_run_of_each_family(arch, monkeypatch):
                                                                      None)
         quad = dryrun.run_cell(arch, shape, "quad", **kw)
         assert keys <= set(quad)
-        assert quad["reason"] == dryrun.NO_SHARDED_STEP
-        assert quad["mem_temp_bytes"] is None and quad["t_collective"] is None
+        why = dryrun.not_sharded(cfg)
+        if why is None:              # the dense stacks run the sharded step
+            assert quad.get("reason") is None
+            assert quad["mem_temp_bytes"] > 0 and quad["t_collective"] > 0
+        else:
+            assert quad["reason"] == why
+            assert quad["mem_temp_bytes"] is None
+            assert quad["t_collective"] is None
         assert 0 < quad["mem_arg_bytes"] < res["mem_arg_bytes"]
     assert all(v == 0 for v in ops.launch_counts().values())
     assert CpuSpy.cpu_bytes < 1 << 20     # bookkeeping only (index tables)
+
+
+DENSE = ("deepseek-7b", "deepseek-67b")
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("arch", DENSE)
+def test_quad_cell_of_a_dense_stack(arch, shape):
+    """The sharded step's quad cell, 2 layers at batch 2: the per-device
+    figures are filled; the arguments are the resolver's bytes; the
+    flops are one device's. Bound on the flops: every matmul and the
+    attention kernels split four ways (heads, MLP, vocabulary) and the
+    collectives add none (their bytes are counted apart), while each norm
+    runs on whole rows on every rank, so 4 x the device's flops must
+    equal the single card's plus 3 x its norm kernels' flops."""
+    kw = dict(layers=2, batch=2,
+              microbatches=2 if shape == "train_4k" else 0)
+    single = dryrun.run_cell(arch, shape, "single", **kw)
+    quad = dryrun.run_cell(arch, shape, "quad", **kw)
+    for key in ("peak_bytes", "mem_temp_bytes", "hlo_flops_dev",
+                "hlo_bytes_dev", "coll_bytes_dev", "t_collective"):
+        assert quad[key] is not None and quad[key] > 0, key
+    assert quad["fits"] is True and quad["bottleneck"] is not None
+    assert set(quad["collectives"]) == {"all-reduce"}
+    assert quad["collectives"]["all-reduce"]["bytes"] == quad["coll_bytes_dev"]
+    assert quad["t_collective"] == quad["coll_bytes_dev"] / NVLINK_BW
+    cfg = get_config(arch).with_(n_layers=2)
+    specs = dryrun.arg_specs(cfg, SHAPES[shape].kind, 2,
+                             SHAPES[shape].seq_len)
+    with use_mesh(mesh_preset("quad")) as ctx:
+        assert quad["mem_arg_bytes"] == dryrun.arg_bytes_per_device(specs,
+                                                                    ctx)
+    norms = sum(k["flops"] for n, k in single["kernels"].items()
+                if n.startswith("fused_rmsnorm"))
+    assert 4 * quad["hlo_flops_dev"] == single["hlo_flops_dev"] + 3 * norms
+    assert quad["kernels"].keys() == single["kernels"].keys()
+    # the single card's cell is the unsharded step: no collective
+    assert single["collectives"] == {} and single["coll_bytes_dev"] == 0
+    assert single["t_collective"] == 0.0 and "reason" not in single
+    assert quad["peak_bytes"] < single["peak_bytes"]
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCHS if a not in DENSE])
+def test_quad_keeps_its_nulls_with_a_reason(arch):
+    """Every other family's quad cell: the argument bytes only, with the
+    slice it waits for as the reason."""
+    shape = next(s for s in ("train_4k", "decode_32k")
+                 if shape_applicable(get_config(arch), SHAPES[s])[0])
+    quad = dryrun.run_cell(arch, shape, "quad", layers=2, batch=2)
+    assert quad["reason"] in dryrun.NOT_SHARDED.values()
+    assert quad["reason"] == dryrun.not_sharded(get_config(arch))
+    for key in ("peak_bytes", "mem_temp_bytes", "hlo_flops_dev",
+                "coll_bytes_dev", "t_collective"):
+        assert quad[key] is None, key
+    assert quad["mem_arg_bytes"] > 0 and quad["collectives"] == {}
 
 
 def test_train_cell_counts_its_kernels_and_microbatches():

@@ -1,0 +1,483 @@
+"""The port's sharded step (DTensor parameters and caches, ``shard`` at
+JAX's constraint points, the kernels on local shards) on four CPU ranks
+of ``gloo`` against the unsharded port, JAX's model and the dry run.
+
+The deepseek-7b smoke runs on a (1, 4) mesh (``quad``'s layout: heads,
+MLP and vocabulary split four ways) and the deepseek-67b smoke on a
+(2, 2) mesh (its 2 KV heads over the model axis; the batch and the
+FSDP dim ``embed_w`` over the data axis, which ``quad`` never splits).
+The deepseek-67b smoke's d_model is widened from 96 to 128, in both
+packages: its head dim (12) is none the kernels take, and the dry run,
+whose collectives the test holds, runs the kernels' meta route, which
+checks it; at 128 it is 16.
+The four ranks come from one ``mp.spawn`` for the module, joined by a
+``FileStore`` under ``tmp_path`` (no port to contend for), and must end
+within ``SPAWN_LIMIT_S``. JAX runs only in the test process.
+
+Tolerances:
+* prefill logits, one decode step's logits, the train step's loss and
+  the AdamW update against the unsharded port, both in f32: 2e-5 (the
+  same f32 ops; the sharded sums are split and reduced in another order);
+* each gradient leaf (``full_tensor``): max |sharded - unsharded| / max
+  |unsharded| within 2e-5 (GRAD_TOL). A leaf beyond it must stay within
+  GAP_CEILING (1e-4) and within the leaf's rounding floor: every f32
+  weight of the unsharded port nudged one ulp up or down at random, its
+  gradients computed again, the leaf's max |nudged - unnudged| / max |g|
+  over FLOOR_DRAWS draws (as test_torch_family_grads.py measures it). So
+  the sharded step moves no gradient more than one ulp of the weights
+  moves the unsharded one. On the CPU, 14 leaves of the deepseek-67b
+  smoke (layer 0, the embedding and layer 1's attention) sit between
+  3.6e-5 and 7.8e-5 with floors of 2.3e-4 to 5.5e-4 (the heads' partial
+  products summed in another order, amplified through the backward);
+  ``pytest -s -k train_step`` prints each leaf's gap and floor;
+* the sharded prefill logits against JAX's in f32 compute: 2e-3, the
+  model tolerance of test_torch_models.py;
+* rank 0's collectives, by kind, equal in count to those the dry run
+  reckons for the same steps, in the same f32 compute, on the meta
+  device under the fake group (DTensor picks how to reduce by bytes, so
+  the dtype can change the plan: a bf16 decode step on the (2, 2) mesh
+  reduces with all-reduces where f32 takes reduce-scatters).
+"""
+import os
+import pickle
+import time
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import TrainConfig, get_smoke  # noqa: E402
+from repro_torch.distributed.sharding import (named_sharding,  # noqa: E402
+                                              use_mesh)
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import device_mesh, make_mesh  # noqa: E402
+from repro_torch.models import LM  # noqa: E402
+from repro_torch.params import from_jax_numpy  # noqa: E402
+from repro_torch.training.optimizer import (adamw_update,  # noqa: E402
+                                            init_opt_state, leaf_order,
+                                            loss_and_grads)
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+GRAD_TOL = 2e-5
+GAP_CEILING = 1e-4
+FLOOR_DRAWS = 4
+JAX_TOL = dict(rtol=2e-3, atol=2e-3)        # test_models.py:61
+RANKS = 4
+SPAWN_LIMIT_S = 240
+#: arch -> (data, model) mesh
+CASES = {"deepseek-7b": (1, 4), "deepseek-67b": (2, 2)}
+#: arch -> the smoke's fields changed (module docstring)
+WIDER = {"deepseek-67b": {"d_model": 128}}
+B, S, MAX_LEN = 4, 16, 20
+TCFG = TrainConfig(microbatches=1)
+F32 = torch.float32
+
+
+def _config(arch, get=get_smoke):
+    """The case's smoke config (the JAX package's with ``get``)."""
+    return get(arch).with_(**WIDER.get(arch, {}))
+
+
+def _inputs(cfg):
+    rng = np.random.default_rng(7)
+    return {"tokens": rng.integers(0, cfg.vocab, (B, S)),
+            "targets": rng.integers(0, cfg.vocab, (B, S)),
+            "next": rng.integers(0, cfg.vocab, (B,))}
+
+
+def _steps(cfg, tree, inputs, place, counted):
+    """Prefill, one decode step and one train step of the f32 port on the
+    parameters ``tree`` (JAX's numpy tree); ``place(t, axes)`` lays an
+    input out, ``counted(name)`` is the context each step runs in, and
+    ``full(t)`` reads a result whole (outside the counted steps)."""
+    ctx_params = dict(dtype=F32)
+    out = {}
+    lm = LM.from_params(cfg, place.params(tree, cfg), **ctx_params)
+    tokens = place(torch.from_numpy(inputs["tokens"]), ("batch", "seq"))
+    with torch.no_grad():
+        with counted("prefill"):
+            logits, cache = lm.prefill(tokens, MAX_LEN)
+        out["prefill"] = place.full(logits)
+        token = place(torch.from_numpy(inputs["next"]), ("batch",))
+        pos = place(torch.full((B,), S, dtype=torch.int64), ("batch",))
+        with counted("decode"):
+            logits, cache = lm.decode_step(token, cache, pos)
+        out["decode"] = place.full(logits)
+    lm = LM.from_params(cfg, place.params(tree, cfg), **ctx_params)
+    params = dict(lm.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    batch = {k: place(torch.from_numpy(inputs[k]), ("batch", "seq"))
+             for k in ("tokens", "targets")}
+    opt = init_opt_state(params)
+    with counted("train"):
+        loss, grads = loss_and_grads(lm, batch, TCFG, TCFG.remat != "none")
+    out["loss"] = place.full(loss)
+    out["grads"] = {n: place.full(g) for n, g in grads.items()}
+    with counted("train"):
+        adamw_update(params, grads, opt, TCFG, leaf_order(params, cfg))
+    out["update"] = {n: place.full(p.detach()) for n, p in params.items()}
+    return out
+
+
+class _Plain:
+    """Inputs and parameters as plain tensors: the unsharded port."""
+
+    def __call__(self, t, axes):
+        return t
+
+    @staticmethod
+    def params(tree, cfg):
+        return from_jax_numpy(tree, cfg, "cpu", F32)
+
+    @staticmethod
+    def full(t):
+        return t.detach().clone()
+
+
+class _Sharded:
+    """Inputs cut to their resolved placements, parameters as DTensors
+    (``from_jax_numpy``'s sharded form), results gathered whole."""
+
+    def __init__(self, ctx):
+        self.ctx = ctx
+
+    def __call__(self, t, axes):
+        from torch.distributed.tensor import distribute_tensor
+        mesh, placements = named_sharding(t.shape, axes, self.ctx)
+        return distribute_tensor(t, mesh, placements, src_data_rank=None)
+
+    def params(self, tree, cfg):
+        return from_jax_numpy(tree, cfg, "cpu", F32, ctx=self.ctx)
+
+    @staticmethod
+    def full(t):
+        return t.detach().full_tensor().clone()
+
+
+def _rank(rank, store_path, out_dir, jobs):
+    import contextlib
+
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store_path, RANKS), rank=rank,
+        world_size=RANKS)
+    try:
+        for arch, (data, model), tree in jobs:
+            cfg = _config(arch)
+            mesh = make_mesh(data, model, [torch.device("cpu")] * RANKS)
+            counts: dict = {}
+
+            @contextlib.contextmanager
+            def counted(name):
+                counter = dryrun.CollectiveCounter()
+                with counter:
+                    yield
+                got = counts.setdefault(name, {})
+                for kind, c in counter.collectives.items():
+                    got[kind] = got.get(kind, 0) + c["count"]
+
+            with use_mesh(mesh, device_mesh=device_mesh(mesh, "cpu")) as ctx:
+                out = _steps(cfg, tree, _inputs(cfg), _Sharded(ctx), counted)
+            out["collectives"] = counts
+            if rank == 0:
+                with open(os.path.join(out_dir, f"{arch}.pkl"), "wb") as f:
+                    pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def jax_side():
+    """JAX's parameter trees (PRNGKey 0) and f32 prefill logits."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from repro.configs import get_smoke as jax_get_smoke
+    from repro.distributed import materialize
+    from repro.models import LM as JaxLM
+    from repro.models import layers as jl
+    from repro.models import model_specs
+    out = {}
+    for arch in CASES:
+        jcfg = _config(arch, jax_get_smoke)
+        params = materialize(model_specs(jcfg), jax.random.PRNGKey(0))
+        tree = jax.tree.map(np.asarray, params)
+        jl.set_compute_dtype(jnp.float32)
+        try:
+            logits, _ = JaxLM(jcfg).prefill(
+                params, jnp.asarray(_inputs(_config(arch))["tokens"]),
+                max_len=MAX_LEN)
+        finally:
+            jl.set_compute_dtype(jnp.bfloat16)
+        out[arch] = (tree, np.asarray(logits))
+    return out
+
+
+@pytest.fixture(scope="module")
+def sharded(jax_side, tmp_path_factory):
+    """Rank 0's results of the four-rank run, by arch."""
+    import torch.multiprocessing as mp
+    tmp = tmp_path_factory.mktemp("sharded")
+    jobs = [(a, CASES[a], jax_side[a][0]) for a in CASES]
+    ctx = mp.start_processes(_rank, args=(str(tmp / "store"), str(tmp), jobs),
+                             nprocs=RANKS, join=False, start_method="spawn")
+    deadline = time.monotonic() + SPAWN_LIMIT_S
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            if time.monotonic() > deadline:
+                pytest.fail(f"the {RANKS} ranks did not end within "
+                            f"{SPAWN_LIMIT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    out = {}
+    for arch in CASES:
+        with open(tmp / f"{arch}.pkl", "rb") as f:
+            out[arch] = pickle.load(f)
+    return out
+
+
+@pytest.fixture(scope="module")
+def plain(jax_side):
+    """The unsharded port's results, by arch, with each gradient leaf's
+    rounding floor (``floor``: see the module docstring)."""
+    import contextlib
+    out = {}
+    for a in CASES:
+        cfg, tree = _config(a), jax_side[a][0]
+
+        def run(tr):
+            return _steps(cfg, tr, _inputs(cfg), _Plain(),
+                          lambda name: contextlib.nullcontext())
+        out[a] = run(tree)
+        rng = np.random.default_rng(1)
+        floor: dict = {}
+        for _ in range(FLOOR_DRAWS):
+            nudged = _map(lambda x: np.nextafter(x, np.where(
+                rng.random(x.shape) < 0.5, -np.inf, np.inf).astype(x.dtype))
+                if x.dtype == np.float32 else x, tree)
+            moved = run(nudged)["grads"]
+            for n, g in out[a]["grads"].items():
+                rel = float((moved[n] - g).abs().max() / g.abs().max())
+                floor[n] = max(floor.get(n, 0.0), rel)
+        out[a]["floor"] = floor
+    return out
+
+
+def _map(fn, tree):
+    return ({k: _map(fn, v) for k, v in tree.items()}
+            if isinstance(tree, dict) else fn(tree))
+
+
+def _close(a, b, **tol):
+    np.testing.assert_allclose(a.numpy(), b.numpy(), **tol)
+
+
+@pytest.mark.parametrize("arch", list(CASES))
+def test_prefill_matches_unsharded_and_jax(arch, sharded, plain, jax_side):
+    out = sharded[arch]["prefill"]
+    assert out.shape == (B, 1, _config(arch).vocab)
+    _close(out, plain[arch]["prefill"], **TOL)
+    np.testing.assert_allclose(out.numpy(), jax_side[arch][1], **JAX_TOL)
+
+
+@pytest.mark.parametrize("arch", list(CASES))
+def test_decode_step_matches_unsharded(arch, sharded, plain):
+    _close(sharded[arch]["decode"], plain[arch]["decode"], **TOL)
+
+
+@pytest.mark.parametrize("arch", list(CASES))
+def test_train_step_matches_unsharded(arch, sharded, plain):
+    got, want = sharded[arch], plain[arch]
+    _close(got["loss"], want["loss"], **TOL)
+    assert set(got["grads"]) == set(want["grads"])
+    floor = want["floor"]
+    bad = {}
+    for n, g in want["grads"].items():
+        scale = float(g.abs().max())
+        assert scale > 0, n
+        rel = float((got["grads"][n] - g).abs().max()) / scale
+        print(f"{arch} {n}: gap {rel:.3e}, floor {floor[n]:.3e}")
+        if rel > GRAD_TOL and not rel <= min(GAP_CEILING, floor[n]):
+            bad[n] = (rel, floor[n])
+    assert not bad, bad
+    for n in want["update"]:
+        _close(got["update"][n], want["update"][n], **TOL)
+
+
+@pytest.mark.parametrize("arch", list(CASES))
+def test_collectives_match_the_dry_run(arch, sharded):
+    """Rank 0's collectives by kind against the fake-group dry run of the
+    same three steps at the same shapes (meta DTensors, the kernels'
+    meta route in place of the plain versions)."""
+    cfg = _config(arch)
+    mesh = make_mesh(*CASES[arch])
+    got = sharded[arch]["collectives"]
+    with dryrun.sharded_step(mesh):
+        want = {"prefill": dryrun.trace_prefill(cfg, B, S, F32),
+                "decode": dryrun.trace_decode(cfg, B, MAX_LEN, F32),
+                "train": dryrun.trace_train(cfg, B, S, TCFG.microbatches,
+                                            dtype=F32)}
+    for step, res in want.items():
+        counts = {k: c["count"] for k, c in res["collectives"].items()}
+        assert counts, f"{step}: the dry run reckons no collective"
+        assert got[step] == counts, step
+
+
+# -- the pieces, on one process under the fake group ------------------------------
+
+def test_placements_follow_the_resolved_spec():
+    """Each spec entry splits its dim over its mesh axes in the mesh's
+    order; an axis of one device replicates; no context, no placement."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed.sharding import (placements, resolve_spec,
+                                                  shard)
+    from repro_torch.launch.mesh import fake_group
+    x = torch.ones(3)
+    assert shard(x, "batch") is x and named_sharding((8,), ("batch",)) is None
+    with fake_group(4):
+        for shape, dm_shape in (((2, 2), (2, 2)), ((1, 4), (1, 4))):
+            mesh = make_mesh(*shape, [torch.device("cpu")] * 4)
+            dm = device_mesh(mesh, "cpu")
+            with use_mesh(mesh, device_mesh=dm) as ctx:
+                spec = resolve_spec((8, 16, 32), ("attn_batch", None,
+                                                  "vocab"), ctx)
+                got = placements(spec, dm)
+                assert shard(x, "batch") is x     # a plain tensor
+                assert named_sharding((8, 16, 32), ("attn_batch", None,
+                                                    "vocab"))[1] == got
+            if dm_shape == (2, 2):
+                # vocab takes the model axis first, attn_batch the data one
+                assert spec == ("data", None, "model")
+                assert got == (Shard(0), Shard(2))
+            else:
+                assert spec == ("data", None, "model")
+                assert got == (Replicate(), Shard(2))
+        dm = device_mesh(make_mesh(2, 2, [torch.device("cpu")] * 4), "cpu")
+        assert placements((("data", "model"),), dm) == (Shard(0), Shard(0))
+        with pytest.raises(ValueError, match="order"):
+            placements((("model", "data"),), dm)
+
+
+def test_decode_refuses_a_cache_split_on_its_sequence():
+    """JAX's flash-decode fallback (the cache's sequence on the model axis
+    where the KV heads do not divide it) is not the sharded step's: the
+    kernel's helper says so."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed.sharding import on_mesh, use_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import fake_group
+    meta = torch.device("meta")
+    with fake_group(4):
+        mesh = make_mesh(1, 4, [torch.device("cpu")] * 4)
+        with use_mesh(mesh, device_mesh=device_mesh(mesh, "cpu")) as ctx:
+            def put(shape, spec, dtype=torch.bfloat16):
+                local = [n // 4 if spec[i] == "model" else n
+                         for i, n in enumerate(shape)]
+                return on_mesh(torch.empty(local, dtype=dtype, device=meta),
+                               shape, spec, ctx)
+            q = put((2, 2, 4, 1, 64), (None, None, None, None, None))
+            k = put((2, 2, 64, 64), (None, None, "model", None))
+            lengths = put((2, 2, 4), (None, None, None), torch.int32)
+            assert k.placements == (Replicate(), Shard(2))
+            with pytest.raises(ValueError, match="flash-decode fallback"):
+                ops.decode_attention(q, k, k, lengths)
+
+
+def test_norm_weight_gradient_is_a_partial_sum_of_the_row_shards():
+    """fused_rmsnorm on rows split four ways: the output keeps x's
+    placements, and w's gradient is reduced across the row shards."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.distributed.sharding import on_mesh, use_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import fake_group
+    meta = torch.device("meta")
+    with fake_group(4):
+        mesh = make_mesh(1, 4, [torch.device("cpu")] * 4)
+        with use_mesh(mesh, device_mesh=device_mesh(mesh, "cpu")) as ctx:
+            x = on_mesh(torch.empty(16, 64, device=meta), (64, 64),
+                        ("model", None), ctx).requires_grad_(True)
+            w = on_mesh(torch.empty(64, device=meta), (64,), (None,),
+                        ctx).requires_grad_(True)
+            counter = dryrun.CollectiveCounter()
+            with counter:
+                y = ops.fused_rmsnorm(x, w)
+                assert y.placements == (Replicate(), Shard(0))
+                assert counter.collectives == {}
+                dx, dw = torch.autograd.grad(y, (x, w), torch.ones_like(y))
+            assert dx.placements == x.placements
+            assert dw.placements == (Replicate(), Partial())
+            assert dw.full_tensor().shape == (64,)
+
+
+def test_unsharded_path_hands_the_kernels_contiguous_rows():
+    """Off the mesh the model flattens batch and heads for the kernels,
+    whose CUDA wrappers refuse a strided argument: every tensor they get
+    is contiguous, one row a head, also for a batch of one row (where a
+    flat view of the expanded lengths would have stride 0)."""
+    import types
+
+    from repro_torch.kernels import ops
+    from repro_torch.params import init_params
+    seen = []
+
+    def checked(name):
+        def call(*args, **kw):
+            for t in args:
+                assert t.is_contiguous(), (name, t.shape, t.stride())
+            seen.append((name, tuple(args[0].shape)))
+            return getattr(ops, name)(*args, **kw)
+        return call
+    spy = types.SimpleNamespace(**{n: checked(n) for n in (
+        "fused_rmsnorm", "flash_attention", "decode_attention")})
+    cfg = get_smoke("deepseek-67b")           # GQA: 8 heads over 2
+    params = init_params(cfg, seed=0, device="cpu", dtype=F32)
+    lm = LM.from_params(cfg, params, kernels=spy)
+    for batch in (1, 3):
+        toks = torch.randint(0, cfg.vocab, (batch, 5))
+        with torch.no_grad():
+            _, cache = lm.prefill(toks, 8)
+            lm.decode_step(toks[:, 0], cache, torch.full((batch,), 5))
+        H, hd = cfg.n_heads, cfg.hd
+        assert ("flash_attention", (batch * H, 5, hd)) in seen
+        assert ("decode_attention", (batch * H, 1, hd)) in seen
+
+
+def test_shard_params_cuts_meta_parameters_and_refuses_values():
+    """Each meta parameter becomes this rank's shard at its resolved
+    placements, made directly (the global shape kept); a parameter with
+    values is left to ``from_jax_numpy``'s sharded form."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import placements
+    from repro_torch.launch.mesh import fake_group
+    from repro_torch.params import init_params, param_specs, shard_params
+    cfg = _config("deepseek-67b")
+    specs = param_specs(cfg)
+    with fake_group(4):
+        mesh = make_mesh(2, 2, [torch.device("cpu")] * 4)
+        dm = device_mesh(mesh, "cpu")
+        with use_mesh(mesh, device_mesh=dm) as ctx:
+            lm = shard_params(LM(cfg, device="meta", dtype=F32), ctx)
+            params = dict(lm.named_parameters())
+            assert set(params) == set(specs)
+            for n, p in params.items():
+                assert isinstance(p, DTensor) and p.is_meta, n
+                spec = specs[n].spec(ctx)
+                assert p.placements == placements(spec, dm), n
+                assert tuple(p.shape) == tuple(specs[n].shape), n
+                assert tuple(p.to_local().shape) == \
+                    specs[n].local_shape(ctx), n
+            assert any(p.to_local().shape != p.shape
+                       for p in params.values())
+            lm = LM.from_params(cfg, init_params(cfg, seed=0, device="cpu",
+                                                 dtype=F32))
+            with pytest.raises(ValueError, match="meta"):
+                shard_params(lm, ctx)

@@ -34,7 +34,6 @@ NO_MODULE = {
 
 _SPECS = "makes parameter specs; the port's live in params.py"
 _PARAMS = "of distributed.params, not ported; the port's params.py"
-_SHARD = "a JAX sharding helper: nothing to place on one card"
 _WRAPPER = "a kernel wrapper; the port's dispatches by device"
 
 NO_NAME = {
@@ -58,10 +57,6 @@ NO_NAME = {
         "repro_torch.launch.mesh.mesh_preset", "the TPU pod meshes"),
     ("repro.launch.mesh", "make_debug_mesh"): (
         "repro_torch.launch.mesh.make_mesh", "a jax.sharding.Mesh"),
-    ("repro.distributed", "named_sharding"): (None, _SHARD),
-    ("repro.distributed", "shard"): (None, _SHARD),
-    ("repro.distributed.sharding", "named_sharding"): (None, _SHARD),
-    ("repro.distributed.sharding", "shard"): (None, _SHARD),
     ("repro.distributed", "ParamSpec"): ("repro_torch.params.Leaf", _PARAMS),
     ("repro.distributed", "abstract_params"): (
         "repro_torch.params.param_specs", _PARAMS),
