@@ -12,22 +12,31 @@ package. In order it:
    src/repro_torch/csrc into build/repro_torch/ (timed as set-up);
 2b. the sharded step (the shard phase), before anything else touches the
    card, one spawned process a cell, each ended before the next starts:
-   deepseek-7b train_4k (batch 4 in 2 microbatches, all 30 layers) and
+   deepseek-7b train_4k (batch 4 in 2 microbatches, all 30 layers),
    deepseek-67b decode_32k at batch SHARD_DECODE_BATCH (14, the most
    whose quad peak the dry run puts within mesh.HBM_USABLE; batch 15 is
-   reckoned too and must not fit), cells one card cannot hold. The
+   reckoned too and must not fit), moonshot-v1-16b-a3b decode_32k at
+   batch SHARD_MOE_DECODE_BATCH (20; 21 must not fit; one card holds one
+   row) and moonshot-v1-16b-a3b train_4k (batch 4 in 2 microbatches, full
+   width, SHARD_MOE_TRAIN_LAYERS = 33 of its 48 layers, the dense head
+   layer kept; 34 must not fit), cells one card cannot hold. The
    process dry-runs the cell on the quad mesh (rank 0 under the fake
    process group, meta DTensors), then runs rank 0 of the same step on
    the card under launch.mesh.fake_group(4) with a cuda device mesh
    (parameters drawn as this rank's shards, never whole): its
    max_memory_allocated must lie within DRY_RUN_TOL (5 %) of the dry
-   run's peak, its collectives (counted by dryrun.CollectiveCounter) must
+   run's peak plus what a fresh process holds beyond it (the cuBLAS
+   workspaces, the arguments' segment remainders: the dry run's
+   fresh_process_bytes), its collectives (counted by
+   dryrun.CollectiveCounter) must
    equal the dry run's in kind and count, and each kernel of the path
    (flash_attention and its backward, decode_attention, fused_rmsnorm
    and its backward) must launch as many times as the dry run's meta
    route calls it, at local shapes (printed). The fake group moves no
-   data: values after the first collective are garbage, and no step time
-   is printed. So each kernel is then held against its plain version at
+   data: values after the first collective are garbage (in the MoE
+   stacks the routing too; the dispatch is fixed-shape, so memory and
+   launches still hold), and no step time is printed. So each kernel is
+   then held against its plain version at
    the local shapes and dtypes the step gave it, on fresh inputs, at the
    kernel phase's tolerances (shard_kernel_checks): the forward, for the
    train cell also the backward kernels, and decode_attention with every
@@ -1681,21 +1690,40 @@ def train_phase(rt, smi: str, arch: str = TRAIN_ARCH,
 # -- the sharded step (step 2b) -----------------------------------------------------
 
 SHARD_MESH = "quad"
+MOONSHOT = "moonshot-v1-16b-a3b"
 #: deepseek-67b decode_32k: the most rows whose quad peak fits HBM_USABLE
 SHARD_DECODE_BATCH = 14
-#: (arch, shape, batch, microbatches): cells one card cannot hold
-SHARD_CELLS = (("deepseek-7b", "train_4k", TRAIN_BATCH, TRAIN_MB),
-               ("deepseek-67b", "decode_32k", SHARD_DECODE_BATCH, 0))
+#: moonshot decode_32k: the most rows whose quad peak fits (one card
+#: holds one row)
+SHARD_MOE_DECODE_BATCH = 20
+#: moonshot train_4k, batch 4 in 2 microbatches, full width: the most
+#: layers whose quad peak fits (dryrun.deepest_fit(..., mesh="quad");
+#: the whole 48 layers' arguments alone are 82.73 GB a device)
+SHARD_MOE_TRAIN_LAYERS = 33
+#: (arch, shape, batch, microbatches, layers (0: uncut)): cells one card
+#: cannot hold; a cut cell's next depth, an uncut decode's next batch,
+#: must not fit
+SHARD_CELLS = (("deepseek-7b", "train_4k", TRAIN_BATCH, TRAIN_MB, 0),
+               ("deepseek-67b", "decode_32k", SHARD_DECODE_BATCH, 0, 0),
+               (MOONSHOT, "decode_32k", SHARD_MOE_DECODE_BATCH, 0, 0),
+               (MOONSHOT, "train_4k", TRAIN_BATCH, TRAIN_MB,
+                SHARD_MOE_TRAIN_LAYERS))
 SHARD_KERNELS = {"train": ("fused_rmsnorm", "fused_rmsnorm_bwd",
                            "flash_attention", "flash_bwd_preprocess",
                            "flash_bwd_dkdv", "flash_bwd_dq"),
                  "decode": ("fused_rmsnorm", "decode_attention")}
 
 
-def shard_cell(arch: str, shape: str, batch: int, microbatches: int) -> dict:
+def shard_cell(arch: str, shape: str, batch: int, microbatches: int,
+               layers: int) -> dict:
     """In a spawned process: the cell's quad dry run, then rank 0 of the
     same step on the card under the fake group of 4: launch counts,
-    collectives, local shapes and the step's max_memory_allocated."""
+    collectives, local shapes and the step's max_memory_allocated. The
+    fake group moves no data, so every value after the first collective
+    is garbage, and in a MoE stack so is the routing: memory and launches
+    still hold, since the dispatch is fixed-shape (no count or index
+    depends on the routing); values are held on the CPU
+    (tests/test_torch_sharded.py)."""
     import contextlib
 
     from repro_torch.configs import SHAPES, TrainConfig, get_config
@@ -1709,14 +1737,18 @@ def shard_cell(arch: str, shape: str, batch: int, microbatches: int) -> dict:
     out = {}
     t0 = time.perf_counter()
     out["dry"] = dryrun.run_cell(arch, shape, SHARD_MESH, batch=batch,
-                                 microbatches=microbatches)
+                                 microbatches=microbatches, layers=layers)
     out["dry_s"] = time.perf_counter() - t0
     kind, S = SHAPES[shape].kind, SHAPES[shape].seq_len
-    if kind == "decode":                  # the next batch must not fit
-        out["dry_next"] = dryrun.run_cell(arch, shape, SHARD_MESH,
-                                          batch=batch + 1)
+    if layers or kind == "decode":
+        # a cut cell's next depth, an uncut decode's next batch: no fit
+        out["dry_next"] = dryrun.run_cell(
+            arch, shape, SHARD_MESH, batch=batch if layers else batch + 1,
+            microbatches=microbatches, layers=layers + 1 if layers else 0)
     build.library()
     cfg = get_config(arch)
+    if layers:
+        cfg = cfg.with_(n_layers=layers)
     bf16, f32 = torch.bfloat16, torch.float32
     with contextlib.ExitStack() as stack:
         try:
@@ -1776,13 +1808,15 @@ def shard_phase(rt, smi: str) -> dict:
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     by_cell = {}
-    for arch, shape, batch, mb in SHARD_CELLS:
+    for arch, shape, batch, mb, layers in SHARD_CELLS:
         t0 = time.perf_counter()
         with ProcessPoolExecutor(
                 1, mp_context=multiprocessing.get_context("spawn")) as ex:
-            res = ex.submit(shard_cell, arch, shape, batch, mb).result()
+            res = ex.submit(shard_cell, arch, shape, batch, mb,
+                            layers).result()
         label = (f"shard {arch} {shape} batch {batch}"
-                 + (f" in {mb} microbatches" if mb else ""))
+                 + (f" in {mb} microbatches" if mb else "")
+                 + (f", {layers} layers" if layers else ""))
         dry = res["dry"]
         dry_coll = {k: c["count"] for k, c in dry["collectives"].items()}
         print(f"{label} dry run ({SHARD_MESH}, rank 0 of 4 under the fake "
@@ -1794,27 +1828,33 @@ def shard_phase(rt, smi: str) -> dict:
               flush=True)
         if "dry_next" in res:
             nxt = res["dry_next"]
-            print(f"{label}: batch {batch + 1} peaks at "
+            what = (f"{layers + 1} layers" if layers else
+                    f"batch {batch + 1}")
+            print(f"{label}: {what} peaks at "
                   f"{nxt['peak_bytes'] / 1e9:.3f} GB, fits {nxt['fits']}",
                   flush=True)
             if nxt["fits"] or not dry["fits"]:
-                fail(f"{label}: batch {batch} is not the most rows whose "
-                     "quad peak fits HBM_USABLE")
+                fail(f"{label}: {what} fits, or this cell does not: it is "
+                     "not the most whose quad peak fits HBM_USABLE")
         if "error" in res:
             fail(f"{label}: {res['error']}")
         if not dry["fits"]:
             fail(f"{label}: the dry run's quad peak does not fit")
+        # the cell's process is fresh: its workspaces and the arguments'
+        # segment remainders come on top of the dry run's peak
         peak, base = res["peak"], res["base"]
-        pred = dry["peak_bytes"] + base
+        fresh = dry["fresh_process_bytes"]
+        pred = dry["peak_bytes"] + fresh + base
         gap = pred - peak
         print(f"{label} rank 0 on the card ({smi}; fake group of 4, cuda "
-              f"device mesh): max_memory_allocated {peak / 1e9:.3f} GB "
-              f"(max reserved {res['reserved'] / 1e9:.3f} GB, free before "
+              f"device mesh): max_memory_allocated {peak} B (max reserved "
+              f"{res['reserved'] / 1e9:.3f} GB, free before "
               f"{res['free_before'] / 1e9:.3f} GB), predicted "
-              f"{dry['peak_bytes'] / 1e9:.3f} GB + {base / 1e9:.3f} GB "
-              f"live before = {pred / 1e9:.3f} GB, gap {gap / 1e9:+.3f} GB "
-              f"({gap / peak:+.4f} of measured, limit {DRY_RUN_TOL})",
-              flush=True)
+              f"{dry['peak_bytes']} B + {fresh} B a fresh process holds "
+              f"beyond it + {base} B live before = {pred} B, gap "
+              f"{gap / 1e9:+.4f} GB ({gap / peak:+.5f} of measured, limit "
+              f"{DRY_RUN_TOL}; without the fresh process's bytes "
+              f"{(gap - fresh) / peak:+.5f})", flush=True)
         card_coll = {k: c["count"] for k, c in res["collectives"].items()}
         print(f"{label} collectives: card {json.dumps(res['collectives'])}"
               f", dry run {json.dumps(dry['collectives'])}", flush=True)
@@ -1836,7 +1876,8 @@ def shard_phase(rt, smi: str) -> dict:
                  f"calls {want} (missing {missing}): a kernel fell to its "
                  "plain version")
         shard_kernel_checks(rt, label, res["local_calls"], kind == "train")
-        by_cell[f"{arch} {SHARD_MESH} rank 0 {kind}"] = counts
+        by_cell[f"{arch} {SHARD_MESH} rank 0 {kind}"
+                + (f" {layers} layers" if layers else "")] = counts
         print(f"{label}: {time.perf_counter() - t0:.1f} s", flush=True)
     return by_cell
 

@@ -22,6 +22,11 @@ device_mesh=)``, dims named as the mesh's axes) places a tensor by
 :func:`shard`, JAX's sharding constraint, redistributes a DTensor to its
 logical axes' placements. Without a device mesh, and on a plain tensor,
 both leave everything as it is: the single-device path never changes.
+:func:`on_local` runs a function on each rank's shards with its
+outputs' placements stated (the MoE layer's dispatch, expert products
+and combine). The ``uniform`` stacks with text input run the sharded
+step, dense and MoE; gemma3's rings, zamba2 and rwkv6, and the frontend
+archs wait for later slices (``launch.dryrun.NOT_SHARDED``).
 """
 from __future__ import annotations
 
@@ -253,8 +258,7 @@ def shard(x, *axes: Optional[str]):
     ctx = current_ctx()
     if ctx is None or ctx.device_mesh is None or not is_dtensor(x):
         return x
-    mesh, want = named_sharding(x.shape, axes, ctx)
-    return x if tuple(x.placements) == want else x.redistribute(mesh, want)
+    return place(x, named_sharding(x.shape, axes, ctx)[1])
 
 
 @dataclass(frozen=True)
@@ -312,6 +316,14 @@ class TensorSpec:
         return self.nbytes // spec_shards(self.spec(ctx), ctx)
 
 
+def place(x, placements: Sequence) -> torch.Tensor:
+    """The DTensor ``x`` redistributed to ``placements`` on its device
+    mesh (``x`` itself where it is there already)."""
+    if tuple(x.placements) == tuple(placements):
+        return x
+    return x.redistribute(x.device_mesh, tuple(placements))
+
+
 def on_mesh(local: torch.Tensor, shape: Sequence[int], spec: tuple,
             ctx: ShardingCtx):
     """The DTensor of global ``shape`` whose shard on this rank is
@@ -322,6 +334,41 @@ def on_mesh(local: torch.Tensor, shape: Sequence[int], spec: tuple,
                               placements(spec, ctx.device_mesh),
                               run_check=False, shape=torch.Size(shape),
                               stride=contiguous_stride(shape))
+
+
+def on_local(fn, args: Sequence, outs: Sequence[tuple]):
+    """``fn`` on this rank's shards of the DTensors ``args`` (one device
+    mesh), its outputs the DTensors that ``outs`` describes, one ``(global
+    shape, placements)`` an output, each local output its shard there (a
+    ``Partial`` placement: its part of a sum); no collective runs, and
+    the outputs are contiguous, their global stride stated (torch's
+    ``local_map`` infers it from the shard, which a later view of a
+    tensor split on two dims refuses). Where an argument is replicated on a
+    mesh dim that splits or partially sums an output, its gradient there
+    is a partial sum (each rank's part comes from its shard of the work),
+    reduced where it is used; elsewhere it takes the argument's
+    placements. Returns a tuple of DTensors."""
+    from torch.distributed._functional_collectives import \
+        AsyncCollectiveTensor
+    from torch.distributed.tensor import DTensor, Partial
+    mesh = args[0].device_mesh
+    split = [any(not pl[m].is_replicate() for _, pl in outs)
+             for m in range(mesh.ndim)]
+    local = []
+    for a in args:
+        if not (is_dtensor(a) and a.device_mesh == mesh):
+            raise ValueError(f"on_local: an argument is not a DTensor on "
+                             f"{mesh}")
+        grad = tuple(Partial() if p.is_replicate() and split[m] else p
+                     for m, p in enumerate(a.placements))
+        t = a.to_local(grad_placements=grad)
+        local.append(t.wait() if isinstance(t, AsyncCollectiveTensor) else t)
+    got = fn(*local)
+    got = got if isinstance(got, tuple) else (got,)
+    return tuple(DTensor.from_local(t.contiguous(), mesh, tuple(pl),
+                                    run_check=False, shape=torch.Size(shape),
+                                    stride=contiguous_stride(shape))
+                 for t, (shape, pl) in zip(got, outs, strict=True))
 
 
 def contiguous_stride(shape: Sequence[int]) -> tuple:

@@ -101,25 +101,19 @@ def local_calls() -> Iterator[list]:
 
 
 def on_shards(name: str, fn: Callable, args: Sequence, *,
-              whole: Sequence[Sequence[int]],
-              sum_grads: Sequence[bool] = ()):
+              whole: Sequence[Sequence[int]]):
     """``fn`` on this rank's shards of the DTensors ``args``, its output a
-    DTensor of ``args[0]``'s shape and placements, contiguous: the local
-    call takes the wrapper's own route (kernel, meta or plain) on local
-    tensors, and no collective runs. This is ``local_map`` with the
-    output's global shape and stride stated, where ``local_map`` infers a
-    stride from the shard that a later view of a tensor split on two
-    dims refuses. ``whole[i]`` are the dims of ``args[i]`` a kernel
-    must see whole (a norm's rows, attention's sequence and head dims):
-    an argument split on one of them, or a partial sum, raises. Each
-    argument's gradient takes its placements, but where ``sum_grads[i]``
-    (a replicated weight of sharded rows) it is a partial sum over the
-    mesh dims that split ``args[0]``, reduced where it is used."""
-    from torch.distributed._functional_collectives import \
-        AsyncCollectiveTensor
-    from torch.distributed.tensor import DTensor, Partial
+    DTensor of ``args[0]``'s shape and placements, contiguous
+    (``sharding.on_local``): the local call takes the wrapper's own
+    route (kernel, meta or plain) on local tensors, and no collective
+    runs. ``whole[i]`` are the dims of ``args[i]`` a kernel must see
+    whole (a norm's rows, attention's sequence and head dims): an
+    argument split on one of them, or a partial sum, raises. An argument
+    replicated where ``args[0]`` is split (a norm's weight) takes a
+    partial gradient, reduced where it is used."""
+    from torch.distributed.tensor import DTensor
 
-    from ..distributed.sharding import contiguous_stride
+    from ..distributed.sharding import on_local
     mesh = args[0].device_mesh
     for i, (a, keep) in enumerate(zip(args, whole, strict=True)):
         require(isinstance(a, DTensor) and a.device_mesh == mesh, name,
@@ -132,23 +126,10 @@ def on_shards(name: str, fn: Callable, args: Sequence, *,
                 f"argument {i} of shape {tuple(a.shape)} is split on dims "
                 f"{sorted(split & kept)} ({a.placements}), which the kernel "
                 "takes whole")
-    grads = []
-    for i, a in enumerate(args):
-        if i < len(sum_grads) and sum_grads[i]:
-            grads.append(tuple(Partial() if p.is_shard() else q
-                               for p, q in zip(args[0].placements,
-                                               a.placements)))
-        else:
-            grads.append(tuple(a.placements))
     if _LOCAL_CALLS is not None:
         _LOCAL_CALLS.append((name, tuple(
             (tuple(a.to_local().shape), str(a.dtype).removeprefix("torch."))
             for a in args)))
-    local = []
-    for a, g in zip(args, grads):
-        t = a.to_local(grad_placements=g)
-        local.append(t.wait() if isinstance(t, AsyncCollectiveTensor) else t)
     like = args[0]
-    return DTensor.from_local(fn(*local), mesh, like.placements,
-                              run_check=False, shape=like.shape,
-                              stride=contiguous_stride(like.shape))
+    (out,) = on_local(fn, args, ((like.shape, tuple(like.placements)),))
+    return out

@@ -73,7 +73,7 @@ def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
     if is_dtensor(x):
         return on_shards(_rmsnorm.NAME,
                          lambda x, w: fused_rmsnorm(x, w, eps=eps), (x, w),
-                         whole=((-1,), (0,)), sum_grads=(False, True))
+                         whole=((-1,), (0,)))
     if _on_card(x, _rmsnorm.NAME):
         return _rmsnorm.fused_rmsnorm_cuda(x, w, eps=eps)
     return _rmsnorm.fused_rmsnorm_plain(x, w, eps=eps)

@@ -18,8 +18,11 @@ The JSON keys are JAX's wherever a counterpart exists; XLA's own cost
 analysis (``xla_flops``, ``xla_bytes``) and ``compile_s`` have none and
 are null, and ``lower_s`` is the meta run's seconds. ``mem_temp_bytes``
 is XLA's identity ``peak - args - (outputs - aliased outputs)``.
-Added: ``peak_bytes`` and ``fits`` (the peak within ``mesh.HBM_USABLE``,
-what one H100 80GB HBM3 lets a step allocate: 80.0 GB).
+Added: ``peak_bytes``, ``fresh_process_bytes``, what the same step
+holds beyond that peak in a fresh process (:func:`fresh_process_bytes`:
+cuBLAS's workspaces and the arguments' segment remainders), and ``fits``
+(the two together within ``mesh.HBM_USABLE``, what one H100 80GB HBM3
+lets a step allocate: 80.0 GB).
 
 A train cell runs ONE microbatch on meta: where there are several, the
 gradient accumulator (f32, a parameter's size each) is live from its
@@ -77,16 +80,15 @@ from ..params import count_params, param_specs, shard_params
 from ..training.optimizer import (adamw_update, init_opt_state, leaf_order,
                                   opt_state_specs, place_grads,
                                   zero_missing_grads)
-from .mesh import (HBM_BW, HBM_USABLE, MESHES, NVLINK_BW, PEAK_FLOPS_BF16,
-                   PEAK_FLOPS_F32, Mesh, device_mesh, fake_group, mesh_preset)
+from .mesh import (CUBLAS_WORKSPACE, HBM_BW, HBM_USABLE, MESHES, NVLINK_BW,
+                   PEAK_FLOPS_BF16, PEAK_FLOPS_F32, Mesh, device_mesh,
+                   fake_group, mesh_preset)
 
 ALLOC_ROUND = 512       # the caching allocator's block granularity
 META = torch.device("meta")
 OUT_DIR = "results/dryrun_torch"
 #: why a family runs no sharded step yet: the slice it waits for
 NOT_SHARDED = {
-    "moe": "the sharded step of the MoE stacks (experts on the model axis) "
-           "is a later slice",
     "local_global": "the sharded step of gemma3's rings is a later slice",
     "scan": "the sharded step of zamba2 and rwkv6 (the scans on their "
             "heads) is a later slice",
@@ -107,16 +109,43 @@ def alloc_bytes(nbytes: int) -> int:
     return -(-nbytes // ALLOC_ROUND) * ALLOC_ROUND
 
 
+def segment_bytes(nbytes: int) -> int:
+    """What the caching allocator holds for ``nbytes`` served from a
+    segment made for it (no cached block to split, as in a fresh
+    process): from 10 MiB up the segment is the request rounded up to 2
+    MiB, and a remainder of 1 MiB or less is not split off but stays
+    with the block; elsewhere :func:`alloc_bytes`."""
+    n = alloc_bytes(nbytes)
+    if n < 10 * 2**20:
+        return n
+    seg = -(-n // 2**21) * 2**21
+    return seg if seg - n <= 2**20 else n
+
+
+def fresh_process_bytes(specs: dict, ctx: Optional[ShardingCtx],
+                        kind: str) -> int:
+    """What a step in a fresh process holds at its peak beyond the dry
+    run's count: each argument's segment remainder (:func:`segment_bytes`,
+    the arguments being the process's first allocations), and a cuBLAS
+    workspace for each thread that runs matmuls (the forward's; a train
+    step's backward runs on autograd's device thread). A step's own
+    tensors reuse cached blocks, or make segments, as the allocator's
+    history has it: not counted."""
+    remainders = sum(segment_bytes(s.bytes_per_device(ctx))
+                     - alloc_bytes(s.bytes_per_device(ctx))
+                     for group in specs.values() for s in group.values())
+    return remainders + (2 if kind == "train" else 1) * CUBLAS_WORKSPACE
+
+
 def not_sharded(cfg: ModelConfig) -> Optional[str]:
-    """None where the family runs the sharded step (the dense ``uniform``
-    stacks with text input), else the reason it does not yet."""
+    """None where the family runs the sharded step (the ``uniform``
+    stacks with text input, dense or MoE), else the reason it does not
+    yet."""
     kind = family_kind(cfg)
     if kind in ("zamba", "rwkv"):
         return NOT_SHARDED["scan"]
     if kind == "local_global":
         return NOT_SHARDED["local_global"]
-    if cfg.n_experts:
-        return NOT_SHARDED["moe"]
     if cfg.modality != "text" or cfg.mrope:
         return NOT_SHARDED["frontend"]
     return None
@@ -133,12 +162,14 @@ class CollectiveCounter(TorchDispatchMode):
     ops, and the collectives a redistribution issues, come here; the
     fake-tensor ops of DTensor's shape propagation are passed by.
     ``collectives`` counts each kind (:data:`COLLECTIVES`) and its
-    operand bytes; a collective over a group of one rank moves nothing
-    and is not counted. Runs on the card as on the meta device."""
+    operand bytes, and ``log`` each one's kind and operand shape in
+    order; a collective over a group of one rank moves nothing and is
+    not counted. Runs on the card as on the meta device."""
 
     def __init__(self):
         super().__init__()
         self.collectives: dict[str, dict] = {}
+        self.log: list[tuple[str, tuple]] = []
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(issubclass(t, DTensor) for t in types):
@@ -157,6 +188,7 @@ class CollectiveCounter(TorchDispatchMode):
             c = self.collectives.setdefault(kind, {"count": 0, "bytes": 0})
             c["count"] += 1
             c["bytes"] += args[0].numel() * args[0].element_size()
+            self.log.append((kind, tuple(args[0].shape)))
 
 
 class MetaTracker(CollectiveCounter):
@@ -245,7 +277,8 @@ def trace(fn: Callable, args: tuple) -> dict:
     :class:`MetaTracker` and the kernels' cost recording. Returns
     ``peak`` (bytes), ``arg`` (the arguments' bytes, tracked before the
     run), ``op_bytes``, ``flops`` (rate -> aten flops), ``kernels`` (the
-    recorded ``(name, bytes, flops, rate)`` calls) and ``out`` (fn's
+    recorded ``(name, bytes, flops, rate)`` calls), ``collectives`` and
+    ``collective_log`` (:class:`CollectiveCounter`'s) and ``out`` (fn's
     result)."""
     tracker = MetaTracker()
     with costs.recording() as tracker.calls, tracker:
@@ -253,7 +286,8 @@ def trace(fn: Callable, args: tuple) -> dict:
         out = fn(tracker, *args)
     return {"peak": tracker.peak, "arg": arg, "op_bytes": tracker.op_bytes,
             "flops": dict(tracker.flops), "kernels": tracker.calls,
-            "collectives": tracker.collectives, "out": out}
+            "collectives": tracker.collectives,
+            "collective_log": tracker.log, "out": out}
 
 
 def peak_of(fn: Callable[[], object], inputs) -> int:
@@ -520,8 +554,10 @@ def run_cell(arch: str, shape_name: str, mesh_name: str = "single", *,
            "xla_flops": None, "xla_bytes": None, "compile_s": None,
            "collectives": {}}
     with use_mesh(mesh) as ctx:
-        out["mem_arg_bytes"] = arg_bytes_per_device(
-            arg_specs(cfg, shape.kind, B, S), ctx)
+        specs = arg_specs(cfg, shape.kind, B, S)
+        out["mem_arg_bytes"] = arg_bytes_per_device(specs, ctx)
+        out["fresh_process_bytes"] = fresh_process_bytes(specs, ctx,
+                                                         shape.kind)
     why = not_sharded(cfg) if chips > 1 else None
     if why:
         out.update(reason=why, lower_s=None, mem_temp_bytes=None,
@@ -580,7 +616,8 @@ def run_cell(arch: str, shape_name: str, mesh_name: str = "single", *,
     out.update(
         mem_arg_bytes=res["arg"], mem_temp_bytes=temp,
         mem_out_bytes=res["out_bytes"], mem_alias_bytes=res["alias_bytes"],
-        peak_bytes=peak, fits=peak <= HBM_USABLE,
+        peak_bytes=peak,
+        fits=peak + out["fresh_process_bytes"] <= HBM_USABLE,
         hlo_flops_dev=flops_dev, hlo_bytes_dev=bytes_dev,
         coll_bytes_dev=coll_bytes, collectives=coll,
         kernels={n: {"calls": c, "flops": f, "bytes": b}
@@ -606,22 +643,27 @@ def cell_tag(arch: str, shape: str, mesh: str, layers: int = 0,
 
 
 def deepest_fit(arch: str, shape_name: str = "train_4k", *, batch: int = 0,
-                microbatches: int = 0) -> tuple[int, Optional[int]]:
-    """(the most layers, up to the config's own, whose step peaks within
-    ``HBM_USABLE`` on one device, that peak in bytes or None where
+                microbatches: int = 0, mesh: str = "single"
+                ) -> tuple[int, Optional[int]]:
+    """(the most layers, up to the config's own, whose step fits one
+    device of ``mesh`` (``fits``: the peak and what a fresh process holds
+    beyond it within ``HBM_USABLE``), that peak in bytes or None where
     even one layer does not fit): a bisection over the depth, the peak
     growing with it."""
-    def peak(layers):
-        return run_cell(arch, shape_name, layers=layers, batch=batch,
-                        microbatches=microbatches)["peak_bytes"]
+    def cell(layers):
+        res = run_cell(arch, shape_name, mesh, layers=layers, batch=batch,
+                       microbatches=microbatches)
+        if res.get("peak_bytes") is None:
+            raise ValueError(f"{arch} on {mesh}: {res.get('reason')}")
+        return res
     lo, hi = 0, get_config(arch).n_layers
     while lo < hi:
         mid = (lo + hi + 1) // 2
-        if peak(mid) <= HBM_USABLE:
+        if cell(mid)["fits"]:
             lo = mid
         else:
             hi = mid - 1
-    return lo, (peak(lo) if lo else None)
+    return lo, (cell(lo)["peak_bytes"] if lo else None)
 
 
 def cell_line(res: dict) -> str:
@@ -660,17 +702,19 @@ def main(argv=None) -> None:
                     help="a train step's microbatches (0: 1)")
     ap.add_argument("--deepest", action="store_true",
                     help="print the most layers of --arch whose --shape "
-                    "step fits one card (mesh.HBM_USABLE)")
+                    "step fits one device of --mesh (mesh.HBM_USABLE)")
     args = ap.parse_args(argv)
     if args.deepest:
-        if not (args.arch and args.shape):
-            ap.error("--deepest needs --arch and --shape")
+        if not (args.arch and args.shape) or args.mesh == "both":
+            ap.error("--deepest needs --arch, --shape and one --mesh")
         layers, peak = deepest_fit(args.arch, args.shape, batch=args.batch,
-                                   microbatches=args.microbatches)
-        print(f"{args.arch} {args.shape} batch {args.batch or 'default'} "
-              f"microbatches {args.microbatches or 1}: {layers} of "
+                                   microbatches=args.microbatches,
+                                   mesh=args.mesh)
+        print(f"{args.arch} {args.shape} {args.mesh} batch "
+              f"{args.batch or 'default'} microbatches "
+              f"{args.microbatches or 1}: {layers} of "
               f"{get_config(args.arch).n_layers} layers fit "
-              f"{HBM_USABLE / 1e9:.3f} GB"
+              f"{HBM_USABLE / 1e9:.3f} GB a device"
               + (f", peak {peak / 1e9:.3f} GB" if peak else ""), flush=True)
         return
     outdir = Path(args.out)

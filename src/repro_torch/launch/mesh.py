@@ -51,6 +51,11 @@ HBM_OUTSIDE_ALLOCATOR = 1_000_000_000
 HBM_SPLIT_SLACK = 4_000_000_000
 #: what a step's max_memory_allocated may reach: the dry run's ``fits``
 HBM_USABLE = HBM_BYTES - HBM_OUTSIDE_ALLOCATOR - HBM_SPLIT_SLACK
+#: cuBLAS's workspace, which torch allocates through the caching
+#: allocator at a thread's first matmul on the card and keeps (sm_90's
+#: default; measured at the first matmul of the forward's and of
+#: autograd's device thread)
+CUBLAS_WORKSPACE = 32 * 2**20
 
 #: preset name -> (data, model)
 MESHES = {"single": (1, 1), "quad": (1, 4)}

@@ -15,6 +15,10 @@ On DTensors (the sharded step) the same code runs each rank's shards:
 ``shard`` stands where JAX's model places its sharding constraints, the
 matmuls split as their weights' placements say, and the kernels run on
 local shards (``kernels.ops``); a plain tensor is the identity's case.
+The MoE layer's routing runs whole on every rank; each rank builds and
+runs only its own experts' slice of the dispatch buffer and sums its
+experts' outputs into a partial y, reduced at JAX's last constraint
+(``dispatch_slots``, ``expert_product``, ``combine_shards``).
 
 The three hot operations go through ``kernels`` (default
 :mod:`repro_torch.kernels.ops`, which launches the CUDA kernels on the
@@ -35,7 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import is_dtensor, shard
+from ..distributed.sharding import is_dtensor, named_sharding, place, shard
 from ..kernels import ops
 
 #: Leaf names of the matmul weights of every family: stored in the compute
@@ -321,13 +325,17 @@ def renormalise(gates: torch.Tensor) -> torch.Tensor:
     return gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
 
 
-def dispatch(h: torch.Tensor, eids: torch.Tensor, E: int, C: int):
+def dispatch(h: torch.Tensor, eids: torch.Tensor, E: int, C: int,
+             experts: Optional[tuple[int, int]] = None):
     """``_dispatch_row`` for every batch row at once. Assignments (token,
     k) are sorted by expert with a stable sort; the c-th assignment of
     expert e goes to slot e * C + c and one ranked >= C is dropped (slot
     E * C). Returns (buf (B, E, C, d), order (B, S*K): the sort,
     flat_idx (B, S*K): the slot of each sorted assignment), JAX's
-    buffer and ``(order, flat_idx)`` of its metadata.
+    buffer and ``(order, flat_idx)`` of its metadata. ``experts`` =
+    (first, n) builds the buffer of experts first .. first + n - 1 only,
+    (B, n, C, d) (a rank's experts in the sharded step); the slots keep
+    their numbering over all E.
 
     Every step is a fixed-shape device op (no bincount, nonzero or
     boolean indexing), so the layer runs inside a captured CUDA graph.
@@ -345,6 +353,9 @@ def dispatch(h: torch.Tensor, eids: torch.Tensor, E: int, C: int):
     starts = torch.cumsum(counts, 1) - counts
     pos_in_e = torch.arange(S * K, device=dev) - starts.gather(1, s_exp)
     flat_idx = torch.where(pos_in_e < C, s_exp * C + pos_in_e, E * C)
+    if experts is not None:                  # E becomes the range's count
+        first, E = experts
+        starts, counts = (t[:, first:first + E] for t in (starts, counts))
     # slot (e, c) <- sorted assignment starts[e] + c, if c < counts[e]
     cs = torch.arange(C, device=dev)
     src = (starts[:, :, None] + cs).clamp_max(S * K - 1).view(B, E * C)
@@ -365,24 +376,70 @@ def experts(p: MoE, buf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The expert FFNs on the (B, E, C, d) buffer as batched products in
     the compute dtype; the activations are rounded to bf16 in every
     compute dtype (``layers.py:399-401``; in f32 the ``w_down`` product
-    then runs in f32 on the rounded values)."""
+    then runs in f32 on the rounded values). On DTensors each product
+    runs on each rank's shards (:func:`expert_product`), the gate and up
+    products reduced over a split d before the activation, so that the
+    bf16 rounding sees whole sums, as on one device."""
     act, dt = _act(cfg), buf.dtype
-    hexp = act(torch.einsum("becd,edf->becf", buf, p.w_gate.to(dt))) \
-        * torch.einsum("becd,edf->becf", buf, p.w_up.to(dt))
-    hexp = hexp.to(torch.bfloat16).to(dt)
-    return torch.einsum("becf,efd->becd", hexp, p.w_down.to(dt))
+    hexp = act(shard(expert_product("becd,edf->becf", buf,
+                                    p.w_gate.to(dt)), *HEXP)) \
+        * shard(expert_product("becd,edf->becf", buf, p.w_up.to(dt)), *HEXP)
+    hexp = shard(hexp.to(torch.bfloat16).to(dt), *HEXP)
+    if is_dtensor(hexp):
+        # whole rows on the mesh dims that split yexp's d (BUF: moe_d
+        # claims the data axis before the batch), so that the product
+        # lands in yexp's layout
+        from torch.distributed.tensor import Replicate
+        _, want = named_sharding(buf.shape, BUF)
+        hexp = place(hexp, [Replicate() if w.is_shard(3) else pl
+                            for w, pl in zip(want, hexp.placements)])
+    return shard(expert_product("becf,efd->becd", hexp, p.w_down.to(dt)),
+                 *BUF)
+
+
+def expert_product(eq: str, x: torch.Tensor, w: torch.Tensor
+                   ) -> torch.Tensor:
+    """``einsum(eq, x, w)`` of x (B, E, C, k) and w (E, k, n) into (B, E,
+    C, n). On DTensors each rank multiplies its shards (DTensor's own
+    einsum views a permuted shard it cannot view), the output placed on
+    each mesh dim by its operands': the experts split on both, k split
+    on both (a partial sum), the batch split on x or n on w alone."""
+    if not is_dtensor(x):
+        return torch.einsum(eq, x, w)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from ..distributed.sharding import on_local
+    rules = {(1, 0): Shard(1), (3, 1): Partial(), (0, None): Shard(0),
+             (None, 2): Shard(3), (None, None): Replicate()}
+    out = []
+    for xp, wp in zip(x.placements, w.placements):
+        key = (xp.dim if xp.is_shard() else None,
+               wp.dim if wp.is_shard() else None)
+        if key not in rules:
+            raise ValueError(f"expert product {eq}: {x.placements} by "
+                             f"{w.placements} splits no product")
+        out.append(rules[key])
+    shape = (*x.shape[:3], w.shape[2])
+    (y,) = on_local(lambda a, b: torch.einsum(eq, a, b), (x, w),
+                    ((shape, tuple(out)),))
+    return y
 
 
 def combine(yexp: torch.Tensor, slots: torch.Tensor,
-            gates: torch.Tensor) -> torch.Tensor:
+            gates: torch.Tensor, first: Optional[int] = None
+            ) -> torch.Tensor:
     """``_combine_row`` for every batch row: each assignment's expert
     output (zero where it was dropped: a zero row past the buffer
     stands at slot E * C), scaled by its gate cast to the output dtype,
     summed over its token's K assignments. ``slots`` (B, S*K) is in
     assignment order (:func:`slots_of`), so no sum is scattered.
-    Returns (B, S, d)."""
+    ``first``: yexp holds experts first .. first + n - 1 only (a rank's),
+    and an assignment to any other expert counts as dropped, so the
+    result is this rank's part of the sum. Returns (B, S, d)."""
     B, E, C, D = yexp.shape
     _, S, K = gates.shape
+    if first is not None:
+        slots = slots - first * C
+        slots = torch.where((slots >= 0) & (slots < E * C), slots, E * C)
     rows = torch.cat([yexp.reshape(B, E * C, D),
                       yexp.new_zeros(B, 1, D)], dim=1)
     out = rows.gather(1, slots[..., None].expand(-1, -1, D))
@@ -396,10 +453,108 @@ def load_balance_loss(probs: torch.Tensor, eids: torch.Tensor
     of (share of tokens whose first choice it is) * (mean probability)."""
     E = probs.shape[-1]
     first = eids[..., 0].reshape(-1)
-    density = torch.zeros(E, dtype=torch.float32, device=probs.device) \
-        .scatter_add_(0, first, torch.ones_like(first, dtype=torch.float32))
+
+    def count(first):
+        return torch.zeros(E, dtype=torch.float32, device=first.device) \
+            .scatter_add_(0, first, torch.ones_like(first,
+                                                    dtype=torch.float32))
+    if is_dtensor(first):        # each rank counts its rows: a partial sum
+        from torch.distributed.tensor import Partial, Replicate
+        from ..distributed.sharding import on_local
+        (density,) = on_local(count, (first,), (((E,), tuple(
+            Partial() if pl.is_shard() else Replicate()
+            for pl in first.placements)),))
+    else:
+        density = count(first)
     density = density / first.numel()
     return E * torch.sum(density * probs.reshape(-1, E).mean(0))
+
+
+#: JAX's logical axes of the dispatch buffer and the expert outputs
+#: (``layers.py:394``, ``:404``) and of the expert activations (``:402``)
+BUF = ("batch", "experts", "moe_cap", "moe_d")
+HEXP = ("batch", "experts", "moe_cap", "mlp")
+
+
+def local_experts(placements: tuple, mesh, E: int) -> tuple[int, int]:
+    """(this rank's first expert, its count) of a (B, E, ...) DTensor at
+    ``placements`` on ``mesh``. Raises where the model axis (more than
+    one device) does not split them: JAX's resolver then replicates the
+    experts, and the sharded step has no replicated expert layer."""
+    names = list(mesh.mesh_dim_names)
+    dims = [m for m, pl in enumerate(placements) if pl.is_shard(1)]
+    if "model" in names and mesh.size(names.index("model")) > 1 \
+            and dims != [names.index("model")]:
+        raise ValueError(
+            f"{E} experts are not split over the model axis of "
+            f"{mesh.size(names.index('model'))} ({placements}): JAX's "
+            "resolver replicates experts that do not divide it, and the "
+            "sharded step runs no replicated expert layer")
+    if not dims:
+        return 0, E
+    n = E // mesh.size(dims[0])
+    return mesh.get_local_rank(dims[0]) * n, n
+
+
+def dispatch_slots(h: torch.Tensor, eids: torch.Tensor, E: int, C: int):
+    """(buf (B, E, C, d), slots (B, S*K) in assignment order): the buffer
+    of :func:`dispatch` and :func:`slots_of` its metadata. On DTensors
+    each rank gathers only its own experts' slots, so the whole buffer is
+    never made: buf is built at JAX's placements of it (BUF), from h
+    placed on the same rows and d, and ``eids`` and the slots on the same
+    rows (whole rows where buf's d is split on the data axis). h's
+    gradient from this rank's experts is a partial sum over their
+    split."""
+    if not is_dtensor(h):
+        buf, order, flat_idx = dispatch(h, eids, E, C)
+        return buf, slots_of(order, flat_idx)
+    from torch.distributed.tensor import Replicate, Shard
+    from ..distributed.sharding import on_local
+    mesh = h.device_mesh
+    B, S, D = h.shape
+    K = eids.shape[-1]
+    _, at = named_sharding((B, E, C, D), BUF)
+    first, n = local_experts(at, mesh, E)
+    rows = tuple(Shard(0) if pl.is_shard(0) else Replicate() for pl in at)
+    h_at = tuple(Shard(2) if pl.is_shard(3) else r for pl, r in zip(at, rows))
+    h, eids = place(h, h_at), place(eids, rows)
+
+    def local(h, eids):
+        buf, order, flat_idx = dispatch(h, eids, E, C, experts=(first, n))
+        return buf, slots_of(order, flat_idx)
+    return on_local(local, (h, eids), (((B, E, C, D), at),
+                                       ((B, S * K), rows)))
+
+
+def combine_shards(yexp: torch.Tensor, slots: torch.Tensor,
+                   gates: torch.Tensor) -> torch.Tensor:
+    """:func:`combine`; on DTensors each rank sums its own experts'
+    outputs into its part of y (B, S, d), a partial sum over the expert
+    split, d split as yexp's, which the caller's ``shard`` reduces: what
+    moves is y's bytes, never the whole expert output. The slots and
+    gates are placed on yexp's batch split first (whole rows where its d
+    is split on the data axis: JAX's layout)."""
+    if not is_dtensor(yexp):
+        return combine(yexp, slots, gates)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from ..distributed.sharding import on_local
+    mesh = yexp.device_mesh
+    B, E, C, D = yexp.shape
+    S = gates.shape[1]
+    rows = tuple(Shard(0) if pl.is_shard(0) else Replicate()
+                 for pl in yexp.placements)
+    slots, gates = place(slots, rows), place(gates, rows)
+    first, _ = local_experts(yexp.placements, mesh, E)
+    y_at = []
+    for pl in yexp.placements:
+        if pl.is_shard(2):
+            raise ValueError(f"combine: the capacity dim of yexp is split "
+                             f"({yexp.placements})")
+        y_at.append({0: Shard(0), 1: Partial(), 3: Shard(2)}[pl.dim]
+                    if pl.is_shard() else Replicate())
+    (y,) = on_local(lambda ye, sl, g: combine(ye, sl, g, first),
+                    (yexp, slots, gates), (((B, S, D), tuple(y_at)),))
+    return y
 
 
 def moe(p: MoE, x: torch.Tensor, cfg: ModelConfig, *, kernels=ops,
@@ -410,14 +565,23 @@ def moe(p: MoE, x: torch.Tensor, cfg: ModelConfig, *, kernels=ops,
     counterpart drops it as dead code). With ``p.routes`` a list, appends
     this call's routing to it: expert ids (B, S, K), slots in assignment
     order (E * C: dropped), each token's K-th probability and its margin
-    over the (K+1)-th."""
+    over the (K+1)-th (one device only: the path check's).
+
+    On DTensors (the sharded step) the routing runs on every rank as on
+    one device, each rank's experts on its shard of the buffer, and y is
+    reduced over the expert split at JAX's last constraint."""
     E, K = cfg.n_experts, cfg.top_k
     h = rmsnorm(x, p.norm, cfg.norm_eps, kernels=kernels)
+    if p.routes is not None and is_dtensor(h):
+        raise ValueError("MoE routes are collected on one device (the "
+                         "path check), not under a device mesh")
     probs, eids, gates = route(p, h, cfg)
     C = capacity(cfg, x.shape[1])
-    buf, order, flat_idx = dispatch(h, eids, E, C)
-    slots = slots_of(order, flat_idx)
-    y = combine(experts(p, buf, cfg), slots, gates)
+    eids, gates = (shard(t, "batch", "seq", None) for t in (eids, gates))
+    buf, slots = dispatch_slots(h, eids, E, C)
+    buf = shard(buf, *BUF)
+    y = shard(combine_shards(experts(p, buf, cfg), slots, gates), "batch",
+              "seq", None)
     if p.routes is not None:
         top = torch.topk(probs, min(K + 1, E), dim=-1).values
         margin = (top[..., K - 1] - top[..., K] if K < E

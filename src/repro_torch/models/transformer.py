@@ -55,7 +55,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from ..distributed.sharding import TensorSpec, is_dtensor, shard
+from ..distributed.sharding import (TensorSpec, is_dtensor, named_sharding,
+                                   place, shard)
 from ..kernels import ops
 from .layers import (MATMUL, MLP, Attention, MoE, _param, attention, mlp,
                      moe, rmsnorm)
@@ -69,8 +70,18 @@ CE_CHUNK = 256            # positions a chunk of the cross-entropy
 def ce_chunk(h: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
              z_loss: float) -> torch.Tensor:
     """Summed CE plus z-loss of one chunk: f32 logits ``h @ head``
-    (B, cs, V), ``sum(lse - logit[target]) + z_loss * sum(lse^2)``."""
-    logits = shard(h.float() @ head.float(), "batch", "ce_seq", "vocab")
+    (B, cs, V), ``sum(lse - logit[target]) + z_loss * sum(lse^2)``. On
+    DTensors h and the targets take the logits' row placements first, so
+    that where the vocabulary does not divide the model axis (which then
+    splits ``ce_seq``) each rank computes its rows' logits, as JAX's dot
+    under its constraint does, not all of them."""
+    axes = ("batch", "ce_seq", "vocab")
+    if is_dtensor(h):
+        from torch.distributed.tensor import Replicate
+        _, at = named_sharding((*h.shape[:2], head.shape[1]), axes)
+        rows = [Replicate() if pl.is_shard(2) else pl for pl in at]
+        h, targets = place(h, rows), place(targets, rows)
+    logits = shard(h.float() @ head.float(), *axes)
     lse = logsumexp(logits)
     tgt = logits.gather(-1, targets[..., None])
     return (lse - tgt).sum() + z_loss * torch.square(lse).sum()
@@ -83,6 +94,10 @@ def logsumexp(logits: torch.Tensor) -> torch.Tensor:
     ``torch.logsumexp`` would gather the whole logits on every rank."""
     if not is_dtensor(logits):
         return torch.logsumexp(logits, dim=-1, keepdim=True)
+    if not any(pl.is_shard(logits.ndim - 1) for pl in logits.placements):
+        # the vocabulary whole on each rank: its rows' sums, no collective
+        m = logits.detach().amax(-1, keepdim=True)
+        return m + torch.log(torch.exp(logits - m).sum(-1, keepdim=True))
     m = shard(logits.detach().amax(-1, keepdim=True), "batch", "seq", None)
     s = shard(torch.exp(logits - m).sum(-1, keepdim=True), "batch", "seq",
               None)

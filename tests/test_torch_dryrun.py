@@ -149,6 +149,32 @@ def test_alloc_bytes_rounds_to_the_allocators_blocks():
         [0, 512, 512, 1024, 4096]
 
 
+def test_a_fresh_process_holds_segment_remainders_and_workspaces():
+    """A segment made for a request of 10 MiB or more is the request
+    rounded up to 2 MiB, and a remainder of at most 1 MiB stays with the
+    block: deepseek-7b's MLP shards on quad, 4096 x 2752 f32 (43 MiB), and
+    their two moments hold 44 MiB each in a fresh process, 9 MiB a layer
+    (the card's rank-0 peak above the dry run's, with a cuBLAS workspace
+    for each of the train step's two threads); moonshot's shards are
+    whole multiples of 2 MiB."""
+    MiB = 2**20
+    assert [dryrun.segment_bytes(n) for n in (
+        9 * MiB + 1, 42 * MiB, 43 * MiB, 43 * MiB + 512 * 1024,
+        43 * MiB - 512)] == [9 * MiB + 512, 42 * MiB, 44 * MiB, 44 * MiB,
+                             43 * MiB - 512]    # 1 MiB + 512 split off
+    assert dryrun.segment_bytes(41 * MiB + 1) == 42 * MiB
+    assert dryrun.segment_bytes(40 * MiB + 1) == 40 * MiB + 512
+    quad = mesh_preset("quad")
+    for arch, kind, layers, want in (
+            ("deepseek-7b", "train", 30, 270 * MiB + 2 * 32 * MiB),
+            ("moonshot-v1-16b-a3b", "train", 33, 2 * 32 * MiB),
+            ("moonshot-v1-16b-a3b", "decode", 48, 32 * MiB)):
+        cfg = get_config(arch).with_(n_layers=layers)
+        specs = dryrun.arg_specs(cfg, kind, 4, 4096)
+        with use_mesh(quad) as ctx:
+            assert dryrun.fresh_process_bytes(specs, ctx, kind) == want
+
+
 # -- dry runs of each family --------------------------------------------------------
 
 FAMILIES = {"deepseek-7b": 2, "granite-moe-3b-a800m": 2, "gemma3-12b": 6,
@@ -255,7 +281,110 @@ def test_quad_cell_of_a_dense_stack(arch, shape):
     assert quad["peak_bytes"] < single["peak_bytes"]
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCHS if a not in DENSE])
+MOE_ARCHS = ("granite-moe-3b-a800m", "moonshot-v1-16b-a3b")
+
+
+def repeated_flops(cfg, kind: str, batch: int, seq: int,
+                   microbatches: int) -> int:
+    """The matmul flops every rank of quad repeats beside the norms: the
+    router's product (B, S, d) x (d, E), replicated as JAX keeps it, in
+    the forward (a train microbatch's twice: the forward and the remat
+    recomputation; its backward runs on rows DTensor splits), and in
+    prefill and decode the head (d, V) where the vocabulary does not
+    divide the model axis (granite-moe's 49,155; a train step's CE splits
+    its rows instead)."""
+    tokens = batch * (1 if kind == "decode" else seq)
+    moe_layers = cfg.n_layers - cfg.first_k_dense
+    router = 2 * tokens * cfg.d_model * cfg.n_experts * moe_layers
+    if kind == "train":
+        return 2 * router
+    # prefill's and decode's head, on each row's last position
+    head = 2 * batch * cfg.d_model * cfg.vocab if cfg.vocab % 4 else 0
+    return router + head
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_quad_cell_of_a_moe_stack(arch, shape, monkeypatch):
+    """The sharded step's quad cell of a MoE stack, 2 layers at batch 2:
+    the per-device figures are filled; the arguments are the resolver's
+    bytes; the flops are one device's. Bound on the flops: the attention
+    kernels, the projections, the dense head layer's MLP and the experts
+    (E / 4 a rank) split four ways, the collectives add none, and the
+    norms and :func:`repeated_flops` run whole on every rank, so 4 x the
+    device's flops equal the single card's plus 3 x those. The prefill
+    cell shows the dispatch buffer (B, E, C, d) at a quarter on rank 0:
+    the buffer the layer builds there is (B, E / 4, C, d), and rank 0's
+    temp bytes are less than the single card's by more than three
+    quarters of the buffer and the expert output together."""
+    from repro_torch.models import layers
+    kw = dict(layers=2, batch=2,
+              microbatches=2 if shape == "train_4k" else 0)
+    kind, seq = SHAPES[shape].kind, SHAPES[shape].seq_len
+    cfg = get_config(arch).with_(n_layers=2)
+    single = dryrun.run_cell(arch, shape, "single", **kw)
+    built = []
+    dispatch = layers.dispatch
+
+    def spy(*args, **kwargs):
+        out = dispatch(*args, **kwargs)
+        built.append(tuple(out[0].shape))
+        return out
+    monkeypatch.setattr(layers, "dispatch", spy)
+    quad = dryrun.run_cell(arch, shape, "quad", **kw)
+    for key in ("peak_bytes", "mem_temp_bytes", "hlo_flops_dev",
+                "hlo_bytes_dev", "coll_bytes_dev", "t_collective"):
+        assert quad[key] is not None and quad[key] > 0, key
+    assert quad["fits"] is True and quad["bottleneck"] is not None
+    assert "reason" not in quad and "all-reduce" in quad["collectives"]
+    assert sum(c["bytes"] for c in quad["collectives"].values()) == \
+        quad["coll_bytes_dev"]
+    assert quad["t_collective"] == quad["coll_bytes_dev"] / NVLINK_BW
+    specs = dryrun.arg_specs(cfg, kind, 2, seq)
+    with use_mesh(mesh_preset("quad")) as ctx:
+        assert quad["mem_arg_bytes"] == dryrun.arg_bytes_per_device(specs,
+                                                                    ctx)
+    norms = sum(k["flops"] for n, k in single["kernels"].items()
+                if n.startswith("fused_rmsnorm"))
+    mb = kw["microbatches"] or 1
+    assert 4 * quad["hlo_flops_dev"] == single["hlo_flops_dev"] + 3 * (
+        norms + mb * repeated_flops(cfg, kind, 2 // mb, seq, mb))
+    assert quad["kernels"].keys() == single["kernels"].keys()
+    assert quad["peak_bytes"] < single["peak_bytes"]
+    E, d = cfg.n_experts, cfg.d_model
+    C = layers.capacity(cfg, 1 if kind == "decode" else seq)
+    assert built and set(built) == {(2 // mb, E // 4, C, d)}
+    if kind == "prefill":
+        buf = 2 * E * C * d * 2                  # bf16
+        assert single["mem_temp_bytes"] - quad["mem_temp_bytes"] \
+            > 3 * (2 * buf) // 4
+
+
+def test_deepest_fit_takes_the_mesh(monkeypatch):
+    """``deepest_fit(mesh=)`` bisects the depth on one device of the mesh
+    it is given, on ``run_cell``'s ``fits`` (a stand-in cell whose peak
+    grows 10 GB a layer less 0.5 GB, and a fresh process holds 1 GB
+    beyond it: 7 layers fit 80 GB, where the peak alone would let 8),
+    and refuses a family whose sharded step waits."""
+    seen = []
+
+    def cell(arch, shape, mesh, *, layers, batch, microbatches):
+        seen.append((mesh, layers))
+        peak, fresh = layers * 10_000_000_000 - 500_000_000, 1_000_000_000
+        return {"peak_bytes": peak, "fresh_process_bytes": fresh,
+                "fits": peak + fresh <= dryrun.HBM_USABLE}
+    monkeypatch.setattr(dryrun, "run_cell", cell)
+    layers_, peak = dryrun.deepest_fit("moonshot-v1-16b-a3b", mesh="quad",
+                                       batch=4, microbatches=2)
+    assert (layers_, peak) == (7, 69_500_000_000)
+    assert {m for m, _ in seen} == {"quad"}
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="later slice"):
+        dryrun.deepest_fit("zamba2-1.2b", "decode_32k", mesh="quad")
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCHS
+                                  if a not in DENSE + MOE_ARCHS])
 def test_quad_keeps_its_nulls_with_a_reason(arch):
     """Every other family's quad cell: the argument bytes only, with the
     slice it waits for as the reason."""

@@ -10,6 +10,14 @@ The deepseek-67b smoke's d_model is widened from 96 to 128, in both
 packages: its head dim (12) is none the kernels take, and the dry run,
 whose collectives the test holds, runs the kernels' meta route, which
 checks it; at 128 it is 16.
+The MoE stacks: the moonshot-v1-16b-a3b smoke on (1, 4) (4 heads and 4
+KV heads, 8 experts, the dense head layer's MLP, each split four ways)
+and the granite-moe-3b-a800m smoke on (2, 2) (6 heads over 2 KV heads,
+4 experts over 2, the batch on the data axis, and the expert weights'
+and the dispatch buffer's d on the data axis, JAX's layout, before the
+contraction reduces it; its tied head). Both smokes are dropless
+(capacity factor 8.0), so a third case runs the moonshot smoke at 1.0,
+where prefill drops assignments (the sentinel slot under sharding).
 The four ranks come from one ``mp.spawn`` for the module, joined by a
 ``FileStore`` under ``tmp_path`` (no port to contend for), and must end
 within ``SPAWN_LIMIT_S``. JAX runs only in the test process.
@@ -29,15 +37,32 @@ Tolerances:
   smoke (layer 0, the embedding and layer 1's attention) sit between
   3.6e-5 and 7.8e-5 with floors of 2.3e-4 to 5.5e-4 (the heads' partial
   products summed in another order, amplified through the backward);
-  ``pytest -s -k train_step`` prints each leaf's gap and floor;
+  ``pytest -s -k train_step`` prints each leaf's gap and floor. The MoE
+  cases hold their gradients so in an f64 train step (matmul weights
+  and compute in f64; norms, embeddings and the CE head stay f32, as
+  everywhere in the port): the experts' activations are rounded to
+  bf16 (JAX's ``layers.py:399-401``), which turns the f32 ulps of the
+  split sums into a bf16 ulp of an activation wherever one lies near a
+  rounding edge. In f32 the sharded gradients then sit at the leaves'
+  f32 floors (both up to ~2.2e-3; the gap over the floor at most 1.20
+  on the CPU), above GAP_CEILING; in f64 within 2.7e-6. So each f32
+  leaf of the MoE cases is held, beside the f64 check, within
+  max(GRAD_TOL, F32_FLOOR_MARGIN x its f32 floor), F32_FLOOR_MARGIN 2:
+  the floor is the largest of FLOOR_DRAWS random nudges, and the split
+  sums' rounding is one more such draw; a wrong gradient (a partial sum
+  reduced twice or not at all, a cast) moves a leaf by far more. Their
+  loss and update are held in f32;
 * the sharded prefill logits against JAX's in f32 compute: 2e-3, the
   model tolerance of test_torch_models.py;
 * rank 0's collectives, by kind, equal in count to those the dry run
   reckons for the same steps, in the same f32 compute, on the meta
   device under the fake group (DTensor picks how to reduce by bytes, so
   the dtype can change the plan: a bf16 decode step on the (2, 2) mesh
-  reduces with all-reduces where f32 takes reduce-scatters).
+  reduces with all-reduces where f32 takes reduce-scatters); in the MoE
+  cases neither gathers an expert output, and on (1, 4) each MoE layer
+  of the decode step reduces y with one all-reduce of y's shape.
 """
+import functools
 import os
 import pickle
 import time
@@ -52,7 +77,7 @@ from repro_torch.distributed.sharding import (named_sharding,  # noqa: E402
                                               use_mesh)
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import device_mesh, make_mesh  # noqa: E402
-from repro_torch.models import LM  # noqa: E402
+from repro_torch.models import LM, layers  # noqa: E402
 from repro_torch.params import from_jax_numpy  # noqa: E402
 from repro_torch.training.optimizer import (adamw_update,  # noqa: E402
                                             init_opt_state, leaf_order,
@@ -62,21 +87,31 @@ TOL = dict(rtol=2e-5, atol=2e-5)
 GRAD_TOL = 2e-5
 GAP_CEILING = 1e-4
 FLOOR_DRAWS = 4
+#: an f32 MoE gradient leaf's gap may reach this many times its floor
+F32_FLOOR_MARGIN = 2
 JAX_TOL = dict(rtol=2e-3, atol=2e-3)        # test_models.py:61
 RANKS = 4
 SPAWN_LIMIT_S = 240
-#: arch -> (data, model) mesh
-CASES = {"deepseek-7b": (1, 4), "deepseek-67b": (2, 2)}
-#: arch -> the smoke's fields changed (module docstring)
-WIDER = {"deepseek-67b": {"d_model": 128}}
+MOONSHOT, GRANITE = "moonshot-v1-16b-a3b", "granite-moe-3b-a800m"
+#: case -> (arch, (data, model) mesh, the smoke's fields changed: module
+#: docstring)
+CASES = {"deepseek-7b": ("deepseek-7b", (1, 4), {}),
+         "deepseek-67b": ("deepseek-67b", (2, 2), {"d_model": 128}),
+         MOONSHOT: (MOONSHOT, (1, 4), {}),
+         GRANITE: (GRANITE, (2, 2), {}),
+         f"{MOONSHOT}-cf1": (MOONSHOT, (1, 4), {"capacity_factor": 1.0})}
+MOE = [c for c, (a, _, _) in CASES.items() if a in (MOONSHOT, GRANITE)]
 B, S, MAX_LEN = 4, 16, 20
 TCFG = TrainConfig(microbatches=1)
-F32 = torch.float32
+F32, F64 = torch.float32, torch.float64
+#: case -> the dtype its gradients are held in (module docstring)
+GRAD_DTYPE = {c: F64 for c in MOE}
 
 
-def _config(arch, get=get_smoke):
+def _config(case, get=get_smoke):
     """The case's smoke config (the JAX package's with ``get``)."""
-    return get(arch).with_(**WIDER.get(arch, {}))
+    arch, _, fields = CASES[case]
+    return get(arch).with_(**fields)
 
 
 def _inputs(cfg):
@@ -86,11 +121,13 @@ def _inputs(cfg):
             "next": rng.integers(0, cfg.vocab, (B,))}
 
 
-def _steps(cfg, tree, inputs, place, counted):
+def _steps(cfg, tree, inputs, place, counted, grad_dtype=F32):
     """Prefill, one decode step and one train step of the f32 port on the
     parameters ``tree`` (JAX's numpy tree); ``place(t, axes)`` lays an
     input out, ``counted(name)`` is the context each step runs in, and
-    ``full(t)`` reads a result whole (outside the counted steps)."""
+    ``full(t)`` reads a result whole (outside the counted steps). With
+    ``grad_dtype`` f64 the gradients held are those of a second,
+    uncounted train step in f64 (the f32 ones kept as ``grads_f32``)."""
     ctx_params = dict(dtype=F32)
     out = {}
     lm = LM.from_params(cfg, place.params(tree, cfg), **ctx_params)
@@ -118,6 +155,14 @@ def _steps(cfg, tree, inputs, place, counted):
     with counted("train"):
         adamw_update(params, grads, opt, TCFG, leaf_order(params, cfg))
     out["update"] = {n: place.full(p.detach()) for n, p in params.items()}
+    if grad_dtype != F32:
+        out["grads_f32"] = out["grads"]
+        lm = LM.from_params(cfg, place.params(tree, cfg, grad_dtype),
+                            dtype=grad_dtype)
+        for p in lm.parameters():
+            p.requires_grad_(True)
+        _, grads = loss_and_grads(lm, batch, TCFG, TCFG.remat != "none")
+        out["grads"] = {n: place.full(g) for n, g in grads.items()}
     return out
 
 
@@ -128,8 +173,8 @@ class _Plain:
         return t
 
     @staticmethod
-    def params(tree, cfg):
-        return from_jax_numpy(tree, cfg, "cpu", F32)
+    def params(tree, cfg, dtype=F32):
+        return from_jax_numpy(tree, cfg, "cpu", dtype)
 
     @staticmethod
     def full(t):
@@ -148,8 +193,8 @@ class _Sharded:
         mesh, placements = named_sharding(t.shape, axes, self.ctx)
         return distribute_tensor(t, mesh, placements, src_data_rank=None)
 
-    def params(self, tree, cfg):
-        return from_jax_numpy(tree, cfg, "cpu", F32, ctx=self.ctx)
+    def params(self, tree, cfg, dtype=F32):
+        return from_jax_numpy(tree, cfg, "cpu", dtype, ctx=self.ctx)
 
     @staticmethod
     def full(t):
@@ -165,10 +210,11 @@ def _rank(rank, store_path, out_dir, jobs):
         "gloo", store=dist.FileStore(store_path, RANKS), rank=rank,
         world_size=RANKS)
     try:
-        for arch, (data, model), tree in jobs:
-            cfg = _config(arch)
-            mesh = make_mesh(data, model, [torch.device("cpu")] * RANKS)
+        for case, tree in jobs:
+            cfg = _config(case)
+            mesh = make_mesh(*CASES[case][1], [torch.device("cpu")] * RANKS)
             counts: dict = {}
+            log: list = []
 
             @contextlib.contextmanager
             def counted(name):
@@ -178,12 +224,14 @@ def _rank(rank, store_path, out_dir, jobs):
                 got = counts.setdefault(name, {})
                 for kind, c in counter.collectives.items():
                     got[kind] = got.get(kind, 0) + c["count"]
+                log.extend(counter.log)
 
             with use_mesh(mesh, device_mesh=device_mesh(mesh, "cpu")) as ctx:
-                out = _steps(cfg, tree, _inputs(cfg), _Sharded(ctx), counted)
-            out["collectives"] = counts
+                out = _steps(cfg, tree, _inputs(cfg), _Sharded(ctx), counted,
+                             GRAD_DTYPE.get(case, F32))
+            out["collectives"], out["collective_log"] = counts, log
             if rank == 0:
-                with open(os.path.join(out_dir, f"{arch}.pkl"), "wb") as f:
+                with open(os.path.join(out_dir, f"{case}.pkl"), "wb") as f:
                     pickle.dump(out, f)
     finally:
         dist.destroy_process_group()
@@ -201,27 +249,27 @@ def jax_side():
     from repro.models import layers as jl
     from repro.models import model_specs
     out = {}
-    for arch in CASES:
-        jcfg = _config(arch, jax_get_smoke)
+    for case in CASES:
+        jcfg = _config(case, jax_get_smoke)
         params = materialize(model_specs(jcfg), jax.random.PRNGKey(0))
         tree = jax.tree.map(np.asarray, params)
         jl.set_compute_dtype(jnp.float32)
         try:
             logits, _ = JaxLM(jcfg).prefill(
-                params, jnp.asarray(_inputs(_config(arch))["tokens"]),
+                params, jnp.asarray(_inputs(_config(case))["tokens"]),
                 max_len=MAX_LEN)
         finally:
             jl.set_compute_dtype(jnp.bfloat16)
-        out[arch] = (tree, np.asarray(logits))
+        out[case] = (tree, np.asarray(logits))
     return out
 
 
 @pytest.fixture(scope="module")
 def sharded(jax_side, tmp_path_factory):
-    """Rank 0's results of the four-rank run, by arch."""
+    """Rank 0's results of the four-rank run, by case."""
     import torch.multiprocessing as mp
     tmp = tmp_path_factory.mktemp("sharded")
-    jobs = [(a, CASES[a], jax_side[a][0]) for a in CASES]
+    jobs = [(c, jax_side[c][0]) for c in CASES]
     ctx = mp.start_processes(_rank, args=(str(tmp / "store"), str(tmp), jobs),
                              nprocs=RANKS, join=False, start_method="spawn")
     deadline = time.monotonic() + SPAWN_LIMIT_S
@@ -235,16 +283,17 @@ def sharded(jax_side, tmp_path_factory):
             if p.is_alive():
                 p.kill()
     out = {}
-    for arch in CASES:
-        with open(tmp / f"{arch}.pkl", "rb") as f:
-            out[arch] = pickle.load(f)
+    for case in CASES:
+        with open(tmp / f"{case}.pkl", "rb") as f:
+            out[case] = pickle.load(f)
     return out
 
 
 @pytest.fixture(scope="module")
 def plain(jax_side):
-    """The unsharded port's results, by arch, with each gradient leaf's
-    rounding floor (``floor``: see the module docstring)."""
+    """The unsharded port's results, by case, with each gradient leaf's
+    rounding floor (``floor``, and ``floor_f32`` where the gradients are
+    held in f64: see the module docstring)."""
     import contextlib
     out = {}
     for a in CASES:
@@ -252,19 +301,24 @@ def plain(jax_side):
 
         def run(tr):
             return _steps(cfg, tr, _inputs(cfg), _Plain(),
-                          lambda name: contextlib.nullcontext())
+                          lambda name: contextlib.nullcontext(),
+                          GRAD_DTYPE.get(a, F32))
         out[a] = run(tree)
         rng = np.random.default_rng(1)
-        floor: dict = {}
+        keys = [k for k in ("grads", "grads_f32") if k in out[a]]
+        floors: dict = {k: {} for k in keys}
         for _ in range(FLOOR_DRAWS):
             nudged = _map(lambda x: np.nextafter(x, np.where(
                 rng.random(x.shape) < 0.5, -np.inf, np.inf).astype(x.dtype))
                 if x.dtype == np.float32 else x, tree)
-            moved = run(nudged)["grads"]
-            for n, g in out[a]["grads"].items():
-                rel = float((moved[n] - g).abs().max() / g.abs().max())
-                floor[n] = max(floor.get(n, 0.0), rel)
-        out[a]["floor"] = floor
+            moved = run(nudged)
+            for k in keys:
+                for n, g in out[a][k].items():
+                    rel = _gap(moved[k][n], g)
+                    floors[k][n] = max(floors[k].get(n, 0.0), rel)
+        out[a]["floor"] = floors["grads"]
+        if "grads_f32" in floors:
+            out[a]["floor_f32"] = floors["grads_f32"]
     return out
 
 
@@ -273,26 +327,30 @@ def _map(fn, tree):
             if isinstance(tree, dict) else fn(tree))
 
 
+def _gap(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
 def _close(a, b, **tol):
     np.testing.assert_allclose(a.numpy(), b.numpy(), **tol)
 
 
-@pytest.mark.parametrize("arch", list(CASES))
-def test_prefill_matches_unsharded_and_jax(arch, sharded, plain, jax_side):
-    out = sharded[arch]["prefill"]
-    assert out.shape == (B, 1, _config(arch).vocab)
-    _close(out, plain[arch]["prefill"], **TOL)
-    np.testing.assert_allclose(out.numpy(), jax_side[arch][1], **JAX_TOL)
+@pytest.mark.parametrize("case", list(CASES))
+def test_prefill_matches_unsharded_and_jax(case, sharded, plain, jax_side):
+    out = sharded[case]["prefill"]
+    assert out.shape == (B, 1, _config(case).vocab)
+    _close(out, plain[case]["prefill"], **TOL)
+    np.testing.assert_allclose(out.numpy(), jax_side[case][1], **JAX_TOL)
 
 
-@pytest.mark.parametrize("arch", list(CASES))
-def test_decode_step_matches_unsharded(arch, sharded, plain):
-    _close(sharded[arch]["decode"], plain[arch]["decode"], **TOL)
+@pytest.mark.parametrize("case", list(CASES))
+def test_decode_step_matches_unsharded(case, sharded, plain):
+    _close(sharded[case]["decode"], plain[case]["decode"], **TOL)
 
 
-@pytest.mark.parametrize("arch", list(CASES))
-def test_train_step_matches_unsharded(arch, sharded, plain):
-    got, want = sharded[arch], plain[arch]
+@pytest.mark.parametrize("case", list(CASES))
+def test_train_step_matches_unsharded(case, sharded, plain):
+    got, want = sharded[case], plain[case]
     _close(got["loss"], want["loss"], **TOL)
     assert set(got["grads"]) == set(want["grads"])
     floor = want["floor"]
@@ -301,7 +359,14 @@ def test_train_step_matches_unsharded(arch, sharded, plain):
         scale = float(g.abs().max())
         assert scale > 0, n
         rel = float((got["grads"][n] - g).abs().max()) / scale
-        print(f"{arch} {n}: gap {rel:.3e}, floor {floor[n]:.3e}")
+        f32 = ""
+        if "grads_f32" in want:
+            gap = _gap(got["grads_f32"][n], want["grads_f32"][n])
+            f32_floor = want["floor_f32"][n]
+            f32 = f"; in f32 {gap:.3e}, floor {f32_floor:.3e}"
+            if gap > max(GRAD_TOL, F32_FLOOR_MARGIN * f32_floor):
+                bad[f"{n} (f32)"] = (gap, f32_floor)
+        print(f"{case} {n}: gap {rel:.3e}, floor {floor[n]:.3e}{f32}")
         if rel > GRAD_TOL and not rel <= min(GAP_CEILING, floor[n]):
             bad[n] = (rel, floor[n])
     assert not bad, bad
@@ -309,23 +374,79 @@ def test_train_step_matches_unsharded(arch, sharded, plain):
         _close(got["update"][n], want["update"][n], **TOL)
 
 
-@pytest.mark.parametrize("arch", list(CASES))
-def test_collectives_match_the_dry_run(arch, sharded):
-    """Rank 0's collectives by kind against the fake-group dry run of the
-    same three steps at the same shapes (meta DTensors, the kernels'
-    meta route in place of the plain versions)."""
-    cfg = _config(arch)
-    mesh = make_mesh(*CASES[arch])
-    got = sharded[arch]["collectives"]
-    with dryrun.sharded_step(mesh):
-        want = {"prefill": dryrun.trace_prefill(cfg, B, S, F32),
+@functools.lru_cache(maxsize=None)
+def _dry_steps(case):
+    """The fake-group dry run of the three steps of ``case`` (once)."""
+    cfg = _config(case)
+    with dryrun.sharded_step(make_mesh(*CASES[case][1])):
+        return {"prefill": dryrun.trace_prefill(cfg, B, S, F32),
                 "decode": dryrun.trace_decode(cfg, B, MAX_LEN, F32),
                 "train": dryrun.trace_train(cfg, B, S, TCFG.microbatches,
                                             dtype=F32)}
-    for step, res in want.items():
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_collectives_match_the_dry_run(case, sharded):
+    """Rank 0's collectives by kind against the fake-group dry run of the
+    same three steps at the same shapes (meta DTensors, the kernels'
+    meta route in place of the plain versions)."""
+    got = sharded[case]["collectives"]
+    for step, res in _dry_steps(case).items():
         counts = {k: c["count"] for k, c in res["collectives"].items()}
         assert counts, f"{step}: the dry run reckons no collective"
         assert got[step] == counts, step
+
+
+def _expert_output_gathers(case, log):
+    """The all-gathers in ``log`` whose operand is a shard of an expert
+    output (B, E, C, d): 4-D, C slots an expert, d or a part of it
+    last (the activations' last dim is d_ff, which differs)."""
+    cfg = _config(case)
+    caps = {layers.capacity(cfg, n) for n in (S, 1)}
+    assert cfg.d_ff not in {cfg.d_model // k for k in (1, 2, 4)}
+    return [(kind, shape) for kind, shape in log
+            if kind == "all-gather" and len(shape) == 4
+            and shape[2] in caps
+            and shape[3] in {cfg.d_model // k for k in (1, 2, 4)}]
+
+
+@pytest.mark.parametrize("case", MOE)
+def test_no_collective_gathers_the_expert_output(case, sharded):
+    """The combine sums each rank's experts into a partial y, which is
+    reduced: rank 0 and the dry run gather no expert output (DTensor's
+    own reshape of a yexp split on its experts would all-gather it), and
+    one all-reduce a MoE layer of the decode step moves y's bytes."""
+    assert sharded[case]["collective_log"], case
+    assert not _expert_output_gathers(case, sharded[case]["collective_log"])
+    dry = _dry_steps(case)
+    for step, res in dry.items():
+        assert not _expert_output_gathers(case, res["collective_log"]), step
+    cfg = _config(case)
+    if CASES[case][1] == (1, 4):
+        # quad's layout: the decode step's only collectives are the
+        # embedding's and two a layer (attention's out, then the dense
+        # MLP's or the MoE's y), each an all-reduce of y's shape
+        assert dry["decode"]["collective_log"] == \
+            [("all-reduce", (B, 1, cfg.d_model))] * (2 * cfg.n_layers + 1)
+
+
+def test_capacity_case_drops_assignments(jax_side):
+    """The port-against-port case at capacity factor 1.0 drops
+    assignments in prefill (slot E * C), so the sentinel slot is held
+    under sharding; the dropless smokes drop none."""
+    for case, dropped in ((f"{MOONSHOT}-cf1", True), (MOONSHOT, False)):
+        cfg = _config(case)
+        lm = LM.from_params(cfg, from_jax_numpy(jax_side[case][0], cfg,
+                                                "cpu", F32), dtype=F32)
+        mods = [b.moe for b in lm.layers if hasattr(b, "moe")]
+        for m in mods:
+            m.routes = []
+        with torch.no_grad():
+            lm.prefill(torch.from_numpy(_inputs(cfg)["tokens"]), MAX_LEN)
+        E, C = cfg.n_experts, layers.capacity(cfg, S)
+        n = sum(int((r["slots"] == E * C).sum()) for m in mods
+                for r in m.routes)
+        assert (n > 0) == dropped, (case, n)
 
 
 # -- the pieces, on one process under the fake group ------------------------------
@@ -481,3 +602,19 @@ def test_shard_params_cuts_meta_parameters_and_refuses_values():
                                                  dtype=F32))
             with pytest.raises(ValueError, match="meta"):
                 shard_params(lm, ctx)
+
+
+def test_moe_refuses_unsplit_experts_and_route_collection():
+    """No fallback: experts that do not divide the model axis (JAX's
+    resolver replicates them) raise with the reason, as does collecting
+    routes (the path check's) under a device mesh."""
+    mesh = make_mesh(1, 4, [torch.device("cpu")] * 4)
+    six = _config(MOONSHOT).with_(n_experts=6)
+    with dryrun.sharded_step(mesh):
+        with pytest.raises(ValueError, match="6 experts are not split"):
+            dryrun.trace_prefill(six, B, S, F32)
+        lm = dryrun.meta_lm(_config(MOONSHOT), dtype=F32)
+        lm.layers[1].moe.routes = []
+        with pytest.raises(ValueError, match="one device"):
+            lm.prefill(torch.zeros(B, S, dtype=torch.int64, device="meta"),
+                       MAX_LEN)
