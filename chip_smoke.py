@@ -13,34 +13,40 @@ package. In order it:
 2b. the sharded step (the shard phase), before anything else touches the
    card, one spawned process a cell, each ended before the next starts:
    deepseek-7b train_4k (batch 4 in 2 microbatches, all 30 layers),
-   deepseek-67b decode_32k at batch SHARD_DECODE_BATCH (14, the most
-   whose quad peak the dry run puts within mesh.HBM_USABLE; batch 15 is
-   reckoned too and must not fit), moonshot-v1-16b-a3b decode_32k at
-   batch SHARD_MOE_DECODE_BATCH (20; 21 must not fit; one card holds one
-   row) and moonshot-v1-16b-a3b train_4k (batch 4 in 2 microbatches, full
-   width, SHARD_MOE_TRAIN_LAYERS = 33 of its 48 layers, the dense head
-   layer kept; 34 must not fit), cells one card cannot hold. The
-   process dry-runs the cell on the quad mesh (rank 0 under the fake
-   process group, meta DTensors), then runs rank 0 of the same step on
-   the card under launch.mesh.fake_group(4) with a cuda device mesh
-   (parameters drawn as this rank's shards, never whole): its
-   max_memory_allocated must lie within DRY_RUN_TOL (5 %) of the dry
-   run's peak plus what a fresh process holds beyond it (the cuBLAS
-   workspaces, the arguments' segment remainders: the dry run's
-   fresh_process_bytes), its collectives (counted by
-   dryrun.CollectiveCounter) must
-   equal the dry run's in kind and count, and each kernel of the path
-   (flash_attention and its backward, decode_attention, fused_rmsnorm
-   and its backward) must launch as many times as the dry run's meta
-   route calls it, at local shapes (printed). The fake group moves no
-   data: values after the first collective are garbage (in the MoE
-   stacks the routing too; the dispatch is fixed-shape, so memory and
-   launches still hold), and no step time is printed. So each kernel is
-   then held against its plain version at
-   the local shapes and dtypes the step gave it, on fresh inputs, at the
-   kernel phase's tolerances (shard_kernel_checks): the forward, for the
-   train cell also the backward kernels, and decode_attention with every
-   row at the cache's length and at ragged lengths;
+   deepseek-67b decode_32k at batch SHARD_DECODE_BATCH (14, the most whose
+   quad peak the dry run puts within mesh.HBM_USABLE; batch 15 is reckoned
+   too and must not fit), moonshot-v1-16b-a3b decode_32k at batch
+   SHARD_MOE_DECODE_BATCH (20; 21 must not fit; one card holds one row),
+   moonshot-v1-16b-a3b train_4k (batch 4 in 2 microbatches, full width,
+   SHARD_MOE_TRAIN_LAYERS = 33 of its 48 layers, the dense head layer kept;
+   34 must not fit), gemma3-12b train_4k (batch 4 in 2 microbatches, all 48
+   layers: one card trains 13; its local layers' flash at window 1024,
+   forward and backward), gemma3-27b decode_32k at batch
+   SHARD_GEMMA_DECODE_BATCH (63, the most that fits; 64 must not fit; one
+   card holds 4 rows; its local layers decode over full rings of 1024 keys)
+   and zamba2-1.2b decode_32k at JAX's batch of 128
+   (SHARD_ZAMBA_DECODE_BATCH; one card holds fewer than 48 rows; its SSM
+   state whole on each rank, as JAX's cache spec keeps it), cells one card
+   cannot hold. The process dry-runs the cell on the quad mesh (rank 0
+   under the fake process group, meta DTensors), then runs rank 0 of the
+   same step on the card under launch.mesh.fake_group(4) with a cuda device
+   mesh (parameters drawn as this rank's shards, never whole): its
+   max_memory_allocated must lie within DRY_RUN_TOL (5 %) of the dry run's
+   peak plus what a fresh process holds beyond it (the cuBLAS workspaces,
+   the arguments' segment remainders: the dry run's fresh_process_bytes),
+   its collectives (counted by dryrun.CollectiveCounter) must equal the dry
+   run's in kind and count, and each kernel of the path (flash_attention
+   and its backward, decode_attention, fused_rmsnorm and its backward) must
+   launch as many times as the dry run's meta route calls it, at local
+   shapes and keywords (printed). The fake group moves no data: values
+   after the first collective are garbage (in the MoE stacks the routing
+   too; the dispatch is fixed-shape, so memory and launches still hold),
+   and no step time is printed. So each kernel is then held against its
+   plain version at the local shapes and dtypes the step gave it, on fresh
+   inputs, at the kernel phase's tolerances (shard_kernel_checks), flash at
+   each call's window and softcap: the forward, for the train cells also
+   the backward kernels, and decode_attention with every row at the cache's
+   length (a ring's: a full ring) and at ragged lengths;
 3. counts the tensor-core instructions (HMMA) of the attention and
    scan kernels in the built library's SASS (cuobjdump), and fails if
    the bf16 flash_attention kernel of any head dim of HEAD_DIMS, the
@@ -1700,14 +1706,25 @@ SHARD_MOE_DECODE_BATCH = 20
 #: layers whose quad peak fits (dryrun.deepest_fit(..., mesh="quad");
 #: the whole 48 layers' arguments alone are 82.73 GB a device)
 SHARD_MOE_TRAIN_LAYERS = 33
-#: (arch, shape, batch, microbatches, layers (0: uncut)): cells one card
-#: cannot hold; a cut cell's next depth, an uncut decode's next batch,
-#: must not fit
-SHARD_CELLS = (("deepseek-7b", "train_4k", TRAIN_BATCH, TRAIN_MB, 0),
-               ("deepseek-67b", "decode_32k", SHARD_DECODE_BATCH, 0, 0),
-               (MOONSHOT, "decode_32k", SHARD_MOE_DECODE_BATCH, 0, 0),
+#: gemma3-27b decode_32k: the most rows whose quad peak fits (one card
+#: holds 4)
+SHARD_GEMMA_DECODE_BATCH = 63
+#: zamba2-1.2b decode_32k at JAX's batch, which the quad peak fits (one
+#: card holds fewer than 48 rows)
+SHARD_ZAMBA_DECODE_BATCH = 128
+#: (arch, shape, batch, microbatches, layers (0: uncut), the most that
+#: fits): cells one card cannot hold; where the cell is the most whose
+#: quad peak fits, its next depth (a cut cell) or next batch (an uncut
+#: decode) must not fit
+SHARD_CELLS = (("deepseek-7b", "train_4k", TRAIN_BATCH, TRAIN_MB, 0, False),
+               ("deepseek-67b", "decode_32k", SHARD_DECODE_BATCH, 0, 0, True),
+               (MOONSHOT, "decode_32k", SHARD_MOE_DECODE_BATCH, 0, 0, True),
                (MOONSHOT, "train_4k", TRAIN_BATCH, TRAIN_MB,
-                SHARD_MOE_TRAIN_LAYERS))
+                SHARD_MOE_TRAIN_LAYERS, True),
+               (GEMMA, "train_4k", TRAIN_BATCH, TRAIN_MB, 0, False),
+               (GEMMA27, "decode_32k", SHARD_GEMMA_DECODE_BATCH, 0, 0, True),
+               ("zamba2-1.2b", "decode_32k", SHARD_ZAMBA_DECODE_BATCH, 0, 0,
+                False))
 SHARD_KERNELS = {"train": ("fused_rmsnorm", "fused_rmsnorm_bwd",
                            "flash_attention", "flash_bwd_preprocess",
                            "flash_bwd_dkdv", "flash_bwd_dq"),
@@ -1715,7 +1732,7 @@ SHARD_KERNELS = {"train": ("fused_rmsnorm", "fused_rmsnorm_bwd",
 
 
 def shard_cell(arch: str, shape: str, batch: int, microbatches: int,
-               layers: int) -> dict:
+               layers: int, most: bool) -> dict:
     """In a spawned process: the cell's quad dry run, then rank 0 of the
     same step on the card under the fake group of 4: launch counts,
     collectives, local shapes and the step's max_memory_allocated. The
@@ -1740,7 +1757,7 @@ def shard_cell(arch: str, shape: str, batch: int, microbatches: int,
                                  microbatches=microbatches, layers=layers)
     out["dry_s"] = time.perf_counter() - t0
     kind, S = SHAPES[shape].kind, SHAPES[shape].seq_len
-    if layers or kind == "decode":
+    if most:
         # a cut cell's next depth, an uncut decode's next batch: no fit
         out["dry_next"] = dryrun.run_cell(
             arch, shape, SHARD_MESH, batch=batch if layers else batch + 1,
@@ -1808,12 +1825,12 @@ def shard_phase(rt, smi: str) -> dict:
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     by_cell = {}
-    for arch, shape, batch, mb, layers in SHARD_CELLS:
+    for arch, shape, batch, mb, layers, most in SHARD_CELLS:
         t0 = time.perf_counter()
         with ProcessPoolExecutor(
                 1, mp_context=multiprocessing.get_context("spawn")) as ex:
-            res = ex.submit(shard_cell, arch, shape, batch, mb,
-                            layers).result()
+            res = ex.submit(shard_cell, arch, shape, batch, mb, layers,
+                            most).result()
         label = (f"shard {arch} {shape} batch {batch}"
                  + (f" in {mb} microbatches" if mb else "")
                  + (f", {layers} layers" if layers else ""))
@@ -1860,8 +1877,9 @@ def shard_phase(rt, smi: str) -> dict:
               f", dry run {json.dumps(dry['collectives'])}", flush=True)
         counts = {n: c for n, c in res["counts"].items() if c}
         print(f"{label} launches {counts}", flush=True)
-        for name, args in res["local_calls"]:
-            print(f"{label} local call {name}: {list(args)}", flush=True)
+        for name, args, kw in res["local_calls"]:
+            print(f"{label} local call {name}: {list(args)} {dict(kw)}",
+                  flush=True)
         if abs(gap) > DRY_RUN_TOL * peak:
             fail(f"{label}: the dry run's peak {pred} B is more than "
                  f"{DRY_RUN_TOL} of the measured {peak} B away")
@@ -1883,13 +1901,15 @@ def shard_phase(rt, smi: str) -> dict:
 
 
 def shard_kernel_checks(rt, label: str, calls, train: bool) -> None:
-    """Each kernel of the sharded step at the local shapes and dtypes its
-    rank-0 run gave it (``common.local_calls``; the attention arguments
-    flattened as ``kernels.ops`` flattens them), on fresh inputs, against
-    its plain version at the kernel phase's tolerances: the forward, in
-    the train cell also the backward kernels (against autograd through
-    the plain version), and decode_attention with every row at the
-    cache's length (the main path's) and at ragged lengths. The step's
+    """Each kernel of the sharded step at the local shapes, dtypes and
+    keywords its rank-0 run gave it (``common.local_calls``: the
+    attention arguments flattened as ``kernels.ops`` flattens them;
+    flash at the window and softcap of each call, gemma3's local layers
+    at window 1024), on fresh inputs, against its plain version at the
+    kernel phase's tolerances: the forward, in the train cell also the
+    backward kernels (against autograd through the plain version), and
+    decode_attention with every row at the cache's length (the main
+    path's; over a ring, a full ring) and at ragged lengths. The step's
     own values are not held: the fake group moves no data. Uncounted."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 33)
     kp, kb = rt.kernels, rt.backward
@@ -1910,34 +1930,40 @@ def shard_kernel_checks(rt, label: str, calls, train: bool) -> None:
                  f"[{case}] disagrees with its plain version ({err:.3e})")
 
     with rt.ops.uncounted():
-        for name, args in calls:
+        for name, args, kw in calls:
             shapes = [s for s, _ in args]
             dts = [getattr(torch, d) for _, d in args]
+            kw = dict(kw)
             if name == "fused_rmsnorm":
                 (xs, ws), (xd, wd) = shapes, dts
                 x, w = randn(xs, xd), randn(ws, wd, 0.1)
                 case = f"x {xs} {xd}"
-                held(name, case, kp[name][0](x, w), kp[name][1](x, w), TOL)
+                held(name, case, kp[name][0](x, w, **kw),
+                     kp[name][1](x, w, **kw), TOL)
                 if train:
                     dy = randn(xs, xd)
                     xg, wg = (t.clone().requires_grad_(True) for t in (x, w))
                     ref = torch.autograd.grad(
-                        kb["fused_rmsnorm_plain"](xg, wg), (xg, wg), dy)
+                        kb["fused_rmsnorm_plain"](xg, wg, **kw), (xg, wg), dy)
                     held("fused_rmsnorm_bwd", f"{case}, dx and dw",
-                         kb["fused_rmsnorm_bwd"](x, w, dy), ref,
+                         kb["fused_rmsnorm_bwd"](x, w, dy, **kw), ref,
                          (TOL, dw_tol(int(np.prod(xs[:-1])))))
                 del x, w
             elif name == "flash_attention":
                 q, k, v = (randn(flat(s), d) for s, d in zip(shapes, dts))
                 case = (f"q {tuple(q.shape)} over k {tuple(k.shape)} "
-                        f"{dts[0]}, causal")
-                held(name, case, kp[name][0](q, k, v), kp[name][1](q, k, v),
-                     TOL)
+                        f"{dts[0]}, {kw}")
+                held(name, case, kp[name][0](q, k, v, **kw),
+                     kp[name][1](q, k, v, **kw), TOL)
                 if train:
+                    if kw["softcap"] or not kw["causal"]:
+                        fail(f"{label}: a train step's flash call {kw} has "
+                             "no backward kernel")
                     do = randn(q.shape, q.dtype)
                     held("flash_bwd", f"{case}, dq, dk, dv",
-                         kb["flash_grads"](q, k, v, do),
-                         kb["flash_bwd_plain"](q, k, v, do), TOL)
+                         kb["flash_grads"](q, k, v, do, window=kw["window"]),
+                         kb["flash_bwd_plain"](q, k, v, do,
+                                               window=kw["window"]), TOL)
                     del do
                 del q, k, v
             elif name == "decode_attention":
@@ -1950,9 +1976,9 @@ def shard_kernel_checks(rt, label: str, calls, train: bool) -> None:
                             1, S + 1, (n,), generator=gen, device="cuda"))):
                     lengths = lengths.to("cuda", dts[3])
                     held(name, f"q {tuple(q.shape)} over cache "
-                         f"{tuple(k.shape)} {dts[0]}, lengths {what}",
-                         kp[name][0](q, k, v, lengths),
-                         kp[name][1](q, k, v, lengths), TOL)
+                         f"{tuple(k.shape)} {dts[0]}, lengths {what}, {kw}",
+                         kp[name][0](q, k, v, lengths, **kw),
+                         kp[name][1](q, k, v, lengths, **kw), TOL)
                 del q, k, v
             else:
                 fail(f"{label}: no check for kernel {name}")

@@ -24,9 +24,10 @@ logical axes' placements. Without a device mesh, and on a plain tensor,
 both leave everything as it is: the single-device path never changes.
 :func:`on_local` runs a function on each rank's shards with its
 outputs' placements stated (the MoE layer's dispatch, expert products
-and combine). The ``uniform`` stacks with text input run the sharded
-step, dense and MoE; gemma3's rings, zamba2 and rwkv6, and the frontend
-archs wait for later slices (``launch.dryrun.NOT_SHARDED``).
+and combine). Every stack with text input runs the sharded step: the
+``uniform`` stacks, dense and MoE, gemma3's ``local_global`` rings, and
+zamba2's and rwkv6's scans on their heads; the frontend archs wait for a
+later slice (``launch.dryrun.NOT_SHARDED``).
 """
 from __future__ import annotations
 

@@ -90,8 +90,8 @@ _LOCAL_CALLS: Optional[list] = None
 @contextmanager
 def local_calls() -> Iterator[list]:
     """Inside the block, each :func:`on_shards` call appends ``(name,
-    ((local shape, dtype name) of each argument))`` to the yielded
-    list."""
+    ((local shape, dtype name) of each argument), (its keywords as sorted
+    (name, value) pairs))`` to the yielded list."""
     global _LOCAL_CALLS
     prev, _LOCAL_CALLS = _LOCAL_CALLS, []
     try:
@@ -101,16 +101,20 @@ def local_calls() -> Iterator[list]:
 
 
 def on_shards(name: str, fn: Callable, args: Sequence, *,
-              whole: Sequence[Sequence[int]]):
-    """``fn`` on this rank's shards of the DTensors ``args``, its output a
-    DTensor of ``args[0]``'s shape and placements, contiguous
-    (``sharding.on_local``): the local call takes the wrapper's own
-    route (kernel, meta or plain) on local tensors, and no collective
-    runs. ``whole[i]`` are the dims of ``args[i]`` a kernel must see
-    whole (a norm's rows, attention's sequence and head dims): an
-    argument split on one of them, or a partial sum, raises. An argument
-    replicated where ``args[0]`` is split (a norm's weight) takes a
-    partial gradient, reduced where it is used."""
+              whole: Sequence[Sequence[int]], kw: Optional[dict] = None,
+              outs: Optional[Sequence[tuple]] = None):
+    """``fn(*local shards, **kw)`` on this rank's shards of the DTensors
+    ``args``: the local call takes the wrapper's own route (kernel, meta
+    or plain) on local tensors, and no collective runs
+    (``sharding.on_local``). Its output is a DTensor of ``args[0]``'s
+    shape and placements, contiguous; with ``outs``, one ``(global
+    shape, placements)`` an output, a tuple of them. ``whole[i]`` are
+    the dims of ``args[i]`` a kernel must see whole (a norm's rows,
+    attention's sequence and head dims): an argument split on one of
+    them, or a partial sum, raises, as does a split that does not divide
+    its dim (the shards' shapes would differ). An argument replicated
+    where an output is split (a norm's weight) takes a partial gradient,
+    reduced where it is used."""
     from torch.distributed.tensor import DTensor
 
     from ..distributed.sharding import on_local
@@ -126,10 +130,17 @@ def on_shards(name: str, fn: Callable, args: Sequence, *,
                 f"argument {i} of shape {tuple(a.shape)} is split on dims "
                 f"{sorted(split & kept)} ({a.placements}), which the kernel "
                 "takes whole")
+        uneven = [p.dim for m, p in enumerate(a.placements) if p.is_shard()
+                  and a.shape[p.dim] % mesh.size(m)]
+        require(not uneven, name,
+                f"argument {i} of shape {tuple(a.shape)} is split unevenly "
+                f"on dims {uneven} ({a.placements})")
+    kw = kw or {}
     if _LOCAL_CALLS is not None:
         _LOCAL_CALLS.append((name, tuple(
             (tuple(a.to_local().shape), str(a.dtype).removeprefix("torch."))
-            for a in args)))
+            for a in args), tuple(sorted(kw.items()))))
     like = args[0]
-    (out,) = on_local(fn, args, ((like.shape, tuple(like.placements)),))
-    return out
+    got = on_local(lambda *local: fn(*local, **kw), args,
+                   outs or ((like.shape, tuple(like.placements)),))
+    return got if outs else got[0]

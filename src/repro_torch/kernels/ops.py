@@ -30,7 +30,11 @@ lengths (...) as q's leading dims), flattened on each rank: a flat (B *
 H) dim cannot keep batch and heads both split, so the model hands them
 over unflattened. Attention is split on its leading dims (batch, heads),
 the norm on rows with d whole (its weight replicated, its gradient a
-partial sum reduced across the row shards).
+partial sum reduced across the row shards), and the scans on their heads
+(:func:`_scan_on_heads`: (B, nh, S, hd) with S and hd whole; ssm's B and
+C, rwkv6's u, shared by the heads, replicated and cut: their gradients
+partial sums reduced where they are used). A split a kernel cannot take
+raises; nothing falls back to a plain version.
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ from typing import Iterator
 
 import torch
 
-from ..distributed.sharding import is_dtensor
+from ..distributed.sharding import is_dtensor, place
 from . import decode_attention as _decode
 from . import flash_attention as _flash
 from . import fused_rmsnorm as _rmsnorm
@@ -71,9 +75,8 @@ def _on_card(t: torch.Tensor, name: str) -> bool:
 def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
                   eps: float = 1e-6) -> torch.Tensor:
     if is_dtensor(x):
-        return on_shards(_rmsnorm.NAME,
-                         lambda x, w: fused_rmsnorm(x, w, eps=eps), (x, w),
-                         whole=((-1,), (0,)))
+        return on_shards(_rmsnorm.NAME, fused_rmsnorm, (x, w),
+                         whole=((-1,), (0,)), kw=dict(eps=eps))
     if _on_card(x, _rmsnorm.NAME):
         return _rmsnorm.fused_rmsnorm_cuda(x, w, eps=eps)
     return _rmsnorm.fused_rmsnorm_plain(x, w, eps=eps)
@@ -84,9 +87,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: float = 0.0) -> torch.Tensor:
     kw = dict(causal=causal, window=window, softcap=softcap)
     if is_dtensor(q):
-        return on_shards(_flash.NAME,
-                         lambda q, k, v: flash_attention(q, k, v, **kw),
-                         (q, k, v), whole=((-2, -1),) * 3)
+        return on_shards(_flash.NAME, flash_attention, (q, k, v),
+                         whole=((-2, -1),) * 3, kw=kw)
     if q.dim() > 3:
         return flash_attention(q.flatten(0, -3), k.flatten(0, -3),
                                v.flatten(0, -3), **kw).view(q.shape)
@@ -106,10 +108,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 f"({k.placements}): JAX's flash-decode fallback where the "
                 "KV heads do not divide the model axis, which the sharded "
                 "step does not run")
-        return on_shards(
-            _decode.NAME,
-            lambda q, k, v, lengths: decode_attention(q, k, v, lengths, **kw),
-            (q, k, v, lengths), whole=((-2, -1), (-2, -1), (-2, -1), ()))
+        return on_shards(_decode.NAME, decode_attention, (q, k, v, lengths),
+                         whole=((-2, -1), (-2, -1), (-2, -1), ()), kw=kw)
     if q.dim() > 3:
         return decode_attention(q.flatten(0, -3), k.flatten(0, -3),
                                 v.flatten(0, -3), lengths.flatten(),
@@ -122,6 +122,21 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def ssm_scan(xbar: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
              cumlog: torch.Tensor, *, chunk: int
              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """xbar (..., S, hd), cumlog (..., S): the leading dims flattened to
+    the kernel's rows, B and C (BH_bc, S, ds) read by each group of
+    consecutive rows. Returns y (..., S, hd) and h (..., hd, ds). On
+    DTensors xbar is (B, nh, S, hd), split on the batch and the heads,
+    cumlog (B, nh, S) split as xbar, B and C (B, S, ds) with the batch
+    split as xbar's and replicated elsewhere (the heads' shared group: its
+    gradient a partial sum over the head split)."""
+    if is_dtensor(xbar):
+        return _scan_on_heads(_ssm.NAME, ssm_scan, (xbar, B, C, cumlog),
+                              shared=(1, 2), state=B.shape[-1], chunk=chunk)
+    if xbar.dim() > 3:
+        lead, (S, hd) = xbar.shape[:-2], xbar.shape[-2:]
+        y, h = ssm_scan(xbar.reshape(-1, S, hd), B, C,
+                        cumlog.reshape(-1, S), chunk=chunk)
+        return y.view(*lead, S, hd), h.view(*lead, hd, h.shape[-1])
     if _on_card(xbar, _ssm.NAME):
         return _ssm.ssm_scan_cuda(xbar, B, C, cumlog, chunk=chunk)
     return _ssm.ssm_scan_plain(xbar, B, C, cumlog, chunk=chunk)
@@ -130,9 +145,56 @@ def ssm_scan(xbar: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                w: torch.Tensor, u: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """r, k, v, w (..., S, hd), the leading dims flattened to the kernel's
+    rows, u (NU, hd) read by row % NU. Returns o (..., S, hd) and the
+    state (..., hd, hd). On DTensors r, k, v and w are (B, nh, S, hd),
+    split on the batch and the heads, and u (nh, hd) is cut to the rank's
+    heads (its gradient a partial sum over a batch split)."""
+    if is_dtensor(r):
+        return _scan_on_heads(_rwkv.NAME, rwkv6_scan, (r, k, v, w, u),
+                              heads=(4,), state=r.shape[-1])
+    if r.dim() > 3:
+        lead, (S, hd) = r.shape[:-2], r.shape[-2:]
+        o, state = rwkv6_scan(*(t.reshape(-1, S, hd) for t in (r, k, v, w)),
+                              u)
+        return o.view(*lead, S, hd), state.view(*lead, hd, hd)
     if _on_card(r, _rwkv.NAME):
         return _rwkv.rwkv6_scan_cuda(r, k, v, w, u)
     return _rwkv.rwkv6_scan_plain(r, k, v, w, u)
+
+
+def _scan_on_heads(name: str, fn, args, *, state: int, shared=(),
+                   heads=(), **kw):
+    """A scan on each rank's heads (``common.on_shards``): ``args[0]``
+    (B, nh, S, hd) split on its batch and heads only; every other
+    argument of its leading dims is placed as it is (cumlog, r, k, v,
+    w), one of ``shared`` (B, S, ds) on its batch split and replicated
+    elsewhere, one of ``heads`` (nh, hd) on its head split and replicated
+    elsewhere: a replicated input is cut, which moves nothing, and an
+    input split otherwise raises. Returns the output (args[0]'s shape and
+    placements) and the final state (B, nh, hd, ``state``) placed as
+    args[0]'s leading dims."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from .common import require
+    x = args[0]
+    rows = [Shard(0) if p.is_shard(0) else Replicate() for p in x.placements]
+    cut = [Shard(0) if p.is_shard(1) else Replicate() for p in x.placements]
+    placed = []
+    for i, a in enumerate(args):
+        want = (rows if i in shared else cut if i in heads
+                else list(x.placements))
+        for p, w in zip(a.placements, want):
+            require(p == w or p.is_replicate(), name,
+                    f"argument {i} of shape {tuple(a.shape)} is placed "
+                    f"{a.placements}, not as the scan's heads ({want})")
+        placed.append(place(a, want))
+    whole = [(1, 2) if i in shared else (1,) if i in heads
+             else tuple(range(2, a.ndim)) for i, a in enumerate(args)]
+    B, nh, S, hd = x.shape
+    out = (tuple(x.shape), tuple(x.placements))
+    last = ((B, nh, hd, state), tuple(x.placements))
+    return on_shards(name, fn, placed, whole=whole, kw=kw, outs=(out, last))
 
 
 def launch_counts() -> dict[str, int]:

@@ -49,13 +49,14 @@ bwd_launches = 0
 
 
 def chunk_cumsum(loga: torch.Tensor, chunk: int) -> torch.Tensor:
-    """The cumulative sum of ``loga`` (BH, S) along S, reset every
+    """The cumulative sum of ``loga`` (..., S) along S, reset every
     ``chunk`` steps: the ``cumlog`` input of :func:`ssm_scan_plain` and
-    :func:`ssm_scan_cuda`."""
-    BH, S = loga.shape
+    :func:`ssm_scan_cuda` (a DTensor split on its leading dims only stays
+    so)."""
+    *lead, S = loga.shape
     nc = -(-S // chunk)
     padded = torch.nn.functional.pad(loga, (0, nc * chunk - S))
-    return padded.view(BH, nc, chunk).cumsum(-1).view(BH, -1)[:, :S] \
+    return padded.view(*lead, nc, chunk).cumsum(-1).view(*lead, -1)[..., :S] \
         .contiguous()
 
 

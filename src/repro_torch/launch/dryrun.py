@@ -30,16 +30,19 @@ start, as on the card's later microbatches, and the step's peak is that
 microbatch's peak or the update's; its flops and bytes are the
 microbatch's times the count, plus the update's.
 
-On a mesh of more than one device the dense ``uniform`` stacks
-(deepseek-7b, deepseek-67b) run the sharded step: rank 0 of the mesh
+On a mesh of more than one device every stack with text input runs the
+sharded step (the ``uniform`` stacks, dense and MoE, gemma3's
+``local_global`` rings, zamba2's and rwkv6's scans on their heads): rank
+0 of the mesh
 under ``mesh.fake_group`` on a ``cpu`` device mesh, its parameters,
 optimizer state, cache and batch meta DTensors at their resolved specs
 (``params.shard_params``, ``TensorSpec.zeros``). The tracker sees each
 rank's local ops (:class:`CollectiveCounter`), so the memory, flops and
 bytes are one device's, and it counts the collectives by kind with their
 operand bytes (XLA's ``collective_bytes``); ``t_collective`` is those
-bytes over ``mesh.NVLINK_BW``. Every other family keeps the argument
-bytes per device only, with the reason it waits for (:data:`NOT_SHARDED`).
+bytes over ``mesh.NVLINK_BW``. The frontend archs (qwen2-vl-2b,
+musicgen-large) keep the argument bytes per device only, with the reason
+they wait for (:data:`NOT_SHARDED`).
 
   python -m repro_torch.launch.dryrun --arch deepseek-7b --shape train_4k \\
       --mesh single
@@ -89,9 +92,6 @@ META = torch.device("meta")
 OUT_DIR = "results/dryrun_torch"
 #: why a family runs no sharded step yet: the slice it waits for
 NOT_SHARDED = {
-    "local_global": "the sharded step of gemma3's rings is a later slice",
-    "scan": "the sharded step of zamba2 and rwkv6 (the scans on their "
-            "heads) is a later slice",
     "frontend": "the sharded step of the frontend archs is a later slice "
                 "(qwen2-vl's 2 KV heads put its cache's sequence on the "
                 "model axis; musicgen's audio embeddings)",
@@ -138,14 +138,9 @@ def fresh_process_bytes(specs: dict, ctx: Optional[ShardingCtx],
 
 
 def not_sharded(cfg: ModelConfig) -> Optional[str]:
-    """None where the family runs the sharded step (the ``uniform``
-    stacks with text input, dense or MoE), else the reason it does not
-    yet."""
-    kind = family_kind(cfg)
-    if kind in ("zamba", "rwkv"):
-        return NOT_SHARDED["scan"]
-    if kind == "local_global":
-        return NOT_SHARDED["local_global"]
+    """None where the family runs the sharded step (every stack with
+    text input: uniform, dense or MoE, local_global, zamba and rwkv), else
+    the reason it does not yet."""
     if cfg.modality != "text" or cfg.mrope:
         return NOT_SHARDED["frontend"]
     return None

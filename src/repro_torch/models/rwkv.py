@@ -18,6 +18,11 @@ One difference in bf16 compute: JAX's token shift concatenates the f32
 carried row with the bf16 sequence, which promotes the interpolated
 inputs, and so the projections, to f32; the port casts the carried row
 to the compute dtype and projects in it. In f32 compute the two agree.
+
+On DTensors (the sharded step) the scan runs on each rank's heads
+(:func:`rwkv_time_mix`), the channel mix is split as the MLP, the norms
+take whole rows, and the decode update runs on the whole state, which
+JAX's cache spec replicates over the heads.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import is_dtensor, shard
 from ..kernels import ops
 from .layers import _param, mm, rmsnorm
 
@@ -75,7 +81,9 @@ def _lerp(x: torch.Tensor, shifted: torch.Tensor,
 def _time_mix_projections(p: RWKV, x: torch.Tensor, cfg: ModelConfig,
                           x_tm: torch.Tensor, kernels):
     """Returns h (normed x), r, k, v, logw (B, S, nh, hd) f32 and the gate
-    g (compute dtype)."""
+    g (compute dtype). On DTensors r, k, v and g are split as their
+    weights' columns (``"qkv"``: the heads), and the decay is whole (its
+    LoRA weights are replicated)."""
     B, S, _ = x.shape
     nh, hd = rwkv_dims(cfg)
     h = rmsnorm(x, p.tm_norm, cfg.norm_eps, kernels=kernels)
@@ -96,9 +104,14 @@ def _time_mix_projections(p: RWKV, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _heads_first(t: torch.Tensor) -> torch.Tensor:
-    """(B, S, nh, hd) -> (B * nh, S, hd), contiguous."""
-    B, S, nh, hd = t.shape
-    return t.transpose(1, 2).reshape(B * nh, S, hd).contiguous()
+    """(B, S, nh, hd) -> (B, nh, S, hd), contiguous."""
+    return t.transpose(1, 2).contiguous()
+
+
+def _zeros_row(x: torch.Tensor) -> torch.Tensor:
+    """A zero f32 row (B, d) a sequence of x (B, S, d): the carried row of
+    a sequence from the zero state (a DTensor placed as x's rows)."""
+    return torch.zeros_like(x[:, 0], dtype=torch.float32)
 
 
 def rwkv_time_mix(p: RWKV, x: torch.Tensor, cfg: ModelConfig,
@@ -106,17 +119,28 @@ def rwkv_time_mix(p: RWKV, x: torch.Tensor, cfg: ModelConfig,
     """x (B, S, d). ``state=None``: a sequence from the zero state, any S,
     through ``kernels.rwkv6_scan``. Otherwise ``state`` holds ``S``
     (B, nh, hd, hd) and ``x_tm`` (B, d) f32 and x is one token (decode).
-    Returns (out, {"S", "x_tm"})."""
+    Returns (out, {"S", "x_tm"}).
+
+    On DTensors the scan runs on each rank's heads (the decay and u cut
+    to them) and its final state keeps that split; the decode update
+    runs on the whole heads, as JAX's cache spec replicates the state (r,
+    k and v gathered); the output norm takes its rows whole (o
+    gathered), the gated rows are cut to ``w_o``'s row split and the
+    partial sum is reduced at JAX's constraint (``rwkv.py:127``)."""
     B, S, d = x.shape
     nh, hd = rwkv_dims(cfg)
-    x_tm = (torch.zeros(B, d, device=x.device) if state is None
-            else state["x_tm"])
+    x_tm = _zeros_row(x) if state is None else state["x_tm"]
     h, rh, kh, vh, lw, g = _time_mix_projections(p, x, cfg, x_tm, kernels)
+    # the scan's inputs on each rank's heads, the decode update's whole
+    heads = ("heads" if state is None else None, None)
+    rh, kh, vh, lw = (shard(t, "batch", "seq", *heads)
+                      for t in (rh, kh, vh, lw))
     wh = torch.exp(lw)
     if state is None:
-        o, S_final = kernels.rwkv6_scan(
-            _heads_first(rh), _heads_first(kh), _heads_first(vh),
-            _heads_first(wh), p.u)
+        args = [_heads_first(t) for t in (rh, kh, vh, wh)]
+        if not is_dtensor(rh):       # one flat (B * nh) dim a row a head
+            args = [t.view(B * nh, S, hd) for t in args]
+        o, S_final = kernels.rwkv6_scan(*args, p.u)
         o = o.view(B, nh, S, hd).transpose(1, 2)
         S_final = S_final.view(B, nh, hd, hd)
     else:
@@ -128,18 +152,23 @@ def rwkv_time_mix(p: RWKV, x: torch.Tensor, cfg: ModelConfig,
         o = (r_t[..., None, :] @ (state["S"] + p.u[:, :, None] * kv))
         o = o.transpose(1, 2)                               # (B, 1, nh, hd)
         S_final = w_t[..., None] * state["S"] + kv
-    o = rmsnorm(o.reshape(B, S, d).to(x.dtype), p.o_norm, cfg.norm_eps,
-                kernels=kernels) * g
-    return mm(o, p.w_o), {"S": S_final, "x_tm": h[:, -1].float()}
+    o = rmsnorm(shard(o.reshape(B, S, d).to(x.dtype), "batch", "seq", None),
+                p.o_norm, cfg.norm_eps, kernels=kernels)
+    o = shard(o, "batch", "seq", "qkv") * shard(g, "batch", "seq", "qkv")
+    return (shard(mm(o, p.w_o), "batch", "seq", None),
+            {"S": S_final, "x_tm": h[:, -1].float()})
 
 
 def rwkv_channel_mix(p: RWKV, x: torch.Tensor, cfg: ModelConfig,
                      x_cm: torch.Tensor, *, kernels=ops):
-    """Squared-ReLU FFN with token shift. Returns (out, {"x_cm"})."""
+    """Squared-ReLU FFN with token shift, split as the MLP (``rwkv.py:201``,
+    ``:203``). Returns (out, {"x_cm"})."""
     h = rmsnorm(x, p.cm_norm, cfg.norm_eps, kernels=kernels)
     kx = _lerp(h, _token_shift(h, x_cm), p.mu_ck)
-    hidden = torch.square(F.relu(mm(kx, p.w_ck)))
-    return mm(hidden, p.w_cv), {"x_cm": h[:, -1].float()}
+    hidden = shard(torch.square(F.relu(mm(kx, p.w_ck))), "batch", "seq",
+                   "mlp")
+    return (shard(mm(hidden, p.w_cv), "batch", "seq", None),
+            {"x_cm": h[:, -1].float()})
 
 
 def rwkv_block(p: RWKV, x: torch.Tensor, cfg: ModelConfig,
@@ -147,8 +176,7 @@ def rwkv_block(p: RWKV, x: torch.Tensor, cfg: ModelConfig,
     """One layer. ``state=None`` is prefill from the zero state; a state
     from :func:`rwkv_init_state` or a previous call makes a decode step.
     Returns (x, {"S", "x_tm", "x_cm"})."""
-    x_cm = (torch.zeros(x.shape[0], cfg.d_model, device=x.device)
-            if state is None else state["x_cm"])
+    x_cm = _zeros_row(x) if state is None else state["x_cm"]
     tm_out, tm_state = rwkv_time_mix(p, x, cfg, state, kernels=kernels)
     x = x + tm_out
     cm_out, cm_state = rwkv_channel_mix(p, x, cfg, x_cm, kernels=kernels)

@@ -12,6 +12,10 @@ B/C projections go to it once per sequence, not once per head. The
 one-token decode update stays plain PyTorch, as JAX computes it outside
 any Pallas kernel. Both norms (``norm`` and ``out_norm`` over d_inner)
 go through ``kernels.fused_rmsnorm``.
+
+On DTensors (the sharded step) the scan runs on each rank's heads
+(:func:`ssm_block`), the norms on whole rows, and the decode update on
+the whole state, which JAX's cache spec replicates over the heads.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import is_dtensor, shard
 from ..kernels import ops
 from ..kernels.ssm_scan import chunk_cumsum
 from .layers import _param, mm, rmsnorm
@@ -52,28 +57,42 @@ class SSM(nn.Module):
 
 
 def _proj(p: SSM, x: torch.Tensor, cfg: ModelConfig, kernels):
-    """Shared projections. Returns xbar (B, S, nh, hd) f32, xh, z, B_, C_
-    (compute dtype) and loga (B, S, nh) f32."""
+    """Shared projections. Returns xh (B, S, nh, hd), z, B_, C_ (compute
+    dtype) and dt (B, S, nh) f32. On DTensors each is whole on the model
+    axis: ``w_xz``'s columns are split there (``"mlp"``), so xin's half
+    lies on one half of the ranks and z's on the other, and xz is
+    gathered (one all-gather a layer); the scan then cuts its inputs to
+    each rank's heads (:func:`ssm_block`)."""
     _, nh, hd, _ = ssm_dims(cfg)
     h = rmsnorm(x, p.norm, cfg.norm_eps, kernels=kernels)
-    xin, z = mm(h, p.w_xz).chunk(2, dim=-1)
+    xin, z = shard(mm(h, p.w_xz), "batch", "seq", None).chunk(2, dim=-1)
     B_ = mm(h, p.w_B)                                   # (B, S, ds)
     C_ = mm(h, p.w_C)
     dt = F.softplus(mm(h, p.w_dt) + p.dt_bias)           # (B, S, nh) f32
-    loga = dt * -torch.exp(p.A_log.float())             # log decay, <= 0
     xh = xin.reshape(x.shape[0], x.shape[1], nh, hd)
-    xbar = xh.float() * dt[..., None]                   # Mamba2 x * dt
-    return xbar, xh, z, B_, C_, loga
+    return xh, z, B_, C_, dt
+
+
+def _weighted(p: SSM, xh: torch.Tensor, dt: torch.Tensor):
+    """xbar (B, S, nh, hd) f32, Mamba2's x * dt, and the log decay loga
+    (B, S, nh) f32, <= 0."""
+    return xh.float() * dt[..., None], dt * -torch.exp(p.A_log.float())
 
 
 def _out(p: SSM, y: torch.Tensor, xh: torch.Tensor, z: torch.Tensor,
          x: torch.Tensor, cfg: ModelConfig, kernels) -> torch.Tensor:
-    """Skip term, gated output norm and out-projection; y (B, S, nh, hd)."""
+    """Skip term, gated output norm and out-projection; y (B, S, nh, hd).
+    On DTensors the norm takes its rows whole (y gathered over the
+    heads), the gated rows are cut to ``w_out``'s row split, and the
+    out-projection's partial sum is reduced at JAX's constraint
+    (``ssm.py:126``)."""
     B, S = x.shape[:2]
     y = y + xh.float() * p.D[:, None]
-    y = rmsnorm(y.reshape(B, S, -1).to(x.dtype), p.out_norm, cfg.norm_eps,
-                kernels=kernels)
-    return mm(y * F.silu(z), p.w_out)
+    y = rmsnorm(shard(y.reshape(B, S, -1).to(x.dtype), "batch", "seq", None),
+                p.out_norm, cfg.norm_eps, kernels=kernels)
+    y = shard(y, "batch", "seq", "mlp") * F.silu(shard(z, "batch", "seq",
+                                                       "mlp"))
+    return shard(mm(y, p.w_out), "batch", "seq", None)
 
 
 def ssm_block(p: SSM, x: torch.Tensor, cfg: ModelConfig, *,
@@ -82,28 +101,41 @@ def ssm_block(p: SSM, x: torch.Tensor, cfg: ModelConfig, *,
     with the final state h (B, nh, hd, ds) f32. The chunk is
     ``min(ssm_chunk, S)`` as in JAX; the scan takes a short last chunk
     where JAX pads with zero inputs and zero log-decay (the same
-    function)."""
+    function). On DTensors the scan runs on each rank's heads (its
+    inputs cut to them, B_ and C_ shared by them) and h keeps that
+    split."""
     B, S, _ = x.shape
     _, nh, hd, ds = ssm_dims(cfg)
     Q = min(cfg.ssm_chunk, S)
-    xbar, xh, z, B_, C_, loga = _proj(p, x, cfg, kernels)
-    cum = chunk_cumsum(loga.transpose(1, 2).reshape(B * nh, S), Q)
-    y, h = kernels.ssm_scan(
-        xbar.transpose(1, 2).reshape(B * nh, S, hd).contiguous(),
-        B_.contiguous(), C_.contiguous(), cum, chunk=Q)
-    y = y.view(B, nh, S, hd).transpose(1, 2)
-    return _out(p, y, xh, z, x, cfg, kernels), h.view(B, nh, hd, ds)
+    xh, z, B_, C_, dt = _proj(p, x, cfg, kernels)
+    xh = shard(xh, "batch", "seq", "heads", None)
+    xbar, loga = _weighted(p, xh, shard(dt, "batch", "seq", "heads"))
+    xbar = xbar.transpose(1, 2).contiguous()            # (B, nh, S, hd)
+    cum = chunk_cumsum(loga.transpose(1, 2), Q)         # (B, nh, S)
+    if is_dtensor(xbar):
+        # the heads kept as a dim: one flat (B * nh) dim could not keep
+        # batch and heads both split
+        y, h = kernels.ssm_scan(xbar, B_, C_, cum, chunk=Q)
+    else:
+        y, h = kernels.ssm_scan(xbar.view(B * nh, S, hd), B_.contiguous(),
+                                C_.contiguous(), cum.view(B * nh, S),
+                                chunk=Q)
+        y, h = y.view(B, nh, S, hd), h.view(B, nh, hd, ds)
+    return _out(p, y.transpose(1, 2), xh, z, x, cfg, kernels), h
 
 
 def ssm_decode(p: SSM, x: torch.Tensor, cfg: ModelConfig, h: torch.Tensor,
                *, kernels=ops) -> tuple[torch.Tensor, torch.Tensor]:
     """One-token recurrent update: x (B, 1, d), h (B, nh, hd, ds) f32.
-    Returns (out, new h)."""
-    xbar, xh, z, B_, C_, loga = _proj(p, x, cfg, kernels)
+    Returns (out, new h). On DTensors h is whole on the model axis (JAX's
+    cache spec replicates the heads), and so is the update."""
+    xh, z, B_, C_, dt = _proj(p, x, cfg, kernels)
+    xbar, loga = _weighted(p, xh, dt)
     a = torch.exp(loga[:, 0])                           # (B, nh)
+    f = xbar.dtype                      # f32 (f64 where the model runs in f64)
     h = h * a[:, :, None, None] + \
-        xbar[:, 0, :, :, None] * B_[:, 0].float()[:, None, None, :]
-    y = (h @ C_[:, 0].float()[:, None, :, None])[..., 0]     # (B, nh, hd)
+        xbar[:, 0, :, :, None] * B_[:, 0].to(f)[:, None, None, :]
+    y = (h @ C_[:, 0].to(f)[:, None, :, None])[..., 0]      # (B, nh, hd)
     return _out(p, y[:, None], xh, z, x, cfg, kernels), h
 
 

@@ -181,6 +181,14 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
     return out
 
 
+def place_state(t: torch.Tensor) -> torch.Tensor:
+    """A layer's recurrent state (B, ...) at its cache's spec, JAX's
+    ``("batch", None, ...)``: on DTensors a prefill's scan state, split
+    on the heads, is gathered whole on each rank (the identity
+    elsewhere)."""
+    return shard(t, "batch", *(None,) * (t.ndim - 1))
+
+
 def d_ff_head(cfg: ModelConfig) -> int:
     """Width of the dense MLP of the ``first_k_dense`` head layers."""
     return cfg.top_k * cfg.d_ff if cfg.n_experts else cfg.d_ff
@@ -478,8 +486,8 @@ class LM(nn.Module):
                     cache["v_win"][j][:, :, p % W] = kv["v"][:, :, p]
         elif self.kind == "zamba":
             for i, layer in enumerate(self.layers):
-                out, cache["ssm_h"][i] = ssm_block(layer, x, cfg,
-                                                   kernels=self.kernels)
+                out, h = ssm_block(layer, x, cfg, kernels=self.kernels)
+                cache["ssm_h"][i] = place_state(h)
                 x = x + out
                 g = self._shared_after(i)
                 if g is not None:
@@ -491,7 +499,7 @@ class LM(nn.Module):
             for i, layer in enumerate(self.layers):
                 x, st = rwkv_block(layer, x, cfg, kernels=self.kernels)
                 for name, t in st.items():
-                    cache[name][i] = t
+                    cache[name][i] = place_state(t)
         logits = self.unembed(self._final_norm(x[:, -1:]))
         return logits, cache
 

@@ -380,13 +380,99 @@ def test_deepest_fit_takes_the_mesh(monkeypatch):
     assert {m for m, _ in seen} == {"quad"}
     monkeypatch.undo()
     with pytest.raises(ValueError, match="later slice"):
-        dryrun.deepest_fit("zamba2-1.2b", "decode_32k", mesh="quad")
+        dryrun.deepest_fit("qwen2-vl-2b", "decode_32k", mesh="quad")
+
+
+#: the local_global and scan stacks, at the depth their quad cell runs:
+#: gemma3's first group of 5 local layers and its global one, zamba2's
+#: first group of 6 Mamba layers and its shared block, 2 rwkv6 layers
+RING_SCAN = {"gemma3-12b": 6, "gemma3-27b": 6, "zamba2-1.2b": 6,
+             "rwkv6-1.6b": 2}
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("arch", list(RING_SCAN))
+def test_quad_cell_of_a_ring_or_scan_stack(arch, shape):
+    """The sharded step's quad cell of gemma3's rings and of the scan
+    stacks at batch 2: the per-device figures are filled, the arguments
+    are the resolver's bytes, the collectives' bytes are
+    ``coll_bytes_dev``, and each kernel ran on rank 0's shards
+    (``common.local_calls``): the scans on a quarter of the heads (ssm:
+    xbar (B, nh / 4, S, hd), B and C whole (B, S, ds); rwkv6: r, k, v, w
+    (B, nh / 4, S, hd), u (nh / 4, hd)), attention on a quarter of the
+    KV heads, gemma3's local layers at the window, decode over the rings
+    and the whole cache, and every norm on whole rows (d, zamba2's out
+    norm d_inner). The flops are one device's: less than the single
+    card's (the projections and kernels split), at least a quarter of
+    them."""
+    from repro_torch.kernels import common
+    from repro_torch.models.rwkv import rwkv_dims
+    from repro_torch.models.ssm import ssm_dims
+    layers = RING_SCAN[arch]
+    kw = dict(layers=layers, batch=2,
+              microbatches=2 if shape == "train_4k" else 0)
+    kind, seq = SHAPES[shape].kind, SHAPES[shape].seq_len
+    cfg = get_config(arch).with_(n_layers=layers)
+    single = dryrun.run_cell(arch, shape, "single", **kw)
+    with common.local_calls() as calls:
+        quad = dryrun.run_cell(arch, shape, "quad", **kw)
+    for key in ("peak_bytes", "mem_temp_bytes", "hlo_flops_dev",
+                "hlo_bytes_dev", "coll_bytes_dev", "t_collective"):
+        assert quad[key] is not None and quad[key] > 0, key
+    assert quad["fits"] is True and "reason" not in quad
+    assert "all-reduce" in quad["collectives"]
+    assert sum(c["bytes"] for c in quad["collectives"].values()) == \
+        quad["coll_bytes_dev"]
+    assert quad["t_collective"] == quad["coll_bytes_dev"] / NVLINK_BW
+    specs = dryrun.arg_specs(cfg, kind, 2, seq)
+    with use_mesh(mesh_preset("quad")) as ctx:
+        assert quad["mem_arg_bytes"] == dryrun.arg_bytes_per_device(specs,
+                                                                    ctx)
+    assert quad["kernels"].keys() == single["kernels"].keys()
+    assert single["hlo_flops_dev"] / 4 <= quad["hlo_flops_dev"] \
+        < single["hlo_flops_dev"]
+    assert quad["peak_bytes"] < single["peak_bytes"]
+    b = 1 if kind == "train" else 2          # a microbatch's rows
+    got = {}
+    for name, args, keys in calls:
+        got.setdefault(name, set()).add((tuple(s for s, _ in args),
+                                         dict(keys).get("window")))
+    assert {n for n in quad["kernels"] if not n.endswith("_bwd")
+            and not n.startswith("flash_bwd")} == set(got)
+    d_in = ssm_dims(cfg)[0] if arch.startswith("zamba") else cfg.d_model
+    assert {s[0][-1] for s, _ in got["fused_rmsnorm"]} <= {cfg.d_model, d_in}
+    assert all(s[1] == (s[0][-1],) for s, _ in got["fused_rmsnorm"])
+    if arch.startswith("zamba"):
+        _, nh, hd, ds = ssm_dims(cfg)
+        if kind != "decode":
+            assert got["ssm_scan"] == {(((b, nh // 4, seq, hd),
+                                         (b, seq, ds), (b, seq, ds),
+                                         (b, nh // 4, seq)), None)}
+    elif arch.startswith("rwkv"):            # no attention
+        nh, hd = rwkv_dims(cfg)
+        r = (b, nh // 4, seq, hd)
+        assert got.get("rwkv6_scan") == (
+            None if kind == "decode" else {((r, r, r, r, (nh // 4, hd)),
+                                            None)})
+        return
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (b, KV // 4, H // KV, 1 if kind == "decode" else seq, hd)
+    if kind == "decode":
+        lengths = {s[1][2] for s, _ in got["decode_attention"]}
+        assert {s[0] for s, _ in got["decode_attention"]} == {q}
+        assert lengths == ({cfg.local_window, seq} if arch.startswith(
+            "gemma3") else {seq})
+    else:
+        kv = (b, KV // 4, seq, hd)
+        windows = {0, cfg.local_window} if arch.startswith("gemma3") \
+            else {0}
+        assert got["flash_attention"] == {((q, kv, kv), w) for w in windows}
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCHS
-                                  if a not in DENSE + MOE_ARCHS])
+                                  if dryrun.not_sharded(get_config(a))])
 def test_quad_keeps_its_nulls_with_a_reason(arch):
-    """Every other family's quad cell: the argument bytes only, with the
+    """The frontend archs' quad cell: the argument bytes only, with the
     slice it waits for as the reason."""
     shape = next(s for s in ("train_4k", "decode_32k")
                  if shape_applicable(get_config(arch), SHAPES[s])[0])
