@@ -27,8 +27,18 @@ package. In order it:
    and zamba2-1.2b decode_32k at JAX's batch of 128
    (SHARD_ZAMBA_DECODE_BATCH; one card holds fewer than 48 rows; its SSM
    state whole on each rank, as JAX's cache spec keeps it), cells one card
-   cannot hold. The process dry-runs the cell on the quad mesh (rank 0
-   under the fake process group, meta DTensors), then runs rank 0 of the
+   cannot hold, then the frontend archs: qwen2-vl-2b decode_32k at JAX's
+   batch of 128 (SHARD_QWEN_DECODE_BATCH; one card cannot hold it; its 2
+   KV heads do not divide the model axis, so the cache's sequence is
+   split: decode over rank 0's quarter of the cache through the kernel's
+   log-sum-exp route, the ranks' pairs all-gathered and merged) and
+   musicgen-large train_4k (batch 4 in 2 microbatches, all 48 layers; the
+   cell where a frontend's embeddings enter the sharded step, its unreached
+   token embedding taking a zero gradient). A pool of SHARD_DRY_WORKERS
+   spawned processes dry-runs every cell on the quad mesh (rank 0
+   under the fake process group, meta DTensors) on the host while the
+   cells run, one after another, each in a fresh process (started, its
+   imports made, while the cell before it runs), rank 0 of the
    same step on the card under launch.mesh.fake_group(4) with a cuda device
    mesh (parameters drawn as this rank's shards, never whole): its
    max_memory_allocated must lie within DRY_RUN_TOL (5 %) of the dry run's
@@ -46,7 +56,8 @@ package. In order it:
    inputs, at the kernel phase's tolerances (shard_kernel_checks), flash at
    each call's window and softcap: the forward, for the train cells also
    the backward kernels, and decode_attention with every row at the cache's
-   length (a ring's: a full ring) and at ragged lengths;
+   length (a ring's: a full ring) and at ragged lengths (on the log-sum-exp
+   route from 0: a rank's slice past the live prefix);
 3. counts the tensor-core instructions (HMMA) of the attention and
    scan kernels in the built library's SASS (cuobjdump), and fails if
    the bf16 flash_attention kernel of any head dim of HEAD_DIMS, the
@@ -89,7 +100,15 @@ package. In order it:
    S = 77, S 1, chunk 1, B/C groups, ds 16 / 32 / 128, hd 32 / 128), and
    the rwkv6_scan chunks' in bf16 and f32, the state at 2e-5 (S 1, 15,
    16, 17, 513, hd 16 / 32 / 128, one u row, w at 0, 1, 1e-30 and
-   1 - 2^-24);
+   1 - 2^-24); last, decode_attention's log-sum-exp route (lse_cases:
+   qwen2-vl-2b's local call of the shard cell at 16 rows, timed; ragged
+   lengths with rows of 0, whose lse must be -inf and output zeros, in
+   bf16 and f32) and the sequence split's merge on one card: one cache cut
+   in four slices, each slice's (o, lse) from the kernel, merged by
+   decode_attention.combine_splits (the sharded step's own function),
+   against the kernel over the whole cache, bf16 at 2e-2 and f32 at 2e-5
+   (the fake group moves no data, so this is the merge's one check of
+   values on the card);
 4b. holds the four backward kernels against autograd through the plain
    versions, each twice for bitwise equality: fused_rmsnorm_bwd at
    (8192, 4096) and (1, 4096), flash_bwd_preprocess, flash_bwd_dkdv and
@@ -602,6 +621,77 @@ def kernel_cases(kp):
     # the same inputs as before gemma3-12b's were added
     yield from gemma_cases(kp, GEMMA)
     yield from gemma_cases(kp, GEMMA27)
+    yield from lse_cases(kp)
+
+
+def lse_flagged(pair):
+    """A with_lse route's (o, lse) as (o, lse with -inf at 0, the -inf
+    flags as 0. / 1.): max_err holds them (a -inf less a -inf is NaN)."""
+    o, lse = pair
+    dead = torch.isneginf(lse)
+    return o, torch.where(dead, 0.0, lse), dead.float()
+
+
+def lse_cases(kp):
+    """decode_attention's log-sum-exp route, which the sharded decode
+    takes over a cache split on its sequence (qwen2-vl-2b: 12 query heads
+    over 2 KV heads, hd 128), from a generator of its own: timed at the
+    shard cell's local call cut to 16 rows (q (192, 1, 128) over a rank's
+    quarter of a 32768-slot cache, (32, 8192, 128), every row live, as
+    rank 0's); untimed at ragged lengths with rows of 0 in bf16 and f32;
+    then the merge on one card: one cache of 4 x 2048 slots cut in four
+    slices, each slice's (o, lse) from the kernel at its local lengths
+    clamp(len - 2048 r, 0, 2048), merged by ``combine_splits``, against
+    the kernel over the whole cache (bf16 2e-2, f32 2e-5)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    kern, plain, combine = kp["decode_attention"]
+    bf, f32 = torch.bfloat16, torch.float32
+    i32 = dict(dtype=torch.int32, device="cuda")
+
+    def randn(*shape, dtype=bf):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    rows, H, KV, hd, S = 16, 12, 2, 128, 8192
+    bh, bh_kv = rows * H, rows * KV
+    q, k, v = randn(bh, 1, hd), randn(bh_kv, S, hd), randn(bh_kv, S, hd)
+    full = torch.full((bh,), S, **i32)
+    yield Case(
+        "decode_attention", f"lse route: BH {bh} over {bh_kv}, cache "
+        f"slice {S} (a quarter of 32768), hd {hd}, lengths {S}",
+        lambda a=(q, k, v, full): kern(*a, with_lse=True),
+        lambda a=(q, k, v, full): plain(*a, with_lse=True), None,
+        *costs.decode(bh, bh_kv, hd, bf, S * bh, S * bh_kv, lse=True), TOL,
+        model=f"{QWEN} lse route")
+    R, n = 4, 2048
+    for dt, tol in ((bf, TOL), (f32, F32_TOL)):
+        tag = str(dt)[6:]
+        q, k, v = (randn(48, 1, hd, dtype=dt),
+                   *(randn(8, R * n, hd, dtype=dt) for _ in range(2)))
+        # rows of 0, on and beside the slices' edges, in every slice
+        lens = torch.tensor([0, 1, 63, 64, 2047, 2048, 2049, 4096, 5000,
+                             6143, 6144, 8192] * 4, **i32)
+        yield Case(
+            "decode_attention", f"lse route: BH 48 over 8, cache {R * n}, "
+            f"hd {hd}, lengths 0..{R * n}, {tag}",
+            lambda a=(q, k, v, lens): lse_flagged(kern(*a, with_lse=True)),
+            lambda a=(q, k, v, lens): lse_flagged(plain(*a, with_lse=True)),
+            None, 0, 0, BF16_FLOPS_PER_S, tol, timed=False)
+
+        def merged(q=q, k=k, v=v, lens=lens, dt=dt):
+            pairs = [kern(q, k[:, r * n:(r + 1) * n].contiguous(),
+                          v[:, r * n:(r + 1) * n].contiguous(),
+                          (lens - r * n).clamp(0, n).to(torch.int32),
+                          with_lse=True) for r in range(R)]
+            return combine(torch.stack([o for o, _ in pairs]),
+                           torch.stack([lse[:, None] for _, lse in pairs]),
+                           dt)
+        yield Case(
+            "decode_attention", f"sequence split: four slices of {n} "
+            f"merged by combine_splits against the kernel over the whole "
+            f"cache of {R * n}, BH 48 over 8, hd {hd}, lengths 0..{R * n}, "
+            f"{tag}", merged,
+            lambda a=(q, k, v, lens): kern(*a), None, 0, 0,
+            BF16_FLOPS_PER_S, tol, timed=False)
 
 
 def gqa_decode_cases(kp, randn, bh, bh_kv, hd, model):
@@ -1712,10 +1802,16 @@ SHARD_GEMMA_DECODE_BATCH = 63
 #: zamba2-1.2b decode_32k at JAX's batch, which the quad peak fits (one
 #: card holds fewer than 48 rows)
 SHARD_ZAMBA_DECODE_BATCH = 128
+#: qwen2-vl-2b decode_32k at JAX's batch, which the quad peak fits (one
+#: card's peak 123.89 GB): its cache split on its sequence
+SHARD_QWEN_DECODE_BATCH = 128
+#: host processes that dry-run the cells while the card runs them
+SHARD_DRY_WORKERS = 4
 #: (arch, shape, batch, microbatches, layers (0: uncut), the most that
-#: fits): cells one card cannot hold; where the cell is the most whose
-#: quad peak fits, its next depth (a cut cell) or next batch (an uncut
-#: decode) must not fit
+#: fits): cells one card cannot hold, and musicgen-large's train step, the
+#: cell where a frontend's embeddings enter the sharded step; where the
+#: cell is the most whose quad peak fits, its next depth (a cut cell) or
+#: next batch (an uncut decode) must not fit
 SHARD_CELLS = (("deepseek-7b", "train_4k", TRAIN_BATCH, TRAIN_MB, 0, False),
                ("deepseek-67b", "decode_32k", SHARD_DECODE_BATCH, 0, 0, True),
                (MOONSHOT, "decode_32k", SHARD_MOE_DECODE_BATCH, 0, 0, True),
@@ -1724,23 +1820,42 @@ SHARD_CELLS = (("deepseek-7b", "train_4k", TRAIN_BATCH, TRAIN_MB, 0, False),
                (GEMMA, "train_4k", TRAIN_BATCH, TRAIN_MB, 0, False),
                (GEMMA27, "decode_32k", SHARD_GEMMA_DECODE_BATCH, 0, 0, True),
                ("zamba2-1.2b", "decode_32k", SHARD_ZAMBA_DECODE_BATCH, 0, 0,
-                False))
+                False),
+               (QWEN, "decode_32k", SHARD_QWEN_DECODE_BATCH, 0, 0, False),
+               (MUSICGEN, "train_4k", TRAIN_BATCH, TRAIN_MB, 0, False))
 SHARD_KERNELS = {"train": ("fused_rmsnorm", "fused_rmsnorm_bwd",
                            "flash_attention", "flash_bwd_preprocess",
                            "flash_bwd_dkdv", "flash_bwd_dq"),
                  "decode": ("fused_rmsnorm", "decode_attention")}
 
 
+def shard_dry(arch: str, shape: str, batch: int, microbatches: int,
+              layers: int, most: bool) -> dict:
+    """In a spawned process on the host: the cell's quad dry run, and
+    where it is the most that fits, that of its next depth (a cut cell) or
+    next batch (an uncut decode), which must not fit."""
+    from repro_torch.launch import dryrun
+    out = {}
+    t0 = time.perf_counter()
+    out["dry"] = dryrun.run_cell(arch, shape, SHARD_MESH, batch=batch,
+                                 microbatches=microbatches, layers=layers)
+    out["dry_s"] = time.perf_counter() - t0
+    if most:
+        out["dry_next"] = dryrun.run_cell(
+            arch, shape, SHARD_MESH, batch=batch if layers else batch + 1,
+            microbatches=microbatches, layers=layers + 1 if layers else 0)
+    return out
+
+
 def shard_cell(arch: str, shape: str, batch: int, microbatches: int,
-               layers: int, most: bool) -> dict:
-    """In a spawned process: the cell's quad dry run, then rank 0 of the
-    same step on the card under the fake group of 4: launch counts,
-    collectives, local shapes and the step's max_memory_allocated. The
-    fake group moves no data, so every value after the first collective
-    is garbage, and in a MoE stack so is the routing: memory and launches
-    still hold, since the dispatch is fixed-shape (no count or index
-    depends on the routing); values are held on the CPU
-    (tests/test_torch_sharded.py)."""
+               layers: int) -> dict:
+    """In a fresh spawned process: rank 0 of the cell's step on the card
+    under the fake group of 4: launch counts, collectives, local shapes
+    and the step's max_memory_allocated. The fake group moves no data, so
+    every value after the first collective is garbage, and in a MoE stack
+    so is the routing: memory and launches still hold, since the dispatch
+    is fixed-shape (no count or index depends on the routing); values are
+    held on the CPU (tests/test_torch_sharded.py)."""
     import contextlib
 
     from repro_torch.configs import SHAPES, TrainConfig, get_config
@@ -1752,16 +1867,7 @@ def shard_cell(arch: str, shape: str, batch: int, microbatches: int,
     from repro_torch.params import shard_params
     from repro_torch.training import init_opt_state, make_train_step
     out = {}
-    t0 = time.perf_counter()
-    out["dry"] = dryrun.run_cell(arch, shape, SHARD_MESH, batch=batch,
-                                 microbatches=microbatches, layers=layers)
-    out["dry_s"] = time.perf_counter() - t0
     kind, S = SHAPES[shape].kind, SHAPES[shape].seq_len
-    if most:
-        # a cut cell's next depth, an uncut decode's next batch: no fit
-        out["dry_next"] = dryrun.run_cell(
-            arch, shape, SHARD_MESH, batch=batch if layers else batch + 1,
-            microbatches=microbatches, layers=layers + 1 if layers else 0)
     build.library()
     cfg = get_config(arch)
     if layers:
@@ -1797,6 +1903,15 @@ def shard_cell(arch: str, shape: str, batch: int, microbatches: int,
                 microbatches=microbatches))
             data = {k: ids((batch, S), ("batch", "seq"))
                     for k in ("tokens", "targets")}
+            if cfg.modality != "text":
+                # the frontend's embeddings, as the dry run feeds them
+                spec = TensorSpec((batch, S, cfg.d_model),
+                                  ("batch", "seq", None), bf16)
+                local = (torch.randn(spec.local_shape(ctx), generator=gen,
+                                     device="cuda") * 0.02).to(bf16)
+                data["embeds"] = on_mesh(local, spec.shape, spec.spec(ctx),
+                                         ctx)
+                del local
             run = lambda: step(opt, data)  # noqa: E731
         else:
             lm = LM(cfg, device="meta", dtype=bf16)
@@ -1824,80 +1939,122 @@ def shard_phase(rt, smi: str) -> dict:
     """Step 2b; returns the launch counts of each cell's card step."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(SHARD_DRY_WORKERS, mp_context=spawn) as pool:
+        dry_runs = [pool.submit(shard_dry, *cell) for cell in SHARD_CELLS]
+        return shard_cells(rt, smi, dry_runs)
+
+
+def shard_imports() -> None:
+    """A cell process's imports, made while the cell before it runs: they
+    touch no card, so the process stays fresh there."""
+    importlib.import_module("repro_torch.launch.dryrun")
+    importlib.import_module("repro_torch.training")
+
+
+def shard_cells(rt, smi: str, dry_runs: list) -> dict:
+    """Each cell of SHARD_CELLS on the card in a fresh process (the next
+    one started, and its imports made, while a cell runs), held against
+    its dry run (``dry_runs``: one future a cell)."""
+    import contextlib
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    spawn = multiprocessing.get_context("spawn")
     by_cell = {}
-    for arch, shape, batch, mb, layers, most in SHARD_CELLS:
-        t0 = time.perf_counter()
-        with ProcessPoolExecutor(
-                1, mp_context=multiprocessing.get_context("spawn")) as ex:
-            res = ex.submit(shard_cell, arch, shape, batch, mb, layers,
-                            most).result()
-        label = (f"shard {arch} {shape} batch {batch}"
-                 + (f" in {mb} microbatches" if mb else "")
-                 + (f", {layers} layers" if layers else ""))
-        dry = res["dry"]
-        dry_coll = {k: c["count"] for k, c in dry["collectives"].items()}
-        print(f"{label} dry run ({SHARD_MESH}, rank 0 of 4 under the fake "
-              f"group, meta device, {res['dry_s']:.1f} s): "
-              f"{rt.dryrun.cell_line(dry)}, collectives "
-              f"{json.dumps(dry['collectives'])}, t_collective "
-              f"{dry['t_collective'] * 1e3:.3f} ms at NVLink 450 GB/s, "
-              f"useful flops ratio {dry['useful_flops_ratio']:.4f}",
-              flush=True)
-        if "dry_next" in res:
-            nxt = res["dry_next"]
-            what = (f"{layers + 1} layers" if layers else
-                    f"batch {batch + 1}")
-            print(f"{label}: {what} peaks at "
-                  f"{nxt['peak_bytes'] / 1e9:.3f} GB, fits {nxt['fits']}",
-                  flush=True)
-            if nxt["fits"] or not dry["fits"]:
-                fail(f"{label}: {what} fits, or this cell does not: it is "
-                     "not the most whose quad peak fits HBM_USABLE")
-        if "error" in res:
-            fail(f"{label}: {res['error']}")
-        if not dry["fits"]:
-            fail(f"{label}: the dry run's quad peak does not fit")
-        # the cell's process is fresh: its workspaces and the arguments'
-        # segment remainders come on top of the dry run's peak
-        peak, base = res["peak"], res["base"]
-        fresh = dry["fresh_process_bytes"]
-        pred = dry["peak_bytes"] + fresh + base
-        gap = pred - peak
-        print(f"{label} rank 0 on the card ({smi}; fake group of 4, cuda "
-              f"device mesh): max_memory_allocated {peak} B (max reserved "
-              f"{res['reserved'] / 1e9:.3f} GB, free before "
-              f"{res['free_before'] / 1e9:.3f} GB), predicted "
-              f"{dry['peak_bytes']} B + {fresh} B a fresh process holds "
-              f"beyond it + {base} B live before = {pred} B, gap "
-              f"{gap / 1e9:+.4f} GB ({gap / peak:+.5f} of measured, limit "
-              f"{DRY_RUN_TOL}; without the fresh process's bytes "
-              f"{(gap - fresh) / peak:+.5f})", flush=True)
-        card_coll = {k: c["count"] for k, c in res["collectives"].items()}
-        print(f"{label} collectives: card {json.dumps(res['collectives'])}"
-              f", dry run {json.dumps(dry['collectives'])}", flush=True)
-        counts = {n: c for n, c in res["counts"].items() if c}
-        print(f"{label} launches {counts}", flush=True)
-        for name, args, kw in res["local_calls"]:
-            print(f"{label} local call {name}: {list(args)} {dict(kw)}",
-                  flush=True)
-        if abs(gap) > DRY_RUN_TOL * peak:
-            fail(f"{label}: the dry run's peak {pred} B is more than "
-                 f"{DRY_RUN_TOL} of the measured {peak} B away")
-        if card_coll != dry_coll:
-            fail(f"{label}: collectives {card_coll} on the card, "
-                 f"{dry_coll} in the dry run")
-        want = {n: k["calls"] for n, k in dry["kernels"].items()}
-        kind = "train" if mb else "decode"
-        missing = [n for n in SHARD_KERNELS[kind] if not counts.get(n)]
-        if missing or counts != want:
-            fail(f"{label}: launches {counts}, the dry run's meta route "
-                 f"calls {want} (missing {missing}): a kernel fell to its "
-                 "plain version")
-        shard_kernel_checks(rt, label, res["local_calls"], kind == "train")
-        by_cell[f"{arch} {SHARD_MESH} rank 0 {kind}"
-                + (f" {layers} layers" if layers else "")] = counts
-        print(f"{label}: {time.perf_counter() - t0:.1f} s", flush=True)
+    with contextlib.ExitStack() as stack:
+        def started():
+            ex = stack.enter_context(ProcessPoolExecutor(1, mp_context=spawn))
+            ex.submit(shard_imports)
+            return ex
+        nxt = started()
+        for i, (cell, dry_run) in enumerate(zip(SHARD_CELLS, dry_runs,
+                                                strict=True)):
+            t0 = time.perf_counter()
+            ex, nxt = nxt, (started() if i + 1 < len(SHARD_CELLS) else None)
+            res = ex.submit(shard_cell, *cell[:5]).result()
+            ex.shutdown()
+            res.update(dry_run.result())
+            by_cell.update(shard_check(rt, smi, res, *cell[:5]))
+            print(f"{shard_label(*cell[:5])}: "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
     return by_cell
+
+
+def shard_label(arch: str, shape: str, batch: int, mb: int,
+                layers: int) -> str:
+    return (f"shard {arch} {shape} batch {batch}"
+            + (f" in {mb} microbatches" if mb else "")
+            + (f", {layers} layers" if layers else ""))
+
+
+def shard_check(rt, smi: str, res: dict, arch: str, shape: str, batch: int,
+                mb: int, layers: int) -> dict:
+    """One cell's card run held against its dry run (``res``:
+    ``shard_cell``'s and ``shard_dry``'s results); returns its launch
+    counts under the cell's name."""
+    label = shard_label(arch, shape, batch, mb, layers)
+    dry = res["dry"]
+    dry_coll = {k: c["count"] for k, c in dry["collectives"].items()}
+    print(f"{label} dry run ({SHARD_MESH}, rank 0 of 4 under the fake "
+          f"group, meta device, {res['dry_s']:.1f} s): "
+          f"{rt.dryrun.cell_line(dry)}, collectives "
+          f"{json.dumps(dry['collectives'])}, t_collective "
+          f"{dry['t_collective'] * 1e3:.3f} ms at NVLink 450 GB/s, "
+          f"useful flops ratio {dry['useful_flops_ratio']:.4f}",
+          flush=True)
+    if "dry_next" in res:
+        nxt = res["dry_next"]
+        what = (f"{layers + 1} layers" if layers else
+                f"batch {batch + 1}")
+        print(f"{label}: {what} peaks at "
+              f"{nxt['peak_bytes'] / 1e9:.3f} GB, fits {nxt['fits']}",
+              flush=True)
+        if nxt["fits"] or not dry["fits"]:
+            fail(f"{label}: {what} fits, or this cell does not: it is "
+                 "not the most whose quad peak fits HBM_USABLE")
+    if "error" in res:
+        fail(f"{label}: {res['error']}")
+    if not dry["fits"]:
+        fail(f"{label}: the dry run's quad peak does not fit")
+    # the cell's process is fresh: its workspaces and the arguments'
+    # segment remainders come on top of the dry run's peak
+    peak, base = res["peak"], res["base"]
+    fresh = dry["fresh_process_bytes"]
+    pred = dry["peak_bytes"] + fresh + base
+    gap = pred - peak
+    print(f"{label} rank 0 on the card ({smi}; fake group of 4, cuda "
+          f"device mesh): max_memory_allocated {peak} B (max reserved "
+          f"{res['reserved'] / 1e9:.3f} GB, free before "
+          f"{res['free_before'] / 1e9:.3f} GB), predicted "
+          f"{dry['peak_bytes']} B + {fresh} B a fresh process holds "
+          f"beyond it + {base} B live before = {pred} B, gap "
+          f"{gap / 1e9:+.4f} GB ({gap / peak:+.5f} of measured, limit "
+          f"{DRY_RUN_TOL}; without the fresh process's bytes "
+          f"{(gap - fresh) / peak:+.5f})", flush=True)
+    card_coll = {k: c["count"] for k, c in res["collectives"].items()}
+    print(f"{label} collectives: card {json.dumps(res['collectives'])}"
+          f", dry run {json.dumps(dry['collectives'])}", flush=True)
+    counts = {n: c for n, c in res["counts"].items() if c}
+    print(f"{label} launches {counts}", flush=True)
+    for name, args, kw in res["local_calls"]:
+        print(f"{label} local call {name}: {list(args)} {dict(kw)}",
+              flush=True)
+    if abs(gap) > DRY_RUN_TOL * peak:
+        fail(f"{label}: the dry run's peak {pred} B is more than "
+             f"{DRY_RUN_TOL} of the measured {peak} B away")
+    if card_coll != dry_coll:
+        fail(f"{label}: collectives {card_coll} on the card, "
+             f"{dry_coll} in the dry run")
+    want = {n: k["calls"] for n, k in dry["kernels"].items()}
+    kind = "train" if mb else "decode"
+    missing = [n for n in SHARD_KERNELS[kind] if not counts.get(n)]
+    if missing or counts != want:
+        fail(f"{label}: launches {counts}, the dry run's meta route "
+             f"calls {want} (missing {missing}): a kernel fell to its "
+             "plain version")
+    shard_kernel_checks(rt, label, res["local_calls"], kind == "train")
+    return {f"{arch} {SHARD_MESH} rank 0 {kind}"
+            + (f" {layers} layers" if layers else ""): counts}
 
 
 def shard_kernel_checks(rt, label: str, calls, train: bool) -> None:
@@ -1970,15 +2127,24 @@ def shard_kernel_checks(rt, label: str, calls, train: bool) -> None:
                 q, k, v = (randn(flat(s), d)
                            for s, d in zip(shapes[:3], dts[:3]))
                 n, S = q.shape[0], k.shape[1]
+                # the log-sum-exp route: a rank's slice may hold no live
+                # key of a row (its lse -inf, its output zeros)
+                lse = kw.get("with_lse", False)
+                low = 0 if lse else 1
                 for what, lengths in (
                         (f"every row at {S}", torch.full((n,), S)),
-                        (f"ragged 1..{S}", torch.randint(
-                            1, S + 1, (n,), generator=gen, device="cuda"))):
+                        (f"ragged {low}..{S}", torch.randint(
+                            low, S + 1, (n,), generator=gen,
+                            device="cuda"))):
                     lengths = lengths.to("cuda", dts[3])
+                    got, ref = (kp[name][i](q, k, v, lengths, **kw)
+                                for i in (0, 1))
+                    if lse:
+                        got, ref = lse_flagged(got), lse_flagged(ref)
                     held(name, f"q {tuple(q.shape)} over cache "
                          f"{tuple(k.shape)} {dts[0]}, lengths {what}, {kw}",
-                         kp[name][0](q, k, v, lengths, **kw),
-                         kp[name][1](q, k, v, lengths, **kw), TOL)
+                         got, ref, TOL)
+                    del got, ref
                 del q, k, v
             else:
                 fail(f"{label}: no check for kernel {name}")
@@ -3501,7 +3667,8 @@ def load_port() -> SimpleNamespace:
                  "flash_attention": (fa.flash_attention_cuda,
                                      fa.flash_attention_plain),
                  "decode_attention": (da.decode_attention_cuda,
-                                      da.decode_attention_plain),
+                                      da.decode_attention_plain,
+                                      da.combine_splits),
                  "ssm_scan": (ss.ssm_scan_cuda, ss.ssm_scan_plain,
                               ss.chunk_cumsum),
                  "rwkv6_scan": (rs.rwkv6_scan_cuda, rs.rwkv6_scan_plain,

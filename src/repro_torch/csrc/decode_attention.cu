@@ -57,6 +57,15 @@
 //   then sums its dim over the splits with independent loads. It is a
 //   programmatic dependent launch: scheduled while pass 1 runs, it waits
 //   in griddepcontrol.wait, so its launch latency hides behind pass 1.
+// The log-sum-exp route (repro_decode_attention_lse): the same two passes,
+//   the combine also writing lse = M + log L in f32, one value a row (-inf
+//   where the row has no live key, its output then zeros), and the output
+//   in f32 whatever the inputs' dtype. The sharded step's decode over a
+//   cache split on its sequence (kernels/ops.py) runs it on each rank's
+//   slice of the cache and merges the ranks' (o, lse) by the same rule
+//   (decode_attention.py combine_splits), rounding once. The combine is a
+//   template of its own for it (LSE), so the route without lse compiles
+//   to the code it was.
 // span and splits come from the cache capacity S alone
 // (kernels/decode_attention.py plan_splits), so the host never reads
 // lengths. At batch 1 (BH 32, S 1024) pass 1 has 16 x 32 = 512 blocks.
@@ -268,19 +277,23 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
+// TO: the output's type (T, or float on the lse route); LSE: also writes
+// each row's log-sum-exp to lse
+template <typename T, typename TO, int HD, bool LSE>
 __global__ void __launch_bounds__(kThreads)
 decode_combine_kernel(const float* __restrict__ part,
-                      const int* __restrict__ lengths, T* __restrict__ o,
-                      int S, int span, int splits, int window) {
+                      const int* __restrict__ lengths, TO* __restrict__ o,
+                      float* __restrict__ lse, int S, int span, int splits,
+                      int window) {
   __shared__ float sm_w[kMaxSplits];
   __shared__ float sm_l;
   const int bh = blockIdx.x;
   const int tid = threadIdx.x;
   const int len = min(lengths[bh], S);
-  T* orow = o + static_cast<size_t>(bh) * HD;
+  TO* orow = o + static_cast<size_t>(bh) * HD;
   if (len <= 0) {                       // no key: zeros (see the note)
-    for (int d = tid; d < HD; d += kThreads) orow[d] = from_f32<T>(0.f);
+    for (int d = tid; d < HD; d += kThreads) orow[d] = from_f32<TO>(0.f);
+    if (LSE && tid == 0) lse[bh] = __int_as_float(0xff800000);  // -inf
     return;
   }
   const int begin = window > 0 ? max(0, len - window) : 0;
@@ -309,7 +322,10 @@ decode_combine_kernel(const float* __restrict__ part,
       lt += li[h] * w;
     }
     lt = warp_sum(lt);
-    if (tid == 0) sm_l = lt;
+    if (tid == 0) {
+      sm_l = lt;
+      if (LSE) lse[bh] = mt + logf(lt);
+    }
   }
   __syncthreads();
   const float denom = fmaxf(sm_l, 1e-30f);
@@ -317,14 +333,14 @@ decode_combine_kernel(const float* __restrict__ part,
     float at = 0.f;
 #pragma unroll 8
     for (int i = 0; i < n; ++i) at += pb[i * (HD + 2) + d] * sm_w[i];
-    orow[d] = from_f32<T>(at / denom);
+    orow[d] = from_f32<TO>(at / denom);
   }
 }
 
 template <typename T, int HD>
 int launch_hd(const void* q, const void* k, const void* v,
-              const int* lengths, float* part, void* o, int bh, int bh_kv,
-              int S, int span, int splits, int window, float cap,
+              const int* lengths, float* part, void* o, float* lse, int bh,
+              int bh_kv, int S, int span, int splits, int window, float cap,
               cudaStream_t stream) {
   const float scale = 1.f / sqrtf(static_cast<float>(HD));
   const dim3 grid(splits, bh_kv);
@@ -343,25 +359,62 @@ int launch_hd(const void* q, const void* k, const void* v,
   if (e != cudaSuccess) return static_cast<int>(e);
   // programmatic dependent launch: the combine's blocks are scheduled
   // while pass 1 runs and wait in griddepcontrol.wait for its results
+  if (lse != nullptr)
+    return static_cast<int>(launch_dependent(
+        decode_combine_kernel<T, float, HD, true>, dim3(bh), dim3(kThreads),
+        0, stream, static_cast<const float*>(part), lengths,
+        static_cast<float*>(o), lse, S, span, splits, window));
   return static_cast<int>(launch_dependent(
-      decode_combine_kernel<T, HD>, dim3(bh), dim3(kThreads), 0, stream,
-      static_cast<const float*>(part), lengths, static_cast<T*>(o), S, span,
-      splits, window));
+      decode_combine_kernel<T, T, HD, false>, dim3(bh), dim3(kThreads), 0,
+      stream, static_cast<const float*>(part), lengths, static_cast<T*>(o),
+      static_cast<float*>(nullptr), S, span, splits, window));
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const int* lengths,
-           float* part, void* o, int bh, int bh_kv, int S, int hd, int span,
-           int splits, int window, float cap, cudaStream_t stream) {
+           float* part, void* o, float* lse, int bh, int bh_kv, int S,
+           int hd, int span, int splits, int window, float cap,
+           cudaStream_t stream) {
+#define REPRO_DECODE_HD(HD)                                                  \
+  case HD:                                                                   \
+    return launch_hd<T, HD>(q, k, v, lengths, part, o, lse, bh, bh_kv, S,    \
+                            span, splits, window, cap, stream);
   switch (hd) {
-    case 16: return launch_hd<T, 16>(q, k, v, lengths, part, o, bh, bh_kv, S, span, splits, window, cap, stream);
-    case 32: return launch_hd<T, 32>(q, k, v, lengths, part, o, bh, bh_kv, S, span, splits, window, cap, stream);
-    case 64: return launch_hd<T, 64>(q, k, v, lengths, part, o, bh, bh_kv, S, span, splits, window, cap, stream);
-    case 128: return launch_hd<T, 128>(q, k, v, lengths, part, o, bh, bh_kv, S, span, splits, window, cap, stream);
-    case 168: return launch_hd<T, 168>(q, k, v, lengths, part, o, bh, bh_kv, S, span, splits, window, cap, stream);
-    case 240: return launch_hd<T, 240>(q, k, v, lengths, part, o, bh, bh_kv, S, span, splits, window, cap, stream);
+    REPRO_DECODE_HD(16)
+    REPRO_DECODE_HD(32)
+    REPRO_DECODE_HD(64)
+    REPRO_DECODE_HD(128)
+    REPRO_DECODE_HD(168)
+    REPRO_DECODE_HD(240)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef REPRO_DECODE_HD
+}
+
+// both entries: checks, then the launches of one dtype
+int run(const void* q, const void* k, const void* v, const void* lengths,
+        void* part, void* o, float* lse, int bh, int bh_kv, int S, int hd,
+        int span, int window, float softcap, int dtype, void* stream) {
+  if (bh_kv <= 0 || bh % bh_kv != 0 || S <= 0 || span <= 0 ||
+      span % kChunk != 0 || !(softcap >= 0.f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int splits = (S + span - 1) / span;
+  if (splits > kMaxSplits) return static_cast<int>(cudaErrorInvalidValue);
+  const int* lens = static_cast<const int*>(lengths);
+  float* p = static_cast<float*>(part);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc;
+  if (dtype == kBF16) {
+    rc = launch<__nv_bfloat16>(q, k, v, lens, p, o, lse, bh, bh_kv, S, hd,
+                               span, splits, window, softcap, s);
+  } else if (dtype == kF32) {
+    rc = launch<float>(q, k, v, lens, p, o, lse, bh, bh_kv, S, hd, span,
+                       splits, window, softcap, s);
+  } else {
+    rc = static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -373,22 +426,19 @@ extern "C" int repro_decode_attention(const void* q, const void* k,
                                       int S, int hd, int span, int window,
                                       float softcap, int dtype,
                                       void* stream) {
-  if (bh_kv <= 0 || bh % bh_kv != 0 || S <= 0 || span <= 0 ||
-      span % repro::kChunk != 0 || !(softcap >= 0.f))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int splits = (S + span - 1) / span;
-  if (splits > repro::kMaxSplits) return static_cast<int>(cudaErrorInvalidValue);
-  const int* lens = static_cast<const int*>(lengths);
-  float* p = static_cast<float*>(part);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc;
-  if (dtype == repro::kBF16) {
-    rc = repro::launch<__nv_bfloat16>(q, k, v, lens, p, o, bh, bh_kv, S, hd, span, splits, window, softcap, s);
-  } else if (dtype == repro::kF32) {
-    rc = repro::launch<float>(q, k, v, lens, p, o, bh, bh_kv, S, hd, span, splits, window, softcap, s);
-  } else {
-    rc = static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (rc != 0) return rc;
-  return static_cast<int>(cudaGetLastError());
+  return repro::run(q, k, v, lengths, part, o, nullptr, bh, bh_kv, S, hd,
+                    span, window, softcap, dtype, stream);
+}
+
+// the log-sum-exp route: o (bh, 1, hd) f32 and lse (bh,) f32
+extern "C" int repro_decode_attention_lse(const void* q, const void* k,
+                                          const void* v, const void* lengths,
+                                          void* part, void* o, void* lse,
+                                          int bh, int bh_kv, int S, int hd,
+                                          int span, int window,
+                                          float softcap, int dtype,
+                                          void* stream) {
+  if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return repro::run(q, k, v, lengths, part, o, static_cast<float*>(lse), bh,
+                    bh_kv, S, hd, span, window, softcap, dtype, stream);
 }

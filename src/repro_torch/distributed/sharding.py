@@ -24,10 +24,13 @@ logical axes' placements. Without a device mesh, and on a plain tensor,
 both leave everything as it is: the single-device path never changes.
 :func:`on_local` runs a function on each rank's shards with its
 outputs' placements stated (the MoE layer's dispatch, expert products
-and combine). Every stack with text input runs the sharded step: the
-``uniform`` stacks, dense and MoE, gemma3's ``local_global`` rings, and
-zamba2's and rwkv6's scans on their heads; the frontend archs wait for a
-later slice (``launch.dryrun.NOT_SHARDED``).
+and combine). Every arch runs the sharded step: the ``uniform`` stacks,
+dense and MoE, with text or a frontend's embeddings, gemma3's
+``local_global`` rings, and zamba2's and rwkv6's scans on their heads.
+Where the KV heads do not divide the model axis (qwen2-vl's 2 over 4)
+the resolver puts the cache's sequence there (``kv_seq``); the model
+gathers k and v and its decode merges the ranks' partial softmax states
+(``kernels.ops``), as XLA's collectives do for JAX.
 """
 from __future__ import annotations
 

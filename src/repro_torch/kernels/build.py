@@ -61,6 +61,10 @@ SIGNATURES = {
     # softcap, dtype, stream
     "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, ctypes.c_float, _I, _P),
+    # q, k, v, lengths, partials, out (f32), lse, bh, bh_kv, S, hd, span,
+    # window, softcap, dtype, stream
+    "repro_decode_attention_lse": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _I, _I, ctypes.c_float, _I, _P),
     # xbar, B, C, cumlog, y, h, bh, bh_bc, S, hd, ds, chunk, dtype, stream
     "repro_ssm_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _P),

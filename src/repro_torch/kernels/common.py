@@ -100,9 +100,19 @@ def local_calls() -> Iterator[list]:
         _LOCAL_CALLS = prev
 
 
+def note_call(name: str, args: Sequence[torch.Tensor], kw: dict) -> None:
+    """Appends a kernel's local call to the open :func:`local_calls` list
+    (nothing outside one)."""
+    if _LOCAL_CALLS is not None:
+        _LOCAL_CALLS.append((name, tuple(
+            (tuple(a.shape), str(a.dtype).removeprefix("torch."))
+            for a in args), tuple(sorted(kw.items()))))
+
+
 def on_shards(name: str, fn: Callable, args: Sequence, *,
               whole: Sequence[Sequence[int]], kw: Optional[dict] = None,
-              outs: Optional[Sequence[tuple]] = None):
+              outs: Optional[Sequence[tuple]] = None,
+              cut: Optional[Callable] = None):
     """``fn(*local shards, **kw)`` on this rank's shards of the DTensors
     ``args``: the local call takes the wrapper's own route (kernel, meta
     or plain) on local tensors, and no collective runs
@@ -114,7 +124,9 @@ def on_shards(name: str, fn: Callable, args: Sequence, *,
     them, or a partial sum, raises, as does a split that does not divide
     its dim (the shards' shapes would differ). An argument replicated
     where an output is split (a norm's weight) takes a partial gradient,
-    reduced where it is used."""
+    reduced where it is used. ``cut(*local shards)``, where given, returns
+    the local tensors the kernel is called on (attention's own KV head
+    of a replicated k and v)."""
     from torch.distributed.tensor import DTensor
 
     from ..distributed.sharding import on_local
@@ -136,11 +148,13 @@ def on_shards(name: str, fn: Callable, args: Sequence, *,
                 f"argument {i} of shape {tuple(a.shape)} is split unevenly "
                 f"on dims {uneven} ({a.placements})")
     kw = kw or {}
-    if _LOCAL_CALLS is not None:
-        _LOCAL_CALLS.append((name, tuple(
-            (tuple(a.to_local().shape), str(a.dtype).removeprefix("torch."))
-            for a in args), tuple(sorted(kw.items()))))
+
+    def local(*shards):
+        if cut is not None:
+            shards = cut(*shards)
+        note_call(name, shards, kw)
+        return fn(*shards, **kw)
     like = args[0]
-    got = on_local(lambda *local: fn(*local, **kw), args,
-                   outs or ((like.shape, tuple(like.placements)),))
+    got = on_local(local, args, outs or ((like.shape,
+                                          tuple(like.placements)),))
     return got if outs else got[0]

@@ -104,12 +104,15 @@ def flash(bh: int, bh_kv: int, sq: int, sk: int, hd: int,
 
 
 def decode(bh: int, bh_kv: int, hd: int, dtype: torch.dtype,
-           query_keys: int, cache_keys: int) -> Cost:
+           query_keys: int, cache_keys: int, lse: bool = False) -> Cost:
     """``cache_keys`` keys and values read (over the cache rows, once a KV
     head), q read and o written, lengths read; 4 hd flops a key of each
-    query head (``query_keys`` over the query rows)."""
+    query head (``query_keys`` over the query rows). With ``lse`` (the
+    route of a cache split on its sequence) o is written in f32 and each
+    row's log-sum-exp too."""
     size = dtype.itemsize
-    return (2 * cache_keys * hd * size + 2 * bh * hd * size + 4 * bh,
+    out = bh * hd * 4 + 4 * bh if lse else bh * hd * size
+    return (2 * cache_keys * hd * size + bh * hd * size + out + 4 * bh,
             4 * hd * query_keys, peak_rate(dtype))
 
 

@@ -29,7 +29,14 @@ leading dims (q (..., Sq, hd), k / v (..., Sk, hd), ``decode_attention``'s
 lengths (...) as q's leading dims), flattened on each rank: a flat (B *
 H) dim cannot keep batch and heads both split, so the model hands them
 over unflattened. Attention is split on its leading dims (batch, heads),
-the norm on rows with d whole (its weight replicated, its gradient a
+or, where the KV heads do not divide the model axis (qwen2-vl's 2 over
+4), flash on q's heads over k and v whole, each rank reading its own KV
+head (:func:`_own_kv_head`; their gradients partial sums, reduced where
+k and v were gathered), and decode over a cache split on its sequence
+(:func:`_decode_on_sequence`: q whole on every rank, each rank's slice
+of the cache through the kernel's log-sum-exp route, the ranks' (o, lse)
+all-gathered and merged by ``decode_attention.combine_splits``, the
+partial-softmax collective XLA inserts for JAX); the norm on rows with d whole (its weight replicated, its gradient a
 partial sum reduced across the row shards), and the scans on their heads
 (:func:`_scan_on_heads`: (B, nh, S, hd) with S and hd whole; ssm's B and
 C, rwkv6's u, shared by the heads, replicated and cut: their gradients
@@ -43,14 +50,14 @@ from typing import Iterator
 
 import torch
 
-from ..distributed.sharding import is_dtensor, place
+from ..distributed.sharding import is_dtensor, on_local, place
 from . import decode_attention as _decode
 from . import flash_attention as _flash
 from . import fused_rmsnorm as _rmsnorm
 from . import mc_cell as _mc
 from . import rwkv6_scan as _rwkv
 from . import ssm_scan as _ssm
-from .common import on_shards
+from .common import note_call, on_shards, require
 
 # every kernel's launch counter (mc_cell's entry point is mc.run_grid):
 # name -> (module, attribute)
@@ -88,7 +95,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kw = dict(causal=causal, window=window, softcap=softcap)
     if is_dtensor(q):
         return on_shards(_flash.NAME, flash_attention, (q, k, v),
-                         whole=((-2, -1),) * 3, kw=kw)
+                         whole=((-2, -1),) * 3, kw=kw,
+                         cut=_own_kv_head(_flash.NAME, q, k, v))
     if q.dim() > 3:
         return flash_attention(q.flatten(0, -3), k.flatten(0, -3),
                                v.flatten(0, -3), **kw).view(q.shape)
@@ -103,20 +111,112 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kw = dict(window=window, softcap=softcap)
     if is_dtensor(q):
         if any(p.is_shard(k.ndim - 2) for p in k.placements):
-            raise ValueError(
-                f"{_decode.NAME}: the cache's sequence dim is split "
-                f"({k.placements}): JAX's flash-decode fallback where the "
-                "KV heads do not divide the model axis, which the sharded "
-                "step does not run")
+            return _decode_on_sequence(q, k, v, lengths, **kw)
         return on_shards(_decode.NAME, decode_attention, (q, k, v, lengths),
                          whole=((-2, -1), (-2, -1), (-2, -1), ()), kw=kw)
+    return _decode_flat(q, k, v, lengths, **kw)
+
+
+def _decode_flat(q, k, v, lengths, **kw):
+    """decode on plain tensors, the leading dims flattened to the kernel's
+    rows; with ``with_lse`` the pair (o (q's shape, f32), lse (q's
+    leading dims))."""
     if q.dim() > 3:
-        return decode_attention(q.flatten(0, -3), k.flatten(0, -3),
-                                v.flatten(0, -3), lengths.flatten(),
-                                **kw).view(q.shape)
+        got = _decode_flat(q.flatten(0, -3), k.flatten(0, -3),
+                           v.flatten(0, -3), lengths.flatten(), **kw)
+        if kw.get("with_lse"):
+            return got[0].view(q.shape), got[1].view(q.shape[:-2])
+        return got.view(q.shape)
     if _on_card(q, _decode.NAME):
         return _decode.decode_attention_cuda(q, k, v, lengths, **kw)
     return _decode.decode_attention_plain(q, k, v, lengths, **kw)
+
+
+def _own_kv_head(name: str, q, k, v):
+    """The ``on_shards`` cut of attention whose q (B, H, S, hd) is split
+    on its heads over a mesh dim on which k and v (B, KV, S, hd) are whole
+    (the KV heads do not divide that dim: the model gathered them): each
+    rank's H / n query heads lie in one GQA group of G = H / KV, and the
+    kernel takes that group's KV head, k[:, c H / n // G] on the rank at
+    coordinate c, so that it runs its group inside. None where no dim
+    splits q's heads over whole k and v."""
+    mesh = q.device_mesh
+    at = [m for m, (pq, pk) in enumerate(zip(q.placements, k.placements))
+          if pq.is_shard(1) and pk.is_replicate()]
+    if not at:
+        return None
+    H, KV = q.shape[1], k.shape[1]
+    require(q.ndim == 4 and len(at) == 1 and v.placements == k.placements,
+            name, f"q {tuple(q.shape)} {q.placements} over k "
+            f"{tuple(k.shape)} {k.placements}: one mesh dim may split the "
+            "query heads over whole KV heads, q (B, H, S, hd)")
+    n = mesh.size(at[0])
+    per, group = H // n, H // KV
+    require(H % KV == 0 and group % per == 0, name,
+            f"{per} query heads a rank do not lie in one group of {group}")
+    j = mesh.get_local_rank(at[0]) * per // group
+
+    def cut(q, k, v):
+        return q, k[:, j:j + 1].contiguous(), v[:, j:j + 1].contiguous()
+    return cut
+
+
+def _decode_on_sequence(q, k, v, lengths, *, window: int, softcap: float):
+    """Decode over a cache (B, KV, S, hd) split on its sequence over one
+    mesh dim (JAX's ``kv_seq``, where the KV heads do not divide the model
+    axis): q (B, H, 1, hd) and lengths (B, H) whole on that dim, any other
+    dim splitting the batch of all four alike or none. The rank at
+    coordinate c holds slots c S_l .. (c + 1) S_l - 1 of each row; the live
+    keys are the prefix 0 .. len - 1, so its slice's lengths are
+    clamp(len - c S_l, 0, S_l) and the kernel's ``key < length`` mask holds
+    there. Each rank's (o, lse) pair (the kernel's ``with_lse`` route) is
+    all-gathered over the dim in one tensor and merged in rank order
+    (``decode_attention.combine_splits``) into q's dtype: the output
+    placed as q."""
+    from torch.distributed.tensor import Replicate, Shard
+    name = _decode.NAME
+    mesh = k.device_mesh
+    at = [m for m, p in enumerate(k.placements) if p.is_shard(k.ndim - 2)]
+    require(window == 0, name, "a window over a cache split on its "
+            "sequence (no config has one)")
+    require(len(at) == 1 and v.placements == k.placements, name,
+            f"the cache {tuple(k.shape)} is placed {k.placements}: one mesh "
+            "dim may split its sequence")
+    m = at[0]
+    require(q.ndim == 4 and q.placements[m].is_replicate()
+            and lengths.placements[m].is_replicate(), name,
+            f"q {tuple(q.shape)} {q.placements} must be (B, H, 1, hd), "
+            f"whole on mesh dim {m}, which splits the cache's sequence")
+    for j in range(mesh.ndim):
+        pl = {t.placements[j] for t in (q, k, lengths)}
+        require(j == m or (len(pl) == 1 and pl <= {Replicate(), Shard(0)}),
+                name, f"mesh dim {j} splits q, the cache and the lengths "
+                f"otherwise than on their batch ({q.placements}, "
+                f"{k.placements}, {lengths.placements})")
+    require(k.shape[-2] % mesh.size(m) == 0, name,
+            f"{k.shape[-2]} slots do not split {mesh.size(m)} ways")
+    c = mesh.get_local_rank(m)
+    hd = q.shape[-1]
+    kw = dict(window=0, softcap=softcap, with_lse=True)
+
+    def local(q, k, v, lengths):
+        n = k.shape[-2]
+        lengths = (lengths - c * n).clamp(0, n).to(torch.int32)
+        note_call(name, (q, k, v, lengths), kw)
+        o, lse = _decode_flat(q, k, v, lengths, **kw)
+        return torch.cat([o, lse[..., None, None]], dim=-1)[None]
+
+    def shifted(p):
+        return Shard(p.dim + 1) if p.is_shard() else p
+    shape = (mesh.size(m), *q.shape[:-1], hd + 1)
+    parts = on_local(local, (q, k, v, lengths), ((shape, tuple(
+        Shard(0) if j == m else shifted(p)
+        for j, p in enumerate(q.placements))),))[0]
+    parts = place(parts, [Replicate() if j == m else p
+                          for j, p in enumerate(parts.placements)])
+    return on_local(lambda t: _decode.combine_splits(t[..., :hd], t[..., hd],
+                                                     q.dtype),
+                    (parts,), ((q.shape, tuple(q.placements)),))[0]
 
 
 def ssm_scan(xbar: torch.Tensor, B: torch.Tensor, C: torch.Tensor,

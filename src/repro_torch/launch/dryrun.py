@@ -30,8 +30,9 @@ start, as on the card's later microbatches, and the step's peak is that
 microbatch's peak or the update's; its flops and bytes are the
 microbatch's times the count, plus the update's.
 
-On a mesh of more than one device every stack with text input runs the
-sharded step (the ``uniform`` stacks, dense and MoE, gemma3's
+On a mesh of more than one device every arch runs the sharded step (the
+``uniform`` stacks, dense and MoE, with text or a frontend's embeddings,
+qwen2-vl's cache split on its sequence among them, gemma3's
 ``local_global`` rings, zamba2's and rwkv6's scans on their heads): rank
 0 of the mesh
 under ``mesh.fake_group`` on a ``cpu`` device mesh, its parameters,
@@ -40,9 +41,7 @@ optimizer state, cache and batch meta DTensors at their resolved specs
 rank's local ops (:class:`CollectiveCounter`), so the memory, flops and
 bytes are one device's, and it counts the collectives by kind with their
 operand bytes (XLA's ``collective_bytes``); ``t_collective`` is those
-bytes over ``mesh.NVLINK_BW``. The frontend archs (qwen2-vl-2b,
-musicgen-large) keep the argument bytes per device only, with the reason
-they wait for (:data:`NOT_SHARDED`).
+bytes over ``mesh.NVLINK_BW``.
 
   python -m repro_torch.launch.dryrun --arch deepseek-7b --shape train_4k \\
       --mesh single
@@ -90,12 +89,6 @@ from .mesh import (CUBLAS_WORKSPACE, HBM_BW, HBM_USABLE, MESHES, NVLINK_BW,
 ALLOC_ROUND = 512       # the caching allocator's block granularity
 META = torch.device("meta")
 OUT_DIR = "results/dryrun_torch"
-#: why a family runs no sharded step yet: the slice it waits for
-NOT_SHARDED = {
-    "frontend": "the sharded step of the frontend archs is a later slice "
-                "(qwen2-vl's 2 KV heads put its cache's sequence on the "
-                "model axis; musicgen's audio embeddings)",
-}
 #: the functional collectives (DTensor's) by XLA's kind names
 COLLECTIVES = {"all_gather_into_tensor": "all-gather",
                "all_reduce": "all-reduce",
@@ -135,15 +128,6 @@ def fresh_process_bytes(specs: dict, ctx: Optional[ShardingCtx],
                      - alloc_bytes(s.bytes_per_device(ctx))
                      for group in specs.values() for s in group.values())
     return remainders + (2 if kind == "train" else 1) * CUBLAS_WORKSPACE
-
-
-def not_sharded(cfg: ModelConfig) -> Optional[str]:
-    """None where the family runs the sharded step (every stack with
-    text input: uniform, dense or MoE, local_global, zamba and rwkv), else
-    the reason it does not yet."""
-    if cfg.modality != "text" or cfg.mrope:
-        return NOT_SHARDED["frontend"]
-    return None
 
 
 def _group_size(group_name: str) -> int:
@@ -553,16 +537,6 @@ def run_cell(arch: str, shape_name: str, mesh_name: str = "single", *,
         out["mem_arg_bytes"] = arg_bytes_per_device(specs, ctx)
         out["fresh_process_bytes"] = fresh_process_bytes(specs, ctx,
                                                          shape.kind)
-    why = not_sharded(cfg) if chips > 1 else None
-    if why:
-        out.update(reason=why, lower_s=None, mem_temp_bytes=None,
-                   mem_out_bytes=None, mem_alias_bytes=None, peak_bytes=None,
-                   fits=False if out["mem_arg_bytes"] > HBM_USABLE else None,
-                   hlo_flops_dev=None, hlo_bytes_dev=None,
-                   coll_bytes_dev=None, t_compute=None, t_memory=None,
-                   t_collective=None, bottleneck=None,
-                   roofline_fraction=None, useful_flops_ratio=None)
-        return out
     t0 = time.time()
     with sharded_step(mesh) if chips > 1 else nullcontext():
         if shape.kind == "train":
@@ -646,11 +620,8 @@ def deepest_fit(arch: str, shape_name: str = "train_4k", *, batch: int = 0,
     even one layer does not fit): a bisection over the depth, the peak
     growing with it."""
     def cell(layers):
-        res = run_cell(arch, shape_name, mesh, layers=layers, batch=batch,
-                       microbatches=microbatches)
-        if res.get("peak_bytes") is None:
-            raise ValueError(f"{arch} on {mesh}: {res.get('reason')}")
-        return res
+        return run_cell(arch, shape_name, mesh, layers=layers, batch=batch,
+                        microbatches=microbatches)
     lo, hi = 0, get_config(arch).n_layers
     while lo < hi:
         mid = (lo + hi + 1) // 2

@@ -31,6 +31,7 @@ in f32 for P V).
 """
 from __future__ import annotations
 
+import math
 from functools import lru_cache, partial
 from typing import Optional
 
@@ -147,12 +148,21 @@ def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
          positions: torch.Tensor):
     """Project + rope. positions: (B, S), or (3, B, S) M-RoPE streams
     (a (B, S) one is broadcast to the three). Returns q: (B, KV, G, S,
-    hd), k/v: (B, KV, S, hd)."""
+    hd), k/v: (B, KV, S, hd). On DTensors whose query heads are split in
+    more pieces than the KV heads divide into (qwen2-vl's 12 over 2 on a
+    model axis of 4: each rank's columns of ``wk`` are half a head), k
+    and v are gathered whole (small: (B, KV, S, hd)) before the rope and
+    q stays (B, H, S, hd) on its heads."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = mm(x, p.wq).view(B, S, H, hd).transpose(1, 2)
-    k = mm(x, p.wk).view(B, S, KV, hd).transpose(1, 2)
-    v = mm(x, p.wv).view(B, S, KV, hd).transpose(1, 2).contiguous()
+    q = mm(x, p.wq)
+    k, v = mm(x, p.wk), mm(x, p.wv)
+    gathered = KV % _shards(q, 2) != 0
+    if gathered:
+        k, v = (shard(t, "batch", "seq", None) for t in (k, v))
+    q = q.view(B, S, H, hd).transpose(1, 2)
+    k = k.view(B, S, KV, hd).transpose(1, 2)
+    v = v.view(B, S, KV, hd).transpose(1, 2).contiguous()
     if cfg.mrope:
         pos3 = (positions if positions.dim() == 3 else
                 positions[None].expand(3, *positions.shape))[:, :, None]
@@ -161,7 +171,59 @@ def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     else:
         q = apply_rope(q, positions[:, None], cfg.rope_theta)
         k = apply_rope(k, positions[:, None], cfg.rope_theta)
-    return q.view(B, KV, H // KV, S, hd), k, v
+    return (q if gathered else q.view(B, KV, H // KV, S, hd)), k, v
+
+
+def _shards(t: torch.Tensor, dim: int) -> int:
+    """The pieces a DTensor's ``dim`` is split in (1: whole, or a plain
+    tensor)."""
+    if not is_dtensor(t):
+        return 1
+    return math.prod(t.device_mesh.size(m) for m, p in enumerate(t.placements)
+                     if p.is_shard(dim))
+
+
+def seq_slots(cache: torch.Tensor) -> Optional[tuple[torch.Tensor, int]]:
+    """For a DTensor cache (..., max_len, hd) split on its sequence (JAX's
+    ``kv_seq``, where the KV heads do not divide the model axis): this
+    rank's shard, a view to write in place, and the first slot it holds;
+    None for any other cache."""
+    if not is_dtensor(cache):
+        return None
+    at = [m for m, p in enumerate(cache.placements)
+          if p.is_shard(cache.ndim - 2)]
+    if not at:
+        return None
+    local = cache.to_local()
+    return local, cache.device_mesh.get_local_rank(at[0]) * local.shape[-2]
+
+
+def clear_from(cache: torch.Tensor, S: int) -> None:
+    """``cache[..., S:, :] = 0`` in place, on a cache split on its
+    sequence the slots from S on that this rank holds."""
+    got = seq_slots(cache)
+    if got is None:
+        cache[..., S:, :].zero_()
+        return
+    local, first = got
+    local[..., max(S - first, 0):, :].zero_()
+
+
+def write_prompt(cache: torch.Tensor, new: torch.Tensor) -> None:
+    """``cache[:, :, :S] = new``: a layer's prompt keys or values (B, KV,
+    S, hd) into its cache (B, KV, max_len, hd), in place. On a cache split
+    on its sequence each rank writes the slots it holds at their local
+    offsets, from ``new`` whole on that mesh dim (placed as the cache
+    elsewhere); a prompt may end inside any rank's slice."""
+    S = new.shape[2]
+    got = seq_slots(cache)
+    if got is None:
+        cache[:, :, :S] = new
+        return
+    local, first = got
+    n = min(S - first, local.shape[2])
+    if n > 0:
+        local[:, :, :n] = new.to_local()[:, :, first:first + n]
 
 
 def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
@@ -214,9 +276,17 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
         # size is known on the host: the step is captured in a CUDA
         # graph; `%` and `clamp` are device ops), made contiguous for
         # the kernel (a flat view of an expand of one row has stride 0)
-        lengths = shard(n_live.to(torch.int32)[:, None, None]
-                        .expand(B, KV, H // KV), "batch", "kv_heads",
-                        None).contiguous()
+        if q.dim() == 4:
+            # _qkv gathered the KV heads: every rank takes every query
+            # head over its slice of the cache's sequence (kernels.ops:
+            # the ranks' partial softmax states merged)
+            q = shard(q, "batch", None, None, None)
+            lengths = shard(n_live.to(torch.int32)[:, None].expand(B, H),
+                            "batch", None).contiguous()
+        else:
+            lengths = shard(n_live.to(torch.int32)[:, None, None]
+                            .expand(B, KV, H // KV), "batch", "kv_heads",
+                            None).contiguous()
         args = ((q, k_cache, v_cache, lengths) if sharded else
                 (q.flatten(0, 2), k_cache.flatten(0, 1),   # a row a head
                  v_cache.flatten(0, 1), lengths.flatten()))
@@ -237,11 +307,27 @@ def write_slot(slot: torch.Tensor, *pairs) -> None:
     """``cache[b, :, slot[b]] = new[b]`` for every row b of each ``(cache,
     new)`` pair, (B, KV, S, hd) caches, in place, with one row index for
     all; on DTensors each rank writes its own rows and heads (``new`` and
-    ``slot`` placed as the cache's rows and heads)."""
+    ``slot`` placed as the cache's rows and heads). On caches split on
+    their sequence (:func:`seq_slots`; ``new`` and ``slot`` whole on that
+    mesh dim) only the rank that holds slot p writes it, at its local
+    offset; the others write back what they hold (no host sync: the
+    slots are device values)."""
+    first = None
+    if is_dtensor(slot):
+        got = seq_slots(pairs[0][0])
+        first = got[1] if got else None
+
     def write(slot, *tensors):
         rows = torch.arange(slot.shape[0], device=slot.device)
         for cache, new in zip(tensors[::2], tensors[1::2]):
-            cache[rows, :, slot] = new
+            if first is None:
+                cache[rows, :, slot] = new
+                continue
+            at = slot - first
+            own = (at >= 0) & (at < cache.shape[2])
+            at = at.clamp(0, cache.shape[2] - 1)
+            cache[rows, :, at] = torch.where(own[:, None, None], new,
+                                             cache[rows, :, at])
     tensors = [t for pair in pairs for t in pair]
     if not is_dtensor(slot):
         return write(slot, *tensors)

@@ -59,7 +59,7 @@ from ..distributed.sharding import (TensorSpec, is_dtensor, named_sharding,
                                    place, shard)
 from ..kernels import ops
 from .layers import (MATMUL, MLP, Attention, MoE, _param, attention, mlp,
-                     moe, rmsnorm)
+                     clear_from, moe, rmsnorm, write_prompt)
 from .rwkv import RWKV, rwkv_block, rwkv_dims
 from .ssm import SSM, ssm_block, ssm_decode, ssm_dims
 
@@ -462,7 +462,7 @@ class LM(nn.Module):
             self._check_cache(cache, B, max_len)
             for name in ("k", "v", "k_win", "v_win"):
                 if name in cache:
-                    cache[name][:, :, :, S:].zero_()
+                    clear_from(cache[name], S)
         x = (self.embed_tokens(tokens) if embeds is None
              else self.embed_vectors(embeds))
         positions = torch.arange(S, device=tokens.device).expand(B, S)
@@ -470,15 +470,15 @@ class LM(nn.Module):
             for i, block in enumerate(self.layers):
                 x, kv, _ = self._layer(block.attn, block.ffn, x, positions,
                                        update_cache=True)
-                cache["k"][i, :, :, :S] = kv["k"]
-                cache["v"][i, :, :, :S] = kv["v"]
+                write_prompt(cache["k"][i], kv["k"])
+                write_prompt(cache["v"][i], kv["v"])
         elif self.kind == "local_global":
             for block, (glob, j, window) in zip(self.layers, self._lg()):
                 x, kv, _ = self._layer(block.attn, block.ffn, x, positions,
                                        window=window, update_cache=True)
                 if glob:
-                    cache["k"][j, :, :, :S] = kv["k"]
-                    cache["v"][j, :, :, :S] = kv["v"]
+                    write_prompt(cache["k"][j], kv["k"])
+                    write_prompt(cache["v"][j], kv["v"])
                 else:          # the last min(S, W) keys, p at slot p % W
                     W = cache["k_win"].shape[3]
                     p = torch.arange(max(0, S - W), S, device=x.device)
@@ -493,8 +493,8 @@ class LM(nn.Module):
                 if g is not None:
                     x, kv, _ = self._layer(self.shared_attn, self.shared_mlp,
                                            x, positions, update_cache=True)
-                    cache["k"][g, :, :, :S] = kv["k"]
-                    cache["v"][g, :, :, :S] = kv["v"]
+                    write_prompt(cache["k"][g], kv["k"])
+                    write_prompt(cache["v"][g], kv["v"])
         else:
             for i, layer in enumerate(self.layers):
                 x, st = rwkv_block(layer, x, cfg, kernels=self.kernels)

@@ -295,8 +295,12 @@ def shard_params(lm, ctx: Optional[ShardingCtx] = None, *,
     device, or with ``device`` (the card) drawn there as
     :func:`init_params` draws it (a generator seeded with the rank). The
     whole tensor is never made: deepseek-67b's f32 masters whole are
-    269.7 GB. Parameters with values take :func:`from_jax_numpy`'s
-    sharded form."""
+    269.7 GB. On the card every shard is allocated, in its dtype, before
+    the first f32 draw is made and cast into its shard: the shards are
+    the process's first allocations, each in a segment of its own, as the
+    dry run counts them (``fresh_process_bytes``), never cut from a
+    draw's freed block; the values are the same. Parameters with values
+    take :func:`from_jax_numpy`'s sharded form."""
     ctx = ctx or current_ctx()
     if ctx is None or ctx.device_mesh is None:
         raise ValueError("shard_params needs a context with a device mesh")
@@ -309,21 +313,26 @@ def shard_params(lm, ctx: Optional[ShardingCtx] = None, *,
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(mesh.get_rank())
-    for name, p in list(lm.named_parameters()):
+    shards = {}
+    for name, p in lm.named_parameters():
         if not p.is_meta:
             raise ValueError(f"shard_params: {name} is not on the meta "
                              "device (from_jax_numpy(..., ctx=) places "
                              "parameters with values)")
         spec = TensorSpec(tuple(p.shape), specs[name].axes, p.dtype)
         shape = spec.local_shape(ctx)
-        if gen is None:
-            local = torch.empty(shape, dtype=p.dtype, device=p.device)
-        elif init[name].init in ("zeros", "ones"):
+        if gen is not None and init[name].init in ("zeros", "ones"):
             fill = torch.zeros if init[name].init == "zeros" else torch.ones
             local = fill(shape, dtype=p.dtype, device=dev)
         else:
-            local = (torch.randn(shape, generator=gen, device=dev)
-                     * init[name].std).to(p.dtype)
+            local = torch.empty(shape, dtype=p.dtype,
+                                device=p.device if gen is None else dev)
+        shards[name] = (spec, local)
+    for name, p in list(lm.named_parameters()):
+        spec, local = shards.pop(name)
+        if gen is not None and init[name].init not in ("zeros", "ones"):
+            local.copy_(torch.randn(local.shape, generator=gen, device=dev)
+                        * init[name].std)
         t = on_mesh(local, p.shape, spec.spec(ctx), ctx)
         owner, _, leaf = name.rpartition(".")
         module = lm.get_submodule(owner) if owner else lm

@@ -228,14 +228,9 @@ def test_dry_run_of_each_family(arch, monkeypatch):
                                                                      None)
         quad = dryrun.run_cell(arch, shape, "quad", **kw)
         assert keys <= set(quad)
-        why = dryrun.not_sharded(cfg)
-        if why is None:              # the dense stacks run the sharded step
-            assert quad.get("reason") is None
-            assert quad["mem_temp_bytes"] > 0 and quad["t_collective"] > 0
-        else:
-            assert quad["reason"] == why
-            assert quad["mem_temp_bytes"] is None
-            assert quad["t_collective"] is None
+        # every family runs the sharded step
+        assert quad.get("reason") is None
+        assert quad["mem_temp_bytes"] > 0 and quad["t_collective"] > 0
         assert 0 < quad["mem_arg_bytes"] < res["mem_arg_bytes"]
     assert all(v == 0 for v in ops.launch_counts().values())
     assert CpuSpy.cpu_bytes < 1 << 20     # bookkeeping only (index tables)
@@ -364,8 +359,7 @@ def test_deepest_fit_takes_the_mesh(monkeypatch):
     """``deepest_fit(mesh=)`` bisects the depth on one device of the mesh
     it is given, on ``run_cell``'s ``fits`` (a stand-in cell whose peak
     grows 10 GB a layer less 0.5 GB, and a fresh process holds 1 GB
-    beyond it: 7 layers fit 80 GB, where the peak alone would let 8),
-    and refuses a family whose sharded step waits."""
+    beyond it: 7 layers fit 80 GB, where the peak alone would let 8)."""
     seen = []
 
     def cell(arch, shape, mesh, *, layers, batch, microbatches):
@@ -378,9 +372,6 @@ def test_deepest_fit_takes_the_mesh(monkeypatch):
                                        batch=4, microbatches=2)
     assert (layers_, peak) == (7, 69_500_000_000)
     assert {m for m, _ in seen} == {"quad"}
-    monkeypatch.undo()
-    with pytest.raises(ValueError, match="later slice"):
-        dryrun.deepest_fit("qwen2-vl-2b", "decode_32k", mesh="quad")
 
 
 #: the local_global and scan stacks, at the depth their quad cell runs:
@@ -469,20 +460,83 @@ def test_quad_cell_of_a_ring_or_scan_stack(arch, shape):
         assert got["flash_attention"] == {((q, kv, kv), w) for w in windows}
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCHS
-                                  if dryrun.not_sharded(get_config(a))])
-def test_quad_keeps_its_nulls_with_a_reason(arch):
-    """The frontend archs' quad cell: the argument bytes only, with the
-    slice it waits for as the reason."""
-    shape = next(s for s in ("train_4k", "decode_32k")
-                 if shape_applicable(get_config(arch), SHAPES[s])[0])
-    quad = dryrun.run_cell(arch, shape, "quad", layers=2, batch=2)
-    assert quad["reason"] in dryrun.NOT_SHARDED.values()
-    assert quad["reason"] == dryrun.not_sharded(get_config(arch))
+FRONTEND = ("qwen2-vl-2b", "musicgen-large")
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("arch", FRONTEND)
+def test_quad_cell_of_a_frontend_stack(arch, shape):
+    """The sharded step's quad cell of the frontend archs, 2 layers at
+    batch 2, fed the frontend's embeddings (``batch_specs``): the
+    per-device figures are filled, the arguments are the resolver's bytes,
+    the collectives' bytes are ``coll_bytes_dev``, and each kernel ran on
+    rank 0's shards (``common.local_calls``). qwen2-vl's 2 KV heads do not
+    divide the model axis: flash takes each rank's 3 query heads over its
+    own KV head, q (b, 3, S, hd) over k (b, 1, S, hd); decode takes all 12
+    query heads over the rank's quarter of the cache, q (b, 12, 1, hd)
+    over (b, 2, S / 4, hd), with the log-sum-exp; the all-gathers are k's
+    and v's, and in decode q's and the ranks' (o, lse). musicgen's 32 heads and KV heads split four ways, 8 a
+    rank. Bound on the flops: the matmuls and the attention kernels split
+    four ways (qwen2-vl's decode over a quarter of the keys), the
+    collectives and the merge add none, and each norm runs on whole rows,
+    so 4 x the device's flops equal the single card's plus 3 x its norm
+    kernels' flops."""
+    from repro_torch.kernels import common
+    kw = dict(layers=2, batch=2,
+              microbatches=2 if shape == "train_4k" else 0)
+    kind, seq = SHAPES[shape].kind, SHAPES[shape].seq_len
+    cfg = get_config(arch).with_(n_layers=2)
+    single = dryrun.run_cell(arch, shape, "single", **kw)
+    with common.local_calls() as calls:
+        quad = dryrun.run_cell(arch, shape, "quad", **kw)
     for key in ("peak_bytes", "mem_temp_bytes", "hlo_flops_dev",
-                "coll_bytes_dev", "t_collective"):
-        assert quad[key] is None, key
-    assert quad["mem_arg_bytes"] > 0 and quad["collectives"] == {}
+                "hlo_bytes_dev", "coll_bytes_dev", "t_collective"):
+        assert quad[key] is not None and quad[key] > 0, key
+    assert quad["fits"] is True and "reason" not in quad
+    assert sum(c["bytes"] for c in quad["collectives"].values()) == \
+        quad["coll_bytes_dev"]
+    assert quad["t_collective"] == quad["coll_bytes_dev"] / NVLINK_BW
+    specs = dryrun.arg_specs(cfg, kind, 2, seq)
+    assert "embeds" in specs["batch"] or kind == "decode"
+    with use_mesh(mesh_preset("quad")) as ctx:
+        assert quad["mem_arg_bytes"] == dryrun.arg_bytes_per_device(specs,
+                                                                    ctx)
+    assert quad["kernels"].keys() == single["kernels"].keys()
+    norms = sum(k["flops"] for n, k in single["kernels"].items()
+                if n.startswith("fused_rmsnorm"))
+    assert 4 * quad["hlo_flops_dev"] == single["hlo_flops_dev"] + 3 * norms
+    assert quad["peak_bytes"] < single["peak_bytes"]
+    b = 1 if kind == "train" else 2          # a microbatch's rows
+    got = {}
+    for name, args, keys in calls:
+        got.setdefault(name, set()).add((tuple(s for s, _ in args),
+                                         tuple(keys)))
+    assert {n for n in quad["kernels"] if not n.endswith("_bwd")
+            and not n.startswith("flash_bwd")} == set(got)
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    if arch.startswith("qwen"):
+        assert (H, KV) == (12, 2)
+        q_train, kv_train = (b, 3, seq, hd), (b, 1, seq, hd)
+        q_decode, cache = (b, 12, 1, hd), (b, 2, seq // 4, hd)
+        lse = (("with_lse", True),)
+        # k and v gathered a layer (twice in a train step: the remat's
+        # recomputation), and in decode q and the ranks' (o, lse) too
+        gathers = {"train": 4 * 2 * 2, "prefill": 2 * 2, "decode": 4 * 2}
+        assert quad["collectives"]["all-gather"]["count"] == gathers[kind]
+    else:
+        assert H == KV == 32
+        q_train, kv_train = (b, 8, 1, seq, hd), (b, 8, seq, hd)
+        q_decode, cache = (b, 8, 1, 1, hd), (b, 8, seq, hd)
+        lse = ()
+        assert set(quad["collectives"]) == {"all-reduce"}
+    if kind == "decode":
+        assert got["decode_attention"] == {(
+            (q_decode, cache, cache, q_decode[:-2]),
+            (("softcap", 0.0), ("window", 0)) + lse)}
+    else:
+        assert got["flash_attention"] == {(
+            (q_train, kv_train, kv_train),
+            (("causal", True), ("softcap", 0.0), ("window", 0)))}
 
 
 def test_train_cell_counts_its_kernels_and_microbatches():
@@ -657,6 +711,29 @@ def test_meta_decode():
     assert dryrun.peak_of(lambda: ops.decode_attention(q, k, v, lengths),
                           (q, k, v, lengths)) == \
         nb(q, meta(bh, splits, hd + 2))
+
+
+def test_meta_decode_lse():
+    """The log-sum-exp route on meta: the output in f32 and the lse (BH,)
+    f32, allocated with the partials, and the route's bytes recorded (o
+    written in f32, the lse too)."""
+    bh, bh_kv, S, hd = 8, 4, 1000, 128
+    q, k, v = meta(bh, 1, hd, dtype=BF), *(meta(bh_kv, S, hd, dtype=BF)
+                                           for _ in range(2))
+    lengths = meta(bh, dtype=torch.int32)
+
+    def call():
+        return da.decode_attention_cuda(q, k, v, lengths, with_lse=True)
+    (out, lse), calls = recorded(call)
+    assert (tuple(out.shape), out.dtype) == ((bh, 1, hd), F32)
+    assert (tuple(lse.shape), lse.dtype) == ((bh,), F32)
+    cost = costs.decode(bh, bh_kv, hd, BF, bh * S, bh_kv * S, lse=True)
+    assert calls == [("decode_attention", *cost)]
+    assert cost[0] == costs.decode(bh, bh_kv, hd, BF, bh * S,
+                                   bh_kv * S)[0] + bh * hd * 2 + bh * 4
+    _, splits = da.plan_splits(S)
+    assert dryrun.peak_of(call, (q, k, v, lengths)) == \
+        nb(meta(bh, 1, hd), meta(bh), meta(bh, splits, hd + 2))
 
 
 def test_meta_ssm_scan():

@@ -24,7 +24,20 @@ not divide the model axis), the gemma3-27b smoke on (2, 2) at window 12
 (a 16-token prompt wraps its rings), the zamba2-1.2b smoke on (1, 4) at
 ssm head dim 16 (8 heads, 2 a rank) and the rwkv6-1.6b smoke on (2, 2)
 at head dim 16 (4 heads, 2 a rank), each field changed in both
-packages. The four ranks come from one ``mp.spawn`` for each family
+packages. The frontend archs, both smokes unchanged on (1, 4): qwen2-vl-2b
+(4 heads over 2 KV heads, M-RoPE), whose KV heads do not divide the
+model axis, so the cache's sequence is split (MAX_LEN 20: 5 slots a
+rank, the 16-token prompt ending inside rank 3's slice), k and v are
+gathered whole for flash (each rank's query head over its own KV head)
+and decode runs on each rank's slice, the ranks' partial softmax states
+merged (the M-RoPE streams, like every activation, keep their sequence
+whole on each rank); musicgen-large, whose untied token embedding the
+loss then does not reach: it takes a zero gradient, a DTensor at its
+placements. Both are fed their frontend's embeddings made from the
+unsharded weights (``input_embeds_for``: qwen2-vl's vision patches then
+its text, musicgen's codebooks; the same (B, S, d) array in both
+packages), placed as the dry run places them. The four ranks come from one
+``mp.spawn`` for each family
 group (SPAWNS), joined by a ``FileStore`` under ``tmp_path`` (no port to
 contend for), and each spawn must end within ``SPAWN_LIMIT_S``. JAX runs
 only in the test process.
@@ -77,6 +90,11 @@ Tolerances:
   7.4e-5 against 1.4e-4), so prefill and decode run again in f64, held
   within 2e-5, and the f32 logits within F32_FLOOR_MARGIN x that floor;
   JAX's f32 logits are held against the f32 ones.
+* the frontend archs' gradients are held in f32 by the first rule: no
+  leaf sits at its floor (on the CPU qwen2-vl's largest gap is 2.3e-5,
+  layer 0's ``w_down`` at a floor of 5.7e-5; musicgen's 9.8e-6), and
+  musicgen's token embedding, which the loss does not reach, is zero in
+  both.
 """
 import functools
 import os
@@ -111,6 +129,7 @@ SPAWN_LIMIT_S = 240
 MOONSHOT, GRANITE = "moonshot-v1-16b-a3b", "granite-moe-3b-a800m"
 GEMMA12, GEMMA27 = "gemma3-12b", "gemma3-27b"
 ZAMBA, RWKV = "zamba2-1.2b", "rwkv6-1.6b"
+QWEN, MUSICGEN = "qwen2-vl-2b", "musicgen-large"
 #: case -> (arch, (data, model) mesh, the smoke's fields changed: module
 #: docstring)
 CASES = {"deepseek-7b": ("deepseek-7b", (1, 4), {}),
@@ -122,12 +141,14 @@ CASES = {"deepseek-7b": ("deepseek-7b", (1, 4), {}),
                                      "n_kv_heads": 4}),
          GEMMA27: (GEMMA27, (2, 2), {"local_window": 12}),
          ZAMBA: (ZAMBA, (1, 4), {"ssm_head_dim": 16}),
-         RWKV: (RWKV, (2, 2), {"rwkv_head_dim": 16})}
+         RWKV: (RWKV, (2, 2), {"rwkv_head_dim": 16}),
+         QWEN: (QWEN, (1, 4), {}),
+         MUSICGEN: (MUSICGEN, (1, 4), {})}
 MOE = [c for c, (a, _, _) in CASES.items() if a in (MOONSHOT, GRANITE)]
 #: the cases of each spawn of four ranks, by family: the uniform stacks,
-#: then gemma3's rings and the scans
+#: then gemma3's rings and the scans, then the frontend archs
 SPAWNS = (("deepseek-7b", "deepseek-67b", *MOE),
-          (GEMMA12, GEMMA27, ZAMBA, RWKV))
+          (GEMMA12, GEMMA27, ZAMBA, RWKV), (QWEN, MUSICGEN))
 B, S, MAX_LEN = 4, 16, 20
 TCFG = TrainConfig(microbatches=1)
 F32, F64 = torch.float32, torch.float64
@@ -144,11 +165,31 @@ def _config(case, get=get_smoke):
     return get(arch).with_(**fields)
 
 
-def _inputs(cfg):
+def _inputs(cfg, tree):
+    """Tokens, targets and the decode step's token; for a vision or audio
+    arch the frontend's embeddings of the prompt (B, S, d) as f32 numpy,
+    made from the unsharded token embedding of ``tree`` (the vision
+    patches bf16 values, drawn from a generator seeded with 0), which the
+    dry run feeds such an arch in place of the prompt's tokens."""
     rng = np.random.default_rng(7)
-    return {"tokens": rng.integers(0, cfg.vocab, (B, S)),
-            "targets": rng.integers(0, cfg.vocab, (B, S)),
-            "next": rng.integers(0, cfg.vocab, (B,))}
+    out = {"tokens": rng.integers(0, cfg.vocab, (B, S)),
+           "targets": rng.integers(0, cfg.vocab, (B, S)),
+           "next": rng.integers(0, cfg.vocab, (B,))}
+    if cfg.modality != "text":
+        from repro_torch.models.frontends import input_embeds_for
+        table = torch.from_numpy(np.array(tree["embed"], np.float32))
+        out["embeds"] = input_embeds_for(
+            cfg, {"embed": table}, torch.from_numpy(out["tokens"])) \
+            .float().numpy()
+    return out
+
+
+def _embeds(inputs, place):
+    """The inputs' frontend embeddings placed as the dry run places them
+    (``("batch", "seq", None)``), or None."""
+    if "embeds" not in inputs:
+        return None
+    return place(torch.from_numpy(inputs["embeds"]), ("batch", "seq", None))
 
 
 def _serve(cfg, params, inputs, place, counted, dtype=F32):
@@ -157,9 +198,10 @@ def _serve(cfg, params, inputs, place, counted, dtype=F32):
     out = {}
     lm = LM.from_params(cfg, params, dtype=dtype)
     tokens = place(torch.from_numpy(inputs["tokens"]), ("batch", "seq"))
+    embeds = _embeds(inputs, place)
     with torch.no_grad():
         with counted("prefill"):
-            logits, cache = lm.prefill(tokens, MAX_LEN)
+            logits, cache = lm.prefill(tokens, MAX_LEN, embeds=embeds)
         out["prefill"] = place.full(logits)
         token = place(torch.from_numpy(inputs["next"]), ("batch",))
         pos = place(torch.full((B,), S, dtype=torch.int64), ("batch",))
@@ -193,11 +235,18 @@ def _steps(cfg, tree, inputs, place, counted, grad_dtype=F32,
         p.requires_grad_(True)
     batch = {k: place(torch.from_numpy(inputs[k]), ("batch", "seq"))
              for k in ("tokens", "targets")}
+    if "embeds" in inputs:
+        batch["embeds"] = _embeds(inputs, place)
     opt = init_opt_state(params)
     with counted("train"):
         loss, grads = loss_and_grads(lm, batch, TCFG, TCFG.remat != "none")
     out["loss"] = place.full(loss)
     out["grads"] = {n: place.full(g) for n, g in grads.items()}
+    # each gradient at its parameter's placements (a plain tensor: None)
+    out["grad_placements"] = {
+        n: (tuple(g.placements) == tuple(params[n].placements)
+            if hasattr(g, "placements") else None)
+        for n, g in grads.items()}
     with counted("train"):
         adamw_update(params, grads, opt, TCFG, leaf_order(params, cfg))
     out["update"] = {n: place.full(p.detach()) for n, p in params.items()}
@@ -273,7 +322,8 @@ def _rank(rank, store_path, out_dir, jobs):
                 log.extend(counter.log)
 
             with use_mesh(mesh, device_mesh=device_mesh(mesh, "cpu")) as ctx:
-                out = _steps(cfg, tree, _inputs(cfg), _Sharded(ctx), counted,
+                out = _steps(cfg, tree, _inputs(cfg, tree), _Sharded(ctx),
+                             counted,
                              GRAD_DTYPE.get(case, F32),
                              LOGITS_DTYPE.get(case, F32))
             out["collectives"], out["collective_log"] = counts, log
@@ -301,10 +351,12 @@ def jax_side():
         params = materialize(model_specs(jcfg), jax.random.PRNGKey(0))
         tree = jax.tree.map(np.asarray, params)
         jl.set_compute_dtype(jnp.float32)
+        inputs = _inputs(_config(case), tree)
         try:
             logits, _ = JaxLM(jcfg).prefill(
-                params, jnp.asarray(_inputs(_config(case))["tokens"]),
-                max_len=MAX_LEN)
+                params, jnp.asarray(inputs["tokens"]), max_len=MAX_LEN,
+                embeds=(jnp.asarray(inputs["embeds"]) if "embeds" in inputs
+                        else None))
         finally:
             jl.set_compute_dtype(jnp.bfloat16)
         out[case] = (tree, np.asarray(logits))
@@ -350,7 +402,7 @@ def plain(jax_side):
         cfg, tree = _config(a), jax_side[a][0]
 
         def run(tr):
-            return _steps(cfg, tr, _inputs(cfg), _Plain(),
+            return _steps(cfg, tr, _inputs(cfg, tree), _Plain(),
                           lambda name: contextlib.nullcontext(),
                           GRAD_DTYPE.get(a, F32), LOGITS_DTYPE.get(a, F32))
         out[a] = run(tree)
@@ -426,8 +478,16 @@ def test_train_step_matches_unsharded(case, sharded, plain):
     assert set(got["grads"]) == set(want["grads"])
     floor = want["floor"]
     bad = {}
+    placed = got["grad_placements"]
+    assert set(placed.values()) == {True}, placed
     for n, g in want["grads"].items():
         scale = float(g.abs().max())
+        if n == "embed" and CASES[case][0] == MUSICGEN:
+            # the frontend's embeddings replace the tokens: the loss does
+            # not reach the token embedding, whose gradient is zero in
+            # both (a DTensor at its placements under sharding)
+            assert scale == 0 and not got["grads"][n].any(), n
+            continue
         assert scale > 0, n
         rel = float((got["grads"][n] - g).abs().max()) / scale
         f32 = ""
@@ -513,7 +573,8 @@ def test_capacity_case_drops_assignments(jax_side):
         for m in mods:
             m.routes = []
         with torch.no_grad():
-            lm.prefill(torch.from_numpy(_inputs(cfg)["tokens"]), MAX_LEN)
+            lm.prefill(torch.from_numpy(
+                _inputs(cfg, jax_side[case][0])["tokens"]), MAX_LEN)
         E, C = cfg.n_experts, layers.capacity(cfg, S)
         n = sum(int((r["slots"] == E * C).sum()) for m in mods
                 for r in m.routes)
@@ -556,14 +617,84 @@ def test_placements_follow_the_resolved_spec():
             placements((("model", "data"),), dm)
 
 
-def test_decode_refuses_a_cache_split_on_its_sequence():
-    """JAX's flash-decode fallback (the cache's sequence on the model axis
-    where the KV heads do not divide it) is not the sharded step's: the
-    kernel's helper says so."""
+def test_decode_over_a_sequence_split_cache_combines_to_the_whole():
+    """The sharded decode over a cache split on its sequence, without
+    ranks: one 20-slot cache cut into four 5-slot slices, each slice's
+    plain (o, lse) at its local lengths clamp(len - 5 r, 0, 5), merged in
+    slice order by ``combine_splits``, equals the plain decode over the
+    whole cache in f32 within 2e-5 (GQA, 3 query heads a cache row).
+    Lengths (0, 3, 5, 6, 17, 20): slices past a row's live prefix have no
+    live key (lse -inf, o zeros) and weigh nothing; a row of length 0 has
+    none anywhere and is zeros, as the whole cache's lse route gives."""
+    from repro_torch.kernels import decode_attention as da
+    gen = torch.Generator().manual_seed(3)
+    lens, G, hd, S, R = (0, 3, 5, 6, 17, 20), 3, 16, 20, 4
+    q = torch.randn(len(lens) * G, 1, hd, generator=gen)
+    k, v = (torch.randn(len(lens), S, hd, generator=gen) for _ in range(2))
+    lengths = torch.tensor(lens, dtype=torch.int32).repeat_interleave(G)
+    n = S // R
+    parts = [da.decode_attention_plain(
+        q, k[:, r * n:(r + 1) * n].contiguous(),
+        v[:, r * n:(r + 1) * n].contiguous(),
+        (lengths - r * n).clamp(0, n).to(torch.int32), with_lse=True)
+        for r in range(R)]
+    got = da.combine_splits(torch.stack([o for o, _ in parts]),
+                            torch.stack([lse[:, None] for _, lse in parts]),
+                            F32)
+    whole, lse = da.decode_attention_plain(q, k, v, lengths, with_lse=True)
+    live = lengths > 0
+    assert got.dtype == F32 and got.shape == q.shape
+    torch.testing.assert_close(got, whole, **TOL)
+    torch.testing.assert_close(
+        got[live], da.decode_attention_plain(q, k, v, lengths)[live], **TOL)
+    assert not got[~live].any() and bool(torch.isneginf(lse[~live]).all())
+    dead = [bool(torch.isneginf(lse_r[live]).any()) for _, lse_r in parts]
+    assert dead == [False, True, True, True]
+
+
+def test_plain_decode_lse_is_the_logsumexp_of_the_masked_scores():
+    """The plain decode's ``with_lse`` route: each row's log-sum-exp is
+    ``torch.logsumexp`` of its scaled (and capped) scores over its live
+    keys, -inf at length 0; its output is the plain decode's in f32, zeros
+    at length 0."""
+    import math
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.flash_attention import softcap_scores
+    gen = torch.Generator().manual_seed(5)
+    hd, S = 16, 12
+    lengths = torch.tensor([0, 1, 7, 12], dtype=torch.int32)
+    q = torch.randn(4, 1, hd, generator=gen, dtype=torch.bfloat16)
+    k, v = (torch.randn(2, S, hd, generator=gen, dtype=torch.bfloat16)
+            for _ in range(2))
+    for cap in (0.0, 1.5):
+        o, lse = da.decode_attention_plain(q, k, v, lengths, softcap=cap,
+                                           with_lse=True)
+        assert o.dtype == F32 and lse.shape == (4,) and lse.dtype == F32
+        scores = softcap_scores(torch.matmul(
+            q.float(), k.float().repeat_interleave(2, 0).transpose(1, 2))
+            / math.sqrt(hd), cap)[:, 0]
+        keep = torch.arange(S)[None, :] < lengths[:, None]
+        want = torch.logsumexp(torch.where(keep, scores, -math.inf), -1)
+        assert torch.isneginf(lse[0]) and torch.isneginf(want[0])
+        torch.testing.assert_close(lse[1:], want[1:], **TOL)
+        assert not o[0].any()
+        torch.testing.assert_close(
+            o[1:].to(q.dtype), da.decode_attention_plain(
+                q, k, v, lengths, softcap=cap)[1:], rtol=0, atol=0)
+
+
+def test_decode_over_a_sequence_split_cache_on_the_meta_device():
+    """The sharded decode's route over a cache split on its sequence, on
+    meta DTensors under the fake group (rank 0 of (1, 4)): the kernel
+    takes q whole on every head over the rank's quarter of the cache with
+    the log-sum-exp, the pairs are gathered over the model axis in one
+    all-gather, and the output lies as q; a window there raises, as does
+    q split on its heads over the split."""
     from torch.distributed.tensor import Replicate, Shard
 
     from repro_torch.distributed.sharding import on_mesh, use_mesh
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import common, ops
     from repro_torch.launch.mesh import fake_group
     meta = torch.device("meta")
     with fake_group(4):
@@ -574,12 +705,64 @@ def test_decode_refuses_a_cache_split_on_its_sequence():
                          for i, n in enumerate(shape)]
                 return on_mesh(torch.empty(local, dtype=dtype, device=meta),
                                shape, spec, ctx)
-            q = put((2, 2, 4, 1, 64), (None, None, None, None, None))
+            q = put((2, 12, 1, 64), (None,) * 4)
             k = put((2, 2, 64, 64), (None, None, "model", None))
-            lengths = put((2, 2, 4), (None, None, None), torch.int32)
+            lengths = put((2, 12), (None, None), torch.int32)
             assert k.placements == (Replicate(), Shard(2))
-            with pytest.raises(ValueError, match="flash-decode fallback"):
-                ops.decode_attention(q, k, k, lengths)
+            counter = dryrun.CollectiveCounter()
+            with common.local_calls() as calls, counter:
+                out = ops.decode_attention(q, k, k, lengths)
+            assert out.shape == q.shape and out.dtype == q.dtype
+            assert out.placements == q.placements
+            assert calls == [("decode_attention", (
+                ((2, 12, 1, 64), "bfloat16"), ((2, 2, 16, 64), "bfloat16"),
+                ((2, 2, 16, 64), "bfloat16"), ((2, 12), "int32")),
+                (("softcap", 0.0), ("window", 0), ("with_lse", True)))]
+            assert counter.log == [("all-gather", (1, 2, 12, 1, 65))]
+            with pytest.raises(ValueError, match="window"):
+                ops.decode_attention(q, k, k, lengths, window=8)
+            heads = put((2, 12, 1, 64), (None, "model", None, None))
+            with pytest.raises(ValueError, match="whole on mesh dim"):
+                ops.decode_attention(heads, k, k, lengths)
+
+
+@pytest.mark.parametrize("rank", range(RANKS))
+def test_writes_to_a_sequence_split_cache_land_on_the_rank_that_holds_them(
+        rank):
+    """On a cache split four ways on its sequence (20 slots, 5 a rank),
+    rank ``rank`` of the fake group (its shards real CPU tensors): a
+    16-token prompt's keys land at the slots it holds, at local offsets
+    (the prompt ends inside rank 3's slice), a decode step's slot only on
+    the rank that holds it, and clearing from slot 7 zeroes only its own
+    slots from there."""
+    from repro_torch.distributed.sharding import on_mesh
+    from repro_torch.launch.mesh import fake_group
+    B_, KV, L, hd, n = 4, 2, 20, 3, 5
+    mine = slice(rank * n, (rank + 1) * n)
+    full = torch.arange(B_ * KV * L * hd, dtype=F32).view(B_, KV, L, hd)
+    new = -torch.arange(B_ * KV * S * hd, dtype=F32).view(B_, KV, S, hd) - 1
+    with fake_group(RANKS, rank):
+        mesh = make_mesh(1, RANKS, [torch.device("cpu")] * RANKS)
+        with use_mesh(mesh, device_mesh=device_mesh(mesh, "cpu")) as ctx:
+            def split(t):
+                return on_mesh(t[:, :, mine].clone(), t.shape,
+                               (None, None, "model"), ctx)
+
+            def whole(t, spec):
+                return on_mesh(t.clone(), t.shape, spec, ctx)
+            cache = split(full)
+            layers.write_prompt(cache, whole(new, ()))
+            want = full.clone()
+            want[:, :, :S] = new
+            torch.testing.assert_close(cache.to_local(), want[:, :, mine])
+            slot = torch.tensor([3, 7, 12, 19])
+            step = torch.full((B_, KV, hd), 0.5)
+            layers.write_slot(whole(slot, ()), (cache, whole(step, ())))
+            want[torch.arange(B_), :, slot] = step
+            torch.testing.assert_close(cache.to_local(), want[:, :, mine])
+            layers.clear_from(cache, 7)
+            want[:, :, 7:] = 0
+            torch.testing.assert_close(cache.to_local(), want[:, :, mine])
 
 
 def test_norm_weight_gradient_is_a_partial_sum_of_the_row_shards():
@@ -673,6 +856,37 @@ def test_shard_params_cuts_meta_parameters_and_refuses_values():
                                                  dtype=F32))
             with pytest.raises(ValueError, match="meta"):
                 shard_params(lm, ctx)
+
+
+def test_shard_params_draws_each_shard_as_init_params_draws():
+    """With a device, each rank's shard is drawn as ``init_params`` draws a
+    leaf, in parameter order from a generator seeded with the rank: N(0,
+    1) in f32 times the leaf's std, rounded to the shard's dtype (bf16
+    serving weights here), or zeros and ones; every shard is allocated
+    before the first draw is cast into it, with the same values."""
+    from repro_torch.launch.mesh import fake_group
+    from repro_torch.params import jax_leaves, shard_params
+    cfg = _config(QWEN)
+    init = {n: leaf for leaf in jax_leaves(cfg).values() for n in leaf.names}
+    with fake_group(4):
+        mesh = make_mesh(1, 4, [torch.device("cpu")] * 4)
+        with use_mesh(mesh, device_mesh=device_mesh(mesh, "cpu")) as ctx:
+            lm = shard_params(LM(cfg, device="meta", dtype=torch.bfloat16),
+                              ctx, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    dtypes = set()
+    for name, p in lm.named_parameters():
+        local = p.to_local()
+        leaf = init[name]
+        if leaf.init in ("zeros", "ones"):
+            want = (torch.zeros if leaf.init == "zeros" else torch.ones)(
+                local.shape, dtype=p.dtype)
+        else:
+            want = (torch.randn(local.shape, generator=gen) * leaf.std) \
+                .to(p.dtype)
+        assert local.dtype == p.dtype and torch.equal(local, want), name
+        dtypes.add(p.dtype)
+    assert dtypes == {torch.bfloat16, F32}
 
 
 def test_moe_refuses_unsplit_experts_and_route_collection():
