@@ -63,7 +63,7 @@ package. In order it:
    the bf16 flash_attention kernel of any head dim of HEAD_DIMS, the
    bf16 ssm_scan kernel, the flash backward's two bf16 tensor-core
    kernels (flash_bwd_dkdv_tc, flash_bwd_dq_tc) at hd 16, 32, 64, 128,
-   168 or 240, or any instance, bf16 or f32 B/C, of the ssm backward's
+   168 or 240, with or without the softcap, or any instance, bf16 or f32 B/C, of the ssm backward's
    two product kernels (ssm_bwd_prep, ssm_bwd_chunk: 3xTF32) have none
    (the build's ptxas lines, registers and spills of every instance,
    are printed before it);
@@ -126,7 +126,20 @@ package. In order it:
    kernels' log-sum-exp and the whole attention backward at hd 16, 32,
    64, 168 and 240, GQA G = 3, a window of 1024 at S 1500 and ragged S
    1, 63, 65, 130 (dw of the norm, a sum over N rows, at 2e-5 sqrt(N));
-   then the scans' backward kernels: ssm_scan_bwd at zamba2-1.2b's
+   then the flash backward's capped instances (the logit softcap BWD_CAP
+   = 2.0, max |s| / cap printed) at BH 64, S 4096, hd 128 in bf16, S 1024
+   in f32, gemma3-12b's hd 240 (BH 32 over 16, S 4096, with and without
+   the window of 1024) and gemma3-27b's hd 168 (BH 64 over 32), each
+   against autograd through the capped plain version, twice bitwise,
+   timed beside the uncapped kernel on the same inputs (with --flex also
+   beside the compiled flex_attention's backward with the softcap as its
+   score_mod, the library time: SDPA takes no cap; its compiles take
+   minutes, past this run's limit), and in bf16 each gradient's
+   ||kernel - plain|| / ||plain|| within BWD_LIB_RATIO times the
+   uncapped kernel's against the uncapped plain version (flex's too),
+   and gemma3-12b's local layer in f32 (hd 240, G = 2, window 1024, S
+   2048: the SIMT instances); then the scans' backward kernels:
+   ssm_scan_bwd at zamba2-1.2b's
    training microbatch (BH 128 = 2 x 64 heads over 2 B/C groups, S 4096,
    hd 64, ds 64, chunk 256, B/C bf16) and rwkv6_scan_bwd at rwkv6-1.6b's
    (BH 64 = 2 x 32 heads, S 4096, hd 64, f32), each against autograd
@@ -139,9 +152,9 @@ package. In order it:
    test's edge cases (ragged S,
    chunk 1, S 1, B/C groups, nonzero final-state gradients, a chunk whose
    log-decay spans more than 88; rwkv6's checkpoint edges, hd 16 to 128,
-   one u row, w at 0 and 1, bf16); then checks that decode_attention and
-   a capped flash_attention raise where a gradient is wanted, and that
-   ssm_scan's and rwkv6_scan's outputs carry a grad_fn; then holds the
+   one u row, w at 0 and 1, bf16); then checks that decode_attention
+   raises where a gradient is wanted, and that ssm_scan's, rwkv6_scan's
+   and a capped flash_attention's outputs carry a grad_fn; then holds the
    dry run's meta route (src/repro_torch/launch/dryrun.py) against the
    card: each kernel and backward kernel at the training shapes of its
    backward rows (decode at deepseek-7b's serving shape), the forward
@@ -182,7 +195,15 @@ package. In order it:
    same batches, the last traced, with the same prints and checks (its
    model FLOPs count GQA's K/V widths and the local layers' windowed
    pairs), so that the flash backward at hd 240 runs in a train step;
-   then zamba2-1.2b (38 Mamba2 layers, 64 heads of 64, ds 64, chunk 256,
+   then the f32 path check with the logit softcap at 2 layers on 2 x
+   2048 tokens, at gemma 2's cap of 50.0 and at the kernel rows' 2.0
+   (the loss and every gradient leaf through the kernels, the capped
+   flash backward, against the plain path within twice the leaf's
+   one-ulp floor, two draws of every f32 weight nudged one ulp, or 1e-3
+   of the scale where that is larger), and the 6-layer cut trained again
+   with the cap of 50.0, with the same prints and checks, its median
+   wall beside the uncapped one's; then zamba2-1.2b (38 Mamba2 layers,
+   64 heads of 64, ds 64, chunk 256,
    the shared attention block after every 6; 1.104 B parameters, 17.7 GB
    of f32 state) and rwkv6-1.6b (24 layers; 1.483 B, 23.7 GB) at full
    width and depth, 3 steps of the same batches each, the last traced,
@@ -191,7 +212,12 @@ package. In order it:
    share of the traced step) and checks, but for the losses' fall (these
    two start at ln(vocab), where three steps on three batches move the
    loss less than the batches differ: their losses must be finite), and
-   every parameter's gradient finite;
+   every parameter's gradient finite; then each of the two's block at
+   full width from a carried state (ssm_block(h=), rwkv_block(state)): a
+   600-token sequence run whole against its first 257 (and 256) tokens
+   followed by the rest from the returned state, in f32 and bf16, the
+   final states within 1e-3 of their scale and the output too (bf16: the
+   kernel tolerance, 2e-2);
 5. for each of deepseek-7b, zamba2-1.2b, rwkv6-1.6b,
    granite-moe-3b-a800m (32 layers of GQA attention and 40 experts, top
    8), qwen2-vl-2b (28 layers, M-RoPE, 12 query heads over 2 KV heads,
@@ -352,7 +378,11 @@ and prints no result. ``--phases`` runs a subset of shard (step 2b),
 sass (3), kernels (4), train (4c), models (5), mc (6), sweep (6d),
 costmodel (7) and fleet (7c) (for a
 partial check on the card, or to time another checkout's kernels with
-this script); it then prints no result line.
+this script); it then prints no result line. ``--flex`` (without the
+train phase) also times the compiled flex_attention (the softcap as its
+score_mod) as the capped flash backward rows' library call; its
+compiles (~2.3 minutes for the six shapes on an H100) are left out of
+the default run, which must end within its limit.
 """
 from __future__ import annotations
 
@@ -504,6 +534,13 @@ class Case(NamedTuple):
     # each output's ||kern - plain|| / ||plain|| at most this many times
     # the library's own (the Frobenius norm over the whole tensor)
     lib_ratio: Optional[float] = None
+    # the same kernel uncapped on the same inputs, timed beside a capped
+    # call (its ms printed and kept as uncapped_ms)
+    uncapped: Optional[Callable] = None
+    # in place of the library's norm-relative errors under lib_ratio: the
+    # uncapped kernel's against the uncapped plain version on the same
+    # inputs (a capped row's reference rounding)
+    ref_rel: Optional[list] = None
 
 
 def kernel_cases(kp):
@@ -1128,21 +1165,38 @@ def run_cases(cases, timer, rows: dict) -> dict:
             lib_ms = timer(c.lib)
         if c.lib_ratio is not None:
             ref = c.plain()
-            rel, lib_rel = norm_rel(out, ref), norm_rel(c.lib(), ref)
+            rel = norm_rel(out, ref)
+            whose = "the library's" if c.ref_rel is None else \
+                "the uncapped kernel's against the uncapped plain"
+            lib_rel = norm_rel(c.lib(), ref) if c.ref_rel is None else \
+                c.ref_rel
             print(f"kernel {c.name} [{c.label}]: ||kernel - plain|| / "
-                  f"||plain|| {', '.join(f'{e:.3e}' for e in rel)}, the "
-                  f"library's {', '.join(f'{e:.3e}' for e in lib_rel)} "
+                  f"||plain|| {', '.join(f'{e:.3e}' for e in rel)}, {whose} "
+                  f"{', '.join(f'{e:.3e}' for e in lib_rel)} "
                   f"(at most {c.lib_ratio}x)", flush=True)
-            if not all(a <= c.lib_ratio * b for a, b in zip(rel, lib_rel)):
+            if not all(a <= c.lib_ratio * b for a, b in zip(
+                    rel, lib_rel, strict=True)):
                 fail(f"{c.name} [{c.label}]: the kernel's norm-relative error "
-                     f"{rel} is more than {c.lib_ratio}x the library's "
-                     f"{lib_rel}")
+                     f"{rel} is more than {c.lib_ratio}x {whose} {lib_rel}")
+            if c.ref_rel is not None and c.lib is not None:
+                own = norm_rel(c.lib(), ref)
+                print(f"kernel {c.name} [{c.label}]: the library's ||lib - "
+                      f"plain|| / ||plain|| "
+                      f"{', '.join(f'{e:.3e}' for e in own)}", flush=True)
+                if not all(a <= c.lib_ratio * b for a, b in zip(
+                        own, lib_rel, strict=True)):
+                    fail(f"{c.name} [{c.label}]: the library call's error "
+                         f"{own} is more than {c.lib_ratio}x {whose}: it "
+                         "computes another function")
             del ref
         b_ms, b_by = bound(c.nbytes, c.flops, c.flops_per_s)
         lib = ("library none" if lib_ms is None else
                f"library_ms {lib_ms:.4f} (library err {lib_err:.3e})")
+        un_ms = None if c.uncapped is None else timer(c.uncapped)
         print(f"kernel {c.name} [{c.label}]: max_abs_err {err:.3e} "
-              f"(tolerance {c.tol}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
+              f"(tolerance {c.tol}) ms {ms:.4f}"
+              f"{'' if un_ms is None else f' (uncapped {un_ms:.4f})'} "
+              f"plain_ms {plain_ms:.4f} "
               f"{lib} bound_ms {b_ms:.5f} ({b_by}) bound/ms "
               f"{b_ms / ms:.3f}", flush=True)
         # the JSON line reports the serving dtype's case with the most work,
@@ -1151,6 +1205,8 @@ def run_cases(cases, timer, rows: dict) -> dict:
         measured = dict(case=c.label, max_abs_err=err, tolerance=c.tol,
                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                         bound_ms=b_ms, bound_by=b_by)
+        if un_ms is not None:
+            measured["uncapped_ms"] = un_ms
         if c.model:
             row.setdefault("model_cases", {}).setdefault(
                 c.model, []).append(measured)
@@ -1426,20 +1482,192 @@ def flash_bwd_cases(kb, args, plain, lib, label, tol, serving, window=0,
                lib_ratio=lib_ratio)
 
 
-def flash_grads(rt, q, k, v, do, window=0):
+# the logit softcap of the capped backward rows: it bends the random
+# scores (max |s| / cap ~2.8, printed), as gemma 2's 50.0 bends trained ones
+BWD_CAP = 2.0
+# (label, BH, BH_kv, S, hd, window, dtype, model): the training shape in
+# bf16 and, smaller, in f32 (the SIMT kernels), then gemma3-12b's global
+# and local layers, gemma3-27b's global one, and gemma3-12b's local layer
+# on the SIMT kernels
+CAPPED_BWD = (("BH 64, S 4096, hd 128", 64, 64, 4096, 128, 0,
+               torch.bfloat16, None),
+              ("BH 64, S 1024, hd 128", 64, 64, 1024, 128, 0, torch.float32,
+               None),
+              ("BH 32 over 16, S 4096, hd 240", 32, 16, 4096, 240, 0,
+               torch.bfloat16, GEMMA),
+              ("BH 32 over 16, S 4096, hd 240, window 1024", 32, 16, 4096,
+               240, 1024, torch.bfloat16, GEMMA),
+              ("BH 64 over 32, S 4096, hd 168", 64, 32, 4096, 168, 0,
+               torch.bfloat16, GEMMA27),
+              ("BH 32 over 16, S 2048, hd 240, window 1024", 32, 16, 2048,
+               240, 1024, torch.float32, GEMMA))
+
+
+def flex_softcap(score, b, h, q_idx, k_idx):
+    """flex_attention's score_mod of the capped rows: BWD_CAP tanh(s /
+    BWD_CAP) of the scaled score."""
+    return BWD_CAP * torch.tanh(score / BWD_CAP)
+
+
+def flex_mask(window: torch.Tensor):
+    """flex_attention's mask_mod: causal, keys k > q - window (``window``
+    a 0-d tensor, so every window shares one compiled graph; no window:
+    past any S)."""
+    def mask_mod(b, h, q_idx, k_idx):
+        return (k_idx <= q_idx) & (k_idx > q_idx - window)
+    return mask_mod
+
+
+FLEX_COMPILED: Optional[Callable] = None
+
+
+def flex_capped(q, k, v, window: int):
+    """The capped rows' library call: flex_attention with the softcap as
+    its score_mod, causal (and windowed) by a block mask, GQA as the
+    kernels group heads (q head i reads KV head i // G), compiled (its
+    eager form materializes the scores). Returns its output (1, BH, S,
+    hd) and the leaves (BH, S, hd) it was computed from."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    global FLEX_COMPILED
+    if FLEX_COMPILED is None:
+        FLEX_COMPILED = torch.compile(flex_attention, dynamic=False)
+    s = q.shape[1]
+    w = torch.tensor(window or s + 1, device="cuda")
+    mask = create_block_mask(flex_mask(w), None, None, s, s, device="cuda")
+    leaves = tuple(t.clone().requires_grad_(True) for t in (q, k, v))
+    out = FLEX_COMPILED(*(t[None] for t in leaves), score_mod=flex_softcap,
+                        block_mask=mask, enable_gqa=True)
+    return out, leaves
+
+
+def flex_warm() -> dict:
+    """Compiles flex_capped forward and backward at each of CAPPED_BWD's
+    shapes (random inputs; its caches under build/), so the rows time
+    compiled calls. Returns {label: why flex cannot run there} for the
+    shapes where it does not compile."""
+    import torch._functorch.config as functorch
+    import torch._inductor.config as inductor
+    inductor.compile_threads = 1       # no compile worker processes
+    functorch.donated_buffer = False   # the rows rerun a retained backward
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(ROOT / "build" / sub))
+    t0 = time.perf_counter()
+    refused = {}
+    for label, bh, bh_kv, s, hd, window, dt, _ in CAPPED_BWD:
+        q, do = (torch.randn(bh, s, hd, device="cuda", dtype=dt)
+                 for _ in range(2))
+        k, v = (torch.randn(bh_kv, s, hd, device="cuda", dtype=dt)
+                for _ in range(2))
+        try:
+            out, leaves = flex_capped(q, k, v, window)
+            torch.autograd.grad(out, leaves, do[None])
+        except RuntimeError as e:     # no Triton config fits the card
+            refused[label] = str(e).strip().splitlines()[0][:300]
+        del q, k, v, do
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"flex_attention compiled at {len(CAPPED_BWD)} capped shapes in "
+          f"{time.perf_counter() - t0:.1f} s; refused at "
+          f"{list(refused) or 'none'}", flush=True)
+    return refused
+
+
+def capped_backward_cases(rt, flex_refused: Optional[dict]):
+    """The flash backward's capped kernels (CAP: dS times 1 - tanh^2 of the
+    scaled score over the cap) at CAPPED_BWD's shapes, causal, with the
+    cap BWD_CAP: dq, dk and dv against autograd through the capped plain
+    version (bf16 2e-2 (1 + |plain|), f32 2e-5), twice for bitwise
+    equality, each timed beside the uncapped kernel on the same inputs
+    (its own forward's lse and D) and, given ``flex_refused`` (flex_warm's),
+    beside flex_capped's backward (the library call, but where it names
+    the shape); in bf16,
+    where the elementwise bound is as large as a typical gradient, each
+    gradient's ||kernel - plain|| / ||plain|| also within BWD_LIB_RATIO
+    times the uncapped kernel's against the uncapped plain version on
+    the same inputs, and the library's too (else it computes another
+    function). Listed apart in the JSON line (``model_cases
+    ["softcap"]``). From a generator of their own, after the other
+    backward rows."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    kb = rt.backward
+    for label, bh, bh_kv, s, hd, window, dt, model in CAPPED_BWD:
+        q, do = (torch.randn(bh, s, hd, generator=gen, device="cuda").to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn(bh_kv, s, hd, generator=gen, device="cuda")
+                .to(dt) for _ in range(2))
+        bend = max_score(q, k) / BWD_CAP
+        kw = dict(window=window, softcap=BWD_CAP)
+        out, lse = kb["flash_lse"](q, k, v, **kw)
+        args = (q, k, v, do, lse, kb["flash_bwd_preprocess"](out, do))
+        out0, lse0 = kb["flash_lse"](q, k, v, window=window)
+        args0 = (q, k, v, do, lse0, kb["flash_bwd_preprocess"](out0, do))
+        del out, out0
+        bf = dt == torch.bfloat16
+        ref_rel = None
+        if bf:
+            got0 = (kb["flash_bwd_dq"](*args0, window=window),
+                    *kb["flash_bwd_dkdv"](*args0, window=window))
+            ref_rel = norm_rel(got0, kb["flash_bwd_plain"](
+                q, k, v, do, window=window))
+            del got0
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+        plain = retained_grad(kb["flash_plain"](qg, kg, vg, **kw),
+                              (qg, kg, vg), do)
+        lib = None
+        if flex_refused is not None and label in flex_refused:
+            print(f"flex_attention [{label}, {str(dt)[6:]}]: no library "
+                  f"time, it does not compile here: {flex_refused[label]}",
+                  flush=True)
+        elif flex_refused is not None:
+            flex_out, leaves = flex_capped(q, k, v, window)
+            lib = retained_grad(flex_out, leaves, do[None])
+        via = "" if lib is None else " and library, flex_attention compiled"
+        full = (f"{label}, causal, {str(dt)[6:]}, softcap {BWD_CAP} (max |s|"
+                f" / cap {bend:.2f}), {'tensor cores' if bf else 'SIMT'}"
+                f"{f', {model}' if model else ''} (plain{via}: all three "
+                "grads)")
+        shape = (bh, bh_kv, s, s, hd, dt, True, window)
+        common = dict(serving=bf, bitwise=True, model="softcap",
+                      lib_ratio=BWD_LIB_RATIO if bf else None)
+        yield Case("flash_bwd_dkdv", full,
+                   lambda: kb["flash_bwd_dkdv"](*args, **kw),
+                   lambda: plain()[1:],
+                   None if lib is None else lambda: lib()[1:],
+                   *costs.flash_bwd_dkdv(*shape), TOL if bf else F32_TOL,
+                   uncapped=lambda: kb["flash_bwd_dkdv"](*args0,
+                                                         window=window),
+                   ref_rel=None if ref_rel is None else ref_rel[1:],
+                   **common)
+        yield Case("flash_bwd_dq", full,
+                   lambda: kb["flash_bwd_dq"](*args, **kw),
+                   lambda: plain()[0],
+                   None if lib is None else lambda: lib()[0],
+                   *costs.flash_bwd_dq(*shape), TOL if bf else F32_TOL,
+                   uncapped=lambda: kb["flash_bwd_dq"](*args0,
+                                                       window=window),
+                   ref_rel=None if ref_rel is None else ref_rel[:1],
+                   **common)
+        del q, k, v, do, args, args0, qg, kg, vg, plain, lib
+
+
+def flash_grads(rt, q, k, v, do, window=0, softcap=0.0):
     """(dq, dk, dv) of ``ops.flash_attention`` on the card through autograd:
     the forward kernel with its log-sum-exp and the three backward
     kernels."""
     qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
     with rt.ops.uncounted():
-        rt.ops.flash_attention(qg, kg, vg, window=window).backward(do)
+        rt.ops.flash_attention(qg, kg, vg, window=window,
+                               softcap=softcap).backward(do)
     return qg.grad, kg.grad, vg.grad
 
 
 def guard_checks(rt) -> None:
     """Kernels without a backward raise where a gradient is wanted, on the
-    card, and never hand back an output without a grad_fn; the scans,
-    which have one, hand back outputs with a grad_fn."""
+    card, and never hand back an output without a grad_fn; the scans and
+    a capped flash_attention, which have one, hand back outputs with a
+    grad_fn."""
     dev = "cuda"
     q = torch.randn(2, 1, 64, device=dev, requires_grad=True)
     k = torch.randn(2, 8, 64, device=dev)
@@ -1447,8 +1675,6 @@ def guard_checks(rt) -> None:
     qq = torch.randn(2, 8, 64, device=dev, requires_grad=True)
     calls = {
         "decode_attention": lambda: rt.ops.decode_attention(q, k, k, lengths),
-        "flash_attention (softcap 2.0)": lambda: rt.ops.flash_attention(
-            qq, k, k, softcap=2.0),
     }
     for name, call in calls.items():
         try:
@@ -1463,7 +1689,9 @@ def guard_checks(rt) -> None:
         outs = {"ssm_scan": rt.ops.ssm_scan(x, w, w, torch.zeros(
                     2, 16, device=dev), chunk=16),
                 "rwkv6_scan": rt.ops.rwkv6_scan(x, w, w, w, torch.zeros(
-                    2, 16, device=dev))}
+                    2, 16, device=dev)),
+                "flash_attention (softcap 2.0)": (rt.ops.flash_attention(
+                    qq, k, k, softcap=2.0),)}
     for name, out in outs.items():
         if any(t.grad_fn is None for t in out):
             fail(f"guard {name}: an output without a grad_fn under grad")
@@ -1587,8 +1815,10 @@ def train_config(rt, steps: int):
 
 
 def train_model(rt, n_layers: int, dtype=torch.bfloat16, kernels=None,
-                params=None, arch=TRAIN_ARCH):
+                params=None, arch=TRAIN_ARCH, softcap: float = 0.0):
     cfg = rt.configs.get_config(arch).with_(n_layers=n_layers)
+    if softcap:
+        cfg = cfg.with_(attn_logit_softcap=softcap)
     if params is None:
         params = rt.init_params(cfg, seed=SEED, device="cuda",
                                 dtype=torch.float32)
@@ -1624,15 +1854,20 @@ def train_launches(rt, cfg, steps: int) -> dict:
 
 
 def train_phase(rt, smi: str, arch: str = TRAIN_ARCH,
-                n_layers: int = TRAIN_LAYERS, steps: int = TRAIN_STEPS
-                ) -> dict:
+                n_layers: int = TRAIN_LAYERS, steps: int = TRAIN_STEPS,
+                softcap: float = 0.0, beside: Optional[float] = None
+                ) -> tuple[dict, float]:
     """(c): ``arch`` at full width, ``n_layers`` layers, trains ``steps``
     steps of batch 4 x 4096 tokens in 2 microbatches through
     make_train_step; the launch counts set to 0 just before and read just
     after. Before it, the dry run reckons the same step on the host (meta
     device); its peak, plus what is live on the card as the phase
     starts, must lie within DRY_RUN_TOL of the phase's
-    max_memory_allocated."""
+    max_memory_allocated. ``softcap`` > 0 caps the attention logits (the
+    capped flash kernels; the cap changes no tensor's size, so the
+    uncapped dry run stands for it), and its median wall is printed as a
+    multiple of ``beside``, the uncapped one's. Returns the launch counts
+    and the median wall of the untraced steps after the first."""
     t0 = time.perf_counter()
     dry = rt.dryrun.run_cell(arch, "train_4k", layers=n_layers,
                              batch=TRAIN_BATCH, microbatches=TRAIN_MB)
@@ -1640,8 +1875,9 @@ def train_phase(rt, smi: str, arch: str = TRAIN_ARCH,
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     t_phase = t0 = time.perf_counter()
-    lm = train_model(rt, n_layers, arch=arch)
+    lm = train_model(rt, n_layers, arch=arch, softcap=softcap)
     cfg = lm.cfg
+    name = f"{cfg.name}{f' softcap {softcap}' if softcap else ''}"
     params = dict(lm.named_parameters())
     n_params = sum(p.numel() for p in params.values())
     opt = rt.init_opt_state(params)
@@ -1659,7 +1895,7 @@ def train_phase(rt, smi: str, arch: str = TRAIN_ARCH,
         heads = (f"{nh} SSM heads of {hd}, ds {ds}, chunk "
                  f"{min(cfg.ssm_chunk, TRAIN_SEQ)}; the shared block ("
                  f"{heads}) after every {cfg.shared_attn_every} layers")
-    print(f"train {cfg.name}: {cfg.n_layers} of {full} layers, d_model "
+    print(f"train {name}: {cfg.n_layers} of {full} layers, d_model "
           f"{cfg.d_model}, {heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab}"
           f"{f', window {cfg.local_window}' if cfg.local_window else ''}: "
           f"{n_params / 1e9:.3f} B parameters, f32 masters + grads + m + v "
@@ -1700,25 +1936,25 @@ def train_phase(rt, smi: str, arch: str = TRAIN_ARCH,
               f"({flops / wall / BF16_FLOPS_PER_S:.3f} of 989)", flush=True)
     counts = rt.ops.launch_counts()
     expect = train_launches(rt, cfg, steps)
-    for name, n in counts.items():
-        if n != expect.get(name, 0):
-            fail(f"train {cfg.name}: kernel {name}: {n} launches, the train "
-                 f"steps make {expect.get(name, 0)}")
+    for kernel, n in counts.items():
+        if n != expect.get(kernel, 0):
+            fail(f"train {name}: kernel {kernel}: {n} launches, the train "
+                 f"steps make {expect.get(kernel, 0)}")
     print(f"train launches {counts}", flush=True)
     if not all(np.isfinite(losses)):
-        fail(f"train {cfg.name}: losses {losses} not finite")
+        fail(f"train {name}: losses {losses} not finite")
     # the scan families' random-init losses sit at ln(vocab) (zamba2-1.2b
     # on an H100: 10.4123 at step 0 against ln 32000 = 10.3735), where
     # three steps on three batches move them less than the batches differ
     # (10.4123, 10.4145, 10.4125): their losses must be finite, and the
     # transformer families' must also fall
     if kind in ("uniform", "local_global") and not losses[-1] < losses[0]:
-        fail(f"train {cfg.name}: losses {losses} not falling")
+        fail(f"train {name}: losses {losses} not falling")
     no_grad = [n for n, p in params.items()
                if p.grad is None or not bool(p.grad.isfinite().all())
                or not bool(p.grad.abs().max() > 0)]
     if no_grad:
-        fail(f"train {cfg.name}: {len(no_grad)} parameters without a "
+        fail(f"train {name}: {len(no_grad)} parameters without a "
              f"finite non-zero gradient, e.g. {no_grad[:4]}")
     untraced = walls[1:-1]
     wall = statistics.median(untraced)
@@ -1726,9 +1962,11 @@ def train_phase(rt, smi: str, arch: str = TRAIN_ARCH,
     flash_bwd = sum(ms for k, ms in bwd.items() if k.startswith("flash"))
     scan_bwd = sum(ms for k, ms in bwd.items()
                    if k.startswith(("ssm_bwd", "rwkv6_bwd", "sum_partials")))
-    print(f"train {cfg.name} ({smi}): step wall median {wall:.3f} s of "
+    vs = ("" if beside is None else
+          f"; {wall / beside:.3f}x the uncapped median {beside:.3f} s")
+    print(f"train {name} ({smi}): step wall median {wall:.3f} s of "
           f"steps {'1' if steps == 3 else f'1-{steps - 2}'} (step 0 "
-          f"{walls[0]:.3f} s), "
+          f"{walls[0]:.3f} s{vs}), "
           f"{tokens / wall:.0f} tokens/s, model {flops / wall / 1e12:.1f} "
           f"TFLOP/s = {flops / wall / BF16_FLOPS_PER_S:.3f} of 989 "
           f"({flops / 1e12:.1f} TFLOP a step); traced step busy "
@@ -1744,14 +1982,14 @@ def train_phase(rt, smi: str, arch: str = TRAIN_ARCH,
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB of "
           f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f}; "
           f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
-    for name, ms, calls in by_kernel["top"]:
-        print(f"train kernel {name[:90]}: {ms:.1f} ms in {calls} calls",
+    for kernel, ms, calls in by_kernel["top"]:
+        print(f"train kernel {kernel[:90]}: {ms:.1f} ms in {calls} calls",
               flush=True)
     peak = torch.cuda.max_memory_allocated()
     pred = dry["peak_bytes"] + base
     gap = pred - peak
     dry_flops = dry["hlo_flops_dev"]
-    print(f"train {cfg.name} dry run (host, meta device, {dry_s:.1f} s): "
+    print(f"train {name} dry run (host, meta device, {dry_s:.1f} s): "
           f"predicted peak {dry['peak_bytes'] / 1e9:.3f} GB + "
           f"{base / 1e9:.3f} GB live as the phase starts = {pred / 1e9:.3f}"
           f" GB, measured max_memory_allocated {peak / 1e9:.3f} GB, gap "
@@ -1762,12 +2000,12 @@ def train_phase(rt, smi: str, arch: str = TRAIN_ARCH,
           f"{dry['t_compute']:.3f} s, t_memory {dry['t_memory']:.3f} s, "
           f"bottleneck {dry['bottleneck']}", flush=True)
     if abs(gap) > DRY_RUN_TOL * peak:
-        fail(f"train {cfg.name}: the dry run's peak {pred} B is more than "
+        fail(f"train {name}: the dry run's peak {pred} B is more than "
              f"{DRY_RUN_TOL} of the measured {peak} B away")
     total = torch.cuda.get_device_properties(0).total_memory
     free, _ = torch.cuda.mem_get_info()
     outside = total - free - torch.cuda.memory_reserved()
-    print(f"train {cfg.name} capacity: total_memory {total} B (the dry "
+    print(f"train {name} capacity: total_memory {total} B (the dry "
           f"run's {HBM_BYTES} B), {outside} B outside the caching allocator "
           f"(the dry run leaves {HBM_OUTSIDE_ALLOCATOR} B), max reserved "
           f"{torch.cuda.max_memory_reserved()} B", flush=True)
@@ -1775,12 +2013,173 @@ def train_phase(rt, smi: str, arch: str = TRAIN_ARCH,
         fail(f"the card holds {total} B, the dry run's capacity is "
              f"{HBM_BYTES} B")
     if outside > HBM_OUTSIDE_ALLOCATOR:
-        fail(f"train {cfg.name}: {outside} B outside the caching allocator, "
+        fail(f"train {name}: {outside} B outside the caching allocator, "
              f"the dry run leaves {HBM_OUTSIDE_ALLOCATOR} B")
     del lm, params, opt, step_fn
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return counts, wall
+
+
+# the capped train checks: gemma 2's published attn_logit_softcapping, and
+# a sequence over which two local layers' window of 1024 binds
+TRAIN_CAP, CAPPED_SEQ = 50.0, 2048
+# the capped path check holds each leaf within twice its one-ulp floor
+# (the largest move of FLOOR_DRAWS plain-path runs with every f32 weight
+# nudged one ulp), or F32_PATH_TOL where that is larger; a floor past
+# FLOOR_CEILING would leave the check empty and fails
+FLOOR_DRAWS, FLOOR_CEILING = 2, 0.1
+
+
+def nudged(params: dict, gen) -> dict:
+    """Every f32 weight moved one ulp up or down (a coin each)."""
+    return {n: torch.nextafter(p, torch.where(
+        torch.rand(p.shape, generator=gen, device=p.device) < 0.5,
+        float("-inf"), float("inf"))) for n, p in params.items()}
+
+
+def capped_train_check(rt) -> None:
+    """gemma3-12b at full width cut to CHECK_LAYERS (two local layers,
+    window 1024) in f32, with gemma 2's cap TRAIN_CAP and with the kernel
+    rows' BWD_CAP: step 0's loss and every gradient leaf through the
+    kernels (the capped flash backward's SIMT instances) against the
+    plain path on SyntheticLM's batch of 2 x CAPPED_SEQ tokens, each
+    within twice its one-ulp floor or F32_PATH_TOL of its scale. The
+    random weights put the scores far past either cap (materialize's
+    fan_in rule; layer 0's max |s| / cap printed): at BWD_CAP 1 - tanh^2
+    leaves few pairs a gradient, and the embedding, wq, wk and norm
+    leaves rest on those few (floors up to 4.1e-2 on an H100)."""
+    from repro_torch.models import layers
+    for cap in (TRAIN_CAP, BWD_CAP):
+        t0 = time.perf_counter()
+        cfg = rt.configs.get_config(GEMMA).with_(n_layers=CHECK_LAYERS,
+                                                 attn_logit_softcap=cap)
+        params = rt.init_params(cfg, seed=SEED, device="cuda",
+                                dtype=torch.float32)
+        batch = rt.SyntheticLM(vocab=cfg.vocab, seq_len=CAPPED_SEQ, batch=2,
+                               seed=SEED, device="cuda").next_batch()
+
+        def run(kern, weights):
+            lm = rt.LM.from_params(cfg, weights, dtype=torch.float32,
+                                   kernels=kern)
+            with rt.ops.uncounted():
+                return grads_of(rt, lm, batch)
+        (l_k, g_k), (l_p, g_p) = run(rt.ops, params), run(rt.plain, params)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+        floor = dict.fromkeys(g_p, 0.0)
+        floor_loss = 0.0
+        for _ in range(FLOOR_DRAWS):
+            l_n, g_n = run(rt.plain, nudged(params, gen))
+            floor_loss = max(floor_loss, abs(l_n - l_p) / abs(l_p))
+            moved = rel_grad(g_n, g_p)
+            floor = {n: max(f, moved[n]) for n, f in floor.items()}
+            del g_n
+        with torch.no_grad(), rt.ops.uncounted():
+            lm = rt.LM.from_params(cfg, params, dtype=torch.float32)
+            x = lm.embed_tokens(batch["tokens"][:1])
+            attn = lm.layers[0].attn
+            pos = torch.arange(CAPPED_SEQ, device="cuda")[None]
+            q, k, _ = layers._qkv(attn, layers.rmsnorm(x, attn.norm,
+                                                       cfg.norm_eps),
+                                  cfg, pos)
+            bend = float(torch.einsum("bkgqh,bkth->bkgqt", q, k).abs()
+                         .max()) / cfg.hd ** 0.5 / cap
+        del lm, x, q, k
+        loss_rel = abs(l_k - l_p) / abs(l_p)
+        rel = rel_grad(g_k, g_p)
+        tol = {n: max(F32_PATH_TOL, 2.0 * f) for n, f in floor.items()}
+        for n in g_p:
+            print(f"train softcap {cap} grad {n}: f32 |kernel - plain| "
+                  f"{rel[n]:.3e} of max |plain| (tolerance {tol[n]:.3e}); "
+                  f"one-ulp floor {floor[n]:.3e}", flush=True)
+        worst = max(rel, key=lambda n: rel[n] / tol[n])
+        print(f"train softcap path check ({cfg.name}, {CHECK_LAYERS} layers,"
+              f" softcap {cap}, layer 0 max |s| / cap {bend:.2f}, f32, 2 x "
+              f"{CAPPED_SEQ} tokens): loss kernel/plain {l_k:.6f}/{l_p:.6f},"
+              f" |kernel - plain| {loss_rel:.3e} (floor {floor_loss:.3e}); "
+              f"gradients: the closest to its tolerance {worst} at "
+              f"{rel[worst]:.3e} of {tol[worst]:.3e}, the largest floor "
+              f"{max(floor.values()):.3e} (at most {FLOOR_CEILING}), of "
+              f"{len(rel)} leaves; {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        bad = [n for n in g_p if not bool(g_k[n].isfinite().all())
+               or rel[n] > tol[n]]
+        if loss_rel > max(F32_PATH_TOL, 2.0 * floor_loss) or bad:
+            fail(f"train softcap {cap} path check: the kernel path is off "
+                 f"the plain path (loss {loss_rel:.3e}, leaves {bad[:4]})")
+        if max(floor.values()) > FLOOR_CEILING:
+            fail(f"train softcap {cap} path check: a one-ulp floor of "
+                 f"{max(floor.values()):.3e} leaves the check empty")
+        del g_k, g_p, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# a carried state: (tokens of the sequence, splits) of carried_state_checks
+CARRIED_TOKENS, CARRIED_SPLITS = 600, (257, 256)
+
+
+def carried_state_checks(rt) -> None:
+    """zamba2-1.2b's ssm_block and rwkv6-1.6b's rwkv_block at full width
+    (layer 0 of the path check's cut, weights from the seed), on 2 x
+    CARRIED_TOKENS random hidden rows: the sequence run whole against its
+    first CARRIED_SPLITS tokens followed by the rest from the returned
+    state (the zero-state scan kernel plus the carried state's terms), in
+    f32 and bf16 (the f32 draw cast): each final-state entry (f32 in
+    both) within F32_PATH_TOL of its scale, and the output too in f32; a
+    bf16 output within TOL of its scale, since one bf16 rounding step
+    is 2^-8 to 2^-7 of it (a rounding flipped by the f32 sums' order:
+    4.0e-3 at zamba2's largest elements on an H100)."""
+    from repro_torch.models import rwkv, ssm
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    for arch in SCAN_TRAIN_ARCHS:
+        cfg = rt.configs.get_config(arch).with_(
+            n_layers=PATH_LAYERS.get(arch, 1))
+        params = rt.init_params(cfg, seed=SEED, device="cuda",
+                                dtype=torch.float32)
+        x32 = torch.randn(2, CARRIED_TOKENS, cfg.d_model, generator=gen,
+                          device="cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            layer = rt.LM.from_params(cfg, params, dtype=dt).layers[0]
+
+            def run(x, st, layer=layer):
+                if rt.family_kind(cfg) == "zamba":
+                    out, h = ssm.ssm_block(layer, x.contiguous(), cfg, h=st)
+                    return out, h
+                return rwkv.rwkv_block(layer, x.contiguous(), cfg, st)
+            x = x32.to(dt)
+            with torch.no_grad(), rt.ops.uncounted():
+                whole, last = run(x, None)
+                for split in CARRIED_SPLITS:
+                    a, st = run(x[:, :split], None)
+                    b, st = run(x[:, split:], st)
+                    pairs = {"out": (torch.cat([a, b], 1), whole)}
+                    pairs.update({f"state {n}": (st[n], last[n])
+                                  for n in last} if isinstance(last, dict)
+                                 else {"state h": (st, last)})
+                    rel = {n: float((g.float() - w.float()).abs().max())
+                           / max(float(w.float().abs().max()), 1e-30)
+                           for n, (g, w) in pairs.items()}
+                    tol = {n: TOL if n == "out" and dt == torch.bfloat16
+                           else F32_PATH_TOL for n in rel}
+                    print(f"carried state {arch} {str(dt)[6:]}: "
+                          f"{CARRIED_TOKENS} tokens whole against {split} + "
+                          f"{CARRIED_TOKENS - split} from the state: "
+                          + ", ".join(f"{n} {e:.3e} (tolerance {tol[n]})"
+                                      for n, e in rel.items())
+                          + " of the scale", flush=True)
+                    if any(rel[n] > tol[n] for n in rel) or not all(
+                            bool(g.isfinite().all())
+                            for g, _ in pairs.values()):
+                        fail(f"carried state {arch} {dt}: the continuation "
+                             f"is off the whole sequence ({rel})")
+            del layer
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"carried state checks {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
 
 # -- the sharded step (step 2b) -----------------------------------------------------
@@ -2113,14 +2512,14 @@ def shard_kernel_checks(rt, label: str, calls, train: bool) -> None:
                 held(name, case, kp[name][0](q, k, v, **kw),
                      kp[name][1](q, k, v, **kw), TOL)
                 if train:
-                    if kw["softcap"] or not kw["causal"]:
-                        fail(f"{label}: a train step's flash call {kw} has "
-                             "no backward kernel")
+                    if not kw["causal"]:
+                        fail(f"{label}: a train step's flash call {kw} is "
+                             "not causal, which the check does not hold")
                     do = randn(q.shape, q.dtype)
+                    bw = dict(window=kw["window"], softcap=kw["softcap"])
                     held("flash_bwd", f"{case}, dq, dk, dv",
-                         kb["flash_grads"](q, k, v, do, window=kw["window"]),
-                         kb["flash_bwd_plain"](q, k, v, do,
-                                               window=kw["window"]), TOL)
+                         kb["flash_grads"](q, k, v, do, **bw),
+                         kb["flash_bwd_plain"](q, k, v, do, **bw), TOL)
                     del do
                 del q, k, v
             elif name == "decode_attention":
@@ -2387,9 +2786,10 @@ def sass_check(lib_path: Path, head_dims: tuple) -> None:
                      "no tensor-core instruction")
     for kernel in ("flash_bwd_dkdv_tc_kernel", "flash_bwd_dq_tc_kernel"):
         for hd in BWD_TC_HEAD_DIMS:
-            if not counts.get(f"{kernel}<{hd}> bf16"):
-                fail(f"{kernel}<{hd}> bf16: not in the SASS, or no "
-                     "tensor-core instruction")
+            for cap in ("", ", softcap"):
+                if not counts.get(f"{kernel}<{hd}> bf16{cap}"):
+                    fail(f"{kernel}<{hd}> bf16{cap}: not in the SASS, or no "
+                         "tensor-core instruction")
     mc_sass_check(res.stdout)
 
 
@@ -3717,9 +4117,17 @@ def main() -> None:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
                     + " (default: all; a subset prints no result line)")
-    phases = ap.parse_args().phases.split(",")
+    ap.add_argument("--flex", action="store_true",
+                    help="also time the compiled flex_attention beside the "
+                    "capped flash backward rows (its compiles take minutes)")
+    args = ap.parse_args()
+    phases = args.phases.split(",")
     if not set(phases) <= set(PHASES):
         fail(f"unknown phases {sorted(set(phases) - set(PHASES))}")
+    if args.flex and "train" in phases:
+        fail("--flex with the train phase: flex_attention's compiled modules "
+             "hold card memory outside the caching allocator (~180 MB on an "
+             "H100) that the train phase's dry run does not reckon")
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs on the card only")
     rt = load_port()
@@ -3755,6 +4163,8 @@ def main() -> None:
         rows = kernel_phase(rt.kernels, timer)
         t0 = time.perf_counter()
         run_cases(backward_cases(rt), timer, rows)
+        run_cases(capped_backward_cases(
+            rt, flex_warm() if args.flex else None), timer, rows)
         run_cases(scan_backward_cases(rt), timer, rows)
         guard_checks(rt)
         del timer
@@ -3768,21 +4178,30 @@ def main() -> None:
               flush=True)
     if "train" in phases:
         t0 = time.perf_counter()
-        by_model[f"{TRAIN_ARCH} train"] = train_phase(rt, smi)
+        by_model[f"{TRAIN_ARCH} train"], _ = train_phase(rt, smi)
         train_checks(rt)
         gc.collect()
         torch.cuda.empty_cache()
-        by_model[f"{GEMMA} train"] = train_phase(
+        by_model[f"{GEMMA} train"], wall = train_phase(
             rt, smi, GEMMA, GEMMA_TRAIN_LAYERS, GEMMA_TRAIN_STEPS)
+        t1 = time.perf_counter()
+        capped_train_check(rt)
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_model[f"{GEMMA} train softcap"], _ = train_phase(
+            rt, smi, GEMMA, GEMMA_TRAIN_LAYERS, GEMMA_TRAIN_STEPS,
+            softcap=TRAIN_CAP, beside=wall)
+        print(f"train softcap {time.perf_counter() - t1:.1f} s", flush=True)
         for arch in SCAN_TRAIN_ARCHS:       # full width and depth
             t1 = time.perf_counter()
             gc.collect()
             torch.cuda.empty_cache()
-            by_model[f"{arch} train"] = train_phase(
+            by_model[f"{arch} train"], _ = train_phase(
                 rt, smi, arch, rt.configs.get_config(arch).n_layers,
                 SCAN_TRAIN_STEPS)
             print(f"train {arch} {time.perf_counter() - t1:.1f} s",
                   flush=True)
+        carried_state_checks(rt)
         print(f"train phase {time.perf_counter() - t0:.1f} s", flush=True)
     if "models" in phases:
         by_model.update({arch: model_phase(rt, arch) for arch in MODELS})

@@ -1,7 +1,7 @@
 // flash_attention backward: the gradients of flash_attention.cu's
 // function (scores scaled by 1/sqrt(hd), causal from index 0, optional
-// window k > q - W, GQA), FA2's recomputation scheme. No softcap (the
-// wrapper refuses a gradient through a capped call).
+// window k > q - W, GQA, optional logit softcap), FA2's recomputation
+// scheme.
 // q, dq (BH, Sq, hd); k, v, dk, dv (BH_kv, Sk, hd); o, dO (BH, Sq, hd);
 // lse, D (BH, Sq) f32. bf16 or f32 inputs and outputs, f32 arithmetic.
 //
@@ -19,6 +19,21 @@
 //
 // lse comes from the forward (its natural log-sum-exp), so P is
 // recomputed without a second pass over the keys.
+//
+// The logit softcap c > 0 (the JAX model's _softcap, layers.py:132,
+// differentiated through flash_attention_xla, :182): with s the scaled
+// score and t = tanh(s / c), the capped score is s' = c t, P = exp(s' -
+// lse) (the forward's lse is already that of the capped scores,
+// flash_attention.cu), dS' = P (dP - D) and, by the chain rule,
+//   dS = dS' (1 - t^2),
+// which dK and dQ then take as before; dV does not change. It is a
+// template flag (CAP), as in the forward: a cap of 0 compiles to the
+// uncapped kernels unchanged. t is tanhf, the forward's function (an
+// approximate tanh would move P's exponent by c times its error against
+// the forward's lse), taken per score in the loop that forms P, and the
+// factor 1 - t^2 from that same t: nothing more is held per fragment.
+// tanh runs on the SFU and the FMA pipe beside the products; the bound
+// (kernels/costs.py) does not count it.
 //
 // Bound on an H100: operations. Per unmasked (q, k) pair the two kernels
 // do 14 hd flops (dkdv: Q K^T, dO V^T, P^T dO, dS^T Q; dq: Q K^T,
@@ -163,14 +178,15 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
 }
 
 // the tile pair (query rows q0.., keys k0..): P and dS = P (dP - D) into
-// ps and dss (kB x kB, row = query)
-template <int HD>
+// ps and dss (kB x kB, row = query); with CAP the score is capped, c
+// tanh(s / c), and dS takes the factor 1 - tanh^2
+template <int HD, bool CAP>
 __device__ __forceinline__ void scores(const float* qs, const float* dos,
                                        const float* ks, const float* vs,
                                        const float* lse_s, const float* d_s,
                                        float* ps, float* dss, int q0, int k0,
                                        int sq, int sk, int causal, int window,
-                                       float scale) {
+                                       float scale, float cap, float inv_cap) {
   constexpr int kS = BwdLayout<HD>::kS;
   constexpr int kP = BwdLayout<HD>::kP;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
@@ -200,9 +216,16 @@ __device__ __forceinline__ void scores(const float* qs, const float* dos,
       bool ok = qi < sq && key < sk;
       if (causal) ok = ok && key <= qi;
       if (window > 0) ok = ok && key > qi - window;
-      const float p = ok ? expf(s[a][b] * scale - lse_s[i]) : 0.f;
-      ps[i * kP + j] = p;
-      dss[i * kP + j] = p * (dp[a][b] - d_s[i]);
+      if (CAP) {
+        const float t = tanhf(s[a][b] * scale * inv_cap);
+        const float p = ok ? expf(cap * t - lse_s[i]) : 0.f;
+        ps[i * kP + j] = p;
+        dss[i * kP + j] = p * (dp[a][b] - d_s[i]) * (1.f - t * t);
+      } else {
+        const float p = ok ? expf(s[a][b] * scale - lse_s[i]) : 0.f;
+        ps[i * kP + j] = p;
+        dss[i * kP + j] = p * (dp[a][b] - d_s[i]);
+      }
     }
   }
 }
@@ -234,8 +257,8 @@ flash_bwd_preprocess_kernel(const T* __restrict__ o,
   if (lane == 0) delta[row] = acc;
 }
 
-// grid (key tiles, BH_kv)
-template <int HD>
+// grid (key tiles, BH_kv); cap and inv_cap: c and 1 / c (unused without CAP)
+template <int HD, bool CAP>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const float* __restrict__ q,
                       const float* __restrict__ k,
@@ -244,7 +267,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, float* __restrict__ dk,
                       float* __restrict__ dv, int group, int sq, int sk,
-                      int causal, int window, float scale) {
+                      int causal, int window, float scale, float cap,
+                      float inv_cap) {
   using L = BwdLayout<HD>;
   constexpr int kS = L::kS, kP = L::kP, kDPT = L::kDPT;
   extern __shared__ __align__(16) float smem[];
@@ -281,8 +305,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q,
       load_tile<HD>(dos, dout + bh * sq * HD, q0, sq);
       load_rows(lse_s, d_s, lse, delta, bh * sq, q0, sq);
       __syncthreads();
-      scores<HD>(qs, dos, ks, vs, lse_s, d_s, ps, dss, q0, k0, sq, sk,
-                 causal, window, scale);
+      scores<HD, CAP>(qs, dos, ks, vs, lse_s, d_s, ps, dss, q0, k0, sq, sk,
+                      causal, window, scale, cap, inv_cap);
       __syncthreads();
 #pragma unroll 2
       for (int i = 0; i < kB; ++i) {
@@ -309,7 +333,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q,
 }
 
 // grid (query tiles, BH)
-template <int HD>
+template <int HD, bool CAP>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
@@ -317,7 +341,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq,
                     int group, int sq, int sk, int causal, int window,
-                    float scale) {
+                    float scale, float cap, float inv_cap) {
   using L = BwdLayout<HD>;
   constexpr int kS = L::kS, kP = L::kP, kDPT = L::kDPT;
   extern __shared__ __align__(16) float smem[];
@@ -352,8 +376,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     load_tile<HD>(ks, k + kvh * sk * HD, k0, sk);
     load_tile<HD>(vs, v + kvh * sk * HD, k0, sk);
     __syncthreads();
-    scores<HD>(qs, dos, ks, vs, lse_s, d_s, ps, dss, q0, k0, sq, sk, causal,
-               window, scale);
+    scores<HD, CAP>(qs, dos, ks, vs, lse_s, d_s, ps, dss, q0, k0, sq, sk,
+                    causal, window, scale, cap, inv_cap);
     __syncthreads();
 #pragma unroll 2
     for (int j = 0; j < kB; ++j) {
@@ -469,8 +493,9 @@ __device__ __forceinline__ void pack_a(const float (&c)[N][4], int kk,
 }
 
 // grid (BH_kv, key tiles): a block owns keys k0 .. k0 + 63 of KV head
-// blockIdx.x, a warp (above hd 128 a pair of warps) 16 of them
-template <int HD>
+// blockIdx.x, a warp (above hd 128 a pair of warps) 16 of them; cap_in
+// and cap_out: scale / c and c log2(e), the forward's (unused without CAP)
+template <int HD, bool CAP>
 __global__ void __launch_bounds__(BwdTcLayout<HD>::kDkdvThreads)
 flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
@@ -481,7 +506,7 @@ flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                          __nv_bfloat16* __restrict__ dk,
                          __nv_bfloat16* __restrict__ dv, int group, int sq,
                          int sk, int causal, int window, float scale,
-                         float scale_log2) {
+                         float scale_log2, float cap_in, float cap_out) {
   using L = BwdTcLayout<HD>;
   constexpr int kS = L::kStride, kTile = L::kTile, kNQ = L::kNQ;
   constexpr int kThr = L::kDkdvThreads, kSplit = L::kSplit;
@@ -587,8 +612,9 @@ flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
         }
       }
       // P^T = exp2(s scale log2e - lse log2e) and dS^T = P^T (dP^T - D)
-      // on the fragments: element e of n-tile j is key key0 + 8 (e >> 1),
-      // query column c0 + 8 j + 2 t + (e & 1)
+      // on the fragments (capped: P^T = exp2(c log2e t - lse log2e), t =
+      // tanh(s scale / c), and dS^T times 1 - t^2): element e of n-tile j
+      // is key key0 + 8 (e >> 1), query column c0 + 8 j + 2 t + (e & 1)
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
         const int col = c0 + 8 * j + 2 * t;
@@ -598,7 +624,14 @@ flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
         for (int e = 0; e < 4; ++e) {
           const float lq = (e & 1) ? l2.y : l2.x;
           const float dd = (e & 1) ? d2.y : d2.x;
-          float p = exp2f(s[j][e] * scale_log2 - lq * kLog2e);
+          float p, fac = 1.f;
+          if (CAP) {
+            const float th = tanhf(s[j][e] * cap_in);
+            p = exp2f(cap_out * th - lq * kLog2e);
+            fac = 1.f - th * th;
+          } else {
+            p = exp2f(s[j][e] * scale_log2 - lq * kLog2e);
+          }
           if (need_mask) {
             const int qi = q0 + col + (e & 1);
             const int key = key0 + 8 * (e >> 1);
@@ -608,7 +641,7 @@ flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
             p = ok ? p : 0.f;
           }
           s[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - dd);
+          dp[j][e] = CAP ? p * (dp[j][e] - dd) * fac : p * (dp[j][e] - dd);
         }
       }
       // dV += P^T dO and dK += dS^T Q over this warp's column groups, A
@@ -659,8 +692,9 @@ flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // grid (BH, query tiles): y counts query tiles from the last (the
-// heaviest under the causal mask); a warp owns 16 query rows
-template <int HD>
+// heaviest under the causal mask); a warp owns 16 query rows; cap_in and
+// cap_out as in the dkdv kernel
+template <int HD, bool CAP>
 __global__ void __launch_bounds__(kTcThreads)
 flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
@@ -670,7 +704,7 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
                        const float* __restrict__ delta,
                        __nv_bfloat16* __restrict__ dq, int group, int sq,
                        int sk, int causal, int window, float scale,
-                       float scale_log2) {
+                       float scale_log2, float cap_in, float cap_out) {
   using L = BwdTcLayout<HD>;
   constexpr int kS = L::kStride, kTile = L::kTile, kNK = L::kNK;
   constexpr bool kHold = L::kHold;
@@ -773,13 +807,22 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
         }
       }
 
-      // dS = P (dP - D), P = exp2(s scale log2e - lse log2e), 0 where masked
+      // dS = P (dP - D), P = exp2(s scale log2e - lse log2e), 0 where
+      // masked (capped: P = exp2(c log2e t - lse log2e), t = tanh(s scale /
+      // c), and dS times 1 - t^2)
 #pragma unroll
       for (int j = 0; j < kST; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int hr = e >> 1;
-          float p = exp2f(s[j][e] * scale_log2 - lse2[hr]);
+          float p, fac = 1.f;
+          if (CAP) {
+            const float th = tanhf(s[j][e] * cap_in);
+            p = exp2f(cap_out * th - lse2[hr]);
+            fac = 1.f - th * th;
+          } else {
+            p = exp2f(s[j][e] * scale_log2 - lse2[hr]);
+          }
           if (need_mask) {
             const int key = kt + c0 + 8 * j + 2 * t + (e & 1);
             const int qi = row0 + 8 * hr;
@@ -788,7 +831,8 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
             if (window > 0) ok = ok && key > qi - window;
             p = ok ? p : 0.f;
           }
-          dp[j][e] = p * (dp[j][e] - dd[hr]);
+          dp[j][e] = CAP ? p * (dp[j][e] - dd[hr]) * fac
+                         : p * (dp[j][e] - dd[hr]);
         }
       }
 
@@ -826,101 +870,124 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int HD>
+// cap: the logit softcap c (CAP only); cap_in and cap_out are the
+// forward's launch_tc values, so that P is recomputed against its lse
+// from the same capped scores
+template <int HD, bool CAP>
 int launch_tc(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, void* dk,
               void* dv, int bh, int group, int sq, int sk, int causal,
-              int window, cudaStream_t stream) {
+              int window, float cap, cudaStream_t stream) {
   using L = BwdTcLayout<HD>;
   using bf16 = __nv_bfloat16;
   const float scale = 1.f / sqrtf(static_cast<float>(HD));
   const float scale_log2 = kLog2e / sqrtf(static_cast<float>(HD));
+  const float cap_in = CAP ? scale / cap : 0.f;
+  const float cap_out = CAP ? cap * kLog2e : 0.f;
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(k);
   const bf16* vp = static_cast<const bf16*>(v);
   const bf16* dp = static_cast<const bf16*>(dout);
   if (dk != nullptr) {
     static const cudaError_t attr = cudaFuncSetAttribute(
-        flash_bwd_dkdv_tc_kernel<HD>,
+        flash_bwd_dkdv_tc_kernel<HD, CAP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, L::kDkdvBytes);
     if (attr != cudaSuccess) return static_cast<int>(attr);
     const dim3 grid(bh / group, (sk + kTcB - 1) / kTcB);
-    flash_bwd_dkdv_tc_kernel<HD>
+    flash_bwd_dkdv_tc_kernel<HD, CAP>
         <<<grid, L::kDkdvThreads, L::kDkdvBytes, stream>>>(
             qp, kp, vp, dp, lse, delta, static_cast<bf16*>(dk),
             static_cast<bf16*>(dv), group, sq, sk, causal, window, scale,
-            scale_log2);
+            scale_log2, cap_in, cap_out);
   } else {
     static const cudaError_t attr = cudaFuncSetAttribute(
-        flash_bwd_dq_tc_kernel<HD>,
+        flash_bwd_dq_tc_kernel<HD, CAP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, L::kDqBytes);
     if (attr != cudaSuccess) return static_cast<int>(attr);
     const dim3 grid(bh, (sq + kTcB - 1) / kTcB);
-    flash_bwd_dq_tc_kernel<HD><<<grid, kTcThreads, L::kDqBytes, stream>>>(
-        qp, kp, vp, dp, lse, delta, static_cast<bf16*>(dq), group, sq, sk,
-        causal, window, scale, scale_log2);
+    flash_bwd_dq_tc_kernel<HD, CAP>
+        <<<grid, kTcThreads, L::kDqBytes, stream>>>(
+            qp, kp, vp, dp, lse, delta, static_cast<bf16*>(dq), group, sq,
+            sk, causal, window, scale, scale_log2, cap_in, cap_out);
   }
   return 0;
 }
 
 // -- dispatch ------------------------------------------------------------------
 
-template <int HD>
+template <int HD, bool CAP>
 int launch_f32(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dq, void* dk,
                void* dv, int bh, int group, int sq, int sk, int causal,
-               int window, cudaStream_t stream) {
+               int window, float cap, cudaStream_t stream) {
   constexpr int kBytes = BwdLayout<HD>::kBytes;
   const float scale = 1.f / sqrtf(static_cast<float>(HD));
+  const float inv_cap = CAP ? 1.f / cap : 0.f;
   const float* qp = static_cast<const float*>(q);
   const float* kp = static_cast<const float*>(k);
   const float* vp = static_cast<const float*>(v);
   const float* dp = static_cast<const float*>(dout);
   if (dk != nullptr) {
     static const cudaError_t attr = cudaFuncSetAttribute(
-        flash_bwd_dkdv_kernel<HD>,
+        flash_bwd_dkdv_kernel<HD, CAP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
     if (attr != cudaSuccess) return static_cast<int>(attr);
     const dim3 grid((sk + kB - 1) / kB, bh / group);
-    flash_bwd_dkdv_kernel<HD><<<grid, kThreads, kBytes, stream>>>(
+    flash_bwd_dkdv_kernel<HD, CAP><<<grid, kThreads, kBytes, stream>>>(
         qp, kp, vp, dp, lse, delta, static_cast<float*>(dk),
-        static_cast<float*>(dv), group, sq, sk, causal, window, scale);
+        static_cast<float*>(dv), group, sq, sk, causal, window, scale, cap,
+        inv_cap);
   } else {
     static const cudaError_t attr = cudaFuncSetAttribute(
-        flash_bwd_dq_kernel<HD>,
+        flash_bwd_dq_kernel<HD, CAP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
     if (attr != cudaSuccess) return static_cast<int>(attr);
     const dim3 grid((sq + kB - 1) / kB, bh);
-    flash_bwd_dq_kernel<HD><<<grid, kThreads, kBytes, stream>>>(
+    flash_bwd_dq_kernel<HD, CAP><<<grid, kThreads, kBytes, stream>>>(
         qp, kp, vp, dp, lse, delta, static_cast<float*>(dq), group, sq, sk,
-        causal, window, scale);
+        causal, window, scale, cap, inv_cap);
   }
   return 0;
 }
 
 // (dtype, hd) picks the kernel: bf16 the tensor cores, f32 the SIMT
-// kernels. Not a fallback: one kernel for each pair, and an error from it
-// is returned, never retried.
+// kernels; a cap > 0 the capped instance. Not a fallback: one kernel for
+// each triple, and an error from it is returned, never retried.
+template <int HD, bool CAP>
+int launch_dt(int dtype, const void* q, const void* k, const void* v,
+              const void* dout, const float* lse, const float* delta,
+              void* dq, void* dk, void* dv, int bh, int group, int sq,
+              int sk, int causal, int window, float cap,
+              cudaStream_t stream) {
+  if (dtype == kBF16)
+    return launch_tc<HD, CAP>(q, k, v, dout, lse, delta, dq, dk, dv, bh,
+                              group, sq, sk, causal, window, cap, stream);
+  if (dtype == kF32)
+    return launch_f32<HD, CAP>(q, k, v, dout, lse, delta, dq, dk, dv, bh,
+                               group, sq, sk, causal, window, cap, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <int HD>
 int launch_hd(int dtype, const void* q, const void* k, const void* v,
               const void* dout, const float* lse, const float* delta,
               void* dq, void* dk, void* dv, int bh, int group, int sq,
-              int sk, int causal, int window, cudaStream_t stream) {
-  if (dtype == kBF16)
-    return launch_tc<HD>(q, k, v, dout, lse, delta, dq, dk, dv, bh, group,
-                         sq, sk, causal, window, stream);
-  if (dtype == kF32)
-    return launch_f32<HD>(q, k, v, dout, lse, delta, dq, dk, dv, bh, group,
-                          sq, sk, causal, window, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+              int sk, int causal, int window, float cap,
+              cudaStream_t stream) {
+  if (cap > 0.f)
+    return launch_dt<HD, true>(dtype, q, k, v, dout, lse, delta, dq, dk, dv,
+                               bh, group, sq, sk, causal, window, cap,
+                               stream);
+  return launch_dt<HD, false>(dtype, q, k, v, dout, lse, delta, dq, dk, dv,
+                              bh, group, sq, sk, causal, window, cap, stream);
 }
 
 // dk and dv non-null: the dK/dV kernel; else the dQ kernel into dq
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, void* dk, void* dv,
            int bh, int bh_kv, int sq, int sk, int hd, int causal, int window,
-           int dtype, void* stream) {
-  if (bh_kv <= 0 || bh % bh_kv != 0 || window < 0)
+           float cap, int dtype, void* stream) {
+  if (bh_kv <= 0 || bh % bh_kv != 0 || window < 0 || !(cap >= 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
   const int group = bh / bh_kv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -928,12 +995,12 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   const float* dl = static_cast<const float*>(delta);
   int rc;
   switch (hd) {
-    case 16: rc = launch_hd<16>(dtype, q, k, v, dout, l, dl, dq, dk, dv, bh, group, sq, sk, causal, window, s); break;
-    case 32: rc = launch_hd<32>(dtype, q, k, v, dout, l, dl, dq, dk, dv, bh, group, sq, sk, causal, window, s); break;
-    case 64: rc = launch_hd<64>(dtype, q, k, v, dout, l, dl, dq, dk, dv, bh, group, sq, sk, causal, window, s); break;
-    case 128: rc = launch_hd<128>(dtype, q, k, v, dout, l, dl, dq, dk, dv, bh, group, sq, sk, causal, window, s); break;
-    case 168: rc = launch_hd<168>(dtype, q, k, v, dout, l, dl, dq, dk, dv, bh, group, sq, sk, causal, window, s); break;
-    case 240: rc = launch_hd<240>(dtype, q, k, v, dout, l, dl, dq, dk, dv, bh, group, sq, sk, causal, window, s); break;
+    case 16: rc = launch_hd<16>(dtype, q, k, v, dout, l, dl, dq, dk, dv, bh, group, sq, sk, causal, window, cap, s); break;
+    case 32: rc = launch_hd<32>(dtype, q, k, v, dout, l, dl, dq, dk, dv, bh, group, sq, sk, causal, window, cap, s); break;
+    case 64: rc = launch_hd<64>(dtype, q, k, v, dout, l, dl, dq, dk, dv, bh, group, sq, sk, causal, window, cap, s); break;
+    case 128: rc = launch_hd<128>(dtype, q, k, v, dout, l, dl, dq, dk, dv, bh, group, sq, sk, causal, window, cap, s); break;
+    case 168: rc = launch_hd<168>(dtype, q, k, v, dout, l, dl, dq, dk, dv, bh, group, sq, sk, causal, window, cap, s); break;
+    case 240: rc = launch_hd<240>(dtype, q, k, v, dout, l, dl, dq, dk, dv, bh, group, sq, sk, causal, window, cap, s); break;
     default: rc = static_cast<int>(cudaErrorInvalidValue);
   }
   if (rc != 0) return rc;
@@ -969,20 +1036,22 @@ extern "C" int repro_flash_bwd_dkdv(const void* q, const void* k,
                                     const void* lse, const void* delta,
                                     void* dk, void* dv, int bh, int bh_kv,
                                     int sq, int sk, int hd, int causal,
-                                    int window, int dtype, void* stream) {
+                                    int window, float softcap, int dtype,
+                                    void* stream) {
   if (dk == nullptr || dv == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   return repro::launch(q, k, v, dout, lse, delta, nullptr, dk, dv, bh, bh_kv,
-                       sq, sk, hd, causal, window, dtype, stream);
+                       sq, sk, hd, causal, window, softcap, dtype, stream);
 }
 
 extern "C" int repro_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* delta, void* dq, int bh,
                                   int bh_kv, int sq, int sk, int hd,
-                                  int causal, int window, int dtype,
-                                  void* stream) {
+                                  int causal, int window, float softcap,
+                                  int dtype, void* stream) {
   if (dq == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return repro::launch(q, k, v, dout, lse, delta, dq, nullptr, nullptr, bh,
-                       bh_kv, sq, sk, hd, causal, window, dtype, stream);
+                       bh_kv, sq, sk, hd, causal, window, softcap, dtype,
+                       stream);
 }

@@ -52,10 +52,13 @@ class ElasticRunner:
     """Re-mesh and rebuild the step when the device count changes the
     mesh's shape. ``build_step(ctx)`` gets the ``ShardingCtx`` of the new
     mesh (installed with ``use_mesh`` while it runs) and returns the step
-    function."""
+    function. ``checkpoint_mgr`` (a ``CheckpointManager`` or None) is kept
+    as ``ckpt`` for the caller that restores after a re-mesh, as JAX's
+    runner keeps it."""
 
-    def __init__(self, build_step: Callable):
+    def __init__(self, build_step: Callable, checkpoint_mgr=None):
         self.build_step = build_step
+        self.ckpt = checkpoint_mgr
         self.step_fn = None
         self.mesh: Optional[Mesh] = None
 

@@ -52,11 +52,12 @@ SIGNATURES = {
     # out, dout, delta, rows, hd, dtype, stream
     "repro_flash_bwd_preprocess": (_P, _P, _P, _I, _I, _I, _P),
     # q, k, v, dout, lse, delta, dk, dv, bh, bh_kv, sq, sk, hd, causal,
-    # window, dtype, stream
-    "repro_flash_bwd_dkdv": (_P,) * 8 + (_I,) * 8 + (_P,),
+    # window, softcap, dtype, stream
+    "repro_flash_bwd_dkdv": (_P,) * 8 + (_I,) * 7 + (ctypes.c_float, _I,
+                                                     _P),
     # q, k, v, dout, lse, delta, dq, bh, bh_kv, sq, sk, hd, causal, window,
-    # dtype, stream
-    "repro_flash_bwd_dq": (_P,) * 7 + (_I,) * 8 + (_P,),
+    # softcap, dtype, stream
+    "repro_flash_bwd_dq": (_P,) * 7 + (_I,) * 7 + (ctypes.c_float, _I, _P),
     # q, k, v, lengths, partials, out, bh, bh_kv, S, hd, span, window,
     # softcap, dtype, stream
     "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

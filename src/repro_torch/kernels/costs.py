@@ -189,6 +189,9 @@ def flash_bwd_preprocess(bh: int, sq: int, hd: int, dtype: torch.dtype
         2 * bh * sq * hd, peak_rate(dtype)
 
 
+# the flash backward's costs hold with a logit softcap too: its tanh a
+# score (and the factor 1 - tanh^2) runs on the SFU and the FMA pipe beside
+# the tensor-core products, and a bound counts the products alone
 def _flash_bwd_terms(bh, bh_kv, sq, sk, hd, dtype, causal, window):
     size = dtype.itemsize
     return (bh * sq * hd * size, bh_kv * sk * hd * size, 2 * bh * sq * 4,

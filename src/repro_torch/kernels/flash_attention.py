@@ -24,13 +24,13 @@ is three hand-written kernels (``csrc/flash_attention_bwd.cu``):
 :func:`flash_bwd_preprocess_cuda` (D = rowsum(dO * O)),
 :func:`flash_bwd_dkdv_cuda` (dK, dV over key tiles, GQA summed inside)
 and :func:`flash_bwd_dq_cuda` (dQ over query tiles), with no float
-atomics. The source picks the dK/dV and dQ kernels by (dtype, hd): bf16
-at hd 16, 32, 64 and 128 runs them on the tensor cores (64-row tiles, P
-and dS rounded to bf16 before their products); f32 at any hd, and bf16
-at hd 168 and 240, run the SIMT kernels (f32 FMAs, 32-row tiles), the
-f32 ones being the checking path. That is a dispatch, not a fallback:
-each (dtype, hd) has one kernel, and a failed launch raises. A capped
-call has no backward kernel and raises where a gradient is wanted.
+atomics. The source picks the dK/dV and dQ kernels by (dtype, hd, cap):
+bf16 at every hd runs them on the tensor cores (64-row tiles, P and dS
+rounded to bf16 before their products), f32 at any hd the SIMT kernels
+(f32 FMAs, 32-row tiles), the checking path; a cap > 0 takes each
+kernel's capped instance (dS times 1 - tanh^2 of the scaled score over
+the cap). That is a dispatch, not a fallback: each (dtype, hd, cap) has
+one kernel, and a failed launch raises.
 :func:`flash_attention_bwd_plain` is autograd through the plain version.
 """
 from __future__ import annotations
@@ -125,16 +125,17 @@ def _forward(q, k, v, causal, window, softcap, out, lse):
 
 
 class FlashAttention(torch.autograd.Function):
-    """The forward kernel (with its log-sum-exp) and the three backward
-    kernels; q, k, v, o and lse saved."""
+    """The forward kernel (with its log-sum-exp of the capped scores) and
+    the three backward kernels at the same cap; q, k, v, o and lse
+    saved."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, softcap=0.0):
         out = torch.empty_like(q)
         lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-        _forward(q, k, v, causal, window, 0.0, out, lse)
+        _forward(q, k, v, causal, window, softcap, out, lse)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap)
         return out
 
     @staticmethod
@@ -142,10 +143,9 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dout = dout.contiguous()
         delta = flash_bwd_preprocess_cuda(out, dout)
-        kw = dict(causal=ctx.causal, window=ctx.window)
-        dk, dv = flash_bwd_dkdv_cuda(q, k, v, dout, lse, delta, **kw)
-        dq = flash_bwd_dq_cuda(q, k, v, dout, lse, delta, **kw)
-        return dq, dk, dv, None, None
+        dk, dv = flash_bwd_dkdv_cuda(q, k, v, dout, lse, delta, **ctx.kw)
+        dq = flash_bwd_dq_cuda(q, k, v, dout, lse, delta, **ctx.kw)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -155,19 +155,16 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``out``, if given, is a contiguous tensor of q's shape, dtype and
     device that the kernel writes in place (and returns); by default a
     new one. Where autograd records the call (an input requires grad) it
-    runs as :class:`FlashAttention`; a capped call then raises, having no
-    backward kernel, and so does an ``out``."""
+    runs as :class:`FlashAttention`, capped or not; an ``out`` then
+    raises."""
     grad = needs_grad(q, k, v)
-    if grad and softcap > 0:
-        raise NotImplementedError(
-            f"{NAME}: no backward kernel for a logit softcap; a gradient "
-            "through a capped call is not supported on the card")
     _check_qkv(q, k, v)
     require(window >= 0, NAME, "window must be >= 0")
     require(softcap >= 0, NAME, "softcap must be >= 0")
     if grad:
         require(out is None, NAME, "out= takes no gradient")
-        return FlashAttention.apply(q, k, v, bool(causal), int(window))
+        return FlashAttention.apply(q, k, v, bool(causal), int(window),
+                                    float(softcap))
     if out is None:
         out = torch.empty_like(q)
     else:
@@ -203,13 +200,14 @@ def flash_lse_plain(q: torch.Tensor, k: torch.Tensor, *,
 
 
 def flash_attention_bwd_plain(q, k, v, dout, *, causal: bool = True,
-                              window: int = 0
+                              window: int = 0, softcap: float = 0.0
                               ) -> tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """(dq, dk, dv): autograd through :func:`flash_attention_plain`."""
     with torch.enable_grad():
         qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
-        out = flash_attention_plain(qg, kg, vg, causal=causal, window=window)
+        out = flash_attention_plain(qg, kg, vg, causal=causal, window=window,
+                                    softcap=softcap)
         return torch.autograd.grad(out, (qg, kg, vg), dout)
 
 
@@ -254,13 +252,16 @@ def _check_bwd(name, q, k, v, dout, lse, delta):
 
 
 def flash_bwd_dkdv_cuda(q, k, v, dout, lse, delta, *, causal: bool = True,
-                        window: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+                        window: int = 0, softcap: float = 0.0
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) of k's shape and dtype: a block a key tile (64 keys on the
     tensor cores, 32 on the SIMT path), summing over its KV head's query
-    heads and query tiles in order."""
+    heads and query tiles in order. ``lse`` is the forward's at the same
+    ``softcap``."""
     global dkdv_launches
     _check_bwd(DKDV_NAME, q, k, v, dout, lse, delta)
-    require(window >= 0, DKDV_NAME, "window must be >= 0")
+    require(window >= 0 and softcap >= 0, DKDV_NAME,
+            "window and softcap must be >= 0")
     BH, Sq, hd = q.shape
     BHkv, Sk, _ = k.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -270,7 +271,7 @@ def flash_bwd_dkdv_cuda(q, k, v, dout, lse, delta, *, causal: bool = True,
     rc = build.library().repro_flash_bwd_dkdv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH,
-        BHkv, Sq, Sk, hd, int(causal), window, DTYPE_CODES[q.dtype],
+        BHkv, Sq, Sk, hd, int(causal), window, softcap, DTYPE_CODES[q.dtype],
         stream_of(q))
     build.check(rc, DKDV_NAME)
     dkdv_launches += 1
@@ -278,13 +279,14 @@ def flash_bwd_dkdv_cuda(q, k, v, dout, lse, delta, *, causal: bool = True,
 
 
 def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, *, causal: bool = True,
-                      window: int = 0) -> torch.Tensor:
+                      window: int = 0, softcap: float = 0.0) -> torch.Tensor:
     """dq of q's shape and dtype: a block a query tile (64 rows on the
     tensor cores, 32 on the SIMT path), summing over the key tiles in
-    order."""
+    order. ``lse`` is the forward's at the same ``softcap``."""
     global dq_launches
     _check_bwd(DQ_NAME, q, k, v, dout, lse, delta)
-    require(window >= 0, DQ_NAME, "window must be >= 0")
+    require(window >= 0 and softcap >= 0, DQ_NAME,
+            "window and softcap must be >= 0")
     BH, Sq, hd = q.shape
     BHkv, Sk, _ = k.shape
     dq = torch.empty_like(q)
@@ -294,7 +296,8 @@ def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, *, causal: bool = True,
     rc = build.library().repro_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, BHkv, Sq, Sk,
-        hd, int(causal), window, DTYPE_CODES[q.dtype], stream_of(q))
+        hd, int(causal), window, softcap, DTYPE_CODES[q.dtype],
+        stream_of(q))
     build.check(rc, DQ_NAME)
     dq_launches += 1
     return dq

@@ -8,14 +8,14 @@ kernel module counts its own launches (``launch_counts``); a replay of a
 captured CUDA graph runs no wrapper, so it adds the launches counted at
 its capture (``uncounted``, ``add_launches``).
 
-Gradients: on the card ``fused_rmsnorm``, uncapped ``flash_attention``,
-``ssm_scan`` and ``rwkv6_scan`` are ``torch.autograd.Function``s whose
-backward is hand-written too (its launches counted under their own
+Gradients: on the card ``fused_rmsnorm``, ``flash_attention`` (capped
+or not), ``ssm_scan`` and ``rwkv6_scan`` are ``torch.autograd.Function``s
+whose backward is hand-written too (its launches counted under their own
 names: ``fused_rmsnorm_bwd``, ``flash_bwd_preprocess``,
 ``flash_bwd_dkdv``, ``flash_bwd_dq``, ``ssm_scan_bwd``,
-``rwkv6_scan_bwd``); ``decode_attention`` and a capped
-``flash_attention`` raise ``NotImplementedError`` where a gradient is
-wanted. On the CPU autograd differentiates the plain versions.
+``rwkv6_scan_bwd``); ``decode_attention`` raises ``NotImplementedError``
+where a gradient is wanted, as JAX's decode takes none. On the CPU
+autograd differentiates the plain versions.
 
 A meta tensor (``launch/dryrun.py``) takes the card's route through the
 same wrappers and Functions: each allocates and saves what its CUDA call

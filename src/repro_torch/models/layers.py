@@ -131,6 +131,29 @@ def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor,
 
 # -- attention ----------------------------------------------------------------
 
+def carried_state(terms, y, last, state, steps=(), shared=()):
+    """A linear recurrence from a carried state: ``terms(y, last, state,
+    *steps, *shared)`` returns the zero-state scan's output ``y`` (B, nh,
+    S, ...) and final state ``last`` (B, nh, ...) with the carried
+    ``state``'s share added. On DTensors it runs on each rank's heads
+    (``sharding.on_local``): ``state`` placed as ``last``, each of
+    ``steps`` (B, nh, S[, ...]) as ``y``, each of ``shared`` (B, S, ...)
+    on y's batch split and replicated elsewhere (its gradient a partial
+    sum over the head split); the outputs keep y's and last's
+    placements."""
+    if not is_dtensor(y):
+        return terms(y, last, state, *steps, *shared)
+    from torch.distributed.tensor import Replicate
+
+    from ..distributed.sharding import on_local
+    rows = [p if p.is_shard(0) else Replicate() for p in y.placements]
+    args = (y, last, place(state, last.placements),
+            *(place(t, y.placements) for t in steps),
+            *(place(t, rows) for t in shared))
+    return on_local(terms, args, ((tuple(y.shape), tuple(y.placements)),
+                                  (tuple(last.shape), tuple(last.placements))))
+
+
 class Attention(nn.Module):
     """Parameters of one attention sublayer (``attn_specs``)."""
 

@@ -10,8 +10,11 @@ Prefill (a sequence from the zero state, any length) runs the recurrence
 through ``kernels.rwkv6_scan`` (the CUDA kernel on the card), which also
 returns the final state. JAX uses a chunked-parallel form when S is a
 multiple of 16 and the sequential form otherwise; both are the same
-function, and the kernel computes it step by step. The one-token decode
-update stays plain PyTorch, as JAX's ``_time_mix_sequential`` is. Norms
+function, and the kernel computes it step by step. A sequence of several
+tokens from a carried state runs the same zero-state scan, and the
+state's share, linear in it, is added around it with torch ops
+(:func:`_from_state`). The one-token decode update stays plain PyTorch,
+as JAX's ``_time_mix_sequential`` is. Norms
 (``tm_norm``, ``o_norm``, ``cm_norm``) go through ``kernels.fused_rmsnorm``.
 
 One difference in bf16 compute: JAX's token shift concatenates the f32
@@ -35,7 +38,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..distributed.sharding import is_dtensor, shard
 from ..kernels import ops
-from .layers import _param, mm, rmsnorm
+from .layers import _param, carried_state, mm, rmsnorm
 
 LORA = 64                 # rank of the data-dependent decay (rwkv.py:36)
 LOGW_MIN = -4.0           # clamp of the per-step log-decay (rwkv.py:77)
@@ -114,39 +117,56 @@ def _zeros_row(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros_like(x[:, 0], dtype=torch.float32)
 
 
+def _from_state(o, last, S0, r, lw):
+    """The carried state's share of a sequence (the recurrence is linear
+    in it): with c_t the inclusive running sum of ``lw`` (B, nh, S, hd)
+    per key channel (<= 0), o_t (B, nh, S, hd) gains (r_t * exp(c_{t-1}))
+    S0 (c_{-1} = 0) and the final state exp(c_{S-1}) S0, decayed on the
+    key index as ``w_t[..., None] * S`` decays it."""
+    S0 = S0.to(o.dtype)                 # the scan's dtype, as JAX's state
+    c = torch.cumsum(lw, dim=2)
+    before = F.pad(c[:, :, :-1], (0, 0, 1, 0))          # c_{t-1}
+    o = o + torch.einsum("bntk,bnkv->bntv", r * torch.exp(before), S0)
+    return o, last + torch.exp(c[:, :, -1])[..., None] * S0
+
+
 def rwkv_time_mix(p: RWKV, x: torch.Tensor, cfg: ModelConfig,
                   state: Optional[dict] = None, *, kernels=ops):
     """x (B, S, d). ``state=None``: a sequence from the zero state, any S,
     through ``kernels.rwkv6_scan``. Otherwise ``state`` holds ``S``
-    (B, nh, hd, hd) and ``x_tm`` (B, d) f32 and x is one token (decode).
-    Returns (out, {"S", "x_tm"}).
+    (B, nh, hd, hd) and ``x_tm`` (B, d) f32: one token is a decode step,
+    several the same scan with the carried state's share added
+    (:func:`_from_state`). Returns (out, {"S", "x_tm"}).
 
     On DTensors the scan runs on each rank's heads (the decay and u cut
-    to them) and its final state keeps that split; the decode update
-    runs on the whole heads, as JAX's cache spec replicates the state (r,
-    k and v gathered); the output norm takes its rows whole (o
-    gathered), the gated rows are cut to ``w_o``'s row split and the
-    partial sum is reduced at JAX's constraint (``rwkv.py:127``)."""
+    to them) and its final state keeps that split, as do a carried
+    state's terms; the decode update runs on the whole heads, as JAX's
+    cache spec replicates the state (r, k and v gathered); the output
+    norm takes its rows whole (o gathered), the gated rows are cut to
+    ``w_o``'s row split and the partial sum is reduced at JAX's
+    constraint (``rwkv.py:127``)."""
     B, S, d = x.shape
     nh, hd = rwkv_dims(cfg)
     x_tm = _zeros_row(x) if state is None else state["x_tm"]
     h, rh, kh, vh, lw, g = _time_mix_projections(p, x, cfg, x_tm, kernels)
+    step = state is not None and S == 1
     # the scan's inputs on each rank's heads, the decode update's whole
-    heads = ("heads" if state is None else None, None)
+    heads = (None if step else "heads", None)
     rh, kh, vh, lw = (shard(t, "batch", "seq", *heads)
                       for t in (rh, kh, vh, lw))
     wh = torch.exp(lw)
-    if state is None:
+    if not step:
         args = [_heads_first(t) for t in (rh, kh, vh, wh)]
+        rf = args[0]
         if not is_dtensor(rh):       # one flat (B * nh) dim a row a head
             args = [t.view(B * nh, S, hd) for t in args]
         o, S_final = kernels.rwkv6_scan(*args, p.u)
-        o = o.view(B, nh, S, hd).transpose(1, 2)
-        S_final = S_final.view(B, nh, hd, hd)
+        o, S_final = o.view(B, nh, S, hd), S_final.view(B, nh, hd, hd)
+        if state is not None:
+            o, S_final = carried_state(_from_state, o, S_final, state["S"],
+                                       steps=(rf, _heads_first(lw)))
+        o = o.transpose(1, 2)
     else:
-        if S != 1:
-            raise ValueError(f"a step from a carried state takes one "
-                             f"token, got {S}")
         r_t, k_t, v_t, w_t = rh[:, 0], kh[:, 0], vh[:, 0], wh[:, 0]
         kv = k_t[..., :, None] * v_t[..., None, :]          # (B, nh, hd, hd)
         o = (r_t[..., None, :] @ (state["S"] + p.u[:, :, None] * kv))
@@ -174,8 +194,9 @@ def rwkv_channel_mix(p: RWKV, x: torch.Tensor, cfg: ModelConfig,
 def rwkv_block(p: RWKV, x: torch.Tensor, cfg: ModelConfig,
                state: Optional[dict] = None, *, kernels=ops):
     """One layer. ``state=None`` is prefill from the zero state; a state
-    from :func:`rwkv_init_state` or a previous call makes a decode step.
-    Returns (x, {"S", "x_tm", "x_cm"})."""
+    from :func:`rwkv_init_state` or a previous call carries on from it: a
+    decode step for one token, a sequence for several. Returns (x, {"S",
+    "x_tm", "x_cm"})."""
     x_cm = _zeros_row(x) if state is None else state["x_cm"]
     tm_out, tm_state = rwkv_time_mix(p, x, cfg, state, kernels=kernels)
     x = x + tm_out

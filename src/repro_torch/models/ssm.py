@@ -8,7 +8,10 @@ decay per head and one B/C group shared by the heads.
 
 Prefill runs the scan through ``kernels.ssm_scan`` (the CUDA kernel on
 the card), which also returns the final state for the decode cache; the
-B/C projections go to it once per sequence, not once per head. The
+B/C projections go to it once per sequence, not once per head. From a
+carried state ``h`` (JAX's ``state["h"]``) the scan still starts from
+zero, and the state's share, linear in it, is added around it with
+torch ops (:func:`_from_state`). The
 one-token decode update stays plain PyTorch, as JAX computes it outside
 any Pallas kernel. Both norms (``norm`` and ``out_norm`` over d_inner)
 go through ``kernels.fused_rmsnorm``.
@@ -19,6 +22,8 @@ the whole state, which JAX's cache spec replicates over the heads.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -27,7 +32,7 @@ from ..configs.base import ModelConfig
 from ..distributed.sharding import is_dtensor, shard
 from ..kernels import ops
 from ..kernels.ssm_scan import chunk_cumsum
-from .layers import _param, mm, rmsnorm
+from .layers import _param, carried_state, mm, rmsnorm
 
 
 def ssm_dims(cfg: ModelConfig) -> tuple[int, int, int, int]:
@@ -95,15 +100,30 @@ def _out(p: SSM, y: torch.Tensor, xh: torch.Tensor, z: torch.Tensor,
     return shard(mm(y, p.w_out), "batch", "seq", None)
 
 
+def _from_state(y, last, h, loga, C):
+    """The carried state's share of a sequence (the recurrence is linear
+    in it): with Λ_t the inclusive running sum of ``loga`` (B, nh, S) over
+    the whole sequence (no reset a chunk; <= 0), y_t (B, nh, S, hd) gains
+    exp(Λ_t) h C_t^T and the final state exp(Λ_{S-1}) h."""
+    h = h.to(y.dtype)                   # the scan's dtype, as JAX's state
+    lam = torch.cumsum(loga, dim=-1)
+    y = y + torch.exp(lam)[..., None] * torch.einsum(
+        "bnhs,bts->bnth", h, C.to(y.dtype))
+    return y, last + torch.exp(lam[..., -1])[..., None, None] * h
+
+
 def ssm_block(p: SSM, x: torch.Tensor, cfg: ModelConfig, *,
+              h: Optional[torch.Tensor] = None,
               kernels=ops) -> tuple[torch.Tensor, torch.Tensor]:
-    """Train/prefill from the zero state: x (B, S, d). Returns (out, h)
-    with the final state h (B, nh, hd, ds) f32. The chunk is
+    """Train/prefill: x (B, S, d), from the zero state or, given ``h`` (B,
+    nh, hd, ds) f32, from that state (JAX's ``state={"h": h}``). Returns
+    (out, h) with the final state h (B, nh, hd, ds) f32. The chunk is
     ``min(ssm_chunk, S)`` as in JAX; the scan takes a short last chunk
     where JAX pads with zero inputs and zero log-decay (the same
-    function). On DTensors the scan runs on each rank's heads (its
-    inputs cut to them, B_ and C_ shared by them) and h keeps that
-    split."""
+    function). With ``h=None`` nothing is added to the zero-state scan.
+    On DTensors the scan runs on each rank's heads (its inputs cut to
+    them, B_ and C_ shared by them) and h keeps that split, as do the
+    carried state's terms."""
     B, S, _ = x.shape
     _, nh, hd, ds = ssm_dims(cfg)
     Q = min(cfg.ssm_chunk, S)
@@ -111,17 +131,21 @@ def ssm_block(p: SSM, x: torch.Tensor, cfg: ModelConfig, *,
     xh = shard(xh, "batch", "seq", "heads", None)
     xbar, loga = _weighted(p, xh, shard(dt, "batch", "seq", "heads"))
     xbar = xbar.transpose(1, 2).contiguous()            # (B, nh, S, hd)
-    cum = chunk_cumsum(loga.transpose(1, 2), Q)         # (B, nh, S)
+    loga = loga.transpose(1, 2)                         # (B, nh, S)
+    cum = chunk_cumsum(loga, Q)
     if is_dtensor(xbar):
         # the heads kept as a dim: one flat (B * nh) dim could not keep
         # batch and heads both split
-        y, h = kernels.ssm_scan(xbar, B_, C_, cum, chunk=Q)
+        y, last = kernels.ssm_scan(xbar, B_, C_, cum, chunk=Q)
     else:
-        y, h = kernels.ssm_scan(xbar.view(B * nh, S, hd), B_.contiguous(),
-                                C_.contiguous(), cum.view(B * nh, S),
-                                chunk=Q)
-        y, h = y.view(B, nh, S, hd), h.view(B, nh, hd, ds)
-    return _out(p, y.transpose(1, 2), xh, z, x, cfg, kernels), h
+        y, last = kernels.ssm_scan(xbar.view(B * nh, S, hd),
+                                   B_.contiguous(), C_.contiguous(),
+                                   cum.view(B * nh, S), chunk=Q)
+        y, last = y.view(B, nh, S, hd), last.view(B, nh, hd, ds)
+    if h is not None:
+        y, last = carried_state(_from_state, y, last, h, steps=(loga,),
+                                shared=(C_,))
+    return _out(p, y.transpose(1, 2), xh, z, x, cfg, kernels), last
 
 
 def ssm_decode(p: SSM, x: torch.Tensor, cfg: ModelConfig, h: torch.Tensor,

@@ -555,6 +555,55 @@ def test_cuda_flash_backward_wide_heads_on_tensor_cores(card):
     torch.cuda.synchronize()
 
 
+# (bh, bh_kv, s, hd, window, causal, cap): the capped kernels (CAP) in
+# both designs, caps that bend the scores, GQA, windows, ragged S
+BWD_CAPPED = ((4, 2, 130, 64, 0, True, 1.0),
+              (4, 2, 1100, 240, 1024, True, 2.0),
+              (4, 2, 77, 168, 0, True, 1.5), (2, 1, 200, 128, 0, False, 1.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_backward_with_softcap_matches_plain(card, dtype):
+    """dq, dk, dv of a capped ``ops.flash_attention`` on the card against
+    autograd through the capped plain version at the kernel tolerances
+    (f32 2e-5, bf16 2e-2 (1 + |plain|)), two runs bitwise equal; in bf16,
+    where that bound is as large as a typical gradient, each gradient's
+    ||kernel - plain|| / ||plain|| also within twice the uncapped
+    kernel's against the uncapped plain version on the same inputs."""
+    g = torch.Generator(device=card).manual_seed(10)
+    dt = TDT[dtype]
+
+    def grads(q, k, v, do, **kw):
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+        ops.flash_attention(qg, kg, vg, **kw).backward(do)
+        return qg.grad, kg.grad, vg.grad
+
+    def rel(a, w):
+        return float((a.float() - w.float()).norm() / w.float().norm())
+    for bh, bh_kv, s, hd, window, causal, cap in BWD_CAPPED:
+        q, k, v, do = (torch.randn(shape, generator=g, device=card).to(dt)
+                       for shape in ((bh, s, hd), (bh_kv, s, hd),
+                                     (bh_kv, s, hd), (bh, s, hd)))
+        kw = dict(causal=causal, window=window, softcap=cap)
+        want = flash_attention_bwd_plain(q, k, v, do, **kw)
+        got = [grads(q, k, v, do, **kw) for _ in range(2)]
+        for a, b, w in zip(got[0], got[1], want):
+            assert torch.equal(a, b)
+            diff = (a.float() - w.float()).abs()
+            tol = 2e-5 if dt == torch.float32 else 2e-2
+            assert bool((diff <= tol * (1 + w.float().abs())).all()), \
+                (hd, cap, float(diff.max()))
+        if dt == torch.bfloat16:
+            free = dict(kw, softcap=0.0)
+            for a, w, a0, w0 in zip(
+                    got[0], want, grads(q, k, v, do, **free),
+                    flash_attention_bwd_plain(q, k, v, do, **free)):
+                assert rel(a, w) <= 2.0 * rel(a0, w0), \
+                    (hd, cap, rel(a, w), rel(a0, w0))
+    torch.cuda.synchronize()
+
+
 def poisoned(shape, dtype):
     """(a view of shape at the head of a buffer of NaN with 64 elements
     past it, that tail)"""
@@ -586,11 +635,11 @@ def test_cuda_flash_backward_hd168_stores_no_pad_column(card):
     build.check(lib.repro_flash_bwd_dkdv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh,
-        bh_kv, s, s, hd, 1, 0, code, st), "flash_bwd_dkdv")
+        bh_kv, s, s, hd, 1, 0, 0.0, code, st), "flash_bwd_dkdv")
     build.check(lib.repro_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, bh_kv, s, s, hd,
-        1, 0, code, st), "flash_bwd_dq")
+        1, 0, 0.0, code, st), "flash_bwd_dq")
     torch.cuda.synchronize()
     for got, want, tail in ((dq, dq_w, dq_tail), (dk, dk_w, dk_tail),
                             (dv, dv_w, dv_tail)):
@@ -637,18 +686,17 @@ def test_cuda_rmsnorm_backward_matches_plain(card, dtype):
 
 @pytest.mark.cuda
 def test_cuda_kernels_without_backward_raise_under_grad(card):
-    """decode_attention and a capped flash_attention have no backward
-    kernel: where a gradient is wanted they raise, never returning an
-    output without a grad_fn; under no_grad they run. ssm_scan and
-    rwkv6_scan have one: under grad their outputs carry a grad_fn."""
+    """decode_attention has no backward kernel: where a gradient is wanted
+    it raises, never returning an output without a grad_fn; under no_grad
+    it runs. A capped flash_attention, ssm_scan and rwkv6_scan have one:
+    under grad their outputs carry a grad_fn."""
     q = torch.randn(2, 1, 64, device=card, requires_grad=True)
     k = torch.randn(2, 8, 64, device=card)
     lengths = torch.full((2,), 8, dtype=torch.int32, device=card)
     with pytest.raises(NotImplementedError, match="no backward"):
         ops.decode_attention(q, k, k, lengths)
     qq = torch.randn(2, 8, 64, device=card, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        ops.flash_attention(qq, k, k, softcap=2.0)
+    assert ops.flash_attention(qq, k, k, softcap=2.0).grad_fn is not None
     xbar = torch.randn(2, 16, 16, device=card, requires_grad=True)
     B = torch.randn(2, 16, 16, device=card)
     y, h = ops.ssm_scan(xbar, B, B, torch.zeros(2, 16, device=card),

@@ -21,10 +21,14 @@
   row groups summed in order), then the partials by warp, then the warps
   in order. The tensor-core kernels' shared-memory layout and skipped
   tiles are checked too. Keep the emulation in step with the .cu files.
-* The guards: ``decode_attention`` and a capped ``flash_attention``
-  refuse a gradient in their CUDA wrappers, before any device check;
-  the four differentiable kernels (``fused_rmsnorm``, ``flash_attention``,
-  ``ssm_scan``, ``rwkv6_scan``) go on to it.
+* The logit softcap's backward (the kernels' CAP instances: dS = P (dP -
+  D) (1 - tanh^2 of the scaled score over the cap)), emulated at the SIMT
+  and tensor-core tiles and held against autograd through the capped
+  plain version and ``jax.grad`` of ``flash_attention_xla(softcap=)``.
+* The guards: ``decode_attention`` refuses a gradient in its CUDA
+  wrapper, before any device check; the four differentiable kernels
+  (``fused_rmsnorm``, ``flash_attention``, capped or not, ``ssm_scan``,
+  ``rwkv6_scan``) go on to it.
 
 Tolerances: f32 2e-5 (tests/test_kernels.py:23) for elementwise outputs;
 dw, a sum over N rows, at 2e-5 * sqrt(N) (the rounding of a sum of N
@@ -177,8 +181,11 @@ def emulate_rmsnorm_bwd(x, w, dy, eps=1e-6):
     return dx, dw
 
 
-def _scores(q, k, v, do, lse, delta, q0, k0, sq, sk, causal, window, scale):
-    """One (query tile, key tile) pair: P and dS = P (dP - D), masked."""
+def _scores(q, k, v, do, lse, delta, q0, k0, sq, sk, causal, window, scale,
+            softcap=0.0):
+    """One (query tile, key tile) pair: P and dS = P (dP - D), masked. With
+    a cap c, t = tanh(s scale / c), P = exp(c t - lse) and dS = P (dP - D)
+    (1 - t^2), as the SIMT kernels' CAP instance computes it."""
     qi = torch.arange(q0, q0 + q.shape[0])[:, None]
     key = torch.arange(k0, k0 + k.shape[0])[None, :]
     ok = (qi < sq) & (key < sk)
@@ -186,11 +193,17 @@ def _scores(q, k, v, do, lse, delta, q0, k0, sq, sk, causal, window, scale):
         ok &= key <= qi
     if window > 0:
         ok &= key > qi - window
-    p = torch.where(ok, torch.exp(q @ k.T * scale - lse[:, None]), 0.0)
+    s = q @ k.T
+    if softcap > 0:
+        t = torch.tanh(s * scale * (1.0 / softcap))
+        p = torch.where(ok, torch.exp(softcap * t - lse[:, None]), 0.0)
+        return p, p * (do @ v.T - delta[:, None]) * (1 - t * t)
+    p = torch.where(ok, torch.exp(s * scale - lse[:, None]), 0.0)
     return p, p * (do @ v.T - delta[:, None])
 
 
-def emulate_dkdv(q, k, v, do, lse, delta, *, causal=True, window=0):
+def emulate_dkdv(q, k, v, do, lse, delta, *, causal=True, window=0,
+                 softcap=0.0):
     """flash_bwd_dkdv_kernel: a block per (32-key tile, KV head); the query
     rows that can see the tile, q >= k0 (causal) and q < k_max + W
     (window), in 32-row tiles, for each of the G query heads in order."""
@@ -212,7 +225,7 @@ def emulate_dkdv(q, k, v, do, lse, delta, *, causal=True, window=0):
                     qt, dot = q[bh, sl].float(), do[bh, sl].float()
                     p, ds = _scores(qt, kt, vt, dot, lse[bh, sl],
                                     delta[bh, sl], q0, k0, sq, sk, causal,
-                                    window, scale)
+                                    window, scale, softcap)
                     dv_acc += p.T @ dot
                     dk_acc += ds.T @ qt
             dk[kvh, k0:k0 + TILE] = dk_acc * scale
@@ -220,7 +233,8 @@ def emulate_dkdv(q, k, v, do, lse, delta, *, causal=True, window=0):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def emulate_dq(q, k, v, do, lse, delta, *, causal=True, window=0):
+def emulate_dq(q, k, v, do, lse, delta, *, causal=True, window=0,
+               softcap=0.0):
     """flash_bwd_dq_kernel: a block per (32-row query tile, query head);
     the keys its rows see, k <= q_last (causal) and k > q0 - W (window,
     from the 32-key tile holding it), in order."""
@@ -241,7 +255,8 @@ def emulate_dq(q, k, v, do, lse, delta, *, causal=True, window=0):
                 kt = k[kvh, k0:k0 + TILE].float()
                 vt = v[kvh, k0:k0 + TILE].float()
                 _, ds = _scores(qt, kt, vt, dot, lse[bh, sl], delta[bh, sl],
-                                q0, k0, sq, sk, causal, window, scale)
+                                q0, k0, sq, sk, causal, window, scale,
+                                softcap)
                 acc += ds @ kt
             dq[bh, sl] = acc * scale
     return dq.to(q.dtype)
@@ -320,15 +335,34 @@ def _bf16(t):
     return t.to(torch.bfloat16).float()
 
 
-def emulate_dkdv_tc(q, k, v, do, lse, delta, *, causal=True, window=0):
+def _tc_p_ds(s, dp, lse, delta, hd, softcap):
+    """(P, a function of the masked P giving dS = P (dP - D)) of the
+    tensor-core kernels from the f32 scores s = q.k: P = exp2(s scale
+    log2(e) - lse log2(e)); with a cap c (the CAP instance), t = tanh(s
+    (scale / c)), P = exp2(c log2(e) t - lse log2(e)) and dS times 1 -
+    t^2, in the launch's f32 constants."""
+    rt = np.sqrt(np.float32(hd))
+    lse2 = lse * float(LOG2E)
+    if softcap > 0:
+        c = np.float32(softcap)
+        t = torch.tanh(s * float(np.float32(1) / rt / c))
+        p = torch.exp2(t * float(c * LOG2E) - lse2)
+        return p, lambda p: p * (dp - delta) * (1 - t * t)
+    p = torch.exp2(s * float(LOG2E / rt) - lse2)
+    return p, lambda p: p * (dp - delta)
+
+
+def emulate_dkdv_tc(q, k, v, do, lse, delta, *, causal=True, window=0,
+                    softcap=0.0):
     """flash_bwd_dkdv_tc_kernel: a block per (KV head, 64-key tile), here
     every KV head at once; tiles of ``tc_layout(hd)[4]`` columns (hd 168
     padded to 176 with zeros); for each of the G query heads in order its
     query tiles in order, each in sub-steps of ``tc_layout(hd)[3]`` query
     columns: S^T = K Q^T and dP^T = V dO^T of bf16 values in f32, P^T =
     exp2(S^T scale log2(e) - lse log2(e)) (0 where the tile's mask drops
-    a pair), dS^T = P^T (dP^T - D); dV += bf16(P^T) dO and dK += bf16(dS^T)
-    Q in f32; dK scaled once at the store, no pad column stored. Above hd
+    a pair), dS^T = P^T (dP^T - D) (capped: ``_tc_p_ds``); dV += bf16(P^T)
+    dO and dK += bf16(dS^T) Q in f32; dK scaled once at the store, no pad
+    column stored. Above hd
     128 a key slice's two warps each own half of dK and dV's columns but
     both form the whole S^T and dP^T, so the sums are the one-warp
     design's."""
@@ -336,7 +370,6 @@ def emulate_dkdv_tc(q, k, v, do, lse, delta, *, causal=True, window=0):
     bh_kv, sk, _ = k.shape
     G = BH // bh_kv
     scale = float(np.float32(1) / np.sqrt(np.float32(hd)))
-    scale_log2 = float(LOG2E / np.sqrt(np.float32(hd), dtype=np.float32))
     _, _, _, nq, cols, _, _ = tc_layout(hd)
     dk, dv = torch.zeros(k.shape), torch.zeros(v.shape)
     for k0, q_tiles in dkdv_tc_tiles(sq, sk, causal, window):
@@ -354,11 +387,11 @@ def emulate_dkdv_tc(q, k, v, do, lse, delta, *, causal=True, window=0):
                     qs, dos = qt[:, sub], dot[:, sub]
                     st = kt @ qs.transpose(1, 2)
                     dpt = vt @ dos.transpose(1, 2)
-                    p = torch.exp2(st * scale_log2
-                                   - (lt[:, None, sub] * float(LOG2E)))
+                    p, ds_of = _tc_p_ds(st, dpt, lt[:, None, sub],
+                                        dt[:, None, sub], hd, softcap)
                     if ok is not None:
                         p = torch.where(ok[sub].T, p, 0.0)
-                    ds = p * (dpt - dt[:, None, sub])
+                    ds = ds_of(p)
                     dv_acc += _bf16(p) @ dos
                     dk_acc += _bf16(ds) @ qs
         n = min(TC_TILE, sk - k0)
@@ -367,37 +400,37 @@ def emulate_dkdv_tc(q, k, v, do, lse, delta, *, causal=True, window=0):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def emulate_dq_tc(q, k, v, do, lse, delta, *, causal=True, window=0):
+def emulate_dq_tc(q, k, v, do, lse, delta, *, causal=True, window=0,
+                  softcap=0.0):
     """flash_bwd_dq_tc_kernel: a block per (query head, 64-row tile), here
     every head at once; tiles of ``tc_layout(hd)[4]`` columns (hd 168
     padded with zeros); the key tiles in order, each in sub-steps of
     ``tc_layout(hd)[6]`` keys (32 at hd 168, 16 at 240): S = Q K^T, dP = dO V^T,
     P = exp2(S scale log2(e) - lse log2(e)), 0 where masked, dS = P (dP -
-    D), dQ += bf16(dS) K in f32, scaled at the store, no pad column
-    stored."""
+    D) (capped: ``_tc_p_ds``), dQ += bf16(dS) K in f32, scaled at the
+    store, no pad column stored."""
     BH, sq, hd = q.shape
     G = BH // k.shape[0]
     scale = float(np.float32(1) / np.sqrt(np.float32(hd)))
-    scale_log2 = float(LOG2E / np.sqrt(np.float32(hd), dtype=np.float32))
     _, _, _, _, cols, _, nk = tc_layout(hd)
     kf, vf = (t.repeat_interleave(G, dim=0) for t in (k, v))
     sk = k.shape[1]
     dq = torch.zeros(q.shape)
     for q0, k_tiles in dq_tc_tiles(sq, sk, causal, window):
         qt, dot = _tile(q, q0, cols=cols), _tile(do, q0, cols=cols)
-        lse2 = _tile(lse, q0) * float(LOG2E)
-        dt = _tile(delta, q0)
+        lt, dt = _tile(lse, q0), _tile(delta, q0)
         acc = torch.zeros(qt.shape)
         for kt in k_tiles:
             kk, vv = _tile(kf, kt, cols=cols), _tile(vf, kt, cols=cols)
             ok = _tc_mask(q0, kt, sq, sk, causal, window, rows=False)
             for c0 in range(0, TC_TILE, nk):
                 sub = slice(c0, c0 + nk)
-                p = torch.exp2(qt @ kk[:, sub].transpose(1, 2) * scale_log2
-                               - lse2[..., None])
+                p, ds_of = _tc_p_ds(qt @ kk[:, sub].transpose(1, 2),
+                                    dot @ vv[:, sub].transpose(1, 2),
+                                    lt[..., None], dt[..., None], hd, softcap)
                 if ok is not None:
                     p = torch.where(ok[:, sub], p, 0.0)
-                ds = p * (dot @ vv[:, sub].transpose(1, 2) - dt[..., None])
+                ds = ds_of(p)
                 acc += _bf16(ds) @ kk[:, sub]
         n = min(TC_TILE, sq - q0)
         dq[:, q0:q0 + n] = (acc * scale)[:, :n, :hd]
@@ -427,10 +460,10 @@ def emulated_kernels(monkeypatch):
     as the card's dispatch routes them, so that the autograd wiring of
     the card runs on CPU tensors."""
     def flash_forward(q, k, v, causal, window, softcap, out, lse):
-        out.copy_(fa.flash_attention_plain(q, k, v, causal=causal,
-                                           window=window))
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        out.copy_(fa.flash_attention_plain(q, k, v, **kw))
         if lse is not None:
-            lse.copy_(fa.flash_lse_plain(q, k, causal=causal, window=window))
+            lse.copy_(fa.flash_lse_plain(q, k, **kw))
         return out
     monkeypatch.setattr(fa, "_forward", flash_forward)
     monkeypatch.setattr(fa, "flash_bwd_preprocess_cuda",
@@ -549,6 +582,59 @@ def test_flash_tc_backward_design_matches_plain_and_jax(
                 float(diff.max())
 
 
+# (dtype, bh, bh_kv, sq, sk, hd, causal, window, cap): caps that bend the
+# scores (max |s| / cap 2-4), f32 on the SIMT kernels' tiles and bf16 on
+# the tensor cores' (hd 168 padded, hd 240 two warps a key slice), GQA,
+# windows, ragged S, Sq != Sk, non-causal
+CAPPED = [("float32", 4, 2, 77, 77, 64, True, 0, 1.0),
+          ("float32", 2, 2, 40, 70, 168, False, 0, 1.5),
+          ("bfloat16", 2, 2, 130, 130, 128, True, 0, 1.0),
+          ("bfloat16", 4, 2, 97, 97, 240, True, 40, 2.0),
+          ("bfloat16", 2, 2, 65, 65, 168, False, 8, 1.5)]
+
+
+@pytest.mark.parametrize("dtype,bh,bh_kv,sq,sk,hd,causal,window,cap",
+                         CAPPED)
+def test_flash_capped_backward_design_matches_plain_and_jax(
+        emulated_kernels, dtype, bh, bh_kv, sq, sk, hd, causal, window,
+        cap):
+    """A capped call through the autograd Function, the backward routed as
+    the card routes it (the CAP instances' dS = P (dP - D) (1 - t^2)),
+    against autograd through the capped plain version on the same inputs
+    and jax.grad of the JAX model's flash_attention_xla(softcap=) on
+    their f32 values: f32 at 2e-5, bf16 at 2e-2 (1 + |reference|)."""
+    rng = np.random.default_rng(bh * 1000 + sq * 7 + sk + hd)
+    shapes = ((bh, sq, hd), (bh_kv, sk, hd), (bh_kv, sk, hd), (bh, sq, hd))
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(sh).astype(
+        np.float32)).to(dt) for sh in shapes)
+    G = bh // bh_kv
+    s = q.float() @ k.float().repeat_interleave(G, 0).transpose(1, 2)
+    assert float(s.abs().max()) / math.sqrt(hd) > 2 * cap   # the cap binds
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    fa.FlashAttention.apply(qg, kg, vg, causal, window, cap).backward(do)
+    got = (qg.grad, kg.grad, vg.grad)
+    plain = fa.flash_attention_bwd_plain(q, k, v, do, causal=causal,
+                                         window=window, softcap=cap)
+    jq, jk, jv, jdo = (t.float().numpy() for t in (q, k, v, do))
+
+    def f(q, k, v):
+        out = flash_attention_xla(q.reshape(1, bh_kv, G, sq, hd), k[None],
+                                  v[None], causal=causal, window=window,
+                                  softcap=cap, q_block=32, k_block=32)
+        return jnp.sum(out.reshape(bh, sq, hd) * jdo)
+    oracle = jax.jit(jax.grad(f, argnums=(0, 1, 2)))(jq, jk, jv)
+    for g, p, o in zip(got, plain, oracle):
+        assert g.dtype == dt and bool(g.float().isfinite().all())
+        for ref in (p.float(), torch.from_numpy(np.array(o))):
+            if dt == torch.float32:
+                torch.testing.assert_close(g, ref, **TOL)
+            else:
+                diff = (g.float() - ref).abs()
+                assert bool((diff <= BF16_TOL * (1 + ref.abs())).all()), \
+                    float(diff.max())
+
+
 def test_flash_tc_backward_rounds_p_and_ds_to_bf16():
     """The tensor-core emulation differs from the SIMT one (f32 P and dS)
     by the bf16 rounding of P and dS alone: on the same f32-valued bf16
@@ -655,8 +741,6 @@ def _guarded_calls():
     return {
         "decode_attention": lambda: decode_attention_cuda(
             t[:, :1], t, t, lengths),
-        "flash_attention softcap": lambda: fa.flash_attention_cuda(
-            t, t, t, softcap=2.0),
     }
 
 
@@ -680,6 +764,8 @@ def _differentiable_calls():
     return {
         "fused_rmsnorm": lambda: rn.fused_rmsnorm_cuda(x, torch.zeros(64)),
         "flash_attention": lambda: fa.flash_attention_cuda(q, q, q),
+        "flash_attention softcap": lambda: fa.flash_attention_cuda(
+            t, t, t, softcap=2.0),
         "ssm_scan": lambda: ssm_scan_cuda(t, t, t, torch.zeros(2, 16),
                                           chunk=16),
         "rwkv6_scan": lambda: rwkv6_scan_cuda(t, t, t, t, torch.zeros(2, 16)),
@@ -688,8 +774,8 @@ def _differentiable_calls():
 
 @pytest.mark.parametrize("name", list(_differentiable_calls()))
 def test_differentiable_kernels_take_grad_to_the_device_check(name):
-    """fused_rmsnorm, uncapped flash_attention, ssm_scan and rwkv6_scan do
-    not refuse a gradient: they go on to their checks (a CPU tensor is
-    refused as such)."""
+    """fused_rmsnorm, flash_attention (capped or not), ssm_scan and
+    rwkv6_scan do not refuse a gradient: they go on to their checks (a
+    CPU tensor is refused as such)."""
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         _differentiable_calls()[name]()

@@ -221,11 +221,74 @@ def test_rwkv_block_matches_jax(setup, S):
                                    **TOL)
 
 
-def test_rwkv_step_refuses_a_sequence_from_a_state(setup):
-    _, cfg, _, _, _, lm = setup
-    state = rwkv.rwkv_init_state(cfg, 1, "cpu")
-    with pytest.raises(ValueError, match="one token"):
-        rwkv.rwkv_block(lm.layers[0], torch.zeros(1, 3, 64), cfg, state)
+@pytest.mark.parametrize("S", [16, 48, 37])
+def test_rwkv_block_from_a_state_matches_jax(setup, S):
+    """rwkv_block(state) of several tokens against JAX's rwkv_block(state=)
+    (S 16 and 48: chunked in JAX; 37: sequential): the output and the
+    state's S, x_tm and x_cm at TOL; the gradients of a fixed projection
+    of the output and the final S with respect to x, the carried S and
+    w_r (whose r reads it) against jax.grad, within TOL of their
+    scale."""
+    jcfg, _, _, _, p32, _ = setup
+    layer, jp = random_layer(p32, 1, seed=S + 60)
+    cfg = get_smoke(ARCH)
+    nh, hd = rwkv.rwkv_dims(cfg)
+    rng = np.random.default_rng(S + 61)
+    x = rng.standard_normal((2, S, 64), np.float32)
+    st = {"S": (rng.standard_normal((2, nh, hd, hd)) * 0.5).astype(
+              np.float32),
+          "x_tm": rng.standard_normal((2, 64), np.float32),
+          "x_cm": rng.standard_normal((2, 64), np.float32)}
+    ro = rng.standard_normal((2, S, 64), np.float32)
+    rs = rng.standard_normal((2, nh, hd, hd)).astype(np.float32)
+
+    def f(x, S0, w_r):
+        out, new = jrwkv.rwkv_block({**jp, "w_r": w_r}, x, jcfg,
+                                    state={**st, "S": S0})
+        return jnp.sum(out * ro) + jnp.sum(new["S"] * rs), (out, new)
+    with f32_compute():
+        (_, (jout, jst)), jgrads = jax.jit(jax.value_and_grad(
+            f, argnums=(0, 1, 2), has_aux=True))(x, st["S"], jp["w_r"])
+    xt, s0 = (torch.from_numpy(a).requires_grad_(True) for a in (x, st["S"]))
+    layer.w_r.requires_grad_(True)
+    out, new = rwkv.rwkv_block(layer, xt, cfg, {
+        **{k: torch.from_numpy(v) for k, v in st.items()}, "S": s0})
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), **TOL)
+    for name in ("S", "x_tm", "x_cm"):
+        np.testing.assert_allclose(new[name].detach().numpy(),
+                                   np.asarray(jst[name]), **TOL)
+    loss = (out * torch.from_numpy(ro)).sum() + \
+        (new["S"] * torch.from_numpy(rs)).sum()
+    grads = torch.autograd.grad(loss, (xt, s0, layer.w_r))
+    for g, want in zip(grads, jgrads):
+        # JAX's x gradient is NaN in a few rows at S 48 (its decay's
+        # exponent overflows before the clamp, from the zero state too;
+        # ROADMAP.md §3): the port's is finite, held where JAX's is
+        g, want = g.numpy(), np.asarray(want)
+        fin = np.isfinite(want)
+        assert np.isfinite(g).all() and fin.mean() > 0.9
+        # a gradient sums products of mixed sign: held to TOL of its scale
+        assert np.abs(g[fin] - want[fin]).max() <= \
+            TOL["rtol"] * np.abs(want[fin]).max()
+
+
+@pytest.mark.parametrize("split", [17, 16])
+def test_rwkv_block_continues_from_its_state(setup, split):
+    """A 48-token sequence run whole equals its first ``split`` tokens
+    followed by the rest from the returned state (S, x_tm, x_cm):
+    output and every state entry at TOL."""
+    _, _, _, _, p32, _ = setup
+    layer, _ = random_layer(p32, 0, seed=split)
+    cfg = get_smoke(ARCH)
+    x = torch.from_numpy(np.random.default_rng(split).standard_normal(
+        (2, 48, 64), np.float32))
+    with torch.inference_mode():
+        whole, st = rwkv.rwkv_block(layer, x, cfg)
+        first, st1 = rwkv.rwkv_block(layer, x[:, :split], cfg)
+        rest, st2 = rwkv.rwkv_block(layer, x[:, split:], cfg, st1)
+    torch.testing.assert_close(torch.cat([first, rest], 1), whole, **TOL)
+    for name in st:
+        torch.testing.assert_close(st2[name], st[name], **TOL)
 
 
 def test_rwkv_init_state_matches_jax():

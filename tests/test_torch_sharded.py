@@ -157,6 +157,10 @@ GRAD_DTYPE = {c: F64 for c in MOE + [GEMMA12, GEMMA27, ZAMBA, RWKV]}
 #: case -> the dtype its prefill and decode logits are held in (module
 #: docstring)
 LOGITS_DTYPE = {ZAMBA: F64}
+#: the scan cases also run their layer 0 over CARRIED_S tokens from a
+#: carried state (``ssm_block(h=)``, ``rwkv_block(state)``) in f64
+CARRIED = (ZAMBA, RWKV)
+CARRIED_S = 12
 
 
 def _config(case, get=get_smoke):
@@ -261,6 +265,46 @@ def _steps(cfg, tree, inputs, place, counted, grad_dtype=F32,
     return out
 
 
+def _carried(cfg, tree, place):
+    """Layer 0 of the case's f64 port over CARRIED_S tokens from a random
+    carried state placed at its cache's spec (heads whole): the output,
+    the final state and the gradients of a fixed projection of both with
+    respect to x, the carried state and the weight whose projection reads
+    it (zamba's w_C, rwkv's w_r), read whole."""
+    from repro_torch.models import rwkv, ssm
+    rng = np.random.default_rng(11)
+
+    def draw(shape, axes, scale=1.0):
+        return place(torch.from_numpy(rng.standard_normal(shape) * scale),
+                     axes)
+    lm = LM.from_params(cfg, place.params(tree, cfg, F64), dtype=F64)
+    layer = lm.layers[0]
+    x = draw((B, CARRIED_S, cfg.d_model), ("batch", "seq", None))
+    heads = ("batch", None, None, None)
+    if lm.kind == "zamba":
+        _, nh, hd, ds = ssm.ssm_dims(cfg)
+        s0, w = draw((B, nh, hd, ds), heads, 0.5), layer.w_C
+    else:
+        nh, hd = rwkv.rwkv_dims(cfg)
+        s0, w = draw((B, nh, hd, hd), heads, 0.5), layer.w_r
+        rows = {k: draw((B, cfg.d_model), ("batch", None))
+                for k in ("x_tm", "x_cm")}
+    for t in (x, s0, w):
+        t.requires_grad_(True)
+    if lm.kind == "zamba":
+        out, last = ssm.ssm_block(layer, x, cfg, h=s0)
+    else:
+        out, new = rwkv.rwkv_block(layer, x, cfg, {**rows, "S": s0})
+        last = new["S"]
+    full = [t.full_tensor() if hasattr(t, "full_tensor") else t
+            for t in (out, last)]
+    ro, rl = (torch.from_numpy(rng.standard_normal(t.shape)) for t in full)
+    loss = (full[0] * ro).sum() + (full[1] * rl).sum()
+    grads = torch.autograd.grad(loss, (x, s0, w))
+    return {"out": place.full(out), "state": place.full(last),
+            "grads": [place.full(g) for g in grads]}
+
+
 class _Plain:
     """Inputs and parameters as plain tensors: the unsharded port."""
 
@@ -326,6 +370,8 @@ def _rank(rank, store_path, out_dir, jobs):
                              counted,
                              GRAD_DTYPE.get(case, F32),
                              LOGITS_DTYPE.get(case, F32))
+                if case in CARRIED:
+                    out["carried"] = _carried(cfg, tree, _Sharded(ctx))
             out["collectives"], out["collective_log"] = counts, log
             if rank == 0:
                 with open(os.path.join(out_dir, f"{case}.pkl"), "wb") as f:
@@ -464,6 +510,22 @@ def test_prefill_matches_unsharded_and_jax(case, sharded, plain, jax_side):
     out = _close_logits(case, "prefill", sharded, plain)
     assert out.shape == (B, 1, _config(case).vocab)
     np.testing.assert_allclose(out.numpy(), jax_side[case][1], **JAX_TOL)
+
+
+@pytest.mark.parametrize("case", CARRIED)
+def test_block_from_a_carried_state_matches_unsharded(case, sharded,
+                                                      jax_side):
+    """zamba2's ssm_block(h=) and rwkv6's rwkv_block(state) of several
+    tokens on the ranks' heads, the carried state placed at its cache's
+    spec and split as the scan's final state: output, final state and the
+    gradients (x, the state, the weight that reads it) within TOL of the
+    unsharded port's, in f64."""
+    got = sharded[case]["carried"]
+    want = _carried(_config(case), jax_side[case][0], _Plain())
+    _close(got["out"], want["out"], **TOL)
+    _close(got["state"], want["state"], **TOL)
+    for g, w in zip(got["grads"], want["grads"], strict=True):
+        assert _gap(g, w) <= GRAD_TOL, _gap(g, w)
 
 
 @pytest.mark.parametrize("case", list(CASES))

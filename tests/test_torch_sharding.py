@@ -243,6 +243,13 @@ def test_elastic_runner_defaults_to_the_cuda_devices(monkeypatch):
     assert mesh.devices.flat[0] == torch.device("cuda", 0)
 
 
+def test_elastic_runner_keeps_its_checkpoint_manager_as_jax_s_does():
+    mgr = object()
+    for cls in (ElasticRunner, JElasticRunner):
+        assert cls(lambda ctx: None, checkpoint_mgr=mgr).ckpt is mgr
+        assert cls(lambda ctx: None).ckpt is None
+
+
 def test_shapes_are_jax_s():
     assert {n: (s.seq_len, s.global_batch, s.kind)
             for n, s in SHAPES.items()} == \

@@ -9,7 +9,10 @@
   oracle (``repro.kernels.ref``) and the Pallas kernels in interpret
   mode, as test_kernels.py runs them.
 * The deepseek-7b and gemma3-12b smokes with ``attn_logit_softcap`` set
-  to a cap that binds, against the JAX ``LM`` in f32 (2e-3).
+  to a cap that binds, against the JAX ``LM`` in f32 (2e-3), and their
+  loss and every gradient leaf of ``loss_and_grads`` against
+  ``jax.value_and_grad`` of JAX's capped ``LM.loss`` at each leaf's
+  rounding floor (``tests/test_torch_family_grads.py``'s rule).
 """
 import math
 
@@ -29,6 +32,8 @@ from repro.models import LM as JaxLM  # noqa: E402
 from repro.models import layers as jl  # noqa: E402
 from repro.models import model_specs  # noqa: E402
 from repro.models.transformer import _ring_positions  # noqa: E402
+from repro.training import SyntheticLM as JaxSyntheticLM  # noqa: E402
+from repro_torch.configs import TrainConfig  # noqa: E402
 from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
@@ -36,11 +41,16 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_plain)
 from repro_torch.models import LM  # noqa: E402
-from repro_torch.params import from_jax_numpy  # noqa: E402
+from repro_torch.params import from_jax_numpy, to_jax_numpy  # noqa: E402
+from repro_torch.training import loss_and_grads  # noqa: E402
 
 F32 = dict(rtol=2e-5, atol=2e-5)            # test_kernels.py:23
 BF16 = dict(rtol=2e-2, atol=2e-2)
 MODEL = dict(rtol=2e-3, atol=2e-3)          # test_models.py:61
+# the gradient floor (tests/test_torch_family_grads.py): each leaf within
+# twice its max over FLOOR_DRAWS one-ulp nudges of every f32 weight, or
+# FLOOR_MIN where that is larger; a floor past FLOOR_CEILING fails
+FLOOR_DRAWS, FLOOR_MIN, FLOOR_CEILING = 2, 1e-4, 0.02
 
 
 def draw(rng, shape, scale=1.0):
@@ -243,3 +253,70 @@ def test_the_smoke_scores_exceed_the_cap(capped):
     q, k, _ = layers._qkv(attn, h, cfg, pos)
     s = torch.einsum("bkgqh,bkth->bkgqt", q, k) / math.sqrt(cfg.hd)
     assert bind(s.numpy(), CAP) > 1.5
+
+
+def test_capped_grads_match_jax_at_the_rounding_floor(capped):
+    """The capped smoke's loss and every gradient leaf (``loss_and_grads``,
+    autograd through the capped plain flash: the route the card's capped
+    backward kernels are held to) against ``jax.value_and_grad`` of JAX's
+    capped ``LM.loss`` in f32, on a SyntheticLM batch of 2 x 32: the loss
+    within 1e-5 (or twice its floor), each leaf within twice its floor or
+    FLOOR_MIN; and the cap moves the gradients."""
+    jcfg, jparams, lm, uncapped = capped
+    cfg = lm.cfg
+    tree = jax.tree.map(np.asarray, jparams)
+    b = {k: np.asarray(v) for k, v in JaxSyntheticLM(
+        vocab=cfg.vocab, seq_len=32, batch=2, seed=0).next_batch().items()}
+    jl.set_compute_dtype(jnp.float32)
+    try:
+        jloss, jgrads = jax.jit(jax.value_and_grad(
+            lambda p: JaxLM(jcfg).loss(p, b["tokens"], b["targets"])))(jparams)
+    finally:
+        jl.set_compute_dtype(jnp.bfloat16)
+    tb = {k: torch.from_numpy(np.array(v)) for k, v in b.items()}
+
+    def port(tr, c=cfg):
+        m = LM.from_params(c, from_jax_numpy(tr, c, "cpu", torch.float32))
+        for p in m.parameters():
+            p.requires_grad_(True)
+        loss, grads = loss_and_grads(m, tb, TrainConfig())
+        return float(loss), to_jax_numpy(grads, c)
+
+    loss, got = port(tree)
+    leaves = jax.tree_util.tree_flatten_with_path(jgrads)[0]
+
+    def leaf(g, path):
+        for p in path:
+            g = g[p.key]
+        return np.asarray(g)
+    rng = np.random.default_rng(1)
+    floor = {"loss": 0.0}
+    for _ in range(FLOOR_DRAWS):
+        nudged = jax.tree.map(
+            lambda a: np.nextafter(a, np.where(
+                rng.random(a.shape) < 0.5, -np.inf, np.inf).astype(a.dtype))
+            if a.dtype == np.float32 else a, tree)
+        moved_loss, moved = port(nudged)
+        floor["loss"] = max(floor["loss"], abs(moved_loss - loss) / abs(loss))
+        for path, _ in leaves:
+            g, k = leaf(got, path), jax.tree_util.keystr(path)
+            floor[k] = max(floor.get(k, 0.0), float(
+                np.abs(leaf(moved, path) - g).max()
+                / max(np.abs(g).max(), 1e-30)))
+    assert abs(loss - float(jloss)) <= max(1e-5, 2 * floor["loss"]) \
+        * abs(float(jloss))
+    assert max(floor.values()) < FLOOR_CEILING, floor
+    bad, moved_by_cap = {}, 0.0
+    _, free = port(tree, uncapped.cfg)
+    for path, want in leaves:
+        k, want, g = jax.tree_util.keystr(path), np.asarray(want), \
+            leaf(got, path)
+        assert g.shape == want.shape and np.isfinite(g).all(), k
+        scale = max(float(np.abs(want).max()), 1e-30)
+        rel = float(np.abs(g - want).max()) / scale
+        if not rel <= max(2 * floor[k], FLOOR_MIN):
+            bad[k] = (rel, floor[k])
+        moved_by_cap = max(moved_by_cap, float(
+            np.abs(leaf(free, path) - want).max()) / scale)
+    assert not bad, bad
+    assert moved_by_cap > 100 * FLOOR_MIN

@@ -236,6 +236,73 @@ def test_ssm_decode_matches_jax(setup):
     np.testing.assert_allclose(h.numpy(), np.asarray(jst["h"]), **TOL)
 
 
+@pytest.fixture
+def grad_of():
+    """Makes a layer parameter require grad for one test, then restores
+    the module fixture's flag."""
+    held = []
+
+    def want(t):
+        held.append((t, t.requires_grad))
+        return t.requires_grad_(True)
+    yield want
+    for t, flag in held:
+        t.requires_grad_(flag)
+
+
+@pytest.mark.parametrize("S", [16, 48, 37])
+def test_ssm_block_from_a_state_matches_jax(setup, grad_of, S):
+    """ssm_block(h=) against JAX's ssm_block(state={"h": h}): S = 16 one
+    chunk, 48 three, 37 a short last one (JAX pads). The output and the
+    final state at TOL; the gradients of a fixed projection of both with
+    respect to x, the carried state and w_C (which reads it) against
+    jax.grad, each within 2e-3 of its scale."""
+    jcfg, cfg, _, tree, _, lm = setup
+    rng = np.random.default_rng(S + 40)
+    _, nh, hd, ds = ssm.ssm_dims(cfg)
+    x = rng.standard_normal((2, S, 64), np.float32)
+    h0 = (rng.standard_normal((2, nh, hd, ds)) * 0.5).astype(np.float32)
+    ro = rng.standard_normal((2, S, 64), np.float32)
+    rh = rng.standard_normal((2, nh, hd, ds)).astype(np.float32)
+    jp = jax_layer(tree, 1, cfg)
+
+    def f(x, h0, w_C):
+        out, st = jssm.ssm_block({**jp, "w_C": w_C}, x, jcfg,
+                                 state={"h": h0})
+        return jnp.sum(out * ro) + jnp.sum(st["h"] * rh), (out, st["h"])
+    with f32_compute():
+        (_, (jout, jh)), jgrads = jax.jit(jax.value_and_grad(
+            f, argnums=(0, 1, 2), has_aux=True))(x, h0, jp["w_C"])
+    layer = lm.layers[1]
+    xt, ht = (torch.from_numpy(a).requires_grad_(True) for a in (x, h0))
+    w_C = grad_of(layer.w_C)
+    out, h = ssm.ssm_block(layer, xt, cfg, h=ht)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), **TOL)
+    np.testing.assert_allclose(h.detach().numpy(), np.asarray(jh), **TOL)
+    loss = (out * torch.from_numpy(ro)).sum() + \
+        (h * torch.from_numpy(rh)).sum()
+    grads = torch.autograd.grad(loss, (xt, ht, w_C))
+    for g, want in zip(grads, jgrads):
+        assert_close_to_scale(g.numpy(), want)
+
+
+@pytest.mark.parametrize("split", [17, 16])
+def test_ssm_block_continues_from_its_state(setup, split):
+    """A 48-token sequence run whole equals its first ``split`` tokens
+    followed by the rest from the returned state: output and final state
+    at TOL (split 17 leaves a short chunk on both sides)."""
+    _, cfg, _, _, _, lm = setup
+    x = torch.from_numpy(np.random.default_rng(split).standard_normal(
+        (2, 48, 64), np.float32))
+    layer = lm.layers[1]
+    with torch.inference_mode():
+        whole, h = ssm.ssm_block(layer, x, cfg)
+        first, h1 = ssm.ssm_block(layer, x[:, :split], cfg)
+        rest, h2 = ssm.ssm_block(layer, x[:, split:], cfg, h=h1)
+    torch.testing.assert_close(torch.cat([first, rest], 1), whole, **TOL)
+    torch.testing.assert_close(h2, h, **TOL)
+
+
 def test_ssm_init_state_matches_jax():
     cfg = get_smoke(ARCH)
     h = ssm.ssm_init_state(cfg, 3, "cpu")

@@ -6,6 +6,12 @@ submodule for a submodule. The exceptions are listed below, each with
 its reason (ROADMAP.md §1 "Not ported, by design") and, where the port
 has one under another name, the counterpart, which must exist.
 
+Every parameter of a JAX public function or class (its ``__init__``)
+exists in the counterpart's signature too, or is listed in RENAMED with
+the port's name for it (which must exist) or None, and the reason: the
+port's idiom (a ``torch.Generator`` for a key, a process group for an
+axis name, a tensor for a one-entry state dict) or a design difference.
+
     pytest -q tests/test_torch_surface.py
 """
 import importlib
@@ -13,6 +19,7 @@ import inspect
 import os
 import types
 from pathlib import Path
+from typing import Optional
 
 import pytest
 
@@ -117,6 +124,67 @@ for _n in ("decode_attention", "flash_attention", "fused_rmsnorm",
                                           _WRAPPER)
 
 
+#: (public name, JAX parameter) -> (the port's parameter or None, reason)
+RENAMED = {
+    ("MonteCarlo", "compile_cache_dir"): (
+        None, "XLA's persistent compile cache; the kernels are built once "
+        "into build/repro_torch/"),
+    ("compressed_tree_allreduce", "psum_axis"): (
+        "group", "a JAX mesh axis name; a torch.distributed process group"),
+    ("cell_params", "sc"): (
+        "policy", "a Scenario; the port takes its policy, cores and "
+        "keywords (policy, n_cores, kw)"),
+    ("attention", "write_pos"): (
+        None, "the slot a ring's decode writes; the port's rings hold "
+        "position p at slot p % W, found from cache_pos"),
+    ("attention", "key_positions"): (
+        None, "a ring's slot-to-position map; the port's ring layout "
+        "needs none"),
+    ("ssm_block", "state"): ("h", "the state dict {'h'}; its tensor"),
+    ("ssm_decode", "state"): ("h", "the state dict {'h'}; its tensor"),
+    ("rwkv_channel_mix", "state"): (
+        "x_cm", "the state dict; its one row the channel mix reads"),
+    ("vision_patch_embeds", "key"): (
+        "generator", "a jax.random key; a torch.Generator"),
+    ("input_embeds_for", "key"): (
+        "generator", "a jax.random key; a torch.Generator"),
+    ("encodec_token_embeds", "params_embed"): (
+        "embed", "the token embedding table under the port's name"),
+    ("global_norm", "tree"): (
+        "grads", "a pytree; the gradients by name, summed in leaf_order's "
+        "order"),
+}
+
+
+def parameters(obj) -> Optional[list[str]]:
+    """The named parameters of a function or of a class's constructor
+    (not ``*args`` / ``**kwargs``), or None where Python shows no
+    signature."""
+    try:
+        sig = inspect.signature(obj)
+    except (TypeError, ValueError):
+        return None
+    return [n for n, p in sig.parameters.items()
+            if p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)]
+
+
+def signature_pairs(name: str):
+    """(public name, JAX parameters, port parameters) of each function and
+    class of the JAX module ``name`` that has a counterpart."""
+    if name in NO_MODULE:
+        return
+    jmod = import_jax(name)
+    tmod = importlib.import_module(counterpart(name))
+    for n in public_names(jmod):
+        jo = getattr(jmod, n)
+        if (name, n) in NO_NAME or isinstance(jo, types.ModuleType) \
+                or not callable(jo):
+            continue
+        jp, tp = parameters(jo), parameters(getattr(tmod, n))
+        if jp is not None and tp is not None:
+            yield n, jp, tp
+
+
 def jax_modules() -> list[str]:
     """Every module of src/repro/ by its file (launch/ is a namespace
     package, which pkgutil does not walk)."""
@@ -210,3 +278,28 @@ def test_exception_is_still_needed_and_has_its_counterpart(key):
             != isinstance(getattr(jmod, n), types.ModuleType)
     if target is not None:
         resolve(target)
+
+
+@pytest.mark.parametrize("name", MODULES)
+def test_parameters_have_their_counterparts(name):
+    """Each parameter of each JAX public function or class of the module
+    is a parameter of the port's counterpart, or RENAMED lists it (with
+    the port's name for it, which the counterpart takes)."""
+    for n, jp, tp in signature_pairs(name):
+        for p in jp:
+            if p in tp:
+                continue
+            assert (n, p) in RENAMED, \
+                f"{counterpart(name)}.{n} takes no parameter {p!r} " \
+                f"(JAX's {name}.{n} does): port it or list it in RENAMED"
+            port, reason = RENAMED[n, p]
+            assert reason and (port is None or port in tp), (n, p, tp)
+
+
+@pytest.mark.parametrize("key", sorted(RENAMED), ids="{0[0]}:{0[1]}".format)
+def test_renamed_parameter_is_still_renamed(key):
+    """Each RENAMED entry names a JAX parameter that some counterpart
+    still lacks."""
+    n, p = key
+    assert any(name == n and p in jp and p not in tp
+               for mod in MODULES for name, jp, tp in signature_pairs(mod))
